@@ -1,0 +1,25 @@
+"""Dielectric Fresnel term (port of hairpt/models/bsdf/fresnel.py)."""
+from __future__ import annotations
+
+import torch
+
+from ...core.math import safe_sqrt
+
+
+def fresnel_dielectric(cos_theta_i, eta):
+    """Unpolarized reflectance at a dielectric boundary (eta = n_t / n_i).
+    Returns (R, cos_theta_t), cos_theta_t signed opposite to cos_theta_i."""
+    outside = cos_theta_i >= 0.0
+    eta_rel = torch.where(outside, eta, 1.0 / eta)
+    cos_i = torch.abs(cos_theta_i)
+    sin2_t = (1.0 - cos_i * cos_i) / torch.clamp(eta_rel * eta_rel,
+                                                 min=1e-12)
+    tir = sin2_t >= 1.0
+    cos_t = safe_sqrt(1.0 - sin2_t)
+    rs = (cos_i - eta_rel * cos_t) / torch.clamp(cos_i + eta_rel * cos_t,
+                                                 min=1e-12)
+    rp = (eta_rel * cos_i - cos_t) / torch.clamp(eta_rel * cos_i + cos_t,
+                                                 min=1e-12)
+    R = torch.where(tir, 1.0, 0.5 * (rs * rs + rp * rp))
+    cos_theta_t = torch.where(tir, 0.0, torch.where(outside, -cos_t, cos_t))
+    return R, cos_theta_t

@@ -1,0 +1,111 @@
+"""Rough plastic, the furball's material (port of
+hairpt/models/bsdf/plastic.py::RoughPlastic; reference roughplastic.cpp).
+
+The microfacet distribution is a per-lane value: both closed forms are
+evaluated and lane-selected."""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ...core import warps
+from ...core.math import normalize
+from . import microfacet as mf
+from . import registry as R
+from .fresnel import fresnel_dielectric
+
+INV_PI = 1.0 / math.pi
+
+
+def _cos(w):
+    return w[..., 2]
+
+
+def _dyn_ndf(dist, alpha, m):
+    return torch.where(dist == mf.GGX, mf.ndf(mf.GGX, alpha, m),
+                       mf.ndf(mf.BECKMANN, alpha, m))
+
+
+def _dyn_g(dist, alpha, wi, wo, m):
+    return torch.where(dist == mf.GGX, mf.g(mf.GGX, alpha, wi, wo, m),
+                       mf.g(mf.BECKMANN, alpha, wi, wo, m))
+
+
+def _dyn_sample_m(dist, alpha, wi, u2):
+    m_g, p_g = mf.sample_visible(mf.GGX, alpha, wi, u2)
+    m_b, p_b = mf.sample_all(mf.BECKMANN, alpha, u2)
+    sel = dist == mf.GGX
+    return (torch.where(sel[..., None], m_g, m_b), torch.where(sel, p_g, p_b))
+
+
+def _dyn_pdf_m(dist, alpha, wi, m):
+    p_g = mf.pdf_visible(mf.GGX, alpha, wi, m)
+    p_b = mf.ndf(mf.BECKMANN, alpha, m) * torch.clamp(m[..., 2], min=0.0)
+    return torch.where(dist == mf.GGX, p_g, p_b)
+
+
+def _half(wi, wo):
+    return normalize(wi + wo)
+
+
+class RoughPlastic:
+    @staticmethod
+    def _diffuse_term(gm, wi, wo):
+        T12 = R.ext_trans_lookup(gm, _cos(wi))
+        T21 = R.ext_trans_lookup(gm, _cos(wo))
+        inv_eta2 = 1.0 / (gm.eta * gm.eta)
+        diff = gm.diffuse
+        comp = torch.where(gm.nonlinear[..., None],
+                           1.0 - diff * gm.int_fdr[..., None],
+                           (1.0 - gm.int_fdr)[..., None])
+        diff = diff / torch.clamp(comp, min=1e-6)
+        return diff * (INV_PI * torch.clamp(_cos(wo), min=0.0)
+                       * T12 * T21 * inv_eta2)[..., None]
+
+    @staticmethod
+    def _prob_spec(gm, wi):
+        p = 1.0 - R.ext_trans_lookup(gm, _cos(wi))
+        sw = gm.spec_weight
+        return (p * sw) / torch.clamp(p * sw + (1.0 - p) * (1.0 - sw),
+                                      min=1e-7)
+
+    @staticmethod
+    def eval_pdf(gm, wi, wo):
+        valid = (_cos(wi) > 0) & (_cos(wo) > 0)
+        m = _half(wi, wo)
+        D = _dyn_ndf(gm.dist, gm.alpha, m)
+        G = _dyn_g(gm.dist, gm.alpha, wi, wo, m)
+        F, _ = fresnel_dielectric(torch.sum(wi * m, dim=-1), gm.eta)
+        spec = gm.specular * (F * D * G / torch.clamp(4.0 * _cos(wi),
+                                                      min=1e-7))[..., None]
+        f = spec + RoughPlastic._diffuse_term(gm, wi, wo)
+        p_spec = RoughPlastic._prob_spec(gm, wi)
+        pdf_m = _dyn_pdf_m(gm.dist, gm.alpha, wi, m)
+        pdf_s = mf.half_vector_to_wo_pdf(pdf_m, wo, m)
+        pdf = p_spec * pdf_s + (1.0 - p_spec) \
+            * warps.square_to_cosine_hemisphere_pdf(wo)
+        return (torch.where(valid[..., None], f, 0.0),
+                torch.where(valid, pdf, 0.0))
+
+    @staticmethod
+    def sample(gm, wi, u_lobe, u2, u2b):
+        n = wi.shape[:-1]
+        valid = _cos(wi) > 0
+        p_spec = RoughPlastic._prob_spec(gm, wi)
+        choose_spec = u_lobe <= p_spec
+        m, _ = _dyn_sample_m(gm.dist, gm.alpha, wi, u2)
+        wo_spec = 2.0 * torch.sum(wi * m, dim=-1, keepdim=True) * m - wi
+        wo_diff = warps.square_to_cosine_hemisphere(u2b)
+        wo = torch.where(choose_spec[..., None], wo_spec, wo_diff)
+        f, pdf = RoughPlastic.eval_pdf(gm, wi, wo)
+        ok = valid & (pdf > 1e-9) & (_cos(wo) > 0)
+        weight = torch.where(ok[..., None],
+                             f / torch.clamp(pdf, min=1e-9)[..., None], 0.0)
+        pdf = torch.where(ok, pdf, 0.0)
+        return (wo, weight, pdf, torch.zeros(n, dtype=torch.bool,
+                                             device=wi.device),
+                torch.ones(n, device=wi.device))
+
+
+R.register(R.ROUGHPLASTIC, RoughPlastic)
