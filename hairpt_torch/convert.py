@@ -28,8 +28,8 @@ def _t(a, device, dtype=None):
 
 
 def convert_arrays(arrays, device=None) -> SceneArrays:
-    """JAX SceneArrays (numpy leaves; hair scene, tiled traversal) ->
-    hairpt_torch SceneArrays on `device`."""
+    """JAX SceneArrays (numpy leaves; hair scene, tiled or swept
+    traversal) -> hairpt_torch SceneArrays on `device`."""
     dev = resolve_device(device)
     h = arrays.hair
     sw = arrays.hair_swept
@@ -71,8 +71,9 @@ def convert_scene(scene, arrays, device=None) -> Scene:
     cfg = RenderConfig(**{k: v for k, v in
                           dataclasses.asdict(scene.config).items()
                           if k in fields})
-    if cfg.traversal != "tiled":
-        raise NotImplementedError("only traversal='tiled' is ported")
+    if cfg.traversal not in ("tiled", "swept"):
+        raise NotImplementedError("only traversal='tiled' and 'swept' are "
+                                  "ported")
     active = tuple(int(k) for k in scene.active_kinds)
     mat.check_kinds(active)
     return Scene(arrays=convert_arrays(arrays, device), camera=camera,

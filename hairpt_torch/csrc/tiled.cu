@@ -4,6 +4,8 @@
 // JAX package, with a plain C interface for ctypes (no PyTorch headers,
 // so the build takes seconds). The PyTorch wrappers, their plain
 // versions and the layout contract are in hairpt_torch/ops/tiled_kernels.py.
+// The octet and stream variants of phase B are in octets.cu; the
+// cylinder test is shared through cyl_test.cuh.
 //
 // Build (done at first use by hairpt_torch/ops/tiled_kernels.py):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -std=c++17 -shared
@@ -18,15 +20,18 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cyl_test.cuh"
+
 namespace {
+
+using hairpt_dev::f_inf;
+using hairpt_dev::RayRegs;
 
 constexpr int TILE = 64;          // rays per tile
 constexpr int CULL_THREADS = 256; // clusters per phase-A block
 constexpr int UNROLL = 8;         // phase-B slots between early-exit checks
 constexpr int TE_INF = 4095;      // 12-bit "no further slot" sentinel
 constexpr unsigned CID_MASK = (1u << 20) - 1;
-
-__device__ __forceinline__ float f_inf() { return __int_as_float(0x7f800000); }
 
 // ---------------------------------------------------------------------------
 // Kernel A: phase-A tile cull.
@@ -39,6 +44,10 @@ __device__ __forceinline__ float f_inf() { return __int_as_float(0x7f800000); }
 //   t_pmax[t, r] each ray's largest entry t over its hit clusters
 //                (-1 if none; the wrapper pre-fills -1).
 // Fully dead tiles (no ray with maxt > mint) write inf and leave -1.
+// The EMIT_OCT instance also writes
+//   oct[t, c]    bit o set iff a ray of octet o (rays 8o..8o+7) enters
+//                the box (pallas_tiled.py:940-948, the emit_oct output);
+// the default instance has neither the register nor the store.
 //
 // What bounds it: operations. At the furball's main-path shapes (16,384
 // tiles x 64 rays x ~7,875 clusters) the slab tests are ~0.2 TFLOP of
@@ -53,12 +62,14 @@ __device__ __forceinline__ float f_inf() { return __int_as_float(0x7f800000); }
 // or >= 0 and -0.0 is cleared to +0.0), a shared-memory atomicMax per
 // warp and one global atomicMax per ray and block.
 // ---------------------------------------------------------------------------
+template <bool EMIT_OCT>
 __global__ void __launch_bounds__(CULL_THREADS)
 cull_kernel(const float* __restrict__ rays8,   // [T, 8, TILE]
             const float* __restrict__ bounds,  // [6, C] lo.xyz, hi.xyz
             int C, int n_cblk,
             uint16_t* __restrict__ te,         // [T, C] bf16 bits
-            int* __restrict__ t_pmax) {        // [T, TILE] float bits
+            int* __restrict__ t_pmax,          // [T, TILE] float bits
+            int* __restrict__ oct) {           // [T, C] (EMIT_OCT only)
   __shared__ float s_o[3][TILE];
   __shared__ float s_inv[3][TILE];
   __shared__ float s_mint[TILE];
@@ -89,7 +100,10 @@ cull_kernel(const float* __restrict__ rays8,   // [T, 8, TILE]
   }
   const int any_live = __syncthreads_or(live_ray);
   if (!any_live) {
-    if (c < C) te[(size_t)tile * C + c] = 0x7f80;   // bf16 +inf
+    if (c < C) {
+      te[(size_t)tile * C + c] = 0x7f80;   // bf16 +inf
+      if (EMIT_OCT) oct[(size_t)tile * C + c] = 0;
+    }
     return;
   }
 
@@ -102,6 +116,7 @@ cull_kernel(const float* __restrict__ rays8,   // [T, 8, TILE]
   }
   const int lane = threadIdx.x & 31;
   float te_min = f_inf();
+  unsigned oct_bits = 0u;
   for (int r = 0; r < TILE; ++r) {
     float tn = 0.0f, tf = 0.0f;
 #pragma unroll
@@ -118,13 +133,16 @@ cull_kernel(const float* __restrict__ rays8,   // [T, 8, TILE]
                      && (tn <= s_maxt[r]);
     const float tn0 = fmaxf(tn, 0.0f);
     if (hit) te_min = fminf(te_min, tn0);
+    if (EMIT_OCT && hit) oct_bits |= 1u << (r >> 3);
     const int v = hit ? (__float_as_int(tn0) & 0x7fffffff) : neg1;
     const int m = __reduce_max_sync(0xffffffffu, v);
     if (lane == 0 && m != neg1) atomicMax(&s_pmax[r], m);
   }
-  if (valid)
+  if (valid) {
     te[(size_t)tile * C + c] =
         (uint16_t)(__float_as_uint(te_min) >> 16);  // truncate toward 0
+    if (EMIT_OCT) oct[(size_t)tile * C + c] = (int)oct_bits;
+  }
   __syncthreads();
   if (threadIdx.x < TILE && s_pmax[threadIdx.x] != neg1)
     atomicMax(&t_pmax[(size_t)tile * TILE + threadIdx.x],
@@ -179,12 +197,8 @@ phase_b_kernel(const int* __restrict__ slots,     // [T, q]
 
   const int tile = blockIdx.x;
   const int r = threadIdx.x;
-  const float* r8 = rays8 + (size_t)tile * 8 * TILE;
-  const float ox = r8[0 * TILE + r], oy = r8[1 * TILE + r],
-              oz = r8[2 * TILE + r];
-  const float dx = r8[3 * TILE + r], dy = r8[4 * TILE + r],
-              dz = r8[5 * TILE + r];
-  const float mint2 = r8[6 * TILE + r], maxt2 = r8[7 * TILE + r];
+  const RayRegs y = hairpt_dev::load_ray(rays8 + (size_t)tile * 8 * TILE,
+                                         TILE, r);
   const float tpm = t_pmax[(size_t)tile * TILE + r];
   const int n_q = cnt[tile];
   const int* sl = slots + (size_t)tile * q;
@@ -214,49 +228,9 @@ phase_b_kernel(const int* __restrict__ slots,     // [T, q]
 #pragma unroll
         for (int j = 0; j < 32; ++j) {
           const int l = w * 32 + j;
-          const float p0x = s_rows[0 * K + l], p0y = s_rows[1 * K + l],
-                      p0z = s_rows[2 * K + l];
-          const float ax_ = s_rows[3 * K + l], ay_ = s_rows[4 * K + l],
-                      az_ = s_rows[5 * K + l];
-          const float n0x = s_rows[6 * K + l], n0y = s_rows[7 * K + l],
-                      n0z = s_rows[8 * K + l];
-          const float n1x = s_rows[9 * K + l], n1y = s_rows[10 * K + l],
-                      n1z = s_rows[11 * K + l];
-          const float sn1 = s_rows[13 * K + l], rr2 = s_rows[14 * K + l];
-          const int pid = __float_as_int(s_rows[15 * K + l]);
-
-          const float rx = ox - p0x, ry = oy - p0y, rz = oz - p0z;
-          const float ar = ax_ * rx + ay_ * ry + az_ * rz;
-          const float pox = rx - ar * ax_, poy = ry - ar * ay_,
-                      poz = rz - ar * az_;
-          const float ad = ax_ * dx + ay_ * dy + az_ * dz;
-          const float pdx = dx - ad * ax_, pdy = dy - ad * ay_,
-                      pdz = dz - ad * az_;
-          const float a = pdx * pdx + pdy * pdy + pdz * pdz;
-          const float b = pox * pdx + poy * pdy + poz * pdz;
-          bool ok = a > 1e-18f;
-          const float inv_a = 1.0f / (ok ? a : 1.0f);
-          const float t_mid = -b * inv_a;
-          const float qx = pox + pdx * t_mid, qy = poy + pdy * t_mid,
-                      qz = poz + pdz * t_mid;
-          const float c_mid = qx * qx + qy * qy + qz * qz - rr2;
-          const float disc = -c_mid * inv_a;
-          ok = ok && (disc >= 0.0f);
-          const float dt = sqrtf(fmaxf(disc, 0.0f));
-          const float t_near = t_mid - dt;
-          const float t_far = t_mid + dt;
-          const float on0 = rx * n0x + ry * n0y + rz * n0z;
-          const float dn0 = dx * n0x + dy * n0y + dz * n0z;
-          const float on1 = rx * n1x + ry * n1y + rz * n1z - sn1;
-          const float dn1 = dx * n1x + dy * n1y + dz * n1z;
-          const bool near_ok = ok && (t_near >= mint2) && (t_near <= maxt2)
-                               && (on0 + t_near * dn0 >= 0.0f)
-                               && (on1 + t_near * dn1 <= 0.0f);
-          const bool far_ok = ok && (t_far >= mint2) && (t_far <= maxt2)
-                              && (on0 + t_far * dn0 >= 0.0f)
-                              && (on1 + t_far * dn1 <= 0.0f);
-          if ((pid >= 0) && (near_ok || far_ok)) {
-            const float t = near_ok ? t_near : t_far;
+          float t;
+          int pid;
+          if (hairpt_dev::cyl_hit_tiled<K>(s_rows, l, y, t, pid)) {
             const unsigned bit = 1u << j;
             if (t < best) {
               best = t;
@@ -302,14 +276,21 @@ int launch_phase_b(const int* slots, const int* cnt, const float* tmin,
 
 extern "C" {
 
+// oct == nullptr launches the default instance (no octet output)
 int hairpt_cull(const void* rays8, const void* bounds, int T, int C,
-                void* te, void* t_pmax, void* stream) {
+                void* te, void* t_pmax, void* oct, void* stream) {
   if (T <= 0) return 0;
   const int n_cblk = (C + CULL_THREADS - 1) / CULL_THREADS;
-  cull_kernel<<<(unsigned)T * n_cblk, CULL_THREADS, 0,
-                (cudaStream_t)stream>>>(
-      (const float*)rays8, (const float*)bounds, C, n_cblk, (uint16_t*)te,
-      (int*)t_pmax);
+  const unsigned grid = (unsigned)T * n_cblk;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (oct == nullptr)
+    cull_kernel<false><<<grid, CULL_THREADS, 0, st>>>(
+        (const float*)rays8, (const float*)bounds, C, n_cblk, (uint16_t*)te,
+        (int*)t_pmax, nullptr);
+  else
+    cull_kernel<true><<<grid, CULL_THREADS, 0, st>>>(
+        (const float*)rays8, (const float*)bounds, C, n_cblk, (uint16_t*)te,
+        (int*)t_pmax, (int*)oct);
   return (int)cudaGetLastError();
 }
 

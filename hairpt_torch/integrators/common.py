@@ -8,6 +8,7 @@ import numpy as np
 import torch
 
 from ..core.math import Ray, Frame, normalize
+from ..ops import intersect_swept as iswept
 from ..ops import intersect_tiled as itiled
 
 
@@ -45,15 +46,31 @@ def frame(hit: Hit) -> Frame:
     return Frame(s=hit.sh_s, t=hit.sh_t, n=hit.sh_n)
 
 
+def _check_traversal(traversal: str):
+    if traversal not in ("tiled", "swept"):
+        raise NotImplementedError(f"traversal {traversal!r} is not ported "
+                                  f"(only 'tiled' and 'swept')")
+
+
 def scene_intersect(arr, ray: Ray, q_max: int, sort_rays: bool = False,
-                    compact: bool = True) -> Hit:
+                    compact: bool = True, traversal: str = "tiled",
+                    p_max: int = 24, chunk: int = 64) -> Hit:
     """Closest hair hit and its shading record (hit point snapped back onto
-    the cylinder, as the reference's fillIntersectionRecord does)."""
+    the cylinder, as the reference's fillIntersectionRecord does).
+    traversal 'tiled' queries the tiled intersector (q_max slots per
+    tile, sort_rays and compact as there); 'swept' the swept traversal
+    (p_max candidates per ray, chunks of `chunk` pairs), which ignores
+    sort_rays and compact as the JAX package's does."""
+    _check_traversal(traversal)
     n = ray.o.shape[0]
     dev = ray.o.device
-    t_hair, prim_hair = itiled.tiled_closest_hit(
-        arr.hair_swept, ray, q_max=q_max, sort_rays=sort_rays,
-        compact=compact)
+    if traversal == "swept":
+        t_hair, prim_hair = iswept.swept_closest_hit(
+            arr.hair_swept, ray, p_max=p_max, chunk=chunk)
+    else:
+        t_hair, prim_hair = itiled.tiled_closest_hit(
+            arr.hair_swept, ray, q_max=q_max, sort_rays=sort_rays,
+            compact=compact)
     use_hair = t_hair < float("inf")
     t = torch.where(use_hair, t_hair, float("inf"))
     valid = torch.isfinite(t) & (t < ray.maxt) & (prim_hair >= 0)
@@ -87,7 +104,13 @@ def scene_intersect(arr, ray: Ray, q_max: int, sort_rays: bool = False,
 
 
 def scene_occluded(arr, ray: Ray, q_max: int, sort_rays: bool = False,
-                   compact: bool = True):
-    """[N] bool: does the ray hit any hair segment in [mint, maxt]."""
+                   compact: bool = True, traversal: str = "tiled",
+                   p_max: int = 24, chunk: int = 64):
+    """[N] bool: does the ray hit any hair segment in [mint, maxt]. The
+    traversal and its parameters as in scene_intersect."""
+    _check_traversal(traversal)
+    if traversal == "swept":
+        return iswept.swept_any_hit(arr.hair_swept, ray, p_max=p_max,
+                                    chunk=chunk)
     return itiled.tiled_any_hit(arr.hair_swept, ray, q_max=q_max,
                                 sort_rays=sort_rays, compact=compact)

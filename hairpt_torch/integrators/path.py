@@ -44,6 +44,13 @@ LUM = (0.212671, 0.715160, 0.072169)
 MAX_STAGES = 3
 
 
+def _swept_params(cfg):
+    """The traversal and its parameters, passed to every query (the JAX
+    package's _swept_params; C and K come from the tables' shapes)."""
+    return dict(traversal=cfg.traversal, q_max=cfg.tiled_q,
+                p_max=cfg.swept_pmax, chunk=cfg.swept_chunk)
+
+
 def _luminance(c):
     return c[..., 0] * LUM[0] + c[..., 1] * LUM[1] + c[..., 2] * LUM[2]
 
@@ -118,7 +125,7 @@ def make_li_fn(scene):
     cam = scene.camera
     active_kinds = scene.active_kinds
     ray_eps = cfg.ray_eps
-    q_max = cfg.tiled_q
+    params = _swept_params(cfg)
 
     def body(arr, st: PathState, depth: int, smp: rng.Sampler):
         n = st.active.shape[0]
@@ -184,8 +191,8 @@ def make_li_fn(scene):
         shadow = Ray(o=shadow_o, d=d_nee, mint=torch.zeros((n,), device=dev),
                      maxt=torch.where(nee_ok, dist_nee - 2.0 * ray_eps,
                                       0.0))
-        occluded = scene_occluded(arr, shadow, q_max, sort_rays=True,
-                                  compact=False)
+        occluded = scene_occluded(arr, shadow, sort_rays=True,
+                                  compact=False, **params)
         vis = nee_ok & ~occluded
         li_acc = li_acc + torch.where(vis[..., None], contrib, zero)
 
@@ -208,8 +215,8 @@ def make_li_fn(scene):
         next_ray = Ray(o=next_o, d=wo_world,
                        mint=torch.zeros((n,), device=dev),
                        maxt=torch.where(active, float("inf"), 0.0))
-        hit2 = scene_intersect(arr, next_ray, q_max, sort_rays=True,
-                               compact=False)
+        hit2 = scene_intersect(arr, next_ray, sort_rays=True,
+                               compact=False, **params)
 
         # ---- RR ----
         if depth + 1 > cfg.rr_depth:
@@ -237,7 +244,7 @@ def make_li_fn(scene):
         jitter = smp.next_2d(DIM_CAM_POS)
         pos = torch.stack([px + jitter[..., 0], py + jitter[..., 1]], dim=-1)
         ray = sensors.sample_ray(cam, pos)
-        hit0 = scene_intersect(arr, ray, q_max)
+        hit0 = scene_intersect(arr, ray, **params)
         state = PathState(
             active=torch.ones((n,), dtype=torch.bool, device=dev),
             ray_o=ray.o, ray_d=ray.d,

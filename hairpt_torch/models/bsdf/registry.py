@@ -19,6 +19,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ... import resolve_device
+
 # family ids (the JAX package's values, baked into material tables)
 DIFFUSE = 0
 ROUGHPLASTIC = 8
@@ -64,7 +66,11 @@ def default_material_row(**over):
     return row
 
 
-def pack_materials(rows, device="cpu") -> MaterialTable:
+def pack_materials(rows, device=None) -> MaterialTable:
+    """The material rows as an SoA table on `device` (the card unless
+    "cpu")."""
+    device = resolve_device(device)
+
     def arr(key, dtype=np.float32):
         return torch.as_tensor(np.array([r[key] for r in rows], dtype=dtype),
                                device=device)

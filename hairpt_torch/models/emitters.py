@@ -14,6 +14,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import resolve_device
+
 TWO_PI = 2.0 * np.pi
 
 # sun angular radius (degrees) — physical value, as in src/emitters/sun.cpp
@@ -62,7 +64,10 @@ def _build_alias_table(weights: np.ndarray):
 
 
 def make_envmap(image: np.ndarray, to_world3=None,
-                scale: float = 1.0, device="cpu") -> EnvMap:
+                scale: float = 1.0, device=None) -> EnvMap:
+    """The environment table and its alias table on `device` (the card
+    unless "cpu")."""
+    device = resolve_device(device)
     image = np.asarray(image, np.float32) * scale
     if to_world3 is None:
         to_world3 = np.eye(3)
@@ -174,14 +179,15 @@ def bake_sunsky(sun_dir, turbidity: float = 3.0, sky_scale: float = 1.0,
                 sun_scale: float = 1.0, sun_radius_scale: float = 1.0,
                 res: int = 512, with_sun: bool = True,
                 with_sky: bool = True, model: str = "hosek",
-                albedo=0.15, device="cpu") -> EnvMap:
+                albedo=0.15, device=None) -> EnvMap:
     """Rasterize the sun+sky model into a lat-long table.
 
     World convention matches the reference sky plugins: y is up.
     model: 'hosek' (Hosek-Wilkie 2012 — what the reference sky/sunsky
     plugins evaluate, src/emitters/sky.cpp:246) or 'preetham'
     (round-1 stand-in fit, kept for comparison); albedo = ground albedo
-    (reference default 0.15)."""
+    (reference default 0.15). The table goes on `device` (the card unless
+    "cpu")."""
     h, w = res, 2 * res
     sun_dir = np.asarray(sun_dir, np.float64)
     sun_dir = sun_dir / np.linalg.norm(sun_dir)

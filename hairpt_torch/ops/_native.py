@@ -25,12 +25,14 @@ BUILD_SECONDS: dict = {}
 BUILD_LOG: dict = {}
 
 
-def build_library(name: str, sources, cmd, timeout: float = 600.0) -> str:
+def build_library(name: str, sources, cmd, headers=(),
+                  timeout: float = 600.0) -> str:
     """Compile `sources` (file names under csrc/) with `cmd` (the compiler
-    and its flags, without sources and output) and return the .so path."""
+    and its flags, without sources and output) and return the .so path.
+    `headers` (under csrc/) are hashed with the sources."""
     paths = [os.path.join(CSRC_DIR, s) for s in sources]
     h = hashlib.sha256(" ".join(cmd).encode())
-    for p in paths:
+    for p in paths + [os.path.join(CSRC_DIR, s) for s in headers]:
         with open(p, "rb") as f:
             h.update(f.read())
     os.makedirs(BUILD_DIR, exist_ok=True)
@@ -49,5 +51,5 @@ def build_library(name: str, sources, cmd, timeout: float = 600.0) -> str:
     return out
 
 
-def load_library(name: str, sources, cmd) -> ctypes.CDLL:
-    return ctypes.CDLL(build_library(name, sources, cmd))
+def load_library(name: str, sources, cmd, headers=()) -> ctypes.CDLL:
+    return ctypes.CDLL(build_library(name, sources, cmd, headers))

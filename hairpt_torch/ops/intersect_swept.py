@@ -1,12 +1,20 @@
-"""Cluster layout of the hair segments (port of the build half of
-hairpt/ops/intersect_swept.py; numpy on the host, torch holders).
+"""Cluster layout of the hair segments and the swept traversal (port of
+hairpt/ops/intersect_swept.py).
 
-The tiled intersector reads four tables from it: the cluster AABBs
-cl_lo/cl_hi [C, 3] (phase A), the transposed segment blocks seg_rows_t
-[C, 16, K] (phase B) and the 32-segment sub-cluster AABBs sub_lo/sub_hi.
-Rows of seg_rows_t, as in the JAX package: 0:3 p0 | 3:6 unit axis |
-6:9 n0 | 9:12 n1 | 12 r | 13 sn1 = (p1-p0).n1 | 14 r^2 | 15 id (int32
-bits; -1 marks a padding segment).
+The build is numpy on the host with torch holders. The intersectors read
+four tables from it: the cluster AABBs cl_lo/cl_hi [C, 3] (phase A), the
+transposed segment blocks seg_rows_t [C, 16, K] (phase B) and the
+32-segment sub-cluster AABBs sub_lo/sub_hi. Rows of seg_rows_t, as in the
+JAX package: 0:3 p0 | 3:6 unit axis | 6:9 n0 | 9:12 n1 | 12 r | 13 sn1 =
+(p1-p0).n1 | 14 r^2 | 15 id (int32 bits; -1 marks a padding segment).
+
+The swept traversal (swept_closest_hit) is the JAX package's two-phase
+cluster sweep: phase A (_phase_a_dense, plain torch) records up to p_max
+candidate clusters per ray; the (ray, cluster) pairs are sorted by
+cluster and padded into chunks of `chunk` pairs of one cluster; phase B
+is kernel E (phaseb_kernels.phase_b_chunks); the results are routed back
+and reduced per ray. Left out: `_phase_a`, the cluster-BVH walk, which no
+path of the JAX package calls (its `nodes` table is not built here).
 """
 from __future__ import annotations
 
@@ -15,7 +23,10 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import resolve_device
+from ..core.math import Ray
 from . import bvh as bvh_mod
+from . import phaseb_kernels as pk
 
 PRIM_F = 16  # floats per packed primitive
 MAX_LEAF_CLUSTERS = 4  # SAH builder cap for leaf_size=1
@@ -140,11 +151,13 @@ def cluster_bounds(p0, p1, n0, n1, radius, K: int = 64):
     return cl_lo, cl_hi
 
 
-def build_swept_hair(p0, p1, n0, n1, radius, K: int = 64, device="cpu",
+def build_swept_hair(p0, p1, n0, n1, radius, K: int = 64, device=None,
                      cluster_order=None) -> SweptHair:
     """Host-side build. Inputs are the segment arrays in the order their
     ids should refer to. cluster_order overrides the cluster BVH's prim
-    order (tests pass the JAX build's, to compare like with like)."""
+    order (tests pass the JAX build's, to compare like with like). The
+    tables go on `device` (the card unless "cpu")."""
+    device = resolve_device(device)
     order, take, cl_lo, cl_hi = _cluster_setup(p0, p1, n0, n1, radius, K)
     C = cl_lo.shape[0]
     sp0, sp1 = take(p0), take(p1)
@@ -187,3 +200,176 @@ def build_swept_hair(p0, p1, n0, n1, radius, K: int = 64, device="cpu",
     return SweptHair(cl_lo=dev(cl_lo[corder]), cl_hi=dev(cl_hi[corder]),
                      seg_rows_t=dev(rows_t), sub_lo=dev(sub_lo),
                      sub_hi=dev(sub_hi))
+
+
+# ---------------------------------------------------------------------------
+# the swept traversal
+# ---------------------------------------------------------------------------
+
+# largest [rays, clusters] f32 temporary of the dense phase A (bytes)
+PHASE_A_BYTES = 128 << 20
+
+# per-process counters read by chip_smoke.py: queries, live rays queried,
+# live rays whose phase-A candidates overflowed p_max
+STATS = {"queries": 0, "rays": 0, "overflow_rays": 0}
+
+
+def _phase_a_dense(sw: SweptHair, ray: Ray, p_max: int, c_chunk: int = 1024,
+                   return_n_hit: bool = False):
+    """Candidate clusters of each ray: slab tests against every cluster
+    AABB. Returns (slots [N, p_max] i32 cluster ids, -1 past the
+    candidates; cnt [N] i32), and with return_n_hit the number of boxes
+    each ray enters ([N] int64).
+
+    The JAX package has two branches that keep different candidates when
+    a ray enters more than p_max boxes, and both are kept:
+      * C <= c_chunk (masked minima): the p_max LOWEST cluster ids, in id
+        order;
+      * C > c_chunk (top_k merges over cluster chunks): the p_max NEAREST
+        entries, by entry t and, on equal t, lower id first. jax.lax.top_k
+        puts the lower index first on ties, and ties are common (a ray
+        starting inside several boxes enters each at t = 0); torch.topk
+        promises no tie order, so the selection runs on a unique integer
+        key (entry-t bits << id bits | id), whose order is exactly that.
+    Rays are processed in chunks so no [rays, C] f32 temporary passes
+    PHASE_A_BYTES."""
+    N = ray.o.shape[0]
+    C = sw.cl_lo.shape[0]
+    dev = ray.o.device
+    d = ray.d
+    inv_d = 1.0 / torch.where(torch.abs(d) < 1e-12,
+                              torch.where(d >= 0, 1e-12, -1e-12).to(d.dtype),
+                              d)
+    lowest_ids = C <= c_chunk
+    cbits = max(1, (C - 1).bit_length())
+    cid = torch.arange(C, device=dev)
+    k = min(p_max, C)
+    slots = torch.full((N, p_max), -1, dtype=torch.int32, device=dev)
+    cnt = torch.zeros((N,), dtype=torch.int32, device=dev)
+    n_hit = torch.zeros((N,), dtype=torch.int64, device=dev)
+    r_chunk = max(1, PHASE_A_BYTES // (4 * C))
+    for r0 in range(0, N, r_chunk):
+        r1 = min(N, r0 + r_chunk)
+        o = ray.o[r0:r1]
+        inv = inv_d[r0:r1]
+        tn = tf = None
+        for ax in range(3):
+            a0 = (sw.cl_lo[None, :, ax] - o[:, None, ax]) * inv[:, None, ax]
+            a1 = (sw.cl_hi[None, :, ax] - o[:, None, ax]) * inv[:, None, ax]
+            lo_ax = torch.minimum(a0, a1)
+            hi_ax = torch.maximum(a0, a1)
+            tn = lo_ax if tn is None else torch.maximum(tn, lo_ax)
+            tf = hi_ax if tf is None else torch.minimum(tf, hi_ax)
+            del a0, a1, lo_ax, hi_ax
+        tf = tf * 1.00000024 + 1e-7
+        hit = (tn <= tf) & (tf >= ray.mint[r0:r1, None]) \
+            & (tn <= ray.maxt[r0:r1, None])
+        del tf
+        nh = hit.sum(dim=1)
+        n_hit[r0:r1] = nh
+        if lowest_ids:
+            key = torch.where(hit, cid, C)
+            sel = torch.topk(key, k, dim=1, largest=False,
+                             sorted=True).values
+            found = sel < C
+            cnt[r0:r1] = torch.clamp(nh, max=p_max).to(torch.int32)
+        else:
+            # entry t >= 0: its f32 bits order like its values (-0.0 is
+            # folded into +0.0); ids fill the low bits
+            bits = torch.clamp(tn, min=0.0).view(torch.int32).long() \
+                & 0x7FFFFFFF
+            key = torch.where(hit, (bits << cbits) | cid,
+                              torch.iinfo(torch.int64).max)
+            sel = torch.topk(key, k, dim=1, largest=False,
+                             sorted=True).values
+            found = sel < (0x7F800000 << cbits)     # a finite entry t
+            sel = sel & ((1 << cbits) - 1)
+            cnt[r0:r1] = found.sum(dim=1).to(torch.int32)
+        del tn, hit, key
+        slots[r0:r1, :k] = torch.where(found, sel, -1).to(torch.int32)
+    if return_n_hit:
+        return slots, cnt, n_hit
+    return slots, cnt
+
+
+def _route_pairs(slots, C: int, chunk: int):
+    """The (ray, cluster) pairs of the candidate slots [N, P], sorted by
+    cluster with a stable sort (pairs of one cluster keep ray order) and
+    padded so that every chunk of `chunk` pairs holds one cluster. Sizes
+    are the JAX package's: n_padded = ceil(N*P/chunk)*chunk + C*chunk
+    pair slots. Returns (chunk_cl [n_chunks] i32, chunk_ray [n_chunks,
+    chunk] i32 with -1 in dead lanes, and for the route back, over the M
+    valid pairs: pos [M] int64, the pair's index ray * P + slot, and dest
+    [M] int64, its padded position)."""
+    N, P = slots.shape
+    dev = slots.device
+    keys = slots.reshape(-1).long()
+    keys = torch.where(keys < 0, C, keys)             # invalid sorts last
+    sc, order = torch.sort(keys, stable=True)
+    counts = torch.bincount(sc, minlength=C + 1)[:C]
+    padded = (counts + chunk - 1) // chunk * chunk
+    pad_off = torch.cumsum(padded, 0) - padded
+    start = torch.cumsum(counts, 0) - counts
+    n_valid = int(counts.sum())
+    sc = sc[:n_valid]
+    pos = order[:n_valid]
+    dest = pad_off[sc] + torch.arange(n_valid, device=dev) - start[sc]
+    n_padded = -(-(N * P) // chunk) * chunk + C * chunk
+    chunk_ray = torch.full((n_padded,), -1, dtype=torch.int32, device=dev)
+    chunk_ray[dest] = (pos // P).to(torch.int32)
+    chunk_cl = torch.full((n_padded,), -1, dtype=torch.int32, device=dev)
+    chunk_cl[dest] = sc.to(torch.int32)
+    return (chunk_cl.view(-1, chunk).amax(dim=1).contiguous(),
+            chunk_ray.view(-1, chunk), pos, dest)
+
+
+def _chunk_rays(ray: Ray, chunk_ray):
+    """[n_chunks, 8, CH] f32 rows o.xyz, d.xyz, mint, maxt of the chunks'
+    rays; dead lanes take ray 0's rows with maxt = -1 (nothing hits)."""
+    n, ch = chunk_ray.shape
+    ridx = chunk_ray.clamp(min=0).long()
+    out = torch.empty((n, 8, ch), dtype=torch.float32,
+                      device=chunk_ray.device)
+    for j, comp in enumerate((ray.o[:, 0], ray.o[:, 1], ray.o[:, 2],
+                              ray.d[:, 0], ray.d[:, 1], ray.d[:, 2],
+                              ray.mint)):
+        out[:, j, :] = comp[ridx]
+    out[:, 7, :] = torch.where(chunk_ray >= 0, ray.maxt[ridx], -1.0)
+    return out
+
+
+def swept_closest_hit(sw: SweptHair, ray: Ray, p_max: int = 24,
+                      chunk: int = 16):
+    """Closest hit of the swept traversal: (t [N], prim_id [N]), inf / -1
+    = miss. A ray is tested against its p_max phase-A candidates only
+    (overflow drops candidates, as in the JAX package); among its pairs
+    the first minimum wins."""
+    N = ray.o.shape[0]
+    C = sw.cl_lo.shape[0]
+    slots, _, n_hit = _phase_a_dense(sw, ray, p_max, return_n_hit=True)
+    live = ray.maxt > ray.mint
+    STATS["queries"] += 1
+    STATS["rays"] += int(live.sum())
+    STATS["overflow_rays"] += int((live & (n_hit > p_max)).sum())
+    chunk_cl, chunk_ray, pos, dest = _route_pairs(slots, C, chunk)
+    t_c, p_c = pk.phase_b_chunks(chunk_cl, _chunk_rays(ray, chunk_ray),
+                                 sw.seg_rows_t)
+    dev = ray.o.device
+    t_pairs = torch.full((N * p_max,), float("inf"), device=dev)
+    p_pairs = torch.full((N * p_max,), -1, dtype=torch.int32, device=dev)
+    t_pairs[pos] = t_c.reshape(-1)[dest]
+    p_pairs[pos] = p_c.reshape(-1)[dest]
+    t_pairs = t_pairs.view(N, p_max)
+    k = torch.argmin(t_pairs, dim=1, keepdim=True)
+    best_t = t_pairs.gather(1, k)[:, 0]
+    best_p = p_pairs.view(N, p_max).gather(1, k)[:, 0]
+    return best_t, torch.where(torch.isfinite(best_t), best_p, -1)
+
+
+def swept_any_hit(sw: SweptHair, ray: Ray, p_max: int = 24,
+                  chunk: int = 16):
+    """Occlusion through the swept traversal: its closest hit, then
+    (p >= 0) & ~degenerate."""
+    degenerate = ray.maxt <= ray.mint
+    _, p = swept_closest_hit(sw, ray, p_max, chunk)
+    return (p >= 0) & ~degenerate

@@ -1,11 +1,18 @@
-"""The two hand-written CUDA kernels of the tiled intersector, their
-wrappers and their plain PyTorch versions (port of hairpt/ops/pallas_tiled.py).
+"""The hand-written CUDA kernels of the tiled intersector, their wrappers
+and their plain PyTorch versions (port of hairpt/ops/pallas_tiled.py).
 
-  cull_phase_a  phase A: slab test of each 64-ray tile against every
-                cluster AABB (replaces pallas_tiled._cull_kernel)
-  phase_b       phase B: miter-cylinder test over each tile's packed slot
-                list (replaces pallas_tiled._tiled_kernel, deferred
-                HAIRPT_UNROLL=8 semantics)
+  cull_phase_a    kernel A, phase A: slab test of each 64-ray tile against
+                  every cluster AABB (replaces pallas_tiled._cull_kernel);
+                  emit_oct=True adds the octet bits (csrc/tiled.cu)
+  phase_b         kernel B, phase B: miter-cylinder test over each tile's
+                  packed slot list (replaces pallas_tiled._tiled_kernel,
+                  deferred HAIRPT_UNROLL=8 semantics; csrc/tiled.cu)
+  phase_b_oct     kernel C, phase B that tests a slot only for the 8-ray
+                  octets whose bit is set (replaces
+                  pallas_tiled._tiled_kernel_oct; csrc/octets.cu)
+  stream_phase_b  kernel D, phase B over eight per-octet compacted slot
+                  streams (replaces pallas_tiled._stream_kernel;
+                  csrc/octets.cu)
 
 Layout contract:
   rays8    [T, 8, 64] f32  rows o.xyz, d.xyz, mint, maxt (dead: maxt<=mint)
@@ -16,12 +23,19 @@ Layout contract:
   cnt      [T] i32, tmin/tscale [T] f32
   seg_rows [C, 16, K] f32  (K in KERNEL_K for the kernel)
   t, pid   [T, 64] f32 / i32 (inf / -1 = miss)
+  oct      [T, C] i32       bit o: a ray of octet o (rays 8o..8o+7) enters
+  oct_slot [T, q] i32       the slot's octet word (0 for an empty slot)
+  cids     [T, q] i32       slot cluster ids (stream mode)
+  streams  [T, 8, qo] i32   slot index | bq << 12 per octet stream
+  off      [T, n_win+1, 8]  per-window stream offsets (last column: lengths)
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
-launches the kernel or raises. LAUNCHES counts kernel launches and
-PLAIN_ON_CUDA counts plain-version calls on CUDA tensors (the main path
-makes none; chip_smoke.py calls the plain versions on the card only to
-compare).
+launches the kernel or raises. LAUNCHES counts the launches of the dense
+path's kernels (A, B) and OCT_LAUNCHES those of the octet and stream
+modes (A's octet variant, C, D), which the default path never runs;
+PLAIN_ON_CUDA and OCT_PLAIN_ON_CUDA count plain-version calls on CUDA
+tensors (the main path makes none; chip_smoke.py calls the plain versions
+on the card only to compare).
 """
 from __future__ import annotations
 
@@ -35,14 +49,19 @@ TILE = 64
 UNROLL = 8            # slots between phase-B early-exit checks
 TE_INF = 4095         # 12-bit "+inf" bound
 CID_MASK = (1 << 20) - 1
-KERNEL_K = (32, 64, 128)   # instantiated in tiled.cu
+QBITS = 12            # stream entry: slot index in the low 12 bits
+KERNEL_K = (32, 64, 128)   # instantiated in every kernel source
 
 LAUNCHES = {"cull_phase_a": 0, "phase_b": 0}
 PLAIN_ON_CUDA = {"cull_phase_a": 0, "phase_b": 0}
+OCT_LAUNCHES = {"cull_phase_a_oct": 0, "phase_b_oct": 0,
+                "stream_phase_b": 0}
+OCT_PLAIN_ON_CUDA = {"cull_phase_a_oct": 0, "phase_b_oct": 0,
+                     "stream_phase_b": 0}
 
 
 def reset_counts():
-    for d in (LAUNCHES, PLAIN_ON_CUDA):
+    for d in (LAUNCHES, PLAIN_ON_CUDA, OCT_LAUNCHES, OCT_PLAIN_ON_CUDA):
         for k in d:
             d[k] = 0
 
@@ -64,21 +83,38 @@ def nvcc_cmd():
 
 
 _LIB = None
+_OCT_LIB = None
+HEADERS = ["cyl_test.cuh"]
 
 
 def lib():
-    """Build (first use) and load libhairpt_tiled.so."""
+    """Build (first use) and load libhairpt_tiled.so (kernels A and B)."""
     global _LIB
     if _LIB is None:
         from ._native import load_library
-        L = load_library("hairpt_tiled", ["tiled.cu"], nvcc_cmd())
+        L = load_library("hairpt_tiled", ["tiled.cu"], nvcc_cmd(), HEADERS)
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        L.hairpt_cull.argtypes = [vp, vp, ci, ci, vp, vp, vp]
+        L.hairpt_cull.argtypes = [vp, vp, ci, ci, vp, vp, vp, vp]
         L.hairpt_cull.restype = ci
         L.hairpt_phase_b.argtypes = [vp] * 7 + [ci, ci, ci, ci, vp, vp, vp, vp]
         L.hairpt_phase_b.restype = ci
         _LIB = L
     return _LIB
+
+
+def oct_lib():
+    """Build (first use) and load libhairpt_octets.so (kernels C and D)."""
+    global _OCT_LIB
+    if _OCT_LIB is None:
+        from ._native import load_library
+        L = load_library("hairpt_octets", ["octets.cu"], nvcc_cmd(), HEADERS)
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        L.hairpt_phase_b_oct.argtypes = [vp] * 8 + [ci] * 4 + [vp] * 3
+        L.hairpt_phase_b_oct.restype = ci
+        L.hairpt_stream.argtypes = [vp] * 8 + [ci] * 5 + [vp] * 3
+        L.hairpt_stream.restype = ci
+        _OCT_LIB = L
+    return _OCT_LIB
 
 
 def _check(t, name, dtype, shape, device):
@@ -106,34 +142,47 @@ def _raise_rc(rc, name):
 # phase A
 # ---------------------------------------------------------------------------
 
-def cull_phase_a(rays8, bounds):
+def cull_phase_a(rays8, bounds, emit_oct: bool = False):
     """(te [T, C] bf16, t_pmax [T, 64] f32) for rays8 [T, 8, 64] and
-    bounds [6, C]."""
+    bounds [6, C]; emit_oct adds oct [T, C] i32 (the kernel's octet
+    instance, which only the octet and stream modes launch)."""
     if not rays8.is_cuda:
-        return cull_phase_a_plain(rays8, bounds)
+        return cull_phase_a_plain(rays8, bounds, emit_oct=emit_oct)
     T, C = rays8.shape[0], bounds.shape[1]
     dev = rays8.device
     _check(rays8, "rays8", torch.float32, (T, 8, TILE), dev)
     _check(bounds, "bounds", torch.float32, (6, C), dev)
     te = torch.empty((T, C), dtype=torch.bfloat16, device=dev)
     t_pmax = torch.full((T, TILE), -1.0, dtype=torch.float32, device=dev)
+    oct = torch.empty((T, C), dtype=torch.int32, device=dev) \
+        if emit_oct else None
     rc = lib().hairpt_cull(rays8.data_ptr(), bounds.data_ptr(), T, C,
-                           te.data_ptr(), t_pmax.data_ptr(), _stream(dev))
+                           te.data_ptr(), t_pmax.data_ptr(),
+                           None if oct is None else oct.data_ptr(),
+                           _stream(dev))
     _raise_rc(rc, "cull_phase_a")
+    if emit_oct:
+        OCT_LAUNCHES["cull_phase_a_oct"] += 1
+        return te, t_pmax, oct
     LAUNCHES["cull_phase_a"] += 1
     return te, t_pmax
 
 
-def cull_phase_a_plain(rays8, bounds, tile_chunk: int = 64):
+def cull_phase_a_plain(rays8, bounds, tile_chunk: int = 64,
+                       emit_oct: bool = False):
     """Plain version of kernel A (the JAX package's _tile_cluster_mask
     with cull_phase_a's bf16 truncation), chunked over tiles so the
     [tiles, 64, C] temporaries stay small."""
-    if rays8.is_cuda:
+    if rays8.is_cuda and emit_oct:
+        OCT_PLAIN_ON_CUDA["cull_phase_a_oct"] += 1
+    elif rays8.is_cuda:
         PLAIN_ON_CUDA["cull_phase_a"] += 1
     T = rays8.shape[0]
     C = bounds.shape[1]
     inf = float("inf")
-    tes, tpms = [], []
+    octw = (1 << torch.arange(8, dtype=torch.int32, device=rays8.device)) \
+        .view(1, 8, 1)
+    tes, tpms, octs = [], [], []
     for t0 in range(0, T, tile_chunk):
         r = rays8[t0:t0 + tile_chunk]
         o = r[:, 0:3]                                   # [Tc, 3, 64]
@@ -160,6 +209,11 @@ def cull_phase_a_plain(rays8, bounds, tile_chunk: int = 64):
         te_c = (te_c.view(torch.int32) & -65536).view(torch.float32)
         tes.append(te_c.to(torch.bfloat16))
         tpms.append(torch.where(hit, tn0, -1.0).amax(dim=2))   # [Tc, 64]
+        if emit_oct:
+            h8 = hit.view(hit.shape[0], 8, 8, C).any(dim=2)     # [Tc, 8, C]
+            octs.append((h8.to(torch.int32) * octw).sum(1, dtype=torch.int32))
+    if emit_oct:
+        return torch.cat(tes), torch.cat(tpms), torch.cat(octs)
     return torch.cat(tes), torch.cat(tpms)
 
 
@@ -336,3 +390,207 @@ def _phase_b_plain_chunk(slots, cnt, tmin, tscale, rays8, t_pmax, seg_rows,
         is_best = (run_t <= best[..., None]) & torch.isfinite(run_t)
         pid = torch.where(is_best, run_pid, -1).amax(dim=2)
     return best, pid, run
+
+
+# ---------------------------------------------------------------------------
+# octet and stream phase B (kernels C and D)
+# ---------------------------------------------------------------------------
+
+def _slot_reduce(t_m, pid_row):
+    """The octet kernels' per-slot reduction of cyl_test's [n, L, K]
+    result: (minimum t [n, L], the largest pid among the lanes at it)."""
+    st = t_m.amin(dim=2)
+    is_best = (t_m <= st[..., None]) & torch.isfinite(t_m)
+    return st, torch.where(is_best, pid_row, -1).amax(dim=2)
+
+
+def _dequant(bq, tmin, tscale):
+    """Entry-t bound of 12-bit codes bq (4095 = +inf) as the kernels
+    compute it: tmin + bq * tscale, two roundings."""
+    return torch.where(bq == TE_INF, float("inf"),
+                       tmin + bq.to(torch.float32) * tscale)
+
+
+def _done(best, te_next, t_pmax, any_hit):
+    if any_hit:
+        return torch.isfinite(best) | (te_next > t_pmax)
+    return (best <= te_next) | (te_next > t_pmax)
+
+
+def phase_b_oct(slots, cnt, tmin, tscale, oct_slot, rays8, t_pmax, seg_rows,
+                any_hit: bool = False):
+    """(t [T, 64] f32, pid [T, 64] i32): phase B over each tile's cnt[t]
+    packed slots, a ray testing a slot only where its octet's bit is set
+    in oct_slot. pid is the hit's id in both modes."""
+    if not rays8.is_cuda:
+        return phase_b_oct_plain(slots, cnt, tmin, tscale, oct_slot, rays8,
+                                 t_pmax, seg_rows, any_hit)
+    T, q = slots.shape
+    C, _, K = seg_rows.shape
+    dev = rays8.device
+    if K not in KERNEL_K:
+        raise ValueError(f"phase_b_oct kernel takes K in {KERNEL_K}, got {K}")
+    _check(slots, "slots", torch.int32, (T, q), dev)
+    _check(cnt, "cnt", torch.int32, (T,), dev)
+    _check(tmin, "tmin", torch.float32, (T,), dev)
+    _check(tscale, "tscale", torch.float32, (T,), dev)
+    _check(oct_slot, "oct_slot", torch.int32, (T, q), dev)
+    _check(rays8, "rays8", torch.float32, (T, 8, TILE), dev)
+    _check(t_pmax, "t_pmax", torch.float32, (T, TILE), dev)
+    _check(seg_rows, "seg_rows", torch.float32, (C, 16, K), dev)
+    t = torch.empty((T, TILE), dtype=torch.float32, device=dev)
+    pid = torch.empty((T, TILE), dtype=torch.int32, device=dev)
+    rc = oct_lib().hairpt_phase_b_oct(
+        slots.data_ptr(), cnt.data_ptr(), tmin.data_ptr(), tscale.data_ptr(),
+        oct_slot.data_ptr(), rays8.data_ptr(), t_pmax.data_ptr(),
+        seg_rows.data_ptr(), T, q, K, int(bool(any_hit)), t.data_ptr(),
+        pid.data_ptr(), _stream(dev))
+    _raise_rc(rc, "phase_b_oct")
+    OCT_LAUNCHES["phase_b_oct"] += 1
+    return t, pid
+
+
+def phase_b_oct_plain(slots, cnt, tmin, tscale, oct_slot, rays8, t_pmax,
+                      seg_rows, any_hit: bool = False,
+                      return_work: bool = False):
+    """Plain version of kernel C with _tiled_kernel_oct's rules: per slot,
+    each octet whose bit is set takes the slot's reduced (t, pid) on a
+    strictly smaller t; after every slot the tile stops once every ray is
+    resolved against that slot's bound. Chunks of PLAIN_B_TILES tiles.
+    return_work adds, per tile, the segment blocks the kernel reads and
+    the (ray, cluster) tests it runs ([T] int64 each)."""
+    if rays8.is_cuda:
+        OCT_PLAIN_ON_CUDA["phase_b_oct"] += 1
+    outs = [_phase_b_oct_plain_chunk(*(a[c:c + PLAIN_B_TILES] for a in (
+        slots, cnt, tmin, tscale, oct_slot, rays8, t_pmax)), seg_rows,
+        any_hit) for c in range(0, max(slots.shape[0], 1), PLAIN_B_TILES)]
+    out = tuple(torch.cat(x) for x in zip(*outs))
+    return out if return_work else out[:2]
+
+
+def _phase_b_oct_plain_chunk(slots, cnt, tmin, tscale, oct_slot, rays8,
+                             t_pmax, seg_rows, any_hit):
+    T = slots.shape[0]
+    dev = rays8.device
+    best = torch.full((T, TILE), float("inf"), device=dev)
+    pid = torch.full((T, TILE), -1, dtype=torch.int32, device=dev)
+    octet = torch.arange(TILE, device=dev) // 8
+    cnt_l = cnt.long()
+    active = cnt_l > 0
+    blocks = torch.zeros((T,), dtype=torch.int64, device=dev)
+    tests = torch.zeros((T,), dtype=torch.int64, device=dev)
+    for s in range(int(cnt_l.max()) if T > 0 else 0):
+        idx = torch.nonzero(active & (s < cnt_l)).squeeze(1)
+        if idx.numel() == 0:
+            break
+        m8 = oct_slot[idx, s]
+        sub = idx[m8 != 0]
+        blocks[sub] += 1
+        tests[idx] += 8 * _popcount8(m8)
+        if sub.numel():
+            cid = (slots[sub, s] & CID_MASK).long()
+            st, sp = _slot_reduce(*cyl_test(seg_rows[cid], rays8[sub]))
+            bit = ((oct_slot[sub, s][:, None] >> octet[None]) & 1).bool()
+            st = torch.where(bit, st, float("inf"))
+            prev = best[sub]
+            better = st < prev
+            best[sub] = torch.where(better, st, prev)
+            pid[sub] = torch.where(better, sp, pid[sub])
+        te_next = _dequant((slots[idx, s] >> 20) & TE_INF, tmin[idx],
+                           tscale[idx])
+        done = _done(best[idx], te_next[:, None], t_pmax[idx],
+                     any_hit).all(dim=1)
+        active[idx[done]] = False
+    return best, pid, blocks, tests
+
+
+def _popcount8(m):
+    return sum(((m >> b) & 1).long() for b in range(8))
+
+
+def stream_phase_b(cids, streams, off, cnt, tmin, tscale, rays8, t_pmax,
+                   seg_rows, any_hit: bool = False):
+    """(t [T, 64] f32, pid [T, 64] i32): each octet walks its own stream
+    streams[t, o, 0:off[t, -1, o]] of slot indices into cids and stops on
+    its own bound. cnt is taken as the JAX call takes it (the kernel needs
+    only the streams' lengths); pid is the hit's id in both modes."""
+    if not rays8.is_cuda:
+        return stream_phase_b_plain(cids, streams, off, cnt, tmin, tscale,
+                                    rays8, t_pmax, seg_rows, any_hit)
+    T, q = cids.shape
+    qo = streams.shape[2]
+    n_win = off.shape[1] - 1
+    C, _, K = seg_rows.shape
+    dev = rays8.device
+    if K not in KERNEL_K:
+        raise ValueError(f"stream kernel takes K in {KERNEL_K}, got {K}")
+    _check(cids, "cids", torch.int32, (T, q), dev)
+    _check(streams, "streams", torch.int32, (T, 8, qo), dev)
+    _check(off, "off", torch.int32, (T, n_win + 1, 8), dev)
+    _check(cnt, "cnt", torch.int32, (T,), dev)
+    _check(tmin, "tmin", torch.float32, (T,), dev)
+    _check(tscale, "tscale", torch.float32, (T,), dev)
+    _check(rays8, "rays8", torch.float32, (T, 8, TILE), dev)
+    _check(t_pmax, "t_pmax", torch.float32, (T, TILE), dev)
+    _check(seg_rows, "seg_rows", torch.float32, (C, 16, K), dev)
+    t = torch.empty((T, TILE), dtype=torch.float32, device=dev)
+    pid = torch.empty((T, TILE), dtype=torch.int32, device=dev)
+    rc = oct_lib().hairpt_stream(
+        cids.data_ptr(), streams.data_ptr(), off.data_ptr(),
+        tmin.data_ptr(), tscale.data_ptr(), rays8.data_ptr(),
+        t_pmax.data_ptr(), seg_rows.data_ptr(), T, q, qo, n_win, K,
+        int(bool(any_hit)), t.data_ptr(), pid.data_ptr(), _stream(dev))
+    _raise_rc(rc, "stream_phase_b")
+    OCT_LAUNCHES["stream_phase_b"] += 1
+    return t, pid
+
+
+def stream_phase_b_plain(cids, streams, off, cnt, tmin, tscale, rays8,
+                         t_pmax, seg_rows, any_hit: bool = False,
+                         return_work: bool = False):
+    """Plain version of kernel D: per (tile, octet), entries in stream
+    order, each replacing the octet's rays' results on a strictly smaller
+    t, a stop check after every entry. Chunks of PLAIN_B_TILES tiles.
+    return_work adds, per tile, the distinct segment blocks the octets'
+    walks touch (a cluster walked by several octets counts once) and the
+    (ray, cluster) tests they run ([T] int64 each)."""
+    if rays8.is_cuda:
+        OCT_PLAIN_ON_CUDA["stream_phase_b"] += 1
+    outs = [_stream_plain_chunk(*(a[c:c + PLAIN_B_TILES] for a in (
+        cids, streams, off, tmin, tscale, rays8, t_pmax)), seg_rows, any_hit)
+        for c in range(0, max(cids.shape[0], 1), PLAIN_B_TILES)]
+    out = tuple(torch.cat(x) for x in zip(*outs))
+    return out if return_work else out[:2]
+
+
+def _stream_plain_chunk(cids, streams, off, tmin, tscale, rays8, t_pmax,
+                        seg_rows, any_hit):
+    T = cids.shape[0]
+    dev = rays8.device
+    length = off[:, -1, :].long()                      # [T, 8]
+    best = torch.full((T, 8, 8), float("inf"), device=dev)
+    pid = torch.full((T, 8, 8), -1, dtype=torch.int32, device=dev)
+    r8o = rays8.view(T, 8, 8, 8)                       # [T, comp, oct, lane]
+    tpm = t_pmax.view(T, 8, 8)
+    done = torch.zeros((T, 8), dtype=torch.bool, device=dev)
+    entries = torch.zeros((T,), dtype=torch.int64, device=dev)
+    touched = torch.zeros(cids.shape, dtype=torch.bool, device=dev)
+    for j in range(int(length.max()) if T > 0 else 0):
+        it, io = torch.nonzero(~done & (j < length), as_tuple=True)
+        if it.numel() == 0:
+            break
+        entries.index_add_(0, it, torch.ones_like(it))
+        e = streams[it, io, j]
+        qi = (e & ((1 << QBITS) - 1)).long()
+        touched[it, qi] = True
+        cid = (cids[it, qi] & CID_MASK).long()
+        st, sp = _slot_reduce(*cyl_test(seg_rows[cid], r8o[it, :, io, :]))
+        prev = best[it, io]
+        better = st < prev
+        best[it, io] = torch.where(better, st, prev)
+        pid[it, io] = torch.where(better, sp, pid[it, io])
+        te_next = _dequant((e >> QBITS) & TE_INF, tmin[it], tscale[it])
+        done[it, io] = _done(best[it, io], te_next[:, None], tpm[it, io],
+                             any_hit).all(dim=1)
+    return (best.view(T, TILE), pid.view(T, TILE), touched.sum(dim=1),
+            8 * entries)

@@ -20,9 +20,11 @@ CAM_TO_WORLD = np.array([
 
 def furball_scene(quality: float = 14.0, res: int = 1024, depth: int = 65,
                   spp: int = 1, device=None, q: int = 2048,
-                  nee_rr: float = 0.01) -> Scene:
+                  nee_rr: float = 0.01, traversal: str = "tiled") -> Scene:
     """quality 14 is bench.py's full width: 84,000 fibers x 12 segments;
-    rough plastic (alpha 0.2, eta 1.55), the baked sunsky, true Sobol'."""
+    rough plastic (alpha 0.2, eta 1.55), the baked sunsky, true Sobol'.
+    traversal 'swept' takes the JAX package's swept defaults (p_max 24,
+    chunks of 64 pairs)."""
     b = SceneBuilder(device=device)
     m = b.add_material(kind=mat.ROUGHPLASTIC, alpha=0.2, eta=1.55, dist=0,
                        diffuse=(0.143016, 0.0156076, 1.80928e-05))
@@ -30,9 +32,11 @@ def furball_scene(quality: float = 14.0, res: int = 1024, depth: int = 65,
                                      radius=0.00216667), m)
     b.env = em.bake_sunsky((-0.376047, 0.758426, 0.532333), turbidity=3.0,
                            sky_scale=5.0, sun_scale=19.0912,
-                           sun_radius_scale=37.9165, res=256)
+                           sun_radius_scale=37.9165, res=256,
+                           device=b.device)
     cam = Camera.perspective(CAM_TO_WORLD, 35.0, res, res)
     m_res = max(1, int(np.ceil(np.log2(res))))
     return b.build(cam, Film.make(res, res, "tent"), spp=spp,
                    max_depth=depth, sampler=(rng.SOBOL_QMC, m_res, res),
-                   traversal="tiled", swept_k=128, tiled_q=q, nee_rr=nee_rr)
+                   traversal=traversal, swept_k=128, tiled_q=q,
+                   nee_rr=nee_rr)

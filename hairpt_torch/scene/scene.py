@@ -49,9 +49,11 @@ class RenderConfig:
     strict_normals: bool = True
     sampler: object = rng.INDEPENDENT   # or (rng.SOBOL_QMC, m, width)
     ray_eps: float = 1e-3
-    traversal: str = "tiled"
+    traversal: str = "tiled"    # 'tiled' | 'swept'
     swept_k: int = 128          # segments per cluster
     swept_c: int = 0            # cluster count (filled at build)
+    swept_pmax: int = 24        # phase-A candidate clusters per ray ('swept')
+    swept_chunk: int = 64       # pairs per phase-B chunk ('swept')
     tiled_q: int = 128          # candidate clusters per 64-ray tile
     nee_probs: tuple = (1.0, 0.0, 0.0)   # (env, area, delta)
     nee_rr: float = 0.0         # shadow-ray Russian roulette threshold
@@ -101,8 +103,9 @@ class SceneBuilder:
         if "traversal" not in config_kwargs:
             config_kwargs["traversal"] = "tiled"
             config_kwargs.setdefault("tiled_q", 2048)
-        if config_kwargs["traversal"] != "tiled":
-            raise NotImplementedError("only traversal='tiled' is ported")
+        if config_kwargs["traversal"] not in ("tiled", "swept"):
+            raise NotImplementedError("only traversal='tiled' and 'swept' "
+                                      "are ported")
         if not self.fibers:
             raise NotImplementedError("the port renders hair scenes only")
         cfg = RenderConfig(width=film.width, height=film.height,

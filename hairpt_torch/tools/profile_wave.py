@@ -2,12 +2,14 @@
 torch.profiler, on the card.
 
     python3 -m hairpt_torch.tools.profile_wave [--depth 65] [--res 1024]
-        [--out FILE]
+        [--traversal tiled|swept] [--out FILE]
 
 Renders one warm-up wave, then profiles one wave with CPU and CUDA
 activities. The port's layers are marked as profiler ranges from the
-outside (phase A, routing, phase B, Morton sort), so the port's own code
-carries no instrumentation. Prints the wave's wall time, the summed
+outside, so the port's own code carries no instrumentation: for the
+tiled traversal phase A, routing, phase B and the Morton sort; for the
+swept traversal its phase A (plain torch), the pair routing, the chunk
+gather and phase B (kernel E). Prints the wave's wall time, the summed
 device kernel time and the idle share, the device time under each
 range, and the kernels with the most device time.
 """
@@ -37,6 +39,8 @@ def main(argv=None) -> int:
     ap.add_argument("--depth", type=int, default=65)
     ap.add_argument("--res", type=int, default=1024)
     ap.add_argument("--quality", type=float, default=14.0)
+    ap.add_argument("--traversal", default="tiled",
+                    choices=("tiled", "swept"))
     ap.add_argument("--out", default=None,
                     help="also write the report to this file")
     args = ap.parse_args(argv)
@@ -47,21 +51,33 @@ def main(argv=None) -> int:
         return 2
     from torch.profiler import ProfilerActivity, profile
     from hairpt_torch.integrators import path
+    from hairpt_torch.ops import intersect_swept as iswept
     from hairpt_torch.ops import intersect_tiled as itiled
+    from hairpt_torch.ops import phaseb_kernels as pk
     from hairpt_torch.ops import tiled_kernels as tk
     from hairpt_torch.scene.furball import furball_scene
 
-    _wrap(tk, "cull_phase_a", "phase_a")
-    _wrap(itiled, "_tile_slots", "routing")
-    _wrap(tk, "phase_b", "phase_b")
-    _wrap(itiled, "_morton_sort_rays", "morton_sort")
-    _wrap(itiled, "_query_chunk", "query")
+    if args.traversal == "swept":
+        ranges = (("query", iswept, "swept_closest_hit"),
+                  ("phase_a", iswept, "_phase_a_dense"),
+                  ("routing", iswept, "_route_pairs"),
+                  ("chunk_rays", iswept, "_chunk_rays"),
+                  ("phase_b", pk, "phase_b_chunks"))
+    else:
+        ranges = (("query", itiled, "_query_chunk"),
+                  ("phase_a", tk, "cull_phase_a"),
+                  ("routing", itiled, "_tile_slots"),
+                  ("phase_b", tk, "phase_b"),
+                  ("morton_sort", itiled, "_morton_sort_rays"))
+    for label, mod, name in ranges:
+        _wrap(mod, name, label)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=30).stdout.strip()
     scene = furball_scene(quality=args.quality, res=args.res,
-                          depth=args.depth, device="cuda")
+                          depth=args.depth, device="cuda",
+                          traversal=args.traversal)
     path.render(scene, spp=1, seed=0)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -71,7 +87,7 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         wall = time.time() - t0
     ev = prof.key_averages()
-    labels = ("query", "phase_a", "routing", "phase_b", "morton_sort")
+    labels = tuple(label for label, _, _ in ranges)
 
     def dev_us(e):
         return getattr(e, "self_device_time_total",
@@ -86,7 +102,8 @@ def main(argv=None) -> int:
                and dev_us(e) > 0]
     busy = sum(dev_us(e) for e in kernels) / 1e6
     lines = [smi,
-             f"wave {args.res}^2 depth {args.depth}: wall {wall:.3f} s "
+             f"{args.traversal} wave {args.res}^2 depth {args.depth}: wall "
+             f"{wall:.3f} s "
              f"(under the profiler), device kernel time {busy:.3f} s, "
              f"idle share {max(0.0, 1 - busy / wall):.3f}"]
     for label in labels:

@@ -40,7 +40,7 @@ def tables():
         bj.add_material(**dict(r))
         bt.add_material(**dict(r))
     tj = jmat.pack_materials(bj.materials)
-    tt = tmat.pack_materials(bt.materials)
+    tt = tmat.pack_materials(bt.materials, device="cpu")
     mid = np.random.default_rng(0).integers(0, 2, N).astype(np.int32)
     gj = jmat.gather(tj, None, jnp.asarray(mid), jnp.zeros((N, 2)))
     gt = tmat.gather(tt, torch.as_tensor(mid))

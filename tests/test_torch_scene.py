@@ -55,7 +55,8 @@ def test_build_swept_hair_equal_given_cluster_order(K):
     ref = jsw.build_swept_hair(*a, K=K)
     lo, hi = tsw.cluster_bounds(*a, K=K)
     corder = jbvh.build(lo, hi, leaf_size=1).prim_order
-    got = tsw.build_swept_hair(*a, K=K, cluster_order=corder)
+    got = tsw.build_swept_hair(*a, K=K, cluster_order=corder,
+                              device="cpu")
     for f in ("cl_lo", "cl_hi", "seg_rows_t", "sub_lo", "sub_hi"):
         np.testing.assert_array_equal(_bits(getattr(got, f).numpy()),
                                       _bits(getattr(ref, f)), err_msg=f)
@@ -77,7 +78,7 @@ def test_bvh_prim_order_is_a_permutation(prefer_sah):
         prims = fb.prim_order[s:s + c]
         assert np.all(lo[prims] >= fb.node_min[i] - 1e-6)
         assert np.all(hi[prims] <= fb.node_max[i] + 1e-6)
-    sw_own = tsw.build_swept_hair(*a, K=32)
+    sw_own = tsw.build_swept_hair(*a, K=32, device="cpu")
     C = sw_own.seg_rows_t.shape[0]
     ids = sw_own.seg_rows_t[:, 15].contiguous().view(torch.int32).reshape(-1)
     ids = ids[ids >= 0].numpy()
@@ -87,7 +88,7 @@ def test_bvh_prim_order_is_a_permutation(prefer_sah):
 
 def test_bake_sunsky_and_alias_table_equal():
     ej = jem.bake_sunsky(**SUN)
-    et = tem.bake_sunsky(**SUN)
+    et = tem.bake_sunsky(**SUN, device="cpu")
     for f in ("image", "to_world", "to_local", "alias_prob", "texel_pdf"):
         np.testing.assert_array_equal(getattr(et, f).numpy(),
                                       np.asarray(getattr(ej, f)), err_msg=f)
@@ -100,7 +101,7 @@ def test_bake_sunsky_and_alias_table_equal():
 
 def test_env_queries_match_jax():
     ej = jem.bake_sunsky(**SUN)
-    et = tem.bake_sunsky(**SUN)
+    et = tem.bake_sunsky(**SUN, device="cpu")
     rs = np.random.default_rng(1)
     d = rs.normal(size=(4096, 3)).astype(np.float32)
     d /= np.linalg.norm(d, axis=-1, keepdims=True)

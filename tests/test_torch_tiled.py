@@ -34,7 +34,8 @@ def geom():
     sw_j = jsw.build_swept_hair(*a, K=K)
     lo, hi = tsw.cluster_bounds(*a, K=K)
     corder = jbvh.build(lo, hi, leaf_size=1).prim_order
-    sw_t = tsw.build_swept_hair(*a, K=K, cluster_order=corder)
+    sw_t = tsw.build_swept_hair(*a, K=K, cluster_order=corder,
+                                device="cpu")
     rs = np.random.default_rng(1)
     o = rs.uniform(-1, 1, (N_RAYS, 3)) * 0.5 + np.array([0, 0.2, -4.0])
     d = rs.uniform(-1.2, 1.2, (N_RAYS, 3)) - o
