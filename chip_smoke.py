@@ -16,9 +16,12 @@ Phases (each prints one line with its elapsed seconds):
      random directions at the camera hit points, Morton-sorted as the
      bounce queries are), and
        a. hold kernel A (phase-A cull, with and without its octet output)
-          and kernels B, C, D (dense, octet and stream phase B, closest and
-          any hit) against their plain PyTorch versions on a subset of 512
-          tiles per wave, and kernel B on every tile of the camera wave;
+          and kernels C, D (octet and stream phase B, closest and any hit)
+          against their plain PyTorch versions on a subset of 512 tiles
+          per wave, and kernel B (dense phase B, closest and any hit) on
+          EVERY tile of both waves, with the share of (ray, slot) pairs
+          that pass its slot cull; time B, C and D on both whole waves
+          beside the bound they share;
        b. run both whole waves through tiled_closest_hit / tiled_any_hit
           with octets=True and with streams=True (q = 2048, the JAX
           default stream_qo = 512) and compare each with
@@ -251,11 +254,6 @@ def check_kernels(scene, wv, report):
         tps = tpm_k[idx].contiguous()
         seg = sw.seg_rows_t
         runs = {
-            "phase_b": (
-                lambda ah: tk.phase_b(slots, cnt, tmin, tscale, r8s, tps,
-                                      seg, ah, True),
-                lambda ah: tk.phase_b_plain(slots, cnt, tmin, tscale, r8s,
-                                            tps, seg, ah, True)),
             "phase_b_oct": (
                 lambda ah: tk.phase_b_oct(slots, cnt, tmin, tscale, oct_sl,
                                           r8s, tps, seg, ah),
@@ -275,16 +273,12 @@ def check_kernels(scene, wv, report):
                 agree, t_rel, t_abs = compare(out_k[0], out_k[1], out_p[0],
                                               out_p[1])
                 hits_equal = bool(torch.equal(out_k[1] >= 0, out_p[1] >= 0))
-                extra = ""
-                if kname == "phase_b":
-                    same = float((out_k[2] == out_p[2]).float().mean())
-                    extra = f", slots run equal {same:.4f}"
                 log(f"{name}: {kname} {mode} on {idx.numel()} tiles (mean "
                     f"cnt {float(cnt.float().mean()):.1f}, overflow tiles "
                     f"{ov if kname != 'stream_phase_b' else ov_s}): pid "
                     f"agree {agree:.6f}, hit flags equal {hits_equal}, max t "
                     f"rel diff {t_rel:.3g}, hits "
-                    f"{int((out_k[1] >= 0).sum())}{extra}")
+                    f"{int((out_k[1] >= 0).sum())}")
                 require(agree >= PID_MIN_AGREE and hits_equal,
                         f"{name}/{mode}: {kname} pid agreement {agree}, hit "
                         f"flags equal {hits_equal}")
@@ -296,9 +290,78 @@ def check_kernels(scene, wv, report):
     return errs
 
 
-def time_kernels(scene, report, errs):
+def check_phase_b(scene, report, errs):
+    """Phase 2a: kernel B against its plain version on EVERY tile of both
+    waves (the first routing pass of each whole wave), closest and any
+    hit: hit flags exactly equal, pid >= PID_MIN_AGREE (the differing
+    pids are counted), t within T_RTOL, slots run equal on every tile.
+    Logs the share of (ray, slot) pairs that pass the kernel's slot cull.
+    Returns the plain version's time on the camera wave (closest hit)."""
+    import torch
+    from hairpt_torch.ops import intersect_tiled as itiled
+    from hairpt_torch.ops import tiled_kernels as tk
+
+    sw = scene.arrays.hair_swept
+    C = sw.seg_rows_t.shape[0]
+    q = scene.config.tiled_q
+    bounds = torch.cat([sw.cl_lo.T, sw.cl_hi.T]).contiguous()
+    ks = itiled.KeySpace(C)
+    plain_ms = None
+    for name, w in report.items():
+        slots, cnt, tmin, tscale, ov, _ = itiled._tile_slots(
+            ks.keys(w["te"]), ks, q)
+        args = (slots, cnt, tmin, tscale, w["r8"], w["tpm"], sw.seg_rows_t)
+        T = slots.shape[0]
+        for any_hit in (False, True):
+            mode = "any" if any_hit else "closest"
+            pairs = torch.zeros((T,), dtype=torch.int32, device=slots.device)
+            t_k, p_k, run_k = tk.phase_b(*args, bounds, any_hit, True,
+                                         pairs_out=pairs)
+            out = {}
+            ms = cuda_ms(lambda: out.update(p=tk.phase_b_plain(
+                *args, any_hit, True)), 1, warm=False)
+            if name == "camera" and not any_hit:
+                plain_ms = ms
+            t_p, p_p, run_p = out["p"]
+            agree, t_rel, t_abs = compare(t_k, p_k, t_p, p_p)
+            hits_equal = bool(torch.equal(p_k >= 0, p_p >= 0))
+            run_equal = float((run_k == run_p).float().mean())
+            n_run = int(run_k.long().sum())
+            n_pairs = int(pairs.long().sum())
+            log(f"{name}: kernel B {mode} on all {T} tiles ({n_run} slots "
+                f"run, overflow tiles {ov}; plain {ms:.1f} ms): hit flags "
+                f"equal {hits_equal}, pid agree {agree:.6f} "
+                f"({int((p_k != p_p).sum())} differ), max t rel diff "
+                f"{t_rel:.3g}, slots run equal {run_equal:.4f}; (ray, slot) "
+                f"pairs passing the slot cull {n_pairs} of {64 * n_run} "
+                f"({n_pairs / max(1, 64 * n_run):.4f})")
+            require(hits_equal and agree >= PID_MIN_AGREE
+                    and t_rel <= T_RTOL and run_equal == 1.0,
+                    f"{name}/{mode}, all tiles: kernel B hit flags equal "
+                    f"{hits_equal}, pid agreement {agree}, t rel diff "
+                    f"{t_rel}, slots run equal {run_equal}")
+            errs["phase_b"] = max(errs["phase_b"], t_abs)
+            if not any_hit:
+                w["cull_pairs"] = n_pairs
+                w["cull_share"] = n_pairs / max(1, 64 * n_run)
+    return plain_ms
+
+
+def bcd_bound(n_blk, n_tst, T, K):
+    """The bound B, C and D share on one routed wave (they compute one
+    function: each tile's closest hits over the same slots): the fewest
+    ray-cluster tests of the three (n_tst: kernel B's pairs that pass its
+    slot cull, or kernel D's per-octet walks where those are fewer) and
+    the distinct (tile, cluster) segment blocks D's walks touch (n_blk),
+    each read once per tile. (ms, 'bytes'/'operations')."""
+    return bound_ms(n_blk * (16 * K * 4 + 4) + T * (8 * 64 * 4 + 64 * 4 + 12)
+                    + T * 64 * 8, n_tst * K * CYL_FLOPS)
+
+
+def time_kernels(scene, report, errs, plain_b):
     """Kernels A (both instances), B, C and D and their plain versions at
-    the camera wave's shapes, with bounds."""
+    the camera wave's shapes, with bounds (plain_b: kernel B's plain
+    version's time from check_phase_b)."""
     import torch
     from hairpt_torch.ops import intersect_tiled as itiled
     from hairpt_torch.ops import tiled_kernels as tk
@@ -316,8 +379,8 @@ def time_kernels(scene, report, errs):
     bytes_a = T * 8 * 64 * 4 + 6 * C * 4 + T * C * 2 + T * 64 * 4
     out = []
 
-    def entry(name, src, replaces, err, ms, plain, nbytes, flops, **more):
-        b, by = bound_ms(nbytes, flops)
+    def entry(name, src, replaces, err, ms, plain, bound, **more):
+        b, by = bound
         log(f"{name}: {ms:.3f} ms at the camera wave (bound {b:.3f} ms, by "
             f"{by}), plain {plain:.1f} ms")
         out.append(dict(name=name, route="cuda", source=src,
@@ -329,13 +392,13 @@ def time_kernels(scene, report, errs):
           "hairpt/ops/pallas_tiled.py:882", errs["cull_phase_a"],
           cuda_ms(lambda: tk.cull_phase_a(r8, bounds), 5),
           cuda_ms(lambda: tk.cull_phase_a_plain(r8, bounds), 1, warm=False),
-          bytes_a, flops_a)
+          bound_ms(bytes_a, flops_a))
     entry("cull_phase_a_oct", "hairpt_torch/csrc/tiled.cu",
           "hairpt/ops/pallas_tiled.py:882", errs["cull_phase_a_oct"],
           cuda_ms(lambda: tk.cull_phase_a(r8, bounds, emit_oct=True), 5),
           cuda_ms(lambda: tk.cull_phase_a_plain(r8, bounds, emit_oct=True),
                   1, warm=False),
-          bytes_a + T * C * 4, flops_a)
+          bound_ms(bytes_a + T * C * 4, flops_a))
 
     ks = itiled.KeySpace(C)
     key = ks.keys(cam["te"])
@@ -346,57 +409,45 @@ def time_kernels(scene, report, errs):
     oargs = (slots, cnt, tmin, tscale, oct_sl, r8, tpm, seg)
     sargs = itiled._octet_streams(key, ks, cam["oct"], q, qo)[:6] \
         + (r8, tpm, seg)
-    t_k, p_k, run = tk.phase_b(*args, False, True)
+    run = tk.phase_b(*args, bounds, False, True)[2]
     plain = {}
-    plain_b = cuda_ms(lambda: plain.update(
-        b=tk.phase_b_plain(*args, False, True)), 1, warm=False)
     plain_c = cuda_ms(lambda: plain.update(
         c=tk.phase_b_oct_plain(*oargs, return_work=True)), 1, warm=False)
     plain_d = cuda_ms(lambda: plain.update(
         d=tk.stream_phase_b_plain(*sargs, return_work=True)), 1, warm=False)
-    t_p, p_p, run_p = plain["b"]
-    agree, t_rel, _ = compare(t_k, p_k, t_p, p_p)
-    log(f"camera: kernel B closest on all {T} tiles: pid agree "
-        f"{agree:.6f}, max t rel diff {t_rel:.3g}, slots run equal "
-        f"{float((run == run_p).float().mean()):.4f}")
-    require(agree >= PID_MIN_AGREE and t_rel <= T_RTOL,
-            f"camera, all tiles: kernel B pid agreement {agree}, t rel "
-            f"diff {t_rel}")
 
-    # B, C and D compute one function (each tile's closest hits over the
-    # same routed slots), so they share one bound: the fewest tests of the
-    # three (kernel D's per-octet walks) and the distinct (tile, cluster)
-    # segment blocks those walks touch, each read once per tile
+    # B, C and D share one bound (bcd_bound)
     n_slots = int(run.long().sum())
     _, _, blocks_c, tests_c = plain["c"]
     _, _, blocks_d, tests_d = plain["d"]
     n_blk, n_tst = int(blocks_d.sum()), int(tests_d.sum())
-    bytes_bcd = (n_blk * (16 * K * 4 + 4) + T * (8 * 64 * 4 + 64 * 4 + 12)
-                 + T * 64 * 8)
-    flops_bcd = n_tst * K * CYL_FLOPS
-    work = dict(bound_blocks=n_blk, bound_tests=n_tst)
+    b_bcd = bcd_bound(n_blk, min(n_tst, cam["cull_pairs"]), T, K)
+    work = dict(bound_blocks=n_blk,
+                bound_tests=min(n_tst, cam["cull_pairs"]),
+                d_tests=n_tst)
     entry("phase_b", "hairpt_torch/csrc/tiled.cu",
           "hairpt/ops/pallas_tiled.py:396", errs["phase_b"],
-          cuda_ms(lambda: tk.phase_b(*args), 3), plain_b, bytes_bcd,
-          flops_bcd, blocks_read=n_slots, ray_cluster_tests=n_slots * 64,
-          **work)
+          cuda_ms(lambda: tk.phase_b(*args, bounds), 3), plain_b, b_bcd,
+          blocks_read=n_slots, ray_cluster_tests=cam["cull_pairs"],
+          cull_pass_share=cam["cull_share"], **work)
     entry("phase_b_oct", "hairpt_torch/csrc/octets.cu",
           "hairpt/ops/pallas_tiled.py:286", errs["phase_b_oct"],
-          cuda_ms(lambda: tk.phase_b_oct(*oargs), 3), plain_c, bytes_bcd,
-          flops_bcd, blocks_read=int(blocks_c.sum()),
+          cuda_ms(lambda: tk.phase_b_oct(*oargs), 3), plain_c, b_bcd,
+          blocks_read=int(blocks_c.sum()),
           ray_cluster_tests=int(tests_c.sum()), **work)
     entry("stream_phase_b", "hairpt_torch/csrc/octets.cu",
           "hairpt/ops/pallas_tiled.py:621", errs["stream_phase_b"],
-          cuda_ms(lambda: tk.stream_phase_b(*sargs), 3), plain_d, bytes_bcd,
-          flops_bcd, blocks_read=n_blk, ray_cluster_tests=n_tst, **work)
+          cuda_ms(lambda: tk.stream_phase_b(*sargs), 3), plain_d, b_bcd,
+          blocks_read=n_blk, ray_cluster_tests=n_tst, **work)
     return out
 
 
 def phase_b_variants(scene, report):
     """Kernels B, C and D on the first routing pass of each whole wave:
-    their times, and how full the octets are. A warp of kernel C holds
-    four octets; a slot saves a warp's work only when all four of its
-    bits are clear, otherwise only lanes idle."""
+    their times beside the bound they share (bcd_bound, from kernel D's
+    plain version's work on the wave), and how full the octets are. A
+    warp of kernel C holds four octets; a slot saves a warp's work only
+    when all four of its bits are clear, otherwise only lanes idle."""
     import torch
     from hairpt_torch.ops import intersect_tiled as itiled
     from hairpt_torch.ops import tiled_kernels as tk
@@ -407,15 +458,22 @@ def phase_b_variants(scene, report):
     qo = min(max(256, q // 4), q)
     ks = itiled.KeySpace(C)
     seg = sw.seg_rows_t
+    bounds = torch.cat([sw.cl_lo.T, sw.cl_hi.T]).contiguous()
     out = {}
     for name, w in report.items():
         key = ks.keys(w["te"])
         slots, cnt, tmin, tscale, _, _, oct_sl = itiled._tile_slots(
             key, ks, q, oct=w["oct"])
         strm = itiled._octet_streams(key, ks, w["oct"], q, qo)[:6]
-        args = (slots, cnt, tmin, tscale, w["r8"], w["tpm"], seg)
+        args = (slots, cnt, tmin, tscale, w["r8"], w["tpm"], seg, bounds)
         ms_b = cuda_ms(lambda: tk.phase_b(*args), 3)
         run = tk.phase_b(*args, False, True)[2]
+        _, _, blocks_d, tests_d = tk.stream_phase_b_plain(
+            *strm, w["r8"], w["tpm"], seg, return_work=True)
+        n_tst = min(int(tests_d.sum()), w["cull_pairs"])
+        b, by = bcd_bound(int(blocks_d.sum()), n_tst, slots.shape[0], K)
+        b_d, _ = bcd_bound(int(blocks_d.sum()), int(tests_d.sum()),
+                           slots.shape[0], K)
         ms_c = cuda_ms(lambda: tk.phase_b_oct(
             slots, cnt, tmin, tscale, oct_sl, w["r8"], w["tpm"], seg), 3)
         ms_d = cuda_ms(lambda: tk.stream_phase_b(*strm, w["r8"], w["tpm"],
@@ -428,12 +486,19 @@ def phase_b_variants(scene, report):
                            .sum()) / max(1, 2 * m8.numel())
         n_slots = int(run.long().sum())
         log(f"{name} wave, first routing pass: kernel B {ms_b:.3f} ms "
-            f"({n_slots} slots before the early exits), kernel C "
-            f"{ms_c:.3f} ms, kernel D {ms_d:.3f} ms; over the {m8.numel()} "
+            f"({n_slots} slots before the early exits, "
+            f"{w['cull_share']:.4f} of their (ray, slot) pairs pass the "
+            f"slot cull), kernel C {ms_c:.3f} ms, kernel D {ms_d:.3f} ms; "
+            f"shared bound {b:.3f} ms by {by} ({n_tst} tests, "
+            f"{int(blocks_d.sum())} blocks; {b_d:.3f} ms from D's "
+            f"{int(tests_d.sum())} tests), B {ms_b / b:.1f}x, C "
+            f"{ms_c / b:.1f}x, D {ms_d / b:.1f}x; over the {m8.numel()} "
             f"routed slots, octet bits set {lanes:.4f}, warps with all four "
             f"bits clear {idle_warps:.4f}")
-        out[name] = dict(b_ms=ms_b, c_ms=ms_c, d_ms=ms_d, octet_bits=lanes,
-                         idle_warps=idle_warps)
+        out[name] = dict(b_ms=ms_b, c_ms=ms_c, d_ms=ms_d, bound_ms=b,
+                         bound_ms_d=b_d, bound_by=by,
+                         cull_share=w["cull_share"],
+                         octet_bits=lanes, idle_warps=idle_warps)
     return out
 
 
@@ -673,8 +738,14 @@ def main() -> int:
         log(f"waves: camera hit fraction {hit_frac:.4f}")
         report = {}
         errs = check_kernels(scene, wv, report)
-        kernels = time_kernels(scene, report, errs)
-        phase_b_variants(scene, report)
+        plain_b = check_phase_b(scene, report, errs)
+        kernels = time_kernels(scene, report, errs, plain_b)
+        waves_b = phase_b_variants(scene, report)
+        entry_b = next(k for k in kernels if k["name"] == "phase_b")
+        entry_b.update(bounce_ms=waves_b["bounce"]["b_ms"],
+                       bounce_bound_ms=waves_b["bounce"]["bound_ms"],
+                       bounce_bound_ms_d=waves_b["bounce"]["bound_ms_d"],
+                       bounce_cull_pass_share=waves_b["bounce"]["cull_share"])
         del report
         log(f"phase 2a ({time.time() - t1:.1f}s): kernels A-D match their "
             f"plain versions")

@@ -34,30 +34,48 @@ __device__ __forceinline__ RayRegs load_ray(const float* r8, int n, int r) {
   return q;
 }
 
+// One segment lane of a block in registers: the 15 floats the tiled test
+// reads and the id (-1 for a padding segment).
+struct SegRegs {
+  float p0x, p0y, p0z, ax, ay, az, n0x, n0y, n0z, n1x, n1y, n1z, sn1, rr2;
+  int pid;
+};
+
+// lane l of a [16, K] block; row 12 (r) is not read by the tiled test
+template <int K>
+__device__ __forceinline__ SegRegs load_seg(const float* __restrict__ rows,
+                                            int l) {
+  SegRegs g;
+  g.p0x = rows[0 * K + l];
+  g.p0y = rows[1 * K + l];
+  g.p0z = rows[2 * K + l];
+  g.ax = rows[3 * K + l];
+  g.ay = rows[4 * K + l];
+  g.az = rows[5 * K + l];
+  g.n0x = rows[6 * K + l];
+  g.n0y = rows[7 * K + l];
+  g.n0z = rows[8 * K + l];
+  g.n1x = rows[9 * K + l];
+  g.n1y = rows[10 * K + l];
+  g.n1z = rows[11 * K + l];
+  g.sn1 = rows[13 * K + l];
+  g.rr2 = rows[14 * K + l];
+  g.pid = __float_as_int(rows[15 * K + l]);
+  return g;
+}
+
 // The tiled kernels' test: hairpt/ops/pallas_tiled.py::_cyl_test_tm and
 // _cyl_test_oct (one reciprocal of a, miter planes in t-linear form);
 // plain version hairpt_torch/ops/tiled_kernels.py::cyl_test.
-template <int K>
-__device__ __forceinline__ bool cyl_hit_tiled(const float* __restrict__ rows,
-                                              int l, const RayRegs& y,
-                                              float& t, int& pid) {
-  const float p0x = rows[0 * K + l], p0y = rows[1 * K + l],
-              p0z = rows[2 * K + l];
-  const float ax_ = rows[3 * K + l], ay_ = rows[4 * K + l],
-              az_ = rows[5 * K + l];
-  const float n0x = rows[6 * K + l], n0y = rows[7 * K + l],
-              n0z = rows[8 * K + l];
-  const float n1x = rows[9 * K + l], n1y = rows[10 * K + l],
-              n1z = rows[11 * K + l];
-  const float sn1 = rows[13 * K + l], rr2 = rows[14 * K + l];
-  pid = __float_as_int(rows[15 * K + l]);
-
-  const float rx = y.ox - p0x, ry = y.oy - p0y, rz = y.oz - p0z;
-  const float ar = ax_ * rx + ay_ * ry + az_ * rz;
-  const float pox = rx - ar * ax_, poy = ry - ar * ay_, poz = rz - ar * az_;
-  const float ad = ax_ * y.dx + ay_ * y.dy + az_ * y.dz;
-  const float pdx = y.dx - ad * ax_, pdy = y.dy - ad * ay_,
-              pdz = y.dz - ad * az_;
+__device__ __forceinline__ bool cyl_hit_seg(const SegRegs& g,
+                                            const RayRegs& y, float& t) {
+  const float rx = y.ox - g.p0x, ry = y.oy - g.p0y, rz = y.oz - g.p0z;
+  const float ar = g.ax * rx + g.ay * ry + g.az * rz;
+  const float pox = rx - ar * g.ax, poy = ry - ar * g.ay,
+              poz = rz - ar * g.az;
+  const float ad = g.ax * y.dx + g.ay * y.dy + g.az * y.dz;
+  const float pdx = y.dx - ad * g.ax, pdy = y.dy - ad * g.ay,
+              pdz = y.dz - ad * g.az;
   const float a = pdx * pdx + pdy * pdy + pdz * pdz;
   const float b = pox * pdx + poy * pdy + poz * pdz;
   bool ok = a > 1e-18f;
@@ -65,16 +83,16 @@ __device__ __forceinline__ bool cyl_hit_tiled(const float* __restrict__ rows,
   const float t_mid = -b * inv_a;
   const float qx = pox + pdx * t_mid, qy = poy + pdy * t_mid,
               qz = poz + pdz * t_mid;
-  const float c_mid = qx * qx + qy * qy + qz * qz - rr2;
+  const float c_mid = qx * qx + qy * qy + qz * qz - g.rr2;
   const float disc = -c_mid * inv_a;
   ok = ok && (disc >= 0.0f);
   const float dt = sqrtf(fmaxf(disc, 0.0f));
   const float t_near = t_mid - dt;
   const float t_far = t_mid + dt;
-  const float on0 = rx * n0x + ry * n0y + rz * n0z;
-  const float dn0 = y.dx * n0x + y.dy * n0y + y.dz * n0z;
-  const float on1 = rx * n1x + ry * n1y + rz * n1z - sn1;
-  const float dn1 = y.dx * n1x + y.dy * n1y + y.dz * n1z;
+  const float on0 = rx * g.n0x + ry * g.n0y + rz * g.n0z;
+  const float dn0 = y.dx * g.n0x + y.dy * g.n0y + y.dz * g.n0z;
+  const float on1 = rx * g.n1x + ry * g.n1y + rz * g.n1z - g.sn1;
+  const float dn1 = y.dx * g.n1x + y.dy * g.n1y + y.dz * g.n1z;
   const bool near_ok = ok && (t_near >= y.mint) && (t_near <= y.maxt) &&
                        (on0 + t_near * dn0 >= 0.0f) &&
                        (on1 + t_near * dn1 <= 0.0f);
@@ -82,7 +100,17 @@ __device__ __forceinline__ bool cyl_hit_tiled(const float* __restrict__ rows,
                       (on0 + t_far * dn0 >= 0.0f) &&
                       (on1 + t_far * dn1 <= 0.0f);
   t = near_ok ? t_near : t_far;
-  return (pid >= 0) && (near_ok || far_ok);
+  return (g.pid >= 0) && (near_ok || far_ok);
+}
+
+// The same test on lane l of a [16, K] block (kernels C and D).
+template <int K>
+__device__ __forceinline__ bool cyl_hit_tiled(const float* __restrict__ rows,
+                                              int l, const RayRegs& y,
+                                              float& t, int& pid) {
+  const SegRegs g = load_seg<K>(rows, l);
+  pid = g.pid;
+  return cyl_hit_seg(g, y, t);
 }
 
 // The swept kernel's test: hairpt/ops/pallas_phaseb.py::_phaseb_one (two

@@ -153,15 +153,15 @@ cull_kernel(const float* __restrict__ rays8,   // [T, 8, TILE]
 // Kernel B: phase-B miter-cylinder test over each tile's slot list.
 //
 // Replaces hairpt/ops/pallas_tiled.py::_tiled_kernel (called through
-// _tiled_phase_b_impl, pallas_tiled.py:1199; the math is _cyl_test_tm,
-// pallas_tiled.py:37). Each tile walks its cnt[t] packed slots
-// (cid | bq << 20, decoded as uint32) in entry-t order and tests all 64
-// rays against the slot's K segments. Results match the deferred
-// (HAIRPT_UNROLL=8) path of the JAX kernel exactly:
+// _tiled_phase_b_impl, pallas_tiled.py:1132/1199; the math is
+// _cyl_test_tm, pallas_tiled.py:37). Each tile walks its cnt[t] packed
+// slots (cid | bq << 20, decoded as uint32) in entry-t order and finds
+// each of its 64 rays' closest hit among the slots' K segments. Results
+// equal the deferred (HAIRPT_UNROLL=8) path of the JAX kernel:
 //   * per lane, the earliest slot wins on equal t (strict <); among the
 //     lanes whose t equals the ray's best, the largest pid wins. A ray
-//     keeps (best t, best pid, one bit per lane "this lane holds the
-//     best t"), which is that rule without a [TILE, K] running matrix;
+//     keeps (best t, best pid, one "holds the best t" bit per lane),
+//     which is that rule without a [TILE, K] running matrix;
 //   * the tile stops after a group of 8 slots once every ray is
 //     resolved against the dequantized bound tmin + bq * tscale of the
 //     group's last slot (bq == 4095 is +inf), or has no candidate left
@@ -169,18 +169,72 @@ cull_kernel(const float* __restrict__ rays8,   // [T, 8, TILE]
 //   * any_hit: pid is 0/-1 and a ray skips the remaining slots once it
 //     holds a finite hit.
 //
-// What bounds it: operations. Each (ray, segment) test is ~75 f32
-// operations including a division and a square root; the bytes are one
-// 8 KB segment block per slot, read by many tiles and served mostly by
-// L2. Design: one block per tile, one thread per ray (64 threads); the
-// slot's [16, K] block is staged in shared memory with float4 loads and
-// read by broadcast, so the inner loop over K lanes is arithmetic on
-// registers; K is a template parameter so the lane loop and the per-lane
-// bit mask unroll into registers. The early exit is __syncthreads_and
-// over the tile.
+// What bounds it: operations. Each (ray, segment) test is ~90 f32
+// operations with a division and a square root, compiled without FMA
+// (--fmad=false), so the card issues them at half its 67 TFLOP/s FMA
+// rate. A slot's segment block (8 KB at K = 128) is read by many tiles
+// and served mostly by L2. A slot is routed to a tile when ANY of its
+// rays enters the cluster box, so most (ray, slot) pairs of an
+// incoherent tile cannot hit; the design spends the arithmetic on the
+// others:
+//   * slot cull: rays 0..63 each run kernel A's slab test against the
+//     slot's cluster box, widened by BOX_PAD times the larger of the
+//     ray origin's and the box's largest |coordinate| (so that a
+//     grazing hit the lane test accepts just outside the exact box is
+//     kept; tiled_kernels.slot_cull_plain is its plain version), up to
+//     min(maxt, best) with <= (closest hit; equal t still matters for
+//     the tie rule), or not at all once the ray holds a hit (any hit).
+//     A __ballot_sync turns the passes into a 64-bit active mask;
+//   * mapping: 128 threads, one per segment lane (K = 128; 128/K rays
+//     side by side for K < 128). A thread keeps its lane's 15 floats in
+//     registers and walks the slot's active rays, reading each ray by
+//     broadcast from shared memory, so every thread works on surviving
+//     (ray, lane) pairs only. Hits are rare: a warp reduces only when
+//     __ballot_sync(hit) is non-zero, and writes one record per (ray,
+//     warp): its minimum t, the lanes at it, the largest pid among them
+//     and the largest among those not already holding the ray's best.
+//     After the slot each ray merges its records (reduce, then merge
+//     against the holds-best bits), which no order of lanes or warps
+//     changes;
+//   * prefetch: a two-stage ring of segment blocks in shared memory. While
+//     a slot's rays are tested, cp.async copies the next slot's block into
+//     the other stage (and the rays' threads load its box into
+//     registers); a thread reads its lane from the ring only when the
+//     slot has an active ray. The ring costs no registers: prefetching
+//     into registers instead took 108 and ran 10-20% slower (PERF.md);
+//   * the early exit stays a __syncthreads_and after each group of 8.
 // ---------------------------------------------------------------------------
+constexpr int B_THREADS = 128;    // phase-B block: K lanes x 128/K rays
+// The slot cull's margin, relative to the coordinates' magnitude. The
+// boxes are the exact cap-ellipse extents rounded to f32, and the lane
+// test rounds its operands (a few ulp of |origin| and |p0|), so a
+// grazing hit may lie on a face of its box or a few ulp outside it,
+// where the slab test can reject it (a ray in the plane of a face gets a
+// slab of zero width). 2^-16 is 256 ulp of that scale;
+// tests/test_torch_tiled.py shows hits that the unwidened test loses and
+// that no hit lies outside its box by a sixteenth of the margin.
+constexpr float BOX_PAD = 1.0f / 65536.0f;
+
+__device__ __forceinline__ void load_box(const float* __restrict__ bounds,
+                                         int C, unsigned cid, float (&b)[6]) {
+#pragma unroll
+  for (int i = 0; i < 6; ++i) b[i] = __ldg(bounds + (size_t)i * C + cid);
+}
+
+// copy one [16, K] segment block into shared memory with cp.async (16 B
+// per copy, all threads of the block), as one commit group
 template <int K>
-__global__ void __launch_bounds__(TILE)
+__device__ __forceinline__ void copy_block(float* dst, const float* src,
+                                           int tid) {
+  for (int i = tid; i < 4 * K; i += B_THREADS) {
+    const unsigned d = (unsigned)__cvta_generic_to_shared(dst + 4 * i);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+                 "l"(src + 4 * i));
+  }
+}
+
+template <int K>
+__global__ void __launch_bounds__(B_THREADS)
 phase_b_kernel(const int* __restrict__ slots,     // [T, q]
                const int* __restrict__ cnt,       // [T]
                const float* __restrict__ tmin,    // [T]
@@ -188,87 +242,216 @@ phase_b_kernel(const int* __restrict__ slots,     // [T, q]
                const float* __restrict__ rays8,   // [T, 8, TILE]
                const float* __restrict__ t_pmax,  // [T, TILE]
                const float* __restrict__ seg_rows,  // [C, 16, K]
-               int q, int any_hit,
+               const float* __restrict__ bounds,  // [6, C]
+               int C, int q, int any_hit,
                float* __restrict__ t_out,         // [T, TILE]
                int* __restrict__ pid_out,         // [T, TILE]
-               int* __restrict__ slots_run) {     // [T] or null
-  constexpr int NW = K / 32;
-  __shared__ __align__(16) float s_rows[16 * K];
+               int* __restrict__ slots_run,       // [T] or null
+               int* __restrict__ pairs_run) {     // [T] or null
+  constexpr int NW = K / 32;           // warps (holds-best words) per ray
+  constexpr int G = B_THREADS / K;     // rays tested side by side
+  constexpr unsigned FULL = 0xffffffffu;
+  __shared__ __align__(16) float s_blk[2][16 * K];  // segment block ring
+  __shared__ float4 s_ray[TILE][2];    // o.xyz mint | d.xyz maxt
+  __shared__ unsigned s_eq[TILE][NW];  // lanes holding the ray's best t
+  __shared__ float s_rt[TILE][NW];     // per-slot records of each warp:
+  __shared__ unsigned s_rm[TILE][NW];  //   min t, the lanes at it,
+  __shared__ int s_rpa[TILE][NW];      //   the largest pid among them,
+  __shared__ int s_rpn[TILE][NW];      //   ... among those not holding
+  __shared__ unsigned s_hitw[TILE];    // warps with a record this slot
+  __shared__ unsigned s_act[2][2];     // [slot parity] active-ray mask
 
   const int tile = blockIdx.x;
-  const int r = threadIdx.x;
-  const RayRegs y = hairpt_dev::load_ray(rays8 + (size_t)tile * 8 * TILE,
-                                         TILE, r);
-  const float tpm = t_pmax[(size_t)tile * TILE + r];
+  const int tid = threadIdx.x;
+  const int lane = tid % K;
+  const int grp = tid / K;
+  const int w = lane >> 5;
+  const int wl = tid & 31;
+  const bool ray_thr = tid < TILE;
+  const float inf = f_inf();
   const int n_q = cnt[tile];
   const int* sl = slots + (size_t)tile * q;
-  const float inf = f_inf();
 
+  // rays 0..63: one per thread of the first two warps
+  float o[3] = {0.0f, 0.0f, 0.0f}, inv[3] = {0.0f, 0.0f, 0.0f};
+  float mint = 0.0f, maxt = 0.0f, mag = 0.0f, tpm = 0.0f;
   float best = inf;
   int bpid = -1;
-  unsigned eq[NW];
+  if (ray_thr) {
+    const RayRegs y = hairpt_dev::load_ray(rays8 + (size_t)tile * 8 * TILE,
+                                           TILE, tid);
+    s_ray[tid][0] = make_float4(y.ox, y.oy, y.oz, y.mint);
+    s_ray[tid][1] = make_float4(y.dx, y.dy, y.dz, y.maxt);
+    o[0] = y.ox;
+    o[1] = y.oy;
+    o[2] = y.oz;
+    const float d[3] = {y.dx, y.dy, y.dz};
 #pragma unroll
-  for (int w = 0; w < NW; ++w) eq[w] = 0u;
+    for (int ax = 0; ax < 3; ++ax) {
+      float dd = d[ax];
+      if (fabsf(dd) < 1e-12f) dd = (dd >= 0.0f) ? 1e-12f : -1e-12f;
+      inv[ax] = 1.0f / dd;
+    }
+    mint = y.mint;
+    maxt = y.maxt;
+    mag = fmaxf(fabsf(o[0]), fmaxf(fabsf(o[1]), fabsf(o[2])));
+    tpm = t_pmax[(size_t)tile * TILE + tid];
+#pragma unroll
+    for (int v = 0; v < NW; ++v) s_eq[tid][v] = 0u;
+    s_hitw[tid] = 0u;
+  }
 
-  int n_run = 0;
+  unsigned pk = 0u;
+  float bx[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  if (n_q > 0) {
+    pk = (unsigned)sl[0];
+    if (ray_thr) load_box(bounds, C, pk & CID_MASK, bx);
+    copy_block<K>(s_blk[0], seg_rows + (size_t)(pk & CID_MASK) * 16 * K,
+                  tid);
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+
+  int n_run = 0, n_pairs = 0;
   for (int q0 = 0; q0 < n_q; q0 += UNROLL) {
     const int q_end = min(q0 + UNROLL, n_q);
     n_run = q_end;
+    unsigned pk_last = pk;
     for (int s = q0; s < q_end; ++s) {
-      const unsigned cid = (unsigned)sl[s] & CID_MASK;
-      const float4* src =
-          reinterpret_cast<const float4*>(seg_rows + (size_t)cid * 16 * K);
-      float4* dst = reinterpret_cast<float4*>(s_rows);
-      __syncthreads();   // the previous slot's reads are done
-      for (int i = r; i < 4 * K; i += TILE) dst[i] = src[i];
-      __syncthreads();
-      if (any_hit && best < inf) continue;
+      // 1. slot cull: each ray against the slot's widened cluster box
+      if (ray_thr) {
+        bool pass = false;
+        if (!(any_hit && best < inf)) {
+          float bmag = fabsf(bx[0]);
 #pragma unroll
-      for (int w = 0; w < NW; ++w) {
+          for (int i = 1; i < 6; ++i) bmag = fmaxf(bmag, fabsf(bx[i]));
+          const float pad = BOX_PAD * (mag + bmag);
+          float tn = 0.0f, tf = 0.0f;
 #pragma unroll
-        for (int j = 0; j < 32; ++j) {
-          const int l = w * 32 + j;
+          for (int ax = 0; ax < 3; ++ax) {
+            const float a0 = ((bx[ax] - pad) - o[ax]) * inv[ax];
+            const float a1 = ((bx[3 + ax] + pad) - o[ax]) * inv[ax];
+            const float lo_ax = fminf(a0, a1);
+            const float hi_ax = fmaxf(a0, a1);
+            tn = (ax == 0) ? lo_ax : fmaxf(tn, lo_ax);
+            tf = (ax == 0) ? hi_ax : fminf(tf, hi_ax);
+          }
+          tf = tf * 1.00000024f + 1e-7f;
+          pass = (tn <= tf) && (tf >= mint) && (tn <= fminf(maxt, best));
+        }
+        const unsigned b = __ballot_sync(FULL, pass);
+        if (wl == 0) s_act[s & 1][tid >> 5] = b;
+      }
+      // 2. prefetch the next slot: its block into the other stage (read
+      //    last by slot s - 1's tests, which ended before its barrier)
+      pk_last = pk;
+      if (s + 1 < n_q) {
+        pk = (unsigned)sl[s + 1];
+        const unsigned cid = pk & CID_MASK;
+        if (ray_thr) load_box(bounds, C, cid, bx);
+        copy_block<K>(s_blk[(s + 1) & 1], seg_rows + (size_t)cid * 16 * K,
+                      tid);
+      }
+      asm volatile("cp.async.commit_group;\n" ::);
+      asm volatile("cp.async.wait_group 1;\n" ::);   // this slot's block
+      __syncthreads();   // the block and the active mask are complete
+      const unsigned a0 = s_act[s & 1][0], a1 = s_act[s & 1][1];
+      if ((a0 | a1) != 0u) {
+        if (tid == 0) n_pairs += __popc(a0) + __popc(a1);
+        // 3. this thread's lane against its share of the active rays
+        const hairpt_dev::SegRegs g =
+            hairpt_dev::load_seg<K>(s_blk[s & 1], lane);
+        unsigned long long m = a0 | ((unsigned long long)a1 << 32);
+        for (int i = 0; i < grp; ++i) m &= m - 1;
+        while (m != 0ull) {
+          const int r = __ffsll((long long)m) - 1;
+          const float4 ra = s_ray[r][0], rb = s_ray[r][1];
+          const RayRegs y = {ra.x, ra.y, ra.z, rb.x, rb.y, rb.z, ra.w, rb.w};
           float t;
-          int pid;
-          if (hairpt_dev::cyl_hit_tiled<K>(s_rows, l, y, t, pid)) {
-            const unsigned bit = 1u << j;
-            if (t < best) {
-              best = t;
-              bpid = pid;
+          const bool hit = hairpt_dev::cyl_hit_seg(g, y, t);
+          if (__ballot_sync(FULL, hit) != 0u) {
+            float wm = hit ? t : inf;
 #pragma unroll
-              for (int v = 0; v < NW; ++v) eq[v] = 0u;
-              eq[w] = bit;
-            } else if (t == best && !(eq[w] & bit)) {
-              eq[w] |= bit;
-              bpid = max(bpid, pid);
+            for (int x = 16; x > 0; x >>= 1)
+              wm = fminf(wm, __shfl_xor_sync(FULL, wm, x));
+            const bool at = hit && t == wm;
+            const unsigned am = __ballot_sync(FULL, at);
+            const bool held = (s_eq[r][w] >> wl) & 1u;
+            const int pa = __reduce_max_sync(FULL, at ? g.pid : -1);
+            const int pn = __reduce_max_sync(FULL,
+                                             (at && !held) ? g.pid : -1);
+            if (wl == 0) {
+              s_rt[r][w] = wm;
+              s_rm[r][w] = am;
+              s_rpa[r][w] = pa;
+              s_rpn[r][w] = pn;
+              atomicOr(&s_hitw[r], 1u << w);
             }
           }
+#pragma unroll
+          for (int i = 0; i < G; ++i) m &= m - 1;
+        }
+        __syncthreads();   // every record of the slot is written
+        // 4. merge the slot into each ray's state
+        if (ray_thr && s_hitw[tid] != 0u) {
+          const unsigned hw = s_hitw[tid];
+          float st = inf;
+#pragma unroll
+          for (int v = 0; v < NW; ++v)
+            if ((hw >> v) & 1u) st = fminf(st, s_rt[tid][v]);
+          if (st < best) {
+            best = st;
+            bpid = -1;
+#pragma unroll
+            for (int v = 0; v < NW; ++v) {
+              const bool at = ((hw >> v) & 1u) && s_rt[tid][v] == st;
+              s_eq[tid][v] = at ? s_rm[tid][v] : 0u;
+              if (at) bpid = max(bpid, s_rpa[tid][v]);
+            }
+          } else if (st == best) {
+#pragma unroll
+            for (int v = 0; v < NW; ++v) {
+              if (((hw >> v) & 1u) && s_rt[tid][v] == st) {
+                s_eq[tid][v] |= s_rm[tid][v];
+                bpid = max(bpid, s_rpn[tid][v]);
+              }
+            }
+          }
+          s_hitw[tid] = 0u;
         }
       }
     }
-    const unsigned packed = (unsigned)sl[q_end - 1];
-    const int bq = (int)((packed >> 20) & TE_INF);
-    const float te_next =
-        (bq == TE_INF) ? inf : tmin[tile] + (float)bq * tscale[tile];
-    const bool done = any_hit ? (best < inf || te_next > tpm)
-                              : (best <= te_next || te_next > tpm);
+    bool done = true;
+    if (ray_thr) {
+      const int bq = (int)((pk_last >> 20) & TE_INF);
+      const float te_next =
+          (bq == TE_INF) ? inf : tmin[tile] + (float)bq * tscale[tile];
+      done = any_hit ? (best < inf || te_next > tpm)
+                     : (best <= te_next || te_next > tpm);
+    }
     if (__syncthreads_and(done)) break;
   }
-  if (slots_run != nullptr && r == 0) slots_run[tile] = n_run;
-  t_out[(size_t)tile * TILE + r] = best;
-  pid_out[(size_t)tile * TILE + r] =
-      any_hit ? (best < inf ? 0 : -1) : bpid;
+  asm volatile("cp.async.wait_group 0;\n" ::);   // no copy outlives the block
+  if (tid == 0) {
+    if (slots_run != nullptr) slots_run[tile] = n_run;
+    if (pairs_run != nullptr) pairs_run[tile] = n_pairs;
+  }
+  if (ray_thr) {
+    t_out[(size_t)tile * TILE + tid] = best;
+    pid_out[(size_t)tile * TILE + tid] =
+        any_hit ? (best < inf ? 0 : -1) : bpid;
+  }
 }
 
 template <int K>
 int launch_phase_b(const int* slots, const int* cnt, const float* tmin,
                    const float* tscale, const float* rays8,
-                   const float* t_pmax, const float* seg_rows, int T, int q,
-                   int any_hit, float* t_out, int* pid_out, int* slots_run,
-                   cudaStream_t stream) {
-  phase_b_kernel<K><<<T, TILE, 0, stream>>>(slots, cnt, tmin, tscale, rays8,
-                                            t_pmax, seg_rows, q, any_hit,
-                                            t_out, pid_out, slots_run);
+                   const float* t_pmax, const float* seg_rows,
+                   const float* bounds, int T, int q, int C, int any_hit,
+                   float* t_out, int* pid_out, int* slots_run,
+                   int* pairs_run, cudaStream_t stream) {
+  phase_b_kernel<K><<<T, B_THREADS, 0, stream>>>(
+      slots, cnt, tmin, tscale, rays8, t_pmax, seg_rows, bounds, C, q,
+      any_hit, t_out, pid_out, slots_run, pairs_run);
   return (int)cudaGetLastError();
 }
 
@@ -294,21 +477,23 @@ int hairpt_cull(const void* rays8, const void* bounds, int T, int C,
   return (int)cudaGetLastError();
 }
 
+// pairs_run (optional) receives each tile's count of (ray, slot) pairs
+// that passed the slot cull
 int hairpt_phase_b(const void* slots, const void* cnt, const void* tmin,
                    const void* tscale, const void* rays8, const void* t_pmax,
-                   const void* seg_rows, int T, int q, int K, int any_hit,
-                   void* t_out, void* pid_out, void* slots_run,
-                   void* stream) {
+                   const void* seg_rows, const void* bounds, int T, int q,
+                   int K, int C, int any_hit, void* t_out, void* pid_out,
+                   void* slots_run, void* pairs_run, void* stream) {
   if (T <= 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
 #define HAIRPT_PB(KK)                                                      \
   case KK:                                                                 \
-    return launch_phase_b<KK>((const int*)slots, (const int*)cnt,          \
-                              (const float*)tmin, (const float*)tscale,    \
-                              (const float*)rays8, (const float*)t_pmax,   \
-                              (const float*)seg_rows, T, q, any_hit,       \
-                              (float*)t_out, (int*)pid_out,                \
-                              (int*)slots_run, st);
+    return launch_phase_b<KK>(                                             \
+        (const int*)slots, (const int*)cnt, (const float*)tmin,            \
+        (const float*)tscale, (const float*)rays8, (const float*)t_pmax,   \
+        (const float*)seg_rows, (const float*)bounds, T, q, C, any_hit,    \
+        (float*)t_out, (int*)pid_out, (int*)slots_run, (int*)pairs_run,    \
+        st);
   switch (K) {
     HAIRPT_PB(32)
     HAIRPT_PB(64)

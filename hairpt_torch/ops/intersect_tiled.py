@@ -303,8 +303,8 @@ class PhaseB(NamedTuple):
     qo: int = 0
 
 
-def _route_and_test(sw, key_k, oct_k, rays8_k, tpm_k, ks, q_max, any_mode,
-                    pb: PhaseB):
+def _route_and_test(sw, bounds, key_k, oct_k, rays8_k, tpm_k, ks, q_max,
+                    any_mode, pb: PhaseB):
     """One pass of routing and phase B over a set of tiles. Returns
     (t, pid, overflow, (key_last, more))."""
     if pb.streams:
@@ -320,7 +320,7 @@ def _route_and_test(sw, key_k, oct_k, rays8_k, tpm_k, ks, q_max, any_mode,
     else:
         slots, cnt, tmin, tscale, ov, bound = _tile_slots(key_k, ks, q_max)
         t, p = tk.phase_b(slots, cnt, tmin, tscale, rays8_k, tpm_k,
-                          sw.seg_rows_t, any_hit=any_mode)
+                          sw.seg_rows_t, bounds, any_hit=any_mode)
     return t, p, ov, bound
 
 
@@ -362,7 +362,8 @@ def _query_chunk(sw: SweptHair, rays8, bounds, ks: KeySpace, q_max: int,
             rays8_k[:, 7, :] = torch.minimum(rays8_k[:, 7, :], t_s)
             tpm_k = t_pmax[sel]
         t2, p2, ov, (key_last, more) = _route_and_test(
-            sw, key_k, oct_k, rays8_k, tpm_k, ks, q_max, any_mode, pb)
+            sw, bounds, key_k, oct_k, rays8_k, tpm_k, ks, q_max, any_mode,
+            pb)
         if k_pass == 0:
             overflow = ov
         better = t2 < t_s

@@ -6,7 +6,9 @@ and their plain PyTorch versions (port of hairpt/ops/pallas_tiled.py).
                   emit_oct=True adds the octet bits (csrc/tiled.cu)
   phase_b         kernel B, phase B: miter-cylinder test over each tile's
                   packed slot list (replaces pallas_tiled._tiled_kernel,
-                  deferred HAIRPT_UNROLL=8 semantics; csrc/tiled.cu)
+                  deferred HAIRPT_UNROLL=8 semantics; csrc/tiled.cu);
+                  the kernel tests a slot only for the rays that enter
+                  its widened cluster box (slot_cull_plain)
   phase_b_oct     kernel C, phase B that tests a slot only for the 8-ray
                   octets whose bit is set (replaces
                   pallas_tiled._tiled_kernel_oct; csrc/octets.cu)
@@ -96,7 +98,7 @@ def lib():
         vp, ci = ctypes.c_void_p, ctypes.c_int
         L.hairpt_cull.argtypes = [vp, vp, ci, ci, vp, vp, vp, vp]
         L.hairpt_cull.restype = ci
-        L.hairpt_phase_b.argtypes = [vp] * 7 + [ci, ci, ci, ci, vp, vp, vp, vp]
+        L.hairpt_phase_b.argtypes = [vp] * 8 + [ci] * 4 + [vp] * 5
         L.hairpt_phase_b.restype = ci
         _LIB = L
     return _LIB
@@ -168,6 +170,29 @@ def cull_phase_a(rays8, bounds, emit_oct: bool = False):
     return te, t_pmax
 
 
+def _inv_dir(d):
+    """1 / d with components below 1e-12 in magnitude set to +-1e-12, as
+    the slab tests of kernels A and B take it."""
+    return 1.0 / torch.where(torch.abs(d) < 1e-12,
+                             torch.where(d >= 0, 1e-12, -1e-12).to(d.dtype),
+                             d)
+
+
+def _slab(o, inv_d, lo, hi):
+    """The slab test's interval (entry tn, exit tf widened by 1.00000024
+    and 1e-7) from per-axis lists of broadcastable tensors, in the
+    kernels' order of operations."""
+    tn = tf = None
+    for ax in range(3):
+        a0 = (lo[ax] - o[ax]) * inv_d[ax]
+        a1 = (hi[ax] - o[ax]) * inv_d[ax]
+        lo_ax = torch.minimum(a0, a1)
+        hi_ax = torch.maximum(a0, a1)
+        tn = lo_ax if tn is None else torch.maximum(tn, lo_ax)
+        tf = hi_ax if tf is None else torch.minimum(tf, hi_ax)
+    return tn, tf * 1.00000024 + 1e-7
+
+
 def cull_phase_a_plain(rays8, bounds, tile_chunk: int = 64,
                        emit_oct: bool = False):
     """Plain version of kernel A (the JAX package's _tile_cluster_mask
@@ -185,24 +210,13 @@ def cull_phase_a_plain(rays8, bounds, tile_chunk: int = 64,
     tes, tpms, octs = [], [], []
     for t0 in range(0, T, tile_chunk):
         r = rays8[t0:t0 + tile_chunk]
-        o = r[:, 0:3]                                   # [Tc, 3, 64]
-        d = r[:, 3:6]
-        d = torch.where(torch.abs(d) < 1e-12,
-                        torch.where(d >= 0, 1e-12, -1e-12).to(d.dtype), d)
-        inv_d = 1.0 / d
+        inv_d = _inv_dir(r[:, 3:6])                     # [Tc, 3, 64]
         mint = r[:, 6, :, None]
         maxt = r[:, 7, :, None]
-        tn = tf = None
-        for ax in range(3):
-            a0 = (bounds[ax][None, None, :] - o[:, ax, :, None]) \
-                * inv_d[:, ax, :, None]
-            a1 = (bounds[3 + ax][None, None, :] - o[:, ax, :, None]) \
-                * inv_d[:, ax, :, None]
-            lo_ax = torch.minimum(a0, a1)
-            hi_ax = torch.maximum(a0, a1)
-            tn = lo_ax if tn is None else torch.maximum(tn, lo_ax)
-            tf = hi_ax if tf is None else torch.minimum(tf, hi_ax)
-        tf = tf * 1.00000024 + 1e-7
+        tn, tf = _slab([r[:, ax, :, None] for ax in range(3)],
+                       [inv_d[:, ax, :, None] for ax in range(3)],
+                       [bounds[ax][None, None, :] for ax in range(3)],
+                       [bounds[3 + ax][None, None, :] for ax in range(3)])
         hit = (tn <= tf) & (tf >= mint) & (tn <= maxt) & (maxt > mint)
         tn0 = torch.clamp(tn, min=0.0)
         te_c = torch.where(hit, tn0, inf).amin(dim=1)          # [Tc, C]
@@ -221,12 +235,20 @@ def cull_phase_a_plain(rays8, bounds, tile_chunk: int = 64,
 # phase B
 # ---------------------------------------------------------------------------
 
-def phase_b(slots, cnt, tmin, tscale, rays8, t_pmax, seg_rows,
-            any_hit: bool = False, return_slots_run: bool = False):
+def phase_b(slots, cnt, tmin, tscale, rays8, t_pmax, seg_rows, bounds,
+            any_hit: bool = False, return_slots_run: bool = False,
+            pairs_out=None):
     """(t [T, 64] f32, pid [T, 64] i32): closest (or any) hit of each ray
-    over its tile's cnt[t] packed slots. return_slots_run adds the number
-    of slots each tile tested before its early exit ([T] i32)."""
+    over its tile's cnt[t] packed slots. bounds [6, C] are the cluster
+    boxes of kernel A, which the kernel uses to skip (ray, slot) pairs
+    that cannot hit; the result does not depend on them. return_slots_run
+    adds the number of slots each tile tested before its early exit ([T]
+    i32). pairs_out ([T] i32, CUDA only) receives each tile's count of
+    (ray, slot) pairs that passed the kernel's slot cull."""
     if not rays8.is_cuda:
+        if pairs_out is not None:
+            raise ValueError("pairs_out counts the kernel's slot cull; the "
+                             "plain version tests every pair")
         return phase_b_plain(slots, cnt, tmin, tscale, rays8, t_pmax,
                              seg_rows, any_hit, return_slots_run)
     T, q = slots.shape
@@ -241,6 +263,9 @@ def phase_b(slots, cnt, tmin, tscale, rays8, t_pmax, seg_rows,
     _check(rays8, "rays8", torch.float32, (T, 8, TILE), dev)
     _check(t_pmax, "t_pmax", torch.float32, (T, TILE), dev)
     _check(seg_rows, "seg_rows", torch.float32, (C, 16, K), dev)
+    _check(bounds, "bounds", torch.float32, (6, C), dev)
+    if pairs_out is not None:
+        _check(pairs_out, "pairs_out", torch.int32, (T,), dev)
     t = torch.empty((T, TILE), dtype=torch.float32, device=dev)
     pid = torch.empty((T, TILE), dtype=torch.int32, device=dev)
     run = torch.empty((T,), dtype=torch.int32, device=dev) \
@@ -248,12 +273,36 @@ def phase_b(slots, cnt, tmin, tscale, rays8, t_pmax, seg_rows,
     rc = lib().hairpt_phase_b(
         slots.data_ptr(), cnt.data_ptr(), tmin.data_ptr(),
         tscale.data_ptr(), rays8.data_ptr(), t_pmax.data_ptr(),
-        seg_rows.data_ptr(), T, q, K, int(bool(any_hit)), t.data_ptr(),
-        pid.data_ptr(), None if run is None else run.data_ptr(),
-        _stream(dev))
+        seg_rows.data_ptr(), bounds.data_ptr(), T, q, K, C,
+        int(bool(any_hit)), t.data_ptr(), pid.data_ptr(),
+        None if run is None else run.data_ptr(),
+        None if pairs_out is None else pairs_out.data_ptr(), _stream(dev))
     _raise_rc(rc, "phase_b")
     LAUNCHES["phase_b"] += 1
     return (t, pid, run) if return_slots_run else (t, pid)
+
+
+# kernel B's slot-cull margin (csrc/tiled.cu BOX_PAD): each cluster box is
+# widened by BOX_PAD times the larger of the ray origin's and the box's
+# largest |coordinate|
+BOX_PAD = 2.0 ** -16
+
+
+def slot_cull_plain(rays8, lo, hi, maxt_eff):
+    """Plain version of kernel B's per-(ray, slot) box test: rays8
+    [n, 8, 64], one cluster box lo, hi [n, 3] per row, maxt_eff [n, 64]
+    (the ray's maxt, or min(maxt, best) in closest-hit mode) -> [n, 64]
+    bool. Kernel A's slab arithmetic on the box widened by BOX_PAD."""
+    o = rays8[:, 0:3]                                   # [n, 3, 64]
+    inv_d = _inv_dir(rays8[:, 3:6])
+    mag = torch.abs(o).amax(dim=1)                      # [n, 64]
+    bmag = torch.maximum(torch.abs(lo), torch.abs(hi)).amax(dim=1)
+    pad = BOX_PAD * (mag + bmag[:, None])
+    tn, tf = _slab([o[:, ax] for ax in range(3)],
+                   [inv_d[:, ax] for ax in range(3)],
+                   [lo[:, ax, None] - pad for ax in range(3)],
+                   [hi[:, ax, None] + pad for ax in range(3)])
+    return (tn <= tf) & (tf >= rays8[:, 6]) & (tn <= maxt_eff)
 
 
 def cyl_test(rows, rays):

@@ -1,7 +1,9 @@
 """hairpt_torch tiled intersector against hairpt run as its own CPU tests
 run it (Pallas in interpret mode): the plain phase A and phase B, the
 slot routing with tied bf16 entry times, and whole queries with q smaller
-than the cluster count, so the exact-overflow completion loop runs."""
+than the cluster count, so the exact-overflow completion loop runs. Then
+kernel B's own rules against the port's plain phase B: its slot cull
+keeps every hit, and its slot-level merge equals the per-lane rule."""
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -13,13 +15,20 @@ from hairpt.ops import intersect_swept as jsw
 from hairpt.ops import intersect_tiled as jtl
 from hairpt.ops import pallas_tiled as jpt
 from hairpt.scene import hairgen
+from hairpt_torch.core import rng as trng
+from hairpt_torch.core import warps as twarps
 from hairpt_torch.core.math import Ray
+from hairpt_torch.integrators import common as tcommon
+from hairpt_torch.models import sensors as tsensors
+from hairpt_torch.scene import hairgen as thairgen
+from hairpt_torch.scene.furball import furball_scene
 from hairpt_torch.ops import intersect_swept as tsw
 from hairpt_torch.ops import intersect_tiled as ttl
 from hairpt_torch.ops import tiled_kernels as tk
 
 K = 32
 N_RAYS = 256
+TILE = tk.TILE
 
 
 @pytest.fixture(scope="module")
@@ -123,7 +132,7 @@ def test_plain_phase_b_matches_jax_kernel(geom, any_hit):
         jnp.asarray(sw_t.seg_rows_t.numpy()), K, q, any_hit=any_hit,
         interpret=True, unroll=8)
     t_t, p_t = tk.phase_b(slots, cnt, tmin, tscale, r8, tpm_t,
-                          sw_t.seg_rows_t, any_hit=any_hit)
+                          sw_t.seg_rows_t, _bounds(sw_t), any_hit=any_hit)
     p_j, t_j = np.asarray(p_j), np.asarray(t_j)
     if any_hit:
         np.testing.assert_array_equal(p_t.numpy() >= 0, p_j >= 0)
@@ -202,3 +211,327 @@ def test_wrappers_run_plain_versions_on_cpu(geom):
     ttl.tiled_closest_hit(sw_t, tr, q_max=4)
     assert tk.LAUNCHES == {"cull_phase_a": 0, "phase_b": 0}
     assert tk.PLAIN_ON_CUDA == {"cull_phase_a": 0, "phase_b": 0}
+
+
+# ---------------------------------------------------------------------------
+# kernel B's slot cull and its slot-level merge (csrc/tiled.cu), on the CPU
+# ---------------------------------------------------------------------------
+
+def _furball_waves():
+    """The small furball (quality 0.1: 600 fibers x 12 segments, C = 57
+    clusters of 128) at 64^2: its camera wave and a first-bounce wave
+    (uniformly random directions at the camera hits, Morton-sorted), as
+    chip_smoke.py builds them at full width."""
+    scene = furball_scene(quality=0.1, res=64, depth=4, device="cpu", q=64)
+    cfg, arr = scene.config, scene.arrays
+    pixel = torch.as_tensor(tcommon.block_swizzle(cfg.width, cfg.height))
+    smp = trng.Sampler(cfg.sampler, pixel, torch.zeros_like(pixel))
+    jit = smp.next_2d(0)
+    pos = torch.stack([(smp.pixel % cfg.width).float() + jit[:, 0],
+                       (smp.pixel // cfg.width).float() + jit[:, 1]], -1)
+    cam = tsensors.sample_ray(scene.camera, pos)
+    hit = tcommon.scene_intersect(arr, cam, cfg.tiled_q)
+    n = pixel.shape[0]
+    u = torch.as_tensor(np.random.default_rng(7).random((n, 2)),
+                        dtype=torch.float32)
+    d = twarps.square_to_uniform_sphere(u)
+    d = torch.where((torch.sum(d * hit.geo_n, -1) < 0)[:, None], -d, d)
+    o = torch.where(hit.valid[:, None], hit.p + hit.geo_n * cfg.ray_eps,
+                    cam.o)
+    bounce = Ray(o=o, d=d, mint=torch.zeros(n),
+                 maxt=torch.where(hit.valid, float("inf"), 0.0))
+    bounce, _ = ttl._morton_sort_rays(arr.hair_swept, bounce)
+    assert int(hit.valid.sum()) > 100
+    return arr.hair_swept, {"camera": cam, "bounce": bounce}
+
+
+def _random_geometry():
+    """The geometry of tests/test_torch_octets.py::
+    test_streams_on_random_geometry_match_large_q (300 fibers, 1024 rays
+    from a patch towards random points), in the port's own layout."""
+    fs = thairgen.gen_furball(n_fibers=300, n_segs=8, radius=0.01, seed=0,
+                              center=(0, 0, 0), core_r=0.8, fiber_len=1.0)
+    segs = thairgen.segments(fs)
+    sw = tsw.build_swept_hair(*[segs[k] for k in ("p0", "p1", "n0", "n1",
+                                                  "radius")],
+                              K=K, device="cpu")
+    rs = np.random.default_rng(1)
+    o = rs.uniform(-1, 1, (1024, 3)) * 0.5 + np.array([0, 0.2, -4.0])
+    d = rs.uniform(-1.5, 1.5, (1024, 3)) - o
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    ray = Ray(torch.as_tensor(o, dtype=torch.float32),
+              torch.as_tensor(d, dtype=torch.float32), torch.zeros(1024),
+              torch.full((1024,), float("inf")))
+    return sw, {"random": ray}
+
+
+def _grazing_pencil(n_seg=64):
+    """Rays that touch a fiber's cylinder exactly on a face of the
+    fiber's own box. Each segment's axis lies in the yz plane (a_x = 0),
+    so its box reaches c.x +- r along the whole segment; a ray in the yz
+    plane perpendicular to the axis, with its x ON the box face (or 1 to
+    3 ulp inside), grazes the cylinder there. Returns the (tile, box)
+    pairs as _pairs_of does: one tile of 64 such rays per segment, its
+    cluster block, the segment's own box (tighter than its cluster's) and
+    the segment's lane."""
+    rs = np.random.default_rng(5)
+    c = rs.uniform(-4, 4, (n_seg, 3)) + np.array([1.0, 6.0, -2.0])
+    th = rs.uniform(0, 2 * np.pi, n_seg)
+    ax = np.stack([np.zeros(n_seg), np.cos(th), np.sin(th)], -1)
+    L, r = 0.08, 0.00216667
+    p0 = (c - ax * L / 2).astype(np.float32)
+    p1 = (c + ax * L / 2).astype(np.float32)
+    axf = ax.astype(np.float32)
+    rad = np.full(n_seg, r, np.float32)
+    lo, hi = tsw._miter_seg_bounds(p0, p1, axf, axf, rad)
+    sw = tsw.build_swept_hair(p0, p1, axf, axf, rad, K=K, device="cpu")
+    ids = sw.seg_rows_t[:, 15].contiguous().view(torch.int32)  # [C, K]
+    where = {int(ids[cc, ll]): (cc, ll) for cc, ll in
+             zip(*np.nonzero(ids.numpy() >= 0))}
+    r8 = np.zeros((n_seg, 8, TILE), np.float32)
+    for i in range(n_seg):
+        j = np.arange(TILE)
+        side = np.where(j % 2 == 0, 1.0, -1.0)             # hi / lo face
+        k = (j // 2) % 4                                   # ulp inside
+        s_ax = ((j // 8) / 7.0 - 0.5) * 0.6 * L            # along the axis
+        face = np.where(side > 0, hi[i, 0], lo[i, 0]).astype(np.float32)
+        ox = face - (side * k * np.spacing(np.abs(face))).astype(np.float32)
+        d = np.array([0.0, axf[i, 2], -axf[i, 1]], np.float32)
+        d = np.where((j // 32)[:, None] == 0, d, -d)
+        e = c[i] + ax[i] * s_ax[:, None]
+        o = (e - d * 1.0).astype(np.float32)
+        o[:, 0] = ox
+        r8[i, 0:3] = o.T
+        r8[i, 3:6] = d.T
+        r8[i, 7] = np.inf
+    cl, ln = zip(*(where[i] for i in range(n_seg)))
+    return (sw.seg_rows_t[list(cl)], torch.as_tensor(r8),
+            torch.as_tensor(lo), torch.as_tensor(hi),
+            torch.as_tensor(ln, dtype=torch.int64))
+
+
+def _pairs_of(sw, ray):
+    """Every (tile, cluster) pair of a wave: the cluster blocks [n, 16, K],
+    the tiles' rays8 [n, 8, 64], the cluster boxes lo, hi [n, 3] and no
+    lane (a pair hits where any lane hits)."""
+    r8 = ttl.rays8_of(ttl._pad_rays(ray, TILE)[0])
+    T, C = r8.shape[0], sw.cl_lo.shape[0]
+    tiles = torch.arange(T).repeat_interleave(C)
+    cl = torch.arange(C).repeat(T)
+    return sw.seg_rows_t[cl], r8[tiles], sw.cl_lo[cl], sw.cl_hi[cl], None
+
+
+def _cull_violations(rows, r8, lo, hi, lane, any_hit, chunk=256):
+    """(pairs hit, hits the box test rejects, hits outside the exact box,
+    the largest distance of a hit point outside its exact box relative to
+    the margin's scale). Closest hit lowers maxt to the pair's own nearest
+    hit, the tightest the kernel ever uses; any hit keeps the ray's
+    maxt."""
+    n_hit = n_viol = n_out = 0
+    worst = 0.0
+    for a in range(0, rows.shape[0], chunk):
+        r8c = r8[a:a + chunk]
+        t_m, _ = tk.cyl_test(rows[a:a + chunk], r8c)          # [m, 64, K]
+        if lane is None:
+            t_hit = t_m.amin(dim=2)
+        else:
+            t_hit = t_m.gather(2, lane[a:a + chunk, None, None].expand(
+                -1, TILE, 1))[..., 0]
+        hit = torch.isfinite(t_hit)
+        maxt_eff = r8c[:, 7] if any_hit else \
+            torch.where(hit, t_hit, r8c[:, 7])
+        lo_c, hi_c = lo[a:a + chunk], hi[a:a + chunk]
+        ok = tk.slot_cull_plain(r8c, lo_c, hi_c, maxt_eff)
+        n_hit += int(hit.sum())
+        n_viol += int((hit & ~ok).sum())
+        if bool(hit.any()):
+            p = r8c[:, 0:3].double() \
+                + r8c[:, 3:6].double() * t_hit.double()[:, None]
+            out = torch.maximum(lo_c.double()[..., None] - p,
+                                p - hi_c.double()[..., None]).amax(dim=1)
+            scale = r8c[:, 0:3].abs().amax(dim=1).double() \
+                + torch.maximum(lo_c.abs(), hi_c.abs()).amax(dim=1)[:, None]
+            n_out += int(((out > 0) & hit).sum())
+            worst = max(worst, float((out.clamp(min=0) / scale)[hit].max()))
+    return n_hit, n_viol, n_out, worst
+
+
+@pytest.fixture(scope="module")
+def cull_cases():
+    sw_f, wv_f = _furball_waves()
+    sw_r, wv_r = _random_geometry()
+    waves = [_pairs_of(sw, ray) for sw, wv in ((sw_f, wv_f), (sw_r, wv_r))
+             for ray in wv.values()]
+    return waves, _grazing_pencil()
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_slot_cull_keeps_every_hit(cull_cases, any_hit, monkeypatch):
+    """Kernel B's box test (slot_cull_plain, with its margin BOX_PAD)
+    never rejects a (ray, cluster) pair whose lane test hits: every ray
+    against every cluster on the small furball's camera and first-bounce
+    waves and on the random geometry, and a pencil of rays grazing
+    fibers exactly on their boxes' faces. Without the margin the pencil
+    loses hits; with it, no hit point lies outside its exact box by more
+    than 1/16 of the margin."""
+    waves, pencil = cull_cases
+    n_hit = n_viol = 0
+    worst = 0.0
+    for case in waves:
+        h, v, _, wst = _cull_violations(*case, any_hit)
+        n_hit, n_viol, worst = n_hit + h, n_viol + v, max(worst, wst)
+    assert n_hit > 500
+    h, v, out, wst = _cull_violations(*pencil, any_hit)
+    assert h > 500
+    assert n_viol == 0 and v == 0
+    assert max(worst, wst) < tk.BOX_PAD / 16
+    monkeypatch.setattr(tk, "BOX_PAD", 0.0)
+    assert _cull_violations(*pencil, any_hit)[1] > 0
+
+
+def _slotwise_model(slots, cnt, tmin, tscale, rays8, t_pmax, seg_rows,
+                    bounds, any_hit):
+    """csrc/tiled.cu phase_b_kernel transcribed slot by slot: the box
+    cull, each (ray, warp of 32 lanes)'s record (its minimum t, the lanes
+    at it, the largest pid among them and among those not holding the
+    ray's best), and the merge of a slot's records into the ray's (best,
+    pid, holds-best bits). Returns (t, pid, slots run, tie counts)."""
+    T, K_ = slots.shape[0], seg_rows.shape[2]
+    NW = K_ // 32
+    inf = float("inf")
+    best = torch.full((T, TILE), inf)
+    bpid = torch.full((T, TILE), -1, dtype=torch.int32)
+    eq = torch.zeros((T, TILE, K_), dtype=torch.bool)
+    cnt_l = cnt.long()
+    active = cnt_l > 0
+    run = torch.zeros((T,), dtype=torch.int32)
+    ties = {"lanes": 0, "slots": 0}
+    n_max = int(cnt_l.max())
+    for q0 in range(0, n_max, tk.UNROLL):
+        if not bool(active.any()):
+            break
+        for s in range(q0, min(q0 + tk.UNROLL, n_max)):
+            idx = torch.nonzero(active & (s < cnt_l)).squeeze(1)
+            if idx.numel() == 0:
+                continue
+            n = idx.numel()
+            cid = (slots[idx, s] & tk.CID_MASK).long()
+            r8, b, e0 = rays8[idx], best[idx], eq[idx]
+            maxt_eff = r8[:, 7] if any_hit else torch.minimum(r8[:, 7], b)
+            act = tk.slot_cull_plain(r8, bounds[:3, cid].T, bounds[3:, cid].T,
+                                     maxt_eff)
+            if any_hit:
+                act = act & ~torch.isfinite(b)
+            t_m, pid_row = tk.cyl_test(seg_rows[cid], r8)
+            tw = torch.where(act[..., None], t_m, inf).view(n, TILE, NW, 32)
+            wmin = tw.amin(dim=3)                               # [n, 64, NW]
+            at = torch.isfinite(tw) & (tw == wmin[..., None])
+            pw = pid_row.view(n, 1, NW, 32)
+            held = e0.view(n, TILE, NW, 32)
+            pa = torch.where(at, pw, -1).amax(dim=3)
+            pn = torch.where(at & ~held, pw, -1).amax(dim=3)
+            st = wmin.amin(dim=2)                               # [n, 64]
+            atw = torch.isfinite(wmin) & (wmin == st[..., None])
+            lt = st < b
+            tie = (st == b) & torch.isfinite(st)
+            lanes = (at & atw[..., None]).view(n, TILE, K_)
+            ties["lanes"] += int(((lanes.sum(dim=2) > 1) & (lt | tie)).sum())
+            ties["slots"] += int((tie & lanes.any(dim=2)).sum())
+            eq[idx] = torch.where(lt[..., None], lanes,
+                                  torch.where(tie[..., None], e0 | lanes, e0))
+            bpid[idx] = torch.where(
+                lt, torch.where(atw, pa, -1).amax(dim=2).to(torch.int32),
+                torch.where(tie, torch.maximum(
+                    bpid[idx], torch.where(atw, pn, -1).amax(dim=2)
+                    .to(torch.int32)), bpid[idx]))
+            best[idx] = torch.where(lt, st, b)
+        chk = active & (q0 < cnt_l)
+        q_end = torch.clamp(cnt_l, max=q0 + tk.UNROLL)
+        run = torch.where(chk, q_end.to(torch.int32), run)
+        packed = slots.gather(1, (q_end - 1).clamp(min=0)[:, None])[:, 0]
+        te_next = tk._dequant((packed >> 20) & tk.TE_INF, tmin, tscale)
+        done = tk._done(best, te_next[:, None], t_pmax, any_hit).all(dim=1)
+        active = active & ~(chk & done) & (q0 + tk.UNROLL < cnt_l)
+    pid = torch.where(torch.isfinite(best), 0, -1).to(torch.int32) \
+        if any_hit else bpid
+    return best, pid, run, ties
+
+
+def _tied_inputs(sw_t, seed=0, C2=10, T=4, q=24):
+    """Slots over clusters built to tie: each new cluster is a lane
+    permutation of a geom cluster with some lanes copied onto others (the
+    same t at several lanes) and new random ids; clusters are drawn with
+    repeats into each tile's slot list (the same t in several slots, at
+    the same and at other lanes). Each ray aims at a point just inside a
+    random live segment of a random new cluster, from 4 units away."""
+    rs = np.random.default_rng(seed)
+    base = sw_t.seg_rows_t.numpy()
+    C, _, K_ = base.shape
+    rows = np.empty((C2, 16, K_), np.float32)
+    lo = np.empty((C2, 3), np.float32)
+    hi = np.empty((C2, 3), np.float32)
+    src = rs.integers(0, C, C2)
+    src[1] = src[0]                          # one source used twice
+    for j, c in enumerate(src):
+        blk = base[c][:, rs.permutation(K_)].copy()
+        for _ in range(K_ // 4):
+            a, b = rs.integers(0, K_, 2)
+            blk[:, b] = blk[:, a]
+        ids = blk[15].view(np.int32)
+        ids[ids >= 0] = rs.integers(0, 50, int((ids >= 0).sum()))
+        rows[j] = blk
+        lo[j], hi[j] = sw_t.cl_lo[c].numpy(), sw_t.cl_hi[c].numpy()
+    n = T * TILE
+    cl = rs.integers(0, C2, n)
+    ln = np.array([rs.choice(np.nonzero(rows[c, 15].view(np.int32) >= 0)[0])
+                   for c in cl])
+    tgt = rows[cl, 0:3, ln] + 0.01 * rows[cl, 3:6, ln]
+    u = rs.normal(size=(n, 3))
+    o = tgt + 4.0 * u / np.linalg.norm(u, axis=1, keepdims=True)
+    d = tgt - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    maxt = np.full(n, np.inf)
+    maxt[::7] = 3.99                         # some rays stop short
+    r8 = ttl.rays8_of(Ray(torch.as_tensor(o, dtype=torch.float32),
+                          torch.as_tensor(d, dtype=torch.float32),
+                          torch.zeros(n),
+                          torch.as_tensor(maxt, dtype=torch.float32)))
+    bounds = torch.as_tensor(np.concatenate([lo.T, hi.T]))
+    _, t_pmax = tk.cull_phase_a_plain(r8, bounds)
+    cid = rs.integers(0, C2, (T, q))
+    cnt = rs.integers(q // 2, q + 1, T)
+    cnt[0] = q
+    bq = np.sort(rs.integers(0, 2048, (T, q)), axis=1)
+    bq[:, -1] = tk.TE_INF
+    slots = torch.as_tensor((cid | (bq << 20)).astype(np.int64)
+                            .astype(np.uint32).view(np.int32))
+    tmin = torch.as_tensor(rs.uniform(3.0, 3.5, T).astype(np.float32))
+    tscale = torch.as_tensor(rs.uniform(1e-3, 3e-3, T).astype(np.float32))
+    return (slots, torch.as_tensor(cnt.astype(np.int32)), tmin, tscale, r8,
+            t_pmax, torch.as_tensor(rows), bounds)
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_slot_merge_equals_per_lane_rule_on_forced_ties(geom, any_hit):
+    """The kernel's slot-level rule (cull, reduce each slot per warp, then
+    merge against the holds-best bits) gives exactly phase_b_plain's
+    per-lane result (t, pid and slots run) on slots built to tie exactly
+    across lanes and across slots."""
+    args = _tied_inputs(geom[1])
+    t_p, p_p, run_p = tk.phase_b_plain(*args[:7], any_hit, True)
+    t_m, p_m, run_m, ties = _slotwise_model(*args, any_hit)
+    np.testing.assert_array_equal(t_m.numpy(), t_p.numpy())
+    np.testing.assert_array_equal(p_m.numpy(), p_p.numpy())
+    np.testing.assert_array_equal(run_m.numpy(), run_p.numpy())
+    assert int((p_p >= 0).sum()) > 200
+    assert bool((run_p < args[1]).any())         # an early exit ran
+    assert ties["lanes"] > 20
+    if not any_hit:
+        assert ties["slots"] > 100
+
+
+def test_phase_b_wrapper_refuses_pair_counts_on_cpu(geom):
+    args = _tied_inputs(geom[1])
+    with pytest.raises(ValueError, match="cull"):
+        tk.phase_b(*args, pairs_out=torch.zeros(args[0].shape[0],
+                                                dtype=torch.int32))
