@@ -16,12 +16,14 @@ Phases (each prints one line with its elapsed seconds):
      random directions at the camera hit points, Morton-sorted as the
      bounce queries are), and
        a. hold kernel A (phase-A cull, with and without its octet output)
-          and kernels C, D (octet and stream phase B, closest and any hit)
-          against their plain PyTorch versions on a subset of 512 tiles
-          per wave, and kernel B (dense phase B, closest and any hit) on
-          EVERY tile of both waves, with the share of (ray, slot) pairs
-          that pass its slot cull; time B, C and D on both whole waves
-          beside the bound they share;
+          and kernel B (dense phase B, closest and any hit) against their
+          plain PyTorch versions on EVERY tile of both waves, with the
+          share of (tile, cluster) pairs that pass A's tile test
+          (group_cull_plain) and of (ray, slot) pairs that pass B's slot
+          cull; kernels
+          C, D (octet and stream phase B, closest and any hit) on a
+          subset of 512 tiles per wave; time A on both whole waves beside
+          its bounds, and B, C and D beside the bound they share;
        b. run both whole waves through tiled_closest_hit / tiled_any_hit
           with octets=True and with streams=True (q = 2048, the JAX
           default stream_qo = 512) and compare each with
@@ -69,6 +71,11 @@ F32_FLOPS_PER_S = 67e12
 # hit points
 SLAB_FLOPS = 30
 CYL_FLOPS = 90
+# f32 operations of kernel A's tile test of one (tile, cluster) pair,
+# counted from tiled.cu's tile_pass the same way (per face 2 subtractions,
+# 4 products, 6 min/max; 2 min/max per axis; 4 across the axes, 2 to
+# widen, 3 compares)
+TILE_TEST_FLOPS = 87
 CHUNK_CYL_FLOPS = 105
 
 SUBSET_TILES = 512
@@ -184,9 +191,71 @@ def waves(scene):
                                                          .mean())
 
 
+def check_kernel_a(r8, bounds, name):
+    """Phase 2a: kernel A (both instances) against its plain version on
+    EVERY tile of a wave (one plain call with emit_oct serves both), and
+    the share of (tile, cluster) pairs that pass its tile test.
+    Returns (te, t_pmax, oct, max |te diff|, facts for the kernels line)."""
+    import torch
+    from hairpt_torch.ops import tiled_kernels as tk
+
+    T, C = r8.shape[0], bounds.shape[1]
+    te_k, tpm_k = tk.cull_phase_a(r8, bounds)
+    te_o, tpm_o, oct_k = tk.cull_phase_a(r8, bounds, emit_oct=True)
+    require(torch.equal(te_o.view(torch.int16), te_k.view(torch.int16))
+            and torch.equal(tpm_o.view(torch.int32), tpm_k.view(torch.int32)),
+            f"{name}: kernel A's two instances differ in te or t_pmax")
+    out = {}
+    plain_ms = cuda_ms(lambda: out.update(p=tk.cull_phase_a_plain(
+        r8, bounds, emit_oct=True)), 1, warm=False)
+    te_p, tpm_p, oct_p = out.pop("p")
+    a = te_k.view(torch.int16).int() & 0x7FFF
+    b = te_p.view(torch.int16).int() & 0x7FFF
+    steps = int((a - b).abs().max())
+    words = int((te_k.view(torch.int16) != te_p.view(torch.int16)).sum())
+    fin = torch.isfinite(te_p.float())
+    te_err = float((te_k.float() - te_p.float())[fin].abs().max()) \
+        if bool(fin.any()) else 0.0
+    both_neg = (tpm_k < 0) & (tpm_p < 0)
+    tp_rel = float(torch.where(both_neg, 0.0, (tpm_k - tpm_p).abs()
+                               / tpm_p.abs().clamp(min=1e-30)).max())
+    oct_bad = int((oct_k != oct_p).sum())
+    del te_p, tpm_p, oct_p
+    # the tile test's passes (its plain version) beside the clusters the
+    # tiles' rays enter
+    n_pass = sum(int(tk.group_cull_plain(r8[t0:t0 + 256], bounds).sum())
+                 for t0 in range(0, T, 256))
+    live = r8[:, 7, :] > r8[:, 6, :]
+    live_t = int(live.any(1).sum())
+    hit_t = int(fin.sum())
+    # the per-ray tests this wave needs: each live ray of a tile against
+    # the clusters some ray of the tile enters
+    n_ray_tests = int((fin.sum(1) * live.sum(1)).sum())
+    facts = dict(live_tiles=live_t, tile_pass=n_pass,
+                 tile_pass_share=n_pass / max(1, live_t * C),
+                 tile_union_share=hit_t / max(1, live_t * C),
+                 ray_tests=n_ray_tests, plain_ms=plain_ms)
+    log(f"{name}: kernel A vs plain on all {T} tiles (plain {plain_ms:.1f} "
+        f"ms): max bf16 step diff {steps}, te words differing {words}, max "
+        f"|te diff| {te_err:.3g}, max t_pmax rel diff {tp_rel:.3g}, octet "
+        f"words differing {oct_bad}; candidates/tile "
+        f"{float(fin.sum(1).float().mean()):.1f}")
+    log(f"{name}: of the live (tile, cluster) pairs the tile test passes "
+        f"{facts['tile_pass_share']:.5f} ({n_pass} of {live_t * C}), rays "
+        f"enter {facts['tile_union_share']:.5f} ({hit_t}); per-ray tests "
+        f"needed {n_ray_tests}")
+    require(steps <= TE_MAX_BF16_STEPS,
+            f"{name}: kernel A te differs by {steps} bf16 steps")
+    require(tp_rel <= TPMAX_RTOL,
+            f"{name}: kernel A t_pmax rel diff {tp_rel}")
+    require(oct_bad == 0, f"{name}: kernel A octet words differ in "
+            f"{oct_bad} entries")
+    return te_k, tpm_k, oct_k, te_err, facts
+
+
 def check_kernels(scene, wv, report):
-    """Phase 2a: kernels A (both instances), B, C and D against their plain
-    versions on the card, on 512 live tiles of each wave."""
+    """Phase 2a: kernel A (both instances) against its plain version on
+    every tile of each wave, and kernels C, D on 512 live tiles."""
     import torch
     from hairpt_torch.ops import intersect_tiled as itiled
     from hairpt_torch.ops import tiled_kernels as tk
@@ -203,47 +272,14 @@ def check_kernels(scene, wv, report):
     for name, ray in wv.items():
         ray_p, _ = itiled._pad_rays(ray, tk.TILE)
         r8 = itiled.rays8_of(ray_p)
-        T = r8.shape[0]
-        te_k, tpm_k = tk.cull_phase_a(r8, bounds)
-        te_o, tpm_o, oct_k = tk.cull_phase_a(r8, bounds, emit_oct=True)
-        require(torch.equal(te_o.view(torch.int16), te_k.view(torch.int16))
-                and torch.equal(tpm_o, tpm_k),
-                f"{name}: kernel A's two instances differ in te or t_pmax")
+        te_k, tpm_k, oct_k, te_err, facts = check_kernel_a(r8, bounds, name)
+        errs["cull_phase_a"] = max(errs["cull_phase_a"], te_err)
+        errs["cull_phase_a_oct"] = max(errs["cull_phase_a_oct"], te_err)
         live = torch.nonzero((r8[:, 7, :] > r8[:, 6, :]).any(1)).squeeze(1)
         sel = torch.linspace(0, live.numel() - 1, min(SUBSET_TILES,
                                                       live.numel()),
                              device=r8.device).round().long()
         idx = torch.unique(live[sel])
-        te_p, tpm_p, oct_p = tk.cull_phase_a_plain(r8[idx], bounds,
-                                                   emit_oct=True)
-        a = te_k[idx].view(torch.int16).int() & 0x7FFF
-        b = te_p.view(torch.int16).int() & 0x7FFF
-        steps = int((a - b).abs().max())
-        fin = torch.isfinite(te_p.float())
-        te_err = float((te_k[idx].float() - te_p.float())[fin].abs().max()) \
-            if bool(fin.any()) else 0.0
-        both_neg = (tpm_k[idx] < 0) & (tpm_p < 0)
-        tp_rel = torch.where(
-            both_neg, 0.0, (tpm_k[idx] - tpm_p).abs()
-            / tpm_p.abs().clamp(min=1e-30))
-        oct_bad = int((oct_k[idx] != oct_p).sum())
-        bits = oct_p[fin]
-        lanes = float(sum(((bits >> o) & 1).sum() for o in range(8))) \
-            / max(1, 8 * bits.numel())
-        log(f"{name}: kernel A on {T} tiles vs plain on {idx.numel()}: "
-            f"max bf16 step diff {steps}, max |te diff| {te_err:.3g}, "
-            f"max t_pmax rel diff {float(tp_rel.max()):.3g}, "
-            f"candidates/tile {float(fin.sum(1).float().mean()):.1f}; "
-            f"octet words differing {oct_bad}, octet bits set in "
-            f"{lanes:.3f} of (candidate, octet) pairs")
-        require(steps <= TE_MAX_BF16_STEPS,
-                f"{name}: kernel A te differs by {steps} bf16 steps")
-        require(float(tp_rel.max()) <= TPMAX_RTOL,
-                f"{name}: kernel A t_pmax rel diff {float(tp_rel.max())}")
-        require(oct_bad == 0, f"{name}: kernel A octet words differ in "
-                f"{oct_bad} entries")
-        errs["cull_phase_a"] = max(errs["cull_phase_a"], te_err)
-        errs["cull_phase_a_oct"] = max(errs["cull_phase_a_oct"], te_err)
 
         key = ks.keys(te_k[idx])
         slots, cnt, tmin, tscale, ov, _, oct_sl = itiled._tile_slots(
@@ -286,7 +322,7 @@ def check_kernels(scene, wv, report):
                     require(t_rel <= T_RTOL,
                             f"{name}/{mode}: {kname} t rel diff {t_rel}")
                     errs[kname] = max(errs[kname], t_abs)
-        report[name] = dict(r8=r8, te=te_k, tpm=tpm_k, oct=oct_k)
+        report[name] = dict(r8=r8, te=te_k, tpm=tpm_k, oct=oct_k, a=facts)
     return errs
 
 
@@ -374,9 +410,6 @@ def time_kernels(scene, report, errs, plain_b):
     r8, tpm = cam["r8"], cam["tpm"]
     T = r8.shape[0]
     bounds = torch.cat([sw.cl_lo.T, sw.cl_hi.T]).contiguous()
-    live_tiles = int((r8[:, 7, :] > r8[:, 6, :]).any(1).sum())
-    flops_a = live_tiles * 64 * C * SLAB_FLOPS
-    bytes_a = T * 8 * 64 * 4 + 6 * C * 4 + T * C * 2 + T * 64 * 4
     out = []
 
     def entry(name, src, replaces, err, ms, plain, bound, **more):
@@ -388,17 +421,45 @@ def time_kernels(scene, report, errs, plain_b):
                         ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
                         library_ms=None, tiles=T, **more))
 
-    entry("cull_phase_a", "hairpt_torch/csrc/tiled.cu",
-          "hairpt/ops/pallas_tiled.py:882", errs["cull_phase_a"],
-          cuda_ms(lambda: tk.cull_phase_a(r8, bounds), 5),
-          cuda_ms(lambda: tk.cull_phase_a_plain(r8, bounds), 1, warm=False),
-          bound_ms(bytes_a, flops_a))
-    entry("cull_phase_a_oct", "hairpt_torch/csrc/tiled.cu",
-          "hairpt/ops/pallas_tiled.py:882", errs["cull_phase_a_oct"],
-          cuda_ms(lambda: tk.cull_phase_a(r8, bounds, emit_oct=True), 5),
-          cuda_ms(lambda: tk.cull_phase_a_plain(r8, bounds, emit_oct=True),
-                  1, warm=False),
-          bound_ms(bytes_a + T * C * 4, flops_a))
+    # kernel A on both waves, beside two bounds: the work these inputs
+    # need (bound_ms: each live (tile, cluster) tile test, and each live
+    # ray against the clusters some ray of its tile enters, against the
+    # bytes) and the
+    # dense bound (every live tile's 64 rays x every cluster)
+    plain_a = cuda_ms(lambda: tk.cull_phase_a_plain(r8, bounds), 1,
+                      warm=False)
+    for emit in (False, True):
+        kname = "cull_phase_a_oct" if emit else "cull_phase_a"
+        more = {}
+        for wname in ("camera", "bounce"):
+            w = report[wname]
+            f = w["a"]
+            ms = cuda_ms(lambda: tk.cull_phase_a(w["r8"], bounds,
+                                                 emit_oct=emit), 5)
+            n_bytes = T * 8 * 64 * 4 + 6 * C * 4 + T * 64 * 4 \
+                + T * C * (6 if emit else 2)
+            work = bound_ms(n_bytes, f["live_tiles"] * C * TILE_TEST_FLOPS
+                            + f["ray_tests"] * SLAB_FLOPS)
+            dense = bound_ms(n_bytes, f["live_tiles"] * 64 * C * SLAB_FLOPS)
+            log(f"{kname}, {wname} wave: {ms:.3f} ms; bound from this "
+                f"wave's work {work[0]:.3f} ms by {work[1]} "
+                f"({ms / work[0]:.1f}x), dense bound {dense[0]:.3f} ms by "
+                f"{dense[1]} ({ms / dense[0]:.2f}x)")
+            pre = "" if wname == "camera" else "bounce_"
+            more.update({f"{pre}ms": ms, f"{pre}bound_ms": work[0],
+                         f"{pre}bound_by": work[1],
+                         f"{pre}dense_bound_ms": dense[0],
+                         f"{pre}tile_pass_share": f["tile_pass_share"],
+                         f"{pre}tile_union_share": f["tile_union_share"]})
+        ms = more.pop("ms")
+        b = (more.pop("bound_ms"), more.pop("bound_by"))
+        entry(kname, "hairpt_torch/csrc/tiled.cu",
+              "hairpt/ops/pallas_tiled.py:882",
+              errs[kname], ms, cam["a"]["plain_ms"] if emit else plain_a, b,
+              bound_basis="bound_ms: the work of this run's camera wave "
+              "(live (tile, cluster) tile tests, live-ray tests of the "
+              "clusters the tile's rays enter); dense_bound_ms: every live tile's 64 rays "
+              "x every cluster", **more)
 
     ks = itiled.KeySpace(C)
     key = ks.keys(cam["te"])

@@ -28,7 +28,7 @@ using hairpt_dev::f_inf;
 using hairpt_dev::RayRegs;
 
 constexpr int TILE = 64;          // rays per tile
-constexpr int CULL_THREADS = 256; // clusters per phase-A block
+constexpr int CULL_THREADS = 256; // clusters per phase-A chunk
 constexpr int UNROLL = 8;         // phase-B slots between early-exit checks
 constexpr int TE_INF = 4095;      // 12-bit "no further slot" sentinel
 constexpr unsigned CID_MASK = (1u << 20) - 1;
@@ -38,35 +38,106 @@ constexpr unsigned CID_MASK = (1u << 20) - 1;
 //
 // Replaces hairpt/ops/pallas_tiled.py::_cull_kernel (called through
 // cull_phase_a, pallas_tiled.py:1001). For each 64-ray tile and each
-// cluster AABB it runs the slab test of every ray, and writes
-//   te[t, c]     min over the tile's rays of max(entry t, 0), truncated
-//                toward zero to bf16 (a lower bound); +inf for a miss,
+// cluster AABB it finds the rays whose slab test hits the box, and writes
+//   te[t, c]     min over those rays of max(entry t, 0), truncated toward
+//                zero to bf16 (a lower bound); +inf if there is none,
 //   t_pmax[t, r] each ray's largest entry t over its hit clusters
 //                (-1 if none; the wrapper pre-fills -1).
-// Fully dead tiles (no ray with maxt > mint) write inf and leave -1.
-// The EMIT_OCT instance also writes
+// A dead ray (maxt <= mint) never hits, as in the plain version; fully
+// dead tiles write inf and leave -1. The EMIT_OCT instance also writes
 //   oct[t, c]    bit o set iff a ray of octet o (rays 8o..8o+7) enters
 //                the box (pallas_tiled.py:940-948, the emit_oct output);
-// the default instance has neither the register nor the store.
+// the default instance has neither the shared words nor the store.
 //
-// What bounds it: operations. At the furball's main-path shapes (16,384
-// tiles x 64 rays x ~7,875 clusters) the slab tests are ~0.2 TFLOP of
-// f32 against a 258 MB bf16 te write, so the f32 rate and not memory is
-// the limit. Design: one block per (tile, group of 256 clusters); the
-// tile's 64 rays (origin, 1/d, mint, effective maxt) are staged once in
-// shared memory and read by broadcast; each thread owns one cluster,
-// keeps its six bounds in registers and loops over the 64 rays, so the
-// inner loop is pure arithmetic. t_pmax is a per-ray maximum across
-// clusters, i.e. across threads and blocks: a warp reduction
-// (__reduce_max_sync on the float bits, valid because every value is -1
-// or >= 0 and -0.0 is cleared to +0.0), a shared-memory atomicMax per
-// warp and one global atomicMax per ray and block.
+// What bounds it: the number of tests. A camera tile's rays enter ~0.7%
+// of the furball's 7,875 boxes and a bounce tile's ~6.6%, so slab-testing
+// every (ray, cluster) pair (8.3e9 tests of ~38 instructions per camera
+// wave) spends >90% of its instructions deciding "miss". Design: one block
+// per tile, looping over the clusters in chunks of 256, with a two-level
+// cull; what is left is bound by the tile tests' operations and the
+// per-chunk latency (a box load, a barrier).
+//   * tile test: the ranges of the tile's live rays' origins and inverse
+//     directions per axis, their least mint and largest maxt. Against a
+//     box, each of the slab test's round-to-nearest operations is applied
+//     to the range ends (a product at the four corners of its range):
+//     rounding is monotone, so the result brackets every ray's value and
+//     a box the tile test rejects fails every ray's own test (no directed
+//     rounding is needed; --fmad=false keeps each operation rounded on
+//     its own). fminf/fmaxf drop a NaN operand, so a live ray with a
+//     non-finite origin or 1/d component can hit a box through its other
+//     axes: such a tile passes every box.
+//   * level 1: one thread per cluster runs the tile test; the surviving
+//     clusters and their boxes are compacted into shared memory with
+//     __ballot_sync / __popc.
+//   * level 2: the (survivor, ray) pairs are spread over all threads and
+//     run the per-ray slab test unchanged. A hit does shared atomicMin
+//     (te) and atomicMax (t_pmax) on the bits of max(entry t, 0) with its
+//     sign cleared (so -0.0 orders as +0.0), and atomicOr of the octet
+//     bit. Min, max and or do not depend on the order, so the outputs
+//     equal the dense test's bit for bit whatever the mapping.
+// Then the chunk's te (and oct) are stored coalesced, and after the last
+// chunk one global atomicMax per ray merges t_pmax. Measured slower on
+// the camera or the first bounce wave (PERF.md): an octet-level test
+// between the two levels, blocks of 256 clusters per tile, a per-thread
+// 64-ray loop behind the tile test, the next chunk's boxes prefetched
+// into registers, blocks of 128 or 512 threads, and 2 or 4 tiles per
+// block.
 // ---------------------------------------------------------------------------
+
+// The tile's live rays as the tile test takes them: ranges of the origin
+// and of 1/d per axis, the least mint and largest maxt; `finite` is false
+// if a live ray has a non-finite component of o or 1/d (the tile then
+// passes every box).
+struct RayRange {
+  float omin[3], omax[3], imin[3], imax[3];
+  float mint, maxt;
+  bool finite;
+};
+
+// The range [lo, hi] of fl(fl(f - o) * inv) over o in [omin, omax] and
+// inv in [imin, imax]: round-to-nearest is monotone and a product's
+// extremes over a box lie at its corners.
+__device__ __forceinline__ void face_range(float f, float omin, float omax,
+                                           float imin, float imax,
+                                           float& lo, float& hi) {
+  const float xl = f - omax, xh = f - omin;
+  const float p0 = xl * imin, p1 = xl * imax;
+  const float p2 = xh * imin, p3 = xh * imax;
+  lo = fminf(fminf(p0, p1), fminf(p2, p3));
+  hi = fmaxf(fmaxf(p0, p1), fmaxf(p2, p3));
+}
+
+// false only if no ray of the range can pass the per-ray slab test
+// against the box b (lo.xyz, hi.xyz)
+__device__ __forceinline__ bool tile_pass(const RayRange& g,
+                                          const float (&b)[6]) {
+  if (!g.finite) return true;
+  float tn = 0.0f, tf = 0.0f;
+#pragma unroll
+  for (int ax = 0; ax < 3; ++ax) {
+    float l0, h0, l1, h1;
+    face_range(b[ax], g.omin[ax], g.omax[ax], g.imin[ax], g.imax[ax], l0,
+               h0);
+    face_range(b[3 + ax], g.omin[ax], g.omax[ax], g.imin[ax], g.imax[ax],
+               l1, h1);
+    const float lo_ax = fminf(l0, l1);
+    const float hi_ax = fmaxf(h0, h1);
+    tn = (ax == 0) ? lo_ax : fmaxf(tn, lo_ax);
+    tf = (ax == 0) ? hi_ax : fminf(tf, hi_ax);
+  }
+  tf = tf * 1.00000024f + 1e-7f;
+  return !(tn > tf || tf < g.mint || tn > g.maxt);
+}
+
+constexpr unsigned FULL_MASK = 0xffffffffu;
+constexpr int CULL_WARPS = CULL_THREADS / 32;
+constexpr int TE_MISS = 0x7f800000;   // +inf: te bits of a missed box
+
 template <bool EMIT_OCT>
 __global__ void __launch_bounds__(CULL_THREADS)
 cull_kernel(const float* __restrict__ rays8,   // [T, 8, TILE]
             const float* __restrict__ bounds,  // [6, C] lo.xyz, hi.xyz
-            int C, int n_cblk,
+            int C,
             uint16_t* __restrict__ te,         // [T, C] bf16 bits
             int* __restrict__ t_pmax,          // [T, TILE] float bits
             int* __restrict__ oct) {           // [T, C] (EMIT_OCT only)
@@ -75,78 +146,164 @@ cull_kernel(const float* __restrict__ rays8,   // [T, 8, TILE]
   __shared__ float s_mint[TILE];
   __shared__ float s_maxt[TILE];
   __shared__ int s_pmax[TILE];
+  __shared__ float s_part[2][14];              // the two ray warps' ranges
+  __shared__ unsigned s_live[2], s_bad[2];
+  __shared__ float s_box[CULL_THREADS][6];     // level-1 survivors' boxes
+  __shared__ int s_surv[CULL_THREADS];         //   ... their chunk index
+  __shared__ int s_wcnt[2][CULL_WARPS];        // [chunk parity] survivors
+  __shared__ int s_te[CULL_THREADS];           // te bits of the chunk
+  __shared__ int s_oct[EMIT_OCT ? CULL_THREADS : 1];
 
-  const int tile = blockIdx.x / n_cblk;
-  const int c = (blockIdx.x % n_cblk) * CULL_THREADS + threadIdx.x;
+  const int tile = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const float inf = f_inf();
   const float* r8 = rays8 + (size_t)tile * 8 * TILE;
   const int neg1 = __float_as_int(-1.0f);
 
+  // 1. stage the rays; reduce each ray warp's ranges
   bool live_ray = false;
-  if (threadIdx.x < TILE) {
-    const int r = threadIdx.x;
+  if (tid < TILE) {
+    const int r = tid;
+    float o[3], inv[3];
+    bool fin = true;
 #pragma unroll
     for (int ax = 0; ax < 3; ++ax) {
-      s_o[ax][r] = r8[ax * TILE + r];
+      o[ax] = r8[ax * TILE + r];
       float d = r8[(3 + ax) * TILE + r];
       if (fabsf(d) < 1e-12f) d = (d >= 0.0f) ? 1e-12f : -1e-12f;
-      s_inv[ax][r] = 1.0f / d;
+      inv[ax] = 1.0f / d;
+      s_o[ax][r] = o[ax];
+      s_inv[ax][r] = inv[ax];
+      fin = fin && isfinite(o[ax]) && isfinite(inv[ax]);
     }
     const float mint = r8[6 * TILE + r];
     const float maxt = r8[7 * TILE + r];
     live_ray = maxt > mint;
     s_mint[r] = mint;
-    s_maxt[r] = live_ray ? maxt : -f_inf();
+    s_maxt[r] = live_ray ? maxt : -inf;
     s_pmax[r] = neg1;
+    const bool use = live_ray && fin;
+    // mn: omin.xyz, imin.xyz, mint; mx: omax.xyz, imax.xyz, maxt
+    float mn[7], mx[7];
+#pragma unroll
+    for (int ax = 0; ax < 3; ++ax) {
+      mn[ax] = use ? o[ax] : inf;
+      mx[ax] = use ? o[ax] : -inf;
+      mn[3 + ax] = use ? inv[ax] : inf;
+      mx[3 + ax] = use ? inv[ax] : -inf;
+    }
+    mn[6] = use ? mint : inf;
+    mx[6] = use ? maxt : -inf;
+    const unsigned lv = __ballot_sync(FULL_MASK, live_ray);
+    const unsigned bd = __ballot_sync(FULL_MASK, live_ray && !fin);
+#pragma unroll
+    for (int s = 1; s < 32; s <<= 1) {
+#pragma unroll
+      for (int k = 0; k < 7; ++k) {
+        mn[k] = fminf(mn[k], __shfl_xor_sync(FULL_MASK, mn[k], s));
+        mx[k] = fmaxf(mx[k], __shfl_xor_sync(FULL_MASK, mx[k], s));
+      }
+    }
+    if (lane == 0) {
+#pragma unroll
+      for (int k = 0; k < 7; ++k) {
+        s_part[warp][k] = mn[k];
+        s_part[warp][7 + k] = mx[k];
+      }
+      s_live[warp] = lv;
+      s_bad[warp] = bd;
+    }
   }
-  const int any_live = __syncthreads_or(live_ray);
-  if (!any_live) {
-    if (c < C) {
+  if (!__syncthreads_or(live_ray)) {
+    for (int c = tid; c < C; c += CULL_THREADS) {
       te[(size_t)tile * C + c] = 0x7f80;   // bf16 +inf
       if (EMIT_OCT) oct[(size_t)tile * C + c] = 0;
     }
     return;
   }
-
-  const bool valid = c < C;
-  float lo[3], hi[3];
+  RayRange tg;   // the tile's ranges, in registers
 #pragma unroll
   for (int ax = 0; ax < 3; ++ax) {
-    lo[ax] = valid ? bounds[ax * C + c] : 3e37f;
-    hi[ax] = valid ? bounds[(3 + ax) * C + c] : -3e37f;
+    tg.omin[ax] = fminf(s_part[0][ax], s_part[1][ax]);
+    tg.imin[ax] = fminf(s_part[0][3 + ax], s_part[1][3 + ax]);
+    tg.omax[ax] = fmaxf(s_part[0][7 + ax], s_part[1][7 + ax]);
+    tg.imax[ax] = fmaxf(s_part[0][10 + ax], s_part[1][10 + ax]);
   }
-  const int lane = threadIdx.x & 31;
-  float te_min = f_inf();
-  unsigned oct_bits = 0u;
-  for (int r = 0; r < TILE; ++r) {
-    float tn = 0.0f, tf = 0.0f;
+  tg.mint = fminf(s_part[0][6], s_part[1][6]);
+  tg.maxt = fmaxf(s_part[0][13], s_part[1][13]);
+  tg.finite = (s_bad[0] | s_bad[1]) == 0u;
+  const unsigned long long live_mask =
+      s_live[0] | ((unsigned long long)s_live[1] << 32);
+
+  for (int c0 = 0; c0 < C; c0 += CULL_THREADS) {
+    const int c = c0 + tid;
+    // 2. level 1: this thread's cluster against the tile
+    float b[6];
+    bool pass = false;
+    if (c < C) {
 #pragma unroll
-    for (int ax = 0; ax < 3; ++ax) {
-      const float a0 = (lo[ax] - s_o[ax][r]) * s_inv[ax][r];
-      const float a1 = (hi[ax] - s_o[ax][r]) * s_inv[ax][r];
-      const float lo_ax = fminf(a0, a1);
-      const float hi_ax = fmaxf(a0, a1);
-      tn = (ax == 0) ? lo_ax : fmaxf(tn, lo_ax);
-      tf = (ax == 0) ? hi_ax : fminf(tf, hi_ax);
+      for (int i = 0; i < 6; ++i) b[i] = __ldg(bounds + (size_t)i * C + c);
+      pass = tile_pass(tg, b);
     }
-    tf = tf * 1.00000024f + 1e-7f;
-    const bool hit = valid && (tn <= tf) && (tf >= s_mint[r])
-                     && (tn <= s_maxt[r]);
-    const float tn0 = fmaxf(tn, 0.0f);
-    if (hit) te_min = fminf(te_min, tn0);
-    if (EMIT_OCT && hit) oct_bits |= 1u << (r >> 3);
-    const int v = hit ? (__float_as_int(tn0) & 0x7fffffff) : neg1;
-    const int m = __reduce_max_sync(0xffffffffu, v);
-    if (lane == 0 && m != neg1) atomicMax(&s_pmax[r], m);
-  }
-  if (valid) {
-    te[(size_t)tile * C + c] =
-        (uint16_t)(__float_as_uint(te_min) >> 16);  // truncate toward 0
-    if (EMIT_OCT) oct[(size_t)tile * C + c] = (int)oct_bits;
+    s_te[tid] = TE_MISS;
+    if (EMIT_OCT) s_oct[tid] = 0;
+    // (double-buffered: with no survivor a chunk has one barrier, and a
+    // thread may write the next chunk's counts while others still read)
+    const int par = (c0 / CULL_THREADS) & 1;
+    const unsigned bal = __ballot_sync(FULL_MASK, pass);
+    if (lane == 0) s_wcnt[par][warp] = __popc(bal);
+    __syncthreads();
+    int base = 0, n_surv = 0;
+#pragma unroll
+    for (int w = 0; w < CULL_WARPS; ++w) {
+      const int v = s_wcnt[par][w];
+      base += (w < warp) ? v : 0;
+      n_surv += v;
+    }
+    if (n_surv > 0) {
+      if (pass) {
+        const int pos = base + __popc(bal & ((1u << lane) - 1u));
+        s_surv[pos] = tid;
+#pragma unroll
+        for (int i = 0; i < 6; ++i) s_box[pos][i] = b[i];
+      }
+      __syncthreads();
+      // 3. level 2: (survivor, ray) pairs, the per-ray slab test
+      for (int p = tid; p < TILE * n_surv; p += CULL_THREADS) {
+        const int i = p >> 6;   // p / TILE
+        const int r = p & 63;
+        if (!((live_mask >> r) & 1ull)) continue;
+        float tn = 0.0f, tf = 0.0f;
+#pragma unroll
+        for (int ax = 0; ax < 3; ++ax) {
+          const float a0 = (s_box[i][ax] - s_o[ax][r]) * s_inv[ax][r];
+          const float a1 = (s_box[i][3 + ax] - s_o[ax][r]) * s_inv[ax][r];
+          const float lo_ax = fminf(a0, a1);
+          const float hi_ax = fmaxf(a0, a1);
+          tn = (ax == 0) ? lo_ax : fmaxf(tn, lo_ax);
+          tf = (ax == 0) ? hi_ax : fminf(tf, hi_ax);
+        }
+        tf = tf * 1.00000024f + 1e-7f;
+        if ((tn <= tf) && (tf >= s_mint[r]) && (tn <= s_maxt[r])) {
+          const int v = __float_as_int(fmaxf(tn, 0.0f)) & 0x7fffffff;
+          atomicMin(&s_te[s_surv[i]], v);
+          atomicMax(&s_pmax[r], v);
+          if (EMIT_OCT) atomicOr(&s_oct[s_surv[i]], 1 << (r >> 3));
+        }
+      }
+      __syncthreads();
+    }
+    // 4. the chunk's te (and oct), coalesced
+    if (c < C) {
+      te[(size_t)tile * C + c] = (uint16_t)((unsigned)s_te[tid] >> 16);
+      if (EMIT_OCT) oct[(size_t)tile * C + c] = s_oct[tid];
+    }
   }
   __syncthreads();
-  if (threadIdx.x < TILE && s_pmax[threadIdx.x] != neg1)
-    atomicMax(&t_pmax[(size_t)tile * TILE + threadIdx.x],
-              s_pmax[threadIdx.x]);
+  if (tid < TILE && s_pmax[tid] != neg1)
+    atomicMax(&t_pmax[(size_t)tile * TILE + tid], s_pmax[tid]);
 }
 
 // ---------------------------------------------------------------------------
@@ -463,16 +620,14 @@ extern "C" {
 int hairpt_cull(const void* rays8, const void* bounds, int T, int C,
                 void* te, void* t_pmax, void* oct, void* stream) {
   if (T <= 0) return 0;
-  const int n_cblk = (C + CULL_THREADS - 1) / CULL_THREADS;
-  const unsigned grid = (unsigned)T * n_cblk;
   cudaStream_t st = (cudaStream_t)stream;
   if (oct == nullptr)
-    cull_kernel<false><<<grid, CULL_THREADS, 0, st>>>(
-        (const float*)rays8, (const float*)bounds, C, n_cblk, (uint16_t*)te,
+    cull_kernel<false><<<T, CULL_THREADS, 0, st>>>(
+        (const float*)rays8, (const float*)bounds, C, (uint16_t*)te,
         (int*)t_pmax, nullptr);
   else
-    cull_kernel<true><<<grid, CULL_THREADS, 0, st>>>(
-        (const float*)rays8, (const float*)bounds, C, n_cblk, (uint16_t*)te,
+    cull_kernel<true><<<T, CULL_THREADS, 0, st>>>(
+        (const float*)rays8, (const float*)bounds, C, (uint16_t*)te,
         (int*)t_pmax, (int*)oct);
   return (int)cudaGetLastError();
 }

@@ -3,7 +3,9 @@ and their plain PyTorch versions (port of hairpt/ops/pallas_tiled.py).
 
   cull_phase_a    kernel A, phase A: slab test of each 64-ray tile against
                   every cluster AABB (replaces pallas_tiled._cull_kernel);
-                  emit_oct=True adds the octet bits (csrc/tiled.cu)
+                  emit_oct=True adds the octet bits (csrc/tiled.cu); the
+                  kernel slab-tests a ray only against the clusters that
+                  pass its tile test (group_cull_plain)
   phase_b         kernel B, phase B: miter-cylinder test over each tile's
                   packed slot list (replaces pallas_tiled._tiled_kernel,
                   deferred HAIRPT_UNROLL=8 semantics; csrc/tiled.cu);
@@ -229,6 +231,55 @@ def cull_phase_a_plain(rays8, bounds, tile_chunk: int = 64,
     if emit_oct:
         return torch.cat(tes), torch.cat(tpms), torch.cat(octs)
     return torch.cat(tes), torch.cat(tpms)
+
+
+def group_cull_plain(rays8, bounds):
+    """Plain version of kernel A's tile test: [T, C] bool, False only
+    where no ray of the tile can pass its slab test against the cluster's
+    box. Over the tile's live rays it takes the ranges of the origin and
+    of 1/d per axis, the least mint and the largest maxt, and applies each
+    rounded operation of the slab test to the range ends (a product at
+    the four corners of its range), in the kernel's order, with fmin/fmax
+    for the kernel's fminf/fmaxf; rounding to nearest is monotone, so the
+    result brackets every ray's value. A tile with no live ray passes
+    nothing; one with a live ray whose o or 1/d has a non-finite component
+    passes everything (fminf/fmaxf drop a NaN, so that ray may hit through
+    its other axes)."""
+    inf = float("inf")
+    o, inv = rays8[:, 0:3], _inv_dir(rays8[:, 3:6])     # [T, 3, 64]
+    mint, maxt = rays8[:, 6], rays8[:, 7]
+    live = maxt > mint
+    fin = torch.isfinite(o).all(dim=1) & torch.isfinite(inv).all(dim=1)
+    use = live & fin
+
+    def lo_hi(x):                                       # over the tile
+        u = use.view(x.shape[0], *[1] * (x.dim() - 2), -1)
+        return (torch.where(u, x, inf).amin(dim=-1)[..., None],
+                torch.where(u, x, -inf).amax(dim=-1)[..., None])
+
+    omin, omax = lo_hi(o)                               # [T, 3, 1]
+    imin, imax = lo_hi(inv)
+    t_mint = lo_hi(mint)[0]                             # [T, 1]
+    t_maxt = lo_hi(maxt)[1]
+
+    def face(f, ax):
+        xl, xh = f - omax[:, ax], f - omin[:, ax]
+        p0, p1 = xl * imin[:, ax], xl * imax[:, ax]
+        p2, p3 = xh * imin[:, ax], xh * imax[:, ax]
+        return (torch.fmin(torch.fmin(p0, p1), torch.fmin(p2, p3)),
+                torch.fmax(torch.fmax(p0, p1), torch.fmax(p2, p3)))
+
+    tn = tf = None
+    for ax in range(3):
+        l0, h0 = face(bounds[ax][None, :], ax)
+        l1, h1 = face(bounds[3 + ax][None, :], ax)
+        lo_ax, hi_ax = torch.fmin(l0, l1), torch.fmax(h0, h1)
+        tn = lo_ax if tn is None else torch.fmax(tn, lo_ax)
+        tf = hi_ax if tf is None else torch.fmin(tf, hi_ax)
+    tf = tf * 1.00000024 + 1e-7
+    reject = (tn > tf) | (tf < t_mint) | (tn > t_maxt)
+    bad = (live & ~fin).any(dim=-1, keepdim=True)
+    return bad | (live.any(dim=-1, keepdim=True) & ~reject)
 
 
 # ---------------------------------------------------------------------------

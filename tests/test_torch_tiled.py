@@ -3,7 +3,9 @@ run it (Pallas in interpret mode): the plain phase A and phase B, the
 slot routing with tied bf16 entry times, and whole queries with q smaller
 than the cluster count, so the exact-overflow completion loop runs. Then
 kernel B's own rules against the port's plain phase B: its slot cull
-keeps every hit, and its slot-level merge equals the per-lane rule."""
+keeps every hit, and its slot-level merge equals the per-lane rule; and
+kernel A's: its tile test keeps every hit, and its two-level cull
+equals the plain phase A."""
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -357,8 +359,13 @@ def _cull_violations(rows, r8, lo, hi, lane, any_hit, chunk=256):
 
 
 @pytest.fixture(scope="module")
-def cull_cases():
-    sw_f, wv_f = _furball_waves()
+def furball_waves():
+    return _furball_waves()
+
+
+@pytest.fixture(scope="module")
+def cull_cases(furball_waves):
+    sw_f, wv_f = furball_waves
     sw_r, wv_r = _random_geometry()
     waves = [_pairs_of(sw, ray) for sw, wv in ((sw_f, wv_f), (sw_r, wv_r))
              for ray in wv.values()]
@@ -535,3 +542,217 @@ def test_phase_b_wrapper_refuses_pair_counts_on_cpu(geom):
     with pytest.raises(ValueError, match="cull"):
         tk.phase_b(*args, pairs_out=torch.zeros(args[0].shape[0],
                                                 dtype=torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# kernel A's group test and its two-level cull (csrc/tiled.cu), on the CPU
+# ---------------------------------------------------------------------------
+
+def _kernel_slab(rays8, bounds):
+    """Kernel A's per-ray test of every ray against every box, with
+    torch.fmin/fmax for the kernel's fminf/fmaxf (they drop a NaN
+    operand, where cull_phase_a_plain's torch.minimum propagates it):
+    (hit [T, 64, C], entry t [T, 64, C]). A dead ray never hits."""
+    o = [rays8[:, ax, :, None] for ax in range(3)]
+    inv = tk._inv_dir(rays8[:, 3:6])
+    tn = tf = None
+    for ax in range(3):
+        a0 = (bounds[ax][None, None, :] - o[ax]) * inv[:, ax, :, None]
+        a1 = (bounds[3 + ax][None, None, :] - o[ax]) * inv[:, ax, :, None]
+        lo_ax, hi_ax = torch.fmin(a0, a1), torch.fmax(a0, a1)
+        tn = lo_ax if tn is None else torch.fmax(tn, lo_ax)
+        tf = hi_ax if tf is None else torch.fmin(tf, hi_ax)
+    tf = tf * 1.00000024 + 1e-7
+    mint, maxt = rays8[:, 6, :, None], rays8[:, 7, :, None]
+    hit = (maxt > mint) & (tn <= tf) & (tf >= mint) & (tn <= maxt)
+    return hit, tn
+
+
+def _tile_cull_model(rays8, bounds):
+    """csrc/tiled.cu cull_kernel transcribed: the tile test, the per-ray
+    test on the tile's surviving clusters, and the shared atomics' integer
+    min, max and or on the bits of max(entry t, 0) with the sign cleared.
+    Returns (te, t_pmax, oct, clusters passing the tile test [T])."""
+    T, C = rays8.shape[0], bounds.shape[1]
+    p1 = tk.group_cull_plain(rays8, bounds)                       # [T, C]
+    hit, tn = _kernel_slab(rays8, bounds)
+    hit = hit & p1[:, None]
+    v = torch.clamp(tn, min=0.0).view(torch.int32) & 0x7FFFFFFF
+    te = torch.where(hit, v, 0x7F800000).amin(dim=1)
+    te = ((te >> 16) << 16).view(torch.float32).to(torch.bfloat16)
+    neg1 = int(torch.tensor(-1.0).view(torch.int32))
+    tpm = torch.where(hit, v, neg1).amax(dim=2).view(torch.float32)
+    h8 = hit.view(T, 8, 8, C).any(dim=2)
+    octw = (1 << torch.arange(8, dtype=torch.int32)).view(1, 8, 1)
+    oct = (h8.to(torch.int32) * octw).sum(1, dtype=torch.int32)
+    return te, tpm, oct, p1.sum(1)
+
+
+def _a_case(ray, bounds):
+    return ttl.rays8_of(ttl._pad_rays(ray, TILE)[0]), bounds
+
+
+def _adversarial_tiles():
+    """Two tiles against 64 boxes near 1e4, some of zero width on one or
+    all axes: rays aimed at random boxes, with direction components set
+    to 0, -0, +-1e-13 (below the 1e-12 clamp), +-1e-12 and straddling 0
+    within each octet; dead rays (maxt <= mint), mint > 0, finite maxt
+    just past or short of the aim point, and 28 padding rays."""
+    rs = np.random.default_rng(11)
+    n_box, n = 64, 100
+    c = 1e4 + rs.uniform(-3, 3, (n_box, 3))
+    h = rs.uniform(0, 0.5, (n_box, 3))
+    h[rs.random((n_box, 3)) < 0.2] = 0.0
+    h[::9] = 0.0                                   # points
+    lo, hi = (c - h).astype(np.float32), (c + h).astype(np.float32)
+    o = (1e4 + rs.uniform(-4, 4, (n, 3))).astype(np.float32)
+    tgt = c[rs.integers(0, n_box, n)] + rs.uniform(-0.3, 0.3, (n, 3))
+    d = tgt - o
+    dist = np.linalg.norm(d, axis=1)
+    d = d / dist[:, None]
+    specials = np.array([0.0, -0.0, 1e-13, -1e-13, 1e-12, -1e-12])
+    pick = rs.random((n, 3)) < 0.25
+    d[pick] = rs.choice(specials, int(pick.sum()))
+    mint = np.where(rs.random(n) < 0.3, rs.uniform(0, 2, n), 0.0)
+    maxt = np.where(rs.random(n) < 0.4, dist * rs.uniform(0.8, 1.2, n),
+                    np.inf)
+    dead = rs.random(n) < 0.15
+    maxt[dead] = mint[dead] - rs.choice([0.0, 1.0], int(dead.sum()))
+    ray = Ray(torch.as_tensor(o), torch.as_tensor(d, dtype=torch.float32),
+              torch.as_tensor(mint, dtype=torch.float32),
+              torch.as_tensor(maxt, dtype=torch.float32))
+    return _a_case(ray, torch.as_tensor(np.concatenate([lo.T, hi.T])))
+
+
+def _edge_tiles(n_tiles=8):
+    """Tiles of 64 copies of one ray grazing an edge (x = 1, y = 0) of the
+    unit box that hits it only because the slab test widens the exit t
+    (tn > tf, tn <= tf * 1.00000024 + 1e-7): the group's ranges are then
+    points, so the group test's own widening is what keeps the hit."""
+    rs = np.random.default_rng(2)
+    n = 4096
+    o = rs.uniform(-3, -1, (n, 3)).astype(np.float32)
+    e = np.stack([np.ones(n), np.zeros(n), rs.uniform(0.2, 0.8, n)], 1)
+    d = e - o
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    bounds = torch.tensor([[0.0], [0.0], [0.0], [1.0], [1.0], [1.0]])
+    o_t, d_t = torch.as_tensor(o), torch.as_tensor(d)
+    inv = tk._inv_dir(d_t)
+    tn = tf = None
+    for ax in range(3):
+        a0 = (bounds[ax] - o_t[:, ax]) * inv[:, ax]
+        a1 = (bounds[3 + ax] - o_t[:, ax]) * inv[:, ax]
+        lo_ax, hi_ax = torch.minimum(a0, a1), torch.maximum(a0, a1)
+        tn = lo_ax if tn is None else torch.maximum(tn, lo_ax)
+        tf = hi_ax if tf is None else torch.minimum(tf, hi_ax)
+    only = (tn > tf) & (tn <= tf * 1.00000024 + 1e-7)
+    sel = torch.nonzero(only)[:n_tiles, 0]
+    assert sel.numel() == n_tiles
+    r8 = torch.zeros((n_tiles, 8, TILE))
+    r8[:, 0:3] = o_t[sel, :, None]
+    r8[:, 3:6] = d_t[sel, :, None]
+    r8[:, 7] = float("inf")
+    return r8, bounds
+
+
+def _nan_tile(component):
+    """One tile aimed along +z (d.x > 0 for every ray, so the x slab
+    bounds the group) at a box near the origin, and a far box at x = 50
+    that ray 13 alone reaches, through a NaN in its x origin
+    (component 'o') or x direction ('d'): fminf/fmaxf drop that axis, so
+    its y and z slabs decide. Box 0 is near, box 1 is far."""
+    rs = np.random.default_rng(3)
+    o = np.stack([rs.uniform(-0.2, 0.2, TILE), rs.uniform(-0.2, 0.2, TILE),
+                  np.full(TILE, -5.0)], 1)
+    d = np.stack([rs.uniform(0.005, 0.01, TILE),
+                  rs.uniform(-0.01, 0.01, TILE), np.ones(TILE)], 1)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    if component == "o":
+        o[13, 0] = np.nan
+    else:
+        d[13, 0] = np.nan
+    lo = np.array([[-1.0, -1.0, -1.0], [50.0, -1.0, -1.0]], np.float32)
+    hi = np.array([[1.0, 1.0, 1.0], [51.0, 1.0, 1.0]], np.float32)
+    r8 = ttl.rays8_of(Ray(torch.as_tensor(o, dtype=torch.float32),
+                          torch.as_tensor(d, dtype=torch.float32),
+                          torch.zeros(TILE), torch.full((TILE,), np.inf)))
+    return r8, torch.as_tensor(np.concatenate([lo.T, hi.T]))
+
+
+@pytest.fixture(scope="module")
+def a_cases(furball_waves):
+    sw_f, wv_f = furball_waves
+    sw_r, wv_r = _random_geometry()
+    _, r8_p, lo_p, hi_p, _ = _grazing_pencil()
+    cases = {name: _a_case(ray, _bounds(sw_f)) for name, ray in wv_f.items()}
+    cases["random"] = _a_case(wv_r["random"], _bounds(sw_r))
+    # every pencil tile against every fiber's own box (the rays lie on
+    # the faces of their own fiber's box)
+    cases["pencil"] = (r8_p, torch.cat([lo_p.T, hi_p.T]).contiguous())
+    cases["adversarial"] = _adversarial_tiles()
+    cases["edge"] = _edge_tiles()
+    return cases
+
+
+# the share of live (tile, cluster) pairs the tile test must reject on
+# the small furball's camera wave (measured: 0.760; its first bounce wave
+# has 3 live tiles, whose rays enter 94% of the clusters)
+REJECT_AT_LEAST = {"camera": 0.7}
+
+
+@pytest.mark.parametrize("case", ["camera", "bounce", "random", "pencil",
+                                  "adversarial", "edge", "nan_o", "nan_d"])
+def test_group_cull_keeps_every_hit(a_cases, case):
+    """Kernel A's tile test (group_cull_plain) passes every (tile,
+    cluster) pair in which a ray hits: by cull_phase_a_plain's predicate
+    on the small furball's camera and first-bounce waves, the random
+    geometry, the grazing pencil, the adversarial tiles and the edge
+    tiles; and by the kernel's own fminf/fmaxf predicate on a tile where
+    one live ray has a NaN origin ('nan_o') or direction ('nan_d')
+    component, which reaches a box the tile's other rays do not and which
+    the tile test, without its NaN rule, would reject. On the furball's
+    camera wave the test rejects most pairs."""
+    if case.startswith("nan_"):
+        r8, bounds = _nan_tile(case[-1])
+        hit, _ = _kernel_slab(r8, bounds)
+        assert bool(hit[0, 13, 1]) and int(hit[0, :, 1].sum()) == 1
+        assert not bool(torch.isfinite(
+            tk.cull_phase_a_plain(r8, bounds)[0][0, 1].float()))
+        ok = tk.group_cull_plain(r8, bounds)
+        assert not bool((hit.any(1) & ~ok).any()) and bool(ok[0, 1])
+        # without the NaN ray, the tile rejects the far box
+        r8_dead = r8.clone()
+        r8_dead[0, 7, 13] = -1.0
+        assert not bool(tk.group_cull_plain(r8_dead, bounds)[0, 1])
+        return
+    r8, bounds = a_cases[case]
+    hit = torch.isfinite(tk.cull_phase_a_plain(r8, bounds)[0].float())
+    ok = tk.group_cull_plain(r8, bounds)
+    assert ok.shape == hit.shape
+    assert not bool((hit & ~ok).any())
+    assert int(hit.sum()) > (10 if case == "adversarial" else 0)
+    if case == "edge":
+        assert bool(hit.all())
+    if case in REJECT_AT_LEAST:
+        live = (r8[:, 7] > r8[:, 6]).any(1)
+        rejected = 1.0 - float(ok[live].float().mean())
+        assert rejected >= REJECT_AT_LEAST[case], rejected
+
+
+@pytest.mark.parametrize("case", ["camera", "bounce", "random", "pencil",
+                                  "adversarial", "edge"])
+def test_tile_cull_transcription_equals_plain_phase_a(a_cases, case):
+    """Kernel A's two levels transcribed (_tile_cull_model: the tile test,
+    the per-ray test on its surviving clusters, integer atomics on the
+    sign-cleared entry t) give exactly cull_phase_a_plain's te, t_pmax
+    and octet words, and the tile test passes no fewer clusters than are
+    hit."""
+    r8, bounds = a_cases[case]
+    te_p, tpm_p, oct_p = tk.cull_phase_a_plain(r8, bounds, emit_oct=True)
+    te_m, tpm_m, oct_m, n1 = _tile_cull_model(r8, bounds)
+    np.testing.assert_array_equal(te_m.float().numpy(), te_p.float().numpy())
+    np.testing.assert_array_equal(tpm_m.numpy(), tpm_p.numpy())
+    np.testing.assert_array_equal(oct_m.numpy(), oct_p.numpy())
+    n_hit = torch.isfinite(te_p.float()).sum(1)
+    assert int(n_hit.sum()) > 0
+    assert bool((n_hit <= n1).all()) and bool((n1 <= bounds.shape[1]).all())
