@@ -8,9 +8,9 @@ and with the swept traversal.
 
 Phases (each prints one line with its elapsed seconds):
   0. the card (nvidia-smi name and power limit) and torch/CUDA versions;
-  1. build the three CUDA libraries (nvcc, sm_90a: tiled.cu with kernels
-     A and B, octets.cu with C and D, phaseb.cu with E) and the BVH
-     builder (g++), all in parallel;
+  1. build the four CUDA libraries (nvcc, sm_90a: tiled.cu with kernels
+     A and B, octets.cu with C and D, phaseb.cu with E, swept_cull.cu with
+     the swept phase A) and the BVH builder (g++), all in parallel;
   2. build the full-width furball scene (84,000 fibers x 12 segments,
      K = 128), take a real camera wave and a first-bounce wave (uniformly
      random directions at the camera hit points, Morton-sorted as the
@@ -29,20 +29,31 @@ Phases (each prints one line with its elapsed seconds):
           default stream_qo = 512) and compare each with
           the dense query; the launches of A's octet variant, C and D are
           counted over these queries;
-       c. hold kernel E (the swept traversal's chunk test) against its
-          plain version on >= 8,192 of each wave's chunks, pid exactly;
+       c. hold the swept phase-A kernel against _phase_a_dense on EVERY
+          ray of the camera wave, the first-bounce wave (in lane order,
+          as the swept traversal takes it) and the dead lanes at the
+          camera hits (slots, cnt and n_hit equal; on the camera wave
+          also with a p_max whose key lists leave shared memory), and
+          kernel E (the
+          swept traversal's chunk test) against its plain version on
+          EVERY live chunk those slots route and a tail of dead chunks
+          (t and pid bit for bit); time both on the camera and bounce
+          waves beside their bounds, with the shares of padding lanes,
+          dead lanes and entered sub-boxes that set kernel E's work;
      and time every kernel and its plain version at the camera wave's
      shapes;
   3. a small furball rendered on the card and with the plain versions on
      the CPU, with the tiled and with the swept traversal: the image means
-     must agree;
+     must agree, and the swept render on the card must go through both
+     swept kernels (the phase-A kernel's lowest-ids branch);
   4. the full-width render (1024^2, depth 65, true Sobol', q = 2048,
      shadow-ray RR 0.01, rough plastic, baked sunsky) through SceneBuilder
      -> build -> render: one warm-up wave and two timed 1-spp waves, with
      kernels A and B's launch counts taken over the timed waves;
   5. the same render with traversal='swept' (p_max 24, chunks of 64): one
-     warm-up wave and one or two timed waves, kernel E's launches counted
-     over them.
+     warm-up wave and one or two timed waves, the launches of the swept
+     phase-A kernel and kernel E counted over them (no plain version on
+     CUDA tensors, no tiled kernel).
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Any failed check exits
 non-zero before that line. Without CUDA the script exits non-zero at once.
@@ -79,7 +90,6 @@ TILE_TEST_FLOPS = 87
 CHUNK_CYL_FLOPS = 105
 
 SUBSET_TILES = 512
-E_SUBSET_CHUNKS = 8192
 
 # tolerances of the kernel checks, with their reasons:
 #  te: exact or one bf16 step apart (the kernel and the plain version
@@ -97,9 +107,11 @@ T_RTOL = 1e-5
 #  where CPU and GPU transcendentals round differently)
 MEAN_RTOL = 0.02
 #  octet bits of kernel A: exact (the same hit predicate as te)
-#  kernel E: pid and hit flags exactly equal, t within T_RTOL (the same
-#      arithmetic without fused multiply-adds on both sides, and a tie rule,
-#      the largest pid at the minimum t, that no order of the lanes changes)
+#  kernel E: t and pid bit for bit (the same arithmetic without fused
+#      multiply-adds on both sides, and a tie rule, the largest pid at the
+#      minimum t, that no order of the lanes or warps changes)
+#  swept phase A: slots, cnt and n_hit exactly (the same slab arithmetic,
+#      and a selection by a unique integer key)
 #  octet and stream queries against the dense query at full width: hit
 #  flags equal, pid >= PID_MIN_AGREE equal (the modes break equal-t ties
 #  by slot order, kernel B by the largest pid), t within T_RTOL
@@ -157,7 +169,12 @@ def compare(t_k, p_k, t_p, p_p):
 
 
 def waves(scene):
-    """A camera wave and a first-bounce wave of the scene, as Ray."""
+    """A camera wave and a first-bounce wave of the scene, as Ray, for the
+    tiled kernels (the bounce wave Morton-sorted, as the tiled queries sort
+    it) and for the swept ones (in lane order, as the swept traversal
+    takes its rays, the missed lanes at infinity as the integrator leaves
+    them, plus the dead lanes a later bounce parks at the camera hits with
+    mint = maxt = 0); and the camera wave's hit fraction."""
     import numpy as np
     import torch
     from hairpt_torch.core import rng, warps
@@ -186,9 +203,17 @@ def waves(scene):
     o = torch.where(hit.valid[:, None], o, cam_ray.o)
     bounce = Ray(o=o, d=d, mint=torch.zeros(n, device=dev),
                  maxt=torch.where(hit.valid, float("inf"), 0.0))
+    v = hit.valid
+    nv = int(v.sum())
+    dead = Ray(o=hit.p[v], d=d[v], mint=torch.zeros(nv, device=dev),
+               maxt=torch.zeros(nv, device=dev))
+    # the swept bounce wave's missed lanes start where the integrator puts
+    # them: at the miss's hit point o + d * inf (+-inf or NaN components)
+    bounce_sw = bounce._replace(o=hit.p + hit.geo_n * cfg.ray_eps)
+    swept = {"camera": cam_ray, "bounce": bounce_sw, "dead": dead}
     bounce, _ = itiled._morton_sort_rays(arr.hair_swept, bounce)
-    return {"camera": cam_ray, "bounce": bounce}, float(hit.valid.float()
-                                                         .mean())
+    return ({"camera": cam_ray, "bounce": bounce}, swept,
+            float(v.float().mean()))
 
 
 def check_kernel_a(r8, bounds, name):
@@ -619,80 +644,233 @@ def check_modes(scene, wv):
     return launches
 
 
-def check_chunk_kernel(scene, wv):
-    """Phase 2c: kernel E against its plain version on >= 8,192 of each
-    wave's swept chunks (all the camera wave's chunks for the timing)."""
+def swept_a_work(sw, ray):
+    """The work the swept phase A needs on a wave, from the plain side:
+    (tiles, clusters passing the tile test, per-ray tests: each ray the
+    kernel tests (not padding, not one never_hits_plain skips) against
+    the clusters some ray of its 64-ray tile enters, the (tile, cluster)
+    pairs rays enter). The hits are _phase_a_dense's
+    (torch.minimum/maximum), in pieces of 64 tiles."""
     import torch
+    from hairpt_torch.ops import phaseb_kernels as pk
+    from hairpt_torch.ops import tiled_kernels as tk
+
+    N, C = ray.o.shape[0], sw.cl_lo.shape[0]
+    T = -(-N // 64)
+    dev = ray.o.device
+    lo = [sw.cl_lo[None, :, ax] for ax in range(3)]
+    hi = [sw.cl_hi[None, :, ax] for ax in range(3)]
+    bounds = torch.cat([sw.cl_lo.T, sw.cl_hi.T]).contiguous()
+    n_pass = n_union = n_tests = 0
+    for t0 in range(0, T, 64):
+        r0, r1 = t0 * 64, min(N, (t0 + 64) * 64)
+        m = r1 - r0
+        o = ray.o[r0:r1]
+        inv = tk._inv_dir(ray.d[r0:r1])
+        tn, tf = tk._slab([o[:, None, ax] for ax in range(3)],
+                          [inv[:, None, ax] for ax in range(3)], lo, hi)
+        hit = (tn <= tf) & (tf >= ray.mint[r0:r1, None]) \
+            & (tn <= ray.maxt[r0:r1, None])
+        pad = -m % 64
+        hit = torch.cat([hit, torch.zeros((pad, C), dtype=torch.bool,
+                                          device=dev)])
+        union = hit.view(-1, 64, C).any(dim=1)                # [t, C]
+        tested = ~pk.never_hits_plain(o, inv, ray.mint[r0:r1],
+                                      ray.maxt[r0:r1])
+        ranged = torch.cat([tested, torch.zeros(pad, dtype=torch.bool,
+                                                device=dev)]).view(-1, 64)
+        n_union += int(union.sum())
+        n_tests += int((union.sum(1) * ranged.sum(1)).sum())
+        r8 = torch.zeros((union.shape[0] * 64, 8), device=dev)
+        r8[:m, 0:3], r8[:m, 3:6] = o, ray.d[r0:r1]
+        r8[:m, 6], r8[:m, 7] = ray.mint[r0:r1], ray.maxt[r0:r1]
+        r8 = r8.view(-1, 64, 8).transpose(1, 2).contiguous()
+        n_pass += int(tk.group_cull_plain(r8, bounds, ranged).sum())
+    return T, n_pass, n_tests, n_union
+
+
+def check_swept_kernels(scene, wv):
+    """Phase 2c: the swept phase-A kernel against _phase_a_dense on EVERY
+    ray of the camera, first-bounce and dead-lane waves (slots, cnt and
+    n_hit equal), and kernel E against its plain version on EVERY live
+    chunk the kernel's slots route, and on a tail of dead chunks (t and
+    pid bit for bit); both timed on the camera and bounce waves beside
+    their bounds, with the shares that set kernel E's work. Returns the
+    two entries of the kernels line."""
+    import torch
+    from hairpt_torch.core.math import Ray
     from hairpt_torch.ops import intersect_swept as iswept
     from hairpt_torch.ops import phaseb_kernels as pk
 
     sw = scene.arrays.hair_swept
     C, _, K = sw.seg_rows_t.shape
+    NS = K // pk.SUBK
     cfg = scene.config
-    err = 0.0
-    entry = None
+    p_max, ch = cfg.swept_pmax, cfg.swept_chunk
+    ent_a = dict(name="swept_phase_a", route="cuda",
+                 source="hairpt_torch/csrc/swept_cull.cu",
+                 replaces="hairpt/ops/intersect_swept.py:220 (XLA, no "
+                 "Pallas kernel)", launches=0, max_abs_err=0.0,
+                 library_ms=None)
+    ent_e = dict(name="phase_b_chunks", route="cuda",
+                 source="hairpt_torch/csrc/phaseb.cu",
+                 replaces="hairpt/ops/pallas_phaseb.py:38", launches=0,
+                 max_abs_err=0.0, library_ms=None)
     for name, ray in wv.items():
-        slots, _ = iswept._phase_a_dense(sw, ray, cfg.swept_pmax)
-        chunk_cl, chunk_ray, _, _ = iswept._route_pairs(slots, C,
-                                                        cfg.swept_chunk)
+        N = ray.o.shape[0]
+        # -- the phase-A kernel, every ray --
+        slots, cnt, n_hit = pk.swept_phase_a(sw, ray, p_max)
+        out = {}
+        plain_a = cuda_ms(lambda: out.update(p=iswept._phase_a_dense(
+            sw, ray, p_max, return_n_hit=True)), 1, warm=False)
+        s_p, c_p, n_p = out.pop("p")
+        eq = [bool(torch.equal(x, y)) for x, y in
+              ((slots, s_p), (cnt, c_p), (n_hit, n_p))]
+        del s_p, c_p, n_p
+        o_l = pk.tile_order(sw, ray).long()        # the kernel's tiles
+        T, n_pass, n_tests, n_union = swept_a_work(
+            sw, Ray(ray.o[o_l], ray.d[o_l], ray.mint[o_l], ray.maxt[o_l]))
+        log(f"{name}: swept phase A on all {N} rays (plain {plain_a:.1f} "
+            f"ms): slots equal {eq[0]}, cnt equal {eq[1]}, n_hit equal "
+            f"{eq[2]}; boxes entered per ray "
+            f"{float(n_hit.float().mean()):.2f}, rays over p_max "
+            f"{int((n_hit > p_max).sum())}; in the kernel's tiles the tile "
+            f"test passes {n_pass / (T * C):.5f} of the (tile, cluster) "
+            f"pairs, rays enter {n_union / (T * C):.5f}; per-ray tests "
+            f"needed {n_tests}")
+        require(all(eq), f"{name}: the swept phase-A kernel differs from "
+                f"_phase_a_dense (slots, cnt, n_hit equal: {eq})")
+        if name == "camera":
+            # key lists past the kernel's shared-memory list (SMEM_K): the
+            # camera rays enter 45 boxes on average, many over SMEM_K
+            pl = pk.SMEM_K + 32
+            long_k = pk.swept_phase_a(sw, ray, pl)
+            long_p = iswept._phase_a_dense(sw, ray, pl, return_n_hit=True)
+            eq_l = [bool(torch.equal(x, y)) for x, y in zip(long_k, long_p)]
+            ms_l = cuda_ms(lambda: pk.swept_phase_a(sw, ray, pl), 3)
+            log(f"{name}: swept phase A with p_max {pl} (key lists in "
+                f"global memory) on all {N} rays: slots, cnt, n_hit equal "
+                f"{eq_l}; rays keeping over {pk.SMEM_K} "
+                f"{int((long_p[1] > pk.SMEM_K).sum())}; {ms_l:.3f} ms")
+            require(all(eq_l) and int((long_p[1] > pk.SMEM_K).sum()) > 0,
+                    f"{name}: the swept phase-A kernel with p_max {pl} "
+                    f"differs from _phase_a_dense ({eq_l}) or keeps no list "
+                    f"past SMEM_K")
+            ent_a["long_list_p_max"], ent_a["long_list_ms"] = pl, ms_l
+            del long_k, long_p
+        # -- kernel E, every live chunk and a tail of dead ones --
+        chunk_cl, chunk_ray, _, _ = iswept._route_pairs(slots, C, ch)
         rays = iswept._chunk_rays(ray, chunk_ray)
         n = chunk_cl.shape[0]
         live = torch.nonzero(chunk_cl >= 0).squeeze(1)
-        sel = torch.linspace(0, live.numel() - 1, min(E_SUBSET_CHUNKS,
-                                                      live.numel()),
-                             device=live.device).round().long()
-        idx = torch.unique(torch.cat([live[sel], torch.arange(
-            min(n, 64), device=live.device) + n - min(n, 64)]))
-        t_k, p_k = pk.phase_b_chunks(chunk_cl, rays, sw.seg_rows_t)
-        t_p, p_p = pk.phase_b_chunks_plain(chunk_cl[idx], rays[idx],
-                                           sw.seg_rows_t)
-        agree, t_rel, t_abs = compare(t_k[idx], p_k[idx], t_p, p_p)
-        pid_equal = bool(torch.equal(p_k[idx], p_p))
-        hits_equal = bool(torch.equal(p_k[idx] >= 0, p_p >= 0))
-        log(f"{name}: kernel E on {n} chunks ({live.numel()} live) vs plain "
-            f"on {idx.numel()}: pid equal {pid_equal} (agree {agree:.6f}), "
-            f"hit flags equal {hits_equal}, max t rel diff {t_rel:.3g}, "
-            f"hits {int((p_k[idx] >= 0).sum())}")
-        require(pid_equal and hits_equal and t_rel <= T_RTOL,
-                f"{name}: kernel E pid equal {pid_equal} (agreement "
-                f"{agree}), hit flags equal {hits_equal}, t rel diff "
-                f"{t_rel}")
-        err = max(err, t_abs)
-        if name == "camera":
-            ms = cuda_ms(lambda: pk.phase_b_chunks(chunk_cl, rays,
-                                                   sw.seg_rows_t), 3)
-            plain_ms = cuda_ms(lambda: pk.phase_b_chunks_plain(
-                chunk_cl, rays, sw.seg_rows_t), 1, warm=False)
-            ch = cfg.swept_chunk
-            n_live = live.numel()
-            b, by = bound_ms(n * (4 + 8 * ch * 4 + ch * 8)
-                             + n_live * 16 * K * 4,
-                             n_live * ch * K * CHUNK_CYL_FLOPS)
-            log(f"phase_b_chunks: {ms:.3f} ms at the camera wave ({n} "
-                f"chunks, {n_live} live; bound {b:.3f} ms, by {by}), plain "
-                f"{plain_ms:.1f} ms")
-            entry = dict(name="phase_b_chunks", route="cuda",
-                         source="hairpt_torch/csrc/phaseb.cu",
-                         replaces="hairpt/ops/pallas_phaseb.py:38",
-                         launches=0, max_abs_err=0.0, ms=ms,
-                         plain_ms=plain_ms, bound_ms=b, bound_by=by,
-                         library_ms=None, chunks=n, live_chunks=n_live)
+        idx = torch.cat([live, torch.arange(n - min(n, 64), n,
+                                            device=live.device)]).unique()
+        t_k, p_k = pk.phase_b_chunks(chunk_cl, rays, sw.seg_rows_t,
+                                     sw.sub_lo, sw.sub_hi)
+        out = {}
+        plain_e = cuda_ms(lambda: out.update(p=pk.phase_b_chunks_plain(
+            chunk_cl[idx], rays[idx], sw.seg_rows_t)), 1, warm=False)
+        t_p, p_p = out.pop("p")
+        t_bits = bool(torch.equal(t_k[idx].view(torch.int32),
+                                  t_p.view(torch.int32)))
+        pid_eq = bool(torch.equal(p_k[idx], p_p))
+        n_live = live.numel()
+        lr = rays[live]                                    # [n_live, 8, ch]
+        pad_l = lr[:, 7] < lr[:, 6]
+        n_lanes = n_live * ch
+        n_valid = n_lanes - int(pad_l.sum())
+        dead_l = int(((lr[:, 7] <= lr[:, 6]) & ~pad_l).sum())
+        n_enter = 0
+        for c0 in range(0, n_live, 16384):
+            cl = chunk_cl[live[c0:c0 + 16384]].long()
+            n_enter += int(pk.sub_cull_plain(
+                lr[c0:c0 + 16384], sw.sub_lo.view(C, NS, 3)[cl],
+                sw.sub_hi.view(C, NS, 3)[cl], pad=0.0).sum())
+        n_cl = int(torch.unique(chunk_cl[live]).numel())
+        log(f"{name}: kernel E on {n} chunks ({n_live} live) vs plain on "
+            f"{idx.numel()} (plain {plain_e:.1f} ms): t bits equal {t_bits},"
+            f" pid equal {pid_eq}, hits {int((p_k[idx] >= 0).sum())}; of the "
+            f"{n_lanes} lanes of live chunks {1 - n_valid / n_lanes:.4f} are "
+            f"padding, {dead_l / n_lanes:.4f} dead rays; of the {n_valid} "
+            f"(ray, chunk) pairs x {NS} sub-clusters, rays enter "
+            f"{n_enter / max(1, n_valid * NS):.4f} of the sub-boxes")
+        require(t_bits and pid_eq, f"{name}: kernel E differs from its "
+                f"plain version (t bits equal {t_bits}, pid equal {pid_eq})")
+        del t_p, p_p, lr
+        if name == "dead":
+            continue
+        # -- times and bounds --
+        ms_a = cuda_ms(lambda: pk.swept_phase_a(sw, ray, p_max), 5)
+        ms_sort = cuda_ms(lambda: pk.tile_order(sw, ray), 5)
+        b_a = bound_ms(N * 32 + C * 24 + N * (p_max * 4 + 12),
+                       T * C * TILE_TEST_FLOPS + n_tests * SLAB_FLOPS)
+        d_a = bound_ms(N * 32 + C * 24 + N * (p_max * 4 + 12),
+                       N * C * SLAB_FLOPS)
+        ms_e = cuda_ms(lambda: pk.phase_b_chunks(
+            chunk_cl, rays, sw.seg_rows_t, sw.sub_lo, sw.sub_hi), 5)
+        e_bytes = n * (4 + ch * 8) + n_live * 8 * ch * 4 \
+            + n_cl * (16 * K * 4 + NS * 24)
+        b_e = bound_ms(e_bytes, n_enter * pk.SUBK * CHUNK_CYL_FLOPS)
+        d_e = bound_ms(n * (4 + 8 * ch * 4 + ch * 8) + n_live * 16 * K * 4,
+                       n_live * ch * K * CHUNK_CYL_FLOPS)
+        log(f"swept_phase_a, {name} wave: {ms_a:.3f} ms, its ray order "
+            f"(tile_order) {ms_sort:.3f} ms of it; bound from this wave's "
+            f"work {b_a[0]:.3f} ms by {b_a[1]} "
+            f"({ms_a / b_a[0]:.1f}x), dense bound {d_a[0]:.3f} ms; plain "
+            f"{plain_a:.1f} ms")
+        log(f"phase_b_chunks, {name} wave: {ms_e:.3f} ms; bound from this "
+            f"wave's work {b_e[0]:.3f} ms by {b_e[1]} "
+            f"({ms_e / b_e[0]:.1f}x), dense bound {d_e[0]:.3f} ms by "
+            f"{d_e[1]}; plain {plain_e:.1f} ms")
+        pre = "" if name == "camera" else "bounce_"
+        ent_a.update({f"{pre}ms": ms_a, f"{pre}plain_ms": plain_a,
+                      f"{pre}order_ms": ms_sort,
+                      f"{pre}bound_ms": b_a[0], f"{pre}bound_by": b_a[1],
+                      f"{pre}dense_bound_ms": d_a[0],
+                      f"{pre}tile_pass_share": n_pass / (T * C),
+                      f"{pre}tile_union_share": n_union / (T * C),
+                      f"{pre}ray_tests": n_tests})
+        ent_e.update({f"{pre}ms": ms_e, f"{pre}plain_ms": plain_e,
+                      f"{pre}bound_ms": b_e[0], f"{pre}bound_by": b_e[1],
+                      f"{pre}dense_bound_ms": d_e[0],
+                      f"{pre}chunks": n, f"{pre}live_chunks": n_live,
+                      f"{pre}padding_share": 1 - n_valid / n_lanes,
+                      f"{pre}dead_share": dead_l / n_lanes,
+                      f"{pre}sub_enter_share":
+                      n_enter / max(1, n_valid * NS)})
         del rays
-    entry["max_abs_err"] = err
-    return entry
+    ent_a["bound_basis"] = ("bound_ms: the work of this run's wave in the "
+                            "kernel's tiles (every (tile, cluster) tile "
+                            "test, each ray against the clusters some ray "
+                            "of its tile enters); dense_bound_ms: every "
+                            "ray x every cluster; ms: the wrapper, its ray "
+                            "order (order_ms) included")
+    ent_e["bound_basis"] = ("bound_ms: the work of this run's wave (each "
+                            "ray of a live chunk against the 32 segments "
+                            "of each sub-cluster box it enters, the "
+                            "segment blocks of the clusters used once); "
+                            "dense_bound_ms: every lane of every live "
+                            "chunk x K segments")
+    return [ent_a, ent_e]
 
 
-def small_reference():
+def small_reference(reset_all):
     """Phase 3: a small furball on the card and on the CPU, both
-    traversals."""
+    traversals; the swept render on the card goes through both swept
+    kernels (the phase-A kernel in its lowest-ids branch: C = 57)."""
     from hairpt_torch.integrators import path
+    from hairpt_torch.ops import phaseb_kernels as pk
 
     for trav in ("tiled", "swept"):
         means = {}
         for dev in ("cuda", "cpu"):
             s = bench_scene(quality=0.1, res=64, depth=8, spp=1, device=dev,
                             q=64, traversal=trav)
+            reset_all()
             means[dev] = float(path.render(s, spp=1).mean())
+            if trav == "swept" and dev == "cuda":
+                launches = dict(pk.LAUNCHES)
+                plain = dict(pk.PLAIN_ON_CUDA)
         rel = abs(means["cuda"] - means["cpu"]) / max(abs(means["cpu"]),
                                                       1e-12)
         log(f"small furball, {trav} (600 fibers, 64^2, depth 8): image mean "
@@ -700,6 +878,12 @@ def small_reference():
             f"{rel:.3g}")
         require(means["cpu"] > 0 and rel <= MEAN_RTOL,
                 f"small {trav} render: card and CPU means differ by {rel}")
+    log(f"small swept render on the card: launches {launches}, plain "
+        f"versions on CUDA tensors {plain}")
+    require(all(v > 0 for v in launches.values())
+            and all(v == 0 for v in plain.values()),
+            f"the small swept render did not go through both swept kernels: "
+            f"launches {launches}, plain {plain}")
 
 
 def warm_up(scene, label):
@@ -771,15 +955,17 @@ def main() -> int:
 
         # ---- 1. builds, all at once ----
         t0 = time.time()
-        with ThreadPoolExecutor(4) as ex:
-            futs = [ex.submit(f) for f in (tk.lib, tk.oct_lib, pk.lib)]
+        with ThreadPoolExecutor(5) as ex:
+            futs = [ex.submit(f) for f in (tk.lib, tk.oct_lib, pk.lib,
+                                           pk.cull_lib)]
             f_b = ex.submit(bvh._load_native)
             for f in futs:
                 f.result()
             require(f_b.result() is not None, "the BVH builder did not build")
         for name, s in _native.BUILD_SECONDS.items():
             log(f"built {name} in {s:.1f}s")
-        for name in ("hairpt_tiled", "hairpt_octets", "hairpt_phaseb"):
+        for name in ("hairpt_tiled", "hairpt_octets", "hairpt_phaseb",
+                     "hairpt_swept_cull"):
             for line in _native.BUILD_LOG.get(name, "").splitlines():
                 if "registers" in line or "spill" in line:
                     log(f"  ptxas {name}: {line.strip()}")
@@ -795,7 +981,7 @@ def main() -> int:
             f"K={K}, seg_rows_t {sw.seg_rows_t.numel() * 4 / 1e6:.1f} MB, "
             f"built in {time.time() - t0:.1f}s")
         t1 = time.time()
-        wv, hit_frac = waves(scene)
+        wv, wv_sw, hit_frac = waves(scene)
         log(f"waves: camera hit fraction {hit_frac:.4f}")
         report = {}
         errs = check_kernels(scene, wv, report)
@@ -815,14 +1001,14 @@ def main() -> int:
         log(f"phase 2b ({time.time() - t1:.1f}s): octet and stream modes "
             f"give the dense answer; launches {oct_launches}")
         t1 = time.time()
-        kernels.append(check_chunk_kernel(scene, wv))
-        del wv
-        log(f"phase 2 ({time.time() - t0:.1f}s): kernel E matches its "
-            f"plain version ({time.time() - t1:.1f}s)")
+        kernels += check_swept_kernels(scene, wv_sw)
+        del wv, wv_sw
+        log(f"phase 2 ({time.time() - t0:.1f}s): the swept phase A and "
+            f"kernel E match their plain versions ({time.time() - t1:.1f}s)")
 
         # ---- 3. small renders, card against CPU ----
         t0 = time.time()
-        small_reference()
+        small_reference(reset_all)
         log(f"phase 3 ({time.time() - t0:.1f}s): small renders agree")
 
         # ---- 4. the full-width render, tiled ----
@@ -880,7 +1066,7 @@ def main() -> int:
         torch.cuda.synchronize()
         sw_launches = dict(pk.LAUNCHES)
         sw_off = dict(tk.LAUNCHES, **tk.OCT_LAUNCHES)
-        sw_plain = dict(pk.PLAIN_ON_CUDA)
+        sw_plain = dict(pk.PLAIN_ON_CUDA, **tk.PLAIN_ON_CUDA)
         mean_sw = float(img.mean())
         secs_sw = sum(times) / len(times)
         rays_sw = sum(rays) / len(rays)
@@ -900,7 +1086,7 @@ def main() -> int:
                 f"swept image mean {mean_sw}")
         require(bool(torch.isfinite(img).all()), "non-finite swept pixels")
         require(all(v > 0 for v in sw_launches.values()),
-                f"kernel E was not launched by the swept render: "
+                f"a swept kernel was not launched by the swept render: "
                 f"{sw_launches}")
         require(all(v == 0 for v in sw_off.values()),
                 f"the swept render ran a tiled kernel: {sw_off}")
@@ -918,7 +1104,7 @@ def main() -> int:
             k["launched_by"] = ("the octet and stream queries of phase 2b"
                                 if waves_n is None else
                                 "the timed waves of phase 5"
-                                if k["name"] == "phase_b_chunks" else
+                                if k["name"] in sw_launches else
                                 "the timed waves of phase 4")
         require(all(k["launches"] > 0 for k in kernels),
                 "a kernel has no launches")

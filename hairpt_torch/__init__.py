@@ -6,9 +6,12 @@ against, never a dependency. Entry points run on the card ("cuda") unless
 the caller passes `device="cpu"`; asking for CUDA on a machine without it
 raises instead of silently falling back.
 
-The two hand-written CUDA kernels of the forward render (the phase-A tile
-cull and the phase-B miter-cylinder test) live in `csrc/tiled.cu` and are
-bound through `ops/tiled_kernels.py`.
+The hand-written CUDA kernels live in `csrc/`: the tiled intersector's
+phase-A tile cull and phase-B miter-cylinder test (`tiled.cu`, kernels A
+and B) and its octet and stream modes (`octets.cu`, C and D), bound
+through `ops/tiled_kernels.py`; the swept traversal's phase A
+(`swept_cull.cu`) and chunk test (`phaseb.cu`, kernel E), bound through
+`ops/phaseb_kernels.py`.
 """
 from __future__ import annotations
 

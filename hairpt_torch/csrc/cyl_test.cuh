@@ -116,27 +116,15 @@ __device__ __forceinline__ bool cyl_hit_tiled(const float* __restrict__ rows,
 // The swept kernel's test: hairpt/ops/pallas_phaseb.py::_phaseb_one (two
 // divisions by a, miter planes through the hit point); plain version
 // hairpt_torch/ops/phaseb_kernels.py::cyl_test_chunk.
-template <int K>
-__device__ __forceinline__ bool cyl_hit_chunk(const float* __restrict__ rows,
-                                              int l, const RayRegs& y,
-                                              float& t, int& pid) {
-  const float p0x = rows[0 * K + l], p0y = rows[1 * K + l],
-              p0z = rows[2 * K + l];
-  const float ax_ = rows[3 * K + l], ay_ = rows[4 * K + l],
-              az_ = rows[5 * K + l];
-  const float n0x = rows[6 * K + l], n0y = rows[7 * K + l],
-              n0z = rows[8 * K + l];
-  const float n1x = rows[9 * K + l], n1y = rows[10 * K + l],
-              n1z = rows[11 * K + l];
-  const float sn1 = rows[13 * K + l], rr2 = rows[14 * K + l];
-  pid = __float_as_int(rows[15 * K + l]);
-
-  const float rx = y.ox - p0x, ry = y.oy - p0y, rz = y.oz - p0z;
-  const float ar = ax_ * rx + ay_ * ry + az_ * rz;
-  const float pox = rx - ar * ax_, poy = ry - ar * ay_, poz = rz - ar * az_;
-  const float ad = ax_ * y.dx + ay_ * y.dy + az_ * y.dz;
-  const float pdx = y.dx - ad * ax_, pdy = y.dy - ad * ay_,
-              pdz = y.dz - ad * az_;
+__device__ __forceinline__ bool cyl_hit_chunk(const SegRegs& g,
+                                              const RayRegs& y, float& t) {
+  const float rx = y.ox - g.p0x, ry = y.oy - g.p0y, rz = y.oz - g.p0z;
+  const float ar = g.ax * rx + g.ay * ry + g.az * rz;
+  const float pox = rx - ar * g.ax, poy = ry - ar * g.ay,
+              poz = rz - ar * g.az;
+  const float ad = g.ax * y.dx + g.ay * y.dy + g.az * y.dz;
+  const float pdx = y.dx - ad * g.ax, pdy = y.dy - ad * g.ay,
+              pdz = y.dz - ad * g.az;
   const float a = pdx * pdx + pdy * pdy + pdz * pdz;
   const float b = pox * pdx + poy * pdy + poz * pdz;
   bool ok = a > 1e-18f;
@@ -144,7 +132,7 @@ __device__ __forceinline__ bool cyl_hit_chunk(const float* __restrict__ rows,
   const float t_mid = -b / a_safe;
   const float qx = pox + pdx * t_mid, qy = poy + pdy * t_mid,
               qz = poz + pdz * t_mid;
-  const float c_mid = qx * qx + qy * qy + qz * qz - rr2;
+  const float c_mid = qx * qx + qy * qy + qz * qz - g.rr2;
   const float disc = -c_mid / a_safe;
   ok = ok && (disc >= 0.0f);
   const float dt = sqrtf(fmaxf(disc, 0.0f));
@@ -154,17 +142,52 @@ __device__ __forceinline__ bool cyl_hit_chunk(const float* __restrict__ rows,
 #pragma unroll
   for (int s = 0; s < 2; ++s) {
     const float tt = s == 0 ? t_near : t_far;
-    const float ex = y.ox + y.dx * tt - p0x, ey = y.oy + y.dy * tt - p0y,
-                ez = y.oz + y.dz * tt - p0z;
-    const float h0 = ex * n0x + ey * n0y + ez * n0z;
-    const float h1 = ex * n1x + ey * n1y + ez * n1z - sn1;
+    const float ex = y.ox + y.dx * tt - g.p0x, ey = y.oy + y.dy * tt - g.p0y,
+                ez = y.oz + y.dz * tt - g.p0z;
+    const float h0 = ex * g.n0x + ey * g.n0y + ez * g.n0z;
+    const float h1 = ex * g.n1x + ey * g.n1y + ez * g.n1z - g.sn1;
     m_ok[s] = (h0 >= 0.0f) && (h1 <= 0.0f);
   }
   const bool near_ok =
       ok && (t_near >= y.mint) && (t_near <= y.maxt) && m_ok[0];
   const bool far_ok = ok && (t_far >= y.mint) && (t_far <= y.maxt) && m_ok[1];
   t = near_ok ? t_near : t_far;
-  return (pid >= 0) && (near_ok || far_ok);
+  return (g.pid >= 0) && (near_ok || far_ok);
+}
+
+// A pretest of cyl_hit_chunk: false only where cyl_hit_chunk is false, so
+// a warp whose lanes all fail it skips the divisions, the square root and
+// the miter planes. cyl_hit_chunk misses unless c = |q|^2 - r^2 <= 0 at
+// q = po + pd * t_mid (up to -c / a underflowing to -0). Here t_mid
+// comes from __fdividef, within 2 ulp of -b / a, and every other
+// operation is cyl_hit_chunk's; that moves each q_i by at most
+// ~2^-20.9 (|po| + 2 |q|) in L1 norms (|pd t_mid| <= |po| + |q|), so c by
+// at most 2^-19.9 Lq W + E^2 + 2^-20 (|q|^2 + r^2), W = Lp + 2 Lq. A c
+// above 2^-17 Lq W + 2^-36 W^2 + 2^-19 (|q|^2 + r^2) + 1e-30 (the last
+// term keeps -c / a from underflowing) is a miss; a non-finite c or
+// bound passes. Plain version: phaseb_kernels.cyl_pretest_plain.
+__device__ __forceinline__ bool cyl_may_hit_chunk(const SegRegs& g,
+                                                  const RayRegs& y) {
+  if (g.pid < 0) return false;
+  const float rx = y.ox - g.p0x, ry = y.oy - g.p0y, rz = y.oz - g.p0z;
+  const float ar = g.ax * rx + g.ay * ry + g.az * rz;
+  const float pox = rx - ar * g.ax, poy = ry - ar * g.ay,
+              poz = rz - ar * g.az;
+  const float ad = g.ax * y.dx + g.ay * y.dy + g.az * y.dz;
+  const float pdx = y.dx - ad * g.ax, pdy = y.dy - ad * g.ay,
+              pdz = y.dz - ad * g.az;
+  const float a = pdx * pdx + pdy * pdy + pdz * pdz;
+  const float b = pox * pdx + poy * pdy + poz * pdz;
+  if (!(a > 1e-18f)) return false;
+  const float tm = __fdividef(-b, a);
+  const float qx = pox + pdx * tm, qy = poy + pdy * tm, qz = poz + pdz * tm;
+  const float sq = qx * qx + qy * qy + qz * qz;
+  const float c = sq - g.rr2;
+  const float lq = fabsf(qx) + fabsf(qy) + fabsf(qz);
+  const float w = fabsf(pox) + fabsf(poy) + fabsf(poz) + 2.0f * lq;
+  const float tol = 0x1p-17f * lq * w + 0x1p-36f * w * w +
+                    0x1p-19f * (sq + g.rr2) + 1e-30f;
+  return !(isfinite(c) && isfinite(tol) && c > tol);
 }
 
 }  // namespace hairpt_dev

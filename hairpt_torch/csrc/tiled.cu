@@ -21,11 +21,14 @@
 #include <stdint.h>
 
 #include "cyl_test.cuh"
+#include "slab.cuh"
 
 namespace {
 
 using hairpt_dev::f_inf;
+using hairpt_dev::RayRange;
 using hairpt_dev::RayRegs;
+using hairpt_dev::tile_pass;
 
 constexpr int TILE = 64;          // rays per tile
 constexpr int CULL_THREADS = 256; // clusters per phase-A chunk
@@ -83,51 +86,6 @@ constexpr unsigned CID_MASK = (1u << 20) - 1;
 // into registers, blocks of 128 or 512 threads, and 2 or 4 tiles per
 // block.
 // ---------------------------------------------------------------------------
-
-// The tile's live rays as the tile test takes them: ranges of the origin
-// and of 1/d per axis, the least mint and largest maxt; `finite` is false
-// if a live ray has a non-finite component of o or 1/d (the tile then
-// passes every box).
-struct RayRange {
-  float omin[3], omax[3], imin[3], imax[3];
-  float mint, maxt;
-  bool finite;
-};
-
-// The range [lo, hi] of fl(fl(f - o) * inv) over o in [omin, omax] and
-// inv in [imin, imax]: round-to-nearest is monotone and a product's
-// extremes over a box lie at its corners.
-__device__ __forceinline__ void face_range(float f, float omin, float omax,
-                                           float imin, float imax,
-                                           float& lo, float& hi) {
-  const float xl = f - omax, xh = f - omin;
-  const float p0 = xl * imin, p1 = xl * imax;
-  const float p2 = xh * imin, p3 = xh * imax;
-  lo = fminf(fminf(p0, p1), fminf(p2, p3));
-  hi = fmaxf(fmaxf(p0, p1), fmaxf(p2, p3));
-}
-
-// false only if no ray of the range can pass the per-ray slab test
-// against the box b (lo.xyz, hi.xyz)
-__device__ __forceinline__ bool tile_pass(const RayRange& g,
-                                          const float (&b)[6]) {
-  if (!g.finite) return true;
-  float tn = 0.0f, tf = 0.0f;
-#pragma unroll
-  for (int ax = 0; ax < 3; ++ax) {
-    float l0, h0, l1, h1;
-    face_range(b[ax], g.omin[ax], g.omax[ax], g.imin[ax], g.imax[ax], l0,
-               h0);
-    face_range(b[3 + ax], g.omin[ax], g.omax[ax], g.imin[ax], g.imax[ax],
-               l1, h1);
-    const float lo_ax = fminf(l0, l1);
-    const float hi_ax = fmaxf(h0, h1);
-    tn = (ax == 0) ? lo_ax : fmaxf(tn, lo_ax);
-    tf = (ax == 0) ? hi_ax : fminf(tf, hi_ax);
-  }
-  tf = tf * 1.00000024f + 1e-7f;
-  return !(tn > tf || tf < g.mint || tn > g.maxt);
-}
 
 constexpr unsigned FULL_MASK = 0xffffffffu;
 constexpr int CULL_WARPS = CULL_THREADS / 32;

@@ -9,12 +9,14 @@ JAX package: 0:3 p0 | 3:6 unit axis | 6:9 n0 | 9:12 n1 | 12 r | 13 sn1 =
 (p1-p0).n1 | 14 r^2 | 15 id (int32 bits; -1 marks a padding segment).
 
 The swept traversal (swept_closest_hit) is the JAX package's two-phase
-cluster sweep: phase A (_phase_a_dense, plain torch) records up to p_max
-candidate clusters per ray; the (ray, cluster) pairs are sorted by
-cluster and padded into chunks of `chunk` pairs of one cluster; phase B
-is kernel E (phaseb_kernels.phase_b_chunks); the results are routed back
-and reduced per ray. Left out: `_phase_a`, the cluster-BVH walk, which no
-path of the JAX package calls (its `nodes` table is not built here).
+cluster sweep: phase A (phaseb_kernels.swept_phase_a: a hand-written
+kernel on the card, its plain version _phase_a_dense on the CPU) records
+up to p_max candidate clusters per ray; the (ray, cluster) pairs are
+sorted by cluster and padded into chunks of `chunk` pairs of one cluster;
+phase B is kernel E (phaseb_kernels.phase_b_chunks); the results are
+routed back and reduced per ray. Left out: `_phase_a`, the cluster-BVH
+walk, which no path of the JAX package calls (its `nodes` table is not
+built here).
 """
 from __future__ import annotations
 
@@ -232,7 +234,10 @@ def _phase_a_dense(sw: SweptHair, ray: Ray, p_max: int, c_chunk: int = 1024,
         promises no tie order, so the selection runs on a unique integer
         key (entry-t bits << id bits | id), whose order is exactly that.
     Rays are processed in chunks so no [rays, C] f32 temporary passes
-    PHASE_A_BYTES."""
+    PHASE_A_BYTES. This is the plain version of the swept phase-A kernel
+    (phaseb_kernels.swept_phase_a)."""
+    if ray.o.is_cuda:
+        pk.PLAIN_ON_CUDA["swept_phase_a"] += 1
     N = ray.o.shape[0]
     C = sw.cl_lo.shape[0]
     dev = ray.o.device
@@ -303,15 +308,20 @@ def _route_pairs(slots, C: int, chunk: int):
     [M] int64, its padded position)."""
     N, P = slots.shape
     dev = slots.device
-    keys = slots.reshape(-1).long()
+    keys = slots.reshape(-1)
     keys = torch.where(keys < 0, C, keys)             # invalid sorts last
     sc, order = torch.sort(keys, stable=True)
-    counts = torch.bincount(sc, minlength=C + 1)[:C]
+    # each cluster's run in the sorted keys (a search: torch.bincount's
+    # histogram of 25M keys into C bins was the swept wave's largest
+    # device cost)
+    bnd = torch.searchsorted(sc, torch.arange(C + 1, dtype=sc.dtype,
+                                              device=dev))
+    start = bnd[:C]
+    counts = bnd[1:] - start
     padded = (counts + chunk - 1) // chunk * chunk
     pad_off = torch.cumsum(padded, 0) - padded
-    start = torch.cumsum(counts, 0) - counts
-    n_valid = int(counts.sum())
-    sc = sc[:n_valid]
+    n_valid = int(bnd[C])
+    sc = sc[:n_valid].long()
     pos = order[:n_valid]
     dest = pad_off[sc] + torch.arange(n_valid, device=dev) - start[sc]
     n_padded = -(-(N * P) // chunk) * chunk + C * chunk
@@ -346,14 +356,14 @@ def swept_closest_hit(sw: SweptHair, ray: Ray, p_max: int = 24,
     the first minimum wins."""
     N = ray.o.shape[0]
     C = sw.cl_lo.shape[0]
-    slots, _, n_hit = _phase_a_dense(sw, ray, p_max, return_n_hit=True)
+    slots, _, n_hit = pk.swept_phase_a(sw, ray, p_max)
     live = ray.maxt > ray.mint
     STATS["queries"] += 1
     STATS["rays"] += int(live.sum())
     STATS["overflow_rays"] += int((live & (n_hit > p_max)).sum())
     chunk_cl, chunk_ray, pos, dest = _route_pairs(slots, C, chunk)
     t_c, p_c = pk.phase_b_chunks(chunk_cl, _chunk_rays(ray, chunk_ray),
-                                 sw.seg_rows_t)
+                                 sw.seg_rows_t, sw.sub_lo, sw.sub_hi)
     dev = ray.o.device
     t_pairs = torch.full((N * p_max,), float("inf"), device=dev)
     p_pairs = torch.full((N * p_max,), -1, dtype=torch.int32, device=dev)

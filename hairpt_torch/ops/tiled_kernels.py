@@ -88,7 +88,7 @@ def nvcc_cmd():
 
 _LIB = None
 _OCT_LIB = None
-HEADERS = ["cyl_test.cuh"]
+HEADERS = ["cyl_test.cuh", "slab.cuh"]
 
 
 def lib():
@@ -233,24 +233,27 @@ def cull_phase_a_plain(rays8, bounds, tile_chunk: int = 64,
     return torch.cat(tes), torch.cat(tpms)
 
 
-def group_cull_plain(rays8, bounds):
-    """Plain version of kernel A's tile test: [T, C] bool, False only
-    where no ray of the tile can pass its slab test against the cluster's
-    box. Over the tile's live rays it takes the ranges of the origin and
-    of 1/d per axis, the least mint and the largest maxt, and applies each
-    rounded operation of the slab test to the range ends (a product at
-    the four corners of its range), in the kernel's order, with fmin/fmax
-    for the kernel's fminf/fmaxf; rounding to nearest is monotone, so the
-    result brackets every ray's value. A tile with no live ray passes
-    nothing; one with a live ray whose o or 1/d has a non-finite component
-    passes everything (fminf/fmaxf drop a NaN, so that ray may hit through
-    its other axes)."""
+def group_cull_plain(rays8, bounds, ranged=None):
+    """Plain version of kernel A's tile test (csrc/slab.cuh tile_pass):
+    [T, C] bool, False only where no ray of the tile can pass its slab
+    test against the cluster's box. Over the tile's ranged rays (ranged
+    [T, 64] bool; by default its live rays, as kernel A takes them; the
+    swept phase A takes every ray but padding) it takes the ranges of the
+    origin and of 1/d per axis, the least mint and the largest maxt, and
+    applies each rounded operation of the slab test to the range ends (a
+    product at the four corners of its range), in the kernel's order, with
+    fmin/fmax for the kernel's fminf/fmaxf; rounding to nearest is
+    monotone, so the result brackets every ray's value. A tile with no
+    ranged ray passes nothing; one with a ranged ray whose o or 1/d has a
+    non-finite component passes everything (fminf/fmaxf drop a NaN, so
+    that ray may hit through its other axes)."""
     inf = float("inf")
     o, inv = rays8[:, 0:3], _inv_dir(rays8[:, 3:6])     # [T, 3, 64]
     mint, maxt = rays8[:, 6], rays8[:, 7]
-    live = maxt > mint
+    if ranged is None:
+        ranged = maxt > mint
     fin = torch.isfinite(o).all(dim=1) & torch.isfinite(inv).all(dim=1)
-    use = live & fin
+    use = ranged & fin
 
     def lo_hi(x):                                       # over the tile
         u = use.view(x.shape[0], *[1] * (x.dim() - 2), -1)
@@ -278,8 +281,8 @@ def group_cull_plain(rays8, bounds):
         tf = hi_ax if tf is None else torch.fmin(tf, hi_ax)
     tf = tf * 1.00000024 + 1e-7
     reject = (tn > tf) | (tf < t_mint) | (tn > t_maxt)
-    bad = (live & ~fin).any(dim=-1, keepdim=True)
-    return bad | (live.any(dim=-1, keepdim=True) & ~reject)
+    bad = (ranged & ~fin).any(dim=-1, keepdim=True)
+    return bad | (ranged.any(dim=-1, keepdim=True) & ~reject)
 
 
 # ---------------------------------------------------------------------------

@@ -8,10 +8,11 @@ Renders one warm-up wave, then profiles one wave with CPU and CUDA
 activities. The port's layers are marked as profiler ranges from the
 outside, so the port's own code carries no instrumentation: for the
 tiled traversal phase A, routing, phase B and the Morton sort; for the
-swept traversal its phase A (plain torch), the pair routing, the chunk
-gather and phase B (kernel E). Prints the wave's wall time, the summed
-device kernel time and the idle share, the device time under each
-range, and the kernels with the most device time.
+swept traversal its phase A (the swept phase-A kernel's wrapper) and,
+inside it, the ray order it takes its tiles in, the pair routing, the
+chunk gather and phase B (kernel E). Prints the wave's wall time, the
+summed device kernel time and the idle share, the device time under
+each range, and the kernels with the most device time.
 """
 from __future__ import annotations
 
@@ -59,7 +60,8 @@ def main(argv=None) -> int:
 
     if args.traversal == "swept":
         ranges = (("query", iswept, "swept_closest_hit"),
-                  ("phase_a", iswept, "_phase_a_dense"),
+                  ("phase_a", pk, "swept_phase_a"),
+                  ("tile_order", pk, "tile_order"),
                   ("routing", iswept, "_route_pairs"),
                   ("chunk_rays", iswept, "_chunk_rays"),
                   ("phase_b", pk, "phase_b_chunks"))

@@ -7,10 +7,11 @@ card.
 Builds the furball through SceneBuilder, renders one warm-up wave, then
 times `--waves` 1-spp waves (host clock around torch.cuda.synchronize(),
 rays counted as path.render counts them) and prints one JSON line with
-the card's name and power limit, s/wave, rays/wave, Mrays/s and the image
-mean. To time another checkout of the package on the same card, run this
-file with that checkout first on PYTHONPATH (the default traversal uses
-only what every version of the package has).
+the card's name and power limit, s/wave, rays/wave, Mrays/s, the image
+mean and the kernels' launches over the timed waves. To time another
+checkout of the package on the same card, run this file with that
+checkout first on PYTHONPATH (the default traversal uses only what every
+version of the package has).
 """
 from __future__ import annotations
 
@@ -37,6 +38,8 @@ def main(argv=None) -> int:
         return 2
     import hairpt_torch
     from hairpt_torch.integrators import path
+    from hairpt_torch.ops import phaseb_kernels as pk
+    from hairpt_torch.ops import tiled_kernels as tk
     from hairpt_torch.scene.furball import furball_scene
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -54,6 +57,8 @@ def main(argv=None) -> int:
     path.render(scene, spp=1, seed=0, progress=progress)
     times.clear()
     rays.clear()
+    tk.reset_counts()
+    pk.reset_counts()
     torch.cuda.synchronize()
     t0 = time.time()
     img = path.render(scene, spp=args.waves, seed=1, progress=progress)
@@ -66,7 +71,10 @@ def main(argv=None) -> int:
         "depth": args.depth, "waves": args.waves, "s_per_wave": secs,
         "wave_seconds": times, "rays_per_wave": rays_w,
         "mrays_per_s": rays_w / secs / 1e6,
-        "image_mean": float(img.mean())}), flush=True)
+        "image_mean": float(img.mean()),
+        "launches": dict(tk.LAUNCHES, **pk.LAUNCHES),
+        "plain_on_cuda": dict(tk.PLAIN_ON_CUDA, **pk.PLAIN_ON_CUDA)}),
+        flush=True)
     return 0
 
 

@@ -141,9 +141,9 @@ def test_swept_query_and_its_routing_match_jax(geom, monkeypatch):
         seen["j"] = (np.asarray(cc), np.asarray(rays))
         return real_j(cc, rays, seg, K_, interpret=interpret)
 
-    def spy_t(cc, rays, seg):
+    def spy_t(cc, rays, seg, *boxes):
         seen["t"] = (cc.numpy(), rays.numpy())
-        return real_t(cc, rays, seg)
+        return real_t(cc, rays, seg, *boxes)
 
     monkeypatch.setattr(jpp, "phase_b_pallas", spy_j)
     monkeypatch.setattr(pk, "phase_b_chunks", spy_t)
@@ -230,8 +230,8 @@ def test_swept_render_matches_jax(renders):
     # the render went through the swept path and overflowed p_max
     assert tsw.STATS["queries"] >= 3
     assert tsw.STATS["overflow_rays"] > 0
-    assert pk.LAUNCHES == {"phase_b_chunks": 0}
-    assert pk.PLAIN_ON_CUDA == {"phase_b_chunks": 0}
+    assert pk.LAUNCHES == {"swept_phase_a": 0, "phase_b_chunks": 0}
+    assert pk.PLAIN_ON_CUDA == {"swept_phase_a": 0, "phase_b_chunks": 0}
 
 
 def test_scene_builder_takes_swept_and_refuses_other_traversals():
