@@ -16,14 +16,15 @@ Phases (each prints one line with its elapsed seconds):
      random directions at the camera hit points, Morton-sorted as the
      bounce queries are), and
        a. hold kernel A (phase-A cull, with and without its octet output)
-          and kernel B (dense phase B, closest and any hit) against their
-          plain PyTorch versions on EVERY tile of both waves, with the
-          share of (tile, cluster) pairs that pass A's tile test
-          (group_cull_plain) and of (ray, slot) pairs that pass B's slot
-          cull; kernels
-          C, D (octet and stream phase B, closest and any hit) on a
-          subset of 512 tiles per wave; time A on both whole waves beside
-          its bounds, and B, C and D beside the bound they share;
+          and kernels B, C and D (dense, octet and stream phase B, closest
+          and any hit; C and D on the routing of A's octet output, q =
+          2048, stream_qo 512) against their plain PyTorch versions on
+          EVERY tile of both waves, with the share of (tile, cluster)
+          pairs that pass A's tile test (group_cull_plain) and of (ray,
+          slot) or (ray, entry) pairs that pass the box cull of B, C and
+          D; time A on both whole waves beside its bounds, and B, C and D
+          beside the bound of the closest-hit function they share (the
+          plain side's pairs and blocks) and beside each one's own work;
        b. run both whole waves through tiled_closest_hit / tiled_any_hit
           with octets=True and with streams=True (q = 2048, the JAX
           default stream_qo = 512) and compare each with
@@ -89,8 +90,6 @@ CYL_FLOPS = 90
 TILE_TEST_FLOPS = 87
 CHUNK_CYL_FLOPS = 105
 
-SUBSET_TILES = 512
-
 # tolerances of the kernel checks, with their reasons:
 #  te: exact or one bf16 step apart (the kernel and the plain version
 #      truncate the same f32 minimum; one step allows for a different
@@ -107,6 +106,10 @@ T_RTOL = 1e-5
 #  where CPU and GPU transcendentals round differently)
 MEAN_RTOL = 0.02
 #  octet bits of kernel A: exact (the same hit predicate as te)
+#  kernels C and D: t and pid bit for bit in both modes (the same
+#      arithmetic without fused multiply-adds on both sides, the same
+#      per-slot or per-entry stop rule, and a tie rule, the largest pid
+#      at the minimum t, that no order of the lanes or warps changes)
 #  kernel E: t and pid bit for bit (the same arithmetic without fused
 #      multiply-adds on both sides, and a tie rule, the largest pid at the
 #      minimum t, that no order of the lanes or warps changes)
@@ -278,76 +281,92 @@ def check_kernel_a(r8, bounds, name):
     return te_k, tpm_k, oct_k, te_err, facts
 
 
+def check_octet_kernels(name, kname, kern, plain, T, dev):
+    """Phase 2a: kernel C or D against its plain version on EVERY tile of
+    a wave, closest and any hit: t and pid bit for bit (the same stop
+    rules and the same tie rule on both sides). Logs the share of (ray,
+    slot) or (ray, entry) pairs that pass the kernel's cull. Returns the
+    closest-hit facts: the kernel's culled pairs, the plain version's
+    tests and blocks (its work) and its time, and the largest |t diff|
+    where both sides hit, over both modes."""
+    import torch
+    out = {}
+    t_err = 0.0
+    for any_hit in (False, True):
+        mode = "any" if any_hit else "closest"
+        pairs = torch.zeros((T,), dtype=torch.int32, device=dev)
+        t_k, p_k = kern(any_hit, pairs)
+        res = {}
+        ms = cuda_ms(lambda: res.update(p=plain(any_hit)), 1, warm=False)
+        t_p, p_p, blocks, tests = res.pop("p")
+        n_t = int((t_k.view(torch.int32) != t_p.view(torch.int32)).sum())
+        n_p = int((p_k != p_p).sum())
+        hits_equal = bool(torch.equal(p_k >= 0, p_p >= 0))
+        n_pairs, n_tests = int(pairs.long().sum()), int(tests.sum())
+        unit = "slot" if kname == "phase_b_oct" else "entry"
+        log(f"{name}: {kname} {mode} on all {T} tiles (plain {ms:.1f} ms): "
+            f"t bits differing {n_t}, pid differing {n_p}, hit flags equal "
+            f"{hits_equal}, hits {int((p_k >= 0).sum())}; (ray, {unit}) "
+            f"pairs the octet bits leave {n_tests}, passing the cull "
+            f"{n_pairs} ({n_pairs / max(1, n_tests):.4f}); blocks "
+            f"{int(blocks.sum())}")
+        require(n_t == 0 and n_p == 0,
+                f"{name}/{mode}: {kname} differs from its plain version on "
+                f"{n_t} t and {n_p} pid of {64 * T} rays")
+        t_err = max(t_err, compare(t_k, p_k, t_p, p_p)[2])
+        if not any_hit:
+            out = dict(pairs=n_pairs, tests=n_tests,
+                       blocks=int(blocks.sum()), plain_ms=ms)
+    out["t_err"] = t_err
+    return out
+
+
 def check_kernels(scene, wv, report):
     """Phase 2a: kernel A (both instances) against its plain version on
-    every tile of each wave, and kernels C, D on 512 live tiles."""
+    every tile of each wave, and kernels C and D on every tile of the
+    routing that A's octet instance gives."""
     import torch
     from hairpt_torch.ops import intersect_tiled as itiled
     from hairpt_torch.ops import tiled_kernels as tk
 
-    arr = scene.arrays
-    sw = arr.hair_swept
-    C, _, K = sw.seg_rows_t.shape
+    sw = scene.arrays.hair_swept
+    C = sw.seg_rows_t.shape[0]
     q = scene.config.tiled_q
     qo = min(max(256, q // 4), q)     # the JAX default stream_qo
     bounds = torch.cat([sw.cl_lo.T, sw.cl_hi.T]).contiguous()
     ks = itiled.KeySpace(C)
+    seg = sw.seg_rows_t
     errs = {k: 0.0 for k in ("cull_phase_a", "cull_phase_a_oct", "phase_b",
                              "phase_b_oct", "stream_phase_b")}
     for name, ray in wv.items():
         ray_p, _ = itiled._pad_rays(ray, tk.TILE)
         r8 = itiled.rays8_of(ray_p)
+        T = r8.shape[0]
         te_k, tpm_k, oct_k, te_err, facts = check_kernel_a(r8, bounds, name)
         errs["cull_phase_a"] = max(errs["cull_phase_a"], te_err)
         errs["cull_phase_a_oct"] = max(errs["cull_phase_a_oct"], te_err)
-        live = torch.nonzero((r8[:, 7, :] > r8[:, 6, :]).any(1)).squeeze(1)
-        sel = torch.linspace(0, live.numel() - 1, min(SUBSET_TILES,
-                                                      live.numel()),
-                             device=r8.device).round().long()
-        idx = torch.unique(live[sel])
-
-        key = ks.keys(te_k[idx])
-        slots, cnt, tmin, tscale, ov, _, oct_sl = itiled._tile_slots(
-            key, ks, q, oct=oct_k[idx])
-        cids, strm, off, cnt_s, tmin_s, tsc_s, ov_s, _ = \
-            itiled._octet_streams(key, ks, oct_k[idx], q, qo)
-        r8s = r8[idx].contiguous()
-        tps = tpm_k[idx].contiguous()
-        seg = sw.seg_rows_t
-        runs = {
-            "phase_b_oct": (
-                lambda ah: tk.phase_b_oct(slots, cnt, tmin, tscale, oct_sl,
-                                          r8s, tps, seg, ah),
-                lambda ah: tk.phase_b_oct_plain(slots, cnt, tmin, tscale,
-                                                oct_sl, r8s, tps, seg, ah)),
-            "stream_phase_b": (
-                lambda ah: tk.stream_phase_b(cids, strm, off, cnt_s, tmin_s,
-                                             tsc_s, r8s, tps, seg, ah),
-                lambda ah: tk.stream_phase_b_plain(cids, strm, off, cnt_s,
-                                                   tmin_s, tsc_s, r8s, tps,
-                                                   seg, ah)),
-        }
-        for kname, (kern, plain) in runs.items():
-            for any_hit in (False, True):
-                mode = "any" if any_hit else "closest"
-                out_k, out_p = kern(any_hit), plain(any_hit)
-                agree, t_rel, t_abs = compare(out_k[0], out_k[1], out_p[0],
-                                              out_p[1])
-                hits_equal = bool(torch.equal(out_k[1] >= 0, out_p[1] >= 0))
-                log(f"{name}: {kname} {mode} on {idx.numel()} tiles (mean "
-                    f"cnt {float(cnt.float().mean()):.1f}, overflow tiles "
-                    f"{ov if kname != 'stream_phase_b' else ov_s}): pid "
-                    f"agree {agree:.6f}, hit flags equal {hits_equal}, max t "
-                    f"rel diff {t_rel:.3g}, hits "
-                    f"{int((out_k[1] >= 0).sum())}")
-                require(agree >= PID_MIN_AGREE and hits_equal,
-                        f"{name}/{mode}: {kname} pid agreement {agree}, hit "
-                        f"flags equal {hits_equal}")
-                if not any_hit:
-                    require(t_rel <= T_RTOL,
-                            f"{name}/{mode}: {kname} t rel diff {t_rel}")
-                    errs[kname] = max(errs[kname], t_abs)
-        report[name] = dict(r8=r8, te=te_k, tpm=tpm_k, oct=oct_k, a=facts)
+        key = ks.keys(te_k)
+        oargs = itiled._tile_slots(key, ks, q, oct=oct_k)
+        oargs = oargs[:4] + oargs[6:] + (r8, tpm_k, seg, bounds)
+        sargs = itiled._octet_streams(key, ks, oct_k, q, qo)[:6] \
+            + (r8, tpm_k, seg, bounds)
+        w = dict(r8=r8, te=te_k, tpm=tpm_k, oct=oct_k, a=facts,
+                 oargs=oargs, sargs=sargs)
+        w["c"] = check_octet_kernels(
+            name, "phase_b_oct",
+            lambda ah, pairs: tk.phase_b_oct(*oargs, ah, pairs_out=pairs),
+            lambda ah: tk.phase_b_oct_plain(*oargs[:8], ah,
+                                            return_work=True), T, r8.device)
+        w["d"] = check_octet_kernels(
+            name, "stream_phase_b",
+            lambda ah, pairs: tk.stream_phase_b(*sargs, ah,
+                                                pairs_out=pairs),
+            lambda ah: tk.stream_phase_b_plain(*sargs[:9], ah,
+                                               return_work=True), T,
+            r8.device)
+        errs["phase_b_oct"] = max(errs["phase_b_oct"], w["c"]["t_err"])
+        errs["stream_phase_b"] = max(errs["stream_phase_b"], w["d"]["t_err"])
+        report[name] = w
     return errs
 
 
@@ -403,36 +422,57 @@ def check_phase_b(scene, report, errs):
                     f"{t_rel}, slots run equal {run_equal}")
             errs["phase_b"] = max(errs["phase_b"], t_abs)
             if not any_hit:
+                w["t_plain"] = t_p
                 w["cull_pairs"] = n_pairs
                 w["cull_share"] = n_pairs / max(1, 64 * n_run)
     return plain_ms
 
 
 def bcd_bound(n_blk, n_tst, T, K):
-    """The bound B, C and D share on one routed wave (they compute one
-    function: each tile's closest hits over the same slots): the fewest
-    ray-cluster tests of the three (n_tst: kernel B's pairs that pass its
-    slot cull, or kernel D's per-octet walks where those are fewer) and
-    the distinct (tile, cluster) segment blocks D's walks touch (n_blk),
-    each read once per tile. (ms, 'bytes'/'operations')."""
+    """The least time of a phase-B kernel (B, C or D) on one routed wave
+    that runs n_tst (ray, cluster) tests of K lanes and reads n_blk
+    (tile, cluster) segment blocks, each once per tile, with the tiles'
+    rays, bounds and results. (ms, 'bytes'/'operations')."""
     return bound_ms(n_blk * (16 * K * 4 + 4) + T * (8 * 64 * 4 + 64 * 4 + 12)
                     + T * 64 * 8, n_tst * K * CYL_FLOPS)
 
 
-def time_kernels(scene, report, errs, plain_b):
-    """Kernels A (both instances), B, C and D and their plain versions at
-    the camera wave's shapes, with bounds (plain_b: kernel B's plain
-    version's time from check_phase_b)."""
+def function_work(r8, slots, cnt, bounds, best):
+    """The work the closest-hit function of kernels B, C and D needs on
+    one routed wave, from the plain side: each ray against each routed
+    slot (s < cnt) whose cluster box, widened by BOX_PAD, it enters before
+    its closest hit (slot_cull_plain up to min(maxt, best), best: the
+    plain version's t), and the (tile, slot) blocks at least one such ray
+    needs. Returns (pairs, blocks)."""
     import torch
-    from hairpt_torch.ops import intersect_tiled as itiled
+    from hairpt_torch.ops import tiled_kernels as tk
+
+    T, q = slots.shape
+    maxt_eff = torch.minimum(r8[:, 7], best)
+    lo, hi = bounds[:3].T, bounds[3:].T                      # [C, 3]
+    used = torch.arange(q, device=slots.device)[None] < cnt[:, None]
+    tt, ss = torch.nonzero(used, as_tuple=True)
+    n_pairs = n_blk = 0
+    for c0 in range(0, tt.numel(), 1 << 16):
+        ti = tt[c0:c0 + (1 << 16)]
+        cid = (slots[ti, ss[c0:c0 + (1 << 16)]] & tk.CID_MASK).long()
+        n = tk.slot_cull_plain(r8[ti], lo[cid], hi[cid], maxt_eff[ti]).sum(1)
+        n_pairs += int(n.sum())
+        n_blk += int((n > 0).sum())
+    return n_pairs, n_blk
+
+
+def time_kernels(scene, report, errs, times):
+    """The kernels line's entries of kernels A (both instances, timed
+    here), B, C and D (times: phase_b_times) at the camera wave's shapes,
+    with their bounds and plain versions' times."""
+    import torch
     from hairpt_torch.ops import tiled_kernels as tk
 
     sw = scene.arrays.hair_swept
-    C, _, K = sw.seg_rows_t.shape
-    q = scene.config.tiled_q
-    qo = min(max(256, q // 4), q)     # the JAX default stream_qo
+    C = sw.seg_rows_t.shape[0]
     cam = report["camera"]
-    r8, tpm = cam["r8"], cam["tpm"]
+    r8 = cam["r8"]
     T = r8.shape[0]
     bounds = torch.cat([sw.cl_lo.T, sw.cl_hi.T]).contiguous()
     out = []
@@ -486,54 +526,34 @@ def time_kernels(scene, report, errs, plain_b):
               "clusters the tile's rays enter); dense_bound_ms: every live tile's 64 rays "
               "x every cluster", **more)
 
-    ks = itiled.KeySpace(C)
-    key = ks.keys(cam["te"])
-    slots, cnt, tmin, tscale, _, _, oct_sl = itiled._tile_slots(
-        key, ks, q, oct=cam["oct"])
-    seg = sw.seg_rows_t
-    args = (slots, cnt, tmin, tscale, r8, tpm, seg)
-    oargs = (slots, cnt, tmin, tscale, oct_sl, r8, tpm, seg)
-    sargs = itiled._octet_streams(key, ks, cam["oct"], q, qo)[:6] \
-        + (r8, tpm, seg)
-    run = tk.phase_b(*args, bounds, False, True)[2]
-    plain = {}
-    plain_c = cuda_ms(lambda: plain.update(
-        c=tk.phase_b_oct_plain(*oargs, return_work=True)), 1, warm=False)
-    plain_d = cuda_ms(lambda: plain.update(
-        d=tk.stream_phase_b_plain(*sargs, return_work=True)), 1, warm=False)
-
-    # B, C and D share one bound (bcd_bound)
-    n_slots = int(run.long().sum())
-    _, _, blocks_c, tests_c = plain["c"]
-    _, _, blocks_d, tests_d = plain["d"]
-    n_blk, n_tst = int(blocks_d.sum()), int(tests_d.sum())
-    b_bcd = bcd_bound(n_blk, min(n_tst, cam["cull_pairs"]), T, K)
-    work = dict(bound_blocks=n_blk,
-                bound_tests=min(n_tst, cam["cull_pairs"]),
-                d_tests=n_tst)
-    entry("phase_b", "hairpt_torch/csrc/tiled.cu",
-          "hairpt/ops/pallas_tiled.py:396", errs["phase_b"],
-          cuda_ms(lambda: tk.phase_b(*args, bounds), 3), plain_b, b_bcd,
-          blocks_read=n_slots, ray_cluster_tests=cam["cull_pairs"],
-          cull_pass_share=cam["cull_share"], **work)
-    entry("phase_b_oct", "hairpt_torch/csrc/octets.cu",
-          "hairpt/ops/pallas_tiled.py:286", errs["phase_b_oct"],
-          cuda_ms(lambda: tk.phase_b_oct(*oargs), 3), plain_c, b_bcd,
-          blocks_read=int(blocks_c.sum()),
-          ray_cluster_tests=int(tests_c.sum()), **work)
-    entry("stream_phase_b", "hairpt_torch/csrc/octets.cu",
-          "hairpt/ops/pallas_tiled.py:621", errs["stream_phase_b"],
-          cuda_ms(lambda: tk.stream_phase_b(*sargs), 3), plain_d, b_bcd,
-          blocks_read=n_blk, ray_cluster_tests=n_tst, **work)
+    # B, C and D on both waves (phase_b_times)
+    for kname, src, line in (("phase_b", "tiled.cu", 396),
+                             ("phase_b_oct", "octets.cu", 286),
+                             ("stream_phase_b", "octets.cu", 621)):
+        c = dict(times["camera"][kname])
+        more = {f"bounce_{k}": v for k, v in times["bounce"][kname].items()}
+        ms, plain = c.pop("ms"), c.pop("plain_ms")
+        bound = (c.pop("bound_ms"), c.pop("bound_by"))
+        entry(kname, f"hairpt_torch/csrc/{src}",
+              f"hairpt/ops/pallas_tiled.py:{line}", errs[kname], ms, plain,
+              bound, bound_basis="bound_ms: the closest-hit function's work "
+              "on this run's wave, the same for B, C and D (each ray against "
+              "each routed cluster whose widened box it enters before its "
+              "closest hit, x K lane tests, from slot_cull_plain on the "
+              "plain side; the (tile, cluster) blocks at least one such ray "
+              "needs, or D's distinct blocks where fewer); work_bound_ms: "
+              "this kernel's own work (the pairs passing its cull, the "
+              "blocks it reads)", **c, **more)
     return out
 
 
-def phase_b_variants(scene, report):
-    """Kernels B, C and D on the first routing pass of each whole wave:
-    their times beside the bound they share (bcd_bound, from kernel D's
-    plain version's work on the wave), and how full the octets are. A
-    warp of kernel C holds four octets; a slot saves a warp's work only
-    when all four of its bits are clear, otherwise only lanes idle."""
+def phase_b_times(scene, report, plain_b):
+    """Kernels B, C and D on the first routing pass of each whole wave
+    (C and D on the routing of A's octet instance): each one's time beside
+    the bound of the function they compute (function_work, the same for
+    the three) and beside its own work (the pairs passing its cull, the
+    blocks it reads). plain_b: kernel B's plain version's time on the
+    camera wave (check_phase_b)."""
     import torch
     from hairpt_torch.ops import intersect_tiled as itiled
     from hairpt_torch.ops import tiled_kernels as tk
@@ -541,50 +561,54 @@ def phase_b_variants(scene, report):
     sw = scene.arrays.hair_swept
     C, _, K = sw.seg_rows_t.shape
     q = scene.config.tiled_q
-    qo = min(max(256, q // 4), q)
     ks = itiled.KeySpace(C)
     seg = sw.seg_rows_t
     bounds = torch.cat([sw.cl_lo.T, sw.cl_hi.T]).contiguous()
     out = {}
     for name, w in report.items():
-        key = ks.keys(w["te"])
-        slots, cnt, tmin, tscale, _, _, oct_sl = itiled._tile_slots(
-            key, ks, q, oct=w["oct"])
-        strm = itiled._octet_streams(key, ks, w["oct"], q, qo)[:6]
+        slots, cnt, tmin, tscale, _, _ = itiled._tile_slots(
+            ks.keys(w["te"]), ks, q)
         args = (slots, cnt, tmin, tscale, w["r8"], w["tpm"], seg, bounds)
-        ms_b = cuda_ms(lambda: tk.phase_b(*args), 3)
+        T = slots.shape[0]
         run = tk.phase_b(*args, False, True)[2]
-        _, _, blocks_d, tests_d = tk.stream_phase_b_plain(
-            *strm, w["r8"], w["tpm"], seg, return_work=True)
-        n_tst = min(int(tests_d.sum()), w["cull_pairs"])
-        b, by = bcd_bound(int(blocks_d.sum()), n_tst, slots.shape[0], K)
-        b_d, _ = bcd_bound(int(blocks_d.sum()), int(tests_d.sum()),
-                           slots.shape[0], K)
-        ms_c = cuda_ms(lambda: tk.phase_b_oct(
-            slots, cnt, tmin, tscale, oct_sl, w["r8"], w["tpm"], seg), 3)
-        ms_d = cuda_ms(lambda: tk.stream_phase_b(*strm, w["r8"], w["tpm"],
-                                                 seg), 3)
-        used = torch.arange(q, device=slots.device)[None] < cnt[:, None]
-        m8 = oct_sl[used]
-        lanes = float(sum(((m8 >> o) & 1).sum() for o in range(8))) \
-            / max(1, 8 * m8.numel())
-        idle_warps = float(((m8 & 0x0F) == 0).sum() + ((m8 & 0xF0) == 0)
-                           .sum()) / max(1, 2 * m8.numel())
         n_slots = int(run.long().sum())
-        log(f"{name} wave, first routing pass: kernel B {ms_b:.3f} ms "
-            f"({n_slots} slots before the early exits, "
-            f"{w['cull_share']:.4f} of their (ray, slot) pairs pass the "
-            f"slot cull), kernel C {ms_c:.3f} ms, kernel D {ms_d:.3f} ms; "
-            f"shared bound {b:.3f} ms by {by} ({n_tst} tests, "
-            f"{int(blocks_d.sum())} blocks; {b_d:.3f} ms from D's "
-            f"{int(tests_d.sum())} tests), B {ms_b / b:.1f}x, C "
-            f"{ms_c / b:.1f}x, D {ms_d / b:.1f}x; over the {m8.numel()} "
-            f"routed slots, octet bits set {lanes:.4f}, warps with all four "
-            f"bits clear {idle_warps:.4f}")
-        out[name] = dict(b_ms=ms_b, c_ms=ms_c, d_ms=ms_d, bound_ms=b,
-                         bound_ms_d=b_d, bound_by=by,
-                         cull_share=w["cull_share"],
-                         octet_bits=lanes, idle_warps=idle_warps)
+        ms = {"phase_b": cuda_ms(lambda: tk.phase_b(*args), 5),
+              "phase_b_oct": cuda_ms(lambda: tk.phase_b_oct(*w["oargs"]), 5),
+              "stream_phase_b": cuda_ms(
+                  lambda: tk.stream_phase_b(*w["sargs"]), 5)}
+        c, d = w["c"], w["d"]
+        f_pairs, f_blk = function_work(w["r8"], slots, cnt, bounds,
+                                       w["t_plain"])
+        n_blk = min(f_blk, d["blocks"])
+        b, by = bcd_bound(n_blk, f_pairs, T, K)
+        log(f"{name} wave, first routing pass: the function's work "
+            f"{f_pairs} (ray, cluster) pairs, {f_blk} blocks they need "
+            f"({d['blocks']} distinct blocks of D's walks); bound "
+            f"{b:.3f} ms by {by}")
+        own = {"phase_b": (n_slots, w["cull_pairs"],
+                           plain_b if name == "camera" else None),
+               "phase_b_oct": (c["blocks"], c["pairs"], c["plain_ms"]),
+               "stream_phase_b": (d["blocks"], d["pairs"], d["plain_ms"])}
+        out[name] = {}
+        for kname, (k_blk, k_pairs, plain) in own.items():
+            wb, wby = bcd_bound(k_blk, k_pairs, T, K)
+            log(f"{name} wave, first routing pass: {kname} {ms[kname]:.3f} "
+                f"ms, {ms[kname] / b:.1f}x the function's bound; its own "
+                f"work {k_pairs} pairs past its cull "
+                f"({k_pairs / max(1, f_pairs):.3f}x the function's), "
+                f"{k_blk} blocks read: {wb:.3f} ms by {wby} "
+                f"({ms[kname] / wb:.1f}x)")
+            out[name][kname] = dict(
+                ms=ms[kname], plain_ms=plain, bound_ms=b, bound_by=by,
+                work_bound_ms=wb, work_bound_by=wby,
+                ray_cluster_tests=k_pairs, blocks_read=k_blk,
+                function_tests=f_pairs, function_blocks=n_blk)
+        out[name]["phase_b"]["cull_pass_share"] = w["cull_share"]
+        log(f"{name} wave: of 64 x {n_slots} (ray, slot) pairs B's cull "
+            f"passes {w['cull_share']:.4f}; of the pairs the octet bits "
+            f"leave C's passes {c['pairs'] / max(1, c['tests']):.4f} "
+            f"({c['tests']} left), D's {d['pairs'] / max(1, d['tests']):.4f}"
+            f" ({d['tests']} left)")
     return out
 
 
@@ -986,13 +1010,8 @@ def main() -> int:
         report = {}
         errs = check_kernels(scene, wv, report)
         plain_b = check_phase_b(scene, report, errs)
-        kernels = time_kernels(scene, report, errs, plain_b)
-        waves_b = phase_b_variants(scene, report)
-        entry_b = next(k for k in kernels if k["name"] == "phase_b")
-        entry_b.update(bounce_ms=waves_b["bounce"]["b_ms"],
-                       bounce_bound_ms=waves_b["bounce"]["bound_ms"],
-                       bounce_bound_ms_d=waves_b["bounce"]["bound_ms_d"],
-                       bounce_cull_pass_share=waves_b["bounce"]["cull_share"])
+        times = phase_b_times(scene, report, plain_b)
+        kernels = time_kernels(scene, report, errs, times)
         del report
         log(f"phase 2a ({time.time() - t1:.1f}s): kernels A-D match their "
             f"plain versions")

@@ -103,16 +103,6 @@ __device__ __forceinline__ bool cyl_hit_seg(const SegRegs& g,
   return (g.pid >= 0) && (near_ok || far_ok);
 }
 
-// The same test on lane l of a [16, K] block (kernels C and D).
-template <int K>
-__device__ __forceinline__ bool cyl_hit_tiled(const float* __restrict__ rows,
-                                              int l, const RayRegs& y,
-                                              float& t, int& pid) {
-  const SegRegs g = load_seg<K>(rows, l);
-  pid = g.pid;
-  return cyl_hit_seg(g, y, t);
-}
-
 // The swept kernel's test: hairpt/ops/pallas_phaseb.py::_phaseb_one (two
 // divisions by a, miter planes through the hit point); plain version
 // hairpt_torch/ops/phaseb_kernels.py::cyl_test_chunk.

@@ -25,7 +25,11 @@
 
 namespace {
 
+using hairpt_dev::box_cull;
+using hairpt_dev::copy_block;
+using hairpt_dev::CullRay;
 using hairpt_dev::f_inf;
+using hairpt_dev::load_box;
 using hairpt_dev::RayRange;
 using hairpt_dev::RayRegs;
 using hairpt_dev::tile_pass;
@@ -292,7 +296,8 @@ cull_kernel(const float* __restrict__ rays8,   // [T, 8, TILE]
 // rays enters the cluster box, so most (ray, slot) pairs of an
 // incoherent tile cannot hit; the design spends the arithmetic on the
 // others:
-//   * slot cull: rays 0..63 each run kernel A's slab test against the
+//   * slot cull (box_cull, slab.cuh, shared with kernels C and D): rays
+//     0..63 each run kernel A's slab test against the
 //     slot's cluster box, widened by BOX_PAD times the larger of the
 //     ray origin's and the box's largest |coordinate| (so that a
 //     grazing hit the lane test accepts just outside the exact box is
@@ -320,34 +325,6 @@ cull_kernel(const float* __restrict__ rays8,   // [T, 8, TILE]
 //   * the early exit stays a __syncthreads_and after each group of 8.
 // ---------------------------------------------------------------------------
 constexpr int B_THREADS = 128;    // phase-B block: K lanes x 128/K rays
-// The slot cull's margin, relative to the coordinates' magnitude. The
-// boxes are the exact cap-ellipse extents rounded to f32, and the lane
-// test rounds its operands (a few ulp of |origin| and |p0|), so a
-// grazing hit may lie on a face of its box or a few ulp outside it,
-// where the slab test can reject it (a ray in the plane of a face gets a
-// slab of zero width). 2^-16 is 256 ulp of that scale;
-// tests/test_torch_tiled.py shows hits that the unwidened test loses and
-// that no hit lies outside its box by a sixteenth of the margin.
-constexpr float BOX_PAD = 1.0f / 65536.0f;
-
-__device__ __forceinline__ void load_box(const float* __restrict__ bounds,
-                                         int C, unsigned cid, float (&b)[6]) {
-#pragma unroll
-  for (int i = 0; i < 6; ++i) b[i] = __ldg(bounds + (size_t)i * C + cid);
-}
-
-// copy one [16, K] segment block into shared memory with cp.async (16 B
-// per copy, all threads of the block), as one commit group
-template <int K>
-__device__ __forceinline__ void copy_block(float* dst, const float* src,
-                                           int tid) {
-  for (int i = tid; i < 4 * K; i += B_THREADS) {
-    const unsigned d = (unsigned)__cvta_generic_to_shared(dst + 4 * i);
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
-                 "l"(src + 4 * i));
-  }
-}
-
 template <int K>
 __global__ void __launch_bounds__(B_THREADS)
 phase_b_kernel(const int* __restrict__ slots,     // [T, q]
@@ -388,8 +365,8 @@ phase_b_kernel(const int* __restrict__ slots,     // [T, q]
   const int* sl = slots + (size_t)tile * q;
 
   // rays 0..63: one per thread of the first two warps
-  float o[3] = {0.0f, 0.0f, 0.0f}, inv[3] = {0.0f, 0.0f, 0.0f};
-  float mint = 0.0f, maxt = 0.0f, mag = 0.0f, tpm = 0.0f;
+  CullRay cr = {};
+  float tpm = 0.0f;
   float best = inf;
   int bpid = -1;
   if (ray_thr) {
@@ -397,19 +374,8 @@ phase_b_kernel(const int* __restrict__ slots,     // [T, q]
                                            TILE, tid);
     s_ray[tid][0] = make_float4(y.ox, y.oy, y.oz, y.mint);
     s_ray[tid][1] = make_float4(y.dx, y.dy, y.dz, y.maxt);
-    o[0] = y.ox;
-    o[1] = y.oy;
-    o[2] = y.oz;
-    const float d[3] = {y.dx, y.dy, y.dz};
-#pragma unroll
-    for (int ax = 0; ax < 3; ++ax) {
-      float dd = d[ax];
-      if (fabsf(dd) < 1e-12f) dd = (dd >= 0.0f) ? 1e-12f : -1e-12f;
-      inv[ax] = 1.0f / dd;
-    }
-    mint = y.mint;
-    maxt = y.maxt;
-    mag = fmaxf(fabsf(o[0]), fmaxf(fabsf(o[1]), fabsf(o[2])));
+    cr = hairpt_dev::cull_ray(y.ox, y.oy, y.oz, y.dx, y.dy, y.dz, y.mint,
+                              y.maxt);
     tpm = t_pmax[(size_t)tile * TILE + tid];
 #pragma unroll
     for (int v = 0; v < NW; ++v) s_eq[tid][v] = 0u;
@@ -421,8 +387,9 @@ phase_b_kernel(const int* __restrict__ slots,     // [T, q]
   if (n_q > 0) {
     pk = (unsigned)sl[0];
     if (ray_thr) load_box(bounds, C, pk & CID_MASK, bx);
-    copy_block<K>(s_blk[0], seg_rows + (size_t)(pk & CID_MASK) * 16 * K,
-                  tid);
+    copy_block<K, B_THREADS>(s_blk[0],
+                             seg_rows + (size_t)(pk & CID_MASK) * 16 * K,
+                             tid);
   }
   asm volatile("cp.async.commit_group;\n" ::);
 
@@ -434,25 +401,8 @@ phase_b_kernel(const int* __restrict__ slots,     // [T, q]
     for (int s = q0; s < q_end; ++s) {
       // 1. slot cull: each ray against the slot's widened cluster box
       if (ray_thr) {
-        bool pass = false;
-        if (!(any_hit && best < inf)) {
-          float bmag = fabsf(bx[0]);
-#pragma unroll
-          for (int i = 1; i < 6; ++i) bmag = fmaxf(bmag, fabsf(bx[i]));
-          const float pad = BOX_PAD * (mag + bmag);
-          float tn = 0.0f, tf = 0.0f;
-#pragma unroll
-          for (int ax = 0; ax < 3; ++ax) {
-            const float a0 = ((bx[ax] - pad) - o[ax]) * inv[ax];
-            const float a1 = ((bx[3 + ax] + pad) - o[ax]) * inv[ax];
-            const float lo_ax = fminf(a0, a1);
-            const float hi_ax = fmaxf(a0, a1);
-            tn = (ax == 0) ? lo_ax : fmaxf(tn, lo_ax);
-            tf = (ax == 0) ? hi_ax : fminf(tf, hi_ax);
-          }
-          tf = tf * 1.00000024f + 1e-7f;
-          pass = (tn <= tf) && (tf >= mint) && (tn <= fminf(maxt, best));
-        }
+        const bool pass = !(any_hit && best < inf) &&
+                          box_cull(cr, bx, fminf(cr.maxt, best));
         const unsigned b = __ballot_sync(FULL, pass);
         if (wl == 0) s_act[s & 1][tid >> 5] = b;
       }
@@ -463,8 +413,8 @@ phase_b_kernel(const int* __restrict__ slots,     // [T, q]
         pk = (unsigned)sl[s + 1];
         const unsigned cid = pk & CID_MASK;
         if (ray_thr) load_box(bounds, C, cid, bx);
-        copy_block<K>(s_blk[(s + 1) & 1], seg_rows + (size_t)cid * 16 * K,
-                      tid);
+        copy_block<K, B_THREADS>(s_blk[(s + 1) & 1],
+                                 seg_rows + (size_t)cid * 16 * K, tid);
       }
       asm volatile("cp.async.commit_group;\n" ::);
       asm volatile("cp.async.wait_group 1;\n" ::);   // this slot's block

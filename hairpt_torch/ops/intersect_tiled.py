@@ -311,12 +311,13 @@ def _route_and_test(sw, bounds, key_k, oct_k, rays8_k, tpm_k, ks, q_max,
         cids, strm, off, cnt, tmin, tscale, ov, bound = _octet_streams(
             key_k, ks, oct_k, q_max, pb.qo)
         t, p = tk.stream_phase_b(cids, strm, off, cnt, tmin, tscale, rays8_k,
-                                 tpm_k, sw.seg_rows_t, any_hit=any_mode)
+                                 tpm_k, sw.seg_rows_t, bounds,
+                                 any_hit=any_mode)
     elif pb.octets:
         slots, cnt, tmin, tscale, ov, bound, oct_sl = _tile_slots(
             key_k, ks, q_max, oct=oct_k)
         t, p = tk.phase_b_oct(slots, cnt, tmin, tscale, oct_sl, rays8_k,
-                              tpm_k, sw.seg_rows_t, any_hit=any_mode)
+                              tpm_k, sw.seg_rows_t, bounds, any_hit=any_mode)
     else:
         slots, cnt, tmin, tscale, ov, bound = _tile_slots(key_k, ks, q_max)
         t, p = tk.phase_b(slots, cnt, tmin, tscale, rays8_k, tpm_k,

@@ -13,10 +13,13 @@ and their plain PyTorch versions (port of hairpt/ops/pallas_tiled.py).
                   its widened cluster box (slot_cull_plain)
   phase_b_oct     kernel C, phase B that tests a slot only for the 8-ray
                   octets whose bit is set (replaces
-                  pallas_tiled._tiled_kernel_oct; csrc/octets.cu)
+                  pallas_tiled._tiled_kernel_oct; csrc/octets.cu); the
+                  kernel tests a slot only for the rays of those octets
+                  that enter its widened cluster box (slot_cull_plain)
   stream_phase_b  kernel D, phase B over eight per-octet compacted slot
                   streams (replaces pallas_tiled._stream_kernel;
-                  csrc/octets.cu)
+                  csrc/octets.cu); the kernel tests an entry only for the
+                  octet's rays that enter its widened cluster box
 
 Layout contract:
   rays8    [T, 8, 64] f32  rows o.xyz, d.xyz, mint, maxt (dead: maxt<=mint)
@@ -113,9 +116,9 @@ def oct_lib():
         from ._native import load_library
         L = load_library("hairpt_octets", ["octets.cu"], nvcc_cmd(), HEADERS)
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        L.hairpt_phase_b_oct.argtypes = [vp] * 8 + [ci] * 4 + [vp] * 3
+        L.hairpt_phase_b_oct.argtypes = [vp] * 9 + [ci] * 5 + [vp] * 4
         L.hairpt_phase_b_oct.restype = ci
-        L.hairpt_stream.argtypes = [vp] * 8 + [ci] * 5 + [vp] * 3
+        L.hairpt_stream.argtypes = [vp] * 9 + [ci] * 7 + [vp] * 4
         L.hairpt_stream.restype = ci
         _OCT_LIB = L
     return _OCT_LIB
@@ -336,17 +339,18 @@ def phase_b(slots, cnt, tmin, tscale, rays8, t_pmax, seg_rows, bounds,
     return (t, pid, run) if return_slots_run else (t, pid)
 
 
-# kernel B's slot-cull margin (csrc/tiled.cu BOX_PAD): each cluster box is
-# widened by BOX_PAD times the larger of the ray origin's and the box's
-# largest |coordinate|
+# the phase-B kernels' box-cull margin (csrc/slab.cuh BOX_PAD): each
+# cluster box is widened by BOX_PAD times the larger of the ray origin's
+# and the box's largest |coordinate|
 BOX_PAD = 2.0 ** -16
 
 
 def slot_cull_plain(rays8, lo, hi, maxt_eff):
-    """Plain version of kernel B's per-(ray, slot) box test: rays8
-    [n, 8, 64], one cluster box lo, hi [n, 3] per row, maxt_eff [n, 64]
-    (the ray's maxt, or min(maxt, best) in closest-hit mode) -> [n, 64]
-    bool. Kernel A's slab arithmetic on the box widened by BOX_PAD."""
+    """Plain version of the box test of kernels B, C and D (csrc/slab.cuh
+    box_cull) per (ray, slot): rays8 [n, 8, 64], one cluster box lo, hi
+    [n, 3] per row, maxt_eff [n, 64] (the ray's maxt, or min(maxt, best))
+    -> [n, 64] bool. Kernel A's slab arithmetic on the box widened by
+    BOX_PAD."""
     o = rays8[:, 0:3]                                   # [n, 3, 64]
     inv_d = _inv_dir(rays8[:, 3:6])
     mag = torch.abs(o).amax(dim=1)                      # [n, 64]
@@ -521,11 +525,18 @@ def _done(best, te_next, t_pmax, any_hit):
 
 
 def phase_b_oct(slots, cnt, tmin, tscale, oct_slot, rays8, t_pmax, seg_rows,
-                any_hit: bool = False):
+                bounds, any_hit: bool = False, pairs_out=None):
     """(t [T, 64] f32, pid [T, 64] i32): phase B over each tile's cnt[t]
     packed slots, a ray testing a slot only where its octet's bit is set
-    in oct_slot. pid is the hit's id in both modes."""
+    in oct_slot. pid is the hit's id in both modes. bounds [6, C] are the
+    cluster boxes, which the kernel uses to skip (ray, slot) pairs that
+    cannot hit; the result does not depend on them. pairs_out ([T] i32,
+    CUDA only) receives each tile's count of (ray, slot) pairs that
+    passed the kernel's slot cull."""
     if not rays8.is_cuda:
+        if pairs_out is not None:
+            raise ValueError("pairs_out counts the kernel's slot cull; the "
+                             "plain version tests every set octet")
         return phase_b_oct_plain(slots, cnt, tmin, tscale, oct_slot, rays8,
                                  t_pmax, seg_rows, any_hit)
     T, q = slots.shape
@@ -541,13 +552,17 @@ def phase_b_oct(slots, cnt, tmin, tscale, oct_slot, rays8, t_pmax, seg_rows,
     _check(rays8, "rays8", torch.float32, (T, 8, TILE), dev)
     _check(t_pmax, "t_pmax", torch.float32, (T, TILE), dev)
     _check(seg_rows, "seg_rows", torch.float32, (C, 16, K), dev)
+    _check(bounds, "bounds", torch.float32, (6, C), dev)
+    if pairs_out is not None:
+        _check(pairs_out, "pairs_out", torch.int32, (T,), dev)
     t = torch.empty((T, TILE), dtype=torch.float32, device=dev)
     pid = torch.empty((T, TILE), dtype=torch.int32, device=dev)
     rc = oct_lib().hairpt_phase_b_oct(
         slots.data_ptr(), cnt.data_ptr(), tmin.data_ptr(), tscale.data_ptr(),
         oct_slot.data_ptr(), rays8.data_ptr(), t_pmax.data_ptr(),
-        seg_rows.data_ptr(), T, q, K, int(bool(any_hit)), t.data_ptr(),
-        pid.data_ptr(), _stream(dev))
+        seg_rows.data_ptr(), bounds.data_ptr(), T, q, K, C,
+        int(bool(any_hit)), t.data_ptr(), pid.data_ptr(),
+        None if pairs_out is None else pairs_out.data_ptr(), _stream(dev))
     _raise_rc(rc, "phase_b_oct")
     OCT_LAUNCHES["phase_b_oct"] += 1
     return t, pid
@@ -612,12 +627,19 @@ def _popcount8(m):
 
 
 def stream_phase_b(cids, streams, off, cnt, tmin, tscale, rays8, t_pmax,
-                   seg_rows, any_hit: bool = False):
+                   seg_rows, bounds, any_hit: bool = False, pairs_out=None):
     """(t [T, 64] f32, pid [T, 64] i32): each octet walks its own stream
     streams[t, o, 0:off[t, -1, o]] of slot indices into cids and stops on
     its own bound. cnt is taken as the JAX call takes it (the kernel needs
-    only the streams' lengths); pid is the hit's id in both modes."""
+    only the streams' lengths); pid is the hit's id in both modes. bounds
+    [6, C] are the cluster boxes, which the kernel uses to skip (ray,
+    entry) pairs that cannot hit; the result does not depend on them.
+    pairs_out ([T] i32, CUDA only) receives each tile's count of (ray,
+    entry) pairs that passed the kernel's entry cull."""
     if not rays8.is_cuda:
+        if pairs_out is not None:
+            raise ValueError("pairs_out counts the kernel's entry cull; the "
+                             "plain version tests every entry")
         return stream_phase_b_plain(cids, streams, off, cnt, tmin, tscale,
                                     rays8, t_pmax, seg_rows, any_hit)
     T, q = cids.shape
@@ -636,13 +658,17 @@ def stream_phase_b(cids, streams, off, cnt, tmin, tscale, rays8, t_pmax,
     _check(rays8, "rays8", torch.float32, (T, 8, TILE), dev)
     _check(t_pmax, "t_pmax", torch.float32, (T, TILE), dev)
     _check(seg_rows, "seg_rows", torch.float32, (C, 16, K), dev)
+    _check(bounds, "bounds", torch.float32, (6, C), dev)
+    if pairs_out is not None:
+        _check(pairs_out, "pairs_out", torch.int32, (T,), dev)
     t = torch.empty((T, TILE), dtype=torch.float32, device=dev)
     pid = torch.empty((T, TILE), dtype=torch.int32, device=dev)
     rc = oct_lib().hairpt_stream(
         cids.data_ptr(), streams.data_ptr(), off.data_ptr(),
         tmin.data_ptr(), tscale.data_ptr(), rays8.data_ptr(),
-        t_pmax.data_ptr(), seg_rows.data_ptr(), T, q, qo, n_win, K,
-        int(bool(any_hit)), t.data_ptr(), pid.data_ptr(), _stream(dev))
+        t_pmax.data_ptr(), seg_rows.data_ptr(), bounds.data_ptr(), T, q, qo,
+        n_win, K, C, int(bool(any_hit)), t.data_ptr(), pid.data_ptr(),
+        None if pairs_out is None else pairs_out.data_ptr(), _stream(dev))
     _raise_rc(rc, "stream_phase_b")
     OCT_LAUNCHES["stream_phase_b"] += 1
     return t, pid

@@ -20,12 +20,15 @@ from hairpt_torch.core.math import Ray
 from hairpt_torch.ops import intersect_swept as tsw
 from hairpt_torch.ops import intersect_tiled as ttl
 from hairpt_torch.ops import tiled_kernels as tk
+from test_torch_tiled import _grazing_pencil, _tied_inputs, assert_t_near_f64
 
 K = 32
 
 # t of the same cylinder test: XLA may contract the JAX kernel's
 # multiply-adds into FMAs, the port rounds every operation, so t agrees
-# to a few ulps; prim ids and hit flags are compared exactly
+# to a few ulps; prim ids and hit flags are compared exactly. The kernel
+# tests hold each side's t to a float64 evaluation instead
+# (tests/test_torch_tiled.py assert_t_near_f64)
 T_RTOL = 1e-6
 
 
@@ -254,12 +257,11 @@ def test_plain_phase_b_oct_matches_jax_kernel(geom):
         _j(sw_t.seg_rows_t), K, q, any_hit=True, interpret=True,
         oct=_j(oct_sl))
     t_t, p_t = tk.phase_b_oct(slots, cnt, tmin, tscale, oct_sl, r8, tpm,
-                              sw_t.seg_rows_t, any_hit=True)
+                              sw_t.seg_rows_t, _bounds(sw_t), any_hit=True)
     p_j, t_j = np.asarray(p_j), np.asarray(t_j)
     np.testing.assert_array_equal(p_t.numpy(), p_j)
-    hit = p_j >= 0
-    assert hit.sum() > 10
-    np.testing.assert_allclose(t_t.numpy()[hit], t_j[hit], rtol=T_RTOL)
+    assert (p_j >= 0).sum() > 10
+    assert_t_near_f64(sw_t.seg_rows_t, r8, p_j, port=t_t.numpy(), jax=t_j)
 
 
 def test_plain_stream_phase_b_matches_jax_kernel(geom):
@@ -279,16 +281,16 @@ def test_plain_stream_phase_b_matches_jax_kernel(geom):
         key, ks, oct, q, qo, w)
     assert ov > 0
     t_t, p_t = tk.stream_phase_b(cids, strm, off, cnt, tmin, tscale, r8,
-                                 tpm, sw_t.seg_rows_t, any_hit=True)
+                                 tpm, sw_t.seg_rows_t, _bounds(sw_t),
+                                 any_hit=True)
     t_j, p_j = jpt.stream_phase_b(
         _j(cids), _j(strm), _j(off), _j(cnt), _j(tmin), _j(tscale),
         _j(r8), _j(tpm), _j(sw_t.seg_rows_t), K, q, qo, w, any_hit=True,
         interpret=True, unroll=1)
     p_j, t_j = np.asarray(p_j), np.asarray(t_j)
     np.testing.assert_array_equal(p_t.numpy(), p_j)
-    hit = p_j >= 0
-    assert hit.sum() > 10
-    np.testing.assert_allclose(t_t.numpy()[hit], t_j[hit], rtol=T_RTOL)
+    assert (p_j >= 0).sum() > 10
+    assert_t_near_f64(sw_t.seg_rows_t, r8, p_j, port=t_t.numpy(), jax=t_j)
 
 
 def test_octet_query_matches_jax(geom):
@@ -406,3 +408,290 @@ def test_plain_stream_work_counts_each_block_once_per_tile(geom):
     has_stream = sargs[2][:, -1, :].amax(dim=1) > 0
     assert torch.all((blocks > 0) == has_stream)
     assert int((blocks < entries).sum()) > 0
+
+
+# ---------------------------------------------------------------------------
+# kernels C and D as the card runs them (csrc/octets.cu), on the CPU: the
+# per-(ray, slot) or per-(ray, entry) box cull, the per-warp records and
+# their merge, transcribed in torch and held to the plain versions
+# ---------------------------------------------------------------------------
+
+TILE = tk.TILE
+
+
+def _merge_records(t_m, pid_row, act, groups):
+    """The kernels' reduction of one slot for each ray: the lanes (last
+    dim of t_m [n, L, K]) of the active rays are split into `groups` (each
+    a record: a warp of kernel C, a lane's segment lanes in kernel D),
+    each record keeps its minimum t and the largest pid at it, and the
+    records merge the same way. Returns (st [n, L], sp [n, L])."""
+    inf = float("inf")
+    n, L, K_ = t_m.shape
+    tg = torch.where(act[..., None], t_m, inf).view(n, L, *groups)
+    pg = pid_row.view(n, 1, *groups).expand(n, L, *groups)
+    rmin = tg.amin(dim=-1)
+    rpid = torch.where(torch.isfinite(tg) & (tg == rmin[..., None]), pg,
+                       -1).amax(dim=-1)
+    st = rmin.amin(dim=-1)
+    sp = torch.where(torch.isfinite(rmin) & (rmin == st[..., None]), rpid,
+                     -1).amax(dim=-1)
+    return st, sp
+
+
+def _kernel_c_model(slots, cnt, tmin, tscale, oct_slot, rays8, t_pmax,
+                    seg_rows, bounds, any_hit, skip_held=False):
+    """csrc/octets.cu phase_b_oct_kernel transcribed slot by slot: a ray
+    is active where its octet's bit is set and it passes the box cull
+    (slot_cull_plain up to min(maxt, best), both modes); each warp of 32
+    segment lanes writes (its minimum t, the largest pid at it) for each
+    active ray; the records merge by minimum t, then largest pid, and
+    replace the ray's result on a strictly smaller t; the tile stops
+    after every slot. skip_held adds kernel B's any-hit rule (a ray
+    holding a hit is not tested), which kernel C must not take. Returns
+    (t, pid, (ray, slot) pairs passing the cull per tile)."""
+    T, K_ = slots.shape[0], seg_rows.shape[2]
+    best = torch.full((T, TILE), float("inf"))
+    pid = torch.full((T, TILE), -1, dtype=torch.int32)
+    octet = torch.arange(TILE) // 8
+    cnt_l = cnt.long()
+    active = cnt_l > 0
+    pairs = torch.zeros(T, dtype=torch.int64)
+    for s in range(int(cnt_l.max())):
+        idx = torch.nonzero(active & (s < cnt_l)).squeeze(1)
+        if idx.numel() == 0:
+            break
+        cid = (slots[idx, s] & tk.CID_MASK).long()
+        r8, b = rays8[idx], best[idx]
+        bit = ((oct_slot[idx, s][:, None] >> octet) & 1).bool()
+        act = bit & tk.slot_cull_plain(r8, bounds[:3, cid].T,
+                                       bounds[3:, cid].T,
+                                       torch.minimum(r8[:, 7], b))
+        if skip_held and any_hit:
+            act = act & ~torch.isfinite(b)
+        pairs[idx] += act.sum(dim=1)
+        st, sp = _merge_records(*tk.cyl_test(seg_rows[cid], r8), act,
+                                (K_ // 32, 32))
+        better = st < b
+        best[idx] = torch.where(better, st, b)
+        pid[idx] = torch.where(better, sp, pid[idx])
+        te_next = tk._dequant((slots[idx, s] >> 20) & tk.TE_INF, tmin[idx],
+                              tscale[idx])
+        done = tk._done(best[idx], te_next[:, None], t_pmax[idx],
+                        any_hit).all(dim=1)
+        active[idx[done]] = False
+    return best, pid, pairs
+
+
+def _kernel_d_model(cids, streams, off, cnt, tmin, tscale, rays8, t_pmax,
+                    seg_rows, bounds, any_hit):
+    """csrc/octets.cu stream_kernel transcribed entry by entry: per (tile,
+    octet), rays 0..7 of the octet pass the entry's box cull
+    (slot_cull_plain up to min(maxt, best)); lane l of the octet's warp
+    tests segment lanes l, l + 32, .. against each active ray and keeps
+    (its minimum t, the largest pid at it); the warp reduces the 32 lanes
+    the same way and replaces the ray's result on a strictly smaller t;
+    the octet stops after every entry. Returns (t, pid, (ray, entry)
+    pairs passing the cull per tile)."""
+    T, K_ = cids.shape[0], seg_rows.shape[2]
+    length = off[:, -1, :].long()
+    best = torch.full((T, 8, 8), float("inf"))
+    pid = torch.full((T, 8, 8), -1, dtype=torch.int32)
+    r8o = rays8.view(T, 8, 8, 8)                       # [T, comp, oct, lane]
+    tpm = t_pmax.view(T, 8, 8)
+    done = torch.zeros((T, 8), dtype=torch.bool)
+    pairs = torch.zeros(T, dtype=torch.int64)
+    for j in range(int(length.max())):
+        it, io = torch.nonzero(~done & (j < length), as_tuple=True)
+        if it.numel() == 0:
+            break
+        e = streams[it, io, j]
+        cid = (cids[it, (e & ((1 << tk.QBITS) - 1)).long()]
+               & tk.CID_MASK).long()
+        r8, b = r8o[it, :, io, :], best[it, io]
+        act = tk.slot_cull_plain(r8, bounds[:3, cid].T, bounds[3:, cid].T,
+                                 torch.minimum(r8[:, 7], b))
+        pairs.index_add_(0, it, act.sum(dim=1))
+        t_m, pid_row = tk.cyl_test(seg_rows[cid], r8)
+        # [n, 8, K] -> per lane l: segment lanes u * 32 + l
+        st, sp = _merge_records(
+            t_m.view(-1, 8, K_ // 32, 32).transpose(2, 3).reshape(t_m.shape),
+            pid_row.view(-1, 1, K_ // 32, 32).transpose(2, 3)
+            .reshape(pid_row.shape), act, (32, K_ // 32))
+        better = st < b
+        best[it, io] = torch.where(better, st, b)
+        pid[it, io] = torch.where(better, sp, pid[it, io])
+        te_next = tk._dequant((e >> tk.QBITS) & tk.TE_INF, tmin[it],
+                              tscale[it])
+        done[it, io] = tk._done(best[it, io], te_next[:, None], tpm[it, io],
+                                any_hit).all(dim=1)
+    return best.view(T, TILE), pid.view(T, TILE), pairs
+
+
+def _streams_of(slots, cnt, oct_slot, qo, seed):
+    """Kernel D's inputs over a slot list: octet o's stream holds, in slot
+    order, the slots whose octet word has bit o (at most qo), each with a
+    random increasing 12-bit bound (4095 on the last)."""
+    rs = np.random.default_rng(seed)
+    T, q = slots.shape
+    streams = np.full((T, 8, qo), tk.TE_INF << tk.QBITS, np.int64)
+    off = np.zeros((T, 2, 8), np.int32)
+    words = oct_slot.numpy()
+    for t in range(T):
+        for o in range(8):
+            ent = [s for s in range(int(cnt[t])) if (words[t, s] >> o) & 1]
+            ent = ent[:qo]
+            bq = np.sort(rs.integers(0, 4095, len(ent)))
+            if ent:
+                bq[-1] = tk.TE_INF
+            streams[t, o, :len(ent)] = np.array(ent, np.int64) \
+                | (bq.astype(np.int64) << tk.QBITS)
+            off[t, 1, o] = len(ent)
+    return ((slots & tk.CID_MASK).contiguous(),
+            torch.as_tensor(streams.astype(np.int32)), torch.as_tensor(off))
+
+
+@pytest.fixture(scope="module")
+def cd_cases(geom):
+    """Kernel C's and D's inputs, (C args, D args): 'geom' (the routed
+    geom rays, q = 6 < C, streams truncated at qo = 4), 'random' (300
+    fibers, 1024 incoherent rays, q = 16, qo = 8), 'tied' (tests/
+    test_torch_tiled.py's _tied_inputs: lanes and slots at equal t, with
+    random octet words; 'tied_k128' the same over K = 128 lanes, four
+    records per ray in kernel C and four segment lanes per lane in D) and
+    'pencil' (rays grazing a fiber exactly on a
+    face of its box, each tile's one cluster holding only that fiber,
+    so the cluster box is the fiber's exact box)."""
+    cases = {}
+    sw_j, sw_t, jr, tr, C = geom
+    a, (_, tr_r) = _geom_and_rays(n_fibers=300, n_rays=1024)
+    sw_r = tsw.build_swept_hair(*a, K=K, device="cpu")
+    for name, sw, ray, q, qo in (("geom", sw_t, tr, 6, 4),
+                                 ("random", sw_r, tr_r, 16, 8)):
+        Cn = sw.cl_lo.shape[0]
+        r8, te, tpm, oct, ks, key = _routed(sw, ray, Cn, q)
+        slots, cnt, tmin, tscale, _, _, oct_sl = ttl._tile_slots(
+            key, ks, q, oct=oct)
+        sargs = ttl._octet_streams(key, ks, oct, q, qo)[:6]
+        b = _bounds(sw)
+        cases[name] = ((slots, cnt, tmin, tscale, oct_sl, r8, tpm,
+                        sw.seg_rows_t, b),
+                       sargs + (r8, tpm, sw.seg_rows_t, b))
+    fs = hairgen.gen_furball(n_fibers=60, n_segs=8, radius=0.01, seed=0,
+                             center=(0, 0, 0), core_r=0.8, fiber_len=1.0)
+    sg = hairgen.segments(fs)
+    sw_128 = tsw.build_swept_hair(*[sg[k] for k in ("p0", "p1", "n0", "n1",
+                                                    "radius")],
+                                  K=128, device="cpu")
+    for name, sw, seed in (("tied", sw_t, 11), ("tied_k128", sw_128, 21)):
+        slots, cnt, tmin, tscale, r8, tpm, rows, b = _tied_inputs(sw)
+        rs = np.random.default_rng(seed)
+        if name == "tied_k128":
+            # lanes l and l + 32 of one kernel-D lane tie too
+            rn = rows.numpy().copy()
+            for j in range(rn.shape[0]):
+                for l in rs.choice(32, 12, replace=False):
+                    rn[j, :, l + 32] = rn[j, :, l]
+                    if rn[j, 15, l].view(np.int32) >= 0:
+                        rn[j, 15, l + 32] = np.int32(rs.integers(50, 99)) \
+                            .view(np.float32)
+            rows = torch.as_tensor(rn)
+        words = rs.integers(0, 256, slots.shape)
+        words[rs.random(slots.shape) < 0.2] = 0
+        words[rs.random(slots.shape) < 0.2] = 255
+        oct_sl = torch.as_tensor(words.astype(np.int32))
+        cases[name] = ((slots, cnt, tmin, tscale, oct_sl, r8, tpm, rows, b),
+                       _streams_of(slots, cnt, oct_sl, 16, seed + 1)
+                       + (cnt, tmin, tscale, r8, tpm, rows, b))
+    rows, r8, lo, hi, ln = _grazing_pencil()
+    n = rows.shape[0]
+    rows = rows.clone()
+    ids = rows[:, 15].contiguous().view(torch.int32)
+    keep = torch.arange(K)[None, :] == ln[:, None]
+    rows[:, 15] = torch.where(keep, ids, -1).view(torch.float32)
+    b = torch.cat([lo.T, hi.T]).contiguous()
+    slots = torch.arange(n, dtype=torch.int32)[:, None] \
+        | torch.tensor(tk.TE_INF << 20, dtype=torch.int64).to(torch.int32)
+    cnt = torch.ones(n, dtype=torch.int32)
+    tmin, tscale = torch.ones(n), torch.full((n,), 1e-3)
+    tpm = tk.cull_phase_a_plain(r8, b)[1]
+    oct_sl = torch.full((n, 1), 255, dtype=torch.int32)
+    cases["pencil"] = ((slots, cnt, tmin, tscale, oct_sl, r8, tpm, rows, b),
+                       _streams_of(slots, cnt, oct_sl, 1, 13)
+                       + (cnt, tmin, tscale, r8, tpm, rows, b))
+    return cases
+
+
+CD_CASES = ["geom", "random", "tied", "tied_k128", "pencil"]
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("case", CD_CASES)
+def test_kernel_c_transcription_equals_plain(cd_cases, case, any_hit):
+    """Kernel C as the card runs it (box cull ANDed with the octet bit,
+    per-warp records, their merge, a stop check after every slot) gives
+    phase_b_oct_plain's t and pid exactly, in both modes; its cull skips
+    pairs the octet bits leave."""
+    args = cd_cases[case][0]
+    t_p, p_p, _, tests = tk.phase_b_oct_plain(*args[:8], any_hit,
+                                              return_work=True)
+    t_m, p_m, pairs = _kernel_c_model(*args, any_hit)
+    np.testing.assert_array_equal(t_m.numpy(), t_p.numpy())
+    np.testing.assert_array_equal(p_m.numpy(), p_p.numpy())
+    assert int((p_p >= 0).sum()) > (60 if case == "pencil" else 20)
+    assert 0 < int(pairs.sum()) <= int(tests.sum())
+    if case != "pencil":
+        assert int(pairs.sum()) < int(tests.sum())
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("case", CD_CASES)
+def test_kernel_d_transcription_equals_plain(cd_cases, case, any_hit):
+    """Kernel D as the card runs it (per-entry box cull of the octet's
+    rays, per-lane then per-warp (minimum t, largest pid) reduction, a
+    stop check after every entry) gives stream_phase_b_plain's t and pid
+    exactly, in both modes."""
+    args = cd_cases[case][1]
+    t_p, p_p, _, tests = tk.stream_phase_b_plain(*args[:9], any_hit,
+                                                 return_work=True)
+    t_m, p_m, pairs = _kernel_d_model(*args, any_hit)
+    np.testing.assert_array_equal(t_m.numpy(), t_p.numpy())
+    np.testing.assert_array_equal(p_m.numpy(), p_p.numpy())
+    assert int((p_p >= 0).sum()) > (60 if case == "pencil" else 20)
+    assert 0 < int(pairs.sum()) <= int(tests.sum())
+
+
+def test_kernel_c_cull_needs_its_margin_on_the_pencil(cd_cases, monkeypatch):
+    """Without BOX_PAD the box cull drops grazing hits of the pencil: the
+    transcriptions of C and D then lose hits the plain versions find."""
+    c_args, d_args = cd_cases["pencil"]
+    n_c = int((tk.phase_b_oct_plain(*c_args[:8])[1] >= 0).sum())
+    n_d = int((tk.stream_phase_b_plain(*d_args[:9])[1] >= 0).sum())
+    monkeypatch.setattr(tk, "BOX_PAD", 0.0)
+    assert int((_kernel_c_model(*c_args, False)[1] >= 0).sum()) < n_c
+    assert int((_kernel_d_model(*d_args, False)[1] >= 0).sum()) < n_d
+
+
+def test_kernel_b_any_hit_rule_would_change_kernel_c(cd_cases):
+    """Kernel B drops a ray from its cull once it holds a hit (any-hit
+    mode). Kernel C must not: its rays go on testing, a later slot's
+    smaller t replaces the hit, and the pid is that hit's. With B's rule
+    the transcription's any-hit t or pid differs from phase_b_oct_plain;
+    the hit flags stay the same."""
+    args = cd_cases["tied"][0]
+    t_p, p_p = tk.phase_b_oct_plain(*args[:8], True)
+    t_m, p_m, _ = _kernel_c_model(*args, True, skip_held=True)
+    np.testing.assert_array_equal(p_m.numpy() >= 0, p_p.numpy() >= 0)
+    n_diff = int(((t_m != t_p) | (p_m != p_p)).sum())
+    assert n_diff > 0
+    t_k, p_k, _ = _kernel_c_model(*args, True)
+    np.testing.assert_array_equal(t_k.numpy(), t_p.numpy())
+    np.testing.assert_array_equal(p_k.numpy(), p_p.numpy())
+
+
+def test_octet_wrappers_refuse_pair_counts_on_cpu(cd_cases):
+    c_args, d_args = cd_cases["tied"]
+    pairs = torch.zeros(c_args[0].shape[0], dtype=torch.int32)
+    with pytest.raises(ValueError, match="cull"):
+        tk.phase_b_oct(*c_args, pairs_out=pairs)
+    with pytest.raises(ValueError, match="cull"):
+        tk.stream_phase_b(*d_args, pairs_out=pairs)
