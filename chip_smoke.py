@@ -51,10 +51,25 @@ Phases (each prints one line with its elapsed seconds):
      shadow-ray RR 0.01, rough plastic, baked sunsky) through SceneBuilder
      -> build -> render: one warm-up wave and two timed 1-spp waves, with
      kernels A and B's launch counts taken over the timed waves;
+  3b. gradients of the small furball's mean radiance with respect to
+     diffuse, specular, alpha and eta (the differentiable mode, depth 8)
+     on the card and with the plain versions on the CPU: the loss and
+     every gradient component must agree; then path-replay backprop
+     against the differentiable mode on the card at depths 3 and 5
+     (rr_depth 999, nee_rr 0);
   5. the same render with traversal='swept' (p_max 24, chunks of 64): one
      warm-up wave and one or two timed waves, the launches of the swept
      phase-A kernel and kernel E counted over them (no plain version on
-     CUDA tensors, no tiled kernel).
+     CUDA tensors, no tiled kernel);
+  6. bench.py's backward phase on the phase-4 scene at depth 16: the
+     gradient of mean(nan_to_num(radiance)) over the 1024^2 film (lanes in
+     pixel order) with respect to a 3-vector diffuse broadcast over the
+     material table, one warm-up step and two timed fwd+bwd steps; kernels
+     A and B must be launched as often over the timed steps as over the
+     same steps' forward passes run alone (the backward traces no query);
+  7. path-replay backprop at depth 65 (the same scene with nee_rr 0): one
+     warm-up step and one timed step; its red diffuse gradient must have
+     phase 6's sign.
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Any failed check exits
 non-zero before that line. Without CUDA the script exits non-zero at once.
@@ -115,6 +130,20 @@ MEAN_RTOL = 0.02
 #      minimum t, that no order of the lanes or warps changes)
 #  swept phase A: slots, cnt and n_hit exactly (the same slab arithmetic,
 #      and a selection by a unique integer key)
+#  gradients, card vs CPU (phase 3b): the loss within GRAD_LOSS_RTOL
+#      relative and each gradient component within GRAD_REL of the
+#      largest |g| of the CPU's gradients (the CPU tests' bounds for the
+#      port against the JAX package: the paths that diverge where float32
+#      rounding flips a sampling decision move both a little)
+GRAD_LOSS_RTOL = 1e-3
+GRAD_REL = 1e-2
+#  path-replay backprop vs the differentiable mode (phase 3b): the loss
+#      within PRB_LOSS_RTOL relative and each parameter's gradient within
+#      PRB_REL of its largest |g| (the JAX package's tests/test_prb.py)
+PRB_LOSS_RTOL = 1e-4
+PRB_REL = 5e-3
+#  the diffuse albedo bench.py's backward phase starts from
+BENCH_P0 = (0.143016, 0.0156076, 1.80928e-05)
 #  octet and stream queries against the dense query at full width: hit
 #  flags equal, pid >= PID_MIN_AGREE equal (the modes break equal-t ties
 #  by slot order, kernel B by the largest pid), t within T_RTOL
@@ -133,10 +162,17 @@ def require(cond, msg):
         raise SmokeFailure(msg)
 
 
-def bench_scene(quality, res, depth, spp, device, q=2048, traversal="tiled"):
+def bench_scene(quality, res, depth, spp, device, q=2048, traversal="tiled",
+                nee_rr=0.01):
     from hairpt_torch.scene.furball import furball_scene
     return furball_scene(quality=quality, res=res, depth=depth, spp=spp,
-                         device=device, q=q, traversal=traversal)
+                         device=device, q=q, traversal=traversal,
+                         nee_rr=nee_rr)
+
+
+def with_config(scene, **fields):
+    import dataclasses
+    return scene._replace(config=dataclasses.replace(scene.config, **fields))
 
 
 def cuda_ms(fn, reps, warm=True):
@@ -910,6 +946,204 @@ def small_reference(reset_all):
             f"launches {launches}, plain {plain}")
 
 
+GRAD_PARAMS = ("diffuse", "specular", "alpha", "eta")
+
+
+def scan_ad_grad(scene, params, sample=0, backward=True):
+    """The differentiable mode's mean(nan_to_num(radiance)) over the film
+    (lanes in pixel order, one sample index) and its gradient with
+    respect to each tensor of `params` (a material field, or a tensor
+    broadcast over it). Returns (loss, {name: grad},
+    forward rays); no gradient and no graph when backward is False."""
+    import torch
+    from hairpt_torch.integrators import inverse, path
+
+    cfg = scene.config
+    dev = scene.arrays.hair.p0.device
+    n = cfg.width * cfg.height
+    leaves = {k: v.detach().clone().requires_grad_(backward)
+              for k, v in params.items()}
+    mats = scene.arrays.materials
+    fields = {k: v.expand_as(getattr(mats, k)) for k, v in leaves.items()}
+    li = path.make_li_fn(scene, differentiable=True)
+    with torch.set_grad_enabled(backward):
+        rad, _, n_rays = li(inverse.apply_params_arrays(scene.arrays,
+                                                        fields),
+                            torch.arange(n, device=dev),
+                            torch.full((n,), sample, dtype=torch.int64,
+                                       device=dev))
+        loss = torch.nan_to_num(rad, nan=0.0, posinf=0.0,
+                                neginf=0.0).mean()
+    if backward:
+        loss.backward()
+    return (float(loss.detach()), {k: v.grad for k, v in leaves.items()},
+            float(n_rays))
+
+
+def small_gradients(reset_all):
+    """Phase 3b: the small furball's gradients on the card against the
+    plain versions on the CPU, and path-replay backprop against the
+    differentiable mode on the card."""
+    import torch
+    from hairpt_torch.integrators import inverse
+    from hairpt_torch.ops import tiled_kernels as tk
+
+    res = {}
+    for dev in ("cuda", "cpu"):
+        s = bench_scene(quality=0.1, res=64, depth=8, spp=1, device=dev,
+                        q=64)
+        m = s.arrays.materials
+        reset_all()
+        t0 = time.time()
+        res[dev] = scan_ad_grad(s, {k: getattr(m, k) for k in GRAD_PARAMS})
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            launches = dict(tk.LAUNCHES)
+            plain = dict(tk.PLAIN_ON_CUDA)
+        log(f"small furball gradients on {dev} (64^2, depth 8): loss "
+            f"{res[dev][0]:.6f}, " + ", ".join(
+                f"{k} {v.detach().cpu().numpy().ravel()}"
+                for k, v in res[dev][1].items())
+            + f" ({time.time() - t0:.1f}s)")
+    (l_k, g_k, _), (l_p, g_p, _) = res["cuda"], res["cpu"]
+    scale = max(float(g.abs().max()) for g in g_p.values())
+    err = max(float((g_k[k].cpu() - g_p[k]).abs().max()) for k in g_p)
+    rel = abs(l_k - l_p) / max(abs(l_p), 1e-12)
+    log(f"card vs CPU: loss rel diff {rel:.3g}, largest gradient diff "
+        f"{err:.3g} = {err / scale:.3g} of the largest |g| ({scale:.4g}); "
+        f"launches {launches}, plain versions on CUDA tensors {plain}")
+    require(rel <= GRAD_LOSS_RTOL and err <= GRAD_REL * scale,
+            f"small furball gradients: card and CPU differ (loss {rel}, "
+            f"gradient {err / scale} of the largest)")
+    require(all(v > 0 for v in launches.values())
+            and all(v == 0 for v in plain.values()),
+            f"the card's gradients did not go through kernels A and B: "
+            f"{launches}, plain {plain}")
+    for depth in (3, 5):
+        s = with_config(bench_scene(quality=0.1, res=64, depth=depth, spp=1,
+                                    device="cuda", q=64, nee_rr=0.0),
+                        rr_depth=999)
+        m = s.arrays.materials
+        params = {k: getattr(m, k) for k in GRAD_PARAMS}
+        l_s, g_s, _ = scan_ad_grad(s, params)
+        n = s.config.width * s.config.height
+        pix = torch.arange(n, device=s.arrays.hair.p0.device)
+        l_r, g_r = inverse.make_prb_loss_grad(s)(
+            s.arrays, params, pix, torch.zeros_like(pix))
+        l_r = float(l_r)
+        rels = {k: float((g_r[k] - g_s[k]).abs().max()
+                         / g_s[k].abs().max().clamp(min=1e-12))
+                for k in params}
+        lrel = abs(l_r - l_s) / max(abs(l_s), 1e-12)
+        log(f"PRB vs the differentiable mode on the card, depth {depth}: "
+            f"loss {l_r:.6f} / {l_s:.6f} (rel {lrel:.3g}), gradient diffs "
+            f"over each one's largest |g|: "
+            + ", ".join(f"{k} {v:.3g}" for k, v in rels.items()))
+        require(lrel <= PRB_LOSS_RTOL and max(rels.values()) <= PRB_REL,
+                f"depth {depth}: PRB differs from the differentiable mode "
+                f"(loss {lrel}, gradients {rels})")
+
+
+def bench_backward(scene, reset_all):
+    """Phase 6: bench.py's backward phase. Returns its facts."""
+    import numpy as np
+    import torch
+    from hairpt_torch.ops import intersect_tiled as itiled
+    from hairpt_torch.ops import tiled_kernels as tk
+
+    s = with_config(scene, max_depth=16)
+    p0 = {"diffuse": torch.tensor(BENCH_P0, device=s.arrays.hair.p0.device)}
+    t0 = time.time()
+    scan_ad_grad(s, p0, sample=0)
+    torch.cuda.synchronize()
+    log(f"fwd+bwd warm-up step {time.time() - t0:.2f}s")
+    reset_all()
+    itiled.STATS.update(queries=0)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    steps = [scan_ad_grad(s, p0, sample=i) for i in (1, 2)]
+    torch.cuda.synchronize()
+    secs = (time.time() - t0) / len(steps)
+    launches = dict(tk.LAUNCHES)
+    queries = itiled.STATS["queries"]
+    plain = dict(tk.PLAIN_ON_CUDA, **tk.OCT_LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    _, g, rays = steps[-1]
+    g = g["diffuse"].cpu().numpy()
+    # the same steps' forward passes alone
+    reset_all()
+    itiled.STATS.update(queries=0)
+    for i in (1, 2):
+        scan_ad_grad(s, p0, sample=i, backward=False)
+    torch.cuda.synchronize()
+    fwd_launches = dict(tk.LAUNCHES)
+    fwd_queries = itiled.STATS["queries"]
+    log(f"fwd+bwd train step (1024^2, depth 16): {secs * 1e3:.1f} ms/step "
+        f"({rays:.0f} fwd rays) -> {rays / secs / 1e6:.4f} Mrays/s; loss "
+        f"{steps[-1][0]:.6f}, gradient {g}, |g| {np.abs(g).sum():.4g}; peak "
+        f"memory {peak / 2**30:.2f} GiB")
+    log(f"launches over the 2 timed fwd+bwd steps {launches} ({queries} "
+        f"queries); over their forward passes alone {fwd_launches} "
+        f"({fwd_queries} queries); plain versions on CUDA tensors and "
+        f"octet kernels: {plain}")
+    require(bool(np.isfinite(g).all()) and bool(np.abs(g).sum() > 0),
+            f"fwd+bwd gradient {g}")
+    require(all(v > 0 for v in launches.values()),
+            f"the fwd+bwd step did not launch kernels A and B: {launches}")
+    require(launches == fwd_launches and queries == fwd_queries,
+            f"the backward pass traced queries again: {launches} against "
+            f"{fwd_launches} for the forward passes alone")
+    require(all(v == 0 for v in plain.values()),
+            f"plain versions or octet kernels ran: {plain}")
+    return dict(ms=secs * 1e3, rays=rays, grad=g, peak=peak,
+                launches={k: v / len(steps) for k, v in launches.items()})
+
+
+def prb_step(scene, reset_all, bwd):
+    """Phase 7: path-replay backprop at depth 65 with nee_rr 0. Returns
+    its facts."""
+    import numpy as np
+    import torch
+    from hairpt_torch.integrators import inverse
+    from hairpt_torch.ops import tiled_kernels as tk
+
+    s = with_config(scene, max_depth=65, nee_rr=0.0)
+    cfg = s.config
+    n = cfg.width * cfg.height
+    dev = s.arrays.hair.p0.device
+    pix = torch.arange(n, device=dev)
+    params = {"diffuse": torch.tensor(BENCH_P0, device=dev).expand_as(
+        s.arrays.materials.diffuse)}
+    f = inverse.make_prb_loss_grad(s)
+    t0 = time.time()
+    f(s.arrays, params, pix, torch.zeros_like(pix))
+    torch.cuda.synchronize()
+    log(f"PRB warm-up step {time.time() - t0:.2f}s")
+    reset_all()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    loss, d = f(s.arrays, params, pix, torch.ones_like(pix))
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = dict(tk.LAUNCHES)
+    plain = dict(tk.PLAIN_ON_CUDA)
+    g = d["diffuse"].sum(0).cpu().numpy()
+    log(f"PRB step (1024^2, depth 65, nee_rr 0): {secs * 1e3:.1f} ms/step; "
+        f"loss {float(loss):.6f}, gradient {g}, |g| {np.abs(g).sum():.4g}; "
+        f"peak memory {peak / 2**30:.2f} GiB (phase 6, depth 16: "
+        f"{bwd['peak'] / 2**30:.2f} GiB); launches {launches}")
+    require(bool(np.isfinite(g).all()), f"PRB gradient {g}")
+    require(np.sign(g[0]) == np.sign(bwd["grad"][0]) and g[0] != 0,
+            f"PRB's red diffuse gradient {g[0]} and phase 6's "
+            f"{bwd['grad'][0]} differ in sign")
+    require(all(v == 0 for v in plain.values()),
+            f"plain versions ran on CUDA tensors: {plain}")
+    return dict(ms=secs * 1e3, grad=g, peak=peak, launches=launches)
+
+
 def warm_up(scene, label):
     """One warm-up wave. Returns (progress callback, the lists it fills
     with each wave's seconds and rays, the number of waves to time: two,
@@ -1029,6 +1263,9 @@ def main() -> int:
         t0 = time.time()
         small_reference(reset_all)
         log(f"phase 3 ({time.time() - t0:.1f}s): small renders agree")
+        t0 = time.time()
+        small_gradients(reset_all)
+        log(f"phase 3b ({time.time() - t0:.1f}s): small gradients agree")
 
         # ---- 4. the full-width render, tiled ----
         t0 = time.time()
@@ -1072,7 +1309,6 @@ def main() -> int:
         t0 = time.time()
         scene_sw = bench_scene(quality=14.0, res=1024, depth=65, spp=1,
                                device="cuda", traversal="swept")
-        del scene
         log(f"swept scene built in {time.time() - t0:.1f}s (p_max "
             f"{scene_sw.config.swept_pmax}, chunk "
             f"{scene_sw.config.swept_chunk})")
@@ -1112,6 +1348,17 @@ def main() -> int:
         require(all(v == 0 for v in sw_plain.values()),
                 f"plain versions ran on CUDA tensors: {sw_plain}")
         log(f"phase 5 ({time.time() - t0:.1f}s): swept render ok")
+        del scene_sw, img
+
+        # ---- 6. bench.py's backward phase: fwd+bwd at depth 16 ----
+        t0 = time.time()
+        bwd = bench_backward(scene, reset_all)
+        log(f"phase 6 ({time.time() - t0:.1f}s): fwd+bwd step ok")
+
+        # ---- 7. path-replay backprop at depth 65 ----
+        t0 = time.time()
+        prb = prb_step(scene, reset_all, bwd)
+        log(f"phase 7 ({time.time() - t0:.1f}s): PRB step ok")
 
         per_wave = {k: (v, n_timed) for k, v in launches.items()}
         per_wave.update({k: (v, None) for k, v in oct_launches.items()})
@@ -1125,6 +1372,10 @@ def main() -> int:
                                 "the timed waves of phase 5"
                                 if k["name"] in sw_launches else
                                 "the timed waves of phase 4")
+        for k in kernels:
+            if k["name"] in bwd["launches"]:
+                k["launches_per_fwd_bwd_step"] = bwd["launches"][k["name"]]
+                k["launches_per_prb_step"] = prb["launches"][k["name"]]
         require(all(k["launches"] > 0 for k in kernels),
                 "a kernel has no launches")
     except SmokeFailure as e:

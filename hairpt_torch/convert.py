@@ -4,7 +4,9 @@ The input is the JAX scene's arrays with every leaf turned into numpy
 (for example `jax.tree_util.tree_map(np.asarray, scene.arrays)`); this
 module only reads attributes, so it needs no JAX. The result renders the
 identical scene (same prim order, cluster layout, materials and baked
-environment) through hairpt_torch.
+environment) through hairpt_torch. params_to_torch and grads_to_numpy
+carry a parameter dict of the JAX package's inverse rendering across and
+its gradients back, so both packages can be differentiated on one dict.
 """
 from __future__ import annotations
 
@@ -78,3 +80,17 @@ def convert_scene(scene, arrays, device=None) -> Scene:
     mat.check_kinds(active)
     return Scene(arrays=convert_arrays(arrays, device), camera=camera,
                  film=film, config=cfg, active_kinds=active)
+
+
+def params_to_torch(params: dict, device=None) -> dict:
+    """A params dict with numpy leaves (for example the JAX package's,
+    through np.asarray) -> leaf tensors on `device` that require grad."""
+    dev = resolve_device(device)
+    return {k: _t(v, dev, torch.float32).requires_grad_()
+            for k, v in params.items()}
+
+
+def grads_to_numpy(grads: dict) -> dict:
+    """Gradients (tensors, or None where none flowed) -> numpy arrays."""
+    return {k: None if g is None else g.detach().cpu().numpy()
+            for k, g in grads.items()}

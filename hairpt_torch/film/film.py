@@ -27,8 +27,8 @@ class Film(NamedTuple):
 
 def splat_samples(film: Film, pos, value, image, weight):
     """Scatter-add filtered samples. pos [N, 2] (pixel centres at i+0.5),
-    value [N, 3]; image [H, W, 3] and weight [H, W] are updated in place
-    and returned."""
+    value [N, 3]; returns the new image [H, W, 3] and weight [H, W]. The
+    adds are out of place, so `value` may carry a gradient to the film."""
     radius = film.filter_radius
     n_taps = int(math.ceil(2.0 * radius)) + 1
     x = pos[..., 0]
@@ -36,6 +36,8 @@ def splat_samples(film: Film, pos, value, image, weight):
     x0 = torch.ceil(x - radius - 0.5).to(torch.int64)
     y0 = torch.ceil(y - radius - 0.5).to(torch.int64)
     H, W = film.height, film.width
+    img = image.reshape(-1, 3)
+    wt = weight.reshape(-1)
     for ty in range(n_taps):
         iy = y0 + ty
         cy = iy.to(torch.float32) + 0.5
@@ -46,9 +48,9 @@ def splat_samples(film: Film, pos, value, image, weight):
             valid = (ix >= 0) & (ix < W) & (iy >= 0) & (iy < H)
             w = torch.where(valid, w, 0.0)
             flat = torch.clamp(iy, 0, H - 1) * W + torch.clamp(ix, 0, W - 1)
-            image.view(-1, 3).index_add_(0, flat, w[..., None] * value)
-            weight.view(-1).index_add_(0, flat, w)
-    return image, weight
+            img = img.index_add(0, flat, w[..., None] * value)
+            wt = wt.index_add(0, flat, w)
+    return img.view(H, W, 3), wt.view(H, W)
 
 
 def develop(image, weight):

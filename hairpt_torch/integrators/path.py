@@ -1,11 +1,15 @@
 """Wavefront MIS path tracer with next-event estimation and Russian
-roulette (port of the forward mode of hairpt/integrators/path.py).
+roulette (port of hairpt/integrators/path.py, forward and differentiable
+modes).
 
 The bounce loop runs over a whole wave of path states at once. Emitter
 NEE samples the baked environment through its alias table; shadow rays
-are thinned by shadow-ray RR (cfg.nee_rr); the loop runs at staged
-widths n -> n/4 -> n/16 (live lanes gathered first, results scattered
-back) so deep RR tails do not pay full-width shading. Sample dimensions,
+are thinned by shadow-ray RR (cfg.nee_rr). The forward mode runs the
+loop at staged widths n -> n/4 -> n/16 (live lanes gathered first,
+results scattered back) so deep RR tails do not pay full-width shading.
+The differentiable mode runs max_depth - 1 bounces at full width with
+no RR, each under torch.utils.checkpoint, and hands the recomputation
+the bounce's query results instead of tracing again. Sample dimensions,
 constants and depth semantics are the JAX package's.
 """
 from __future__ import annotations
@@ -14,6 +18,7 @@ import time
 from typing import NamedTuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..core import rng
 from ..core.math import Ray, dot
@@ -118,16 +123,83 @@ def _pdf_emitter_hit(arr, cfg, hit: Hit, d):
     return pdf
 
 
-def make_li_fn(scene):
+class _Mirrored:
+    """A sampler whose per-bounce dimensions at the offsets `rels` are
+    mirrored, u -> 1 - u: the second render of an antithetic pair. The
+    camera's dimensions are never mirrored."""
+
+    def __init__(self, smp, rels):
+        self.smp = smp
+        self.rels = rels
+
+    def _flip(self, u, dim: int):
+        if dim >= DIM_BASE and (dim - DIM_BASE) % DIM_STRIDE in self.rels:
+            return 1.0 - u
+        return u
+
+    def take(self, order) -> "_Mirrored":
+        return _Mirrored(self.smp.take(order), self.rels)
+
+    def next_1d(self, dim: int):
+        return self._flip(self.smp.next_1d(dim), dim)
+
+    def next_2d(self, dim: int):
+        u = self.smp.next_2d(dim)
+        return torch.stack([self._flip(u[..., 0], dim),
+                            self._flip(u[..., 1], dim + 1)], dim=-1)
+
+
+def _run_query(fn, *args, **kwargs):
+    return fn(*args, **kwargs)
+
+
+class _QueryStash:
+    """The query results of one bounce of the differentiable mode. The
+    bounce's first run records them; when torch.utils.checkpoint runs the
+    bounce again in the backward pass, it gets them back in the same
+    order, so no closest-hit or any-hit query is traced twice. (The
+    queries carry no gradient: their rays start at hit points and leave
+    along detached directions.)"""
+
+    def __init__(self):
+        self.results = []
+
+    def caller(self):
+        """A query runner for one run of the bounce."""
+        recorded = iter(list(self.results))
+
+        def run(fn, *args, **kwargs):
+            out = next(recorded, None)
+            if out is None:
+                out = fn(*args, **kwargs)
+                self.results.append(out)
+            return out
+        return run
+
+
+def make_li_fn(scene, differentiable: bool = False, antithetic=False):
     """The per-wave radiance estimator li(arr, pixel_idx, sample_idx) ->
-    (radiance [N, 3], pos [N, 2], n_rays [] tensor)."""
+    (radiance [N, 3], pos [N, 2], n_rays [] tensor).
+
+    differentiable: max_depth - 1 bounces at full width, no Russian
+    roulette, each bounce checkpointed (its shading is recomputed in the
+    backward pass, its queries are not); sampling is detached, so
+    gradients flow through the BSDF values only: the sampled direction
+    and its pdf carry none, and a smooth lobe's weight is f(wo) /
+    sg(pdf(wo)). The material table's float fields in `arr` may require
+    grad.
+
+    antithetic: False, True (mirror the BSDF sample's 2D dims, D_BSDF_U2
+    and D_BSDF_U2 + 1) or a tuple of per-bounce dim offsets to mirror."""
     cfg = scene.config
     cam = scene.camera
     active_kinds = scene.active_kinds
     ray_eps = cfg.ray_eps
     params = _swept_params(cfg)
+    anti_rels = (D_BSDF_U2, D_BSDF_U2 + 1) if antithetic is True \
+        else tuple(antithetic or ())
 
-    def body(arr, st: PathState, depth: int, smp: rng.Sampler):
+    def body(arr, st: PathState, depth: int, smp, query=_run_query):
         n = st.active.shape[0]
         dev = st.active.device
         dims = DIM_BASE + (depth - 1) * DIM_STRIDE
@@ -182,7 +254,8 @@ def make_li_fn(scene):
         contrib = st.throughput * le_nee * f_nee \
             * (w_nee / torch.clamp(pdf_nee, min=1e-20))[..., None]
         if cfg.nee_rr > 0.0:
-            p_tr = torch.clamp(_luminance(contrib) / cfg.nee_rr, 0.05, 1.0)
+            p_tr = torch.clamp(_luminance(contrib.detach()) / cfg.nee_rr,
+                               0.05, 1.0)
             u_srr = smp.next_1d(dims + D_NEE_RR)
             nee_ok = nee_ok & (u_srr < p_tr)
             contrib = contrib / p_tr[..., None]
@@ -191,8 +264,8 @@ def make_li_fn(scene):
         shadow = Ray(o=shadow_o, d=d_nee, mint=torch.zeros((n,), device=dev),
                      maxt=torch.where(nee_ok, dist_nee - 2.0 * ray_eps,
                                       0.0))
-        occluded = scene_occluded(arr, shadow, sort_rays=True,
-                                  compact=False, **params)
+        occluded = query(scene_occluded, arr, shadow, sort_rays=True,
+                         compact=False, **params)
         vis = nee_ok & ~occluded
         li_acc = li_acc + torch.where(vis[..., None], contrib, zero)
 
@@ -202,6 +275,14 @@ def make_li_fn(scene):
         u2b = smp.next_2d(dims + D_BSDF_U2B)
         wo, bsdf_weight, bsdf_pdf, is_delta, eta_s = mat.sample_mix(
             active_kinds, arr.materials, hit.mat_id, gm, wi, u_lobe, u2, u2b)
+        if differentiable:
+            wo = wo.detach()
+            bsdf_pdf = bsdf_pdf.detach()
+            f2, p2 = mat.eval_pdf_mix(active_kinds, arr.materials,
+                                      hit.mat_id, gm, wi, wo)
+            w_smooth = f2 / torch.clamp(p2.detach(), min=1e-9)[..., None]
+            bsdf_weight = torch.where(is_delta[..., None], bsdf_weight,
+                                      w_smooth)
         wo_world = fr.to_world(wo)
         active = active & ~(torch.amax(torch.abs(bsdf_weight), dim=-1) <= 0)
         if cfg.strict_normals:
@@ -215,11 +296,11 @@ def make_li_fn(scene):
         next_ray = Ray(o=next_o, d=wo_world,
                        mint=torch.zeros((n,), device=dev),
                        maxt=torch.where(active, float("inf"), 0.0))
-        hit2 = scene_intersect(arr, next_ray, sort_rays=True,
-                               compact=False, **params)
+        hit2 = query(scene_intersect, arr, next_ray, sort_rays=True,
+                     compact=False, **params)
 
-        # ---- RR ----
-        if depth + 1 > cfg.rr_depth:
+        # ---- RR (none in the differentiable mode) ----
+        if not differentiable and depth + 1 > cfg.rr_depth:
             q = torch.clamp(torch.amax(throughput, dim=-1) * eta * eta,
                             max=0.95)
             u_rr = smp.next_1d(dims + D_RR)
@@ -241,6 +322,8 @@ def make_li_fn(scene):
         n = pixel_idx.shape[0]
         px = (smp.pixel % cfg.width).to(torch.float32)
         py = (smp.pixel // cfg.width).to(torch.float32)
+        if anti_rels:
+            smp = _Mirrored(smp, anti_rels)
         jitter = smp.next_2d(DIM_CAM_POS)
         pos = torch.stack([px + jitter[..., 0], py + jitter[..., 1]], dim=-1)
         ray = sensors.sample_ray(cam, pos)
@@ -255,6 +338,15 @@ def make_li_fn(scene):
             prev_delta=torch.zeros((n,), dtype=torch.bool, device=dev),
             emission_allowed=torch.ones((n,), dtype=torch.bool, device=dev))
         n_rays = torch.tensor(float(n), device=dev)
+        if differentiable:
+            for depth in range(1, cfg.max_depth):
+                stash = _QueryStash()
+                state, n_new = checkpoint(
+                    lambda st, d=depth, q=stash: body(arr, st, d, smp,
+                                                      q.caller()),
+                    state, use_reentrant=False, preserve_rng_state=False)
+                n_rays = n_rays + n_new
+            return _flush_pending(arr, state), pos, n_rays
 
         stage_caps = [n]
         if n >= 4096:
@@ -293,8 +385,11 @@ def make_li_fn(scene):
                     if isinstance(fv, Hit) else scatter(fv, gv)
                     for fv, gv in zip(st_full, sub)])
 
-        # pending emission of paths that stopped by depth while active
-        st = st_full
+        return _flush_pending(arr, st_full), pos, n_rays
+
+    def _flush_pending(arr, st):
+        """The emission pending on paths that stopped by depth while
+        active."""
         li_acc = st.li
         if arr.env is not None:
             miss = st.active & ~st.hit.valid
@@ -306,7 +401,7 @@ def make_li_fn(scene):
                 miss[..., None],
                 st.throughput * _env_radiance(arr, st.ray_d) * w[..., None],
                 0.0)
-        return li_acc, pos, n_rays
+        return li_acc
 
     return li
 
@@ -337,7 +432,8 @@ def render(scene, seed: int = 0, spp: int | None = None,
         radiance, pos, n_rays = li_fn(arr, pixel_idx, sample_idx)
         radiance = torch.nan_to_num(radiance, nan=0.0, posinf=0.0,
                                     neginf=0.0)
-        film_mod.splat_samples(fl, pos, radiance, image, weight)
+        image, weight = film_mod.splat_samples(fl, pos, radiance, image,
+                                               weight)
         wave_rays = float(n_rays)
         total_rays += wave_rays
         if progress is not None:

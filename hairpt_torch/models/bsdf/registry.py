@@ -82,9 +82,33 @@ def pack_materials(rows, device=None) -> MaterialTable:
         ext_trans=arr("ext_trans"), int_fdr=arr("int_fdr"))
 
 
+class _Rows(torch.autograd.Function):
+    """field[m] for a field of a material table. A table has a few rows
+    and a wave up to a million lanes on one of them; the backward of
+    plain indexing (index_put's sorted accumulate) sums a row's lanes on
+    one thread, about 0.2 s per field and wave on an H100, so this
+    backward sums each row's lanes with one masked reduction, in a fixed
+    order."""
+
+    @staticmethod
+    def forward(ctx, field, m):
+        ctx.save_for_backward(m)
+        ctx.rows = field.shape[0]
+        return field[m]
+
+    @staticmethod
+    def backward(ctx, g):
+        (m,) = ctx.saved_tensors
+        sel = m.view((-1,) + (1,) * (g.dim() - 1))
+        return torch.stack([torch.where(sel == j, g, 0.0).sum(0)
+                            for j in range(ctx.rows)]), None
+
+
 def gather(table: MaterialTable, mat_id) -> GatheredMat:
     m = torch.clamp(mat_id, min=0).long()
-    return GatheredMat(*[getattr(table, f)[m] for f in GatheredMat._fields])
+    fields = [getattr(table, f) for f in GatheredMat._fields]
+    return GatheredMat(*[_Rows.apply(v, m) if v.requires_grad else v[m]
+                         for v in fields])
 
 
 def ext_trans_lookup(gm: GatheredMat, cos_theta):

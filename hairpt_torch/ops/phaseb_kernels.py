@@ -366,7 +366,7 @@ def cyl_test_chunk(rows, rays):
     c_mid = qx * qx + qy * qy + qz * qz - rr2
     disc = -c_mid / a_safe
     ok = ok & (disc >= 0.0)
-    dt = torch.sqrt(torch.clamp(disc, min=0.0))
+    dt = tk.sqrt_rn(torch.clamp(disc, min=0.0))
     t_near = t_mid - dt
     t_far = t_mid + dt
 

@@ -50,6 +50,7 @@ import ctypes
 import os
 import shutil
 
+import numpy as np
 import torch
 
 TILE = 64
@@ -363,6 +364,17 @@ def slot_cull_plain(rays8, lo, hi, maxt_eff):
     return (tn <= tf) & (tf >= rays8[:, 6]) & (tn <= maxt_eff)
 
 
+def sqrt_rn(x):
+    """float32 square root rounded to nearest, as the kernels' sqrtf,
+    on every host. torch's CPU sqrt goes through MKL's vector math,
+    which is not correctly rounded and rounds differently under each
+    instruction set MKL dispatches to; numpy's float32 sqrt is the IEEE
+    instruction. On the card torch's sqrt is IEEE."""
+    if x.device.type != "cpu":
+        return torch.sqrt(x)
+    return torch.from_numpy(np.sqrt(x.detach().contiguous().numpy()))
+
+
 def cyl_test(rows, rays):
     """Miter-cylinder test, the JAX package's _cyl_test_tm: rows
     [n, 16, K] (one cluster per tile), rays [n, 8, 64] ->
@@ -401,7 +413,7 @@ def cyl_test(rows, rays):
     c_mid = qx * qx + qy * qy + qz * qz - rr2
     disc = -c_mid * inv_a
     ok = ok & (disc >= 0.0)
-    dt = torch.sqrt(torch.clamp(disc, min=0.0))
+    dt = sqrt_rn(torch.clamp(disc, min=0.0))
     t_near = t_mid - dt
     t_far = t_mid + dt
     on0 = rx * n0x + ry * n0y + rz * n0z

@@ -1,12 +1,16 @@
-"""Where a wave's time goes: one full-width furball wave under
-torch.profiler, on the card.
+"""Where a wave's time goes: one full-width furball wave, or one
+gradient step, under torch.profiler, on the card.
 
     python3 -m hairpt_torch.tools.profile_wave [--depth 65] [--res 1024]
-        [--traversal tiled|swept] [--out FILE]
+        [--traversal tiled|swept] [--mode wave|fwd_bwd|prb] [--out FILE]
 
-Renders one warm-up wave, then profiles one wave with CPU and CUDA
-activities. The port's layers are marked as profiler ranges from the
-outside, so the port's own code carries no instrumentation: for the
+--mode fwd_bwd profiles bench.py's train step (the differentiable mode,
+mean radiance, a 3-vector diffuse; --depth defaults to 16 there) with a
+range around its backward pass; --mode prb one path-replay-backprop step
+(nee_rr 0) with a range around its primal forward pass. Runs one
+warm-up wave or step, then profiles one with CPU and CUDA activities.
+The port's layers are marked as profiler ranges from the outside, so
+the port's own code carries no instrumentation: for the
 tiled traversal phase A, routing, phase B and the Morton sort; for the
 swept traversal its phase A (the swept phase-A kernel's wrapper) and,
 inside it, the ray order it takes its tiles in, the pair routing, the
@@ -35,16 +39,52 @@ def _wrap(mod, name, label):
     setattr(mod, name, inner)
 
 
+def _step(mode, scene):
+    """run(sample): one wave, fwd+bwd step or PRB step of the scene."""
+    import torch
+    from hairpt_torch.integrators import inverse, path
+
+    cfg = scene.config
+    n = cfg.width * cfg.height
+    dev = scene.arrays.hair.p0.device
+    pix = torch.arange(n, device=dev)
+    p0 = torch.tensor((0.143016, 0.0156076, 1.80928e-05), device=dev)
+    mats = scene.arrays.materials
+    if mode == "wave":
+        return lambda s: path.render(scene, spp=1, seed=s)
+    if mode == "prb":
+        f = inverse.make_prb_loss_grad(scene)
+        return lambda s: f(scene.arrays,
+                           {"diffuse": p0.expand_as(mats.diffuse)}, pix,
+                           torch.full_like(pix, s))
+    li = path.make_li_fn(scene, differentiable=True)
+
+    def fwd_bwd(s):
+        p = p0.clone().requires_grad_()
+        arr = scene.arrays._replace(materials=mats._replace(
+            diffuse=p.expand_as(mats.diffuse)))
+        rad, _, _ = li(arr, pix, torch.full_like(pix, s))
+        torch.nan_to_num(rad, nan=0.0, posinf=0.0, neginf=0.0) \
+            .mean().backward()
+        return p.grad
+    return fwd_bwd
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--depth", type=int, default=65)
+    ap.add_argument("--depth", type=int, default=None,
+                    help="65, or 16 for --mode fwd_bwd")
     ap.add_argument("--res", type=int, default=1024)
     ap.add_argument("--quality", type=float, default=14.0)
     ap.add_argument("--traversal", default="tiled",
                     choices=("tiled", "swept"))
+    ap.add_argument("--mode", default="wave",
+                    choices=("wave", "fwd_bwd", "prb"))
     ap.add_argument("--out", default=None,
                     help="also write the report to this file")
     args = ap.parse_args(argv)
+    if args.depth is None:
+        args.depth = 16 if args.mode == "fwd_bwd" else 65
 
     import torch
     if not torch.cuda.is_available():
@@ -71,21 +111,38 @@ def main(argv=None) -> int:
                   ("routing", itiled, "_tile_slots"),
                   ("phase_b", tk, "phase_b"),
                   ("morton_sort", itiled, "_morton_sort_rays"))
+    if args.mode == "fwd_bwd":
+        ranges += (("backward", torch.Tensor, "backward"),)
     for label, mod, name in ranges:
         _wrap(mod, name, label)
+    if args.mode == "prb":
+        # PRB's primal pass is the forward estimator make_li_fn returns
+        made = path.make_li_fn
+
+        def make_ranged(*a, **k):
+            li = made(*a, **k)
+
+            def ranged(*la, **lk):
+                with torch.profiler.record_function("primal"):
+                    return li(*la, **lk)
+            return ranged
+        path.make_li_fn = make_ranged
+        ranges += (("primal", None, None),)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=30).stdout.strip()
     scene = furball_scene(quality=args.quality, res=args.res,
                           depth=args.depth, device="cuda",
-                          traversal=args.traversal)
-    path.render(scene, spp=1, seed=0)
+                          traversal=args.traversal,
+                          nee_rr=0.0 if args.mode == "prb" else 0.01)
+    run = _step(args.mode, scene)
+    run(0)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        path.render(scene, spp=1, seed=1)
+        run(1)
         torch.cuda.synchronize()
         wall = time.time() - t0
     ev = prof.key_averages()
@@ -104,7 +161,8 @@ def main(argv=None) -> int:
                and dev_us(e) > 0]
     busy = sum(dev_us(e) for e in kernels) / 1e6
     lines = [smi,
-             f"{args.traversal} wave {args.res}^2 depth {args.depth}: wall "
+             f"{args.traversal} {args.mode} {args.res}^2 depth "
+             f"{args.depth}: wall "
              f"{wall:.3f} s "
              f"(under the profiler), device kernel time {busy:.3f} s, "
              f"idle share {max(0.0, 1 - busy / wall):.3f}"]

@@ -899,3 +899,22 @@ def test_tile_cull_transcription_equals_plain_phase_a(a_cases, case):
     n_hit = torch.isfinite(te_p.float()).sum(1)
     assert int(n_hit.sum()) > 0
     assert bool((n_hit <= n1).all()) and bool((n1 <= bounds.shape[1]).all())
+
+
+def test_sqrt_rn_is_correctly_rounded():
+    """The plain cylinder tests' root is the kernels' sqrtf, rounded to
+    nearest, on every host (torch's CPU sqrt goes through MKL's vector
+    math, whose rounding depends on the instruction set it dispatches
+    to): equal to the float64 root rounded to float32 (double rounding
+    is exact for a square root of a float32) on random, wide-range,
+    denormal and boundary inputs."""
+    rs = np.random.default_rng(3)
+    x = np.concatenate([
+        rs.random(1 << 16).astype(np.float32) * 1e-3,
+        np.exp(rs.uniform(-87.0, 88.0, 1 << 16)).astype(np.float32),
+        rs.integers(0, 0x7F800000, 1 << 16, dtype=np.uint32)
+        .view(np.float32),
+        np.array([0.0, -0.0, np.inf, 1.0, 4.0, 2.0 ** -149], np.float32)])
+    ref = np.sqrt(x.astype(np.float64)).astype(np.float32)
+    got = tk.sqrt_rn(torch.as_tensor(x)).numpy()
+    np.testing.assert_array_equal(got.view(np.uint32), ref.view(np.uint32))
