@@ -2,7 +2,8 @@
 """Smoke run of hairpt_torch on one CUDA card: the quickest proof that the
 port builds, that its kernels agree with their plain versions, and that
 the full-width furball forward render runs through them, with the tiled
-and with the swept traversal.
+and with the swept traversal, with rough plastic and with the Marschner
+hair BSDF, and its gradient paths and inverse rendering with them.
 
     python3 chip_smoke.py            # from the repository root, one card
 
@@ -43,6 +44,11 @@ Phases (each prints one line with its elapsed seconds):
           dead lanes and entered sub-boxes that set kernel E's work;
      and time every kernel and its plain version at the camera wave's
      shapes;
+  2d. kernels A and B against their plain versions, with 2a's rules, on
+     EVERY tile of the camera and first-bounce waves of two more hair
+     scenes at quality 14: the straight-hair curtain (11,200 fibers x 24
+     segments, radius 0.00567) and the four hair-curl clumps (12,320
+     fibers x 48 segments, radius 0.000444), 1024^2;
   3. a small furball rendered on the card and with the plain versions on
      the CPU, with the tiled and with the swept traversal: the image means
      must agree, and the swept render on the card must go through both
@@ -57,6 +63,12 @@ Phases (each prints one line with its elapsed seconds):
      every gradient component must agree; then path-replay backprop
      against the differentiable mode on the card at depths 3 and 5
      (rr_depth 999, nee_rr 0);
+  3c. the small furball with each hair BSDF (Kajiya-Kay, Marschner
+     faithful and corrected, MarschnerDielectric) on the card and with the
+     plain versions on the CPU: image means within 2%; the sigma_a and
+     beta_r gradients (through the azimuthal tables) card against CPU at
+     depth 8 for both Marschner modes, 3b's bounds; PRB against the
+     differentiable mode on the card for MARSCHNER_PURE at depths 3 and 5;
   5. the same render with traversal='swept' (p_max 24, chunks of 64): one
      warm-up wave and one or two timed waves, the launches of the swept
      phase-A kernel and kernel E counted over them (no plain version on
@@ -69,7 +81,19 @@ Phases (each prints one line with its elapsed seconds):
      same steps' forward passes run alone (the backward traces no query);
   7. path-replay backprop at depth 65 (the same scene with nee_rr 0): one
      warm-up step and one timed step; its red diffuse gradient must have
-     phase 6's sign.
+     phase 6's sign;
+  8. phase 4's render with the Marschner furball (MARSCHNER_PURE, sigma_a
+     0.5, beta_R 0.1, eta 1.55): one warm-up and two timed waves, A and
+     B's launches per wave, a finite positive image mean;
+  9. phase 6 on that scene: the gradient with respect to sigma_a [1, 3]
+     and beta_r [1] (the hair tables recomputed from them), depth 16, one
+     warm-up and two timed steps, the launches equal to the forward
+     passes' alone, every gradient finite, the peak memory;
+  10. the inverse-rendering twin (hairpt_torch.tools.inverse_furball) at
+     its defaults: res 256, 6,000 fibers, spp 2, depth 3, 24 steps,
+     antithetic, the cross loss; the loss's mean over the last third of
+     the steps must be below step 1's (step 0 shares a sample index with
+     the target).
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Any failed check exits
 non-zero before that line. Without CUDA the script exits non-zero at once.
@@ -163,11 +187,11 @@ def require(cond, msg):
 
 
 def bench_scene(quality, res, depth, spp, device, q=2048, traversal="tiled",
-                nee_rr=0.01):
+                nee_rr=0.01, material="roughplastic"):
     from hairpt_torch.scene.furball import furball_scene
     return furball_scene(quality=quality, res=res, depth=depth, spp=spp,
                          device=device, q=q, traversal=traversal,
-                         nee_rr=nee_rr)
+                         nee_rr=nee_rr, material=material)
 
 
 def with_config(scene, **fields):
@@ -967,9 +991,9 @@ def scan_ad_grad(scene, params, sample=0, backward=True):
     fields = {k: v.expand_as(getattr(mats, k)) for k, v in leaves.items()}
     li = path.make_li_fn(scene, differentiable=True)
     with torch.set_grad_enabled(backward):
-        rad, _, n_rays = li(inverse.apply_params_arrays(scene.arrays,
-                                                        fields),
-                            torch.arange(n, device=dev),
+        arrs = inverse.apply_params_arrays(scene.arrays, fields,
+                                           scene.marschner_rows)
+        rad, _, n_rays = li(arrs, torch.arange(n, device=dev),
                             torch.full((n,), sample, dtype=torch.int64,
                                        device=dev))
         loss = torch.nan_to_num(rad, nan=0.0, posinf=0.0,
@@ -1144,6 +1168,271 @@ def prb_step(scene, reset_all, bwd):
     return dict(ms=secs * 1e3, grad=g, peak=peak, launches=launches)
 
 
+# the four hair BSDF kinds of phase 3c: the furball's material row with
+# each kind (registry ids: KAJIYAKAY 12, MARSCHNER 13, MARSCHNERDIELECTRIC
+# 14, MARSCHNER_PURE 23)
+HAIR_KINDS = {"kajiyakay": 12, "marschner": 13, "marschnerdielectric": 14,
+              "marschner_pure": 23}
+HAIR_GRAD_PARAMS = ("sigma_a", "beta_r")
+#  the inverse twin (phase 10): the loss's mean over the last third of the
+#      steps must be below step 1's loss. Step 0's first render takes
+#      sample index 0, as the target's first sample does, so its loss is
+#      biased low; hairpt's examples/inverse_furball.py gives the same
+#      curve at these defaults (PERF.md §6), so step 1 is the first loss
+#      of renders independent of the target
+# hair scenes of phase 2d at quality 14 (the furball's full width): the
+# straight-hair curtain (800 x 14 fibers x 24 segments) and the four
+# hair-curl clumps (220 x 14 fibers each x 48 segments), framed as
+# hairpt/scene/hairgen.py says the reference scenes frame them
+HAIR_QUALITY = 14
+
+
+def hair_row(kind, **over):
+    row = dict(kind=kind, sigma_a=(0.5, 0.5, 0.5), beta_r=0.1, eta=1.55,
+               alpha=0.2, dist=0, diffuse=BENCH_P0)
+    row.update(over)
+    return row
+
+
+def hair_scene(name, device="cuda", res=1024):
+    """Phase 2d's scenes, MARSCHNER_PURE materials, no emitter (the
+    kernel checks trace camera and first-bounce waves only)."""
+    import numpy as np
+    from hairpt_torch.core import rng
+    from hairpt_torch.core.math import matrix_lookat
+    from hairpt_torch.film.film import Film
+    from hairpt_torch.models.sensors import Camera
+    from hairpt_torch.scene import hairgen
+    from hairpt_torch.scene.scene import SceneBuilder
+
+    b = SceneBuilder(device=device)
+    if name == "straight":
+        m = b.add_material(**hair_row(HAIR_KINDS["marschner_pure"]))
+        b.add_fibers(hairgen.gen_straight_hair(
+            n_fibers=int(800 * HAIR_QUALITY)), m)
+        eye, at = (0.0, 16.5, -25.0), (0.0, 8.5, 0.0)
+    else:
+        # black, red, brown and blonde clumps
+        for fs, sa in zip(hairgen.gen_hair_curl(
+                n_fibers_per_clump=int(220 * HAIR_QUALITY)),
+                ((3.0, 3.4, 4.2), (0.3, 1.6, 2.6), (1.2, 1.6, 2.4),
+                 (0.15, 0.25, 0.45))):
+            b.add_fibers(fs, b.add_material(**hair_row(
+                HAIR_KINDS["marschner_pure"], sigma_a=sa)))
+        eye, at = (0.0, 5.9, 17.0), (0.0, 6.0, 0.0)
+    cam = Camera.perspective(matrix_lookat(eye, at, (0, 1, 0)), 35.0, res,
+                             res)
+    m_res = max(1, int(np.ceil(np.log2(res))))
+    return b.build(cam, Film.make(res, res, "tent"), spp=1, max_depth=65,
+                   sampler=(rng.SOBOL_QMC, m_res, res), tiled_q=2048,
+                   traversal="tiled")
+
+
+def check_hair_kernels(name, errs):
+    """Phase 2d: kernels A and B against their plain versions on every
+    tile of a hair scene's camera and first-bounce waves, with phase 2a's
+    rules."""
+    import torch
+    from hairpt_torch.ops import intersect_tiled as itiled
+    from hairpt_torch.ops import tiled_kernels as tk
+
+    t0 = time.time()
+    scene = hair_scene(name)
+    sw = scene.arrays.hair_swept
+    C = sw.seg_rows_t.shape[0]
+    rad = float(scene.arrays.hair.radius[0])
+    log(f"{name} hair scene: {scene.arrays.hair.p0.shape[0]} segments, "
+        f"radius {rad:.6g}, C={C}, built in {time.time() - t0:.1f}s")
+    wv, _, hit_frac = waves(scene)
+    log(f"{name} waves: camera hit fraction {hit_frac:.4f}")
+    bounds = torch.cat([sw.cl_lo.T, sw.cl_hi.T]).contiguous()
+    report = {}
+    for wname, ray in wv.items():
+        ray_p, _ = itiled._pad_rays(ray, tk.TILE)
+        r8 = itiled.rays8_of(ray_p)
+        te, tpm, _, te_err, _ = check_kernel_a(r8, bounds,
+                                               f"{name} {wname}")
+        errs["cull_phase_a"] = max(errs["cull_phase_a"], te_err)
+        report[f"{name} {wname}"] = dict(r8=r8, te=te, tpm=tpm)
+    check_phase_b(scene, report, errs)
+    require(hit_frac > 0.001, f"{name}: the camera wave hits no hair "
+            f"({hit_frac}) to check the kernels on")
+
+
+def small_hair_renders(reset_all):
+    """Phase 3c: the small furball with each hair kind on the card and on
+    the CPU (image means within MEAN_RTOL); sigma_a and beta_r gradients
+    card against CPU at depth 8 (phase 3b's bounds) for both Marschner
+    modes; PRB against the differentiable mode on the card for
+    MARSCHNER_PURE at depths 3 and 5."""
+    import torch
+    from hairpt_torch.integrators import inverse, path
+    from hairpt_torch.ops import tiled_kernels as tk
+
+    for kname, kind in HAIR_KINDS.items():
+        means = {}
+        for dev in ("cuda", "cpu"):
+            s = bench_scene(quality=0.1, res=64, depth=8, spp=1, device=dev,
+                            q=64, material=hair_row(kind))
+            reset_all()
+            means[dev] = float(path.render(s, spp=1).mean())
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                launches = dict(tk.LAUNCHES)
+        rel = abs(means["cuda"] - means["cpu"]) / max(abs(means["cpu"]),
+                                                      1e-12)
+        log(f"small furball, {kname}: image mean card {means['cuda']:.6f}, "
+            f"CPU {means['cpu']:.6f}, rel diff {rel:.3g}; launches "
+            f"{launches}")
+        require(means["cpu"] > 0 and rel <= MEAN_RTOL,
+                f"small {kname} render: card and CPU means differ by {rel}")
+        require(all(v > 0 for v in launches.values()),
+                f"the small {kname} render did not launch A and B")
+    for kname in ("marschner_pure", "marschner"):
+        res = {}
+        for dev in ("cuda", "cpu"):
+            s = bench_scene(quality=0.1, res=64, depth=8, spp=1, device=dev,
+                            q=64, material=hair_row(HAIR_KINDS[kname]))
+            m = s.arrays.materials
+            reset_all()
+            res[dev] = scan_ad_grad(s, {k: getattr(m, k)
+                                        for k in HAIR_GRAD_PARAMS})
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                plain = dict(tk.PLAIN_ON_CUDA)
+        (l_k, g_k, _), (l_p, g_p, _) = res["cuda"], res["cpu"]
+        scale = max(float(g.abs().max()) for g in g_p.values())
+        err = max(float((g_k[k].cpu() - g_p[k]).abs().max()) for k in g_p)
+        rel = abs(l_k - l_p) / max(abs(l_p), 1e-12)
+        log(f"small {kname} furball gradients (64^2, depth 8): loss card "
+            f"{l_k:.6f}, CPU {l_p:.6f} (rel {rel:.3g}); card "
+            + ", ".join(f"{k} {v.cpu().numpy().ravel()}"
+                        for k, v in g_k.items())
+            + ", CPU " + ", ".join(f"{k} {v.numpy().ravel()}"
+                                   for k, v in g_p.items())
+            + f"; largest diff {err / max(scale, 1e-30):.3g} of the "
+            f"largest |g|")
+        require(all(bool(torch.isfinite(g).all()) for g in g_k.values()),
+                f"{kname}: non-finite gradient on the card")
+        require(rel <= GRAD_LOSS_RTOL and err <= GRAD_REL * scale,
+                f"small {kname} gradients: card and CPU differ (loss {rel},"
+                f" gradient {err / max(scale, 1e-30)} of the largest)")
+        require(all(v == 0 for v in plain.values()),
+                f"plain versions ran on CUDA tensors: {plain}")
+    for depth in (3, 5):
+        s = with_config(bench_scene(quality=0.1, res=64, depth=depth, spp=1,
+                                    device="cuda", q=64, nee_rr=0.0,
+                                    material="marschner"), rr_depth=999)
+        m = s.arrays.materials
+        params = {k: getattr(m, k) for k in HAIR_GRAD_PARAMS}
+        l_s, g_s, _ = scan_ad_grad(s, params)
+        n = s.config.width * s.config.height
+        pix = torch.arange(n, device=s.arrays.hair.p0.device)
+        l_r, g_r = inverse.make_prb_loss_grad(s)(
+            s.arrays, params, pix, torch.zeros_like(pix))
+        l_r = float(l_r)
+        rels = {k: float((g_r[k] - g_s[k]).abs().max()
+                         / g_s[k].abs().max().clamp(min=1e-12))
+                for k in params}
+        lrel = abs(l_r - l_s) / max(abs(l_s), 1e-12)
+        log(f"Marschner PRB vs the differentiable mode on the card, depth "
+            f"{depth}: loss {l_r:.6f} / {l_s:.6f} (rel {lrel:.3g}), "
+            f"gradient diffs over each one's largest |g|: "
+            + ", ".join(f"{k} {v:.3g}" for k, v in rels.items()))
+        require(lrel <= PRB_LOSS_RTOL and max(rels.values()) <= PRB_REL,
+                f"Marschner depth {depth}: PRB differs from the "
+                f"differentiable mode (loss {lrel}, gradients {rels})")
+
+
+def hair_backward(scene, reset_all):
+    """Phase 9: bench.py's backward phase on the Marschner furball: the
+    gradient of mean(nan_to_num(radiance)) at depth 16 with respect to
+    sigma_a [1, 3] and beta_r [1] (the tables recomputed from them).
+    Returns its facts."""
+    import numpy as np
+    import torch
+    from hairpt_torch.ops import intersect_tiled as itiled
+    from hairpt_torch.ops import tiled_kernels as tk
+
+    s = with_config(scene, max_depth=16)
+    m = s.arrays.materials
+    p0 = {k: getattr(m, k) for k in HAIR_GRAD_PARAMS}
+    t0 = time.time()
+    scan_ad_grad(s, p0, sample=0)
+    torch.cuda.synchronize()
+    log(f"Marschner fwd+bwd warm-up step {time.time() - t0:.2f}s")
+    reset_all()
+    itiled.STATS.update(queries=0)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    steps = [scan_ad_grad(s, p0, sample=i) for i in (1, 2)]
+    torch.cuda.synchronize()
+    secs = (time.time() - t0) / len(steps)
+    launches = dict(tk.LAUNCHES)
+    queries = itiled.STATS["queries"]
+    plain = dict(tk.PLAIN_ON_CUDA, **tk.OCT_LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    _, g, rays = steps[-1]
+    g = {k: v.cpu().numpy().ravel() for k, v in g.items()}
+    reset_all()
+    itiled.STATS.update(queries=0)
+    for i in (1, 2):
+        scan_ad_grad(s, p0, sample=i, backward=False)
+    torch.cuda.synchronize()
+    fwd_launches = dict(tk.LAUNCHES)
+    fwd_queries = itiled.STATS["queries"]
+    log(f"Marschner fwd+bwd train step (1024^2, depth 16): "
+        f"{secs * 1e3:.1f} ms/step ({rays:.0f} fwd rays) -> "
+        f"{rays / secs / 1e6:.4f} Mrays/s; loss {steps[-1][0]:.6f}, "
+        f"gradients {g}; peak memory {peak / 2**30:.2f} GiB")
+    log(f"launches over the 2 timed fwd+bwd steps {launches} ({queries} "
+        f"queries); over their forward passes alone {fwd_launches} "
+        f"({fwd_queries} queries); plain versions on CUDA tensors and "
+        f"octet kernels: {plain}")
+    require(all(bool(np.isfinite(v).all()) for v in g.values())
+            and any(bool(np.abs(v).sum() > 0) for v in g.values()),
+            f"Marschner fwd+bwd gradients {g}")
+    require(all(v > 0 for v in launches.values()),
+            f"the Marschner step did not launch kernels A and B: "
+            f"{launches}")
+    require(launches == fwd_launches and queries == fwd_queries,
+            f"the backward pass traced queries again: {launches} against "
+            f"{fwd_launches} for the forward passes alone")
+    require(all(v == 0 for v in plain.values()),
+            f"plain versions or octet kernels ran: {plain}")
+    return dict(ms=secs * 1e3, rays=rays, grad=g, peak=peak,
+                launches={k: v / len(steps) for k, v in launches.items()})
+
+
+def inverse_twin():
+    """Phase 10: the inverse-rendering twin at the example's defaults
+    (res 256, 6,000 fibers, spp 2, depth 3, 24 steps, antithetic, the
+    cross loss). Returns its facts."""
+    import argparse
+    import numpy as np
+    from hairpt_torch.tools import inverse_furball
+
+    args = argparse.Namespace(steps=24, res=256, fibers=6000, spp=2,
+                              depth=3, sun_scale=3.0, no_antithetic=False,
+                              log=None, device="cuda")
+    t0 = time.time()
+    r = inverse_furball.run(args)
+    secs = time.time() - t0
+    losses = r["losses"]
+    tail = float(np.mean(losses[len(losses) * 2 // 3:]))
+    log(f"inverse twin ({args.steps} steps, {secs:.1f}s): loss steps 0-2 "
+        f"{losses[0]:.6f} {losses[1]:.6f} {losses[2]:.6f}, last-third "
+        f"mean {tail:.6f}, last {losses[-1]:.6f}; recovered sigma_a "
+        f"{r['sigma_a']} (true {r['sigma_a_true']}), beta_r "
+        f"{r['beta_r']:.4f} (true {r['beta_r_true']:.4f})")
+    require(all(np.isfinite(losses)), f"non-finite losses {losses}")
+    require(tail < losses[1], f"the twin's loss did not fall: step 1 "
+            f"{losses[1]}, last third {tail}")
+    return dict(secs=secs, losses=losses, sigma_a=r["sigma_a"],
+                beta_r=r["beta_r"])
+
+
 def warm_up(scene, label):
     """One warm-up wave. Returns (progress callback, the lists it fills
     with each wave's seconds and rays, the number of waves to time: two,
@@ -1258,6 +1547,14 @@ def main() -> int:
         del wv, wv_sw
         log(f"phase 2 ({time.time() - t0:.1f}s): the swept phase A and "
             f"kernel E match their plain versions ({time.time() - t1:.1f}s)")
+        t0 = time.time()
+        hair_errs = {"cull_phase_a": 0.0, "phase_b": 0.0}
+        for name in ("straight", "curl"):
+            check_hair_kernels(name, hair_errs)
+        log(f"phase 2d ({time.time() - t0:.1f}s): kernels A and B match "
+            f"their plain versions on the straight-hair and hair-curl "
+            f"waves (largest |te diff| {hair_errs['cull_phase_a']:.3g}, "
+            f"|t diff| {hair_errs['phase_b']:.3g})")
 
         # ---- 3. small renders, card against CPU ----
         t0 = time.time()
@@ -1266,6 +1563,9 @@ def main() -> int:
         t0 = time.time()
         small_gradients(reset_all)
         log(f"phase 3b ({time.time() - t0:.1f}s): small gradients agree")
+        t0 = time.time()
+        small_hair_renders(reset_all)
+        log(f"phase 3c ({time.time() - t0:.1f}s): the hair BSDFs agree")
 
         # ---- 4. the full-width render, tiled ----
         t0 = time.time()
@@ -1360,6 +1660,58 @@ def main() -> int:
         prb = prb_step(scene, reset_all, bwd)
         log(f"phase 7 ({time.time() - t0:.1f}s): PRB step ok")
 
+        # ---- 8. the full-width Marschner furball ----
+        t0 = time.time()
+        del scene
+        scene_m = bench_scene(quality=14.0, res=1024, depth=65, spp=1,
+                              device="cuda", material="marschner")
+        log(f"Marschner furball built in {time.time() - t0:.1f}s")
+        progress, times, rays, n_m = warm_up(scene_m, "marschner")
+        reset_all()
+        itiled.STATS.update(queries=0, max_passes=0, overflow_tiles=0)
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        img = path.render(scene_m, spp=n_m, seed=1, progress=progress)
+        torch.cuda.synchronize()
+        m_launches = dict(tk.LAUNCHES)
+        m_off = dict(tk.OCT_LAUNCHES, **pk.LAUNCHES)
+        m_plain = dict(tk.PLAIN_ON_CUDA)
+        mean_m = float(img.mean())
+        secs_m = sum(times) / len(times)
+        rays_m = sum(rays) / len(rays)
+        log(f"Marschner render: {n_m} timed waves of 1 spp at 1024^2, depth "
+            f"65: {rays_m:.0f} rays/wave, {secs_m:.3f} s/wave, "
+            f"{rays_m / secs_m / 1e6:.4f} Mrays/s (phase 4's rough plastic: "
+            f"{rays_w / secs / 1e6:.4f}); image mean {mean_m:.6f}; peak "
+            f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        log(f"launches over the timed waves: {m_launches}; kernels off "
+            f"this path: {m_off}; plain-version calls on CUDA tensors: "
+            f"{m_plain}")
+        require(np.isfinite(mean_m) and mean_m > 0,
+                f"Marschner image mean {mean_m}")
+        require(bool(torch.isfinite(img).all()), "non-finite pixels")
+        require(all(v > 0 for v in m_launches.values()),
+                f"a kernel was not launched by the Marschner render: "
+                f"{m_launches}")
+        require(all(v == 0 for v in m_off.values()),
+                f"the Marschner render ran an octet or swept kernel: "
+                f"{m_off}")
+        require(all(v == 0 for v in m_plain.values()),
+                f"plain versions ran on CUDA tensors: {m_plain}")
+        log(f"phase 8 ({time.time() - t0:.1f}s): Marschner render ok")
+        del img
+
+        # ---- 9. bench.py's backward phase on the Marschner furball ----
+        t0 = time.time()
+        hbwd = hair_backward(scene_m, reset_all)
+        del scene_m
+        log(f"phase 9 ({time.time() - t0:.1f}s): Marschner fwd+bwd step ok")
+
+        # ---- 10. the inverse-rendering twin ----
+        t0 = time.time()
+        inverse_twin()
+        log(f"phase 10 ({time.time() - t0:.1f}s): inverse twin ok")
+
         per_wave = {k: (v, n_timed) for k, v in launches.items()}
         per_wave.update({k: (v, None) for k, v in oct_launches.items()})
         per_wave.update({k: (v, n_sw) for k, v in sw_launches.items()})
@@ -1376,6 +1728,10 @@ def main() -> int:
             if k["name"] in bwd["launches"]:
                 k["launches_per_fwd_bwd_step"] = bwd["launches"][k["name"]]
                 k["launches_per_prb_step"] = prb["launches"][k["name"]]
+                k["launches_per_marschner_wave"] = \
+                    m_launches[k["name"]] / n_m
+                k["launches_per_marschner_fwd_bwd_step"] = \
+                    hbwd["launches"][k["name"]]
         require(all(k["launches"] > 0 for k in kernels),
                 "a kernel has no launches")
     except SmokeFailure as e:

@@ -3,10 +3,11 @@
 The input is the JAX scene's arrays with every leaf turned into numpy
 (for example `jax.tree_util.tree_map(np.asarray, scene.arrays)`); this
 module only reads attributes, so it needs no JAX. The result renders the
-identical scene (same prim order, cluster layout, materials and baked
-environment) through hairpt_torch. params_to_torch and grads_to_numpy
-carry a parameter dict of the JAX package's inverse rendering across and
-its gradients back, so both packages can be differentiated on one dict.
+identical scene (same prim order, cluster layout, materials, hair tables
+and baked environment) through hairpt_torch. params_to_torch and
+grads_to_numpy carry a parameter dict of the JAX package's inverse
+rendering across and its gradients back, so both packages can be
+differentiated on one dict.
 """
 from __future__ import annotations
 
@@ -43,6 +44,11 @@ def convert_arrays(arrays, device=None) -> SceneArrays:
                         for f in SweptHair._fields])
     materials = mat.MaterialTable(**{
         f: _t(getattr(m, f), dev) for f in mat.MaterialTable._fields})
+    ht = arrays.hair_tables
+    if ht is not None:
+        ht = mat.HairTables(*[None if getattr(ht, f) is None else
+                              _t(getattr(ht, f), dev, torch.float32)
+                              for f in mat.HairTables._fields])
     env = None
     if arrays.env is not None:
         e = arrays.env
@@ -54,7 +60,8 @@ def convert_arrays(arrays, device=None) -> SceneArrays:
                         texel_pdf=_t(e.texel_pdf, dev, torch.float32))
     return SceneArrays(hair=hair,
                        hair_mat_id=_t(arrays.hair_mat_id, dev, torch.int32),
-                       hair_swept=swept, materials=materials, env=env)
+                       hair_swept=swept, materials=materials,
+                       hair_tables=ht, env=env)
 
 
 def convert_scene(scene, arrays, device=None) -> Scene:
@@ -79,7 +86,8 @@ def convert_scene(scene, arrays, device=None) -> Scene:
     active = tuple(int(k) for k in scene.active_kinds)
     mat.check_kinds(active)
     return Scene(arrays=convert_arrays(arrays, device), camera=camera,
-                 film=film, config=cfg, active_kinds=active)
+                 film=film, config=cfg, active_kinds=active,
+                 marschner_rows=tuple(int(r) for r in scene.marschner_rows))
 
 
 def params_to_torch(params: dict, device=None) -> dict:

@@ -6,6 +6,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 
@@ -63,3 +64,21 @@ class Ray(NamedTuple):
     d: torch.Tensor      # [N, 3]
     mint: torch.Tensor   # [N]
     maxt: torch.Tensor   # [N]
+
+
+def matrix_lookat(origin, target, up) -> np.ndarray:
+    """Camera-to-world matrix, Mitsuba convention: camera looks down +z,
+    x points left-to-right in image, y up (reference:
+    core/transform.cpp lookAt)."""
+    origin = np.asarray(origin, np.float64)
+    d = np.asarray(target, np.float64) - origin
+    d /= np.linalg.norm(d)
+    left = np.cross(np.asarray(up, np.float64), d)
+    left /= np.linalg.norm(left)
+    new_up = np.cross(d, left)
+    m = np.eye(4)
+    m[:3, 0] = left
+    m[:3, 1] = new_up
+    m[:3, 2] = d
+    m[:3, 3] = origin
+    return m

@@ -5,8 +5,10 @@ has no uint32 arithmetic on every operation, so u32 values live in int64
 lanes and every product or sum is masked back with `& 0xFFFFFFFF`; the
 results are bit-identical to the JAX package's uint32 arithmetic.
 
-Two modes are ported, the ones the forward render uses:
+Three modes are ported:
 - INDEPENDENT: the PCG hash (PCG-RXS-M-XS) mapped to floats;
+- SOBOL: the padded Owen-scrambled (0,2)-sequence (the inverse-rendering
+  example's sampler);
 - SOBOL_QMC: the true high-dimensional Sobol' sequence with the per-pixel
   elementary-interval lookup, as `mode=(SOBOL_QMC, m, width)`.
 """
@@ -20,6 +22,7 @@ from . import sobolseq as sq
 M32 = 0xFFFFFFFF
 
 INDEPENDENT = 0
+SOBOL = 1
 SOBOL_QMC = 4
 
 
@@ -58,6 +61,67 @@ def uniform_2d(pixel, sample, dim):
     h = hash_combine(hash_combine(pixel, sample), dim)
     h2 = hash_u32((h + 0x68bc21eb) & M32)
     return torch.stack([u32_to_unit_float(h), u32_to_unit_float(h2)], dim=-1)
+
+
+def _mul32(x, c: int):
+    """(x * c) mod 2^32 for u32 lanes x and a u32 constant c, in halves
+    so no int64 product overflows."""
+    lo = x * (c & 0xFFFF)
+    hi = ((x * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & M32
+
+
+def reverse_bits_u32(x):
+    x = _u32(x)
+    x = ((x << 16) | (x >> 16)) & M32
+    x = ((x & 0x00ff00ff) << 8) | ((x & 0xff00ff00) >> 8)
+    x = ((x & 0x0f0f0f0f) << 4) | ((x & 0xf0f0f0f0) >> 4)
+    x = ((x & 0x33333333) << 2) | ((x & 0xcccccccc) >> 2)
+    x = ((x & 0x55555555) << 1) | ((x & 0xaaaaaaaa) >> 1)
+    return x
+
+
+def _laine_karras_permutation(x, seed):
+    """Hash acting on reversed bits => per-digit Owen scramble (Burley
+    2020)."""
+    x = (_u32(x) + _u32(seed)) & M32
+    for c in (0x6c50b47c, 0xb82f1e52, 0xc7afe638, 0x8d22f6e6):
+        x = x ^ _mul32(x, c)
+    return x
+
+
+def owen_scramble_u32(x, seed):
+    return reverse_bits_u32(_laine_karras_permutation(reverse_bits_u32(x),
+                                                      seed))
+
+
+def _sobol02_u32(index):
+    """First two components of the Sobol (0,2)-sequence as uint32
+    fractions."""
+    index = _u32(index)
+    x0 = reverse_bits_u32(index)  # van der Corput
+    n = index
+    v = torch.full_like(index, 1 << 31)
+    x1 = torch.zeros_like(index)
+    for _ in range(32):
+        x1 = torch.where((n & 1) != 0, x1 ^ v, x1)
+        n = n >> 1
+        v = v ^ (v >> 1)
+    return x0, x1
+
+
+def sobol_2d(pixel, sample, dim):
+    """Owen-scrambled (0,2)-point `sample` of the stream keyed by (pixel,
+    dim); the sample index itself is Owen-shuffled per (pixel, dim), so
+    the padded dimensions decorrelate (pbrt / Burley's padded Sobol')."""
+    key = hash_combine(_u32(pixel), dim)
+    shuffled = owen_scramble_u32(_u32(sample, key.device),
+                                 hash_u32(key ^ 0xa511e9b3))
+    x0, x1 = _sobol02_u32(shuffled)
+    x0 = owen_scramble_u32(x0, hash_u32(key ^ 0x4117abf3))
+    x1 = owen_scramble_u32(x1, hash_u32(key ^ 0x7f1d2ce7))
+    return torch.stack([u32_to_unit_float(x0), u32_to_unit_float(x1)],
+                       dim=-1)
 
 
 _TABLES: dict = {}
@@ -138,6 +202,8 @@ class Sampler:
                                 self.index, dim, 1)[..., 0]
         if self.mode == INDEPENDENT:
             return uniform_1d(self.pixel, self.sample, dim)
+        if self.mode == SOBOL:
+            return sobol_2d(self.pixel, self.sample, dim)[..., 0]
         raise NotImplementedError(f"sampler mode {self.mode!r} is not "
                                   "ported")
 
@@ -147,5 +213,7 @@ class Sampler:
                                 self.index, dim, 2)
         if self.mode == INDEPENDENT:
             return uniform_2d(self.pixel, self.sample, dim)
+        if self.mode == SOBOL:
+            return sobol_2d(self.pixel, self.sample, dim)
         raise NotImplementedError(f"sampler mode {self.mode!r} is not "
                                   "ported")

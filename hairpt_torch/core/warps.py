@@ -1,5 +1,5 @@
 """Square -> sphere/hemisphere/disk warps and their densities (port of
-hairpt/core/warps.py, the warps the forward render uses)."""
+hairpt/core/warps.py, the warps the ported BSDFs and emitters use)."""
 from __future__ import annotations
 
 import math
@@ -10,6 +10,7 @@ from .math import safe_sqrt
 
 PI = math.pi
 INV_PI = 1.0 / math.pi
+INV_TWOPI = 1.0 / (2.0 * math.pi)
 
 
 def square_to_uniform_sphere(s):
@@ -44,3 +45,18 @@ def square_to_cosine_hemisphere(s):
 
 def square_to_cosine_hemisphere_pdf(w):
     return torch.clamp(w[..., 2], min=0.0) * INV_PI
+
+
+def square_to_phong_lobe(s, exponent):
+    """Sample a Phong lobe around +z (reference: kajiyakay.cpp:244-249)."""
+    cos_alpha = s[..., 1] ** (1.0 / (exponent + 1.0))
+    sin_alpha = safe_sqrt(1.0 - s[..., 1] ** (2.0 / (exponent + 1.0)))
+    phi = 2.0 * PI * s[..., 0]
+    return torch.stack([sin_alpha * torch.cos(phi),
+                        sin_alpha * torch.sin(phi), cos_alpha], dim=-1)
+
+
+def phong_lobe_pdf(cos_alpha, exponent):
+    return torch.where(cos_alpha > 0,
+                       (cos_alpha ** exponent) * (exponent + 1.0) * INV_TWOPI,
+                       0.0)

@@ -1,13 +1,14 @@
 """Inverse rendering: fit material parameters to a target image (port of
-hairpt/integrators/inverse.py for the material-table parameters).
+hairpt/integrators/inverse.py).
 
 Gradients of pixel values with respect to the material table flow
 through the differentiable render (path.make_li_fn(differentiable=True))
 or through path-replay backprop (prb.py). A parameter replaces its
-table field as it is: eta reaches the gradient only through its direct
-uses, and the fields derived from it at build time (ext_trans, int_fdr)
-are not recomputed, as in the JAX package. The hair BSDFs' parameters
-(sigma_a, beta_r) and their azimuthal tables are not ported yet.
+table field as it is; sigma_a, beta_r and eta also rebuild the Marschner
+azimuthal tables of the scene's Marschner rows (recompute_hair_tables),
+so their gradients reach the tables' differentiable precompute. The
+fields derived from eta at build time (ext_trans, int_fdr) are not
+recomputed, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -20,29 +21,45 @@ import numpy as np
 import torch
 
 from ..film import film as film_mod
+from ..models.bsdf import hair as hair_bsdf
 from . import path as path_int
 from . import prb
 
-_HAIR_PARAMS = ("sigma_a", "beta_r")
+_HAIR_PARAMS = {"sigma_a", "beta_r", "eta"}
 
 
-def apply_params_arrays(arrays, params: dict):
+def recompute_hair_tables(materials, marschner_rows):
+    """Rebuild the Marschner azimuthal tables from the (possibly updated)
+    material parameters: differentiable with respect to sigma_a, beta_r
+    and eta; the sampling tables are built from detached values."""
+    if not marschner_rows:
+        return None
+    return hair_bsdf.hair_tables(torch.stack([
+        hair_bsdf.precompute_azimuthal(materials.sigma_a[r],
+                                       materials.beta_r[r],
+                                       materials.eta[r])
+        for r in marschner_rows]))
+
+
+def apply_params_arrays(arrays, params: dict, marschner_rows):
     """The scene arrays with material-table fields replaced by `params`
-    (keys: float fields of the table, e.g. 'diffuse', 'alpha', 'eta')."""
-    hair = [k for k in params if k in _HAIR_PARAMS]
-    if hair:
-        raise NotImplementedError(f"{hair}: the hair BSDFs and their tables "
-                                  "are not ported yet")
-    fields = prb.float_theta(arrays)
+    (keys: float fields of the table, e.g. 'diffuse', 'alpha', 'eta',
+    'sigma_a', 'beta_r'). sigma_a, beta_r and eta rebuild the hair tables
+    of marschner_rows (Scene.marschner_rows)."""
+    fields = [f for g, f in prb.float_theta(arrays) if g == "materials"]
     unknown = [k for k in params if k not in fields]
     if unknown:
         raise KeyError(f"{unknown} are not float fields of the material "
                        f"table ({sorted(fields)})")
-    return arrays._replace(materials=arrays.materials._replace(**params))
+    mats = arrays.materials._replace(**params)
+    ht = arrays.hair_tables
+    if marschner_rows and (_HAIR_PARAMS & set(params)):
+        ht = recompute_hair_tables(mats, marschner_rows)
+    return arrays._replace(materials=mats, hair_tables=ht)
 
 
 def apply_params(scene, params: dict):
-    return apply_params_arrays(scene.arrays, params)
+    return apply_params_arrays(scene.arrays, params, scene.marschner_rows)
 
 
 def make_prb_loss_grad(scene, loss_fn=None):
@@ -51,9 +68,11 @@ def make_prb_loss_grad(scene, loss_fn=None):
 
     Returns f(arrays_base, params, pixel_idx, sample_idx, *loss_args)
         -> (loss, d_params): PRB's gradient with respect to the material
-    fields, carried back through apply_params_arrays to each entry of
-    `params` (for example a [3] diffuse broadcast over the table)."""
+    fields and the hair tables, carried back through apply_params_arrays
+    (the tables' precompute included) to each entry of `params` (for
+    example a [3] diffuse broadcast over the table, or sigma_a)."""
     gradf = prb.make_prb_grad_fn(scene, loss_fn=loss_fn)
+    rows = scene.marschner_rows
 
     def f(arrays_base, params, pixel_idx, sample_idx, *loss_args):
         names = list(params)
@@ -61,11 +80,12 @@ def make_prb_loss_grad(scene, loss_fn=None):
         with torch.enable_grad():
             p = {k: torch.as_tensor(params[k], device=dev).detach()
                  .requires_grad_() for k in names}
-            theta = prb.float_theta(apply_params_arrays(arrays_base, p))
+            theta = prb.float_theta(apply_params_arrays(arrays_base, p,
+                                                        rows))
         outs = [k for k in theta if theta[k].requires_grad]
-        arrs = arrays_base._replace(materials=arrays_base.materials._replace(
-            **{k: v.detach().requires_grad_(k in outs)
-               for k, v in theta.items()}))
+        arrs = prb.with_theta(arrays_base, {
+            k: v.detach().requires_grad_(k in outs)
+            for k, v in theta.items()})
         (loss, _), d_theta = gradf(arrs, pixel_idx, sample_idx, *loss_args)
         d = torch.autograd.grad([theta[k] for k in outs],
                                 [p[k] for k in names],
@@ -91,9 +111,10 @@ def make_render_fn(scene, spp: int, antithetic=False):
     cfg = scene.config
     n_pix = cfg.width * cfg.height
     fl = scene.film
+    rows = scene.marschner_rows
 
     def render(arrays_base, params, seed: int):
-        arrays = apply_params_arrays(arrays_base, params)
+        arrays = apply_params_arrays(arrays_base, params, rows)
         dev = arrays.hair.p0.device
         image, weight = film_mod.zeros(fl, dev)
         pixel_idx = torch.arange(n_pix, device=dev)
@@ -231,8 +252,11 @@ def fit(scene, target, params0: dict, steps: int = 32, lr: float = 0.05,
                     g.copy_(torch.nan_to_num(g, nan=0.0, posinf=0.0,
                                              neginf=0.0))
             opt.step()
-            if "diffuse" in params:
-                params["diffuse"].clamp_(0.0, 1.0)
+            # physical clamps
+            for k, lo, hi in (("sigma_a", 0.0, 10.0), ("beta_r", 0.02, 1.0),
+                              ("diffuse", 0.0, 1.0)):
+                if k in params:
+                    params[k].clamp_(lo, hi)
         for group in opt.param_groups:
             group["lr"] = schedule(i + 1)
         losses.append(float(loss.detach()))

@@ -186,8 +186,8 @@ def make_li_fn(scene, differentiable: bool = False, antithetic=False):
     backward pass, its queries are not); sampling is detached, so
     gradients flow through the BSDF values only: the sampled direction
     and its pdf carry none, and a smooth lobe's weight is f(wo) /
-    sg(pdf(wo)). The material table's float fields in `arr` may require
-    grad.
+    sg(pdf(wo)); a delta lane keeps the sampled weight. The material
+    table's float fields and the hair tables in `arr` may require grad.
 
     antithetic: False, True (mirror the BSDF sample's 2D dims, D_BSDF_U2
     and D_BSDF_U2 + 1) or a tuple of per-bounce dim offsets to mirror."""
@@ -245,7 +245,8 @@ def make_li_fn(scene, differentiable: bool = False, antithetic=False):
             _sample_emitter_direct(arr, cfg, hit.p, u_sel, u_nee)
         wo_nee = fr.to_local(d_nee)
         f_nee, bsdf_pdf_nee = mat.eval_pdf_mix(
-            active_kinds, arr.materials, hit.mat_id, gm, wi, wo_nee)
+            active_kinds, arr.materials, hit.mat_id, gm, wi, wo_nee,
+            arr.hair_tables)
         nee_ok = active & (pdf_nee > 0) \
             & (torch.amax(torch.abs(f_nee), dim=-1) > 0)
         if cfg.strict_normals:
@@ -274,12 +275,16 @@ def make_li_fn(scene, differentiable: bool = False, antithetic=False):
         u2 = smp.next_2d(dims + D_BSDF_U2)
         u2b = smp.next_2d(dims + D_BSDF_U2B)
         wo, bsdf_weight, bsdf_pdf, is_delta, eta_s = mat.sample_mix(
-            active_kinds, arr.materials, hit.mat_id, gm, wi, u_lobe, u2, u2b)
+            active_kinds, arr.materials, hit.mat_id, gm, wi, u_lobe, u2, u2b,
+            arr.hair_tables)
         if differentiable:
+            # a delta lane (the faithful Marschner's sampled hair lobe)
+            # keeps the sampled weight, its gradient through the sampled
+            # direction included; a smooth lane's is f(wo) / sg(pdf(wo))
             wo = wo.detach()
             bsdf_pdf = bsdf_pdf.detach()
             f2, p2 = mat.eval_pdf_mix(active_kinds, arr.materials,
-                                      hit.mat_id, gm, wi, wo)
+                                      hit.mat_id, gm, wi, wo, arr.hair_tables)
             w_smooth = f2 / torch.clamp(p2.detach(), min=1e-9)[..., None]
             bsdf_weight = torch.where(is_delta[..., None], bsdf_weight,
                                       w_smooth)

@@ -14,9 +14,11 @@ path.make_li_fn with O(1) memory in depth (Vicini et al. 2021).
      theta-dependent terms of the estimator. Each bounce's autograd graph
      is built, differentiated and freed before the next bounce.
 
-theta is the float fields of the material table (the port has no hair
-tables). Lanes with |w_k| < 1e-6 in a channel zero that channel's suffix.
-Shadow-ray RR is not replayed: the scene must have nee_rr == 0.
+theta is the float fields of the material table and the Marschner
+azimuthal tables (HairTables): sigma_a / beta_r gradients then flow
+through precompute_azimuthal outside this loop (inverse.py). Lanes with
+|w_k| < 1e-6 in a channel zero that channel's suffix. Shadow-ray RR is
+not replayed: the scene must have nee_rr == 0.
 """
 from __future__ import annotations
 
@@ -42,11 +44,27 @@ def _check_supported(scene):
 
 
 def float_theta(arrays) -> dict:
-    """The differentiable theta: the float fields of the material
-    table."""
-    mats = arrays.materials
-    return {f: getattr(mats, f) for f in mats._fields
-            if getattr(mats, f).is_floating_point()}
+    """The differentiable theta: the float fields of the material table,
+    keyed ("materials", field), beside the hair tables' arrays, keyed
+    ("hair_tables", field)."""
+    theta = {}
+    for group in ("materials", "hair_tables"):
+        table = getattr(arrays, group)
+        for f in (table._fields if table is not None else ()):
+            v = getattr(table, f)
+            if v is not None and v.is_floating_point():
+                theta[(group, f)] = v
+    return theta
+
+
+def with_theta(arrays, theta: dict):
+    """The arrays with theta's tensors in place of their fields."""
+    for group in ("materials", "hair_tables"):
+        fields = {f: v for (g, f), v in theta.items() if g == group}
+        if fields:
+            arrays = arrays._replace(
+                **{group: getattr(arrays, group)._replace(**fields)})
+    return arrays
 
 
 def _zero_nonfinite(x):
@@ -60,9 +78,10 @@ def make_prb_grad_fn(scene, loss_fn=None):
     loss_fn(L, pos, *loss_args) -> scalar defines the objective over the
     per-lane radiance (default: the mean). d_theta holds the gradient of
     the loss with respect to each tensor of float_theta(arr) that
-    requires grad (all of them when none does). Only those are traced:
-    a field left out costs nothing, where ext_trans, say, would add a
-    [N, 64] gradient and its scatter to every evaluation."""
+    requires grad (all of them when none does), under its key. Only
+    those are traced: a field left out costs nothing, where ext_trans,
+    say, would add a [N, 64] gradient and its scatter to every
+    evaluation."""
     _check_supported(scene)
     cfg = scene.config
     active_kinds = scene.active_kinds
@@ -75,7 +94,7 @@ def make_prb_grad_fn(scene, loss_fn=None):
         names = [k for k, v in theta.items() if v.requires_grad] \
             or list(theta)
         theta0 = {k: v.detach() for k, v in theta.items()}
-        arr = arr._replace(materials=arr.materials._replace(**theta0))
+        arr = with_theta(arr, theta0)
         n = pixel_idx.shape[0]
         dev = pixel_idx.device
 
@@ -102,7 +121,8 @@ def make_prb_grad_fn(scene, loss_fn=None):
         hit = scene_intersect(arr, ray, **params)
 
         leaves = [theta0[k].clone().requires_grad_() for k in names]
-        mats_g = arr.materials._replace(**dict(zip(names, leaves)))
+        arr_g = with_theta(arr, dict(zip(names, leaves)))
+        mats_g, ht_g = arr_g.materials, arr_g.hair_tables
         grads = [torch.zeros_like(v) for v in leaves]
 
         active = torch.ones((n,), dtype=torch.bool, device=dev)
@@ -157,17 +177,17 @@ def make_prb_grad_fn(scene, loss_fn=None):
             with torch.enable_grad():
                 gm = mat.gather(mats_g, hit.mat_id)
                 f_nee, bsdf_pdf_nee = mat.eval_pdf_mix(
-                    active_kinds, mats_g, hit.mat_id, gm, wi, wo_nee)
+                    active_kinds, mats_g, hit.mat_id, gm, wi, wo_nee, ht_g)
                 w_nee = torch.where(is_dl, 1.0,
                                     _mi_weight(pdf_nee, bsdf_pdf_nee))
                 c = le_nee * f_nee \
                     * (w_nee / torch.clamp(pdf_nee, min=1e-20))[..., None]
                 wo, wt_s, bsdf_pdf, is_delta, eta_s = mat.sample_mix(
                     active_kinds, mats_g, hit.mat_id, gm, wi, u_lobe, u2,
-                    u2b)
+                    u2b, ht_g)
                 wo = wo.detach()
                 f2, p2 = mat.eval_pdf_mix(active_kinds, mats_g, hit.mat_id,
-                                          gm, wi, wo)
+                                          gm, wi, wo, ht_g)
                 w_s = torch.where(is_delta[..., None], wt_s,
                                   f2 / torch.clamp(p2.detach(),
                                                    min=1e-9)[..., None])

@@ -71,7 +71,7 @@ class RoughPlastic:
                                       min=1e-7)
 
     @staticmethod
-    def eval_pdf(gm, wi, wo):
+    def eval_pdf(gm, wi, wo, aux=None):
         valid = (_cos(wi) > 0) & (_cos(wo) > 0)
         m = _half(wi, wo)
         D = _dyn_ndf(gm.dist, gm.alpha, m)
@@ -89,7 +89,7 @@ class RoughPlastic:
                 torch.where(valid, pdf, 0.0))
 
     @staticmethod
-    def sample(gm, wi, u_lobe, u2, u2b):
+    def sample(gm, wi, u_lobe, u2, u2b, aux=None):
         n = wi.shape[:-1]
         valid = _cos(wi) > 0
         p_spec = RoughPlastic._prob_spec(gm, wi)

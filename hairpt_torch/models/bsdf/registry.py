@@ -1,10 +1,13 @@
 """Switch-free BSDF dispatch over material tables (port of the parts of
-hairpt/models/bsdf/registry.py the forward render uses).
+hairpt/models/bsdf/registry.py the hair scenes use).
 
 Materials live in an SoA table; a shading wave gathers its per-lane
 parameters and every family present in the scene is evaluated and
-lane-selected by kind. Ported family: ROUGHPLASTIC. The scene has no
-textures and no wrapper materials in this slice, so gather is a plain
+lane-selected by kind. Ported families: ROUGHPLASTIC (plastic.py) and
+the hair BSDFs KAJIYAKAY, MARSCHNER, MARSCHNER_PURE and
+MARSCHNERDIELECTRIC (hair.py), whose Marschner kinds read the stacked
+azimuthal tables (HairTables) through the `hair_tables` argument. The
+scenes have no textures and no wrapper materials, so gather is a plain
 table lookup, eval_pdf_mix / sample_mix equal eval_pdf / sample and
 perturb_shading_frame is the identity.
 
@@ -24,6 +27,11 @@ from ... import resolve_device
 # family ids (the JAX package's values, baked into material tables)
 DIFFUSE = 0
 ROUGHPLASTIC = 8
+KAJIYAKAY = 12
+MARSCHNER = 13          # = the fork's MarschnerDiffuse, faithful quirks
+MARSCHNERDIELECTRIC = 14
+MARSCHNER_PURE = 23     # corrected-mode Marschner (true 3-lobe mixture
+#                         pdf, fresh per-decision samples, MIS-compatible)
 
 N_COS = 64  # resolution of the per-material external-transmittance slice
 
@@ -34,6 +42,8 @@ class MaterialTable(NamedTuple):
     twosided: torch.Tensor     # [M] bool
     diffuse: torch.Tensor      # [M, 3]
     specular: torch.Tensor     # [M, 3]
+    transmit: torch.Tensor     # [M, 3]
+    exponent: torch.Tensor     # [M] Kajiya-Kay Phong exponent
     alpha: torch.Tensor        # [M] microfacet roughness
     dist: torch.Tensor         # [M] 0 = ggx, 1 = beckmann
     eta: torch.Tensor          # [M] int_ior / ext_ior
@@ -41,6 +51,21 @@ class MaterialTable(NamedTuple):
     spec_weight: torch.Tensor  # [M] specularSamplingWeight
     ext_trans: torch.Tensor    # [M, N_COS] T12(cos theta) slice
     int_fdr: torch.Tensor      # [M] internal diffuse Fresnel reflectance
+    sigma_a: torch.Tensor      # [M, 3] hair absorption
+    beta_r: torch.Tensor       # [M] hair longitudinal roughness
+    scale_tilt: torch.Tensor   # [M] hair scale tilt (radians)
+    aux_id: torch.Tensor       # [M] int32 row of the hair tables (-1 none)
+
+
+class HairTables(NamedTuple):
+    """Stacked Marschner azimuthal tables, [K] hair materials
+    (reference: marschner_diffuse.cpp precomputeAzimuthalDistributions)."""
+    values: torch.Tensor       # [K, 3 (R/TT/TRT), 64 (cos theta_d),
+    #                            64 (phi), 3 (rgb)]
+    weights: torch.Tensor      # [K, 3, 64, 64] dilated max-weights
+    lobe_weight: torch.Tensor  # [K, 3, 64] integral of N dphi per row
+    values_quad: torch.Tensor = None  # [K, 63, 63, 3, 4, 3] 2x2 bilinear
+    #                            quads (hair.quad_pack): one block per lane
 
 
 class GatheredMat(NamedTuple):
@@ -48,6 +73,8 @@ class GatheredMat(NamedTuple):
     kind: torch.Tensor
     diffuse: torch.Tensor
     specular: torch.Tensor
+    transmit: torch.Tensor
+    exponent: torch.Tensor
     alpha: torch.Tensor
     dist: torch.Tensor
     eta: torch.Tensor
@@ -55,13 +82,19 @@ class GatheredMat(NamedTuple):
     spec_weight: torch.Tensor
     ext_trans: torch.Tensor
     int_fdr: torch.Tensor
+    sigma_a: torch.Tensor
+    beta_r: torch.Tensor
+    scale_tilt: torch.Tensor
+    aux_id: torch.Tensor
 
 
 def default_material_row(**over):
     row = dict(kind=DIFFUSE, twosided=False, diffuse=(0.5, 0.5, 0.5),
-               specular=(1.0, 1.0, 1.0), alpha=0.1, dist=0, eta=1.5,
-               nonlinear=False, spec_weight=0.5, ext_trans=np.ones(N_COS),
-               int_fdr=0.0)
+               specular=(1.0, 1.0, 1.0), transmit=(1.0, 1.0, 1.0),
+               exponent=30.0, alpha=0.1, dist=0, eta=1.5, nonlinear=False,
+               spec_weight=0.5, ext_trans=np.ones(N_COS), int_fdr=0.0,
+               sigma_a=(0.5, 0.5, 0.5), beta_r=0.1, scale_tilt=-0.1,
+               aux_id=-1)
     row.update(over)
     return row
 
@@ -77,9 +110,12 @@ def pack_materials(rows, device=None) -> MaterialTable:
     return MaterialTable(
         kind=arr("kind", np.int32), twosided=arr("twosided", bool),
         diffuse=arr("diffuse"), specular=arr("specular"),
+        transmit=arr("transmit"), exponent=arr("exponent"),
         alpha=arr("alpha"), dist=arr("dist", np.int32), eta=arr("eta"),
         nonlinear=arr("nonlinear", bool), spec_weight=arr("spec_weight"),
-        ext_trans=arr("ext_trans"), int_fdr=arr("int_fdr"))
+        ext_trans=arr("ext_trans"), int_fdr=arr("int_fdr"),
+        sigma_a=arr("sigma_a"), beta_r=arr("beta_r"),
+        scale_tilt=arr("scale_tilt"), aux_id=arr("aux_id", np.int32))
 
 
 class _Rows(torch.autograd.Function):
@@ -121,8 +157,9 @@ def ext_trans_lookup(gm: GatheredMat, cos_theta):
     return t0 * (1.0 - fx) + t1 * fx
 
 
-# kind -> family class with eval_pdf(gm, wi, wo) and
-# sample(gm, wi, u_lobe, u2, u2b); filled by the family modules
+# kind -> family class with eval_pdf(gm, wi, wo, aux) and
+# sample(gm, wi, u_lobe, u2, u2b, aux), aux the scene's HairTables (or
+# None); filled by the family modules
 FAMILIES: dict = {}
 
 
@@ -137,19 +174,20 @@ def check_kinds(active_kinds):
                                   f"(ported: {sorted(FAMILIES)})")
 
 
-def eval_pdf(active_kinds, gm: GatheredMat, wi, wo):
+def eval_pdf(active_kinds, gm: GatheredMat, wi, wo, hair_tables=None):
     n = wi.shape[:-1]
     f = torch.zeros(n + (3,), device=wi.device)
     pdf = torch.zeros(n, device=wi.device)
     for kind in sorted(set(int(k) for k in active_kinds)):
-        fk, pk = FAMILIES[kind].eval_pdf(gm, wi, wo)
+        fk, pk = FAMILIES[kind].eval_pdf(gm, wi, wo, hair_tables)
         sel = gm.kind == kind
         f = torch.where(sel[..., None], fk, f)
         pdf = torch.where(sel, pk, pdf)
     return f, pdf
 
 
-def sample(active_kinds, gm: GatheredMat, wi, u_lobe, u2, u2b):
+def sample(active_kinds, gm: GatheredMat, wi, u_lobe, u2, u2b,
+           hair_tables=None):
     n = wi.shape[:-1]
     dev = wi.device
     wo = torch.zeros(n + (3,), device=dev)
@@ -158,7 +196,8 @@ def sample(active_kinds, gm: GatheredMat, wi, u_lobe, u2, u2b):
     is_delta = torch.zeros(n, dtype=torch.bool, device=dev)
     eta_s = torch.ones(n, device=dev)
     for kind in sorted(set(int(k) for k in active_kinds)):
-        wk, wtk, pk, dk, ek = FAMILIES[kind].sample(gm, wi, u_lobe, u2, u2b)
+        wk, wtk, pk, dk, ek = FAMILIES[kind].sample(gm, wi, u_lobe, u2, u2b,
+                                                    hair_tables)
         sel = gm.kind == kind
         wo = torch.where(sel[..., None], wk, wo)
         weight = torch.where(sel[..., None], wtk, weight)
@@ -168,16 +207,17 @@ def sample(active_kinds, gm: GatheredMat, wi, u_lobe, u2, u2b):
     return wo, weight, pdf, is_delta, eta_s
 
 
-def eval_pdf_mix(active_kinds, table, mat_id, gm, wi, wo):
-    """eval_pdf behind the wrapper-material indirection (none in this
-    slice's scenes)."""
-    return eval_pdf(active_kinds, gm, wi, wo)
+def eval_pdf_mix(active_kinds, table, mat_id, gm, wi, wo, hair_tables=None):
+    """eval_pdf behind the wrapper-material indirection (none in the
+    ported scenes)."""
+    return eval_pdf(active_kinds, gm, wi, wo, hair_tables)
 
 
-def sample_mix(active_kinds, table, mat_id, gm, wi, u_lobe, u2, u2b):
-    return sample(active_kinds, gm, wi, u_lobe, u2, u2b)
+def sample_mix(active_kinds, table, mat_id, gm, wi, u_lobe, u2, u2b,
+               hair_tables=None):
+    return sample(active_kinds, gm, wi, u_lobe, u2, u2b, hair_tables)
 
 
 def perturb_shading_frame(table, mat_id, sh_n, sh_s, sh_t):
-    """Normal and bump maps need textures, which this slice has none of."""
+    """Normal and bump maps need textures, which the port has none of."""
     return sh_n, sh_s, sh_t

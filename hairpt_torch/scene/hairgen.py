@@ -1,6 +1,7 @@
-"""Hair fiber geometry for the forward render (numpy copy of the parts of
-hairpt/scene/hairgen.py the furball needs: FiberSet, segments and
-gen_furball). Host-side, runs once per scene build."""
+"""Hair fiber geometry (numpy copy of the parts of hairpt/scene/hairgen.py
+the hair scenes need: FiberSet, segments and the procedural furball,
+straight, curly and hair-curl generators). Host-side, runs once per
+scene build; the fibers equal the JAX package's exactly."""
 from __future__ import annotations
 
 from typing import NamedTuple
@@ -50,6 +51,93 @@ def segments(fs: FiberSet):
     return dict(p0=v[iv].astype(np.float32), p1=v[iv + 1].astype(np.float32),
                 n0=n0.astype(np.float32), n1=n1.astype(np.float32),
                 radius=np.full(len(iv), fs.radius, np.float32))
+
+
+def _smooth_noise(rng, n, octaves=3, scale=1.0):
+    x = np.zeros(n)
+    for o in range(octaves):
+        k = 2 ** o
+        phase = rng.uniform(0, 2 * np.pi)
+        freq = rng.uniform(0.5, 1.5) * k
+        x += np.sin(np.linspace(0, freq * np.pi, n) + phase) / k
+    return x * scale
+
+
+def gen_straight_hair(n_fibers: int = 800, n_segs: int = 24,
+                      radius: float = 0.00566563, seed: int = 0) -> FiberSet:
+    """A hanging curtain of gently bending strands, framed for
+    models/straight-hair/scene*.xml (camera ~(0,16.5,-25) looking +z/down)."""
+    rng = np.random.default_rng(seed)
+    verts, starts = [], []
+    for _ in range(n_fibers):
+        x0 = rng.uniform(-4.0, 4.0)
+        z0 = rng.uniform(-1.2, 1.2)
+        y_top = rng.uniform(12.5, 13.5)
+        length = rng.uniform(8.0, 10.0)
+        t = np.linspace(0, 1, n_segs + 1)
+        bend_x = _smooth_noise(rng, n_segs + 1, 3, 0.25) * t
+        bend_z = _smooth_noise(rng, n_segs + 1, 3, 0.25) * t
+        pts = np.stack([x0 + bend_x, y_top - length * t, z0 + bend_z], -1)
+        verts.append(pts)
+        st = np.zeros(n_segs + 1, bool)
+        st[0] = True
+        starts.append(st)
+    return FiberSet(np.concatenate(verts), np.concatenate(starts), radius)
+
+
+def gen_curly_hair(n_fibers: int = 500, n_segs: int = 60,
+                   radius: float = 0.00559955, seed: int = 1) -> FiberSet:
+    """Helical ringlets, framed like models/curly-hair/scene.xml."""
+    rng = np.random.default_rng(seed)
+    verts, starts = [], []
+    for _ in range(n_fibers):
+        x0 = rng.uniform(-4.0, 4.0)
+        z0 = rng.uniform(-1.5, 1.5)
+        y_top = rng.uniform(12.0, 13.5)
+        length = rng.uniform(7.0, 10.0)
+        curl_r = rng.uniform(0.25, 0.6)
+        turns = rng.uniform(4.0, 9.0)
+        phase = rng.uniform(0, 2 * np.pi)
+        t = np.linspace(0, 1, n_segs + 1)
+        ang = phase + turns * 2 * np.pi * t
+        pts = np.stack([x0 + curl_r * np.cos(ang) * (0.3 + 0.7 * t),
+                        y_top - length * t,
+                        z0 + curl_r * np.sin(ang) * (0.3 + 0.7 * t)], -1)
+        verts.append(pts)
+        st = np.zeros(n_segs + 1, bool)
+        st[0] = True
+        starts.append(st)
+    return FiberSet(np.concatenate(verts), np.concatenate(starts), radius)
+
+
+def gen_hair_curl(n_fibers_per_clump: int = 220, n_segs: int = 48,
+                  radius: float = 0.000444, seed: int = 2):
+    """Four separate hanging curl clumps (black/red/brown/blonde),
+    framed like models/hair-curl/scene.xml (camera at y~5.9, z~17).
+    Returns a list of four FiberSets."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for cx in (-3.0, -1.0, 1.0, 3.0):
+        verts, starts = [], []
+        for _ in range(n_fibers_per_clump):
+            dx, dz = rng.normal(0, 0.22, 2)
+            y_top = rng.uniform(8.2, 8.8)
+            length = rng.uniform(4.5, 5.8)
+            curl_r = rng.uniform(0.15, 0.4)
+            turns = rng.uniform(3, 7)
+            phase = rng.uniform(0, 2 * np.pi)
+            t = np.linspace(0, 1, n_segs + 1)
+            ang = phase + turns * 2 * np.pi * t
+            pts = np.stack([cx + dx + curl_r * np.cos(ang) * t,
+                            y_top - length * t,
+                            dz + curl_r * np.sin(ang) * t], -1)
+            verts.append(pts)
+            st = np.zeros(n_segs + 1, bool)
+            st[0] = True
+            starts.append(st)
+        out.append(FiberSet(np.concatenate(verts), np.concatenate(starts),
+                            radius))
+    return out
 
 
 def gen_furball(n_fibers: int = 6000, n_segs: int = 12,

@@ -1,4 +1,4 @@
-"""Scene assembly for the hair forward render (port of the hair branch of
+"""Scene assembly for the hair scenes (port of the hair branch of
 hairpt/scene/scene.py): host-side build -> torch arrays on the device +
 static config."""
 from __future__ import annotations
@@ -14,6 +14,7 @@ from ..core import rng
 from ..film.film import Film
 from ..models import emitters as em
 from ..models.bsdf import registry as mat
+from ..models.bsdf import hair as hair_bsdf  # registers the hair kinds
 from ..models.bsdf import plastic  # noqa: F401  (registers ROUGHPLASTIC)
 from ..models.bsdf import tables as rt_tables
 from ..models.sensors import Camera
@@ -34,6 +35,7 @@ class SceneArrays(NamedTuple):
     hair_mat_id: torch.Tensor       # [S] int32
     hair_swept: iswept.SweptHair
     materials: mat.MaterialTable
+    hair_tables: Optional[mat.HairTables]
     env: Optional[em.EnvMap]
 
 
@@ -65,6 +67,7 @@ class Scene(NamedTuple):
     film: Film
     config: RenderConfig
     active_kinds: tuple
+    marschner_rows: tuple = ()  # material-row index per hair-table aux_id
 
 
 class SceneBuilder:
@@ -75,28 +78,43 @@ class SceneBuilder:
         self.device = resolve_device(device)
         self.fibers = []
         self.materials = []
+        self.hair_aux = []         # (sigma_a, beta_r, eta) per hair table
         self.env: Optional[em.EnvMap] = None
 
     def add_material(self, **row) -> int:
         kind = row.get("kind", mat.DIFFUSE)
-        if kind != mat.ROUGHPLASTIC:
-            raise NotImplementedError(f"material kind {kind} is not ported")
-        dist = row.get("dist", 0)
-        eta = row.get("eta", 1.5)
-        alpha = row.get("alpha", 0.1)
-        rt = rt_tables.get(dist, eta)
-        cosg = (np.arange(mat.N_COS) + 0.5) / mat.N_COS
-        row["ext_trans"] = rt.eval_np(cosg, np.full(mat.N_COS, alpha))
-        row["int_fdr"] = 1.0 - rt_tables.get(dist, 1.0 / eta) \
-            .eval_diffuse_np(alpha)
+        mat.check_kinds([kind])
+        # per-material precomputed transmittance slices
+        if kind in (mat.ROUGHPLASTIC, mat.MARSCHNER, mat.MARSCHNER_PURE):
+            dist = row.get("dist", 0)
+            eta = row.get("eta", 1.5)
+            alpha = row.get("alpha", 0.1)
+            rt = rt_tables.get(dist, eta)
+            cosg = (np.arange(mat.N_COS) + 0.5) / mat.N_COS
+            row["ext_trans"] = rt.eval_np(cosg, np.full(mat.N_COS, alpha))
+            row["int_fdr"] = 1.0 - rt_tables.get(dist, 1.0 / eta) \
+                .eval_diffuse_np(alpha)
+        if kind in (mat.MARSCHNER, mat.MARSCHNER_PURE):
+            row["aux_id"] = len(self.hair_aux)
+            self.hair_aux.append((row.get("sigma_a", (0.5, 0.5, 0.5)),
+                                  row.get("beta_r", 0.1),
+                                  row.get("eta", 1.55)))
+        # luminance-based lobe weights (reference: configure() of each BSDF)
         lum = np.array([0.212671, 0.715160, 0.072169])
         d = float(np.dot(np.asarray(row.get("diffuse", (0.5,) * 3)), lum))
         s = float(np.dot(np.asarray(row.get("specular", (1.0,) * 3)), lum))
-        row.setdefault("spec_weight", s / max(d + s, 1e-9))
+        t = float(np.dot(np.asarray(row.get("transmit", (1.0,) * 3)), lum))
+        if "spec_weight" not in row:
+            if kind == mat.MARSCHNERDIELECTRIC:
+                row["spec_weight"] = (s + t) / max(d + s + t, 1e-9)
+            else:
+                row["spec_weight"] = s / max(d + s, 1e-9)
         self.materials.append(mat.default_material_row(**row))
         return len(self.materials) - 1
 
     def add_fibers(self, fs: hairgen.FiberSet, mat_id: int):
+        """One FiberSet (gen_hair_curl's clumps are added one by one, as
+        in the JAX package)."""
         self.fibers.append((fs, mat_id))
 
     def build(self, camera: Camera, film: Film, **config_kwargs) -> Scene:
@@ -150,7 +168,16 @@ class SceneBuilder:
             else (0.0, 0.0, 0.0))
         active = tuple(sorted({int(r["kind"]) for r in rows}))
         mat.check_kinds(active)
+        ht = None
+        if self.hair_aux:
+            ht = hair_bsdf.hair_tables(torch.stack([
+                hair_bsdf.precompute_azimuthal(sa, br, eta, device=dev)
+                for sa, br, eta in self.hair_aux]))
+        marschner_rows = tuple(
+            i for i, r in enumerate(rows)
+            if r["kind"] in (mat.MARSCHNER, mat.MARSCHNER_PURE))
         arrays = SceneArrays(hair=hair, hair_mat_id=t(mid[o], torch.int32),
-                             hair_swept=swept, materials=materials, env=env)
+                             hair_swept=swept, materials=materials,
+                             hair_tables=ht, env=env)
         return Scene(arrays=arrays, camera=camera, film=film, config=cfg,
-                     active_kinds=active)
+                     active_kinds=active, marschner_rows=marschner_rows)

@@ -2,12 +2,15 @@
 gradient step, under torch.profiler, on the card.
 
     python3 -m hairpt_torch.tools.profile_wave [--depth 65] [--res 1024]
-        [--traversal tiled|swept] [--mode wave|fwd_bwd|prb] [--out FILE]
+        [--traversal tiled|swept] [--mode wave|fwd_bwd|prb]
+        [--material roughplastic|marschner] [--out FILE]
 
 --mode fwd_bwd profiles bench.py's train step (the differentiable mode,
-mean radiance, a 3-vector diffuse; --depth defaults to 16 there) with a
-range around its backward pass; --mode prb one path-replay-backprop step
-(nee_rr 0) with a range around its primal forward pass. Runs one
+mean radiance; --depth defaults to 16 there) with a range around its
+backward pass: the gradient with respect to a 3-vector diffuse, or with
+--material marschner to sigma_a [1, 3] and beta_r [1] through the hair
+tables' precompute; --mode prb one path-replay-backprop step (nee_rr 0)
+with a range around its primal forward pass. Runs one
 warm-up wave or step, then profiles one with CPU and CUDA activities.
 The port's layers are marked as profiler ranges from the outside, so
 the port's own code carries no instrumentation: for the
@@ -39,7 +42,20 @@ def _wrap(mod, name, label):
     setattr(mod, name, inner)
 
 
-def _step(mode, scene):
+def grad_params(scene, material):
+    """The parameters a gradient step differentiates: a 3-vector diffuse
+    (bench.py's) broadcast over the table, or for the Marschner furball
+    sigma_a [1, 3] and beta_r [1]."""
+    import torch
+    mats = scene.arrays.materials
+    dev = mats.diffuse.device
+    if material == "marschner":
+        return {"sigma_a": mats.sigma_a.clone(), "beta_r": mats.beta_r.clone()}
+    return {"diffuse": torch.tensor((0.143016, 0.0156076, 1.80928e-05),
+                                    device=dev).expand_as(mats.diffuse)}
+
+
+def _step(mode, scene, material):
     """run(sample): one wave, fwd+bwd step or PRB step of the scene."""
     import torch
     from hairpt_torch.integrators import inverse, path
@@ -48,25 +64,24 @@ def _step(mode, scene):
     n = cfg.width * cfg.height
     dev = scene.arrays.hair.p0.device
     pix = torch.arange(n, device=dev)
-    p0 = torch.tensor((0.143016, 0.0156076, 1.80928e-05), device=dev)
-    mats = scene.arrays.materials
+    params = grad_params(scene, material)
     if mode == "wave":
         return lambda s: path.render(scene, spp=1, seed=s)
     if mode == "prb":
         f = inverse.make_prb_loss_grad(scene)
-        return lambda s: f(scene.arrays,
-                           {"diffuse": p0.expand_as(mats.diffuse)}, pix,
+        return lambda s: f(scene.arrays, params, pix,
                            torch.full_like(pix, s))
     li = path.make_li_fn(scene, differentiable=True)
 
     def fwd_bwd(s):
-        p = p0.clone().requires_grad_()
-        arr = scene.arrays._replace(materials=mats._replace(
-            diffuse=p.expand_as(mats.diffuse)))
+        p = {k: v.detach().clone().requires_grad_()
+             for k, v in params.items()}
+        arr = inverse.apply_params_arrays(scene.arrays, p,
+                                          scene.marschner_rows)
         rad, _, _ = li(arr, pix, torch.full_like(pix, s))
         torch.nan_to_num(rad, nan=0.0, posinf=0.0, neginf=0.0) \
             .mean().backward()
-        return p.grad
+        return {k: v.grad for k, v in p.items()}
     return fwd_bwd
 
 
@@ -80,6 +95,8 @@ def main(argv=None) -> int:
                     choices=("tiled", "swept"))
     ap.add_argument("--mode", default="wave",
                     choices=("wave", "fwd_bwd", "prb"))
+    ap.add_argument("--material", default="roughplastic",
+                    choices=("roughplastic", "marschner"))
     ap.add_argument("--out", default=None,
                     help="also write the report to this file")
     args = ap.parse_args(argv)
@@ -134,9 +151,9 @@ def main(argv=None) -> int:
                          text=True, timeout=30).stdout.strip()
     scene = furball_scene(quality=args.quality, res=args.res,
                           depth=args.depth, device="cuda",
-                          traversal=args.traversal,
+                          traversal=args.traversal, material=args.material,
                           nee_rr=0.0 if args.mode == "prb" else 0.01)
-    run = _step(args.mode, scene)
+    run = _step(args.mode, scene, args.material)
     run(0)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -161,8 +178,8 @@ def main(argv=None) -> int:
                and dev_us(e) > 0]
     busy = sum(dev_us(e) for e in kernels) / 1e6
     lines = [smi,
-             f"{args.traversal} {args.mode} {args.res}^2 depth "
-             f"{args.depth}: wall "
+             f"{args.traversal} {args.mode} {args.material} {args.res}^2 "
+             f"depth {args.depth}: wall "
              f"{wall:.3f} s "
              f"(under the profiler), device kernel time {busy:.3f} s, "
              f"idle share {max(0.0, 1 - busy / wall):.3f}"]

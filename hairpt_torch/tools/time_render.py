@@ -2,7 +2,8 @@
 card.
 
     python3 -m hairpt_torch.tools.time_render [--traversal tiled|swept]
-        [--waves 2] [--res 1024] [--depth 65] [--label NAME]
+        [--material roughplastic|marschner] [--waves 2] [--res 1024]
+        [--depth 65] [--label NAME]
 
 Builds the furball through SceneBuilder, renders one warm-up wave, then
 times `--waves` 1-spp waves (host clock around torch.cuda.synchronize(),
@@ -10,8 +11,8 @@ rays counted as path.render counts them) and prints one JSON line with
 the card's name and power limit, s/wave, rays/wave, Mrays/s, the image
 mean and the kernels' launches over the timed waves. To time another
 checkout of the package on the same card, run this file with that
-checkout first on PYTHONPATH (the default traversal uses only what every
-version of the package has).
+checkout first on PYTHONPATH (the default traversal and material use
+only what every version of the package has).
 """
 from __future__ import annotations
 
@@ -26,6 +27,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--traversal", default="tiled",
                     choices=("tiled", "swept"))
+    ap.add_argument("--material", default="roughplastic",
+                    choices=("roughplastic", "marschner"))
     ap.add_argument("--waves", type=int, default=2)
     ap.add_argument("--res", type=int, default=1024)
     ap.add_argument("--depth", type=int, default=65)
@@ -46,6 +49,8 @@ def main(argv=None) -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=30).stdout.strip()
     kw = {} if args.traversal == "tiled" else {"traversal": args.traversal}
+    if args.material != "roughplastic":
+        kw["material"] = args.material
     scene = furball_scene(res=args.res, depth=args.depth, device="cuda",
                           **kw)
     times, rays = [], []
@@ -67,7 +72,8 @@ def main(argv=None) -> int:
     rays_w = sum(rays) / len(rays)
     print(json.dumps({
         "label": args.label, "package": hairpt_torch.__file__,
-        "card": smi, "traversal": args.traversal, "res": args.res,
+        "card": smi, "traversal": args.traversal,
+        "material": args.material, "res": args.res,
         "depth": args.depth, "waves": args.waves, "s_per_wave": secs,
         "wave_seconds": times, "rays_per_wave": rays_w,
         "mrays_per_s": rays_w / secs / 1e6,

@@ -58,11 +58,13 @@ def test_sobol_qmc_bit_exact(dim):
 
 def test_sampler_next_1d_2d_match_jax_modes():
     """The per-wave Sampler (Sobol' index looked up once) gives the same
-    samples as the JAX facade, for SOBOL_QMC and the PCG mode."""
+    samples as the JAX facade, for SOBOL_QMC, the padded Owen-scrambled
+    SOBOL and the PCG mode."""
     res = 64
     pix = np.arange(res * res, dtype=np.uint32)
     smp = np.full(res * res, 65536 + 5, np.uint32)
     for jmode, tmode in (((jrng.SOBOL_QMC, 6, res), (trng.SOBOL_QMC, 6, res)),
+                         (jrng.SOBOL, trng.SOBOL),
                          (jrng.INDEPENDENT, trng.INDEPENDENT)):
         s = trng.Sampler(tmode, _t(pix), _t(smp))
         for dim in (0, 4, 20, 68):

@@ -68,7 +68,8 @@ def grads():
     ts = torch_scene(scene)
     pt = convert.params_to_torch(params, device="cpu")
     li_t = tpath.make_li_fn(ts, differentiable=True)
-    rad, _, _ = li_t(tinv.apply_params_arrays(ts.arrays, pt),
+    rad, _, _ = li_t(tinv.apply_params_arrays(ts.arrays, pt,
+                                              ts.marschner_rows),
                      torch.arange(n), torch.zeros(n, dtype=torch.int64))
     loss_t = rad.mean()
     q_fwd = ttl.STATS["queries"]
@@ -170,11 +171,32 @@ def test_gather_gradient_equals_plain_indexing(rows):
 
 
 def test_apply_params_takes_material_fields_only(grads):
+    """sigma_a (a float field of the table) replaces its field and
+    rebuilds the hair tables of the Marschner rows from it, with a
+    gradient to it; the rough-plastic scene has none to rebuild. An
+    integer field such as kind raises KeyError."""
+    from hairpt_torch.models.bsdf import hair as thair
+    from hairpt_torch.models.bsdf import registry as treg
     ts = grads["ts"]
-    with pytest.raises(NotImplementedError):
-        tinv.apply_params_arrays(ts.arrays, {"sigma_a": torch.zeros(1, 3)})
+    sa = torch.tensor([[0.9, 0.45, 0.25]], requires_grad=True)
+    out = tinv.apply_params_arrays(ts.arrays, {"sigma_a": sa},
+                                   ts.marschner_rows)
+    assert out.materials.sigma_a is sa and out.hair_tables is None
+    mats = ts.arrays.materials._replace(
+        kind=torch.full_like(ts.arrays.materials.kind, treg.MARSCHNER_PURE))
+    out = tinv.apply_params_arrays(ts.arrays._replace(materials=mats),
+                                   {"sigma_a": sa}, (0,))
+    ref = thair.precompute_azimuthal(sa[0].detach(), mats.beta_r[0],
+                                     mats.eta[0])
+    assert torch.equal(out.hair_tables.values[0].detach(), ref)
+    assert torch.equal(out.hair_tables.values_quad.detach(),
+                       thair.quad_pack(ref[None]))
+    assert not out.hair_tables.weights.requires_grad
+    out.hair_tables.values.sum().backward()
+    assert sa.grad is not None and bool(torch.isfinite(sa.grad).all())
     with pytest.raises(KeyError):
-        tinv.apply_params_arrays(ts.arrays, {"kind": torch.zeros(1)})
+        tinv.apply_params_arrays(ts.arrays, {"kind": torch.zeros(1)},
+                                 ts.marschner_rows)
 
 
 def test_cosine_decay_and_adam_match_optax():

@@ -39,7 +39,8 @@ def _lanes():
 def _scan_ad(ts, params):
     leaves = {k: v.clone().requires_grad_() for k, v in params.items()}
     li = tpath.make_li_fn(ts, differentiable=True)
-    rad, _, _ = li(tinv.apply_params_arrays(ts.arrays, leaves), *_lanes())
+    rad, _, _ = li(tinv.apply_params_arrays(ts.arrays, leaves,
+                                            ts.marschner_rows), *_lanes())
     loss = rad.mean()
     loss.backward()
     return float(loss.detach()), {k: v.grad for k, v in leaves.items()}
