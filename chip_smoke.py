@@ -3,7 +3,8 @@
 port builds, that its kernels agree with their plain versions, and that
 the full-width furball forward render runs through them, with the tiled
 and with the swept traversal, with rough plastic and with the Marschner
-hair BSDF, and its gradient paths and inverse rendering with them.
+hair BSDF, its gradient paths and inverse rendering with them, and the
+scene-XML command line.
 
     python3 chip_smoke.py            # from the repository root, one card
 
@@ -94,6 +95,19 @@ Phases (each prints one line with its elapsed seconds):
      antithetic, the cross loss; the loss's mean over the last third of
      the steps must be below step 1's (step 0 shares a sample index with
      the target).
+  11. the scene-XML entry point: the stand-in scene XMLs of
+     hairpt_torch.scene.scene_xmls (the reference's furball, straight-hair
+     (Marschner and Kajiya-Kay), hair-curl and curly-hair XMLs are not in
+     the repository) written into a temporary directory; the CLI run as a
+     user runs it, `python3 -m hairpt_torch.cli render furball/scene.xml
+     -o furball.png --hair-quality 14 --spp 2` (1024^2, depth 65, on the
+     card): exit 0 and four outputs, the .npy finite with a positive
+     mean; load_scene of the same XML against the same scene through
+     SceneBuilder: the config and every tensor equal, A and B launched
+     on its 1-spp wave as often as on the builder's, and the two images
+     torch.equal with the film's sums in a fixed order; the other four
+     XMLs at half scale, one wave each: finite, non-black, A and B
+     launched.
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Any failed check exits
 non-zero before that line. Without CUDA the script exits non-zero at once.
@@ -1433,6 +1447,215 @@ def inverse_twin():
                 beta_r=r["beta_r"])
 
 
+def _same_bits(x, y):
+    """Equal dtype, shape and bits (a float NaN pattern, such as
+    seg_rows_t's -1 ids, equals itself)."""
+    import torch
+    if x.dtype != y.dtype or x.shape != y.shape:
+        return False
+    if x.dtype == torch.float32:
+        x, y = x.view(torch.int32), y.view(torch.int32)
+    return torch.equal(x, y)
+
+
+def _scene_tensors(a, path="arrays"):
+    """(path, tensor) for every tensor of a scene's nested arrays."""
+    import torch
+    if torch.is_tensor(a):
+        yield path, a
+    elif hasattr(a, "_fields"):
+        for f in a._fields:
+            yield from _scene_tensors(getattr(a, f), f"{path}.{f}")
+
+
+def xml_furball_builder(res=1024, device="cuda"):
+    """Phase 11c's twin of the XML furball: the same scene through
+    SceneBuilder with the parameters the loader reads (the XML's intIOR
+    1.55 over the default extIOR "air" 1.000277, the sunsky at the
+    loader's res 512, nee_rr 0, 1 spp)."""
+    import numpy as np
+    from hairpt_torch.core import rng
+    from hairpt_torch.film.film import Film
+    from hairpt_torch.models import emitters as em
+    from hairpt_torch.models.bsdf import registry as mat
+    from hairpt_torch.models.sensors import Camera
+    from hairpt_torch.scene import furball, hairgen
+    from hairpt_torch.scene.scene import SceneBuilder
+
+    b = SceneBuilder(device=device)
+    m = b.add_material(kind=mat.ROUGHPLASTIC, twosided=False,
+                       eta=1.55 / 1.000277, diffuse=furball.DIFFUSE,
+                       alpha=0.2, dist=0)
+    # the loader's stand-in rule (radius / sqrt(quality) below quality 1)
+    radius = 0.00216667 / np.sqrt(min(max(HAIR_QUALITY, 1e-6), 1.0))
+    b.add_fibers(hairgen.gen_furball(n_fibers=int(6000 * HAIR_QUALITY),
+                                     radius=radius), m)
+    b.env = em.bake_sunsky((-0.376047, 0.758426, 0.532333), turbidity=3.0,
+                           sky_scale=5.0, sun_scale=19.0912,
+                           sun_radius_scale=37.9165, device=b.device)
+    cam = Camera.perspective(furball.CAM_TO_WORLD, 35.0, res, res)
+    return b.build(cam, Film.make(res, res, "tent"), spp=1, max_depth=65,
+                   sampler=(rng.SOBOL_QMC, int(np.ceil(np.log2(res))), res))
+
+
+def xml_render(scene, reset_all, deterministic=False):
+    """One 1-spp wave (seed 0) with the kernel counts set to 0 just before
+    it and read just after: (image, seconds, rays, A and B launches).
+    deterministic: under torch.use_deterministic_algorithms (warn_only),
+    which makes the film's index_add on the card sum in a fixed order."""
+    import torch
+    from hairpt_torch.integrators import path
+    from hairpt_torch.ops import phaseb_kernels as pk
+    from hairpt_torch.ops import tiled_kernels as tk
+
+    sync = torch.cuda.synchronize if img_device(scene) == "cuda" \
+        else (lambda: None)
+    reset_all()
+    sync()
+    t0 = time.time()
+    torch.use_deterministic_algorithms(deterministic, warn_only=True)
+    try:
+        img, st = path.render(scene, spp=1, seed=0, return_stats=True)
+        sync()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    secs = time.time() - t0
+    launches = dict(tk.LAUNCHES)
+    off = dict(tk.OCT_LAUNCHES, **pk.LAUNCHES)
+    plain = dict(tk.PLAIN_ON_CUDA)
+    require(all(v == 0 for v in off.values()),
+            f"an XML render ran an octet or swept kernel: {off}")
+    require(all(v == 0 for v in plain.values()),
+            f"plain versions ran on CUDA tensors: {plain}")
+    if img_device(scene) == "cuda":
+        require(all(v > 0 for v in launches.values()),
+                f"kernel A or B was not launched by an XML render: "
+                f"{launches}")
+    return img, secs, st["rays"], launches
+
+
+def img_device(scene):
+    return scene.arrays.hair.p0.device.type
+
+
+def xml_entry_point(reset_all, phase4_mrays, res=1024, scale=0.5,
+                    device="cuda"):
+    """Phase 11: the scene-XML entry point. Writes the stand-in scene XMLs
+    (hairpt_torch.scene.scene_xmls; the reference's XMLs are not in the
+    repository) into a temporary directory, runs the CLI on the furball
+    as a user would (1024^2, hair quality 14, depth 65, 2 spp, on the
+    card), holds the loader to SceneBuilder array for array and image for
+    image, and renders the four hair XMLs at `scale`. Returns A and B's
+    launches on the XML furball's wave. (A small res and scale with
+    device "cpu" rehearse it with the plain versions.)"""
+    import re
+    import tempfile
+    import numpy as np
+    import torch
+    from hairpt_torch.scene import scene_xmls
+    from hairpt_torch.scene.xml_loader import load_scene
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(prefix="hairpt_xml_") as tmp:
+        xmls = {n: scene_xmls.write_scene(tmp, n) for n in scene_xmls.SCENES}
+        xmls["furball"] = scene_xmls.write_scene(tmp, "furball", res=res)
+
+        # b. the CLI as a user runs it
+        out = os.path.join(tmp, "out", "furball.png")
+        os.makedirs(os.path.dirname(out))
+        env = dict(os.environ, PYTHONPATH=here + os.pathsep
+                   + os.environ.get("PYTHONPATH", ""))
+        t0 = time.time()
+        proc = subprocess.run(
+            [sys.executable, "-m", "hairpt_torch.cli", "render",
+             xmls["furball"], "-o", out, "--hair-quality",
+             str(HAIR_QUALITY), "--spp", "2"]
+            + (["--cpu"] if device == "cpu" else []),
+            cwd=here, env=env, capture_output=True, text=True, timeout=600)
+        wall = time.time() - t0
+        require(proc.returncode == 0, f"the CLI exited {proc.returncode}:\n"
+                f"{proc.stderr[-3000:]}")
+        built = re.search(r"scene built in ([0-9.]+)s", proc.stderr)
+        rendered = re.search(r"rendered in ([0-9.]+)s", proc.stderr)
+        require(built is not None and rendered is not None,
+                f"the CLI logged no build or render time:\n{proc.stderr}")
+        base = out[:-4]
+        for ext in ("png", "exr", "npy", "pfm"):
+            require(os.path.getsize(f"{base}.{ext}") > 0, f"no {ext} output")
+        img = np.load(f"{base}.npy")
+        require(img.shape == (res, res, 3) and np.isfinite(img).all()
+                and img.mean() > 0, f"CLI image {img.shape}, mean "
+                f"{img.mean()}")
+        log(f"CLI furball ({res}^2, hair quality {HAIR_QUALITY}, depth 65, 2 "
+            f"spp): exit 0 in {wall:.1f}s wall, scene built in "
+            f"{built.group(1)}s, rendered in {rendered.group(1)}s; image "
+            f"mean {img.mean():.6f}; four outputs")
+
+        # c. the loader against SceneBuilder, on the card
+        t0 = time.time()
+        scene_x = load_scene(xmls["furball"], hair_quality=HAIR_QUALITY,
+                             spp_override=1, device=device)
+        t_load = time.time() - t0
+        scene_b = xml_furball_builder(res, device)
+        require(scene_x.config == scene_b.config,
+                f"configs differ: {scene_x.config} {scene_b.config}")
+        require(scene_x.film == scene_b.film
+                and scene_x.active_kinds == scene_b.active_kinds
+                and all(np.array_equal(a, b) for a, b in
+                        zip(scene_x.camera, scene_b.camera)),
+                "camera, film or kinds differ")
+        pairs = list(zip(_scene_tensors(scene_x.arrays),
+                         _scene_tensors(scene_b.arrays)))
+        require(len(pairs) > 10 and all(
+            pa == pb and _same_bits(x, y) for (pa, x), (pb, y) in pairs),
+            "the XML scene's arrays differ from the builder's: "
+            + str([pa for (pa, x), (pb, y) in pairs if not _same_bits(x, y)]))
+        warm = xml_render(scene_x, reset_all)[1]
+        img_x, secs_x, rays_x, launch_x = xml_render(scene_x, reset_all)
+        img_b, _, _, launch_b = xml_render(scene_b, reset_all)
+        require(launch_x == launch_b, f"launches differ: XML {launch_x}, "
+                f"builder {launch_b}")
+        # the film's index_add sums in the order the card's atomics land:
+        # the images of one scene differ in the last bits from run to run,
+        # so the equality is held with the film's sums in a fixed order
+        diff = float((img_x - img_b).abs().max())
+        img_x = xml_render(scene_x, reset_all, deterministic=True)[0]
+        del scene_x
+        img_b = xml_render(scene_b, reset_all, deterministic=True)[0]
+        del scene_b
+        require(torch.equal(img_x, img_b),
+                "the XML furball's 1-spp image differs from the builder's "
+                "with the film's sums in a fixed order")
+        log(f"XML furball: loaded in {t_load:.1f}s, {len(pairs)} tensors "
+            f"equal to SceneBuilder's; warm-up wave {warm:.2f}s, timed "
+            f"1-spp wave {secs_x:.3f}s, {rays_x:.0f} rays, "
+            f"{rays_x / secs_x / 1e6:.4f} Mrays/s (phase 4: "
+            f"{phase4_mrays:.4f}); image torch.equal to the builder's "
+            f"with the film's sums in a fixed order (largest |diff| "
+            f"without: {diff:.3g}); launches {launch_x}")
+        del img_x, img_b
+
+        # d. the hair XMLs, in process
+        for name in ("straight_marschner", "straight_kkay", "hair_curl",
+                     "curly"):
+            t0 = time.time()
+            scene = load_scene(xmls[name], hair_quality=HAIR_QUALITY,
+                               spp_override=1, res_scale=scale,
+                               max_depth_override=65, device=device)
+            t_load = time.time() - t0
+            img, secs, rays, launches = xml_render(scene, reset_all)
+            mean = float(img.mean())
+            require(bool(torch.isfinite(img).all()) and mean > 0,
+                    f"{name}: image mean {mean}")
+            log(f"XML {name}: {scene.arrays.hair.p0.shape[0]} segments, "
+                f"kinds {scene.active_kinds}, loaded in {t_load:.1f}s; "
+                f"{tuple(img.shape)} 1-spp wave (no warm-up) {secs:.3f}s, "
+                f"{rays:.0f} "
+                f"rays, image mean {mean:.6f}; launches {launches}")
+            del scene, img
+    return launch_x
+
+
 def warm_up(scene, label):
     """One warm-up wave. Returns (progress callback, the lists it fills
     with each wave's seconds and rays, the number of waves to time: two,
@@ -1712,6 +1935,11 @@ def main() -> int:
         inverse_twin()
         log(f"phase 10 ({time.time() - t0:.1f}s): inverse twin ok")
 
+        # ---- 11. the scene-XML entry point ----
+        t0 = time.time()
+        xml_launches = xml_entry_point(reset_all, rays_w / secs / 1e6)
+        log(f"phase 11 ({time.time() - t0:.1f}s): the XML entry point ok")
+
         per_wave = {k: (v, n_timed) for k, v in launches.items()}
         per_wave.update({k: (v, None) for k, v in oct_launches.items()})
         per_wave.update({k: (v, n_sw) for k, v in sw_launches.items()})
@@ -1732,6 +1960,8 @@ def main() -> int:
                     m_launches[k["name"]] / n_m
                 k["launches_per_marschner_fwd_bwd_step"] = \
                     hbwd["launches"][k["name"]]
+            if k["name"] in xml_launches:
+                k["launches_per_xml_wave"] = xml_launches[k["name"]]
         require(all(k["launches"] > 0 for k in kernels),
                 "a kernel has no launches")
     except SmokeFailure as e:

@@ -4,7 +4,9 @@ The package mirrors `hairpt/`'s layout module for module. It imports
 torch and numpy only: the JAX package is the reference the tests compare
 against, never a dependency. Entry points run on the card ("cuda") unless
 the caller passes `device="cpu"`; asking for CUDA on a machine without it
-raises instead of silently falling back.
+raises instead of silently falling back. The command line,
+`python -m hairpt_torch.cli render scene.xml`, renders a scene XML
+(`scene/xml_loader.py`) on the card, or on the CPU with `--cpu`.
 
 The hand-written CUDA kernels live in `csrc/`: the tiled intersector's
 phase-A tile cull and phase-B miter-cylinder test (`tiled.cu`, kernels A

@@ -66,8 +66,19 @@ def convert_arrays(arrays, device=None) -> SceneArrays:
 
 def convert_scene(scene, arrays, device=None) -> Scene:
     """A JAX Scene (read for its camera, film, config and active kinds)
-    plus its numpy arrays -> a hairpt_torch Scene."""
+    plus its numpy arrays -> a hairpt_torch Scene. Its materials may be
+    any ported family (DIFFUSE, ROUGHPLASTIC and the hair kinds), its
+    environment a baked sunsky, an envmap or a constant one, its sampler
+    any of the five modes and its film any of the six filters; a thin
+    lens, radial distortion, another camera kind or film annotations
+    raise."""
     cam = scene.camera
+    if int(cam.kind) != 0 or cam.aperture_radius or cam.kc0 or cam.kc1:
+        raise NotImplementedError("only the pinhole perspective camera is "
+                                  "ported (ROADMAP item 13)")
+    if scene.film.annotations or scene.film.banner:
+        raise NotImplementedError("film annotations and the banner are not "
+                                  "ported yet (ROADMAP item 13)")
     camera = Camera(kind=int(cam.kind),
                     to_world=np.asarray(cam.to_world, np.float32),
                     tan_half_fov=float(np.float32(cam.tan_half_fov)),

@@ -5,10 +5,15 @@ has no uint32 arithmetic on every operation, so u32 values live in int64
 lanes and every product or sum is masked back with `& 0xFFFFFFFF`; the
 results are bit-identical to the JAX package's uint32 arithmetic.
 
-Three modes are ported:
+The JAX package's five modes:
 - INDEPENDENT: the PCG hash (PCG-RXS-M-XS) mapped to floats;
 - SOBOL: the padded Owen-scrambled (0,2)-sequence (the inverse-rendering
-  example's sampler);
+  example's sampler, and the scene XML's `ldsampler`);
+- HALTON: the Faure-permuted Halton sequence, Cranley-Patterson rotated
+  per pixel (the scene XML's `halton` and `hammersley`);
+- STRATIFIED: jittered strata shuffled per (pixel, dim), as
+  `mode=(STRATIFIED, spp)`, exact for power-of-two spp (independent
+  samples otherwise);
 - SOBOL_QMC: the true high-dimensional Sobol' sequence with the per-pixel
   elementary-interval lookup, as `mode=(SOBOL_QMC, m, width)`.
 """
@@ -23,6 +28,8 @@ M32 = 0xFFFFFFFF
 
 INDEPENDENT = 0
 SOBOL = 1
+HALTON = 2
+STRATIFIED = 3
 SOBOL_QMC = 4
 
 
@@ -63,9 +70,9 @@ def uniform_2d(pixel, sample, dim):
     return torch.stack([u32_to_unit_float(h), u32_to_unit_float(h2)], dim=-1)
 
 
-def _mul32(x, c: int):
-    """(x * c) mod 2^32 for u32 lanes x and a u32 constant c, in halves
-    so no int64 product overflows."""
+def _mul32(x, c):
+    """(x * c) mod 2^32 for u32 lanes x and a u32 constant or u32 lanes c,
+    in halves so no int64 product overflows."""
     lo = x * (c & 0xFFFF)
     hi = ((x * (c >> 16)) & 0xFFFF) << 16
     return (lo + hi) & M32
@@ -174,6 +181,123 @@ def sobol_qmc(m: int, width: int, pixel, sample, dim: int, n_comp: int):
     return sobol_qmc_at(m, pixel, sample, i, dim, n_comp)
 
 
+def _strat_perm(sample, spp_mask: int, pixel, dim: int):
+    """Bijection of the sample index within [0, 2^k): XOR, then an odd
+    multiply, keyed per (pixel, dim) (the reference stratified sampler's
+    per-pixel stratum shuffle without permutation tables)."""
+    key = hash_combine(_u32(pixel), dim)
+    h1 = hash_u32(key ^ 0x9E3779B9)
+    h2 = hash_u32(key ^ 0x85EBCA6B) | 1
+    return _mul32(_u32(sample) ^ h1, h2) & spp_mask
+
+
+def stratified_1d(pixel, sample, dim: int, spp: int):
+    perm = _strat_perm(sample, spp - 1, pixel, dim)
+    return (perm.to(torch.float32) + uniform_1d(pixel, sample, dim)) / spp
+
+
+def stratified_2d(pixel, sample, dim: int, spp: int):
+    k = int(np.log2(spp))
+    a = 1 << (k // 2)
+    b = spp // a
+    perm = _strat_perm(sample, spp - 1, pixel, dim)
+    sx = (perm % a).to(torch.float32)
+    sy = (perm // a).to(torch.float32)
+    j = uniform_2d(pixel, sample, dim)
+    return torch.stack([(sx + j[..., 0]) / a, (sy + j[..., 1]) / b], dim=-1)
+
+
+# Faure-permuted Halton (reference: src/samplers/halton.cpp + faure.cpp)
+_FAURE_DIMS = 64
+_FAURE_CACHE: list = []
+
+
+def faure_permutation(b: int):
+    """Faure's recursive digit permutation for base b: sigma_2c
+    interleaves 2 sigma_c and 2 sigma_c + 1; sigma_2c+1 increments the
+    elements >= c of sigma_2c and inserts c in the middle."""
+    if b == 1:
+        return [0]
+    if b == 2:
+        return [0, 1]
+    if b % 2 == 0:
+        prev = faure_permutation(b // 2)
+        return [2 * v for v in prev] + [2 * v + 1 for v in prev]
+    c = (b - 1) // 2
+    prev = faure_permutation(b - 1)
+    out = [v + 1 if v >= c else v for v in prev]
+    out.insert(c, c)
+    return out
+
+
+def _first_primes(n: int):
+    primes = []
+    x = 2
+    while len(primes) < n:
+        if all(x % p for p in primes if p * p <= x):
+            primes.append(x)
+        x += 1
+    return primes
+
+
+def _faure_tables():
+    """(primes [D], offsets [D], flat permutation table) as numpy."""
+    if not _FAURE_CACHE:
+        primes = _first_primes(_FAURE_DIMS)
+        offs, flat = [], []
+        for b in primes:
+            offs.append(len(flat))
+            flat.extend(faure_permutation(b))
+        _FAURE_CACHE.append((np.asarray(primes, np.int64),
+                             np.asarray(offs, np.int64),
+                             np.asarray(flat, np.int64)))
+    return _FAURE_CACHE[0]
+
+
+def permuted_radical_inverse(dim: int, index, digits: int = 24):
+    """Faure-permuted radical inverse of u32 lanes `index` in base
+    prime(dim) (dim clipped to the table), float32 as the JAX package
+    accumulates it."""
+    primes, offs, flat = _faure_tables()
+    d = min(max(int(dim), 0), _FAURE_DIMS - 1)
+    b, off = int(primes[d]), int(offs[d])
+    n = _u32(index)
+    perm = torch.as_tensor(flat[off:off + b], device=n.device)
+    bf = torch.tensor(b, dtype=torch.float32, device=n.device)
+    factor = 1.0 / bf
+    result = torch.zeros(n.shape, dtype=torch.float32, device=n.device)
+    scale = torch.ones_like(result)
+    for _ in range(digits):
+        pd = perm[n % b].to(torch.float32)
+        result = result + pd * factor * scale
+        scale = scale / bf
+        n = n // b
+    return torch.clamp(result, max=1.0 - 1e-7)
+
+
+def halton_2d(pixel, sample, dim: int):
+    """The Faure-permuted Halton point of index `sample` in the bases
+    (prime(dim), prime(dim + 1)), Cranley-Patterson rotated per
+    (pixel, dim)."""
+    key = hash_combine(_u32(pixel), dim)
+    r1 = u32_to_unit_float(hash_u32(key ^ 0x11111111))
+    r2 = u32_to_unit_float(hash_u32(key ^ 0x22222222))
+    u1 = torch.remainder(permuted_radical_inverse(dim, sample) + r1, 1.0)
+    u2 = torch.remainder(permuted_radical_inverse(dim + 1, sample) + r2,
+                         1.0)
+    return torch.stack(torch.broadcast_tensors(u1, u2), dim=-1)
+
+
+def _stratified_spp(mode):
+    """For a (STRATIFIED, spp) mode its spp if a power of two, else 0
+    (independent samples then, as in the JAX package); None for the
+    other modes."""
+    if isinstance(mode, tuple) and mode[0] == STRATIFIED:
+        spp = int(mode[1])
+        return spp if spp > 0 and spp & (spp - 1) == 0 else 0
+    return None
+
+
 class Sampler:
     """Per-wave sample source: holds the lanes' (pixel, sample) and, for
     SOBOL_QMC, their global Sobol' index, looked up once per wave (the
@@ -200,20 +324,30 @@ class Sampler:
         if self._qmc():
             return sobol_qmc_at(self.mode[1], self.pixel, self.sample,
                                 self.index, dim, 1)[..., 0]
-        if self.mode == INDEPENDENT:
-            return uniform_1d(self.pixel, self.sample, dim)
+        spp = _stratified_spp(self.mode)
+        if spp:
+            return stratified_1d(self.pixel, self.sample, dim, spp)
         if self.mode == SOBOL:
             return sobol_2d(self.pixel, self.sample, dim)[..., 0]
-        raise NotImplementedError(f"sampler mode {self.mode!r} is not "
-                                  "ported")
+        if self.mode == HALTON:
+            return halton_2d(self.pixel, self.sample, dim)[..., 0]
+        if self.mode == INDEPENDENT or spp == 0:
+            return uniform_1d(self.pixel, self.sample, dim)
+        raise NotImplementedError(f"sampler mode {self.mode!r} is "
+                                  "unknown")
 
     def next_2d(self, dim: int):
         if self._qmc():
             return sobol_qmc_at(self.mode[1], self.pixel, self.sample,
                                 self.index, dim, 2)
-        if self.mode == INDEPENDENT:
-            return uniform_2d(self.pixel, self.sample, dim)
+        spp = _stratified_spp(self.mode)
+        if spp:
+            return stratified_2d(self.pixel, self.sample, dim, spp)
         if self.mode == SOBOL:
             return sobol_2d(self.pixel, self.sample, dim)
-        raise NotImplementedError(f"sampler mode {self.mode!r} is not "
-                                  "ported")
+        if self.mode == HALTON:
+            return halton_2d(self.pixel, self.sample, dim)
+        if self.mode == INDEPENDENT or spp == 0:
+            return uniform_2d(self.pixel, self.sample, dim)
+        raise NotImplementedError(f"sampler mode {self.mode!r} is "
+                                  "unknown")

@@ -1,8 +1,11 @@
-"""Colorimetry the sun bake needs (numpy copy of the matching part of
-hairpt/core/spectral.py)."""
+"""Colorimetry the sun bake and the scene loader's spectra need (numpy
+copy of the matching part of hairpt/core/spectral.py)."""
 from __future__ import annotations
 
 import numpy as np
+
+LAM_MIN = 380.0
+LAM_MAX = 720.0
 
 # linear sRGB <-> XYZ (D65 white), IEC 61966-2-1
 XYZ_TO_RGB = np.array([

@@ -20,7 +20,10 @@ class Film(NamedTuple):
 
     @staticmethod
     def make(width: int, height: int, rfilter: str = "tent",
-             gamma: float = 2.2) -> "Film":
+             gamma: float = 2.2, annotations=(), banner=False) -> "Film":
+        if annotations or banner:
+            raise NotImplementedError("film annotations and the banner are "
+                                      "not ported yet (ROADMAP item 13)")
         kind, radius = FILTERS[rfilter]
         return Film(width, height, kind, radius, gamma)
 

@@ -14,9 +14,11 @@ constants and depth semantics are the JAX package's.
 """
 from __future__ import annotations
 
+import os
 import time
 from typing import NamedTuple
 
+import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
@@ -412,12 +414,22 @@ def make_li_fn(scene, differentiable: bool = False, antithetic=False):
 
 
 def render(scene, seed: int = 0, spp: int | None = None,
-           return_stats: bool = False, progress=None):
+           return_stats: bool = False, progress=None,
+           flush_every: float = 0.0, flush_cb=None,
+           checkpoint: str | None = None):
     """Full-frame render: one wave per sample index, splatted on the film.
     Returns the developed [H, W, 3] image (linear radiance).
 
-    progress: callable(done_spp, total_spp, seconds_of_this_wave, n_rays)
-    after each wave (the wave is complete: its ray count is read back)."""
+    progress:    callable(done_spp, total_spp, seconds_of_this_wave,
+                 n_rays) after each wave (the wave is complete: its ray
+                 count is read back)
+    flush_every: seconds between flush_cb(partial image) calls (the
+                 reference's `-r sec` partial-image flush)
+    checkpoint:  path of an .npz of (image, weight, next_sample, spp), the
+                 JAX package's keys: loaded if present and made for the
+                 same spp and film, saved after every wave. The
+                 accumulators are explicit values, so a resumed render
+                 equals an uninterrupted one bit for bit."""
     cfg = scene.config
     spp = spp if spp is not None else cfg.spp
     fl = scene.film
@@ -429,8 +441,16 @@ def render(scene, seed: int = 0, spp: int | None = None,
     pixel_idx = torch.as_tensor(swz, device=dev) if swz is not None \
         else torch.arange(n_pix, device=dev)
     image, weight = film_mod.zeros(fl, dev)
+    s_start = 0
+    if checkpoint and os.path.exists(checkpoint):
+        ck = np.load(checkpoint)
+        if int(ck["spp"]) == spp and ck["image"].shape == tuple(image.shape):
+            image = torch.as_tensor(ck["image"], device=dev)
+            weight = torch.as_tensor(ck["weight"], device=dev)
+            s_start = int(ck["next_sample"])
     total_rays = 0.0
-    for s in range(spp):
+    t_flush = time.time()
+    for s in range(s_start, spp):
         t0 = time.time()
         sample_idx = torch.full((n_pix,), s + seed * 65536,
                                 dtype=torch.int64, device=dev)
@@ -441,8 +461,17 @@ def render(scene, seed: int = 0, spp: int | None = None,
                                                weight)
         wave_rays = float(n_rays)
         total_rays += wave_rays
+        if checkpoint:
+            np.savez(checkpoint, image=image.cpu().numpy(),
+                     weight=weight.cpu().numpy(), next_sample=s + 1,
+                     spp=spp)
+        now = time.time()
         if progress is not None:
-            progress(s + 1, spp, time.time() - t0, wave_rays)
+            progress(s + 1, spp, now - t0, wave_rays)
+        if flush_every > 0 and flush_cb is not None \
+                and now - t_flush >= flush_every:
+            flush_cb(film_mod.develop(image, weight))
+            t_flush = now
     img = film_mod.develop(image, weight)
     if return_stats:
         return img, {"rays": total_rays}

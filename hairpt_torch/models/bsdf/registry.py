@@ -3,8 +3,8 @@ hairpt/models/bsdf/registry.py the hair scenes use).
 
 Materials live in an SoA table; a shading wave gathers its per-lane
 parameters and every family present in the scene is evaluated and
-lane-selected by kind. Ported families: ROUGHPLASTIC (plastic.py) and
-the hair BSDFs KAJIYAKAY, MARSCHNER, MARSCHNER_PURE and
+lane-selected by kind. Ported families: DIFFUSE (simple.py),
+ROUGHPLASTIC (plastic.py) and the hair BSDFs KAJIYAKAY, MARSCHNER, MARSCHNER_PURE and
 MARSCHNERDIELECTRIC (hair.py), whose Marschner kinds read the stacked
 azimuthal tables (HairTables) through the `hair_tables` argument. The
 scenes have no textures and no wrapper materials, so gather is a plain
@@ -24,12 +24,31 @@ import torch
 
 from ... import resolve_device
 
-# family ids (the JAX package's values, baked into material tables)
+# family ids (the JAX package's values, baked into material tables; only
+# the kinds with a family in FAMILIES render, the others name what the
+# scene loader refuses)
 DIFFUSE = 0
+ROUGHDIFFUSE = 1
+CONDUCTOR = 2
+ROUGHCONDUCTOR = 3
+DIELECTRIC = 4
+THINDIELECTRIC = 5
+ROUGHDIELECTRIC = 6
+PLASTIC = 7
 ROUGHPLASTIC = 8
+PHONG = 9
+WARD = 10
+NULL = 11
 KAJIYAKAY = 12
 MARSCHNER = 13          # = the fork's MarschnerDiffuse, faithful quirks
 MARSCHNERDIELECTRIC = 14
+MASK = 15
+DIFFTRANS = 16
+MIXTURE = 17
+COATING = 18
+ROUGHCOATING = 19
+HK = 21
+CLOTH = 22
 MARSCHNER_PURE = 23     # corrected-mode Marschner (true 3-lobe mixture
 #                         pdf, fresh per-decision samples, MIS-compatible)
 

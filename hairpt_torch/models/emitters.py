@@ -1,9 +1,10 @@
-"""Environment emitter for the forward render (port of the parts of
-hairpt/models/emitters.py the furball uses).
+"""Environment emitters for the forward render (port of the parts of
+hairpt/models/emitters.py the hair scenes use).
 
 bake_sunsky rasterizes the Hosek-Wilkie sky and the sun disc into one
 lat-long radiance table on the host (numpy, a copy of the JAX package's
-bake), and make_envmap builds its Vose alias table. The device queries
+bake), make_constant fills a uniform one, and make_envmap builds a
+table's Vose alias table. The device queries
 env_eval / env_sample / env_pdf are torch.
 """
 from __future__ import annotations
@@ -85,6 +86,14 @@ def make_envmap(image: np.ndarray, to_world3=None,
                   alias_idx=t(alias_idx, torch.int64),
                   alias_prob=t(alias_prob),
                   texel_pdf=t(pdf.astype(np.float32)))
+
+
+def make_constant(radiance, res: int = 8, device=None) -> EnvMap:
+    """A constant environment (`<emitter type="constant">`): a uniform
+    lat-long table."""
+    img = np.broadcast_to(np.asarray(radiance, np.float32),
+                          (res, 2 * res, 3)).copy()
+    return make_envmap(img, device=device)
 
 
 # --- Preetham sky ----------------------------------------------------------

@@ -1,7 +1,16 @@
 """Hair fiber geometry (numpy copy of the parts of hairpt/scene/hairgen.py
-the hair scenes need: FiberSet, segments and the procedural furball,
-straight, curly and hair-curl generators). Host-side, runs once per
-scene build; the fibers equal the JAX package's exactly."""
+the hair scenes need: FiberSet, the .mitshair loader and writer, the
+preprocessing, segments and the procedural furball, straight, curly and
+hair-curl generators). Host-side, runs once per scene build; the fibers
+equal the JAX package's exactly.
+
+File formats follow the reference's src/shapes/hair.cpp:641-716: a binary
+file starts with the magic "BINARY_HAIR" and a uint32 vertex count, then
+float32 xyz triples where a non-finite x separates fibers; an ASCII file
+has one "x y z" per line, and a line with fewer than three fields starts
+a new fiber. The JAX package scans the binary separators with a Python
+loop over every vertex; the port's scan is vectorised (the reference's
+real assets hold millions of vertices) and gives the same flags."""
 from __future__ import annotations
 
 from typing import NamedTuple
@@ -13,6 +22,92 @@ class FiberSet(NamedTuple):
     vertices: np.ndarray            # [V, 3] float
     vertex_starts_fiber: np.ndarray  # [V] bool
     radius: float
+
+
+BINARY_MAGIC = b"BINARY_HAIR"
+
+
+def _binary_fibers(data: np.ndarray):
+    """Vertices and fiber-start flags of a binary file's [N, 3] records.
+    A kept vertex starts a fiber when it is the first record or follows
+    a separator: a run of separators, or a leading one, starts one fiber
+    at the next kept vertex."""
+    sep = ~np.isfinite(data[:, 0])
+    after = np.ones(len(data), bool)
+    after[1:] = sep[:-1]
+    return data[~sep], after[~sep]
+
+
+def load_hair_file(path: str, radius: float,
+                   angle_threshold_deg: float = 1.0,
+                   reduction: float = 0.0,
+                   seed: int = 0) -> FiberSet:
+    with open(path, "rb") as f:
+        head = f.read(len(BINARY_MAGIC))
+        if head == BINARY_MAGIC:
+            n = np.frombuffer(f.read(4), "<u4")[0]
+            data = np.frombuffer(f.read(12 * int(n)), "<f4").reshape(-1, 3)
+            verts, starts = _binary_fibers(data)
+        else:
+            text = head + f.read()
+            verts_l, starts_l = [], []
+            new = True
+            for line in text.decode("latin1").splitlines():
+                t = line.split()
+                if len(t) < 3:
+                    new = True
+                    continue
+                verts_l.append([float(t[0]), float(t[1]), float(t[2])])
+                starts_l.append(new)
+                new = False
+            verts = np.asarray(verts_l, np.float64)
+            starts = np.asarray(starts_l, bool)
+    fs = FiberSet(np.asarray(verts, np.float64), starts, radius)
+    return preprocess(fs, angle_threshold_deg, reduction, seed)
+
+
+def save_hair_binary(path: str, fs: FiberSet):
+    """The binary format, a +inf separator before every fiber but the
+    first."""
+    verts = np.asarray(fs.vertices, np.float32)
+    cut = np.nonzero(np.asarray(fs.vertex_starts_fiber, bool))[0]
+    allv = np.insert(verts, cut[cut > 0], np.inf, axis=0)
+    with open(path, "wb") as f:
+        f.write(BINARY_MAGIC)
+        f.write(np.uint32(len(allv)).tobytes())
+        f.write(allv.astype("<f4").tobytes())
+
+
+def preprocess(fs: FiberSet, angle_threshold_deg: float = 1.0,
+               reduction: float = 0.0, seed: int = 0) -> FiberSet:
+    """Optionally cull fibers (with Cook-style radius enlargement) and
+    merge near-collinear consecutive segments (reference hair.cpp:598-716;
+    the JAX package's single vectorised pass)."""
+    verts, starts, radius = fs.vertices, fs.vertex_starts_fiber, fs.radius
+    if reduction > 0:
+        rng = np.random.default_rng(seed)
+        fiber_id = np.cumsum(starts) - 1
+        n_fibers = fiber_id[-1] + 1
+        keep_fiber = rng.random(n_fibers) >= reduction
+        keep = keep_fiber[fiber_id]
+        verts = verts[keep]
+        starts = starts[keep]
+        radius = radius / (1.0 - reduction) ** 0.5  # keep projected coverage
+
+    if angle_threshold_deg > 0 and len(verts) > 2:
+        # drop interior vertices whose adjacent segment directions are
+        # within the angle threshold, never two adjacent ones in a pass
+        cos_thr = np.cos(np.radians(angle_threshold_deg))
+        d = verts[1:] - verts[:-1]
+        dn = d / np.maximum(np.linalg.norm(d, axis=-1, keepdims=True), 1e-20)
+        cosang = np.sum(dn[:-1] * dn[1:], axis=-1)      # at vertex i in 1..n-2
+        interior = ~starts[1:-1] & ~starts[2:]
+        drop = np.zeros(len(verts), bool)
+        drop[1:-1] = interior & (cosang > cos_thr)
+        drop[1:] &= ~drop[:-1]
+        verts = verts[~drop]
+        starts = starts[~drop]
+    return FiberSet(verts, starts, radius)
 
 
 def segments(fs: FiberSet):

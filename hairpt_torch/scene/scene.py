@@ -16,6 +16,7 @@ from ..models import emitters as em
 from ..models.bsdf import registry as mat
 from ..models.bsdf import hair as hair_bsdf  # registers the hair kinds
 from ..models.bsdf import plastic  # noqa: F401  (registers ROUGHPLASTIC)
+from ..models.bsdf import simple  # noqa: F401  (registers DIFFUSE)
 from ..models.bsdf import tables as rt_tables
 from ..models.sensors import Camera
 from ..ops import bvh as bvh_mod

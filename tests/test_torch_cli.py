@@ -1,0 +1,249 @@
+"""`python -m hairpt_torch.cli render` on the CPU: the slice as a whole
+against hairpt (the furball stand-in XML, loaded and rendered by hairpt
+with its CPU default, the packed BVH walk, which has no Pallas kernel and
+compiles once; the port's CLI with --cpu, the tiled traversal's plain
+versions), the options, the refusals, the exit without a card, and the
+render's checkpoint and partial-image flush.
+
+Both scene builds order the hair with the port's build of
+csrc/bvh_builder.cpp (see tests/test_torch_xml.py)."""
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from hairpt.integrators import path as jpath
+from hairpt.ops import bvh as jbvh
+from hairpt.scene import xml_loader as jxl
+from hairpt_torch import cli
+from hairpt_torch.integrators import path as tpath
+from hairpt_torch.models.bsdf import registry as tmat
+from hairpt_torch.ops import bvh as tbvh
+from hairpt_torch.scene import scene_xmls
+from hairpt_torch.scene import xml_loader as txl
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SMALL = ["--spp", "2", "--res-scale", "0.02", "--hair-quality", "0.02",
+         "--depth", "3"]
+LOAD = dict(spp_override=2, res_scale=0.02, hair_quality=0.02,
+            max_depth_override=3)
+
+
+@pytest.fixture(scope="module")
+def whole(tmp_path_factory):
+    """hairpt's load_scene and render of the furball XML at 20^2, 2 spp,
+    depth 3, and the port's CLI on the same XML with --cpu."""
+    mp = pytest.MonkeyPatch()
+    mp.setattr(jbvh, "_NATIVE", tbvh._load_native())
+    mp.setattr(jbvh, "_NATIVE_TRIED", True)
+    root = tmp_path_factory.mktemp("scenes")
+    xml = scene_xmls.write_scene(str(root), "furball")
+    img_j = np.asarray(jpath.render(jxl.load_scene(xml, **LOAD)))
+    out = root / "out" / "furball.png"
+    out.parent.mkdir()
+    rc = cli.main(["render", xml, "-o", str(out), "--cpu"] + SMALL)
+    yield dict(root=root, xml=xml, img_j=img_j, out=out, rc=rc)
+    mp.undo()
+
+
+def test_cli_writes_every_output(whole):
+    out = whole["out"]
+    assert whole["rc"] == 0
+    for ext in ("png", "exr", "npy", "pfm"):
+        assert out.with_suffix(f".{ext}").stat().st_size > 0, ext
+    img = np.load(out.with_suffix(".npy"))
+    assert img.shape == (20, 20, 3) and np.isfinite(img).all()
+    from hairpt_torch.utils import exr, io
+    np.testing.assert_array_equal(io.read_pfm(str(out.with_suffix(".pfm"))),
+                                  img)
+    np.testing.assert_array_equal(
+        exr.read_exr(str(out.with_suffix(".exr"))),
+        img.astype(np.float16).astype(np.float32))
+
+
+def test_cli_image_matches_jax(whole):
+    """The image mean within 1e-3 relative and >= 99% of pixel values
+    within 1e-3 relative + 1e-4 (tests/test_torch_hair_render.py's
+    criterion: the packed walk and the tiled plain versions find the
+    same closest hits; paths diverge only where float32 rounding flips a
+    sampling decision)."""
+    img_t = np.load(whole["out"].with_suffix(".npy"))
+    img_j = whole["img_j"]
+    assert img_t.shape == img_j.shape and img_j.mean() > 0
+    assert abs(img_t.mean() - img_j.mean()) / img_j.mean() < 1e-3
+    close = np.isclose(img_t, img_j, rtol=1e-3, atol=1e-4)
+    assert close.mean() >= 0.99, close.mean()
+
+
+def test_cli_npy_equals_in_process_render(whole):
+    scene = txl.load_scene(whole["xml"], **LOAD, device="cpu")
+    img = tpath.render(scene).numpy()
+    np.testing.assert_array_equal(np.load(whole["out"].with_suffix(".npy")),
+                                  img)
+
+
+@pytest.fixture
+def fake_render(monkeypatch):
+    """Replace the render with a record of the scene it was given."""
+    seen = []
+
+    def render(scene, **kw):
+        seen.append((scene, kw))
+        return torch.zeros(scene.config.height, scene.config.width, 3)
+    monkeypatch.setattr(tpath, "render", render)
+    return seen
+
+
+def test_cli_options_reach_the_config(tmp_path, fake_render):
+    """-D substitution, --depth, --spp, --res-scale and --seed."""
+    xml = str(tmp_path / "furball" / "scene.xml")
+    os.makedirs(os.path.dirname(xml))
+    with open(xml, "w") as f:
+        f.write(scene_xmls.furball(depth="$depth", spp="$n"))
+    out = str(tmp_path / "o.png")
+    base = ["render", xml, "-o", out, "--cpu", "--hair-quality", "0.02",
+            "-D", "depth=7", "-D", "n=5"]
+    assert cli.main(base + ["--res-scale", "0.02"]) == 0
+    cfg = fake_render[-1][0].config
+    assert (cfg.max_depth, cfg.spp, cfg.width) == (7, 5, 20)
+    assert cli.main(base + ["--depth", "4", "--spp", "3", "--res-scale",
+                            "0.01", "--seed", "9"]) == 0
+    scene, kw = fake_render[-1]
+    assert (scene.config.max_depth, scene.config.spp,
+            scene.config.width) == (4, 3, 10)
+    assert kw["seed"] == 9 and scene.config.sampler[0] == 4
+    assert os.path.exists(out)
+
+
+def test_cli_define_selects_the_faithful_marschner(tmp_path, fake_render):
+    xml = scene_xmls.write_scene(str(tmp_path), "straight_marschner")
+    out = str(tmp_path / "o.png")
+    for define, kind in ((["-D", "marschner_faithful=true"], tmat.MARSCHNER),
+                         ([], tmat.MARSCHNER_PURE)):
+        assert cli.main(["render", xml, "-o", out, "--cpu"] + SMALL
+                        + define) == 0
+        assert fake_render[-1][0].arrays.materials.kind.tolist() == [kind]
+
+
+def test_cli_skip_existing(tmp_path, fake_render):
+    xml = scene_xmls.write_scene(str(tmp_path), "furball")
+    out = tmp_path / "o.png"
+    out.write_bytes(b"old")
+    assert cli.main(["render", xml, "-o", str(out), "--cpu", "-x"]
+                    + SMALL) == 0
+    assert fake_render == [] and out.read_bytes() == b"old"
+    assert not (tmp_path / "o.npy").exists()
+
+
+def test_cli_refuses_jpeg_before_the_build(tmp_path, monkeypatch):
+    def no_build(*a, **kw):
+        raise AssertionError("the scene was loaded")
+    monkeypatch.setattr(txl, "load_scene", no_build)
+    xml = scene_xmls.write_scene(str(tmp_path), "furball")
+    with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
+        cli.main(["render", xml, "-o", str(tmp_path / "o.jpg"), "--cpu"])
+
+
+SENSOR = ("<sensor type=\"{kind}\"><film type=\"hdrfilm\"><integer "
+          "name=\"width\" value=\"16\"/><integer name=\"height\" "
+          "value=\"16\"/></film></sensor>")
+HAIR = ("<shape type=\"hair\"><string name=\"filename\" "
+        "value=\"furball.mitshair\"/></shape>")
+REFUSED = {
+    "obj_shape": (SENSOR.format(kind="perspective")
+                  + "<shape type=\"obj\"><string name=\"filename\" "
+                    "value=\"teapot.obj\"/></shape>", "11b"),
+    "point_light": (SENSOR.format(kind="perspective") + HAIR
+                    + "<emitter type=\"point\"/>", "13"),
+    "orthographic": (SENSOR.format(kind="orthographic") + HAIR, "13"),
+    "direct": ("<integrator type=\"direct\"/>"
+               + SENSOR.format(kind="perspective") + HAIR, "13"),
+    "texture": (SENSOR.format(kind="perspective")
+                + "<bsdf type=\"diffuse\" id=\"d\"><texture "
+                  "type=\"checkerboard\" name=\"reflectance\"/></bsdf>"
+                + HAIR, "11b"),
+    "medium": (SENSOR.format(kind="perspective") + HAIR
+               + "<medium type=\"homogeneous\"/>", "13"),
+    "conductor": (SENSOR.format(kind="perspective")
+                  + "<bsdf type=\"conductor\" id=\"c\"/>" + HAIR, "13"),
+    "area_light": (SENSOR.format(kind="perspective")
+                   + "<shape type=\"hair\"><emitter type=\"area\"/></shape>",
+                   "13"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(REFUSED))
+def test_cli_refuses_what_the_port_does_not_render(tmp_path, monkeypatch,
+                                                   case):
+    """Each raises NotImplementedError naming its ROADMAP item, before any
+    build work."""
+    monkeypatch.setattr(txl.SceneBuilder, "__init__", None)
+    body, item = REFUSED[case]
+    d = tmp_path / "furball"
+    d.mkdir()
+    (d / "scene.xml").write_text(f"<scene version=\"0.5.0\">{body}</scene>")
+    with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}\\)"):
+        cli.main(["render", str(d / "scene.xml"), "-o",
+                  str(tmp_path / "o.png"), "--cpu"])
+
+
+@pytest.mark.parametrize("extra", [["--spectral", "3"], ["--bands", "4"],
+                                   ["--integrator", "direct"], ["--stats"],
+                                   ["--profile", "trace"]],
+                         ids=lambda e: e[0])
+def test_cli_refuses_unported_options(tmp_path, extra):
+    xml = scene_xmls.write_scene(str(tmp_path), "furball")
+    with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
+        cli.main(["render", xml, "--cpu"] + extra)
+
+
+@pytest.mark.parametrize("cmd", ["util", "import"])
+def test_cli_refuses_unported_commands(cmd):
+    with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
+        cli.main([cmd, "a", "b"])
+
+
+def test_cli_without_a_card_exits_nonzero(tmp_path):
+    """No --cpu and no card: a non-zero exit, no output, nothing built."""
+    xml = scene_xmls.write_scene(str(tmp_path), "furball")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH",
+                                                             ""))
+    res = subprocess.run([sys.executable, "-m", "hairpt_torch.cli", "render",
+                          xml, "-o", str(tmp_path / "o.png")] + SMALL,
+                         env=env, capture_output=True, text=True, timeout=120)
+    assert res.returncode != 0
+    assert "CUDA" in res.stderr and "scene built" not in res.stderr
+    assert not any(p.name.startswith("o.") for p in tmp_path.iterdir())
+
+
+def test_checkpoint_resume_is_exact_and_flush_develops(tmp_path, whole):
+    """2 spp, interrupted, then resumed from the checkpoint to 4, equals
+    an uninterrupted 4 spp render bit for bit; flush_cb gets the
+    developed image of the waves so far."""
+    scene = txl.load_scene(whole["xml"], **LOAD, device="cpu")
+    ref = tpath.render(scene, spp=4)
+    ck = str(tmp_path / "ck.npz")
+
+    class Stop(Exception):
+        pass
+
+    def stop_at_2(done, total, secs, n_rays):
+        if done == 2:
+            raise Stop
+    with pytest.raises(Stop):
+        tpath.render(scene, spp=4, checkpoint=ck, progress=stop_at_2)
+    saved = np.load(ck)
+    assert int(saved["next_sample"]) == 2 and int(saved["spp"]) == 4
+    flushed, waves = [], []
+    img = tpath.render(scene, spp=4, checkpoint=ck, flush_every=1e-9,
+                       flush_cb=flushed.append,
+                       progress=lambda d, t, s, n: waves.append(d))
+    assert waves == [3, 4]
+    torch.testing.assert_close(img, ref, rtol=0, atol=0)
+    assert len(flushed) == 2
+    torch.testing.assert_close(flushed[-1], ref, rtol=0, atol=0)
+    assert int(np.load(ck)["next_sample"]) == 4
