@@ -3,16 +3,18 @@
 port builds, that its kernels agree with their plain versions, and that
 the full-width furball forward render runs through them, with the tiled
 and with the swept traversal, with rough plastic and with the Marschner
-hair BSDF, its gradient paths and inverse rendering with them, and the
-scene-XML command line.
+hair BSDF, its gradient paths and inverse rendering with them, the
+scene-XML command line, and triangle meshes (the teapot stand-in)
+through the packed BVH walk.
 
     python3 chip_smoke.py            # from the repository root, one card
 
 Phases (each prints one line with its elapsed seconds):
   0. the card (nvidia-smi name and power limit) and torch/CUDA versions;
-  1. build the four CUDA libraries (nvcc, sm_90a: tiled.cu with kernels
+  1. build the five CUDA libraries (nvcc, sm_90a: tiled.cu with kernels
      A and B, octets.cu with C and D, phaseb.cu with E, swept_cull.cu with
-     the swept phase A) and the BVH builder (g++), all in parallel;
+     the swept phase A, packed.cu with F) and the BVH builder (g++), all
+     in parallel;
   2. build the full-width furball scene (84,000 fibers x 12 segments,
      K = 128), take a real camera wave and a first-bounce wave (uniformly
      random directions at the camera hit points, Morton-sorted as the
@@ -108,6 +110,28 @@ Phases (each prints one line with its elapsed seconds):
      torch.equal with the film's sums in a fixed order; the other four
      XMLs at half scale, one wave each: finite, non-black, A and B
      launched.
+  12. triangle meshes through kernel F (csrc/packed.cu, the packed BVH
+     walk, one thread per ray):
+       a. F (triangle leaf) against its plain walk on EVERY ray of the
+          teapot stand-in's camera and first-bounce waves (1280 x 720) and
+          of a 1025^2 heightfield's (the JAX loader's ripples, 2,097,152
+          triangles), closest and any hit, t and pid bit for bit; timed
+          beside the plain walk and the bound (the inputs read once, the
+          operations of the walk's counted visits);
+       b. (run in phase 2, on its waves) F's hair leaf on the full
+          furball's camera and first-bounce waves: against its plain walk
+          bit for bit, and against the tiled query, whose cylinder
+          arithmetic differs (pid >= 99.9%, hit flags differing on at
+          most 1e-5 of the rays, t within T_RTOL on >= 99.9% of the
+          same-pid hits, a float64-checked graze counting as agreeing);
+       c. the CLI as a subprocess on the teapot stand-in (1280 x 720,
+          depth 65, 2 spp): exit 0, four outputs, a finite positive mean;
+          then one warm-up and two timed 1-spp waves in process: s/wave,
+          Mrays/s, F's launches per wave, no plain walk on the card;
+       d. the small furball over a checkerboard rectangle, tiled and
+          packed, card against CPU image means within 2%, with A, B and
+          F's triangle leaf (tiled) and F's four instances (packed)
+          launched.
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Any failed check exits
 non-zero before that line. Without CUDA the script exits non-zero at once.
@@ -1655,6 +1679,485 @@ def xml_entry_point(reset_all, phase4_mrays, res=1024, scale=0.5,
             del scene, img
     return launch_x
 
+# kernel F (csrc/packed.cu): f32 operations per node visit (the slab test:
+# per axis 2 subtractions, 2 products, a min and a max; 2 max and 2 min
+# across the axes, 2 to widen, 3 compares) and per primitive test
+# (Moller-Trumbore: 2 cross products, 4 dot products, the scaled u, v,
+# t, the determinant's division and test, 8 compares, the lane's t < tb;
+# the miter cylinder: the axis (its length, a square root and a
+# division), 2 projections, the quadratic's a, b, t_mid, c_mid and
+# discriminant, its root, both roots and both roots' miter planes),
+# counted from the source, a division or square root counting one
+F_SLAB_FLOPS = 27
+F_TRI_FLOPS = 56
+F_HAIR_FLOPS = 125
+#  bytes: each input read once (the node rows, the leaf rows, 32 B per
+#  ray of o, d, mint, maxt) and each output written once (8 B per ray of
+#  t and pid, or 4 B of the flag); beside it, the traffic of the walk's
+#  visits (32 B per node row, 256 B per leaf row read) at the same rate,
+#  which the card's L2 serves in part (visit_bytes_ms)
+F_NODE_BYTES = 32
+F_LEAF_BYTES = 256
+F_RAY_BYTES = 32
+#  kernel F against its plain version: t and pid (closest) or the flag
+#      (any) bit for bit (the same float32 operations in the same order
+#      without fused multiply-adds, IEEE division and square root on both
+#      sides, the first lane at the least t, a strict t < maxt across
+#      leaves); its hair leaf against the tiled query (a different
+#      cylinder arithmetic): hit flags equal, pid >= PID_MIN_AGREE, t
+#      within T_RTOL
+#  F's hair leaf against the tiled query, closest-hit flags: differing
+#      on at most FLAG_MAX_DIFF of a wave's rays (the two cylinder
+#      arithmetics disagree on a few grazes: 3 of the 1,048,576 camera
+#      rays; a hit flag that no rounding explains would be a missed
+#      fiber on far more rays)
+FLAG_MAX_DIFF = 1e-5
+#  graze_margin at or below GRAZE_TOL: a graze (float32 rounding of the
+#      furball's coordinates, |o - p0| * 2^-23 ~ 1e-6, is ~5e-4 of its
+#      0.00217 radius, and the margin is quadratic in the closest
+#      approach)
+GRAZE_TOL = 1e-2
+F_REPLACES = {"closest": "hairpt/ops/intersect_packed.py:173",
+              "any": "hairpt/ops/intersect_packed.py:228"}
+TEAPOT_RES = (1280, 720)
+HEIGHTFIELD_G = 1025
+
+
+def mesh_waves(scene, seed=11):
+    """A camera wave (Sobol' sample 0, block-swizzled lanes, as render
+    takes them) and a first-bounce wave (uniformly random directions in
+    the hemisphere of the camera hit's normal, from the hit point lifted
+    by ray_eps; missed lanes dead at the camera with maxt 0) of a scene,
+    each as Ray, and the camera wave's hit fraction."""
+    import numpy as np
+    import torch
+    from hairpt_torch.core import rng, warps
+    from hairpt_torch.core.math import Ray
+    from hairpt_torch.integrators import common
+    from hairpt_torch.models import sensors
+
+    cfg, arr = scene.config, scene.arrays
+    dev = arr.device
+    swz = common.block_swizzle(cfg.width, cfg.height)
+    pixel = torch.as_tensor(swz, device=dev) if swz is not None \
+        else torch.arange(cfg.width * cfg.height, device=dev)
+    smp = rng.Sampler(cfg.sampler, pixel, torch.zeros_like(pixel))
+    jitter = smp.next_2d(0)
+    pos = torch.stack([(smp.pixel % cfg.width).float() + jitter[:, 0],
+                       (smp.pixel // cfg.width).float() + jitter[:, 1]], -1)
+    cam_ray = sensors.sample_ray(scene.camera, pos)
+    hit = common.scene_intersect(arr, cam_ray, cfg.tiled_q)
+    n = pixel.shape[0]
+    u = torch.as_tensor(np.random.default_rng(seed).random((n, 2)),
+                        dtype=torch.float32, device=dev)
+    d = warps.square_to_uniform_sphere(u)
+    d = torch.where((torch.sum(d * hit.geo_n, -1) < 0)[:, None], -d, d)
+    o = torch.where(hit.valid[:, None], hit.p + hit.geo_n * cfg.ray_eps,
+                    cam_ray.o)
+    bounce = Ray(o=o, d=d, mint=torch.zeros(n, device=dev),
+                 maxt=torch.where(hit.valid, float("inf"), 0.0))
+    return {"camera": cam_ray, "bounce": bounce}, \
+        float(hit.valid.float().mean())
+
+
+def f_bound(bvh, counts, n_rays, leaf, mode):
+    """(bound ms, its kind, the visits' traffic in ms at the memory rate)
+    of one walk: the inputs read once and the outputs written once
+    against the operations of the plain walk's counted visits."""
+    prim = F_TRI_FLOPS if leaf == "tri" else F_HAIR_FLOPS
+    io = n_rays * (F_RAY_BYTES + (8 if mode == "closest" else 4))
+    n_bytes = bvh.nodes.numel() * 4 + bvh.leaf_rows.numel() * 4 + io
+    bms, bby = bound_ms(n_bytes, F_SLAB_FLOPS * counts["nodes"]
+                        + prim * counts["prims"])
+    visits = F_NODE_BYTES * counts["nodes"] \
+        + F_LEAF_BYTES * counts["leaves"] + io
+    return bms, bby, visits / HBM_BYTES_PER_S * 1e3
+
+
+def check_kernel_f(label, bvh, leaf, ray, report=None):
+    """Phase 12a/b: kernel F against its plain version on EVERY ray of a
+    wave, closest and any hit (any on the same rays: the bounce wave's
+    maxt is infinite where live), bit for bit; each timed (CUDA events,
+    the wrapper's error-flag read included) beside its plain version and
+    its bound from the walk's counted work. Returns {mode: (result,
+    facts)}."""
+    import torch
+    from hairpt_torch.ops import intersect_packed as ipk
+
+    out = {}
+    n = ray.o.shape[0]
+    for mode in ("closest", "any"):
+        plain_fn = ipk.closest_hit_packed_plain if mode == "closest" \
+            else ipk.any_hit_packed_plain
+        kern_fn = ipk.closest_hit_packed if mode == "closest" \
+            else ipk.any_hit_packed
+        counts = {}
+        torch.cuda.synchronize()
+        t0 = time.time()
+        p = plain_fn(bvh, leaf, ray, counts=counts)
+        torch.cuda.synchronize()
+        plain_ms = (time.time() - t0) * 1e3
+        k = kern_fn(bvh, leaf, ray)
+        if mode == "closest":
+            same_t = torch.equal(k[0].view(torch.int32),
+                                 p[0].view(torch.int32))
+            same = same_t and torch.equal(k[1], p[1])
+            n_hit = int((p[1] >= 0).sum())
+            err = float((k[0] - p[0])[(p[1] >= 0) & (k[1] >= 0)].abs()
+                        .max()) if n_hit else 0.0
+            bad = int(((k[1] != p[1]) | (k[0].view(torch.int32)
+                                         != p[0].view(torch.int32))).sum())
+        else:
+            same = torch.equal(k, p)
+            n_hit = int(p.sum())
+            err = 0.0
+            bad = int((k != p).sum())
+        ms = cuda_ms(lambda: kern_fn(bvh, leaf, ray), 5)
+        bms, bby, vms = f_bound(bvh, counts, n, leaf, mode)
+        log(f"F {leaf} {mode} on {label} ({n} rays, {n_hit} hits): "
+            f"{'bit for bit' if same else f'{bad} rays DIFFER'}; kernel "
+            f"{ms:.3f} ms, plain {plain_ms:.1f} ms ({counts['steps']} "
+            f"iterations), bound {bms:.4f} ms by {bby} ({ms / bms:.1f}x; "
+            f"{counts['nodes']} node rows, {counts['leaves']} leaf rows, "
+            f"{counts['prims']} tests visited: {vms:.3f} ms of traffic)")
+        require(same, f"kernel F ({leaf}, {mode}) differs from its plain "
+                f"version on {bad} rays of {label}")
+        out[mode] = (k, dict(ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                             bound_by=bby, visit_bytes_ms=vms,
+                             max_abs_err=err, rays=n, counts=counts))
+        if report is not None:
+            report.setdefault((leaf, mode), []).append((label, out[mode][1]))
+    return out
+
+
+def heightfield_scene(g=HEIGHTFIELD_G, device="cuda"):
+    """The JAX loader's procedural heightfield ripples
+    (hairpt/scene/xml_loader.py:777-782) at g x g (2 (g - 1)^2
+    triangles), 40 x 40 under the teapot stand-in's camera, diffuse."""
+    import numpy as np
+    from hairpt_torch.core import rng
+    from hairpt_torch.core.math import matrix_lookat
+    from hairpt_torch.film.film import Film
+    from hairpt_torch.models import shapes as shp
+    from hairpt_torch.models.sensors import Camera
+    from hairpt_torch.scene.scene import SceneBuilder
+
+    yy, xx = np.meshgrid(np.linspace(0, 4 * np.pi, g),
+                         np.linspace(0, 4 * np.pi, g))
+    mesh = shp.heightfield(0.1 * np.sin(xx) * np.cos(yy))
+    b = SceneBuilder(device=device)
+    m = b.add_material()
+    to_world = np.array([[20.0, 0, 0, 0], [0, 0, 20.0, 0],
+                         [0, -20.0, 0, 0], [0, 0, 0, 1]])
+    b.add_mesh(mesh, m, to_world=to_world)
+    w, h = TEAPOT_RES
+    cam = Camera.perspective(matrix_lookat((0, 9, 22), (0, 2.5, 0),
+                                           (0, 1, 0)), 40.0, w, h)
+    return b.build(cam, Film.make(w, h, "tent"), spp=1, max_depth=65,
+                   sampler=(rng.SOBOL_QMC, 11, w))
+
+
+def teapot_kernels(report):
+    """Phase 12a: kernel F's triangle leaf against its plain version on
+    every ray of the teapot stand-in's camera and first-bounce waves
+    (1280 x 720) and of the 2.1M-triangle heightfield's."""
+    import tempfile
+    from hairpt_torch.scene import scene_xmls
+    from hairpt_torch.scene.xml_loader import load_scene
+
+    with tempfile.TemporaryDirectory(prefix="hairpt_teapot_") as tmp:
+        scene = load_scene(scene_xmls.write_scene(tmp, "teapot"),
+                           spp_override=1, device="cuda")
+    arr = scene.arrays
+    log(f"teapot stand-in: {arr.tri.p0.shape[0]} triangles, "
+        f"{arr.tri_packed.nodes.shape[0]} nodes, {scene.config.width} x "
+        f"{scene.config.height}")
+    wv, frac = mesh_waves(scene)
+    log(f"teapot camera wave hit fraction {frac:.4f}")
+    for name, ray in wv.items():
+        check_kernel_f(f"the teapot's {name} wave", arr.tri_packed, "tri",
+                       ray, report)
+    del scene, wv
+    t0 = time.time()
+    hf = heightfield_scene()
+    log(f"heightfield {HEIGHTFIELD_G}^2: {hf.arrays.tri.p0.shape[0]} "
+        f"triangles, {hf.arrays.tri_packed.nodes.shape[0]} nodes, built in "
+        f"{time.time() - t0:.1f}s")
+    wv, frac = mesh_waves(hf)
+    log(f"heightfield camera wave hit fraction {frac:.4f}")
+    for name, ray in wv.items():
+        check_kernel_f(f"the heightfield's {name} wave", hf.arrays.tri_packed,
+                       "tri", ray, report)
+
+
+def graze_margin(hair, pid, o, d, t):
+    """float64: how far the ray (o, d) is from the boundary of the miter
+    cylinder `pid` of `hair` (HairGeom) at the root nearest t, relative
+    to the radius: the least of 1 - (closest approach / r)^2 and the two
+    miter planes' distances / r. Near 0: a graze, where two float32
+    cylinder arithmetics may disagree on a hit."""
+    import numpy as np
+    g = [np.asarray(x[pid].double().cpu()) for x in
+         (hair.p0, hair.p1, hair.n0, hair.n1, hair.radius)]
+    p0, p1, n0, n1, r = g
+    o = np.asarray(o.double().cpu())
+    d = np.asarray(d.double().cpu())
+    ax = (p1 - p0) / np.linalg.norm(p1 - p0)
+    rel = o - p0
+    po, pd = rel - (ax @ rel) * ax, d - (ax @ d) * ax
+    a = pd @ pd
+    t_mid = -(po @ pd) / a
+    q = po + pd * t_mid
+    closest = 1.0 - (q @ q) / (r * r)
+    dt = np.sqrt(max(closest * r * r / a, 0.0))
+    tt = min((t_mid - dt, t_mid + dt), key=lambda x: abs(x - float(t)))
+    h = o + d * tt
+    return float(min(abs(closest), abs((h - p0) @ n0) / r,
+                     abs((h - p1) @ n1) / r))
+
+
+def outside_box(hair, pid, o, d, t):
+    """float64: how far the point o + d t lies outside the box that the
+    hair BVH gives segment `pid` (the JAX package's conservative AABB,
+    hairpt/scene/scene.py:500-508: the radius over the steeper miter's
+    |cos|, that cos clamped at 0.3), in units of the radius. Above 0, the
+    packed walk cannot reach a hit there, in either package."""
+    import numpy as np
+    p0, p1, n0, n1, r = [np.asarray(x[pid].double().cpu()) for x in
+                         (hair.p0, hair.p1, hair.n0, hair.n1, hair.radius)]
+    tang = (p1 - p0) / np.linalg.norm(p1 - p0)
+    cos = min(abs(n0 @ tang), abs(n1 @ tang))
+    expand = r / max(cos, 0.3)
+    h = np.asarray(o.double().cpu()) + np.asarray(d.double().cpu()) * t
+    out = np.maximum(np.minimum(p0, p1) - expand - h, 0.0) \
+        + np.maximum(h - np.maximum(p0, p1) - expand, 0.0)
+    return float(np.max(out) / r)
+
+
+def furball_kernel_f(scene, wv, report):
+    """Phase 12b: kernel F's hair leaf on the full-width furball's camera
+    and first-bounce waves: against its plain version bit for bit, and
+    against the tiled query (kernels A and B, another float32 cylinder
+    arithmetic): pid >= PID_MIN_AGREE; closest-hit flags differing on at
+    most FLAG_MAX_DIFF of the rays; where the pids agree, t within T_RTOL
+    on >= PID_MIN_AGREE of the hits, a graze of that cylinder
+    (graze_margin <= GRAZE_TOL, where t is ill-conditioned) counting as
+    agreeing; each query's any-hit flags equal to its own closest-hit
+    flags (maxt is infinite or 0). The rays whose pids differ are logged
+    as ties (t within T_RTOL), grazes of the nearer hit's cylinder, and
+    the rest; the same-pid rays whose t is off, with their t, difference
+    and margin."""
+    import torch
+    from hairpt_torch.ops import intersect_tiled as itiled
+
+    arr = scene.arrays
+    for name, ray in wv.items():
+        res = check_kernel_f(f"the furball's {name} wave", arr.hair_packed,
+                             "hair", ray, report)
+        t_f, p_f = res["closest"][0]
+        t_q, p_q = itiled.tiled_closest_hit(arr.hair_swept, ray, q_max=2048)
+        occ_q = itiled.tiled_any_hit(arr.hair_swept, ray, q_max=2048)
+        n = p_f.shape[0]
+        same = p_f == p_q
+        agree = float(same.float().mean())
+        flags = int(((p_f >= 0) != (p_q >= 0)).sum())
+        own = int((res["any"][0] != (p_f >= 0)).sum()) \
+            + int((occ_q != (p_q >= 0)).sum())
+        rel = (t_f - t_q).abs() / t_q.abs().clamp(min=1e-30)
+        n_same = int((same & (p_f >= 0)).sum())
+        off = torch.nonzero(same & (p_f >= 0) & (rel > T_RTOL))[:, 0]
+        t_bad = []
+        for i in off.tolist():
+            m = graze_margin(arr.hair, int(p_f[i]), ray.o[i], ray.d[i],
+                             float(t_q[i]))
+            if m > GRAZE_TOL:
+                t_bad.append((float(rel[i]), float(t_q[i]),
+                              float(t_f[i] - t_q[i]), m))
+        t_bad.sort(reverse=True)
+        ties, grazes, boxed, other, worst = 0, 0, 0, 0, 0.0
+        for i in torch.nonzero(~same)[:, 0].tolist():
+            tf_, tq_ = float(t_f[i]), float(t_q[i])
+            if p_f[i] >= 0 and p_q[i] >= 0 \
+                    and abs(tf_ - tq_) <= T_RTOL * abs(tq_):
+                ties += 1
+                continue
+            near = int(p_f[i]) if tf_ <= tq_ else int(p_q[i])
+            m = graze_margin(arr.hair, near, ray.o[i], ray.d[i],
+                             min(tf_, tq_))
+            worst = max(worst, m)
+            if m <= GRAZE_TOL:
+                grazes += 1
+            elif tq_ < tf_ and outside_box(arr.hair, near, ray.o[i],
+                                           ray.d[i], tq_) > 0:
+                boxed += 1
+            else:
+                other += 1
+        log(f"F hair on the furball's {name} wave against the tiled query: "
+            f"pid agreement {agree:.6f} ({int((~same).sum())} rays differ: "
+            f"{ties} ties, {grazes} grazes, {boxed} tiled hits outside the "
+            f"hair BVH's box, {other} others; largest margin {worst:.3g}); "
+            f"{flags} closest-hit flags differ; "
+            f"of {n_same} same-pid hits {off.numel()} with t past T_RTOL, "
+            f"{len(t_bad)} of them not at a graze (the worst: rel, t, "
+            f"diff, margin {[tuple(f'{x:.3g}' for x in b) for b in t_bad[:4]]}"
+            f"); any-hit flags off their closest-hit flags: {own}")
+        require(agree >= PID_MIN_AGREE and flags <= FLAG_MAX_DIFF * n
+                and len(t_bad) <= (1.0 - PID_MIN_AGREE) * n_same
+                and own == 0,
+                f"F's hair leaf disagrees with the tiled query on the "
+                f"{name} wave: pid {agree}, {flags} flags, {len(t_bad)} t "
+                f"off a graze, any-hit {own}")
+
+
+def teapot_entry_point(reset_all, device="cuda", res_scale=1.0):
+    """Phase 12c: the CLI on the teapot stand-in as a user runs it
+    (1280 x 720, depth 65, 2 spp), then one warm-up wave and two timed
+    1-spp waves in process. Returns (s/wave, rays/wave, F's launches over
+    the timed waves, their number)."""
+    import tempfile
+    import numpy as np
+    import torch
+    from hairpt_torch.integrators import path
+    from hairpt_torch.ops import intersect_packed as ipk
+    from hairpt_torch.ops import tiled_kernels as tk
+    from hairpt_torch.scene import scene_xmls
+    from hairpt_torch.scene.xml_loader import load_scene
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(prefix="hairpt_teapot_") as tmp:
+        xml = scene_xmls.write_scene(tmp, "teapot")
+        out = os.path.join(tmp, "out", "teapot.png")
+        os.makedirs(os.path.dirname(out))
+        env = dict(os.environ, PYTHONPATH=here + os.pathsep
+                   + os.environ.get("PYTHONPATH", ""))
+        t0 = time.time()
+        proc = subprocess.run(
+            [sys.executable, "-m", "hairpt_torch.cli", "render", xml, "-o",
+             out, "--spp", "2", "--res-scale", str(res_scale)]
+            + (["--cpu"] if device == "cpu" else []),
+            cwd=here, env=env, capture_output=True, text=True, timeout=600)
+        wall = time.time() - t0
+        require(proc.returncode == 0, f"the teapot CLI exited "
+                f"{proc.returncode}:\n{proc.stderr[-3000:]}")
+        base = out[:-4]
+        for ext in ("png", "exr", "npy", "pfm"):
+            require(os.path.getsize(f"{base}.{ext}") > 0, f"no {ext} output")
+        img = np.load(f"{base}.npy")
+        w, h = (max(8, round(x * res_scale)) for x in TEAPOT_RES)
+        require(img.shape == (h, w, 3) and np.isfinite(img).all()
+                and img.mean() > 0, f"teapot CLI image {img.shape}, mean "
+                f"{img.mean()}")
+        log(f"CLI teapot ({w} x {h}, depth 65, 2 spp): exit 0 in {wall:.1f}s "
+            f"wall; image mean {img.mean():.6f}; four outputs")
+        scene = load_scene(xml, spp_override=1, res_scale=res_scale,
+                           device=device)
+    if device != "cuda":
+        return None
+    progress, times, rays, n_timed = warm_up(scene, "teapot")
+    reset_all()
+    torch.cuda.synchronize()
+    img = path.render(scene, spp=n_timed, seed=1, progress=progress)
+    torch.cuda.synchronize()
+    launches = dict(ipk.LAUNCHES)
+    plain = dict(ipk.PLAIN_ON_CUDA)
+    hair = dict(tk.LAUNCHES)
+    secs = sum(times) / len(times)
+    rays_w = sum(rays) / len(rays)
+    log(f"teapot render: {n_timed} timed waves of 1 spp at {w} x {h}, depth "
+        f"65: {rays_w:.0f} rays/wave, {secs:.3f} s/wave, "
+        f"{rays_w / secs / 1e6:.4f} Mrays/s; image mean "
+        f"{float(img.mean()):.6f}; F launches {launches} "
+        f"({launches['packed_tri_closest'] / n_timed:.1f} closest and "
+        f"{launches['packed_tri_any'] / n_timed:.1f} any per wave)")
+    require(bool(torch.isfinite(img).all()) and float(img.mean()) > 0,
+            "teapot render: non-finite or black")
+    require(launches["packed_tri_closest"] > 0
+            and launches["packed_tri_any"] > 0,
+            f"kernel F was not launched by the teapot render: {launches}")
+    require(all(v == 0 for v in plain.values()),
+            f"plain walks ran on CUDA tensors: {plain}")
+    require(all(v == 0 for v in hair.values()),
+            f"the teapot render ran a hair kernel: {hair}")
+    return secs, rays_w, launches, n_timed
+
+
+def furball_floor(reset_all):
+    """Phase 12d: the small furball over the checkerboard rectangle on the
+    card and with the plain versions on the CPU, tiled and packed: image
+    means within MEAN_RTOL; on the card the tiled render launches A, B
+    and F's triangle leaf, the packed render F's hair and triangle
+    leaves. Returns the packed render's F launches."""
+    from hairpt_torch.integrators import path
+    from hairpt_torch.ops import intersect_packed as ipk
+    from hairpt_torch.ops import tiled_kernels as tk
+    from hairpt_torch.scene.furball import furball_floor_scene
+
+    out = None
+    for trav in ("tiled", "packed"):
+        means = {}
+        for dev in ("cuda", "cpu"):
+            s = furball_floor_scene(quality=0.1, res=64, depth=8,
+                                    device=dev, traversal=trav)
+            reset_all()
+            means[dev] = float(path.render(s, spp=1).mean())
+            if dev == "cuda":
+                f_l = dict(ipk.LAUNCHES)
+                ab = dict(tk.LAUNCHES)
+                plain = dict(ipk.PLAIN_ON_CUDA, **tk.PLAIN_ON_CUDA)
+        rel = abs(means["cuda"] - means["cpu"]) / max(abs(means["cpu"]),
+                                                      1e-12)
+        log(f"furball over the checkerboard, {trav} (600 fibers, 64^2, "
+            f"depth 8): image mean card {means['cuda']:.6f}, CPU "
+            f"{means['cpu']:.6f}, rel diff {rel:.3g}; card launches: F "
+            f"{f_l}, A and B {ab}")
+        require(means["cpu"] > 0 and rel <= MEAN_RTOL,
+                f"furball over the floor ({trav}): card and CPU means "
+                f"differ by {rel}")
+        require(all(v == 0 for v in plain.values()),
+                f"plain versions ran on CUDA tensors: {plain}")
+        need = ["packed_tri_closest", "packed_tri_any"]
+        if trav == "tiled":
+            require(all(v > 0 for v in ab.values()), f"A or B was not "
+                    f"launched by the tiled floor render: {ab}")
+        else:
+            need += ["packed_hair_closest", "packed_hair_any"]
+            require(all(v == 0 for v in ab.values()), f"the packed floor "
+                    f"render ran A or B: {ab}")
+            out = f_l
+        require(all(f_l[k] > 0 for k in need),
+                f"kernel F was not launched by the {trav} floor render: "
+                f"{f_l}")
+    return out
+
+
+def f_kernel_entries(report, tri_launches, hair_launches, n_timed):
+    """The kernels line's entries for kernel F: one per instance, its time
+    on the first wave checked (the teapot's and the furball's camera
+    waves), its launches on the main path (the teapot's timed waves for
+    the triangle leaf, the packed floor render for the hair leaf)."""
+    entries = []
+    for (leaf, mode), rows in sorted(report.items()):
+        label, f = rows[0]
+        name = f"packed_{leaf}_{mode}"
+        tri = leaf == "tri"
+        entries.append(dict(
+            name=name, route="cuda", source="hairpt_torch/csrc/packed.cu",
+            replaces=F_REPLACES[mode],
+            launches=(tri_launches if tri else hair_launches)[name],
+            max_abs_err=f["max_abs_err"], ms=f["ms"],
+            plain_ms=f["plain_ms"], bound_ms=f["bound_ms"],
+            bound_by=f["bound_by"], library_ms=None,
+            visit_bytes_ms=f["visit_bytes_ms"], timed_on=label,
+            launched_by=("the teapot's timed waves (phase 12c)" if tri else
+                         "the packed floor render (phase 12d)"),
+            launches_per_wave=((tri_launches[name] / n_timed) if tri
+                               else None),
+            other_waves={lb: dict(ms=x["ms"], plain_ms=x["plain_ms"],
+                                  bound_ms=x["bound_ms"],
+                                  visit_bytes_ms=x["visit_bytes_ms"])
+                         for lb, x in rows[1:]}))
+    return entries
+
 
 def warm_up(scene, label):
     """One warm-up wave. Returns (progress callback, the lists it fills
@@ -1698,6 +2201,7 @@ def main() -> int:
     from concurrent.futures import ThreadPoolExecutor
     from hairpt_torch.integrators import path
     from hairpt_torch.ops import _native, bvh
+    from hairpt_torch.ops import intersect_packed as ipk
     from hairpt_torch.ops import intersect_swept as iswept
     from hairpt_torch.ops import intersect_tiled as itiled
     from hairpt_torch.ops import phaseb_kernels as pk
@@ -1706,6 +2210,7 @@ def main() -> int:
     def reset_all():
         tk.reset_counts()
         pk.reset_counts()
+        ipk.reset_counts()
 
     try:
         # ---- 0. the card ----
@@ -1725,9 +2230,9 @@ def main() -> int:
 
         # ---- 1. builds, all at once ----
         t0 = time.time()
-        with ThreadPoolExecutor(5) as ex:
+        with ThreadPoolExecutor(6) as ex:
             futs = [ex.submit(f) for f in (tk.lib, tk.oct_lib, pk.lib,
-                                           pk.cull_lib)]
+                                           pk.cull_lib, ipk.lib)]
             f_b = ex.submit(bvh._load_native)
             for f in futs:
                 f.result()
@@ -1735,7 +2240,7 @@ def main() -> int:
         for name, s in _native.BUILD_SECONDS.items():
             log(f"built {name} in {s:.1f}s")
         for name in ("hairpt_tiled", "hairpt_octets", "hairpt_phaseb",
-                     "hairpt_swept_cull"):
+                     "hairpt_swept_cull", "hairpt_packed"):
             for line in _native.BUILD_LOG.get(name, "").splitlines():
                 if "registers" in line or "spill" in line:
                     log(f"  ptxas {name}: {line.strip()}")
@@ -1767,6 +2272,11 @@ def main() -> int:
             f"give the dense answer; launches {oct_launches}")
         t1 = time.time()
         kernels += check_swept_kernels(scene, wv_sw)
+        t2 = time.time()
+        f_report = {}
+        furball_kernel_f(scene, wv, f_report)
+        log(f"phase 12b ({time.time() - t2:.1f}s): kernel F's hair leaf "
+            f"matches its plain walk and agrees with the tiled query")
         del wv, wv_sw
         log(f"phase 2 ({time.time() - t0:.1f}s): the swept phase A and "
             f"kernel E match their plain versions ({time.time() - t1:.1f}s)")
@@ -1962,6 +2472,25 @@ def main() -> int:
                     hbwd["launches"][k["name"]]
             if k["name"] in xml_launches:
                 k["launches_per_xml_wave"] = xml_launches[k["name"]]
+
+        # ---- 12. triangle meshes and the teapot through kernel F ----
+        t0 = time.time()
+        teapot_kernels(f_report)
+        log(f"phase 12a ({time.time() - t0:.1f}s): kernel F's triangle leaf "
+            f"matches its plain walk on the teapot's and the heightfield's "
+            f"waves")
+        t1 = time.time()
+        tea_secs, tea_rays, tea_launches, tea_n = teapot_entry_point(
+            reset_all)
+        log(f"phase 12c ({time.time() - t1:.1f}s): the teapot CLI and "
+            f"render ok")
+        t1 = time.time()
+        floor_launches = furball_floor(reset_all)
+        log(f"phase 12d ({time.time() - t1:.1f}s): the furball over the "
+            f"checkerboard agrees card against CPU")
+        kernels += f_kernel_entries(f_report, tea_launches, floor_launches,
+                                    tea_n)
+        log(f"phase 12 ({time.time() - t0:.1f}s, 12b in phase 2): ok")
         require(all(k["launches"] > 0 for k in kernels),
                 "a kernel has no launches")
     except SmokeFailure as e:

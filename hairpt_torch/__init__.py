@@ -6,14 +6,17 @@ against, never a dependency. Entry points run on the card ("cuda") unless
 the caller passes `device="cpu"`; asking for CUDA on a machine without it
 raises instead of silently falling back. The command line,
 `python -m hairpt_torch.cli render scene.xml`, renders a scene XML
-(`scene/xml_loader.py`) on the card, or on the CPU with `--cpu`.
+(`scene/xml_loader.py`: hair and triangle-mesh scenes) on the card, or
+on the CPU with `--cpu`.
 
 The hand-written CUDA kernels live in `csrc/`: the tiled intersector's
 phase-A tile cull and phase-B miter-cylinder test (`tiled.cu`, kernels A
 and B) and its octet and stream modes (`octets.cu`, C and D), bound
 through `ops/tiled_kernels.py`; the swept traversal's phase A
 (`swept_cull.cu`) and chunk test (`phaseb.cu`, kernel E), bound through
-`ops/phaseb_kernels.py`.
+`ops/phaseb_kernels.py`; the packed BVH walk over triangles (and hair
+under traversal='packed'), `packed.cu` (kernel F), bound through
+`ops/intersect_packed.py`.
 """
 from __future__ import annotations
 

@@ -21,8 +21,10 @@ from .film.film import Film
 from .models import emitters as em
 from .models.bsdf import registry as mat
 from .models.sensors import Camera
+from .ops.intersect_packed import PackedBVH
 from .ops.intersect_swept import SweptHair
-from .scene.scene import HairGeom, RenderConfig, Scene, SceneArrays
+from .scene.scene import (HairGeom, RenderConfig, Scene, SceneArrays,
+                          TriGeom, TriShading)
 
 
 def _t(a, device, dtype=None):
@@ -30,20 +32,40 @@ def _t(a, device, dtype=None):
     return torch.as_tensor(a, device=device, dtype=dtype)
 
 
+def _tuple(cls, src, dev, dtypes=None):
+    """cls (a NamedTuple of tensors) from src's attributes, or None."""
+    if src is None:
+        return None
+    dtypes = dtypes or {}
+    return cls(**{f: _t(getattr(src, f), dev, dtypes.get(f, torch.float32))
+                  for f in cls._fields})
+
+
 def convert_arrays(arrays, device=None) -> SceneArrays:
-    """JAX SceneArrays (numpy leaves; hair scene, tiled or swept
-    traversal) -> hairpt_torch SceneArrays on `device`."""
+    """JAX SceneArrays (numpy leaves) -> hairpt_torch SceneArrays on
+    `device`: triangles (their shading and packed BVH), hair (its packed
+    BVH and swept layout), materials, procedural textures, hair tables
+    and the environment. Instances, media, area and delta lights raise."""
     dev = resolve_device(device)
-    h = arrays.hair
-    sw = arrays.hair_swept
+    for name, item in (("inst", "11c"), ("media", "13"), ("tri_med", "13"),
+                       ("sss", "13"), ("area", "13"), ("delta", "13")):
+        if getattr(arrays, name, None) is not None:
+            raise NotImplementedError(f"the scene's {name} arrays are not "
+                                      f"ported yet (ROADMAP item {item})")
+    i32 = torch.int32
     m = arrays.materials
-    hair = HairGeom(p0=_t(h.p0, dev, torch.float32),
-                    p1=_t(h.p1, dev, torch.float32),
-                    radius=_t(h.radius, dev, torch.float32))
-    swept = SweptHair(*[_t(getattr(sw, f), dev, torch.float32)
-                        for f in SweptHair._fields])
+    if getattr(m, "cloth", None) is not None:
+        raise NotImplementedError("the cloth BSDF is not ported yet "
+                                  "(ROADMAP item 13)")
     materials = mat.MaterialTable(**{
         f: _t(getattr(m, f), dev) for f in mat.MaterialTable._fields})
+    ck = arrays.checkers
+    checkers = None
+    if ck is not None:
+        if (np.asarray(ck.kind) == 1).any():
+            raise NotImplementedError("bitmap textures are not ported yet "
+                                      "(ROADMAP item 11c)")
+        checkers = _tuple(mat.CheckerboardTable, ck, dev, {"kind": i32})
     ht = arrays.hair_tables
     if ht is not None:
         ht = mat.HairTables(*[None if getattr(ht, f) is None else
@@ -58,21 +80,33 @@ def convert_arrays(arrays, device=None) -> SceneArrays:
                         alias_idx=_t(e.alias_idx, dev, torch.int64),
                         alias_prob=_t(e.alias_prob, dev, torch.float32),
                         texel_pdf=_t(e.texel_pdf, dev, torch.float32))
-    return SceneArrays(hair=hair,
-                       hair_mat_id=_t(arrays.hair_mat_id, dev, torch.int32),
-                       hair_swept=swept, materials=materials,
-                       hair_tables=ht, env=env)
+    return SceneArrays(
+        tri=_tuple(TriGeom, arrays.tri, dev),
+        tri_shading=_tuple(TriShading, arrays.tri_shading, dev,
+                           {"mat_id": i32, "emitter_id": i32}),
+        tri_packed=_tuple(PackedBVH, arrays.tri_packed, dev),
+        hair=_tuple(HairGeom, arrays.hair, dev),
+        hair_mat_id=None if arrays.hair_mat_id is None
+        else _t(arrays.hair_mat_id, dev, i32),
+        hair_packed=_tuple(PackedBVH, arrays.hair_packed, dev),
+        hair_swept=_tuple(SweptHair, arrays.hair_swept, dev),
+        materials=materials, checkers=checkers, hair_tables=ht, env=env)
 
 
 def convert_scene(scene, arrays, device=None) -> Scene:
     """A JAX Scene (read for its camera, film, config and active kinds)
     plus its numpy arrays -> a hairpt_torch Scene. Its materials may be
-    any ported family (DIFFUSE, ROUGHPLASTIC and the hair kinds), its
-    environment a baked sunsky, an envmap or a constant one, its sampler
-    any of the five modes and its film any of the six filters; a thin
-    lens, radial distortion, another camera kind or film annotations
+    any ported family (DIFFUSE, PLASTIC, ROUGHPLASTIC and the hair kinds),
+    its environment a baked sunsky, an envmap or a constant one, its
+    sampler any of the five modes, its film any of the six filters and
+    its traversal 'tiled', 'swept' or 'packed'; a thin lens, radial
+    distortion, another camera kind, film annotations or motion
     raise."""
     cam = scene.camera
+    if getattr(scene, "motion", None) is not None \
+            or getattr(scene, "rebuild_geo", None) is not None:
+        raise NotImplementedError("motion is not ported yet (ROADMAP item "
+                                  "11c)")
     if int(cam.kind) != 0 or cam.aperture_radius or cam.kc0 or cam.kc1:
         raise NotImplementedError("only the pinhole perspective camera is "
                                   "ported (ROADMAP item 13)")
@@ -91,9 +125,9 @@ def convert_scene(scene, arrays, device=None) -> Scene:
     cfg = RenderConfig(**{k: v for k, v in
                           dataclasses.asdict(scene.config).items()
                           if k in fields})
-    if cfg.traversal not in ("tiled", "swept"):
-        raise NotImplementedError("only traversal='tiled' and 'swept' are "
-                                  "ported")
+    if cfg.traversal not in ("tiled", "swept", "packed"):
+        raise NotImplementedError("only traversal='tiled', 'swept' and "
+                                  "'packed' are ported (ROADMAP item 11c)")
     active = tuple(int(k) for k in scene.active_kinds)
     mat.check_kinds(active)
     return Scene(arrays=convert_arrays(arrays, device), camera=camera,

@@ -25,6 +25,12 @@ def safe_sqrt(x):
                        torch.zeros_like(x))
 
 
+def reflect_z(w):
+    """Mirror reflection about the local z axis: (-x, -y, z)."""
+    return w * torch.tensor([-1.0, -1.0, 1.0], dtype=w.dtype,
+                            device=w.device)
+
+
 class Frame(NamedTuple):
     """Orthonormal shading frame; n is the local z axis."""
     s: torch.Tensor

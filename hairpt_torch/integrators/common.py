@@ -1,5 +1,7 @@
-"""Scene intersection and shading records (port of the hair branch of
-hairpt/integrators/common.py)."""
+"""Scene intersection and shading records (port of
+hairpt/integrators/common.py): the triangles through the packed BVH walk,
+the hair through the tiled, swept or packed traversal, and the shading
+record of the nearer hit."""
 from __future__ import annotations
 
 from typing import NamedTuple
@@ -7,9 +9,11 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..core.math import Ray, Frame, normalize
+from ..core.math import Ray, Frame, dot, frame_from_normal, normalize
+from ..ops import intersect_packed as ipk
 from ..ops import intersect_swept as iswept
 from ..ops import intersect_tiled as itiled
+from ..scene.scene import TRAVERSALS
 
 
 def block_swizzle(width: int, height: int, bw: int = 8, bh: int = 8):
@@ -31,15 +35,22 @@ def block_swizzle(width: int, height: int, bw: int = 8, bh: int = 8):
 
 
 class Hit(NamedTuple):
-    valid: torch.Tensor    # [N] bool
-    t: torch.Tensor        # [N]
-    p: torch.Tensor        # [N, 3]
-    geo_n: torch.Tensor    # [N, 3]
-    sh_s: torch.Tensor     # [N, 3] shading tangent (hair: fiber axis)
-    sh_t: torch.Tensor     # [N, 3]
-    sh_n: torch.Tensor     # [N, 3]
-    mat_id: torch.Tensor   # [N] int32
-    prim: torch.Tensor     # [N] sorted hair segment id, -1 = miss
+    valid: torch.Tensor       # [N] bool
+    t: torch.Tensor           # [N]
+    p: torch.Tensor           # [N, 3]
+    geo_n: torch.Tensor       # [N, 3]
+    sh_s: torch.Tensor        # [N, 3] shading tangent (hair: fiber axis)
+    sh_t: torch.Tensor        # [N, 3]
+    sh_n: torch.Tensor        # [N, 3]
+    uv: torch.Tensor          # [N, 2]
+    mat_id: torch.Tensor      # [N] int32
+    emitter_id: torch.Tensor  # [N] int32 area light index, -1 (item 13)
+    is_hair: torch.Tensor     # [N] bool
+    uv_density: torch.Tensor  # [N] the triangle's uv density (0 off it)
+    bary: torch.Tensor        # [N, 2] triangle barycentrics (b1, b2)
+    vcolor: torch.Tensor      # [N, 3] interpolated vertex colours (1 off)
+    prim: torch.Tensor        # [N] sorted prim id (the hair table's where
+    #                           is_hair, else the triangles'), -1 = miss
 
 
 def frame(hit: Hit) -> Frame:
@@ -47,70 +58,158 @@ def frame(hit: Hit) -> Frame:
 
 
 def _check_traversal(traversal: str):
-    if traversal not in ("tiled", "swept"):
+    if traversal not in TRAVERSALS:
         raise NotImplementedError(f"traversal {traversal!r} is not ported "
-                                  f"(only 'tiled' and 'swept')")
+                                  f"(only {TRAVERSALS})")
 
 
 def scene_intersect(arr, ray: Ray, q_max: int, sort_rays: bool = False,
                     compact: bool = True, traversal: str = "tiled",
                     p_max: int = 24, chunk: int = 64) -> Hit:
-    """Closest hair hit and its shading record (hit point snapped back onto
-    the cylinder, as the reference's fillIntersectionRecord does).
-    traversal 'tiled' queries the tiled intersector (q_max slots per
-    tile, sort_rays and compact as there); 'swept' the swept traversal
+    """Closest hit against the triangles and the hair, and its shading
+    record. The triangles are walked first (the packed walk); the hair
+    ray's maxt is clipped to the triangle hit. traversal 'tiled' queries
+    the hair through the tiled intersector (q_max slots per tile,
+    sort_rays and compact as there), 'swept' through the swept traversal
     (p_max candidates per ray, chunks of `chunk` pairs), which ignores
-    sort_rays and compact as the JAX package's does."""
+    sort_rays and compact as the JAX package's does, 'packed' through the
+    packed walk. A triangle hit's barycentrics, interpolated normal, uv
+    and vertex colours are recomputed for the chosen triangle and its
+    geometric normal turned into the shading normal's hemisphere; a hair
+    hit's point is snapped back onto the cylinder, as the reference's
+    fillIntersectionRecord does."""
     _check_traversal(traversal)
     n = ray.o.shape[0]
     dev = ray.o.device
-    if traversal == "swept":
-        t_hair, prim_hair = iswept.swept_closest_hit(
-            arr.hair_swept, ray, p_max=p_max, chunk=chunk)
-    else:
-        t_hair, prim_hair = itiled.tiled_closest_hit(
-            arr.hair_swept, ray, q_max=q_max, sort_rays=sort_rays,
-            compact=compact)
-    use_hair = t_hair < float("inf")
-    t = torch.where(use_hair, t_hair, float("inf"))
-    valid = torch.isfinite(t) & (t < ray.maxt) & (prim_hair >= 0)
+    inf = torch.full((n,), float("inf"), device=dev)
+    none = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    t_tri, prim_tri = inf, none
+    if arr.tri is not None:
+        t_tri, prim_tri = ipk.closest_hit_packed(arr.tri_packed, "tri", ray)
+    t_hair, prim_hair = inf, none
+    if arr.hair is not None:
+        hair_ray = ray if arr.tri is None \
+            else ray._replace(maxt=torch.minimum(ray.maxt, t_tri))
+        if traversal == "swept":
+            t_hair, prim_hair = iswept.swept_closest_hit(
+                arr.hair_swept, hair_ray, p_max=p_max, chunk=chunk)
+        elif traversal == "packed":
+            t_hair, prim_hair = ipk.closest_hit_packed(arr.hair_packed,
+                                                       "hair", hair_ray)
+        else:
+            t_hair, prim_hair = itiled.tiled_closest_hit(
+                arr.hair_swept, hair_ray, q_max=q_max, sort_rays=sort_rays,
+                compact=compact)
+    use_hair = t_hair < t_tri
+    t = torch.where(use_hair, t_hair, t_tri)
+    valid = torch.isfinite(t) & (t < ray.maxt) \
+        & ((prim_tri >= 0) | (prim_hair >= 0))
     p = ray.o + ray.d * t[..., None]
 
-    i = torch.clamp(prim_hair, min=0).long()
-    p0 = arr.hair.p0[i]
-    p1 = arr.hair.p1[i]
-    radius = arr.hair.radius[i]
-    axis = normalize(p1 - p0)
-    rel = p - p0
-    nrad = normalize(rel - torch.sum(axis * rel, -1, keepdim=True) * axis)
-    tt = torch.linalg.cross(nrad, axis)
-    local_y = torch.sum(tt * rel, dim=-1)
-    local_z = torch.sum(nrad * rel, dim=-1)
-    shift = radius - torch.sqrt(torch.clamp(local_y ** 2 + local_z ** 2,
-                                            min=0.0))
-    p_snap = p + nrad * shift[..., None]
-    hair_sel = use_hair & (prim_hair >= 0)
-    m = hair_sel[..., None]
-
     e = torch.eye(3, device=dev)
-    geo_n = torch.where(m, nrad, e[2].expand(n, 3))
-    return Hit(valid=valid, t=t, p=torch.where(m, p_snap, p), geo_n=geo_n,
-               sh_s=torch.where(m, axis, e[0].expand(n, 3)),
-               sh_t=torch.where(m, tt, e[1].expand(n, 3)),
-               sh_n=geo_n,
-               mat_id=torch.where(hair_sel, arr.hair_mat_id[i],
-                                  torch.zeros_like(arr.hair_mat_id[i])),
-               prim=torch.where(use_hair, prim_hair, -1))
+    geo_n = e[2].expand(n, 3)
+    sh_n = geo_n
+    sh_s = e[0].expand(n, 3)
+    sh_t = e[1].expand(n, 3)
+    uv = torch.zeros((n, 2), device=dev)
+    mat_id = torch.zeros((n,), dtype=torch.int32, device=dev)
+    uv_density = torch.zeros((n,), device=dev)
+    bary = torch.zeros((n, 2), device=dev)
+    vcolor = torch.ones((n, 3), device=dev)
+
+    if arr.tri is not None:
+        i = torch.clamp(prim_tri, min=0).long()
+        p0 = arr.tri.p0[i]
+        e1 = arr.tri.e1[i]
+        e2 = arr.tri.e2[i]
+        gn = normalize(torch.linalg.cross(e1, e2))
+        # the chosen triangle's barycentrics, recomputed
+        pv = torch.linalg.cross(ray.d, e2)
+        det = dot(e1, pv)
+        inv = 1.0 / torch.where(torch.abs(det) < 1e-12, 1.0, det)
+        tv = ray.o - p0
+        b1 = dot(tv, pv) * inv
+        qv = torch.linalg.cross(tv, e1)
+        b2 = dot(ray.d, qv) * inv
+        b0 = 1.0 - b1 - b2
+        sh = arr.tri_shading
+        ns = normalize(sh.n0[i] * b0[..., None] + sh.n1[i] * b1[..., None]
+                       + sh.n2[i] * b2[..., None])
+        uvi = sh.uv0[i] * b0[..., None] + sh.uv1[i] * b1[..., None] \
+            + sh.uv2[i] * b2[..., None]
+        # the geometric normal into the shading normal's hemisphere
+        # (winding-robust: procedural stand-ins may wind either way)
+        gn = torch.where((dot(gn, ns) < 0)[..., None], -gn, gn)
+        f = frame_from_normal(ns)
+        tri_sel = ~use_hair & (prim_tri >= 0)
+        m = tri_sel[..., None]
+        geo_n = torch.where(m, gn, geo_n)
+        sh_n = torch.where(m, ns, sh_n)
+        sh_s = torch.where(m, f.s, sh_s)
+        sh_t = torch.where(m, f.t, sh_t)
+        uv = torch.where(m, uvi, uv)
+        mat_id = torch.where(tri_sel, sh.mat_id[i], mat_id)
+        uv_density = torch.where(tri_sel, sh.uv_density[i], uv_density)
+        bary = torch.where(m, torch.stack([b1, b2], -1), bary)
+        vcolor = torch.where(m, sh.vc0[i] * b0[..., None]
+                             + sh.vc1[i] * b1[..., None]
+                             + sh.vc2[i] * b2[..., None], vcolor)
+
+    if arr.hair is not None:
+        i = torch.clamp(prim_hair, min=0).long()
+        p0 = arr.hair.p0[i]
+        p1 = arr.hair.p1[i]
+        radius = arr.hair.radius[i]
+        axis = normalize(p1 - p0)
+        rel = p - p0
+        nrad = normalize(rel - torch.sum(axis * rel, -1, keepdim=True)
+                         * axis)
+        tt = torch.linalg.cross(nrad, axis)
+        local_y = torch.sum(tt * rel, dim=-1)
+        local_z = torch.sum(nrad * rel, dim=-1)
+        shift = radius - torch.sqrt(torch.clamp(local_y ** 2 + local_z ** 2,
+                                                min=0.0))
+        p_snap = p + nrad * shift[..., None]
+        hair_sel = use_hair & (prim_hair >= 0)
+        m = hair_sel[..., None]
+        p = torch.where(m, p_snap, p)
+        geo_n = torch.where(m, nrad, geo_n)
+        sh_n = torch.where(m, nrad, sh_n)
+        sh_s = torch.where(m, axis, sh_s)
+        sh_t = torch.where(m, tt, sh_t)
+        mat_id = torch.where(hair_sel, arr.hair_mat_id[i], mat_id)
+
+    return Hit(valid=valid, t=t, p=p, geo_n=geo_n, sh_s=sh_s, sh_t=sh_t,
+               sh_n=sh_n, uv=uv, mat_id=mat_id,
+               emitter_id=torch.full((n,), -1, dtype=torch.int32,
+                                     device=dev),
+               is_hair=use_hair & valid, uv_density=uv_density, bary=bary,
+               vcolor=vcolor,
+               prim=torch.where(use_hair, prim_hair, prim_tri))
 
 
 def scene_occluded(arr, ray: Ray, q_max: int, sort_rays: bool = False,
                    compact: bool = True, traversal: str = "tiled",
                    p_max: int = 24, chunk: int = 64):
-    """[N] bool: does the ray hit any hair segment in [mint, maxt]. The
-    traversal and its parameters as in scene_intersect."""
+    """[N] bool: does the ray hit a triangle or a hair segment in [mint,
+    maxt]. The triangles are walked first; a hair shadow ray starts with
+    maxt = 0 where a triangle already occludes. The traversal and its
+    parameters as in scene_intersect."""
     _check_traversal(traversal)
-    if traversal == "swept":
-        return iswept.swept_any_hit(arr.hair_swept, ray, p_max=p_max,
-                                    chunk=chunk)
-    return itiled.tiled_any_hit(arr.hair_swept, ray, q_max=q_max,
-                                sort_rays=sort_rays, compact=compact)
+    occ = torch.zeros(ray.o.shape[:1], dtype=torch.bool, device=ray.o.device)
+    if arr.tri is not None:
+        occ = occ | ipk.any_hit_packed(arr.tri_packed, "tri", ray)
+    if arr.hair is not None:
+        ray2 = ray if arr.tri is None \
+            else ray._replace(maxt=torch.where(occ, 0.0, ray.maxt))
+        if traversal == "swept":
+            occ = occ | iswept.swept_any_hit(arr.hair_swept, ray2,
+                                             p_max=p_max, chunk=chunk)
+        elif traversal == "packed":
+            occ = occ | ipk.any_hit_packed(arr.hair_packed, "hair", ray2)
+        else:
+            occ = occ | itiled.tiled_any_hit(arr.hair_swept, ray2,
+                                             q_max=q_max,
+                                             sort_rays=sort_rays,
+                                             compact=compact)
+    return occ

@@ -238,7 +238,8 @@ def make_li_fn(scene, differentiable: bool = False, antithetic=False):
         wi = fr.to_local(wi_world)
         if cfg.strict_normals:
             active = active & ~(dot(d_in, geo_n) * wi[..., 2] >= 0)
-        gm = mat.gather(arr.materials, hit.mat_id)
+        gm = mat.gather(arr.materials, arr.checkers, hit.mat_id, hit.uv,
+                        hit.bary, hit.vcolor)
 
         # ---- NEE ----
         u_sel = smp.next_1d(dims + D_NEE_SEL)
@@ -434,7 +435,7 @@ def render(scene, seed: int = 0, spp: int | None = None,
     spp = spp if spp is not None else cfg.spp
     fl = scene.film
     arr = scene.arrays
-    dev = arr.hair.p0.device
+    dev = arr.device
     n_pix = cfg.width * cfg.height
     li_fn = make_li_fn(scene)
     swz = block_swizzle(cfg.width, cfg.height)

@@ -175,7 +175,8 @@ def make_prb_grad_fn(scene, loss_fn=None):
 
             # ---- theta-dependent locals: NEE contribution, bounce weight
             with torch.enable_grad():
-                gm = mat.gather(mats_g, hit.mat_id)
+                gm = mat.gather(mats_g, arr.checkers, hit.mat_id, hit.uv,
+                                hit.bary, hit.vcolor)
                 f_nee, bsdf_pdf_nee = mat.eval_pdf_mix(
                     active_kinds, mats_g, hit.mat_id, gm, wi, wo_nee, ht_g)
                 w_nee = torch.where(is_dl, 1.0,

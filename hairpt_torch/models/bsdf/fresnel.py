@@ -1,6 +1,7 @@
 """Dielectric Fresnel term (port of hairpt/models/bsdf/fresnel.py)."""
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ...core.math import safe_sqrt
@@ -23,3 +24,19 @@ def fresnel_dielectric(cos_theta_i, eta):
     R = torch.where(tir, 1.0, 0.5 * (rs * rs + rp * rp))
     cos_theta_t = torch.where(tir, 0.0, torch.where(outside, -cos_t, cos_t))
     return R, cos_theta_t
+
+
+def fresnel_diffuse_reflectance(eta: float, n: int = 4096) -> float:
+    """Average Fresnel reflectance for cosine-distributed illumination
+    (host-side numeric integral; reference: util.cpp
+    fresnelDiffuseReflectance, exact branch)."""
+    mu = (np.arange(n) + 0.5) / n
+    eta_rel = eta
+    cos_i = mu
+    sin2_t = (1 - cos_i ** 2) / eta_rel ** 2
+    tir = sin2_t >= 1.0
+    cos_t = np.sqrt(np.maximum(1 - sin2_t, 0))
+    rs = (cos_i - eta_rel * cos_t) / (cos_i + eta_rel * cos_t)
+    rp = (eta_rel * cos_i - cos_t) / (eta_rel * cos_i + cos_t)
+    R = np.where(tir, 1.0, 0.5 * (rs ** 2 + rp ** 2))
+    return float(2.0 * np.sum(R * mu) / n)

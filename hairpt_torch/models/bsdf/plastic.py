@@ -1,5 +1,6 @@
-"""Rough plastic, the furball's material (port of
-hairpt/models/bsdf/plastic.py::RoughPlastic; reference roughplastic.cpp).
+"""Smooth plastic, the teapot's material, and rough plastic, the
+furball's (port of hairpt/models/bsdf/plastic.py's Plastic and
+RoughPlastic; reference plastic.cpp and roughplastic.cpp).
 
 The microfacet distribution is a per-lane value: both closed forms are
 evaluated and lane-selected."""
@@ -10,7 +11,7 @@ import math
 import torch
 
 from ...core import warps
-from ...core.math import normalize
+from ...core.math import normalize, reflect_z
 from . import microfacet as mf
 from . import registry as R
 from .fresnel import fresnel_dielectric
@@ -47,6 +48,61 @@ def _dyn_pdf_m(dist, alpha, wi, m):
 
 def _half(wi, wo):
     return normalize(wi + wo)
+
+
+class Plastic:
+    """A delta specular lobe over a Fresnel-compensated diffuse base."""
+
+    @staticmethod
+    def _diffuse_term(gm, wi, wo):
+        F_i, _ = fresnel_dielectric(_cos(wi), gm.eta)
+        F_o, _ = fresnel_dielectric(_cos(wo), gm.eta)
+        inv_eta2 = 1.0 / (gm.eta * gm.eta)
+        diff = gm.diffuse
+        comp = torch.where(gm.nonlinear[..., None],
+                           1.0 - diff * gm.int_fdr[..., None],
+                           (1.0 - gm.int_fdr)[..., None])
+        diff = diff / torch.clamp(comp, min=1e-6)
+        return diff * (INV_PI * torch.clamp(_cos(wo), min=0.0)
+                       * (1.0 - F_i) * (1.0 - F_o) * inv_eta2)[..., None]
+
+    @staticmethod
+    def _prob_spec(gm, wi):
+        F_i, _ = fresnel_dielectric(_cos(wi), gm.eta)
+        sw = gm.spec_weight
+        return (F_i * sw) / torch.clamp(F_i * sw + (1.0 - F_i) * (1.0 - sw),
+                                        min=1e-7)
+
+    @staticmethod
+    def eval_pdf(gm, wi, wo, aux=None):
+        valid = (_cos(wi) > 0) & (_cos(wo) > 0)
+        f = Plastic._diffuse_term(gm, wi, wo)
+        p_spec = Plastic._prob_spec(gm, wi)
+        pdf = warps.square_to_cosine_hemisphere_pdf(wo) * (1.0 - p_spec)
+        return (torch.where(valid[..., None], f, 0.0),
+                torch.where(valid, pdf, 0.0))
+
+    @staticmethod
+    def sample(gm, wi, u_lobe, u2, u2b, aux=None):
+        n = wi.shape[:-1]
+        valid = _cos(wi) > 0
+        F_i, _ = fresnel_dielectric(_cos(wi), gm.eta)
+        p_spec = Plastic._prob_spec(gm, wi)
+        choose_spec = u_lobe <= p_spec
+        wo_spec = reflect_z(wi)
+        wo_diff = warps.square_to_cosine_hemisphere(u2)
+        wo = torch.where(choose_spec[..., None], wo_spec, wo_diff)
+        w_spec = gm.specular \
+            * (F_i / torch.clamp(p_spec, min=1e-7))[..., None]
+        diff_pdf = warps.square_to_cosine_hemisphere_pdf(wo_diff) \
+            * (1.0 - p_spec)
+        w_diff = Plastic._diffuse_term(gm, wi, wo_diff) \
+            / torch.clamp(diff_pdf, min=1e-9)[..., None]
+        weight = torch.where(choose_spec[..., None], w_spec, w_diff)
+        weight = torch.where(valid[..., None], weight, 0.0)
+        pdf = torch.where(choose_spec, p_spec, diff_pdf)
+        pdf = torch.where(valid, pdf, 0.0)
+        return wo, weight, pdf, choose_spec, torch.ones(n, device=wi.device)
 
 
 class RoughPlastic:
@@ -108,4 +164,5 @@ class RoughPlastic:
                 torch.ones(n, device=wi.device))
 
 
+R.register(R.PLASTIC, Plastic)
 R.register(R.ROUGHPLASTIC, RoughPlastic)

@@ -1,15 +1,18 @@
 """Switch-free BSDF dispatch over material tables (port of the parts of
-hairpt/models/bsdf/registry.py the hair scenes use).
+hairpt/models/bsdf/registry.py the hair and mesh scenes use).
 
 Materials live in an SoA table; a shading wave gathers its per-lane
 parameters and every family present in the scene is evaluated and
-lane-selected by kind. Ported families: DIFFUSE (simple.py),
-ROUGHPLASTIC (plastic.py) and the hair BSDFs KAJIYAKAY, MARSCHNER, MARSCHNER_PURE and
-MARSCHNERDIELECTRIC (hair.py), whose Marschner kinds read the stacked
-azimuthal tables (HairTables) through the `hair_tables` argument. The
-scenes have no textures and no wrapper materials, so gather is a plain
-table lookup, eval_pdf_mix / sample_mix equal eval_pdf / sample and
-perturb_shading_frame is the identity.
+lane-selected by kind. Ported families: DIFFUSE (simple.py), PLASTIC
+and ROUGHPLASTIC (plastic.py) and the hair BSDFs KAJIYAKAY, MARSCHNER,
+MARSCHNER_PURE and MARSCHNERDIELECTRIC (hair.py), whose Marschner kinds
+read the stacked azimuthal tables (HairTables) through the
+`hair_tables` argument. gather resolves a material's diffuse
+reflectance through its procedural texture (CheckerboardTable: the
+checkerboard, gridtexture, wireframe and vertexcolors kinds; bitmaps,
+mips and normal or bump maps are ROADMAP item 11c). The scenes have no
+wrapper materials, so eval_pdf_mix / sample_mix equal eval_pdf / sample
+and perturb_shading_frame is the identity.
 
 Conventions (as in the reference's bsdf.h): wi, wo in the local shading
 frame, +z the shading normal; eval returns f(wi, wo) |cos theta_o|;
@@ -54,6 +57,13 @@ MARSCHNER_PURE = 23     # corrected-mode Marschner (true 3-lobe mixture
 
 N_COS = 64  # resolution of the per-material external-transmittance slice
 
+# texture kinds of the JAX package's CheckerboardTable (1, the bitmap, is
+# ROADMAP item 11c)
+TEX_CHECKER = 0
+TEX_GRID = 2
+TEX_WIREFRAME = 3
+TEX_VERTEXCOLORS = 4
+
 
 class MaterialTable(NamedTuple):
     """SoA material parameters, [M] leading axis."""
@@ -74,6 +84,19 @@ class MaterialTable(NamedTuple):
     beta_r: torch.Tensor       # [M] hair longitudinal roughness
     scale_tilt: torch.Tensor   # [M] hair scale tilt (radians)
     aux_id: torch.Tensor       # [M] int32 row of the hair tables (-1 none)
+    tex_id: torch.Tensor       # [M] int32 row of the texture table (-1 none)
+
+
+class CheckerboardTable(NamedTuple):
+    """Procedural textures, [T] leading axis (reference:
+    src/textures/{checkerboard,gridtexture,wireframe,vertexcolors}.cpp)."""
+    kind: torch.Tensor       # [T] int32: TEX_CHECKER, TEX_GRID,
+    #                          TEX_WIREFRAME or TEX_VERTEXCOLORS
+    color0: torch.Tensor     # [T, 3]
+    color1: torch.Tensor     # [T, 3]
+    uv_scale: torch.Tensor   # [T, 2]
+    uv_offset: torch.Tensor  # [T, 2]
+    aux: torch.Tensor        # [T] the grid's or wireframe's line width
 
 
 class HairTables(NamedTuple):
@@ -113,7 +136,7 @@ def default_material_row(**over):
                exponent=30.0, alpha=0.1, dist=0, eta=1.5, nonlinear=False,
                spec_weight=0.5, ext_trans=np.ones(N_COS), int_fdr=0.0,
                sigma_a=(0.5, 0.5, 0.5), beta_r=0.1, scale_tilt=-0.1,
-               aux_id=-1)
+               aux_id=-1, tex_id=-1)
     row.update(over)
     return row
 
@@ -134,7 +157,67 @@ def pack_materials(rows, device=None) -> MaterialTable:
         nonlinear=arr("nonlinear", bool), spec_weight=arr("spec_weight"),
         ext_trans=arr("ext_trans"), int_fdr=arr("int_fdr"),
         sigma_a=arr("sigma_a"), beta_r=arr("beta_r"),
-        scale_tilt=arr("scale_tilt"), aux_id=arr("aux_id", np.int32))
+        scale_tilt=arr("scale_tilt"), aux_id=arr("aux_id", np.int32),
+        tex_id=arr("tex_id", np.int32))
+
+
+def pack_checkers(rows, device=None) -> CheckerboardTable:
+    """Texture rows (kind, color0, color1, uv_scale, uv_offset, aux) as a
+    table on `device`."""
+    device = resolve_device(device)
+
+    def arr(i, dtype=np.float32):
+        return torch.as_tensor(np.array([r[i] for r in rows], dtype=dtype),
+                               device=device)
+    return CheckerboardTable(kind=arr(0, np.int32), color0=arr(1),
+                             color1=arr(2), uv_scale=arr(3),
+                             uv_offset=arr(4), aux=arr(5))
+
+
+def _fmod1(x):
+    """x mod 1 with the sign of the divisor (jnp.mod's rule)."""
+    r = torch.fmod(x, 1.0)
+    return torch.where((r != 0) & (r < 0), r + 1.0, r)
+
+
+def eval_checkerboard(tex, tex_id, uv, base, bary=None, vcolor=None):
+    """The textured reflectance; lanes with tex_id < 0 keep `base` (the
+    JAX package's eval_checkerboard for its procedural kinds)."""
+    if tex is None:
+        return base
+    tid = torch.clamp(tex_id, min=0).long()
+    scale = tex.uv_scale[tid]
+    off = tex.uv_offset[tid]
+    kind = tex.kind[tid]
+    c0 = tex.color0[tid]
+    c1 = tex.color1[tid]
+    su = uv[..., 0] * scale[..., 0] + off[..., 0]
+    sv = uv[..., 1] * scale[..., 1] + off[..., 1]
+    # checkerboard (reference checkerboard.cpp:66-74): 2 x 2 tiles per
+    # scaled-uv unit, truncating int conversion, same parity -> color0
+    x = torch.remainder(torch.trunc(su * 2.0).to(torch.int32), 2)
+    y = torch.remainder(torch.trunc(sv * 2.0).to(torch.int32), 2)
+    val = torch.where((x == y)[..., None], c0, c1)
+    # gridtexture: color1 lines of width lineWidth along the cell borders
+    lw = tex.aux[tid] * 0.5
+    fu = _fmod1(su)
+    fv = _fmod1(sv)
+    on_line = (torch.minimum(fu, 1.0 - fu) < lw) \
+        | (torch.minimum(fv, 1.0 - fv) < lw)
+    val_gr = torch.where(on_line[..., None], c1, c0)
+    val = torch.where((kind == TEX_GRID)[..., None], val_gr, val)
+    # wireframe: color1 near the triangle's edges (barycentric distance)
+    if bary is not None:
+        b1 = bary[..., 0]
+        b2 = bary[..., 1]
+        b0 = 1.0 - b1 - b2
+        edge = torch.minimum(torch.minimum(b0, b1), b2) < tex.aux[tid]
+        val_wf = torch.where(edge[..., None], c1, c0)
+        val = torch.where((kind == TEX_WIREFRAME)[..., None], val_wf, val)
+    # vertexcolors: the interpolated vertex colours
+    if vcolor is not None:
+        val = torch.where((kind == TEX_VERTEXCOLORS)[..., None], vcolor, val)
+    return torch.where((tex_id >= 0)[..., None], val, base)
 
 
 class _Rows(torch.autograd.Function):
@@ -159,11 +242,19 @@ class _Rows(torch.autograd.Function):
                             for j in range(ctx.rows)]), None
 
 
-def gather(table: MaterialTable, mat_id) -> GatheredMat:
+def gather(table: MaterialTable, tex, mat_id, uv=None, bary=None,
+           vcolor=None) -> GatheredMat:
+    """Each lane's material row, its diffuse reflectance resolved through
+    its texture (tex: a CheckerboardTable or None; uv, bary and vcolor
+    the hit's)."""
     m = torch.clamp(mat_id, min=0).long()
     fields = [getattr(table, f) for f in GatheredMat._fields]
-    return GatheredMat(*[_Rows.apply(v, m) if v.requires_grad else v[m]
-                         for v in fields])
+    gm = GatheredMat(*[_Rows.apply(v, m) if v.requires_grad else v[m]
+                       for v in fields])
+    if tex is None:
+        return gm
+    return gm._replace(diffuse=eval_checkerboard(
+        tex, table.tex_id[m], uv, gm.diffuse, bary, vcolor))
 
 
 def ext_trans_lookup(gm: GatheredMat, cos_theta):

@@ -1,4 +1,5 @@
-"""bench.py's north-star furball through the port's SceneBuilder."""
+"""bench.py's north-star furball through the port's SceneBuilder, alone
+or over a checkerboard floor."""
 from __future__ import annotations
 
 import numpy as np
@@ -6,6 +7,7 @@ import numpy as np
 from ..core import rng
 from ..film.film import Film
 from ..models import emitters as em
+from ..models import shapes as shp
 from ..models.bsdf import registry as mat
 from ..models.sensors import Camera
 from . import hairgen
@@ -57,3 +59,43 @@ def furball_scene(quality: float = 14.0, res: int = 1024, depth: int = 65,
                    max_depth=depth, sampler=(rng.SOBOL_QMC, m_res, res),
                    traversal=traversal, swept_k=128, tiled_q=q,
                    nee_rr=nee_rr)
+
+
+# the floor of furball_floor_scene: the rectangle ([-1, 1]^2, +z) scaled
+# by 8, turned to face +y and put under the fur's droop at y = 7; a
+# twosided diffuse with a checkerboard of 8 x 8 tiles per uv unit
+FLOOR_TO_WORLD = np.array([[8.0, 0.0, 0.0, 0.0],
+                           [0.0, 0.0, 8.0, 7.0],
+                           [0.0, -8.0, 0.0, 0.0],
+                           [0.0, 0.0, 0.0, 1.0]])
+FLOOR_CHECKER = dict(color0=(0.7, 0.7, 0.7), color1=(0.15, 0.15, 0.15),
+                     uscale=8.0, vscale=8.0)
+
+
+def furball_floor_scene(quality: float = 0.1, res: int = 64, depth: int = 8,
+                        spp: int = 1, device=None, q: int = 64,
+                        traversal: str = "tiled") -> Scene:
+    """The furball (bench.py's rough plastic; below quality 1 the fibers
+    thicken by 1 / sqrt(quality), the scene loader's stand-in rule, which
+    keeps the fur's coverage) over a checkerboard rectangle, framed by
+    bench.py's camera:
+    a hair scene with a mesh in it, its hair through the tiled, swept or
+    packed traversal and its triangles through the packed walk. No
+    shadow-ray RR."""
+    b = SceneBuilder(device=device)
+    m = b.add_material(**MATERIALS["roughplastic"])
+    tex = b.add_checkerboard(**FLOOR_CHECKER)
+    floor = b.add_material(kind=mat.DIFFUSE, twosided=True, tex_id=tex)
+    b.add_mesh(shp.rectangle(), floor, to_world=FLOOR_TO_WORLD)
+    b.add_fibers(hairgen.gen_furball(
+        n_fibers=int(6000 * quality),
+        radius=0.00216667 / np.sqrt(min(quality, 1.0))), m)
+    b.env = em.bake_sunsky((-0.376047, 0.758426, 0.532333), turbidity=3.0,
+                           sky_scale=5.0, sun_scale=19.0912,
+                           sun_radius_scale=37.9165, res=256,
+                           device=b.device)
+    cam = Camera.perspective(CAM_TO_WORLD, 35.0, res, res)
+    m_res = max(1, int(np.ceil(np.log2(res))))
+    return b.build(cam, Film.make(res, res, "tent"), spp=spp,
+                   max_depth=depth, sampler=(rng.SOBOL_QMC, m_res, res),
+                   traversal=traversal, swept_k=128, tiled_q=q)

@@ -1,6 +1,13 @@
-"""Scene assembly for the hair scenes (port of the hair branch of
-hairpt/scene/scene.py): host-side build -> torch arrays on the device +
-static config."""
+"""Scene assembly (port of hairpt/scene/scene.py): host-side build ->
+torch arrays on the device + static config.
+
+Triangle meshes are flattened into one triangle pool and hair fibers into
+one segment pool, each under its own SAH BVH; materials, procedural
+textures and the environment become tables. The triangles are walked by
+the packed BVH walk (ops/intersect_packed.py, kernel F on the card); the
+hair by the tiled or the swept traversal, or by the packed walk under
+traversal='packed'.
+"""
 from __future__ import annotations
 
 import dataclasses
@@ -13,31 +20,72 @@ from .. import resolve_device
 from ..core import rng
 from ..film.film import Film
 from ..models import emitters as em
+from ..models import shapes as shp
 from ..models.bsdf import registry as mat
 from ..models.bsdf import hair as hair_bsdf  # registers the hair kinds
-from ..models.bsdf import plastic  # noqa: F401  (registers ROUGHPLASTIC)
+from ..models.bsdf import plastic  # noqa: F401  (registers the plastics)
 from ..models.bsdf import simple  # noqa: F401  (registers DIFFUSE)
 from ..models.bsdf import tables as rt_tables
+from ..models.bsdf.fresnel import fresnel_diffuse_reflectance
 from ..models.sensors import Camera
 from ..ops import bvh as bvh_mod
+from ..ops import intersect_packed as ipk
 from ..ops import intersect_swept as iswept
 from . import hairgen
+
+ITEM_11C = "ROADMAP item 11c"
+ITEM_13 = "ROADMAP item 13"
+TRAVERSALS = ("tiled", "swept", "packed")
+
+
+class TriGeom(NamedTuple):
+    """Triangles in BVH prim order (the ids the walk returns)."""
+    p0: torch.Tensor   # [N, 3]
+    e1: torch.Tensor   # [N, 3] v1 - v0
+    e2: torch.Tensor   # [N, 3] v2 - v0
+
+
+class TriShading(NamedTuple):
+    """Per-triangle shading attributes, in BVH prim order."""
+    n0: torch.Tensor          # [N, 3] vertex normals
+    n1: torch.Tensor
+    n2: torch.Tensor
+    uv0: torch.Tensor         # [N, 2]
+    uv1: torch.Tensor
+    uv2: torch.Tensor
+    mat_id: torch.Tensor      # [N] int32
+    emitter_id: torch.Tensor  # [N] int32, -1 (area lights: item 13)
+    uv_density: torch.Tensor  # [N] sqrt(uv area / world area)
+    vc0: torch.Tensor         # [N, 3] vertex colours (default 1)
+    vc1: torch.Tensor
+    vc2: torch.Tensor
 
 
 class HairGeom(NamedTuple):
     """Hair segments in BVH prim order (the ids the intersector returns)."""
     p0: torch.Tensor      # [S, 3]
     p1: torch.Tensor      # [S, 3]
+    n0: torch.Tensor      # [S, 3] first miter plane normal
+    n1: torch.Tensor      # [S, 3] second miter plane normal
     radius: torch.Tensor  # [S]
 
 
 class SceneArrays(NamedTuple):
-    hair: HairGeom
-    hair_mat_id: torch.Tensor       # [S] int32
-    hair_swept: iswept.SweptHair
+    tri: Optional[TriGeom]
+    tri_shading: Optional[TriShading]
+    tri_packed: Optional[ipk.PackedBVH]
+    hair: Optional[HairGeom]
+    hair_mat_id: Optional[torch.Tensor]     # [S] int32
+    hair_packed: Optional[ipk.PackedBVH]
+    hair_swept: Optional[iswept.SweptHair]
     materials: mat.MaterialTable
+    checkers: Optional[mat.CheckerboardTable]
     hair_tables: Optional[mat.HairTables]
     env: Optional[em.EnvMap]
+
+    @property
+    def device(self) -> torch.device:
+        return self.materials.kind.device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,7 +100,7 @@ class RenderConfig:
     strict_normals: bool = True
     sampler: object = rng.INDEPENDENT   # or (rng.SOBOL_QMC, m, width)
     ray_eps: float = 1e-3
-    traversal: str = "tiled"    # 'tiled' | 'swept'
+    traversal: str = "tiled"    # the hair's: 'tiled' | 'swept' | 'packed'
     swept_k: int = 128          # segments per cluster
     swept_c: int = 0            # cluster count (filled at build)
     swept_pmax: int = 24        # phase-A candidate clusters per ray ('swept')
@@ -71,16 +119,31 @@ class Scene(NamedTuple):
     marschner_rows: tuple = ()  # material-row index per hair-table aux_id
 
 
+def _uv_density(uv0, uv1, uv2, e1, e2):
+    """sqrt(uv area / world area) per triangle: a world-space footprint
+    in uv units (the JAX package's mip LOD factor)."""
+    a = uv1 - uv0
+    b = uv2 - uv0
+    uv_area = 0.5 * np.abs(a[:, 0] * b[:, 1] - a[:, 1] * b[:, 0])
+    w_area = 0.5 * np.linalg.norm(np.cross(e1, e2), axis=1)
+    return np.sqrt(uv_area / np.maximum(w_area, 1e-20))
+
+
 class SceneBuilder:
-    """Imperative host-side builder: materials, fibers and an environment,
-    then build() puts the arrays on `device` (the card unless "cpu")."""
+    """Imperative host-side builder: materials, textures, meshes, fibers
+    and an environment, then build() puts the arrays on `device` (the card
+    unless "cpu")."""
 
     def __init__(self, device=None):
         self.device = resolve_device(device)
+        self.tri_meshes = []       # (Mesh in world space, mat_id)
         self.fibers = []
         self.materials = []
+        self.checkers = []         # procedural texture rows
         self.hair_aux = []         # (sigma_a, beta_r, eta) per hair table
         self.env: Optional[em.EnvMap] = None
+
+    # -- materials and textures --------------------------------------------
 
     def add_material(self, **row) -> int:
         kind = row.get("kind", mat.DIFFUSE)
@@ -95,6 +158,9 @@ class SceneBuilder:
             row["ext_trans"] = rt.eval_np(cosg, np.full(mat.N_COS, alpha))
             row["int_fdr"] = 1.0 - rt_tables.get(dist, 1.0 / eta) \
                 .eval_diffuse_np(alpha)
+        if kind == mat.PLASTIC:
+            row["int_fdr"] = fresnel_diffuse_reflectance(
+                1.0 / row.get("eta", 1.5))
         if kind in (mat.MARSCHNER, mat.MARSCHNER_PURE):
             row["aux_id"] = len(self.hair_aux)
             self.hair_aux.append((row.get("sigma_a", (0.5, 0.5, 0.5)),
@@ -113,24 +179,132 @@ class SceneBuilder:
         self.materials.append(mat.default_material_row(**row))
         return len(self.materials) - 1
 
+    def add_checkerboard(self, color0, color1, uscale=1.0, vscale=1.0,
+                         uoffset=0.0, voffset=0.0) -> int:
+        """reference: src/textures/checkerboard.cpp"""
+        self.checkers.append((mat.TEX_CHECKER, color0, color1,
+                              (uscale, vscale), (uoffset, voffset), 0.01))
+        return len(self.checkers) - 1
+
+    def add_gridtexture(self, color0, color1, line_width=0.01, uscale=1.0,
+                        vscale=1.0, uoffset=0.0, voffset=0.0) -> int:
+        """reference: src/textures/gridtexture.cpp"""
+        self.checkers.append((mat.TEX_GRID, color0, color1,
+                              (uscale, vscale), (uoffset, voffset),
+                              line_width))
+        return len(self.checkers) - 1
+
+    def add_wireframe_texture(self, color0=(0.1,) * 3, color1=(0.6,) * 3,
+                              line_width=0.05) -> int:
+        """reference: src/textures/wireframe.cpp (edge distance in
+        barycentric units)"""
+        self.checkers.append((mat.TEX_WIREFRAME, color0, color1, (1.0, 1.0),
+                              (0.0, 0.0), line_width))
+        return len(self.checkers) - 1
+
+    def add_vertexcolor_texture(self) -> int:
+        """reference: src/textures/vertexcolors.cpp"""
+        self.checkers.append((mat.TEX_VERTEXCOLORS, (1, 1, 1), (1, 1, 1),
+                              (1.0, 1.0), (0.0, 0.0), 0.01))
+        return len(self.checkers) - 1
+
+    def add_bitmap_texture(self, *args, **kw):
+        raise NotImplementedError("bitmap textures, mips and EWA are not "
+                                  f"ported yet ({ITEM_11C})")
+
+    # -- geometry ----------------------------------------------------------
+
+    def add_mesh(self, mesh: shp.Mesh, mat_id: int, to_world=None,
+                 radiance=None, motion=None):
+        if radiance is not None:
+            raise NotImplementedError("area lights are not ported yet "
+                                      f"({ITEM_13})")
+        if motion is not None:
+            raise NotImplementedError("mesh motion is not ported yet "
+                                      f"({ITEM_11C})")
+        if to_world is not None:
+            mesh = shp.transform_mesh(mesh, to_world)
+        self.tri_meshes.append((mesh, mat_id))
+
     def add_fibers(self, fs: hairgen.FiberSet, mat_id: int):
         """One FiberSet (gen_hair_curl's clumps are added one by one, as
         in the JAX package)."""
         self.fibers.append((fs, mat_id))
 
-    def build(self, camera: Camera, film: Film, **config_kwargs) -> Scene:
-        if "traversal" not in config_kwargs:
-            config_kwargs["traversal"] = "tiled"
-            config_kwargs.setdefault("tiled_q", 2048)
-        if config_kwargs["traversal"] not in ("tiled", "swept"):
-            raise NotImplementedError("only traversal='tiled' and 'swept' "
-                                      "are ported")
-        if not self.fibers:
-            raise NotImplementedError("the port renders hair scenes only")
-        cfg = RenderConfig(width=film.width, height=film.height,
-                           **config_kwargs)
-        dev = self.device
+    # -- build -------------------------------------------------------------
 
+    def _build_triangles(self, t):
+        """(TriGeom, TriShading, PackedBVH) of the meshes: the JAX
+        package's triangle block, dtype for dtype."""
+        v0l, v1l, v2l, n0l, n1l, n2l = [], [], [], [], [], []
+        uv0l, uv1l, uv2l, midl, vc0l, vc1l, vc2l = [], [], [], [], [], [], []
+        for mesh, mid in self.tri_meshes:
+            f = mesh.faces
+            p = mesh.positions
+            v0, v1, v2 = p[f[:, 0]], p[f[:, 1]], p[f[:, 2]]
+            v0l.append(v0)
+            v1l.append(v1)
+            v2l.append(v2)
+            if mesh.normals is not None:
+                nn = mesh.normals
+                n0l.append(nn[f[:, 0]])
+                n1l.append(nn[f[:, 1]])
+                n2l.append(nn[f[:, 2]])
+            else:
+                gn = np.cross(v1 - v0, v2 - v0)
+                gn /= np.maximum(np.linalg.norm(gn, axis=-1, keepdims=True),
+                                 1e-20)
+                n0l.append(gn)
+                n1l.append(gn)
+                n2l.append(gn)
+            if mesh.uvs is not None:
+                uv = mesh.uvs
+                uv0l.append(uv[f[:, 0]])
+                uv1l.append(uv[f[:, 1]])
+                uv2l.append(uv[f[:, 2]])
+            else:
+                z = np.zeros((len(f), 2))
+                uv0l.append(z)
+                uv1l.append(z)
+                uv2l.append(z)
+            midl.append(np.full(len(f), mid, np.int32))
+            if mesh.colors is not None:
+                cc = mesh.colors
+                vc0l.append(cc[f[:, 0]])
+                vc1l.append(cc[f[:, 1]])
+                vc2l.append(cc[f[:, 2]])
+            else:
+                one = np.ones((len(f), 3), np.float32)
+                vc0l.append(one)
+                vc1l.append(one)
+                vc2l.append(one)
+        cat = np.concatenate
+        v0, v1, v2 = cat(v0l), cat(v1l), cat(v2l)
+        fb = bvh_mod.build(np.minimum(np.minimum(v0, v1), v2),
+                           np.maximum(np.maximum(v0, v1), v2))
+        o = fb.prim_order
+        f32 = torch.float32
+        tri = TriGeom(p0=t(v0[o], f32), e1=t((v1 - v0)[o], f32),
+                      e2=t((v2 - v0)[o], f32))
+        rows = ipk.tri_pack_rows(v0[o].astype(np.float32),
+                                 v1[o].astype(np.float32),
+                                 v2[o].astype(np.float32),
+                                 np.arange(len(o), dtype=np.int32))
+        packed = ipk.pack_bvh(fb, rows, device=self.device)
+        shading = TriShading(
+            n0=t(cat(n0l)[o], f32), n1=t(cat(n1l)[o], f32),
+            n2=t(cat(n2l)[o], f32), uv0=t(cat(uv0l)[o], f32),
+            uv1=t(cat(uv1l)[o], f32), uv2=t(cat(uv2l)[o], f32),
+            mat_id=t(cat(midl)[o], torch.int32),
+            emitter_id=t(np.full(len(o), -1, np.int32), torch.int32),
+            uv_density=t(_uv_density(cat(uv0l)[o], cat(uv1l)[o],
+                                     cat(uv2l)[o], (v1 - v0)[o],
+                                     (v2 - v0)[o]), f32),
+            vc0=t(cat(vc0l)[o], f32), vc1=t(cat(vc1l)[o], f32),
+            vc2=t(cat(vc2l)[o], f32))
+        return tri, shading, packed
+
+    def _build_hair(self, t, cfg):
         segs = [hairgen.segments(fs) for fs, _ in self.fibers]
         p0 = np.concatenate([s["p0"] for s in segs])
         p1 = np.concatenate([s["p1"] for s in segs])
@@ -149,20 +323,52 @@ class SceneBuilder:
         expand = rad / np.maximum(np.minimum(c0, c1), 0.3)
         lo = np.minimum(p0, p1) - expand[:, None]
         hi = np.maximum(p0, p1) + expand[:, None]
-        o = bvh_mod.build(lo, hi).prim_order
+        fb = bvh_mod.build(lo, hi)
+        o = fb.prim_order
+        f32 = torch.float32
+        hair = HairGeom(p0=t(p0[o], f32), p1=t(p1[o], f32),
+                        n0=t(n0[o], f32), n1=t(n1[o], f32),
+                        radius=t(rad[o], f32))
+        rows = ipk.hair_pack_rows(p0[o], p1[o], n0[o], n1[o], rad[o],
+                                  np.arange(len(o), dtype=np.int32))
+        packed = ipk.pack_bvh(fb, rows, device=self.device)
+        swept = iswept.build_swept_hair(p0[o], p1[o], n0[o], n1[o], rad[o],
+                                        K=cfg.swept_k, device=self.device)
+        return hair, t(mid[o], torch.int32), packed, swept
 
-        def t(a, dtype=torch.float32):
+    def build(self, camera: Camera, film: Film, **config_kwargs) -> Scene:
+        if "traversal" not in config_kwargs:
+            config_kwargs["traversal"] = "tiled"
+            config_kwargs.setdefault("tiled_q", 2048)
+        if config_kwargs["traversal"] not in TRAVERSALS:
+            raise NotImplementedError(
+                f"traversal {config_kwargs['traversal']!r} is not ported "
+                f"(ported: {TRAVERSALS}; 'perray' and 'blocked': "
+                f"{ITEM_11C})")
+        if not self.fibers and not self.tri_meshes:
+            raise ValueError("the scene has no geometry")
+        cfg = RenderConfig(width=film.width, height=film.height,
+                           **config_kwargs)
+        dev = self.device
+
+        def t(a, dtype):
             return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
                                    device=dev)
-        hair = HairGeom(p0=t(p0[o]), p1=t(p1[o]), radius=t(rad[o]))
-        swept = iswept.build_swept_hair(p0[o], p1[o], n0[o], n1[o], rad[o],
-                                        K=cfg.swept_k, device=dev)
-        cfg = dataclasses.replace(
-            cfg, swept_c=int(swept.seg_rows_t.shape[0]))
+
+        tri = tri_shading = tri_packed = None
+        if self.tri_meshes:
+            tri, tri_shading, tri_packed = self._build_triangles(t)
+        hair = hair_mat_id = hair_packed = swept = None
+        if self.fibers:
+            hair, hair_mat_id, hair_packed, swept = self._build_hair(t, cfg)
+            cfg = dataclasses.replace(
+                cfg, swept_c=int(swept.seg_rows_t.shape[0]))
 
         rows = self.materials or [mat.default_material_row(
             kind=mat.ROUGHPLASTIC)]
         materials = mat.pack_materials(rows, device=dev)
+        checkers = mat.pack_checkers(self.checkers, device=dev) \
+            if self.checkers else None
         env = self.env.to(dev) if self.env is not None else None
         cfg = dataclasses.replace(
             cfg, nee_probs=(1.0, 0.0, 0.0) if env is not None
@@ -177,8 +383,11 @@ class SceneBuilder:
         marschner_rows = tuple(
             i for i, r in enumerate(rows)
             if r["kind"] in (mat.MARSCHNER, mat.MARSCHNER_PURE))
-        arrays = SceneArrays(hair=hair, hair_mat_id=t(mid[o], torch.int32),
-                             hair_swept=swept, materials=materials,
+        arrays = SceneArrays(tri=tri, tri_shading=tri_shading,
+                             tri_packed=tri_packed, hair=hair,
+                             hair_mat_id=hair_mat_id,
+                             hair_packed=hair_packed, hair_swept=swept,
+                             materials=materials, checkers=checkers,
                              hair_tables=ht, env=env)
         return Scene(arrays=arrays, camera=camera, film=film, config=cfg,
                      active_kinds=active, marschner_rows=marschner_rows)

@@ -1,4 +1,4 @@
-"""Scene XMLs that stand in for the reference's hair scenes.
+"""Scene XMLs that stand in for the reference's scenes.
 
 The reference's models/*/scene*.xml files are not in this repository.
 These XMLs carry the parameters the repository records for them, under
@@ -15,6 +15,15 @@ stand-in fibers (keyed by those names) take the place of the absent
   and blonde_hair (radius 0.000444);
 - curly-hair/scene.xml: the ringlets (radius 0.00559955) with the
   Marschner dielectric BSDF.
+- teapot/scene.xml: the teapot scene as BASELINE.md records it (1280 x
+  720, OBJ meshes and a rectangle, twosided diffuse and plastic, a
+  checkerboard floor, an EXR envmap): path maxDepth 65, a perspective
+  sensor framing the stand-in, teapot.obj under a twosided plastic (the
+  OBJ is absent, so the loader gives the procedural teapot_standin with
+  smooth normals), a rectangle floor under a twosided diffuse with a
+  checkerboard reflectance, and an envmap whose EXR is absent (the
+  loader then gives a constant 0.8 image). The geometry, the framing and
+  the materials' values are this stand-in's own, not the reference's.
 The hair scenes' cameras are the framing of their generators (straight
 and curly: from (0, 16.5, -25) at (0, 8.5, 0); hair-curl: from
 (0, 5.9, 17) at (0, 6, 0)). Written files are for the CLI and the
@@ -39,8 +48,9 @@ def _rgb(v) -> str:
 
 
 def _sensor(to_world: str, width: int, height: int, sampler: str = "sobol",
-            spp: int = 64) -> str:
-    return (f"<sensor type=\"perspective\"><float name=\"fov\" value=\"35\"/>"
+            spp: int = 64, fov: float = 35) -> str:
+    return (f"<sensor type=\"perspective\"><float name=\"fov\" "
+            f"value=\"{fov!r}\"/>"
             f"<transform name=\"toWorld\">{to_world}</transform>"
             f"<sampler type=\"{sampler}\"><integer name=\"sampleCount\" "
             f"value=\"{spp}\"/></sampler>"
@@ -118,6 +128,35 @@ def curly() -> str:
                   + SUN)
 
 
+_TEAPOT_EYE = ("<lookat origin=\"0, 9, 22\" target=\"0, 2.5, 0\" "
+               "up=\"0, 1, 0\"/>")
+# the floor: the rectangle ([-1, 1]^2, +z) turned to face +y, 40 x 40
+_FLOOR = ("<transform name=\"toWorld\"><scale value=\"20\"/>"
+          "<rotate x=\"1\" angle=\"-90\"/></transform>")
+
+
+def teapot(sampler="sobol", spp=64, width=1280, height=720, depth=65,
+           floor_texture="checkerboard") -> str:
+    """The teapot stand-in; the tests vary its sampler, film and depth,
+    and the floor's texture type (its colours and scale stay)."""
+    return _scene(
+        _sensor(_TEAPOT_EYE, width, height, sampler, spp, fov=40.0)
+        + "<bsdf type=\"twosided\" id=\"teapot\"><bsdf type=\"plastic\">"
+          "<rgb name=\"diffuseReflectance\" value=\"0.6, 0.12, 0.08\"/>"
+          "<float name=\"intIOR\" value=\"1.5\"/></bsdf></bsdf>"
+        + "<bsdf type=\"twosided\" id=\"floor\"><bsdf type=\"diffuse\">"
+          f"<texture type=\"{floor_texture}\" name=\"reflectance\">"
+          "<rgb name=\"color0\" value=\"0.7\"/>"
+          "<rgb name=\"color1\" value=\"0.15\"/>"
+          "<float name=\"uscale\" value=\"8\"/>"
+          "<float name=\"vscale\" value=\"8\"/></texture></bsdf></bsdf>"
+        + "<shape type=\"obj\"><string name=\"filename\" "
+          "value=\"teapot.obj\"/><ref id=\"teapot\"/></shape>"
+        + f"<shape type=\"rectangle\">{_FLOOR}<ref id=\"floor\"/></shape>"
+        + "<emitter type=\"envmap\"><string name=\"filename\" "
+          "value=\"envmap.exr\"/></emitter>", depth)
+
+
 # name -> (directory, file name, XML builder)
 SCENES = {
     "furball": ("furball", "scene.xml", furball),
@@ -127,12 +166,13 @@ SCENES = {
                       lambda: straight("kajiyakay")),
     "hair_curl": ("hair-curl", "scene.xml", hair_curl),
     "curly": ("curly-hair", "scene.xml", curly),
+    "teapot": ("teapot", "scene.xml", teapot),
 }
 
 
 def write_scene(root: str, name: str, **kw) -> str:
     """Write scene `name` under root/<its directory>/ and return the
-    path; kw go to its XML builder (only furball() takes any)."""
+    path; kw go to its XML builder (furball() and teapot() take any)."""
     d, f, make = SCENES[name]
     os.makedirs(os.path.join(root, d), exist_ok=True)
     path = os.path.join(root, d, f)

@@ -1,4 +1,4 @@
-"""Mitsuba scene-XML loader for the hair scenes (port of
+"""Mitsuba scene-XML loader for the hair and mesh scenes (port of
 hairpt/scene/xml_loader.py).
 
 Parses the scene format of the reference's hair scenes (reference
@@ -14,20 +14,27 @@ What the port renders:
   scale, rotate and lookat) with the independent, ldsampler, halton,
   hammersley, stratified and sobol samplers and an ldrfilm, hdrfilm or
   mfilm with any of the six reconstruction filters;
-- the BSDFs diffuse, roughplastic, kajiyakay, marschner (corrected, or
-  faithful with `<boolean name="faithful">` / `-D marschner_faithful=true`),
-  marschner_diffuse and marschnerdielectric, each possibly wrapped in
-  twosided;
+- the BSDFs diffuse, plastic, roughplastic, kajiyakay, marschner
+  (corrected, or faithful with `<boolean name="faithful">` /
+  `-D marschner_faithful=true`), marschner_diffuse and
+  marschnerdielectric, each possibly wrapped in twosided;
+- a BSDF's checkerboard, gridtexture, wireframe or vertexcolors texture,
+  possibly under a scale texture;
 - `<shape type="hair">` from a .mitshair file, or the procedural
   stand-in keyed by the scene directory and file name when the file is
   missing, with its toWorld (the radius scales with it);
+- the mesh shapes obj, ply and serialized (a missing file becomes the
+  teapot stand-in with smooth normals; a file without normals gets smooth
+  ones unless faceNormals is set), rectangle, sphere (radius, center),
+  disk, cube and cylinder, each with its toWorld;
 - the sunsky, sky, sun, envmap (HDR, PFM or EXR) and constant emitters;
 - `<spectrum>` and `<blackbody>` values.
 
 Every other element the JAX loader accepts raises NotImplementedError
-before any build work, naming the ROADMAP item that ports it (11b:
-triangles, instancing and textures; 13: the rest). Nothing is dropped
-silently.
+before any build work, naming the ROADMAP item that ports it (11c:
+shapegroup, instance, heightfield, deformable, bitmap and curvature
+textures, normal and bump maps; 13: shape emitters and the rest).
+Nothing is dropped silently.
 """
 from __future__ import annotations
 
@@ -42,6 +49,7 @@ from ..core import rng as rng_mod
 from ..core.math import matrix_lookat
 from ..film.film import Film
 from ..models import emitters as em
+from ..models import shapes as shp
 from ..models.bsdf import registry as mat
 from ..models.sensors import Camera
 from ..utils import io as io_utils
@@ -85,16 +93,17 @@ IOR_NAMES = {"air": 1.000277, "water": 1.3330, "bk7": 1.5046,
              "benzene": 1.501, "diamond": 2.419, "glass": 1.5046,
              "polypropylene": 1.49}
 
-ITEM_11B = "ROADMAP item 11b"
+ITEM_11C = "ROADMAP item 11c"
 ITEM_13 = "ROADMAP item 13"
 
 # the BSDF plugins the port renders; the other names of BSDF_KINDS name
-# the item that ports them (plastic is the meshes' material, item 11b)
-_BSDF_PORTED = {"diffuse", "roughplastic", "kajiyakay", "marschner",
-                "marschner_diffuse", "marschnerdielectric"}
-_TRIANGLE_SHAPES = {"obj", "ply", "serialized", "sphere", "cylinder",
-                    "disk", "rectangle", "cube", "heightfield",
-                    "deformable", "shapegroup", "instance"}
+# item 13
+_BSDF_PORTED = {"diffuse", "plastic", "roughplastic", "kajiyakay",
+                "marschner", "marschner_diffuse", "marschnerdielectric"}
+_SHAPES_11C = {"heightfield", "deformable", "shapegroup", "instance"}
+# textures: the procedural kinds render, these name item 11c; a texture
+# of another type gives no texture, as in the JAX loader
+_TEXTURES_11C = {"bitmap", "curvature"}
 _SENSORS_PORTED = {"perspective"}
 _FILMS_PORTED = {"ldrfilm", "hdrfilm", "mfilm"}
 _EMITTERS_PORTED = {"sunsky", "sky", "sun", "envmap", "constant"}
@@ -193,21 +202,25 @@ def _parse_transform(node) -> np.ndarray:
 
 
 def _refuse_bsdf(node):
-    """Refuse a <bsdf> the port cannot render: wrappers other than
-    twosided, textures, and families without a port."""
+    """Refuse a <bsdf> the port cannot render: normal and bump maps, the
+    wrappers other than twosided, bitmap and curvature textures, and
+    families without a port."""
     while node.get("type") in ("twosided", "normalmap", "bumpmap"):
         if node.get("type") != "twosided":
-            _refuse(f"the {node.get('type')} BSDF", ITEM_11B)
+            _refuse(f"the {node.get('type')} BSDF", ITEM_11C)
         inner = node.find("bsdf")
         if inner is None:
             break
         node = inner
     btype = node.get("type")
     if btype in BSDF_KINDS and btype not in _BSDF_PORTED:
-        _refuse(f"the {btype} BSDF", ITEM_11B if btype == "plastic"
-                else ITEM_13)
-    if node.find("texture") is not None:
-        _refuse("a texture on a BSDF", ITEM_11B)
+        _refuse(f"the {btype} BSDF", ITEM_13)
+    tex = node.find("texture")
+    if tex is not None and tex.get("type") == "scale" \
+            and tex.find("texture") is not None:
+        tex = tex.find("texture")
+    if tex is not None and tex.get("type") in _TEXTURES_11C:
+        _refuse(f"the {tex.get('type')} texture", ITEM_11C)
 
 
 def _refuse_unported(root, defines, scene_dir):
@@ -240,11 +253,10 @@ def _refuse_unported(root, defines, scene_dir):
         _refuse_bsdf(bsdf)
     for shape in root.findall("shape"):
         stype = shape.get("type")
-        if stype in _TRIANGLE_SHAPES:
-            _refuse(f"the {stype} shape (triangles and instancing)",
-                    ITEM_11B)
+        if stype in _SHAPES_11C:
+            _refuse(f"the {stype} shape", ITEM_11C)
         if shape.find("emitter") is not None:
-            _refuse("area lights", ITEM_13)
+            _refuse("area lights (shape emitters)", ITEM_13)
         if shape.find("subsurface") is not None:
             _refuse("subsurface scattering", ITEM_13)
         if shape.find("medium") is not None:
@@ -265,12 +277,13 @@ def _refuse_unported(root, defines, scene_dir):
     if root.find("medium") is not None:
         _refuse("participating media", ITEM_13)
     if root.find("texture") is not None:
-        _refuse("textures", ITEM_11B)
+        _refuse("textures declared at the scene's top level", ITEM_11C)
 
 
-def _material_row_from_bsdf(node, defines):
+def _material_row_from_bsdf(node, defines, builder: SceneBuilder):
     """Translate a <bsdf> element (possibly twosided-wrapped) into a
-    material row, with the JAX loader's property rules."""
+    material row, with the JAX loader's property rules; its texture is
+    added to `builder`'s texture table."""
     twosided = False
     while node.get("type") == "twosided":
         twosided = True
@@ -326,6 +339,41 @@ def _material_row_from_bsdf(node, defines):
         row["scale_tilt"] = -0.1
         row.setdefault("specular", (0.5, 0.5, 0.5))
         row.setdefault("transmit", (0.5, 0.5, 0.5))
+
+    # the texture child (the teapot floor's checkerboard), possibly under
+    # a scale texture (src/textures/scale.cpp: a constant times it)
+    tex = node.find("texture")
+    tex_gain = 1.0
+    if tex is not None and tex.get("type") == "scale":
+        sp_ = _collect_props(tex, defines)
+        tex_gain = float(np.mean(sp_.get("scale", sp_.get("value", 1.0))))
+        inner_tex = tex.find("texture")
+        if inner_tex is not None:
+            tex = inner_tex
+    ttype = tex.get("type") if tex is not None else None
+    if ttype is not None:
+        tp = _collect_props(tex, defines)
+    if ttype == "wireframe":
+        row["tex_id"] = builder.add_wireframe_texture(
+            color0=np.asarray(tp.get("interiorColor", (0.5,) * 3))
+            * tex_gain,
+            color1=np.asarray(tp.get("edgeColor", (0.1,) * 3)) * tex_gain,
+            line_width=tp.get("lineWidth", 0.05))
+    elif ttype == "vertexcolors":
+        row["tex_id"] = builder.add_vertexcolor_texture()
+    elif ttype == "gridtexture":
+        row["tex_id"] = builder.add_gridtexture(
+            color0=np.asarray(tp.get("color0", (0.2,) * 3)) * tex_gain,
+            color1=np.asarray(tp.get("color1", (0.4,) * 3)) * tex_gain,
+            line_width=tp.get("lineWidth", 0.01),
+            uscale=tp.get("uscale", 1.0), vscale=tp.get("vscale", 1.0),
+            uoffset=tp.get("uoffset", 0.0), voffset=tp.get("voffset", 0.0))
+    elif ttype == "checkerboard":
+        row["tex_id"] = builder.add_checkerboard(
+            color0=np.asarray(tp.get("color0", (0.4,) * 3)) * tex_gain,
+            color1=np.asarray(tp.get("color1", (0.2,) * 3)) * tex_gain,
+            uscale=tp.get("uscale", 1.0), vscale=tp.get("vscale", 1.0),
+            uoffset=tp.get("uoffset", 0.0), voffset=tp.get("voffset", 0.0))
     return row
 
 
@@ -351,6 +399,35 @@ def _standin_fibers(scene_dir: str, filename: str, radius: float,
                                        radius=radius)
         return clumps[idx]
     return hairgen.gen_straight_hair(n_fibers=int(800 * q), radius=radius)
+
+
+def _mesh_shape(stype: str, p: dict, scene_dir: str, to_world):
+    """(mesh, toWorld) of a mesh shape with the JAX loader's rules, or
+    None for a shape of another type."""
+    if stype in ("obj", "ply", "serialized"):
+        fname = os.path.join(scene_dir, p.get("filename", ""))
+        if not os.path.exists(fname):
+            return shp.compute_smooth_normals(shp.teapot_standin()), to_world
+        if stype == "obj":
+            mesh = shp.load_obj(fname)
+        elif stype == "ply":
+            mesh = shp.load_ply_ascii(fname)
+        else:
+            mesh = shp.load_serialized(fname, p.get("shapeIndex", 0))
+        if mesh.normals is None and p.get("faceNormals", False) is False:
+            mesh = shp.compute_smooth_normals(mesh)
+        return mesh, to_world
+    if stype == "sphere":
+        t2 = to_world.copy()
+        if "center" in p:
+            t2[:3, 3] += np.asarray(p["center"])
+        return shp.sphere(p.get("radius", 1.0)), t2
+    if stype == "cylinder":
+        return shp.cylinder(p.get("radius", 1.0)), to_world
+    simple = {"rectangle": shp.rectangle, "disk": shp.disk, "cube": shp.cube}
+    if stype in simple:
+        return simple[stype](), to_world
+    return None
 
 
 def _read_env_image(fname: str):
@@ -434,12 +511,11 @@ def load_scene(path: str, defines: dict | None = None,
     # materials by id, in document order
     mat_ids = {}
     for bsdf in root.findall("bsdf"):
-        row = _material_row_from_bsdf(bsdf, defines)
+        row = _material_row_from_bsdf(bsdf, defines, b)
         mat_ids[bsdf.get("id")] = b.add_material(**row)
 
-    # shapes (hair; _refuse_unported raised on the triangle shapes, and a
-    # shape of an unknown type gets its material and no geometry, as in
-    # the JAX loader)
+    # shapes (a shape of an unknown type gets its material and no
+    # geometry, as in the JAX loader)
     for shape in root.findall("shape"):
         p = _collect_props(shape, defines)
         tr = shape.find("transform")
@@ -452,10 +528,14 @@ def load_scene(path: str, defines: dict | None = None,
             inline = shape.find("bsdf")
             if inline is not None:
                 mid = b.add_material(**_material_row_from_bsdf(inline,
-                                                                defines))
+                                                                defines, b))
         if mid is None:
             mid = b.add_material(kind=mat.DIFFUSE)
-        if shape.get("type") != "hair":
+        stype = shape.get("type")
+        if stype != "hair":
+            got = _mesh_shape(stype, p, scene_dir, to_world)
+            if got is not None:
+                b.add_mesh(got[0], mid, to_world=got[1])
             continue
         radius = p.get("radius", 0.025)
         fname = os.path.join(scene_dir, p.get("filename", ""))

@@ -43,7 +43,7 @@ def tables():
     tt = tmat.pack_materials(bt.materials, device="cpu")
     mid = np.random.default_rng(0).integers(0, 2, N).astype(np.int32)
     gj = jmat.gather(tj, None, jnp.asarray(mid), jnp.zeros((N, 2)))
-    gt = tmat.gather(tt, torch.as_tensor(mid))
+    gt = tmat.gather(tt, None, torch.as_tensor(mid))
     return tj, tt, gj, gt, mid
 
 

@@ -1,8 +1,9 @@
 """`python -m hairpt_torch.cli render` on the CPU: the slice as a whole
-against hairpt (the furball stand-in XML, loaded and rendered by hairpt
-with its CPU default, the packed BVH walk, which has no Pallas kernel and
-compiles once; the port's CLI with --cpu, the tiled traversal's plain
-versions), the options, the refusals, the exit without a card, and the
+against hairpt (the furball and teapot stand-in XMLs, loaded and rendered
+by hairpt with its CPU default, the packed BVH walk, which has no Pallas
+kernel and compiles once per scene; the port's CLI with --cpu, the tiled
+traversal's plain versions for the hair and the packed walk's for the
+triangles), the options, the refusals, the exit without a card, and the
 render's checkpoint and partial-image flush.
 
 Both scene builds order the hair with the port's build of
@@ -73,6 +74,44 @@ def test_cli_image_matches_jax(whole):
     img_t = np.load(whole["out"].with_suffix(".npy"))
     img_j = whole["img_j"]
     assert img_t.shape == img_j.shape and img_j.mean() > 0
+    assert abs(img_t.mean() - img_j.mean()) / img_j.mean() < 1e-3
+    close = np.isclose(img_t, img_j, rtol=1e-3, atol=1e-4)
+    assert close.mean() >= 0.99, close.mean()
+
+
+TEAPOT = ["--spp", "4", "--res-scale", "0.05", "--depth", "8"]
+TEAPOT_LOAD = dict(spp_override=4, res_scale=0.05, max_depth_override=8)
+
+
+@pytest.fixture(scope="module")
+def teapot(tmp_path_factory):
+    """hairpt's load_scene and render of the teapot stand-in XML at 64 x
+    36, 4 spp, depth 8, and the port's CLI on the same XML with --cpu."""
+    mp = pytest.MonkeyPatch()
+    mp.setattr(jbvh, "_NATIVE", tbvh._load_native())
+    mp.setattr(jbvh, "_NATIVE_TRIED", True)
+    root = tmp_path_factory.mktemp("teapot")
+    xml = scene_xmls.write_scene(str(root), "teapot")
+    img_j = np.asarray(jpath.render(jxl.load_scene(xml, **TEAPOT_LOAD)))
+    out = root / "out" / "teapot.png"
+    out.parent.mkdir()
+    rc = cli.main(["render", xml, "-o", str(out), "--cpu"] + TEAPOT)
+    yield dict(img_j=img_j, out=out, rc=rc)
+    mp.undo()
+
+
+def test_cli_renders_the_teapot_like_jax(teapot):
+    """The teapot stand-in (teapot_standin under twosided plastic, a
+    checkerboard floor, the constant envmap of a missing EXR) through the
+    CLI: exit 0, every output, and the image against hairpt's with
+    test_cli_image_matches_jax's bounds."""
+    out = teapot["out"]
+    assert teapot["rc"] == 0
+    for ext in ("png", "exr", "npy", "pfm"):
+        assert out.with_suffix(f".{ext}").stat().st_size > 0, ext
+    img_t = np.load(out.with_suffix(".npy"))
+    img_j = teapot["img_j"]
+    assert img_t.shape == img_j.shape == (36, 64, 3) and img_j.mean() > 0
     assert abs(img_t.mean() - img_j.mean()) / img_j.mean() < 1e-3
     close = np.isclose(img_t, img_j, rtol=1e-3, atol=1e-4)
     assert close.mean() >= 0.99, close.mean()
@@ -153,18 +192,19 @@ SENSOR = ("<sensor type=\"{kind}\"><film type=\"hdrfilm\"><integer "
 HAIR = ("<shape type=\"hair\"><string name=\"filename\" "
         "value=\"furball.mitshair\"/></shape>")
 REFUSED = {
-    "obj_shape": (SENSOR.format(kind="perspective")
-                  + "<shape type=\"obj\"><string name=\"filename\" "
-                    "value=\"teapot.obj\"/></shape>", "11b"),
+    "shapegroup": (SENSOR.format(kind="perspective")
+                   + "<shape type=\"shapegroup\" id=\"g\"><shape "
+                     "type=\"sphere\"/></shape>" + HAIR, "11c"),
     "point_light": (SENSOR.format(kind="perspective") + HAIR
                     + "<emitter type=\"point\"/>", "13"),
     "orthographic": (SENSOR.format(kind="orthographic") + HAIR, "13"),
     "direct": ("<integrator type=\"direct\"/>"
                + SENSOR.format(kind="perspective") + HAIR, "13"),
-    "texture": (SENSOR.format(kind="perspective")
-                + "<bsdf type=\"diffuse\" id=\"d\"><texture "
-                  "type=\"checkerboard\" name=\"reflectance\"/></bsdf>"
-                + HAIR, "11b"),
+    "bitmap": (SENSOR.format(kind="perspective")
+               + "<bsdf type=\"diffuse\" id=\"d\"><texture "
+                 "type=\"bitmap\" name=\"reflectance\"><string "
+                 "name=\"filename\" value=\"t.png\"/></texture></bsdf>"
+               + HAIR, "11c"),
     "medium": (SENSOR.format(kind="perspective") + HAIR
                + "<medium type=\"homogeneous\"/>", "13"),
     "conductor": (SENSOR.format(kind="perspective")

@@ -27,7 +27,9 @@ from hairpt_torch import convert
 from hairpt_torch.core import rng as trng
 from hairpt_torch.integrators import inverse as tinv
 from hairpt_torch.integrators import path as tpath
+from hairpt_torch.ops import intersect_packed as tpk
 from hairpt_torch.ops import intersect_tiled as ttl
+from hairpt_torch.scene.furball import furball_floor_scene
 from torch_furball import GRAD_PARAMS, jax_furball, params_of, torch_scene
 
 RES = 32
@@ -98,9 +100,23 @@ def test_scan_ad_gradient_matches_jax(grads, name):
 def test_backward_traces_no_query(grads):
     """The checkpointed bounces get their query results back on
     recomputation: the backward pass runs no closest-hit or any-hit
-    query."""
+    query, on the furball and on a mesh scene (the furball over a
+    checkerboard rectangle), where the packed walk's results are stashed
+    with the tiled query's."""
     assert grads["q_fwd"] > 0
     assert grads["q_bwd"] == grads["q_fwd"]
+    s = furball_floor_scene(quality=0.1, res=16, depth=3, device="cpu")
+    mt = s.arrays.materials
+    diffuse = mt.diffuse.clone().requires_grad_()
+    arr = s.arrays._replace(materials=mt._replace(diffuse=diffuse))
+    n = 16 * 16
+    rad, _, _ = tpath.make_li_fn(s, differentiable=True)(
+        arr, torch.arange(n), torch.zeros(n, dtype=torch.int64))
+    walks, queries = tpk.STATS["walks"], ttl.STATS["queries"]
+    assert walks > 0 and queries > 0
+    rad.mean().backward()
+    assert tpk.STATS["walks"] == walks and ttl.STATS["queries"] == queries
+    assert torch.isfinite(diffuse.grad).all()
 
 
 def test_differentiable_forward_equals_forward_mode(grads):
@@ -162,7 +178,8 @@ def test_gather_gradient_equals_plain_indexing(rows):
         g_out = torch.as_tensor(rs.integers(-8, 9, (4096,) + field.shape[1:]),
                                 dtype=torch.float32)
         a = field.clone().requires_grad_()
-        got = getattr(reg.gather(table._replace(**{name: a}), mat_id), name)
+        got = getattr(reg.gather(table._replace(**{name: a}), None,
+                                 mat_id), name)
         (got * g_out).sum().backward()
         b = field.clone().requires_grad_()
         (b[m] * g_out).sum().backward()

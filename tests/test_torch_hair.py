@@ -167,7 +167,7 @@ def _setup(kind):
                                       err_msg=f)
     mid = np.random.default_rng(0).integers(0, 2, N).astype(np.int32)
     gj = jmat.gather(tj, None, jnp.asarray(mid), jnp.zeros((N, 2)))
-    gt = tmat.gather(tt, torch.as_tensor(mid))
+    gt = tmat.gather(tt, None, torch.as_tensor(mid))
     auxes = []
     if bj.hair_aux:
         vals = np.stack([np.asarray(jhair.precompute_azimuthal(
@@ -366,7 +366,7 @@ def test_lobe_masking_linearity(kind):
     table = tmat.pack_materials([tmat.default_material_row(
         kind=kind, sigma_a=(0.5, 0.5, 0.5), beta_r=0.1, eta=1.55, aux_id=0,
         diffuse=(0.0, 0.0, 0.0))], device="cpu")
-    gt = tmat.gather(table, torch.zeros(n, dtype=torch.int32))
+    gt = tmat.gather(table, None, torch.zeros(n, dtype=torch.int32))
     wi = torch.as_tensor(np.broadcast_to(np.array(
         [np.sin(np.radians(40.0)) * np.cos(np.radians(30.0)),
          np.sin(np.radians(40.0)) * np.sin(np.radians(30.0)),
@@ -397,7 +397,7 @@ def test_sample_pdf_consistency(kind, over):
     table = tmat.pack_materials([tmat.default_material_row(kind=kind,
                                                            **over)],
                                 device="cpu")
-    gm = tmat.gather(table, torch.zeros(n, dtype=torch.int32))
+    gm = tmat.gather(table, None, torch.zeros(n, dtype=torch.int32))
     t, p = np.radians(40.0), np.radians(30.0)
     wi = torch.as_tensor(np.array([np.sin(t) * np.cos(p),
                                    np.sin(t) * np.sin(p), np.cos(t)],

@@ -243,8 +243,9 @@ def test_scene_builder_takes_swept_and_refuses_other_traversals():
                 swept_k=32)
     assert s.config.swept_c == s.arrays.hair_swept.seg_rows_t.shape[0] > 0
     assert (s.config.swept_pmax, s.config.swept_chunk) == (24, 64)
-    with pytest.raises(NotImplementedError):
-        b.build(cam, Film.make(8, 8, "tent"), spp=1, traversal="packed")
+    for other in ("perray", "blocked"):
+        with pytest.raises(NotImplementedError):
+            b.build(cam, Film.make(8, 8, "tent"), spp=1, traversal=other)
 
 
 def test_public_builders_default_to_the_card(monkeypatch):

@@ -1,5 +1,6 @@
 """The scene-XML entry point's modules against hairpt's, on the CPU: the
-validator, the loader (carried across with hairpt_torch.convert), the
+validator, the loader (carried across with hairpt_torch.convert; hair
+and mesh scenes), the
 .mitshair reader, the image writers, the HALTON and STRATIFIED samplers,
 the reconstruction filters, the constant environment and the diffuse
 BSDF.
@@ -50,6 +51,7 @@ from hairpt_torch.scene import xml_validate as txv
 from hairpt_torch.scene.scene import SceneBuilder as TSceneBuilder
 from hairpt_torch.utils import exr as texr
 from hairpt_torch.utils import io as tio
+from test_torch_mesh import _write_files
 
 LOAD = dict(spp_override=2, res_scale=0.02, hair_quality=0.02,
             max_depth_override=3)
@@ -109,6 +111,50 @@ for _s in ("independent", "ldsampler", "halton", "hammersley",
            "stratified", "sobol"):
     CASES[f"sampler_{_s}"] = ("furball", {"sampler": _s, "spp": 4,
                                           "emitter": CONST}, {})
+# the teapot stand-in (a missing OBJ, twosided plastic, a twosided diffuse
+# rectangle with a checkerboard, a missing envmap EXR), its floor with
+# the other procedural textures, every mesh shape (the readers' files
+# beside the XML: tests/test_torch_mesh.py's) with a scaled texture, and
+# the furball over a textured rectangle
+CASES["teapot"] = ("teapot", {}, {})
+for _t in ("gridtexture", "wireframe", "vertexcolors"):
+    CASES[f"teapot_{_t}"] = ("teapot", {"floor_texture": _t}, {})
+CASES["mesh_shapes"] = ("teapot", {}, {})
+CASES["furball_over_rectangle"] = ("furball", {"emitter": CONST}, {})
+MESH_SHAPES = (
+    "<shape type=\"sphere\"><float name=\"radius\" value=\"0.7\"/>"
+    "<point name=\"center\" x=\"1\" y=\"2\" z=\"3\"/><bsdf "
+    "type=\"diffuse\"><texture type=\"vertexcolors\" "
+    "name=\"reflectance\"/></bsdf></shape>"
+    "<shape type=\"disk\"><transform name=\"toWorld\"><translate "
+    "x=\"2\"/></transform><bsdf type=\"plastic\"><texture "
+    "type=\"scale\" name=\"diffuseReflectance\"><float name=\"scale\" "
+    "value=\"0.5\"/><texture type=\"checkerboard\"/></texture></bsdf>"
+    "</shape>"
+    "<shape type=\"cube\"><transform name=\"toWorld\"><scale "
+    "value=\"0.5\"/><rotate y=\"1\" angle=\"30\"/></transform><bsdf "
+    "type=\"diffuse\"><texture type=\"wireframe\" name=\"reflectance\">"
+    "<float name=\"lineWidth\" value=\"0.1\"/></texture></bsdf></shape>"
+    "<shape type=\"cylinder\"><float name=\"radius\" value=\"0.3\"/>"
+    "<ref id=\"floor\"/></shape>"
+    "<shape type=\"obj\"><string name=\"filename\" value=\"m.obj\"/>"
+    "<boolean name=\"faceNormals\" value=\"true\"/></shape>"
+    "<shape type=\"obj\"><string name=\"filename\" value=\"p.obj\"/>"
+    "</shape>"
+    "<shape type=\"ply\"><string name=\"filename\" value=\"a.ply\"/>"
+    "</shape>"
+    "<shape type=\"serialized\"><string name=\"filename\" "
+    "value=\"m.serialized\"/><ref id=\"teapot\"/></shape>")
+EDITS["mesh_shapes"] = [("<emitter type=\"envmap\"",
+                         MESH_SHAPES + "<emitter type=\"envmap\"")]
+EDITS["furball_over_rectangle"] = [(
+    "<emitter type=\"constant\"",
+    "<shape type=\"rectangle\"><transform name=\"toWorld\"><scale "
+    "value=\"8\"/><rotate x=\"1\" angle=\"-90\"/><translate "
+    "y=\"7\"/></transform><bsdf type=\"twosided\"><bsdf "
+    "type=\"diffuse\"><texture type=\"checkerboard\" "
+    "name=\"reflectance\"/></bsdf></bsdf></shape>"
+    "<emitter type=\"constant\"")]
 
 
 def _write(tmp_path, case):
@@ -122,6 +168,10 @@ def _write(tmp_path, case):
         kw["emitter"] = ("<emitter type=\"constant\"><blackbody "
                          "name=\"radiance\" temperature=\"5000\" "
                          "scale=\"2e-8\"/></emitter>")
+    if case == "mesh_shapes":
+        d = tmp_path / scene_xmls.SCENES[name][0]
+        d.mkdir(parents=True, exist_ok=True)
+        _write_files(d)
     path = scene_xmls.write_scene(str(tmp_path), name, **kw)
     text = open(path).read()
     for old, new in EDITS.get(case, ()):
@@ -182,6 +232,13 @@ def test_loader_matches_jax(tmp_path, same_bvh, case):
         assert set(ts.arrays.hair_mat_id.tolist()) == {1}
     if case.startswith("sampler_"):
         assert ts.config.sampler == js.config.sampler
+    if case.startswith("teapot") or case == "mesh_shapes":
+        assert ts.arrays.hair is None and ts.arrays.tri is not None
+        assert tmat.PLASTIC in ts.active_kinds
+        assert ts.arrays.checkers is not None
+    if case == "furball_over_rectangle":
+        assert ts.arrays.tri.p0.shape == (2, 3)
+        assert ts.arrays.hair is not None
 
 
 def test_loader_reads_every_hair_kind(tmp_path, same_bvh):
@@ -453,7 +510,7 @@ def test_diffuse_matches_jax():
     n = 4096
     mid = np.random.default_rng(8).integers(0, 2, n).astype(np.int32)
     gj = jmat.gather(tj, None, jnp.asarray(mid), jnp.zeros((n, 2)))
-    gt = tmat.gather(tt, torch.as_tensor(mid))
+    gt = tmat.gather(tt, None, torch.as_tensor(mid))
     wi, wo = _dirs(9), _dirs(10)
     k = (jmat.DIFFUSE,)
     fj, pj = jmat.eval_pdf(k, gj, jnp.asarray(wi), jnp.asarray(wo))
