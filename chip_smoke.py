@@ -4,17 +4,18 @@ port builds, that its kernels agree with their plain versions, and that
 the full-width furball forward render runs through them, with the tiled
 and with the swept traversal, with rough plastic and with the Marschner
 hair BSDF, its gradient paths and inverse rendering with them, the
-scene-XML command line, and triangle meshes (the teapot stand-in)
-through the packed BVH walk.
+scene-XML command line, triangle meshes (the teapot stand-in) through the
+packed BVH walk, and instanced, bitmap-textured and normal-mapped meshes
+(the instanced stand-in) through the two-level walk.
 
     python3 chip_smoke.py            # from the repository root, one card
 
 Phases (each prints one line with its elapsed seconds):
   0. the card (nvidia-smi name and power limit) and torch/CUDA versions;
-  1. build the five CUDA libraries (nvcc, sm_90a: tiled.cu with kernels
+  1. build the six CUDA libraries (nvcc, sm_90a: tiled.cu with kernels
      A and B, octets.cu with C and D, phaseb.cu with E, swept_cull.cu with
-     the swept phase A, packed.cu with F) and the BVH builder (g++), all
-     in parallel;
+     the swept phase A, packed.cu with F, instanced.cu with G) and the BVH
+     builder (g++), all in parallel;
   2. build the full-width furball scene (84,000 fibers x 12 segments,
      K = 128), take a real camera wave and a first-bounce wave (uniformly
      random directions at the camera hit points, Morton-sorted as the
@@ -132,6 +133,24 @@ Phases (each prints one line with its elapsed seconds):
           packed, card against CPU image means within 2%, with A, B and
           F's triangle leaf (tiled) and F's four instances (packed)
           launched.
+  13. instanced meshes through kernel G (csrc/instanced.cu, the two-level
+     walk, one thread per ray over the instances), on the instanced
+     stand-in of hairpt_torch.scene.scene_xmls (64 instances of the
+     2,808-triangle teapot, a bitmap floor in a normal map, a bump-mapped
+     heightfield, a deformable pair under the curvature texture):
+       a. G against its plain version on EVERY ray of the camera and
+          first-bounce waves (1280 x 720), closest and any hit, t, prim,
+          instance and the flag bit for bit; timed beside its plain
+          version (one call), its bound and two yardsticks: the JAX
+          package's structure carried over (per instance, the box test
+          and object ray as tensor ops and one launch of F) and the 64
+          instances flattened into one 179,712-triangle mesh walked by F;
+       b. a small render (96 x 54, depth 5) on the card and with the
+          plain versions on the CPU: image means within 2%, G launched;
+       c. one warm-up and two timed 1-spp waves at 1280 x 720, depth 65
+          (s/wave, Mrays/s, G's and F's launches per wave, no plain
+          version on the card), then the CLI as a subprocess at 2 spp
+          (wall time, its logged build and render seconds).
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Any failed check exits
 non-zero before that line. Without CUDA the script exits non-zero at once.
@@ -2159,6 +2178,330 @@ def f_kernel_entries(report, tri_launches, hair_launches, n_timed):
     return entries
 
 
+# kernel G (csrc/instanced.cu): f32 operations per instance box test (the
+# slab test of packed_walk.cuh's walk, 27, plus the closest hit's
+# min(maxt, best t) and the cull decision, counted from the source as
+# 30) and per ray transform (o': 3 rows of 3 products and 3 sums; d': 3
+# of 3 products and 2 sums, 33), and F's counts per node row and
+# triangle test; bytes: the instance table, every prototype's node and
+# leaf rows, 32 B per ray and the outputs (12 B per ray closest, 4 B any)
+G_BOX_FLOPS = 30
+G_XFORM_FLOPS = 33
+G_REPLACES = {"closest": "hairpt/ops/instancing.py:173",
+              "any": "hairpt/ops/instancing.py:195"}
+#  13b, card against CPU: image means within MEAN_RTOL (phase 3's rule)
+INST_SMALL = dict(res_scale=0.075, max_depth_override=5)
+
+
+def g_bound(inst, counts, n_rays, mode):
+    """(bound ms, its kind) of one two-level walk of a wave: the inputs
+    read once and the outputs written once against the operations of
+    the plain version's counted work."""
+    io = n_rays * (F_RAY_BYTES + (12 if mode == "closest" else 4))
+    n_bytes = (inst.table.numel() + inst.nodes.numel()
+               + inst.leaf_rows.numel()) * 4 + io
+    return bound_ms(n_bytes, G_BOX_FLOPS * counts["boxes"]
+                    + G_XFORM_FLOPS * counts["walked"]
+                    + F_SLAB_FLOPS * counts["nodes"]
+                    + F_TRI_FLOPS * counts["prims"])
+
+
+def per_instance_f(inst, ray, mode):
+    """The JAX package's structure carried over to the card (a yardstick
+    of kernel G, never on the port's path): per instance in order the
+    world box test and the object ray as plain tensor ops, then one launch
+    of kernel F on the prototype's tree."""
+    import torch
+    from hairpt_torch.ops import instancing as gi
+    from hairpt_torch.ops import intersect_packed as ipk
+    from hairpt_torch.ops.tiled_kernels import _inv_dir
+    n = ray.o.shape[0]
+    inv_d = _inv_dir(ray.d)
+    best_t = torch.full((n,), float("inf"), device=ray.o.device)
+    best_p = torch.full((n,), -1, dtype=torch.int32, device=ray.o.device)
+    best_i = best_p.clone()
+    occ = torch.zeros((n,), dtype=torch.bool, device=ray.o.device)
+    for i, p in enumerate(inst.proto_ids):
+        mt = ray.maxt if mode == "any" else torch.minimum(ray.maxt, best_t)
+        box = gi._aabb_cull(ray.o, inv_d, ray.mint, mt, inst.aabb_lo[i],
+                            inst.aabb_hi[i])
+        o2, d2 = gi.obj_ray_arrays(ray.o, ray.d, inst.w2o[i])
+        sub = ray._replace(o=o2, d=d2, maxt=torch.where(
+            box & ~occ if mode == "any" else box, mt, 0.0))
+        if mode == "any":
+            occ = occ | ipk.any_hit_packed(inst.proto_bvh(p), "tri", sub)
+        else:
+            t, prim = ipk.closest_hit_packed(inst.proto_bvh(p), "tri", sub)
+            better = t < best_t
+            best_t = torch.where(better, t, best_t)
+            best_p = torch.where(better, prim, best_p)
+            best_i = torch.where(better, i, best_i)
+    return occ if mode == "any" else (best_t, best_p, best_i)
+
+
+def flattened_f(scene):
+    """The stand-in's instances flattened into one mesh (a yardstick of
+    kernel G): the prototype under each instance's to_world, one packed
+    BVH on the card. Returns (PackedBVH, its triangle count)."""
+    import numpy as np
+    from hairpt_torch.models import shapes as shp
+    from hairpt_torch.ops import bvh as bvh_mod
+    from hairpt_torch.ops import intersect_packed as ipk
+    a = scene.arrays.inst
+    nb, m, lb, nl, pb, nt = a.protos[0][:6]
+    p0 = a.p0[pb:pb + nt].double().cpu().numpy()
+    pos = np.concatenate([p0, p0 + a.e1[pb:pb + nt].double().cpu().numpy(),
+                          p0 + a.e2[pb:pb + nt].double().cpu().numpy()])
+    faces = np.arange(3 * nt).reshape(3, nt).T.astype(np.int32)
+    mesh = shp.Mesh(pos, None, None, faces)
+    w2o = a.w2o.double().cpu().numpy()
+    meshes = []
+    for i in range(len(a.proto_ids)):
+        m4 = np.eye(4)
+        m4[:3] = w2o[i]
+        meshes.append(shp.transform_mesh(mesh, np.linalg.inv(m4)))
+    flat = shp.merge(meshes)
+    f = flat.faces
+    v = np.asarray(flat.positions, np.float32)
+    v0, v1, v2 = v[f[:, 0]], v[f[:, 1]], v[f[:, 2]]
+    fb = bvh_mod.build(np.minimum(np.minimum(v0, v1), v2),
+                       np.maximum(np.maximum(v0, v1), v2))
+    o = fb.prim_order
+    rows = ipk.tri_pack_rows(v0[o], v1[o], v2[o], o)
+    return ipk.pack_bvh(fb, rows, device="cuda"), len(f)
+
+
+def instanced_kernels(report):
+    """Phase 13a: kernel G against its plain version on EVERY ray of the
+    instanced stand-in's camera and first-bounce waves (1280 x 720, 64
+    instances), closest and any hit, t, prim, which and occ bit for bit;
+    each timed beside its plain version (one call), its bound and two
+    yardsticks: the JAX structure carried over (per_instance_f) and the
+    instances flattened into one mesh walked by F (flattened_f)."""
+    import tempfile
+    import torch
+    from hairpt_torch.ops import instancing as gi
+    from hairpt_torch.ops import intersect_packed as ipk
+    from hairpt_torch.scene import scene_xmls
+    from hairpt_torch.scene.xml_loader import load_scene
+
+    t0 = time.time()
+    with tempfile.TemporaryDirectory(prefix="hairpt_inst_") as tmp:
+        scene = load_scene(scene_xmls.write_scene(tmp, "instanced"),
+                           spp_override=1, device="cuda")
+    a = scene.arrays.inst
+    log(f"instanced stand-in: {len(a.proto_ids)} instances of "
+        f"{a.p0.shape[0]} triangles ({a.nodes.shape[0]} nodes), "
+        f"{scene.arrays.tri.p0.shape[0]} other triangles, "
+        f"{scene.config.width} x {scene.config.height}, built in "
+        f"{time.time() - t0:.1f}s")
+    wv, frac = mesh_waves(scene)
+    t1 = time.time()
+    flat, n_flat = flattened_f(scene)
+    log(f"instanced camera wave hit fraction {frac:.4f}; flattened "
+        f"yardstick: {n_flat} triangles, built in {time.time() - t1:.1f}s")
+    for name, ray in wv.items():
+        n = ray.o.shape[0]
+        for mode in ("closest", "any"):
+            closest = mode == "closest"
+            counts = {}
+            torch.cuda.synchronize()
+            t1 = time.time()
+            p = (gi.inst_closest_hit_plain if closest
+                 else gi.inst_any_hit_plain)(a, ray, counts=counts)
+            torch.cuda.synchronize()
+            plain_ms = (time.time() - t1) * 1e3
+            k = (gi.inst_closest_hit if closest else gi.inst_any_hit)(a, ray)
+            y = per_instance_f(a, ray, mode)
+            if closest:
+                bad = int(((k[0].view(torch.int32) != p[0].view(torch.int32))
+                           | (k[1] != p[1]) | (k[2] != p[2])).sum())
+                bad_y = int(((y[0].view(torch.int32)
+                              != p[0].view(torch.int32)) | (y[1] != p[1])
+                             | (y[2] != p[2])).sum())
+                n_hit = int((p[1] >= 0).sum())
+            else:
+                bad, bad_y, n_hit = int((k != p).sum()), int((y != p).sum()), \
+                    int(p.sum())
+            ms = cuda_ms(lambda: (gi.inst_closest_hit if closest
+                                  else gi.inst_any_hit)(a, ray), 5)
+            y_ms = cuda_ms(lambda: per_instance_f(a, ray, mode), 2)
+            f_fn = ipk.closest_hit_packed if closest else ipk.any_hit_packed
+            f_ms = cuda_ms(lambda: f_fn(flat, "tri", ray), 5)
+            fk = f_fn(flat, "tri", ray)
+            f_same = float(((fk[1] >= 0) == (k[1] >= 0)).float().mean()) \
+                if closest else float((fk == k).float().mean())
+            bms, bby = g_bound(a, counts, n, mode)
+            log(f"G {mode} on the instanced {name} wave ({n} rays, {n_hit} "
+                f"hits): {'bit for bit' if bad == 0 else f'{bad} rays DIFFER'}"
+                f"; kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, bound "
+                f"{bms:.4f} ms by {bby} ({ms / bms:.1f}x; {counts['boxes']} "
+                f"box tests, {counts['walked']} walks, {counts['nodes']} node "
+                f"rows, {counts['prims']} tests); the JAX structure (64 F "
+                f"launches) {y_ms:.3f} ms ({bad_y} rays off the plain "
+                f"version), the flattened mesh through F {f_ms:.3f} ms (hit "
+                f"flags equal on {f_same:.6f})")
+            require(bad == 0, f"kernel G ({mode}) differs from its plain "
+                    f"version on {bad} rays of the {name} wave")
+            report.setdefault(mode, []).append((name, dict(
+                ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=bby,
+                max_abs_err=0.0, per_instance_f_ms=y_ms,
+                flattened_f_ms=f_ms, rays=n, counts=counts)))
+    del scene, wv, flat
+
+
+def instanced_small(reset_all):
+    """Phase 13b: the stand-in at INST_SMALL on the card and with the
+    plain versions on the CPU: image means within MEAN_RTOL; the card
+    render launches G and F and runs no plain version on CUDA tensors."""
+    import tempfile
+    from hairpt_torch.integrators import path
+    from hairpt_torch.ops import instancing as gi
+    from hairpt_torch.ops import intersect_packed as ipk
+    from hairpt_torch.scene import scene_xmls
+    from hairpt_torch.scene.xml_loader import load_scene
+
+    means = {}
+    with tempfile.TemporaryDirectory(prefix="hairpt_inst_") as tmp:
+        xml = scene_xmls.write_scene(tmp, "instanced")
+        for dev in ("cuda", "cpu"):
+            s = load_scene(xml, spp_override=1, device=dev, **INST_SMALL)
+            reset_all()
+            t0 = time.time()
+            means[dev] = float(path.render(s, spp=1).mean())
+            secs = time.time() - t0
+            if dev == "cuda":
+                g_l, f_l = dict(gi.LAUNCHES), dict(ipk.LAUNCHES)
+                plain = dict(gi.PLAIN_ON_CUDA, **ipk.PLAIN_ON_CUDA)
+            log(f"instanced small ({s.config.width} x {s.config.height}, "
+                f"depth {s.config.max_depth}) on {dev}: {secs:.1f}s, image "
+                f"mean {means[dev]:.6f}")
+    rel = abs(means["cuda"] - means["cpu"]) / max(abs(means["cpu"]), 1e-12)
+    log(f"instanced small: card against CPU rel diff {rel:.3g}; card "
+        f"launches G {g_l}, F {f_l}")
+    require(means["cpu"] > 0 and rel <= MEAN_RTOL,
+            f"instanced small: card and CPU means differ by {rel}")
+    require(all(v > 0 for v in g_l.values()), f"kernel G was not launched "
+            f"by the small instanced render: {g_l}")
+    require(all(v == 0 for v in plain.values()),
+            f"plain versions ran on CUDA tensors: {plain}")
+
+
+def instanced_entry_point(reset_all, device="cuda", res_scale=1.0):
+    """Phase 13c: the stand-in at full width (1280 x 720, depth 65): one
+    warm-up wave and two timed 1-spp waves in process (s/wave, Mrays/s,
+    G's and F's launches per wave), then the CLI as a subprocess at 2
+    spp (wall time, its logged build and render seconds). Returns
+    (s/wave, rays/wave, G's launches, F's launches, waves timed)."""
+    import re
+    import tempfile
+    import numpy as np
+    import torch
+    from hairpt_torch.integrators import path
+    from hairpt_torch.ops import instancing as gi
+    from hairpt_torch.ops import intersect_packed as ipk
+    from hairpt_torch.ops import tiled_kernels as tk
+    from hairpt_torch.scene import scene_xmls
+    from hairpt_torch.scene.xml_loader import load_scene
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(prefix="hairpt_inst_") as tmp:
+        xml = scene_xmls.write_scene(tmp, "instanced")
+        t0 = time.time()
+        scene = load_scene(xml, spp_override=1, res_scale=res_scale,
+                           device=device)
+        log(f"instanced stand-in loaded in {time.time() - t0:.1f}s")
+        if device == "cuda":
+            progress, times, rays, n_timed = warm_up(scene, "instanced")
+            reset_all()
+            torch.cuda.synchronize()
+            img = path.render(scene, spp=n_timed, seed=1, progress=progress)
+            torch.cuda.synchronize()
+            g_l, f_l = dict(gi.LAUNCHES), dict(ipk.LAUNCHES)
+            plain = dict(gi.PLAIN_ON_CUDA, **ipk.PLAIN_ON_CUDA)
+            hair = dict(tk.LAUNCHES)
+            secs = sum(times) / len(times)
+            rays_w = sum(rays) / len(rays)
+            log(f"instanced render: {n_timed} timed waves of 1 spp at "
+                f"{scene.config.width} x {scene.config.height}, depth 65: "
+                f"{rays_w:.0f} rays/wave, {secs:.3f} s/wave, "
+                f"{rays_w / secs / 1e6:.4f} Mrays/s; image mean "
+                f"{float(img.mean()):.6f}; G launches {g_l} "
+                f"({g_l['inst_closest'] / n_timed:.1f} closest and "
+                f"{g_l['inst_any'] / n_timed:.1f} any per wave), F "
+                f"{f_l['packed_tri_closest'] / n_timed:.1f} closest and "
+                f"{f_l['packed_tri_any'] / n_timed:.1f} any per wave")
+            require(bool(torch.isfinite(img).all()) and float(img.mean()) > 0,
+                    "instanced render: non-finite or black")
+            require(all(v > 0 for v in g_l.values())
+                    and f_l["packed_tri_closest"] > 0
+                    and f_l["packed_tri_any"] > 0,
+                    f"G or F was not launched by the instanced render: G "
+                    f"{g_l}, F {f_l}")
+            require(all(v == 0 for v in plain.values()),
+                    f"plain versions ran on CUDA tensors: {plain}")
+            require(all(v == 0 for v in hair.values()),
+                    f"the instanced render ran a hair kernel: {hair}")
+            del img
+        del scene
+        out = os.path.join(tmp, "out", "instanced.png")
+        os.makedirs(os.path.dirname(out))
+        env = dict(os.environ, PYTHONPATH=here + os.pathsep
+                   + os.environ.get("PYTHONPATH", ""))
+        t0 = time.time()
+        proc = subprocess.run(
+            [sys.executable, "-m", "hairpt_torch.cli", "render", xml, "-o",
+             out, "--spp", "2", "--res-scale", str(res_scale)]
+            + (["--cpu"] if device == "cpu" else []),
+            cwd=here, env=env, capture_output=True, text=True, timeout=600)
+        wall = time.time() - t0
+        require(proc.returncode == 0, f"the instanced CLI exited "
+                f"{proc.returncode}:\n{proc.stderr[-3000:]}")
+        built = re.search(r"scene built in ([0-9.]+)s", proc.stderr)
+        rendered = re.search(r"rendered in ([0-9.]+)s", proc.stderr)
+        require(built is not None and rendered is not None,
+                f"the CLI logged no build or render time:\n{proc.stderr}")
+        base = out[:-4]
+        for ext in ("png", "exr", "npy", "pfm"):
+            require(os.path.getsize(f"{base}.{ext}") > 0, f"no {ext} output")
+        img = np.load(f"{base}.npy")
+        w, h = (max(8, round(x * res_scale)) for x in TEAPOT_RES)
+        require(img.shape == (h, w, 3) and np.isfinite(img).all()
+                and img.mean() > 0, f"instanced CLI image {img.shape}, mean "
+                f"{img.mean()}")
+        log(f"CLI instanced ({w} x {h}, depth 65, 2 spp): exit 0 in "
+            f"{wall:.1f}s wall, scene built in {built.group(1)}s, rendered "
+            f"in {rendered.group(1)}s; image mean {img.mean():.6f}; four "
+            f"outputs")
+    if device != "cuda":
+        return None
+    return secs, rays_w, g_l, f_l, n_timed
+
+
+def g_kernel_entries(report, launches, n_timed):
+    """The kernels line's entries for kernel G: its time on the camera
+    wave, its launches over phase 13c's timed waves."""
+    entries = []
+    for mode in ("closest", "any"):
+        (label, f), *rest = report[mode]
+        name = f"inst_{mode}"
+        entries.append(dict(
+            name=name, route="cuda", source="hairpt_torch/csrc/instanced.cu",
+            replaces=G_REPLACES[mode], launches=launches[name],
+            max_abs_err=f["max_abs_err"], ms=f["ms"],
+            plain_ms=f["plain_ms"], bound_ms=f["bound_ms"],
+            bound_by=f["bound_by"], library_ms=None,
+            per_instance_f_ms=f["per_instance_f_ms"],
+            flattened_f_ms=f["flattened_f_ms"],
+            timed_on=f"the instanced {label} wave",
+            launched_by="the instanced stand-in's timed waves (phase 13c)",
+            launches_per_wave=launches[name] / n_timed,
+            other_waves={lb: {k: x[k] for k in (
+                "ms", "plain_ms", "bound_ms", "per_instance_f_ms",
+                "flattened_f_ms")} for lb, x in rest}))
+    return entries
+
+
 def warm_up(scene, label):
     """One warm-up wave. Returns (progress callback, the lists it fills
     with each wave's seconds and rays, the number of waves to time: two,
@@ -2201,6 +2544,7 @@ def main() -> int:
     from concurrent.futures import ThreadPoolExecutor
     from hairpt_torch.integrators import path
     from hairpt_torch.ops import _native, bvh
+    from hairpt_torch.ops import instancing as gi
     from hairpt_torch.ops import intersect_packed as ipk
     from hairpt_torch.ops import intersect_swept as iswept
     from hairpt_torch.ops import intersect_tiled as itiled
@@ -2211,6 +2555,7 @@ def main() -> int:
         tk.reset_counts()
         pk.reset_counts()
         ipk.reset_counts()
+        gi.reset_counts()
 
     try:
         # ---- 0. the card ----
@@ -2230,9 +2575,9 @@ def main() -> int:
 
         # ---- 1. builds, all at once ----
         t0 = time.time()
-        with ThreadPoolExecutor(6) as ex:
+        with ThreadPoolExecutor(7) as ex:
             futs = [ex.submit(f) for f in (tk.lib, tk.oct_lib, pk.lib,
-                                           pk.cull_lib, ipk.lib)]
+                                           pk.cull_lib, ipk.lib, gi.lib)]
             f_b = ex.submit(bvh._load_native)
             for f in futs:
                 f.result()
@@ -2240,7 +2585,8 @@ def main() -> int:
         for name, s in _native.BUILD_SECONDS.items():
             log(f"built {name} in {s:.1f}s")
         for name in ("hairpt_tiled", "hairpt_octets", "hairpt_phaseb",
-                     "hairpt_swept_cull", "hairpt_packed"):
+                     "hairpt_swept_cull", "hairpt_packed",
+                     "hairpt_instanced"):
             for line in _native.BUILD_LOG.get(name, "").splitlines():
                 if "registers" in line or "spill" in line:
                     log(f"  ptxas {name}: {line.strip()}")
@@ -2491,6 +2837,24 @@ def main() -> int:
         kernels += f_kernel_entries(f_report, tea_launches, floor_launches,
                                     tea_n)
         log(f"phase 12 ({time.time() - t0:.1f}s, 12b in phase 2): ok")
+
+        # ---- 13. instanced meshes through kernel G ----
+        t0 = time.time()
+        g_report = {}
+        instanced_kernels(g_report)
+        log(f"phase 13a ({time.time() - t0:.1f}s): kernel G matches its "
+            f"plain version on the instanced stand-in's waves")
+        t1 = time.time()
+        instanced_small(reset_all)
+        log(f"phase 13b ({time.time() - t1:.1f}s): the small instanced "
+            f"render agrees card against CPU")
+        t1 = time.time()
+        inst_secs, inst_rays, g_launches, _, inst_n = instanced_entry_point(
+            reset_all)
+        log(f"phase 13c ({time.time() - t1:.1f}s): the instanced render "
+            f"and CLI ok")
+        kernels += g_kernel_entries(g_report, g_launches, inst_n)
+        log(f"phase 13 ({time.time() - t0:.1f}s): ok")
         require(all(k["launches"] > 0 for k in kernels),
                 "a kernel has no launches")
     except SmokeFailure as e:

@@ -3,8 +3,9 @@
 The input is the JAX scene's arrays with every leaf turned into numpy
 (for example `jax.tree_util.tree_map(np.asarray, scene.arrays)`); this
 module only reads attributes, so it needs no JAX. The result renders the
-identical scene (same prim order, cluster layout, materials, hair tables
-and baked environment) through hairpt_torch. params_to_torch and
+identical scene (same prim order, cluster layout, instance tables,
+materials, textures, hair tables and baked environment) through
+hairpt_torch. params_to_torch and
 grads_to_numpy carry a parameter dict of the JAX package's inverse
 rendering across and its gradients back, so both packages can be
 differentiated on one dict.
@@ -21,6 +22,7 @@ from .film.film import Film
 from .models import emitters as em
 from .models.bsdf import registry as mat
 from .models.sensors import Camera
+from .ops import instancing as inst_mod
 from .ops.intersect_packed import PackedBVH
 from .ops.intersect_swept import SweptHair
 from .scene.scene import (HairGeom, RenderConfig, Scene, SceneArrays,
@@ -41,13 +43,28 @@ def _tuple(cls, src, dev, dtypes=None):
                   for f in cls._fields})
 
 
+def _instances(inst, dev):
+    """The JAX package's InstancedGeo (numpy leaves) in the port's
+    one-launch layout."""
+    protos = [inst_mod.ProtoGeo(
+        bvh=_tuple(PackedBVH, pr.bvh, dev),
+        **{f: _t(getattr(pr, f), dev, torch.int32 if f == "mat_id"
+                 else torch.float32) for f in inst_mod._SHADING},
+        obj_lo=np.asarray(pr.obj_lo, np.float32),
+        obj_hi=np.asarray(pr.obj_hi, np.float32)) for pr in inst.protos]
+    return inst_mod.assemble(protos, inst.proto_id, np.asarray(inst.w2o),
+                             np.asarray(inst.nrm_m), np.asarray(inst.aabb_lo),
+                             np.asarray(inst.aabb_hi), dev)
+
+
 def convert_arrays(arrays, device=None) -> SceneArrays:
     """JAX SceneArrays (numpy leaves) -> hairpt_torch SceneArrays on
-    `device`: triangles (their shading and packed BVH), hair (its packed
-    BVH and swept layout), materials, procedural textures, hair tables
-    and the environment. Instances, media, area and delta lights raise."""
+    `device`: triangles (their shading and packed BVH), instances, hair
+    (its packed BVH and swept layout), materials, textures (bitmaps and
+    mips included), hair tables and the environment. Media, area and
+    delta lights raise."""
     dev = resolve_device(device)
-    for name, item in (("inst", "11c"), ("media", "13"), ("tri_med", "13"),
+    for name, item in (("media", "13"), ("tri_med", "13"),
                        ("sss", "13"), ("area", "13"), ("delta", "13")):
         if getattr(arrays, name, None) is not None:
             raise NotImplementedError(f"the scene's {name} arrays are not "
@@ -62,9 +79,6 @@ def convert_arrays(arrays, device=None) -> SceneArrays:
     ck = arrays.checkers
     checkers = None
     if ck is not None:
-        if (np.asarray(ck.kind) == 1).any():
-            raise NotImplementedError("bitmap textures are not ported yet "
-                                      "(ROADMAP item 11c)")
         checkers = _tuple(mat.CheckerboardTable, ck, dev, {"kind": i32})
     ht = arrays.hair_tables
     if ht is not None:
@@ -90,7 +104,9 @@ def convert_arrays(arrays, device=None) -> SceneArrays:
         else _t(arrays.hair_mat_id, dev, i32),
         hair_packed=_tuple(PackedBVH, arrays.hair_packed, dev),
         hair_swept=_tuple(SweptHair, arrays.hair_swept, dev),
-        materials=materials, checkers=checkers, hair_tables=ht, env=env)
+        materials=materials, checkers=checkers, hair_tables=ht, env=env,
+        inst=None if getattr(arrays, "inst", None) is None
+        else _instances(arrays.inst, dev))
 
 
 def convert_scene(scene, arrays, device=None) -> Scene:
@@ -100,11 +116,15 @@ def convert_scene(scene, arrays, device=None) -> Scene:
     its environment a baked sunsky, an envmap or a constant one, its
     sampler any of the five modes, its film any of the six filters and
     its traversal 'tiled', 'swept' or 'packed'; a thin lens, radial
-    distortion, another camera kind, film annotations or motion
-    raise."""
+    distortion, another camera kind, film annotations, the motion
+    integrator's tables or motion blur (an open shutter over animated
+    geometry) raise."""
     cam = scene.camera
-    if getattr(scene, "motion", None) is not None \
-            or getattr(scene, "rebuild_geo", None) is not None:
+    shutter = tuple(getattr(scene, "shutter", (0.0, 0.0)))
+    blur = shutter[1] > shutter[0] and any(
+        getattr(scene, f, None) is not None
+        for f in ("rebuild_geo", "repose_inst", "camera_anim"))
+    if getattr(scene, "motion", None) is not None or blur:
         raise NotImplementedError("motion is not ported yet (ROADMAP item "
                                   "11c)")
     if int(cam.kind) != 0 or cam.aperture_radius or cam.kc0 or cam.kc1:
@@ -132,7 +152,9 @@ def convert_scene(scene, arrays, device=None) -> Scene:
     mat.check_kinds(active)
     return Scene(arrays=convert_arrays(arrays, device), camera=camera,
                  film=film, config=cfg, active_kinds=active,
-                 marschner_rows=tuple(int(r) for r in scene.marschner_rows))
+                 marschner_rows=tuple(int(r) for r in scene.marschner_rows),
+                 has_normal_maps=bool(getattr(scene, "has_normal_maps",
+                                              False)))
 
 
 def params_to_torch(params: dict, device=None) -> dict:

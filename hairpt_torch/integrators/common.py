@@ -1,7 +1,8 @@
 """Scene intersection and shading records (port of
 hairpt/integrators/common.py): the triangles through the packed BVH walk,
-the hair through the tiled, swept or packed traversal, and the shading
-record of the nearer hit."""
+the hair through the tiled, swept or packed traversal, the instanced
+meshes through the two-level walk, and the shading record of the nearest
+hit."""
 from __future__ import annotations
 
 from typing import NamedTuple
@@ -10,6 +11,7 @@ import numpy as np
 import torch
 
 from ..core.math import Ray, Frame, dot, frame_from_normal, normalize
+from ..ops import instancing as inst_mod
 from ..ops import intersect_packed as ipk
 from ..ops import intersect_swept as iswept
 from ..ops import intersect_tiled as itiled
@@ -50,7 +52,8 @@ class Hit(NamedTuple):
     bary: torch.Tensor        # [N, 2] triangle barycentrics (b1, b2)
     vcolor: torch.Tensor      # [N, 3] interpolated vertex colours (1 off)
     prim: torch.Tensor        # [N] sorted prim id (the hair table's where
-    #                           is_hair, else the triangles'), -1 = miss
+    #                           is_hair, the prototype-local id on an
+    #                           instance, else the triangles'), -1 = miss
 
 
 def frame(hit: Hit) -> Frame:
@@ -73,11 +76,14 @@ def scene_intersect(arr, ray: Ray, q_max: int, sort_rays: bool = False,
     sort_rays and compact as there), 'swept' through the swept traversal
     (p_max candidates per ray, chunks of `chunk` pairs), which ignores
     sort_rays and compact as the JAX package's does, 'packed' through the
-    packed walk. A triangle hit's barycentrics, interpolated normal, uv
-    and vertex colours are recomputed for the chosen triangle and its
-    geometric normal turned into the shading normal's hemisphere; a hair
-    hit's point is snapped back onto the cylinder, as the reference's
-    fillIntersectionRecord does."""
+    packed walk. The instances are walked last (the two-level walk), up
+    to the nearer of the triangle and hair hits. A triangle hit's
+    barycentrics, interpolated normal, uv and vertex colours are
+    recomputed for the chosen triangle and its geometric normal turned
+    into the shading normal's hemisphere, an instanced hit's likewise in
+    its prototype's object space (its uv_density stays 0, its vertex
+    colour 1); a hair hit's point is snapped back onto the cylinder, as
+    the reference's fillIntersectionRecord does."""
     _check_traversal(traversal)
     n = ray.o.shape[0]
     dev = ray.o.device
@@ -100,10 +106,18 @@ def scene_intersect(arr, ray: Ray, q_max: int, sort_rays: bool = False,
             t_hair, prim_hair = itiled.tiled_closest_hit(
                 arr.hair_swept, hair_ray, q_max=q_max, sort_rays=sort_rays,
                 compact=compact)
+    t_inst, prim_inst, which_inst = inf, none, none
+    if arr.inst is not None:
+        iray = ray._replace(maxt=torch.minimum(
+            ray.maxt, torch.minimum(t_tri, t_hair)))
+        t_inst, prim_inst, which_inst = inst_mod.inst_closest_hit(arr.inst,
+                                                                  iray)
     use_hair = t_hair < t_tri
-    t = torch.where(use_hair, t_hair, t_tri)
+    use_inst = (t_inst < t_hair) & (t_inst < t_tri)
+    t = torch.where(use_inst, t_inst, torch.where(use_hair, t_hair, t_tri))
     valid = torch.isfinite(t) & (t < ray.maxt) \
-        & ((prim_tri >= 0) | (prim_hair >= 0))
+        & ((prim_tri >= 0) | (prim_hair >= 0) | (prim_inst >= 0))
+    use_hair = use_hair & ~use_inst
     p = ray.o + ray.d * t[..., None]
 
     e = torch.eye(3, device=dev)
@@ -141,7 +155,7 @@ def scene_intersect(arr, ray: Ray, q_max: int, sort_rays: bool = False,
         # (winding-robust: procedural stand-ins may wind either way)
         gn = torch.where((dot(gn, ns) < 0)[..., None], -gn, gn)
         f = frame_from_normal(ns)
-        tri_sel = ~use_hair & (prim_tri >= 0)
+        tri_sel = ~use_hair & ~use_inst & (prim_tri >= 0)
         m = tri_sel[..., None]
         geo_n = torch.where(m, gn, geo_n)
         sh_n = torch.where(m, ns, sh_n)
@@ -179,21 +193,38 @@ def scene_intersect(arr, ray: Ray, q_max: int, sort_rays: bool = False,
         sh_t = torch.where(m, tt, sh_t)
         mat_id = torch.where(hair_sel, arr.hair_mat_id[i], mat_id)
 
+    if arr.inst is not None:
+        gn_i, ns_i, uv_i, mat_i, bary_i = inst_mod.inst_shading(
+            arr.inst, ray, t, prim_inst, which_inst)
+        f_i = frame_from_normal(ns_i)
+        sel = use_inst & (prim_inst >= 0)
+        m = sel[..., None]
+        geo_n = torch.where(m, torch.where((dot(gn_i, ns_i) < 0)[..., None],
+                                           -gn_i, gn_i), geo_n)
+        sh_n = torch.where(m, ns_i, sh_n)
+        sh_s = torch.where(m, f_i.s, sh_s)
+        sh_t = torch.where(m, f_i.t, sh_t)
+        uv = torch.where(m, uv_i, uv)
+        mat_id = torch.where(sel, mat_i, mat_id)
+        bary = torch.where(m, bary_i, bary)
+
     return Hit(valid=valid, t=t, p=p, geo_n=geo_n, sh_s=sh_s, sh_t=sh_t,
                sh_n=sh_n, uv=uv, mat_id=mat_id,
                emitter_id=torch.full((n,), -1, dtype=torch.int32,
                                      device=dev),
                is_hair=use_hair & valid, uv_density=uv_density, bary=bary,
                vcolor=vcolor,
-               prim=torch.where(use_hair, prim_hair, prim_tri))
+               prim=torch.where(use_inst, prim_inst,
+                                torch.where(use_hair, prim_hair, prim_tri)))
 
 
 def scene_occluded(arr, ray: Ray, q_max: int, sort_rays: bool = False,
                    compact: bool = True, traversal: str = "tiled",
                    p_max: int = 24, chunk: int = 64):
-    """[N] bool: does the ray hit a triangle or a hair segment in [mint,
-    maxt]. The triangles are walked first; a hair shadow ray starts with
-    maxt = 0 where a triangle already occludes. The traversal and its
+    """[N] bool: does the ray hit a triangle, a hair segment or an
+    instance in [mint, maxt]. The triangles are walked first, then the
+    hair, then the instances; a later shadow ray starts with maxt = 0
+    where an earlier one already occludes. The traversal and its
     parameters as in scene_intersect."""
     _check_traversal(traversal)
     occ = torch.zeros(ray.o.shape[:1], dtype=torch.bool, device=ray.o.device)
@@ -212,4 +243,7 @@ def scene_occluded(arr, ray: Ray, q_max: int, sort_rays: bool = False,
                                              q_max=q_max,
                                              sort_rays=sort_rays,
                                              compact=compact)
+    if arr.inst is not None:
+        ray3 = ray._replace(maxt=torch.where(occ, 0.0, ray.maxt))
+        occ = occ | inst_mod.inst_any_hit(arr.inst, ray3)
     return occ

@@ -4,7 +4,11 @@ modes).
 
 The bounce loop runs over a whole wave of path states at once. Emitter
 NEE samples the baked environment through its alias table; shadow rays
-are thinned by shadow-ray RR (cfg.nee_rr). The forward mode runs the
+are thinned by shadow-ray RR (cfg.nee_rr). Bitmap textures are looked up
+at the mip level of each hit's isotropic footprint; at the camera hit a
+lane with a uv Jacobian (_camera_uv_partials) is EWA-filtered instead,
+and whether a wave has such a lane is read once, after the camera query,
+so the bounce loop adds no host sync for it. The forward mode runs the
 loop at staged widths n -> n/4 -> n/16 (live lanes gathered first,
 results scattered back) so deep RR tails do not pay full-width shading.
 The differentiable mode runs max_depth - 1 bounces at full width with
@@ -58,6 +62,86 @@ def _swept_params(cfg):
                 p_max=cfg.swept_pmax, chunk=cfg.swept_chunk)
 
 
+def _camera_uv_partials(arr, cam, pos, ray, hit):
+    """The uv footprint Jacobian at the camera hit (the JAX package's
+    _camera_uv_partials; reference: Intersection::computePartials):
+    offset rays through the next pixel centres transferred to the hit's
+    tangent plane, projected on (dp/du, dp/dv) by least squares. Returns
+    (duv_dx, duv_dy) [N, 2] in unscaled uv; zero on hair, instanced
+    (uv_density 0), missed and degenerate lanes."""
+    sh = arr.tri_shading
+    i = torch.clamp(hit.prim, 0, sh.uv0.shape[0] - 1).long()
+    duv1 = sh.uv1[i] - sh.uv0[i]
+    duv2 = sh.uv2[i] - sh.uv0[i]
+    e1 = arr.tri.e1[i]
+    e2 = arr.tri.e2[i]
+    det_uv = duv1[..., 0] * duv2[..., 1] - duv1[..., 1] * duv2[..., 0]
+    inv_uv = 1.0 / torch.where(torch.abs(det_uv) < 1e-12, 1.0, det_uv)
+    dpdu = (duv2[..., 1:2] * e1 - duv1[..., 1:2] * e2) * inv_uv[..., None]
+    dpdv = (-duv2[..., 0:1] * e1 + duv1[..., 0:1] * e2) * inv_uv[..., None]
+    one_x = torch.tensor([1.0, 0.0], device=pos.device)
+    one_y = torch.tensor([0.0, 1.0], device=pos.device)
+    n = hit.geo_n
+    d_dot = dot(ray.d, n)
+
+    def transfer(rd):
+        dn = dot(rd.d, n)
+        tq = dot(hit.p - rd.o, n) / torch.where(torch.abs(dn) < 1e-12, 1.0,
+                                                dn)
+        return rd.o + rd.d * tq[..., None] - hit.p
+
+    dpdx = transfer(sensors.sample_ray(cam, pos + one_x))
+    dpdy = transfer(sensors.sample_ray(cam, pos + one_y))
+    g00 = dot(dpdu, dpdu)
+    g01 = dot(dpdu, dpdv)
+    g11 = dot(dpdv, dpdv)
+    det_g = g00 * g11 - g01 * g01
+    inv_g = 1.0 / torch.where(torch.abs(det_g) < 1e-20, 1.0, det_g)
+
+    def solve(dp):
+        bu = dot(dpdu, dp)
+        bv = dot(dpdv, dp)
+        return torch.stack([(g11 * bu - g01 * bv) * inv_g,
+                            (g00 * bv - g01 * bu) * inv_g], -1)
+
+    ok = (hit.valid & ~hit.is_hair & (hit.uv_density > 0)
+          & (torch.abs(det_uv) > 1e-12) & (torch.abs(det_g) > 1e-20)
+          & (torch.abs(d_dot) > 1e-6))[..., None]
+    return (torch.where(ok, solve(dpdx), 0.0),
+            torch.where(ok, solve(dpdy), 0.0))
+
+
+def has_bitmaps(arr) -> bool:
+    """Does the texture table hold a bitmap (one host sync; the callers
+    ask once per render function)? Without one the footprint changes no
+    texture value: only bitmap lanes read the mips."""
+    return arr.checkers is not None \
+        and bool((arr.checkers.kind == mat.TEX_BITMAP).any())
+
+
+def camera_footprint(arr, cam, pos, ray, hit, bitmaps: bool):
+    """(duv_dx, duv_dy, ewa): the camera hit's uv Jacobian, zero-width
+    [N, 0] when the scene has no bitmap or no triangles, and whether any
+    lane has a nonzero one (one host sync, once per wave)."""
+    n = pos.shape[0]
+    if not bitmaps or arr.checkers is None or arr.tri is None:
+        z = torch.zeros((n, 0), device=pos.device)
+        return z, z, False
+    dx, dy = _camera_uv_partials(arr, cam, pos, ray, hit)
+    ewa = bool(((torch.abs(dx).sum(-1) + torch.abs(dy).sum(-1)) > 0).any())
+    return dx, dy, ewa
+
+
+def texture_lod(arr, cam, width: int, hit, bitmaps: bool):
+    """The isotropic level of detail log2(max(t * pixel angle *
+    uv_density * R, 1)) of each hit, or None without a bitmap."""
+    if not bitmaps or arr.checkers is None:
+        return None
+    pix_ang = 2.0 * cam.tan_half_fov / width
+    foot = hit.t * pix_ang * hit.uv_density * arr.checkers.bitmaps.shape[1]
+    return torch.log2(torch.clamp(foot, min=1.0))
+
+
 def _luminance(c):
     return c[..., 0] * LUM[0] + c[..., 1] * LUM[1] + c[..., 2] * LUM[2]
 
@@ -79,6 +163,8 @@ class PathState(NamedTuple):
     prev_bsdf_pdf: torch.Tensor     # [N]
     prev_delta: torch.Tensor        # [N] bool
     emission_allowed: torch.Tensor  # [N] bool
+    duv_dx: torch.Tensor            # [N, 2] the camera hit's uv Jacobian
+    duv_dy: torch.Tensor            # ([N, 0] without textured triangles)
 
 
 def _map_state(st: PathState, fn) -> PathState:
@@ -200,8 +286,10 @@ def make_li_fn(scene, differentiable: bool = False, antithetic=False):
     params = _swept_params(cfg)
     anti_rels = (D_BSDF_U2, D_BSDF_U2 + 1) if antithetic is True \
         else tuple(antithetic or ())
+    bitmaps = has_bitmaps(scene.arrays)
 
-    def body(arr, st: PathState, depth: int, smp, query=_run_query):
+    def body(arr, st: PathState, depth: int, smp, query=_run_query,
+             ewa: bool = False):
         n = st.active.shape[0]
         dev = st.active.device
         dims = DIM_BASE + (depth - 1) * DIM_STRIDE
@@ -226,9 +314,11 @@ def make_li_fn(scene, differentiable: bool = False, antithetic=False):
 
         # ---- shading frame (twosided flip) ----
         wi_world = -d_in
-        p_n, p_s, p_t = mat.perturb_shading_frame(
-            arr.materials, hit.mat_id, hit.sh_n, hit.sh_s, hit.sh_t)
-        hit = hit._replace(sh_n=p_n, sh_s=p_s, sh_t=p_t)
+        if scene.has_normal_maps:
+            p_n, p_s, p_t = mat.perturb_shading_frame(
+                arr.materials, arr.checkers, hit.mat_id, hit.uv, hit.sh_n,
+                hit.sh_s, hit.sh_t)
+            hit = hit._replace(sh_n=p_n, sh_s=p_s, sh_t=p_t)
         two = arr.materials.twosided[torch.clamp(hit.mat_id, min=0).long()]
         flip = (two & (dot(hit.sh_n, wi_world) < 0))[..., None]
         sh_n = torch.where(flip, -hit.sh_n, hit.sh_n)
@@ -238,8 +328,12 @@ def make_li_fn(scene, differentiable: bool = False, antithetic=False):
         wi = fr.to_local(wi_world)
         if cfg.strict_normals:
             active = active & ~(dot(d_in, geo_n) * wi[..., 2] >= 0)
+        # the camera hit's EWA where a lane has a Jacobian (ewa: read once
+        # per wave), the footprint's trilinear level elsewhere
+        duv = (st.duv_dx, st.duv_dy) if depth == 1 and ewa else None
         gm = mat.gather(arr.materials, arr.checkers, hit.mat_id, hit.uv,
-                        hit.bary, hit.vcolor)
+                        texture_lod(arr, cam, cfg.width, hit, bitmaps),
+                        hit.bary, hit.vcolor, duv)
 
         # ---- NEE ----
         u_sel = smp.next_1d(dims + D_NEE_SEL)
@@ -322,7 +416,8 @@ def make_li_fn(scene, differentiable: bool = False, antithetic=False):
         return PathState(active=active, ray_o=next_o, ray_d=wo_world,
                          throughput=throughput, li=li_acc, eta=eta, hit=hit2,
                          prev_bsdf_pdf=bsdf_pdf, prev_delta=is_delta,
-                         emission_allowed=torch.zeros_like(active)), n_new
+                         emission_allowed=torch.zeros_like(active),
+                         duv_dx=st.duv_dx, duv_dy=st.duv_dy), n_new
 
     def li(arr, pixel_idx, sample_idx):
         dev = pixel_idx.device
@@ -336,6 +431,8 @@ def make_li_fn(scene, differentiable: bool = False, antithetic=False):
         pos = torch.stack([px + jitter[..., 0], py + jitter[..., 1]], dim=-1)
         ray = sensors.sample_ray(cam, pos)
         hit0 = scene_intersect(arr, ray, **params)
+        duv_dx, duv_dy, ewa = camera_footprint(arr, cam, pos, ray, hit0,
+                                               bitmaps)
         state = PathState(
             active=torch.ones((n,), dtype=torch.bool, device=dev),
             ray_o=ray.o, ray_d=ray.d,
@@ -344,14 +441,15 @@ def make_li_fn(scene, differentiable: bool = False, antithetic=False):
             eta=torch.ones((n,), device=dev), hit=hit0,
             prev_bsdf_pdf=torch.zeros((n,), device=dev),
             prev_delta=torch.zeros((n,), dtype=torch.bool, device=dev),
-            emission_allowed=torch.ones((n,), dtype=torch.bool, device=dev))
+            emission_allowed=torch.ones((n,), dtype=torch.bool, device=dev),
+            duv_dx=duv_dx, duv_dy=duv_dy)
         n_rays = torch.tensor(float(n), device=dev)
         if differentiable:
             for depth in range(1, cfg.max_depth):
                 stash = _QueryStash()
                 state, n_new = checkpoint(
                     lambda st, d=depth, q=stash: body(arr, st, d, smp,
-                                                      q.caller()),
+                                                      q.caller(), ewa),
                     state, use_reentrant=False, preserve_rng_state=False)
                 n_rays = n_rays + n_new
             return _flush_pending(arr, state), pos, n_rays
@@ -378,7 +476,7 @@ def make_li_fn(scene, differentiable: bool = False, antithetic=False):
                 n_act = int(sub.active.sum())
                 if n_act == 0 or (next_cap > 0 and n_act <= next_cap):
                     break
-                sub, n_new = body(arr, sub, depth, ssmp)
+                sub, n_new = body(arr, sub, depth, ssmp, ewa=ewa)
                 n_rays = n_rays + n_new
                 depth += 1
             if order is None:

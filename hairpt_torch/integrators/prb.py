@@ -16,7 +16,9 @@ path.make_li_fn with O(1) memory in depth (Vicini et al. 2021).
 
 theta is the float fields of the material table and the Marschner
 azimuthal tables (HairTables): sigma_a / beta_r gradients then flow
-through precompute_azimuthal outside this loop (inverse.py). Lanes with
+through precompute_azimuthal outside this loop (inverse.py). The replay
+shades as the primal pass does: normal and bump maps, the bitmaps' level
+of detail in every bounce and the camera hit's EWA. Lanes with
 |w_k| < 1e-6 in a channel zero that channel's suffix. Shadow-ray RR is
 not replayed: the scene must have nee_rr == 0.
 """
@@ -34,7 +36,8 @@ from .common import frame, scene_intersect, scene_occluded
 from .path import (DIM_BASE, DIM_CAM_POS, DIM_STRIDE, D_BSDF_LOBE,
                    D_BSDF_U2, D_BSDF_U2B, D_NEE_POS, D_NEE_SEL, D_RR,
                    _mi_weight, _pdf_emitter_hit, _sample_emitter_direct,
-                   _swept_params)
+                   _swept_params, camera_footprint, has_bitmaps,
+                   texture_lod)
 
 
 def _check_supported(scene):
@@ -88,6 +91,7 @@ def make_prb_grad_fn(scene, loss_fn=None):
     ray_eps = cfg.ray_eps
     params = _swept_params(cfg)
     li_fn = path_int.make_li_fn(scene)
+    bitmaps = has_bitmaps(scene.arrays)
 
     def grad(arr, pixel_idx, sample_idx, *loss_args):
         theta = float_theta(arr)
@@ -119,6 +123,8 @@ def make_prb_grad_fn(scene, loss_fn=None):
         pos = torch.stack([px + jitter[..., 0], py + jitter[..., 1]], -1)
         ray = sensors.sample_ray(scene.camera, pos)
         hit = scene_intersect(arr, ray, **params)
+        duv_dx, duv_dy, ewa = camera_footprint(arr, scene.camera, pos, ray,
+                                               hit, bitmaps)
 
         leaves = [theta0[k].clone().requires_grad_() for k in names]
         arr_g = with_theta(arr, dict(zip(names, leaves)))
@@ -152,7 +158,12 @@ def make_prb_grad_fn(scene, loss_fn=None):
             active = active & hit.valid
             wi_world = -d_in
 
-            # ---- shading frame (no textures: perturb is the identity) ---
+            # ---- shading frame (normal / bump maps, twosided flip) ----
+            if scene.has_normal_maps:
+                p_n, p_s, p_t = mat.perturb_shading_frame(
+                    arr.materials, arr.checkers, hit.mat_id, hit.uv,
+                    hit.sh_n, hit.sh_s, hit.sh_t)
+                hit = hit._replace(sh_n=p_n, sh_s=p_s, sh_t=p_t)
             two = arr.materials.twosided[torch.clamp(hit.mat_id,
                                                      min=0).long()]
             flip = (two & (dot(hit.sh_n, wi_world) < 0))[..., None]
@@ -175,8 +186,11 @@ def make_prb_grad_fn(scene, loss_fn=None):
 
             # ---- theta-dependent locals: NEE contribution, bounce weight
             with torch.enable_grad():
-                gm = mat.gather(mats_g, arr.checkers, hit.mat_id, hit.uv,
-                                hit.bary, hit.vcolor)
+                gm = mat.gather(
+                    mats_g, arr.checkers, hit.mat_id, hit.uv,
+                    texture_lod(arr, scene.camera, cfg.width, hit, bitmaps),
+                    hit.bary, hit.vcolor,
+                    (duv_dx, duv_dy) if depth == 1 and ewa else None)
                 f_nee, bsdf_pdf_nee = mat.eval_pdf_mix(
                     active_kinds, mats_g, hit.mat_id, gm, wi, wo_nee, ht_g)
                 w_nee = torch.where(is_dl, 1.0,

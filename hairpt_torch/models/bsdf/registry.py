@@ -8,11 +8,13 @@ and ROUGHPLASTIC (plastic.py) and the hair BSDFs KAJIYAKAY, MARSCHNER,
 MARSCHNER_PURE and MARSCHNERDIELECTRIC (hair.py), whose Marschner kinds
 read the stacked azimuthal tables (HairTables) through the
 `hair_tables` argument. gather resolves a material's diffuse
-reflectance through its procedural texture (CheckerboardTable: the
-checkerboard, gridtexture, wireframe and vertexcolors kinds; bitmaps,
-mips and normal or bump maps are ROADMAP item 11c). The scenes have no
-wrapper materials, so eval_pdf_mix / sample_mix equal eval_pdf / sample
-and perturb_shading_frame is the identity.
+reflectance through its texture (CheckerboardTable: the checkerboard,
+gridtexture, wireframe and vertexcolors kinds, and bitmaps: bilinear, or
+trilinear in their mip pyramid at a footprint's level of detail, or the
+elliptical (EWA) filter where the camera hit gives a uv Jacobian);
+perturb_shading_frame applies a material's normal or bump map. The
+scenes have no wrapper materials, so eval_pdf_mix / sample_mix equal
+eval_pdf / sample.
 
 Conventions (as in the reference's bsdf.h): wi, wo in the local shading
 frame, +z the shading normal; eval returns f(wi, wo) |cos theta_o|;
@@ -57,9 +59,9 @@ MARSCHNER_PURE = 23     # corrected-mode Marschner (true 3-lobe mixture
 
 N_COS = 64  # resolution of the per-material external-transmittance slice
 
-# texture kinds of the JAX package's CheckerboardTable (1, the bitmap, is
-# ROADMAP item 11c)
+# texture kinds of the JAX package's CheckerboardTable
 TEX_CHECKER = 0
+TEX_BITMAP = 1
 TEX_GRID = 2
 TEX_WIREFRAME = 3
 TEX_VERTEXCOLORS = 4
@@ -85,18 +87,25 @@ class MaterialTable(NamedTuple):
     scale_tilt: torch.Tensor   # [M] hair scale tilt (radians)
     aux_id: torch.Tensor       # [M] int32 row of the hair tables (-1 none)
     tex_id: torch.Tensor       # [M] int32 row of the texture table (-1 none)
+    nrm_tex_id: torch.Tensor   # [M] int32 normal or bump texture (-1 none)
+    nrm_kind: torch.Tensor     # [M] int32 0 = normal map, 1 = bump map
+    nrm_scale: torch.Tensor    # [M] bump height scale
 
 
 class CheckerboardTable(NamedTuple):
-    """Procedural textures, [T] leading axis (reference:
-    src/textures/{checkerboard,gridtexture,wireframe,vertexcolors}.cpp)."""
-    kind: torch.Tensor       # [T] int32: TEX_CHECKER, TEX_GRID,
-    #                          TEX_WIREFRAME or TEX_VERTEXCOLORS
+    """Textures, [T] leading axis (reference: src/textures/{checkerboard,
+    bitmap,gridtexture,wireframe,vertexcolors}.cpp): the procedural kinds
+    and bitmaps resampled to one resolution R."""
+    kind: torch.Tensor       # [T] int32: TEX_CHECKER, TEX_BITMAP,
+    #                          TEX_GRID, TEX_WIREFRAME or TEX_VERTEXCOLORS
     color0: torch.Tensor     # [T, 3]
     color1: torch.Tensor     # [T, 3]
     uv_scale: torch.Tensor   # [T, 2]
     uv_offset: torch.Tensor  # [T, 2]
     aux: torch.Tensor        # [T] the grid's or wireframe's line width
+    bitmaps: torch.Tensor    # [T, R, R, 3] (zeros for the procedural kinds)
+    mips: torch.Tensor       # [T, 4, R, R, 3] pre-blurred pyramid (level k
+    #                          the 2^k box average, stored at full R)
 
 
 class HairTables(NamedTuple):
@@ -136,7 +145,8 @@ def default_material_row(**over):
                exponent=30.0, alpha=0.1, dist=0, eta=1.5, nonlinear=False,
                spec_weight=0.5, ext_trans=np.ones(N_COS), int_fdr=0.0,
                sigma_a=(0.5, 0.5, 0.5), beta_r=0.1, scale_tilt=-0.1,
-               aux_id=-1, tex_id=-1)
+               aux_id=-1, tex_id=-1, nrm_tex_id=-1, nrm_kind=0,
+               nrm_scale=1.0)
     row.update(over)
     return row
 
@@ -158,20 +168,50 @@ def pack_materials(rows, device=None) -> MaterialTable:
         ext_trans=arr("ext_trans"), int_fdr=arr("int_fdr"),
         sigma_a=arr("sigma_a"), beta_r=arr("beta_r"),
         scale_tilt=arr("scale_tilt"), aux_id=arr("aux_id", np.int32),
-        tex_id=arr("tex_id", np.int32))
+        tex_id=arr("tex_id", np.int32),
+        nrm_tex_id=arr("nrm_tex_id", np.int32),
+        nrm_kind=arr("nrm_kind", np.int32), nrm_scale=arr("nrm_scale"))
+
+
+def build_mips(bitmaps: np.ndarray, levels: int = 4) -> np.ndarray:
+    """Pre-blurred pyramid for trilinear filtering: level k = 2^k box
+    average, stored at full resolution (the JAX package's _build_mips,
+    numpy, the same code)."""
+    t, r, _, _ = bitmaps.shape
+    out = np.zeros((t, levels, r, r, 3), np.float32)
+    out[:, 0] = bitmaps
+    cur = bitmaps
+    for k in range(1, levels):
+        rr = max(r >> k, 1)
+        small = cur.reshape(t, rr, cur.shape[1] // rr,
+                            rr, cur.shape[2] // rr, 3).mean((2, 4))
+        out[:, k] = np.repeat(np.repeat(small, r // rr, axis=1),
+                              r // rr, axis=2)
+        cur = out[:, k]
+    return out
 
 
 def pack_checkers(rows, device=None) -> CheckerboardTable:
-    """Texture rows (kind, color0, color1, uv_scale, uv_offset, aux) as a
-    table on `device`."""
+    """Texture rows (kind, color0, color1, uv_scale, uv_offset, aux[,
+    image]) as a table on `device`: the bitmaps (the rows' images, all of
+    one resolution R; 4 x 4 zeros when no row has one) and their mips,
+    as the JAX package's SceneBuilder.build lays them out."""
     device = resolve_device(device)
 
     def arr(i, dtype=np.float32):
         return torch.as_tensor(np.array([r[i] for r in rows], dtype=dtype),
                                device=device)
-    return CheckerboardTable(kind=arr(0, np.int32), color0=arr(1),
-                             color1=arr(2), uv_scale=arr(3),
-                             uv_offset=arr(4), aux=arr(5))
+    images = [r[6] if len(r) > 6 else None for r in rows]
+    res = max([im.shape[0] for im in images if im is not None], default=4)
+    bitmaps = np.zeros((len(rows), res, res, 3), np.float32)
+    for i, im in enumerate(images):
+        if im is not None:
+            bitmaps[i] = im
+    return CheckerboardTable(
+        kind=arr(0, np.int32), color0=arr(1), color1=arr(2),
+        uv_scale=arr(3), uv_offset=arr(4), aux=arr(5),
+        bitmaps=torch.as_tensor(bitmaps, device=device),
+        mips=torch.as_tensor(build_mips(bitmaps), device=device))
 
 
 def _fmod1(x):
@@ -180,9 +220,113 @@ def _fmod1(x):
     return torch.where((r != 0) & (r < 0), r + 1.0, r)
 
 
-def eval_checkerboard(tex, tex_id, uv, base, bary=None, vcolor=None):
+def _wrap_index(x, r):
+    return torch.remainder(x, r).long()
+
+
+def _bilinear(img, tid, level, fu, fv):
+    """Bilinear lookup at texel coordinates (fu, fv) [N] (texel centres
+    at +0.5, repeat wrap) in level `level` ([N] or None: the base
+    bitmaps) of texture `tid` [N], in the JAX package's order of
+    operations."""
+    r = img.shape[-2]
+    x0 = torch.floor(fu).to(torch.int32)
+    y0 = torch.floor(fv).to(torch.int32)
+    wx = (fu - x0)[..., None]
+    wy = (fv - y0)[..., None]
+    x0m, x1m = _wrap_index(x0, r), _wrap_index(x0 + 1, r)
+    y0m, y1m = _wrap_index(y0, r), _wrap_index(y0 + 1, r)
+    if level is None:
+        def at(y, x):
+            return img[tid, y, x]
+    else:
+        def at(y, x):
+            return img[tid, level, y, x]
+    return ((at(y0m, x0m) * (1 - wx) + at(y0m, x1m) * wx) * (1 - wy)
+            + (at(y1m, x0m) * (1 - wx) + at(y1m, x1m) * wx) * wy)
+
+
+def _texel_coords(r, su, sv):
+    """Scaled uv -> texel coordinates (repeat wrap, v flipped)."""
+    fu = _fmod1(su) * r - 0.5
+    fv = _fmod1(1.0 - _fmod1(sv)) * r - 0.5
+    return fu, fv
+
+
+def _mip_levels(lvl, n_levels):
+    """(l0, l1, fl) of a level of detail: a NaN level (a lane whose
+    footprint is undefined, as a miss's) reads level 0 and gives NaN, as
+    XLA's conversion of NaN to an index does."""
+    l0 = torch.nan_to_num(torch.floor(lvl), nan=0.0).to(torch.int32)
+    fl = (lvl - l0)[..., None]
+    return l0.long(), torch.clamp(l0 + 1, max=n_levels - 1).long(), fl
+
+
+def _bilinear_mip(tex, tid, su, sv, level_idx):
+    """Bilinear lookup in mip level `level_idx` [N] of texture `tid` [N]
+    at scaled uv (su, sv) [N] (repeat wrap, v flipped)."""
+    fu, fv = _texel_coords(tex.bitmaps.shape[1], su, sv)
+    return _bilinear(tex.mips, tid, level_idx, fu, fv)
+
+
+def ewa_eval_bitmap(tex, tid, su, sv, duv_dx, duv_dy, n_probes: int = 7,
+                    max_aniso: float | None = None):
+    """Anisotropic filtering of the bitmap pyramid (the JAX package's
+    ewa_eval_bitmap; reference: include/mitsuba/render/mipmap.h evalEWA):
+    the footprint ellipse (the image of the pixel under the uv Jacobian
+    [duv_dx | duv_dy], in scaled-uv units) integrated by n_probes
+    Gaussian-weighted trilinear probes along its major axis at the level
+    of its minor axis (Feline). max_aniso defaults to (n_probes + 1) / 2,
+    the largest ratio the probes cover without gaps."""
+    if max_aniso is None:
+        max_aniso = (n_probes + 1) / 2.0
+    r = tex.bitmaps.shape[1]
+    n_levels = tex.mips.shape[1]
+    a = duv_dx[..., 0] * r
+    c = duv_dx[..., 1] * r
+    b = duv_dy[..., 0] * r
+    d = duv_dy[..., 1] * r
+    m00 = a * a + b * b
+    m11 = c * c + d * d
+    m01 = a * c + b * d
+    tr = m00 + m11
+    diff = torch.sqrt(torch.clamp((m00 - m11) ** 2 + 4 * m01 * m01,
+                                  min=0.0))
+    s_major = torch.sqrt(torch.clamp(0.5 * (tr + diff), min=1e-12))
+    s_minor = torch.sqrt(torch.clamp(0.5 * (tr - diff), min=0.0))
+    s_minor = torch.clamp(torch.maximum(s_minor, s_major / max_aniso),
+                          min=1.0)
+    s_major = torch.maximum(s_major, s_minor)
+    theta = 0.5 * torch.atan2(2 * m01, m00 - m11)
+    maj_u = torch.cos(theta) / r
+    maj_v = torch.sin(theta) / r
+    lvl = torch.clamp(torch.log2(s_minor), 0.0, n_levels - 1.001)
+    l0, l1, fl = _mip_levels(lvl, n_levels)
+    half = torch.clamp(s_major - s_minor, min=0.0)
+    acc = torch.zeros(su.shape + (3,), device=su.device)
+    wsum = torch.zeros(su.shape + (1,), device=su.device)
+    for i in range(n_probes):
+        u_i = (2.0 * i / max(n_probes - 1, 1) - 1.0) if n_probes > 1 \
+            else 0.0
+        w = torch.exp(torch.tensor(-2.0 * u_i * u_i, dtype=torch.float32,
+                                   device=su.device))
+        off = half * u_i
+        pu = su + maj_u * off
+        pv = sv + maj_v * off
+        v0 = _bilinear_mip(tex, tid, pu, pv, l0)
+        v1 = _bilinear_mip(tex, tid, pu, pv, l1)
+        acc = acc + w * (v0 * (1 - fl) + v1 * fl)
+        wsum = wsum + w
+    return acc / wsum
+
+
+def eval_checkerboard(tex, tex_id, uv, base, bary=None, vcolor=None,
+                      lod=None, duv=None):
     """The textured reflectance; lanes with tex_id < 0 keep `base` (the
-    JAX package's eval_checkerboard for its procedural kinds)."""
+    JAX package's eval_checkerboard). lod [N]: the level of detail of a
+    footprint, which makes bitmap lanes trilinear in the mips; duv:
+    (duv_dx, duv_dy) [N, 2], the pixel footprint's uv Jacobian (unscaled
+    uv), which makes bitmap lanes with a nonzero one EWA-filtered."""
     if tex is None:
         return base
     tid = torch.clamp(tex_id, min=0).long()
@@ -198,12 +342,34 @@ def eval_checkerboard(tex, tex_id, uv, base, bary=None, vcolor=None):
     x = torch.remainder(torch.trunc(su * 2.0).to(torch.int32), 2)
     y = torch.remainder(torch.trunc(sv * 2.0).to(torch.int32), 2)
     val = torch.where((x == y)[..., None], c0, c1)
+    # bitmap: bilinear, repeat wrap, v flipped as in the reference
+    is_bm = (kind == TEX_BITMAP)[..., None]
+    fu, fv = _texel_coords(tex.bitmaps.shape[1], su, sv)
+    val = torch.where(is_bm, _bilinear(tex.bitmaps, tid, None, fu, fv), val)
+    # trilinear in the mips at the footprint's level (reference:
+    # src/textures/bitmap.cpp through mipmap.h)
+    if lod is not None and tex.mips.shape[1] > 0:
+        n_levels = tex.mips.shape[1]
+        l0, l1, fl = _mip_levels(torch.clamp(lod, 0.0, n_levels - 1.001),
+                                 n_levels)
+        val_bm = _bilinear(tex.mips, tid, l0, fu, fv) * (1 - fl) \
+            + _bilinear(tex.mips, tid, l1, fu, fv) * fl
+        if duv is not None:
+            # EWA where the lane has a footprint Jacobian; the caller
+            # passes duv only where some lane may have one
+            sc_dx = duv[0] * scale
+            sc_dy = duv[1] * scale
+            has_j = (torch.sum(torch.abs(sc_dx), -1)
+                     + torch.sum(torch.abs(sc_dy), -1)) > 0
+            val_bm = torch.where(has_j[..., None], ewa_eval_bitmap(
+                tex, tid, su, sv, sc_dx, sc_dy), val_bm)
+        val = torch.where(is_bm, val_bm, val)
     # gridtexture: color1 lines of width lineWidth along the cell borders
     lw = tex.aux[tid] * 0.5
-    fu = _fmod1(su)
-    fv = _fmod1(sv)
-    on_line = (torch.minimum(fu, 1.0 - fu) < lw) \
-        | (torch.minimum(fv, 1.0 - fv) < lw)
+    gu = _fmod1(su)
+    gv = _fmod1(sv)
+    on_line = (torch.minimum(gu, 1.0 - gu) < lw) \
+        | (torch.minimum(gv, 1.0 - gv) < lw)
     val_gr = torch.where(on_line[..., None], c1, c0)
     val = torch.where((kind == TEX_GRID)[..., None], val_gr, val)
     # wireframe: color1 near the triangle's edges (barycentric distance)
@@ -242,11 +408,12 @@ class _Rows(torch.autograd.Function):
                             for j in range(ctx.rows)]), None
 
 
-def gather(table: MaterialTable, tex, mat_id, uv=None, bary=None,
-           vcolor=None) -> GatheredMat:
+def gather(table: MaterialTable, tex, mat_id, uv=None, lod=None, bary=None,
+           vcolor=None, duv=None) -> GatheredMat:
     """Each lane's material row, its diffuse reflectance resolved through
     its texture (tex: a CheckerboardTable or None; uv, bary and vcolor
-    the hit's)."""
+    the hit's; lod and duv the footprint's, as eval_checkerboard takes
+    them)."""
     m = torch.clamp(mat_id, min=0).long()
     fields = [getattr(table, f) for f in GatheredMat._fields]
     gm = GatheredMat(*[_Rows.apply(v, m) if v.requires_grad else v[m]
@@ -254,7 +421,8 @@ def gather(table: MaterialTable, tex, mat_id, uv=None, bary=None,
     if tex is None:
         return gm
     return gm._replace(diffuse=eval_checkerboard(
-        tex, table.tex_id[m], uv, gm.diffuse, bary, vcolor))
+        tex, table.tex_id[m], uv, gm.diffuse, bary, vcolor, lod=lod,
+        duv=duv))
 
 
 def ext_trans_lookup(gm: GatheredMat, cos_theta):
@@ -328,6 +496,49 @@ def sample_mix(active_kinds, table, mat_id, gm, wi, u_lobe, u2, u2b,
     return sample(active_kinds, gm, wi, u_lobe, u2, u2b, hair_tables)
 
 
-def perturb_shading_frame(table, mat_id, sh_n, sh_s, sh_t):
-    """Normal and bump maps need textures, which the port has none of."""
-    return sh_n, sh_s, sh_t
+def _luminance(c):
+    return c[..., 0] * _LUM[0] + c[..., 1] * _LUM[1] + c[..., 2] * _LUM[2]
+
+
+_LUM = tuple(float(x) for x in np.array([0.212671, 0.715160, 0.072169],
+                                        np.float32))
+
+
+def perturb_shading_frame(table: MaterialTable, tex, mat_id, uv, sh_n, sh_s,
+                          sh_t):
+    """(sh_n, sh_s, sh_t) with the normal or bump map of each lane's
+    material applied (the JAX package's perturb_shading_frame; reference:
+    src/bsdfs/{normalmap,bumpmap}.cpp): a normal map reads a tangent-space
+    normal as rgb * 2 - 1, a bump map takes differences of its height
+    texture's luminance at 1 / R in u and v; the normal goes to world
+    through the frame, which is then re-orthogonalised."""
+    if tex is None:
+        return sh_n, sh_s, sh_t
+    m = torch.clamp(mat_id, min=0).long()
+    tid = table.nrm_tex_id[m]
+    kind = table.nrm_kind[m]
+    scale = table.nrm_scale[m]
+    base = torch.zeros(uv.shape[:-1] + (3,), device=uv.device)
+    rgb = eval_checkerboard(tex, tid, uv, base)
+    n_ts = rgb * 2.0 - 1.0
+    d = 1.0 / tex.bitmaps.shape[1]
+    h0 = _luminance(rgb)
+    du = torch.tensor([d, 0.0], dtype=uv.dtype, device=uv.device)
+    dv = torch.tensor([0.0, d], dtype=uv.dtype, device=uv.device)
+    hu = _luminance(eval_checkerboard(tex, tid, uv + du, base))
+    hv = _luminance(eval_checkerboard(tex, tid, uv + dv, base))
+    dhdu = (hu - h0) / d * scale
+    dhdv = (hv - h0) / d * scale
+    n_bump = torch.stack([-dhdu, -dhdv, torch.ones_like(dhdu)], -1)
+    n_local = torch.where((kind == 0)[..., None], n_ts, n_bump)
+    n_local = n_local / torch.sqrt(torch.clamp(
+        torch.sum(n_local * n_local, -1, keepdim=True), min=1e-12))
+    n_w = sh_s * n_local[..., 0:1] + sh_t * n_local[..., 1:2] \
+        + sh_n * n_local[..., 2:3]
+    s_w = sh_s - n_w * torch.sum(n_w * sh_s, -1, keepdim=True)
+    s_w = s_w / torch.sqrt(torch.clamp(torch.sum(s_w * s_w, -1,
+                                                 keepdim=True), min=1e-12))
+    t_w = torch.linalg.cross(n_w, s_w)
+    a = (tid >= 0)[..., None]
+    return (torch.where(a, n_w, sh_n), torch.where(a, s_w, sh_s),
+            torch.where(a, t_w, sh_t))

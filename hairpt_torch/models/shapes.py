@@ -5,8 +5,8 @@ The reference's shape plugins (src/shapes/): obj, ply, serialized,
 rectangle, sphere, disk, cube and cylinder, each an indexed triangle mesh
 that the scene build flattens into one triangle pool. The teapot OBJ of
 the reference's teapot scene is absent, so teapot_standin stands in for
-it; heightfield, lerp_mesh and vertex_gaussian_curvature serve the tests
-and chip_smoke.py (the loader refuses the shapes that need them).
+it; heightfield, lerp_mesh and vertex_gaussian_curvature give the
+loader's heightfield and deformable shapes and curvature texture.
 """
 from __future__ import annotations
 

@@ -329,6 +329,19 @@ def any_hit_packed_plain(bvh: PackedBVH, leaf: str, ray, counts=None):
 # ---------------------------------------------------------------------------
 
 _LIB = None
+# the walk shared by kernels F and G
+WALK_HEADERS = ["packed_walk.cuh"]
+# the codes the kernels set in their error flag
+WALK_ERRORS = {1: "a ray walked 2 M steps without reaching the sentinel",
+               2: "a node, a leaf row or a leaf's count lay outside the "
+                  "tree"}
+
+
+def raise_walk_error(code: int, name: str):
+    """Raise for a kernel's error flag (0: no error)."""
+    if code != 0:
+        raise RuntimeError(f"{name}: {WALK_ERRORS.get(code, code)} (a "
+                           f"corrupt BVH)")
 
 
 def lib():
@@ -336,10 +349,11 @@ def lib():
     global _LIB
     if _LIB is None:
         from ._native import load_library
-        L = load_library("hairpt_packed", ["packed.cu"], nvcc_cmd())
+        L = load_library("hairpt_packed", ["packed.cu"], nvcc_cmd(),
+                         headers=WALK_HEADERS)
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        L.hairpt_packed_walk.argtypes = [vp, vp, ci, ci, ci, ci, vp, vp, vp,
-                                         vp, ci, vp, vp, vp, vp, vp]
+        L.hairpt_packed_walk.argtypes = [vp, vp, ci, ci, ci, ci, ci, vp, vp,
+                                         vp, vp, ci, vp, vp, vp, vp, vp]
         L.hairpt_packed_walk.restype = ci
         _LIB = L
     return _LIB
@@ -380,16 +394,13 @@ def _walk(bvh: PackedBVH, leaf: str, ray, any_hit: bool):
     name = f"packed_{leaf}_{'any' if any_hit else 'closest'}"
     if N > 0:
         rc = lib().hairpt_packed_walk(
-            bvh.nodes.data_ptr(), bvh.leaf_rows.data_ptr(), M, K,
+            bvh.nodes.data_ptr(), bvh.leaf_rows.data_ptr(), M, L, K,
             LEAF_KINDS.index(leaf), int(any_hit), o.data_ptr(),
             d.data_ptr(), mint.data_ptr(), maxt.data_ptr(), N, ptr(t),
             ptr(pid), ptr(occ), err.data_ptr(), _stream(dev))
         _raise_rc(rc, name)
         LAUNCHES[name] += 1
-        if int(err.item()) != 0:
-            raise RuntimeError(f"{name}: a ray walked 2 M = {2 * M} steps "
-                               f"without reaching the sentinel (a corrupt "
-                               f"BVH)")
+        raise_walk_error(int(err.item()), name)
     if any_hit:
         return occ != 0
     return t, pid

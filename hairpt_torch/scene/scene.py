@@ -2,11 +2,13 @@
 torch arrays on the device + static config.
 
 Triangle meshes are flattened into one triangle pool and hair fibers into
-one segment pool, each under its own SAH BVH; materials, procedural
-textures and the environment become tables. The triangles are walked by
-the packed BVH walk (ops/intersect_packed.py, kernel F on the card); the
-hair by the tiled or the swept traversal, or by the packed walk under
-traversal='packed'.
+one segment pool, each under its own SAH BVH; instanced meshes keep one
+object-space tree per prototype (ops/instancing.py); materials, textures
+(procedural and bitmap, the bitmaps with their mip pyramid) and the
+environment become tables. The triangles are walked by the packed BVH
+walk (ops/intersect_packed.py, kernel F on the card), the instances by
+the two-level walk (kernel G); the hair by the tiled or the swept
+traversal, or by the packed walk under traversal='packed'.
 """
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ from ..models.bsdf import tables as rt_tables
 from ..models.bsdf.fresnel import fresnel_diffuse_reflectance
 from ..models.sensors import Camera
 from ..ops import bvh as bvh_mod
+from ..ops import instancing as inst_mod
 from ..ops import intersect_packed as ipk
 from ..ops import intersect_swept as iswept
 from . import hairgen
@@ -82,6 +85,7 @@ class SceneArrays(NamedTuple):
     checkers: Optional[mat.CheckerboardTable]
     hair_tables: Optional[mat.HairTables]
     env: Optional[em.EnvMap]
+    inst: Optional[inst_mod.InstancedGeo] = None  # shapegroup / instance
 
     @property
     def device(self) -> torch.device:
@@ -117,6 +121,11 @@ class Scene(NamedTuple):
     config: RenderConfig
     active_kinds: tuple
     marschner_rows: tuple = ()  # material-row index per hair-table aux_id
+    has_normal_maps: bool = False  # any normal- or bump-mapped material
+
+
+# the bitmaps' pre-blurred pyramid (the JAX package's _build_mips)
+_build_mips = mat.build_mips
 
 
 def _uv_density(uv0, uv1, uv2, e1, e2):
@@ -142,10 +151,15 @@ class SceneBuilder:
         self.checkers = []         # procedural texture rows
         self.hair_aux = []         # (sigma_a, beta_r, eta) per hair table
         self.env: Optional[em.EnvMap] = None
+        self.curvature_mats = set()  # material ids whose texture is
+        self.curvature_scale = 1.0   # the curvature texture
+        self.protos = []           # (Mesh in object space, mat_id)
+        self.instances = []        # (prototype index, to_world 4 x 4)
 
     # -- materials and textures --------------------------------------------
 
     def add_material(self, **row) -> int:
+        is_curv = row.pop("__curvature__", False)
         kind = row.get("kind", mat.DIFFUSE)
         mat.check_kinds([kind])
         # per-material precomputed transmittance slices
@@ -177,6 +191,8 @@ class SceneBuilder:
             else:
                 row["spec_weight"] = s / max(d + s, 1e-9)
         self.materials.append(mat.default_material_row(**row))
+        if is_curv:
+            self.curvature_mats.add(len(self.materials) - 1)
         return len(self.materials) - 1
 
     def add_checkerboard(self, color0, color1, uscale=1.0, vscale=1.0,
@@ -208,9 +224,19 @@ class SceneBuilder:
                               (1.0, 1.0), (0.0, 0.0), 0.01))
         return len(self.checkers) - 1
 
-    def add_bitmap_texture(self, *args, **kw):
-        raise NotImplementedError("bitmap textures, mips and EWA are not "
-                                  f"ported yet ({ITEM_11C})")
+    def add_bitmap_texture(self, image, uscale=1.0, vscale=1.0,
+                           uoffset=0.0, voffset=0.0, res=256) -> int:
+        """image: [H, W, 3] linear float, resampled (nearest) to res x
+        res; reference: src/textures/bitmap.cpp."""
+        img = np.asarray(image, np.float32)
+        ys = (np.arange(res) + 0.5) / res * img.shape[0]
+        xs = (np.arange(res) + 0.5) / res * img.shape[1]
+        img_r = img[np.clip(ys.astype(int), 0, img.shape[0] - 1)][
+            :, np.clip(xs.astype(int), 0, img.shape[1] - 1)]
+        self.checkers.append((mat.TEX_BITMAP, (0, 0, 0), (0, 0, 0),
+                              (uscale, vscale), (uoffset, voffset), 0.01,
+                              img_r))
+        return len(self.checkers) - 1
 
     # -- geometry ----------------------------------------------------------
 
@@ -224,7 +250,42 @@ class SceneBuilder:
                                       f"({ITEM_11C})")
         if to_world is not None:
             mesh = shp.transform_mesh(mesh, to_world)
-        self.tri_meshes.append((mesh, mat_id))
+        self.tri_meshes.append((self._curvature_fixup(mesh, mat_id),
+                                mat_id))
+
+    def _curvature_fixup(self, mesh: shp.Mesh, mat_id: int) -> shp.Mesh:
+        """Bake the curvature texture's vertex colours (|K| tanh
+        compressed; negative K red, positive green)."""
+        if mat_id in self.curvature_mats and mesh.colors is None:
+            k = shp.vertex_gaussian_curvature(mesh)
+            v = np.tanh(np.abs(k) * self.curvature_scale)
+            cols = np.zeros((len(k), 3), np.float32)
+            cols[:, 0] = np.where(k < 0, v, 0.0)
+            cols[:, 1] = np.where(k >= 0, v, 0.0)
+            mesh = mesh._replace(colors=cols)
+        return mesh
+
+    def add_morph_mesh(self, m0: shp.Mesh, m1: shp.Mesh, mat_id: int,
+                       to_world=None, time: float = 0.0):
+        """A keyframe morph (reference: src/shapes/deformable.cpp) at
+        scene time `time`: the vertices lerped once, at build. Its
+        re-lerp per shutter time (motion blur) is not ported yet."""
+        self.add_mesh(shp.lerp_mesh(m0, m1, float(np.clip(time, 0, 1))),
+                      mat_id, to_world=to_world)
+
+    def add_prototype(self, mesh: shp.Mesh, mat_id: int) -> int:
+        """Register a shared object-space prototype (a shapegroup child,
+        reference: src/shapes/shapegroup.cpp). Returns its index."""
+        self.protos.append((mesh, mat_id))
+        return len(self.protos) - 1
+
+    def add_instance(self, proto_idx: int, to_world, anim=None):
+        """Instance a prototype (reference: src/shapes/instance.cpp): the
+        geometry is shared through the two-level walk, not flattened."""
+        if anim is not None:
+            raise NotImplementedError("animated instances are not ported "
+                                      f"yet ({ITEM_11C})")
+        self.instances.append((proto_idx, np.asarray(to_world, np.float64)))
 
     def add_fibers(self, fs: hairgen.FiberSet, mat_id: int):
         """One FiberSet (gen_hair_curl's clumps are added one by one, as
@@ -345,7 +406,7 @@ class SceneBuilder:
                 f"traversal {config_kwargs['traversal']!r} is not ported "
                 f"(ported: {TRAVERSALS}; 'perray' and 'blocked': "
                 f"{ITEM_11C})")
-        if not self.fibers and not self.tri_meshes:
+        if not self.fibers and not self.tri_meshes and not self.instances:
             raise ValueError("the scene has no geometry")
         cfg = RenderConfig(width=film.width, height=film.height,
                            **config_kwargs)
@@ -369,6 +430,11 @@ class SceneBuilder:
         materials = mat.pack_materials(rows, device=dev)
         checkers = mat.pack_checkers(self.checkers, device=dev) \
             if self.checkers else None
+        inst = None
+        if self.instances:
+            inst = inst_mod.build_instanced(
+                [inst_mod.build_proto(m_, mid_, device=dev)
+                 for m_, mid_ in self.protos], self.instances, device=dev)
         env = self.env.to(dev) if self.env is not None else None
         cfg = dataclasses.replace(
             cfg, nee_probs=(1.0, 0.0, 0.0) if env is not None
@@ -388,6 +454,8 @@ class SceneBuilder:
                              hair_mat_id=hair_mat_id,
                              hair_packed=hair_packed, hair_swept=swept,
                              materials=materials, checkers=checkers,
-                             hair_tables=ht, env=env)
+                             hair_tables=ht, env=env, inst=inst)
         return Scene(arrays=arrays, camera=camera, film=film, config=cfg,
-                     active_kinds=active, marschner_rows=marschner_rows)
+                     active_kinds=active, marschner_rows=marschner_rows,
+                     has_normal_maps=any(int(r.get("nrm_tex_id", -1)) >= 0
+                                         for r in rows))

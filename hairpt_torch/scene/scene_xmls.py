@@ -24,6 +24,18 @@ stand-in fibers (keyed by those names) take the place of the absent
   checkerboard reflectance, and an envmap whose EXR is absent (the
   loader then gives a constant 0.8 image). The geometry, the framing and
   the materials' values are this stand-in's own, not the reference's.
+- instanced/scene.xml: a stand-in for the reference's shapegroup and
+  instance plugins (src/shapes/{shapegroup,instance}.cpp) with every
+  element the port reads besides: 64 instances (8 x 8, each with its own
+  y rotation and a scale of 0.6-1.4) of one shapegroup holding the
+  teapot stand-in (2,808 triangles, written as teapot.obj) under a
+  twosided rough plastic; a 60 x 60 floor rectangle under a twosided
+  diffuse with a 256^2 bitmap texture (floor.png) in a normal map
+  (floor_normal.pfm); a heightfield with the loader's procedural ripples
+  in a bump map (bump.png); a deformable sphere pair (sphere0.obj,
+  sphere1.obj) at time 0.5 under the curvature texture; the constant
+  0.8 envmap of a missing EXR; 1280 x 720, Sobol', maxDepth 65. Its
+  files are written beside the XML by write_scene.
 The hair scenes' cameras are the framing of their generators (straight
 and curly: from (0, 16.5, -25) at (0, 8.5, 0); hair-curl: from
 (0, 5.9, 17) at (0, 6, 0)). Written files are for the CLI and the
@@ -33,6 +45,10 @@ from __future__ import annotations
 
 import os
 
+import numpy as np
+
+from ..models import shapes as shp
+from ..utils import io as io_utils
 from .furball import CAM_TO_WORLD, DIFFUSE
 
 SUN = ("<emitter type=\"sunsky\">"
@@ -157,7 +173,116 @@ def teapot(sampler="sobol", spp=64, width=1280, height=720, depth=65,
           "value=\"envmap.exr\"/></emitter>", depth)
 
 
-# name -> (directory, file name, XML builder)
+_INST_EYE = ("<lookat origin=\"0, 24, 52\" target=\"0, 0, 8\" "
+             "up=\"0, 1, 0\"/>")
+
+
+def instance_poses(grid: int = 8):
+    """(scale, y rotation in degrees, x, z) of the stand-in's instances:
+    a grid x grid lattice 5 apart, scales 0.6-1.4 and angles from the
+    golden ratio's sequence."""
+    out = []
+    for k in range(grid * grid):
+        i, j = divmod(k, grid)
+        frac = (k * 0.6180339887) % 1.0
+        half = (grid - 1) / 2.0
+        out.append((round(0.6 + 0.8 * frac, 4), round((k * 137.5) % 360, 4),
+                    5.0 * (j - half), 5.0 * (i - half)))
+    return out
+
+
+def _instance(s, a, x, z) -> str:
+    return (f"<shape type=\"instance\"><ref id=\"teapots\"/>"
+            f"<transform name=\"toWorld\"><scale value=\"{s!r}\"/>"
+            f"<rotate y=\"1\" angle=\"{a!r}\"/><translate x=\"{x!r}\" "
+            f"z=\"{z!r}\"/></transform></shape>")
+
+
+def instanced(sampler="sobol", spp=64, width=1280, height=720, depth=65,
+              grid=8) -> str:
+    """The instanced stand-in; the tests vary its sampler, film, depth
+    and instance grid (grid x grid instances)."""
+    tex = ("<texture type=\"bitmap\" name=\"{n}\"><string "
+           "name=\"filename\" value=\"{f}\"/>{x}</texture>")
+    return _scene(
+        _sensor(_INST_EYE, width, height, sampler, spp, fov=45.0)
+        + "<bsdf type=\"twosided\" id=\"teapot\"><bsdf "
+          "type=\"roughplastic\"><rgb name=\"diffuseReflectance\" "
+          "value=\"0.2, 0.35, 0.6\"/><float name=\"alpha\" "
+          "value=\"0.15\"/><float name=\"intIOR\" value=\"1.5\"/>"
+          "</bsdf></bsdf>"
+        + "<bsdf type=\"normalmap\" id=\"floor\">"
+        + tex.format(n="normals", f="floor_normal.pfm", x="")
+        + "<bsdf type=\"twosided\"><bsdf type=\"diffuse\">"
+        + tex.format(n="reflectance", f="floor.png",
+                     x="<float name=\"uscale\" value=\"6\"/>"
+                       "<float name=\"vscale\" value=\"6\"/>")
+        + "</bsdf></bsdf></bsdf>"
+        + "<bsdf type=\"bumpmap\" id=\"ripples\"><float name=\"scale\" "
+          "value=\"0.01\"/>"
+        + tex.format(n="map", f="bump.png", x="")
+        + "<bsdf type=\"diffuse\"><rgb name=\"reflectance\" "
+          "value=\"0.55, 0.5, 0.45\"/></bsdf></bsdf>"
+        + "<bsdf type=\"diffuse\" id=\"blob\"><texture "
+          "type=\"curvature\" name=\"reflectance\"><float "
+          "name=\"scale\" value=\"0.5\"/></texture></bsdf>"
+        + "<shape type=\"shapegroup\" id=\"teapots\"><shape type=\"obj\">"
+          "<string name=\"filename\" value=\"teapot.obj\"/>"
+          "<ref id=\"teapot\"/></shape></shape>"
+        + "".join(_instance(*q) for q in instance_poses(grid))
+        + "<shape type=\"rectangle\"><transform name=\"toWorld\">"
+          "<scale value=\"30\"/><rotate x=\"1\" angle=\"-90\"/>"
+          "</transform><ref id=\"floor\"/></shape>"
+        + "<shape type=\"heightfield\"><float name=\"scale\" "
+          "value=\"4\"/><transform name=\"toWorld\"><scale x=\"4\" "
+          "y=\"4\" z=\"1\"/><rotate x=\"1\" angle=\"-90\"/>"
+          "<translate x=\"-8\" y=\"0.5\" z=\"22\"/></transform>"
+          "<ref id=\"ripples\"/></shape>"
+        + "<shape type=\"deformable\"><string name=\"filename\" "
+          "value=\"sphere0.obj\"/><string name=\"filename2\" "
+          "value=\"sphere1.obj\"/><float name=\"time\" value=\"0.5\"/>"
+          "<transform name=\"toWorld\"><scale value=\"2.5\"/>"
+          "<translate x=\"8\" y=\"2.5\" z=\"22\"/></transform>"
+          "<ref id=\"blob\"/></shape>"
+        + "<emitter type=\"envmap\"><string name=\"filename\" "
+          "value=\"envmap.exr\"/></emitter>", depth)
+
+
+def write_obj(path: str, mesh):
+    """Positions and faces of a mesh as a Wavefront OBJ (the loader then
+    gives it smooth normals)."""
+    with open(path, "w") as f:
+        for v in np.asarray(mesh.positions, np.float64).tolist():
+            f.write(f"v {v[0]!r} {v[1]!r} {v[2]!r}\n")
+        for a, b, c in np.asarray(mesh.faces) + 1:
+            f.write(f"f {a} {b} {c}\n")
+
+
+def instanced_files(d: str):
+    """The stand-in's meshes and images, made from fixed formulas."""
+    write_obj(os.path.join(d, "teapot.obj"), shp.teapot_standin(scale=1.0))
+    sph = shp.sphere(1.0, 16, 32)
+    write_obj(os.path.join(d, "sphere0.obj"), sph)
+    write_obj(os.path.join(d, "sphere1.obj"), sph._replace(
+        positions=sph.positions * np.array([1.3, 0.7, 1.3])))
+    y, x = np.mgrid[0:256, 0:256] / 256.0
+    tile = ((np.floor(x * 4) + np.floor(y * 4)) % 2)[..., None]
+    stripe = 0.5 + 0.5 * np.sin(2 * np.pi * 8 * (x + 0.5 * y))[..., None]
+    img = tile * np.array([0.8, 0.55, 0.3]) \
+        + (1 - tile) * np.array([0.25, 0.4, 0.5]) * (0.6 + 0.4 * stripe)
+    io_utils.write_png(os.path.join(d, "floor.png"), img)
+    v, u = np.mgrid[0:64, 0:64] / 64.0
+    n = np.stack([0.3 * np.sin(2 * np.pi * 2 * u),
+                  0.3 * np.cos(2 * np.pi * 2 * v), np.ones_like(u)], -1)
+    n /= np.linalg.norm(n, axis=-1, keepdims=True)
+    io_utils.write_pfm(os.path.join(d, "floor_normal.pfm"), n * 0.5 + 0.5)
+    v, u = np.mgrid[0:128, 0:128] / 128.0
+    h = 0.5 + 0.25 * (np.sin(2 * np.pi * 3 * u) + np.cos(2 * np.pi * 5 * v))
+    io_utils.write_png(os.path.join(d, "bump.png"),
+                       np.repeat(h[..., None], 3, -1))
+
+
+# name -> (directory, file name, XML builder[, writer of its files])
 SCENES = {
     "furball": ("furball", "scene.xml", furball),
     "straight_marschner": ("straight-hair", "scene_marschner.xml",
@@ -167,15 +292,19 @@ SCENES = {
     "hair_curl": ("hair-curl", "scene.xml", hair_curl),
     "curly": ("curly-hair", "scene.xml", curly),
     "teapot": ("teapot", "scene.xml", teapot),
+    "instanced": ("instanced", "scene.xml", instanced, instanced_files),
 }
 
 
 def write_scene(root: str, name: str, **kw) -> str:
-    """Write scene `name` under root/<its directory>/ and return the
-    path; kw go to its XML builder (furball() and teapot() take any)."""
-    d, f, make = SCENES[name]
+    """Write scene `name` under root/<its directory>/ (with its files,
+    where it has any) and return the path; kw go to its XML builder
+    (furball(), teapot() and instanced() take any)."""
+    d, f, make, *files = SCENES[name]
     os.makedirs(os.path.join(root, d), exist_ok=True)
     path = os.path.join(root, d, f)
     with open(path, "w") as fh:
         fh.write(make(**kw))
+    for write in files:
+        write(os.path.join(root, d))
     return path

@@ -17,24 +17,35 @@ What the port renders:
 - the BSDFs diffuse, plastic, roughplastic, kajiyakay, marschner
   (corrected, or faithful with `<boolean name="faithful">` /
   `-D marschner_faithful=true`), marschner_diffuse and
-  marschnerdielectric, each possibly wrapped in twosided;
-- a BSDF's checkerboard, gridtexture, wireframe or vertexcolors texture,
-  possibly under a scale texture;
+  marschnerdielectric, each possibly wrapped in twosided and in a
+  normalmap or bumpmap (its texture image read without de-gamma);
+- a BSDF's checkerboard, gridtexture, wireframe, vertexcolors, curvature
+  or bitmap texture (PNG, de-gamma 2.2, HDR, PFM or EXR; a missing file
+  gives no texture), possibly under a scale texture;
 - `<shape type="hair">` from a .mitshair file, or the procedural
   stand-in keyed by the scene directory and file name when the file is
   missing, with its toWorld (the radius scales with it);
 - the mesh shapes obj, ply and serialized (a missing file becomes the
   teapot stand-in with smooth normals; a file without normals gets smooth
   ones unless faceNormals is set), rectangle, sphere (radius, center),
-  disk, cube and cylinder, each with its toWorld;
-- the sunsky, sky, sun, envmap (HDR, PFM or EXR) and constant emitters;
+  disk, cube, cylinder, heightfield (from its image, or the JAX loader's
+  procedural ripples when the file is missing) and deformable (the
+  keyframe pair lerped at `time`), each with its toWorld;
+- shapegroup and instance: a shapegroup's rectangle, sphere, cube, obj,
+  ply and serialized children become prototypes, each instance adds
+  every prototype of its group under its toWorld (the two-level walk,
+  ops/instancing.py);
+- the sunsky, sky, sun, envmap (HDR, PFM, EXR or PNG) and constant
+  emitters;
 - `<spectrum>` and `<blackbody>` values.
+A `<texture>` at the scene's top level is ignored, as the JAX loader
+ignores it (it reads only a BSDF's own texture).
 
 Every other element the JAX loader accepts raises NotImplementedError
-before any build work, naming the ROADMAP item that ports it (11c:
-shapegroup, instance, heightfield, deformable, bitmap and curvature
-textures, normal and bump maps; 13: shape emitters and the rest).
-Nothing is dropped silently.
+before any build work, naming the ROADMAP item that ports it (11c: an
+animated instance and a deformable shape under an open shutter, that is
+motion blur; 13: shape emitters, LDR images other than PNG, and the
+rest). Nothing is dropped silently.
 """
 from __future__ import annotations
 
@@ -100,10 +111,9 @@ ITEM_13 = "ROADMAP item 13"
 # item 13
 _BSDF_PORTED = {"diffuse", "plastic", "roughplastic", "kajiyakay",
                 "marschner", "marschner_diffuse", "marschnerdielectric"}
-_SHAPES_11C = {"heightfield", "deformable", "shapegroup", "instance"}
-# textures: the procedural kinds render, these name item 11c; a texture
-# of another type gives no texture, as in the JAX loader
-_TEXTURES_11C = {"bitmap", "curvature"}
+# the image files the port reads (the JAX package reads any other LDR
+# format through PIL)
+_IMAGE_EXTS = (".png", ".hdr", ".pfm", ".exr")
 _SENSORS_PORTED = {"perspective"}
 _FILMS_PORTED = {"ldrfilm", "hdrfilm", "mfilm"}
 _EMITTERS_PORTED = {"sunsky", "sky", "sun", "envmap", "constant"}
@@ -201,13 +211,35 @@ def _parse_transform(node) -> np.ndarray:
     return m
 
 
-def _refuse_bsdf(node):
-    """Refuse a <bsdf> the port cannot render: normal and bump maps, the
-    wrappers other than twosided, bitmap and curvature textures, and
-    families without a port."""
+def _resolve_file(fname: str, scene_dir: str):
+    """The JAX loader's lookup of an image file: relative to the scene's
+    directory where it exists there, else as given; None if missing."""
+    if fname and not os.path.isabs(fname):
+        cand = os.path.join(scene_dir, fname)
+        if os.path.exists(cand):
+            fname = cand
+    return fname if fname and os.path.exists(fname) else None
+
+
+def _refuse_image(node, defines, scene_dir, what: str):
+    """Refuse an existing image file the port cannot read."""
+    if node is None:
+        return
+    path = _resolve_file(_collect_props(node, defines).get("filename", ""),
+                         scene_dir)
+    if path is not None and not path.lower().endswith(_IMAGE_EXTS):
+        _refuse(f"{what} image {os.path.basename(path)} (LDR images other "
+                f"than PNG)", ITEM_13)
+
+
+def _refuse_bsdf(node, defines, scene_dir):
+    """Refuse a <bsdf> the port cannot render: the wrappers other than
+    twosided, normalmap and bumpmap, families without a port, and images
+    it cannot read."""
     while node.get("type") in ("twosided", "normalmap", "bumpmap"):
         if node.get("type") != "twosided":
-            _refuse(f"the {node.get('type')} BSDF", ITEM_11C)
+            _refuse_image(node.find("texture"), defines, scene_dir,
+                          f"the {node.get('type')}'s")
         inner = node.find("bsdf")
         if inner is None:
             break
@@ -219,8 +251,18 @@ def _refuse_bsdf(node):
     if tex is not None and tex.get("type") == "scale" \
             and tex.find("texture") is not None:
         tex = tex.find("texture")
-    if tex is not None and tex.get("type") in _TEXTURES_11C:
-        _refuse(f"the {tex.get('type')} texture", ITEM_11C)
+    if tex is not None and tex.get("type") == "bitmap":
+        _refuse_image(tex, defines, scene_dir, "a bitmap texture's")
+
+
+def _shutter_open(root, defines) -> bool:
+    """Does a sensor open its shutter for a duration (motion blur)?"""
+    for sensor in root.findall("sensor"):
+        p = _collect_props(sensor, defines)
+        t_open = float(p.get("shutterOpen", 0.0))
+        if float(p.get("shutterClose", t_open)) > t_open:
+            return True
+    return False
 
 
 def _refuse_unported(root, defines, scene_dir):
@@ -250,11 +292,10 @@ def _refuse_unported(root, defines, scene_dir):
                     re.match(r"^label\[", k.replace(" ", "")) for k in fp):
                 _refuse("film annotations and the banner", ITEM_13)
     for bsdf in root.iter("bsdf"):
-        _refuse_bsdf(bsdf)
+        _refuse_bsdf(bsdf, defines, scene_dir)
     for shape in root.findall("shape"):
         stype = shape.get("type")
-        if stype in _SHAPES_11C:
-            _refuse(f"the {stype} shape", ITEM_11C)
+        p = _collect_props(shape, defines)
         if shape.find("emitter") is not None:
             _refuse("area lights (shape emitters)", ITEM_13)
         if shape.find("subsurface") is not None:
@@ -262,7 +303,16 @@ def _refuse_unported(root, defines, scene_dir):
         if shape.find("medium") is not None:
             _refuse("participating media", ITEM_13)
         if shape.find("animation") is not None:
+            if stype == "instance":
+                _refuse("an animated instance", ITEM_11C)
             _refuse("animated shapes", ITEM_13)
+        if stype == "heightfield":
+            _refuse_image(shape, defines, scene_dir, "a heightfield's")
+        if stype == "deformable" and _shutter_open(root, defines) \
+                and os.path.exists(os.path.join(scene_dir,
+                                                p.get("filename", ""))):
+            _refuse("a deformable shape under an open shutter (its motion "
+                    "blur)", ITEM_11C)
     for emit in root.findall("emitter"):
         etype = emit.get("type")
         if etype not in _EMITTERS_PORTED:
@@ -271,22 +321,44 @@ def _refuse_unported(root, defines, scene_dir):
             fname = os.path.join(scene_dir, _collect_props(
                 emit, defines).get("filename", ""))
             if os.path.exists(fname) and not fname.lower().endswith(
-                    (".hdr", ".pfm", ".exr")):
-                _refuse(f"an LDR envmap image ({os.path.basename(fname)})",
-                        ITEM_13)
+                    _IMAGE_EXTS):
+                _refuse(f"an LDR envmap image ({os.path.basename(fname)}) "
+                        f"other than PNG", ITEM_13)
     if root.find("medium") is not None:
         _refuse("participating media", ITEM_13)
-    if root.find("texture") is not None:
-        _refuse("textures declared at the scene's top level", ITEM_11C)
 
 
-def _material_row_from_bsdf(node, defines, builder: SceneBuilder):
-    """Translate a <bsdf> element (possibly twosided-wrapped) into a
-    material row, with the JAX loader's property rules; its texture is
-    added to `builder`'s texture table."""
+def _read_texture_image(fname: str, scene_dir: str, gamma: float = 2.2):
+    """A texture image (HDR, PFM and EXR linear; PNG with the given
+    de-gamma), or None when missing (the JAX loader's
+    _read_texture_image)."""
+    path = _resolve_file(fname, scene_dir)
+    if path is None:
+        return None
+    if path.lower().endswith((".hdr", ".pfm", ".exr")):
+        return _read_env_image(path)
+    # a PNG: _refuse_unported refused the other LDR formats
+    arr = io_utils.png_rgb(io_utils.read_png(path)).astype(np.float32) \
+        / 255.0
+    return arr ** gamma if gamma != 1.0 else arr
+
+
+def _material_row_from_bsdf(node, defines, builder: SceneBuilder,
+                            scene_dir: str = ""):
+    """Translate a <bsdf> element (possibly twosided-wrapped, possibly
+    under a normalmap or bumpmap) into a material row, with the JAX
+    loader's property rules; its textures are added to `builder`'s
+    texture table."""
     twosided = False
-    while node.get("type") == "twosided":
-        twosided = True
+    nrm = None  # (0 normalmap / 1 bumpmap, its texture element, scale)
+    while node.get("type") in ("twosided", "normalmap", "bumpmap"):
+        ntype = node.get("type")
+        if ntype == "twosided":
+            twosided = True
+        else:
+            p_w = _collect_props(node, defines)
+            nrm = (0 if ntype == "normalmap" else 1, node.find("texture"),
+                   float(p_w.get("scale", 1.0)))
         inner = node.find("bsdf")
         if inner is None:
             break
@@ -361,6 +433,10 @@ def _material_row_from_bsdf(node, defines, builder: SceneBuilder):
             line_width=tp.get("lineWidth", 0.05))
     elif ttype == "vertexcolors":
         row["tex_id"] = builder.add_vertexcolor_texture()
+    elif ttype == "curvature":
+        row["tex_id"] = builder.add_vertexcolor_texture()
+        builder.curvature_scale = float(tp.get("scale", 1.0))
+        row["__curvature__"] = True
     elif ttype == "gridtexture":
         row["tex_id"] = builder.add_gridtexture(
             color0=np.asarray(tp.get("color0", (0.2,) * 3)) * tex_gain,
@@ -374,6 +450,27 @@ def _material_row_from_bsdf(node, defines, builder: SceneBuilder):
             color1=np.asarray(tp.get("color1", (0.2,) * 3)) * tex_gain,
             uscale=tp.get("uscale", 1.0), vscale=tp.get("vscale", 1.0),
             uoffset=tp.get("uoffset", 0.0), voffset=tp.get("voffset", 0.0))
+    elif ttype == "bitmap":
+        img = _read_texture_image(tp.get("filename", ""), scene_dir)
+        if img is not None:
+            row["tex_id"] = builder.add_bitmap_texture(
+                np.asarray(img) * tex_gain, uscale=tp.get("uscale", 1.0),
+                vscale=tp.get("vscale", 1.0),
+                uoffset=tp.get("uoffset", 0.0),
+                voffset=tp.get("voffset", 0.0))
+    if nrm is not None and nrm[1] is not None:
+        # the normal or bump texture, read without de-gamma
+        ntp = _collect_props(nrm[1], defines)
+        nimg = _read_texture_image(ntp.get("filename", ""), scene_dir,
+                                   gamma=1.0)
+        if nimg is not None:
+            row["nrm_tex_id"] = builder.add_bitmap_texture(
+                nimg, uscale=ntp.get("uscale", 1.0),
+                vscale=ntp.get("vscale", 1.0),
+                uoffset=ntp.get("uoffset", 0.0),
+                voffset=ntp.get("voffset", 0.0))
+            row["nrm_kind"] = nrm[0]
+            row["nrm_scale"] = nrm[2]
     return row
 
 
@@ -430,12 +527,77 @@ def _mesh_shape(stype: str, p: dict, scene_dir: str, to_world):
     return None
 
 
+def _ripples(g: int = 65):
+    """The JAX loader's heightfield for a missing image: gentle ripples."""
+    yy, xx = np.meshgrid(np.linspace(0, 4 * np.pi, g),
+                         np.linspace(0, 4 * np.pi, g))
+    return 0.1 * np.sin(xx) * np.cos(yy)
+
+
+def _shape_group(shape, defines, scene_dir, mat_ids, mid, b) -> list:
+    """A shapegroup's children as prototypes (reference:
+    src/shapes/shapegroup.cpp), with the JAX loader's rules: rectangle,
+    sphere (radius), cube, and obj, ply or serialized files that exist,
+    each with its toWorld and smooth normals where it has none, under
+    its own <ref> or the group's material. Returns their indices."""
+    group = []
+    for child in shape.findall("shape"):
+        cp = _collect_props(child, defines)
+        ctype = child.get("type")
+        cmesh = None
+        if ctype == "rectangle":
+            cmesh = shp.rectangle()
+        elif ctype == "sphere":
+            cmesh = shp.sphere(cp.get("radius", 1.0))
+        elif ctype == "cube":
+            cmesh = shp.cube()
+        elif ctype in ("obj", "ply", "serialized"):
+            fn = os.path.join(scene_dir, cp.get("filename", ""))
+            if os.path.exists(fn):
+                cmesh = shp.load_obj(fn) if ctype == "obj" else (
+                    shp.load_ply_ascii(fn) if ctype == "ply"
+                    else shp.load_serialized(fn))
+        if cmesh is None:
+            continue
+        ctr = child.find("transform")
+        if ctr is not None:
+            cmesh = shp.transform_mesh(cmesh, _parse_transform(ctr))
+        if cmesh.normals is None:
+            cmesh = shp.compute_smooth_normals(cmesh)
+        cref = child.find("ref")
+        cmid = mat_ids.get(cref.get("id")) if cref is not None else mid
+        group.append(b.add_prototype(cmesh, cmid if cmid is not None
+                                     else mid))
+    return group
+
+
+def _deformable(p, defines, scene_dir, mid, to_world, b):
+    """A keyframe morph (reference: src/shapes/deformable.cpp) lerped at
+    `time` (-D time=t, else its own), as the JAX loader adds it; a
+    missing file adds nothing."""
+    f0 = os.path.join(scene_dir, p.get("filename", ""))
+    f1 = os.path.join(scene_dir, p.get("filename2", p.get("filename", "")))
+    if not os.path.exists(f0):
+        return
+    t_anim = float(defines.get("time", p.get("time", 0.0)))
+
+    def load(f):
+        return shp.load_obj(f) if f.endswith(".obj") \
+            else shp.load_serialized(f)
+    m0 = load(f0)
+    m1 = load(f1) if os.path.exists(f1) and f1 != f0 else m0
+    b.add_morph_mesh(m0, m1, mid, to_world=to_world, time=t_anim)
+
+
 def _read_env_image(fname: str):
     low = fname.lower()
     if low.endswith(".hdr"):
         return io_utils.read_hdr(fname)
     if low.endswith(".pfm"):
         return io_utils.read_pfm(fname)
+    if low.endswith(".png"):
+        return (io_utils.png_rgb(io_utils.read_png(fname)).astype(np.float32)
+                / 255.0) ** 2.2
     from ..utils import exr as exr_utils
     return exr_utils.read_exr(fname)[..., :3]
 
@@ -511,11 +673,12 @@ def load_scene(path: str, defines: dict | None = None,
     # materials by id, in document order
     mat_ids = {}
     for bsdf in root.findall("bsdf"):
-        row = _material_row_from_bsdf(bsdf, defines, b)
+        row = _material_row_from_bsdf(bsdf, defines, b, scene_dir)
         mat_ids[bsdf.get("id")] = b.add_material(**row)
 
     # shapes (a shape of an unknown type gets its material and no
-    # geometry, as in the JAX loader)
+    # geometry, as in the JAX loader; so do a shapegroup and an instance)
+    shape_groups = {}
     for shape in root.findall("shape"):
         p = _collect_props(shape, defines)
         tr = shape.find("transform")
@@ -527,11 +690,31 @@ def load_scene(path: str, defines: dict | None = None,
         else:
             inline = shape.find("bsdf")
             if inline is not None:
-                mid = b.add_material(**_material_row_from_bsdf(inline,
-                                                                defines, b))
+                mid = b.add_material(**_material_row_from_bsdf(
+                    inline, defines, b, scene_dir))
         if mid is None:
             mid = b.add_material(kind=mat.DIFFUSE)
         stype = shape.get("type")
+        if stype == "shapegroup":
+            shape_groups[shape.get("id")] = _shape_group(
+                shape, defines, scene_dir, mat_ids, mid, b)
+            continue
+        if stype == "instance":
+            gref = shape.find("ref")
+            for pidx in shape_groups.get(
+                    gref.get("id") if gref is not None else None, []):
+                b.add_instance(pidx, to_world)
+            continue
+        if stype == "heightfield":
+            img = _read_texture_image(p.get("filename", ""), scene_dir,
+                                      gamma=1.0)
+            b.add_mesh(shp.heightfield(
+                img.mean(-1) if img is not None else _ripples(),
+                scale_z=float(p.get("scale", 1.0))), mid, to_world=to_world)
+            continue
+        if stype == "deformable":
+            _deformable(p, defines, scene_dir, mid, to_world, b)
+            continue
         if stype != "hair":
             got = _mesh_shape(stype, p, scene_dir, to_world)
             if got is not None:

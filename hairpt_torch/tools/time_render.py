@@ -1,11 +1,13 @@
-"""Seconds per wave and Mrays/s of the full-width furball render, on the
-card.
+"""Seconds per wave and Mrays/s of the full-width furball render, or of
+a mesh stand-in's, on the card.
 
     python3 -m hairpt_torch.tools.time_render [--traversal tiled|swept]
         [--material roughplastic|marschner] [--waves 2] [--res 1024]
-        [--depth 65] [--label NAME]
+        [--depth 65] [--scene furball|teapot|instanced] [--label NAME]
 
-Builds the furball through SceneBuilder, renders one warm-up wave, then
+Builds the furball through SceneBuilder (or loads the teapot or the
+instanced stand-in of scene/scene_xmls.py at 1280 x 720, written into a
+temporary directory), renders one warm-up wave, then
 times `--waves` 1-spp waves (host clock around torch.cuda.synchronize(),
 rays counted as path.render counts them) and prints one JSON line with
 the card's name and power limit, s/wave, rays/wave, Mrays/s, the image
@@ -32,6 +34,8 @@ def main(argv=None) -> int:
     ap.add_argument("--waves", type=int, default=2)
     ap.add_argument("--res", type=int, default=1024)
     ap.add_argument("--depth", type=int, default=65)
+    ap.add_argument("--scene", default="furball",
+                    choices=("furball", "teapot", "instanced"))
     ap.add_argument("--label", default="")
     args = ap.parse_args(argv)
 
@@ -41,9 +45,11 @@ def main(argv=None) -> int:
         return 2
     import hairpt_torch
     from hairpt_torch.integrators import path
+    from hairpt_torch.ops import intersect_packed as ipk
     from hairpt_torch.ops import phaseb_kernels as pk
     from hairpt_torch.ops import tiled_kernels as tk
     from hairpt_torch.scene.furball import furball_scene
+    counters = [tk, pk, ipk]
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -51,8 +57,20 @@ def main(argv=None) -> int:
     kw = {} if args.traversal == "tiled" else {"traversal": args.traversal}
     if args.material != "roughplastic":
         kw["material"] = args.material
-    scene = furball_scene(res=args.res, depth=args.depth, device="cuda",
-                          **kw)
+    if args.scene == "furball":
+        scene = furball_scene(res=args.res, depth=args.depth, device="cuda",
+                              **kw)
+    else:
+        import tempfile
+        from hairpt_torch.scene import scene_xmls
+        from hairpt_torch.scene.xml_loader import load_scene
+        if args.scene == "instanced":
+            from hairpt_torch.ops import instancing
+            counters.append(instancing)
+        with tempfile.TemporaryDirectory() as tmp:
+            scene = load_scene(scene_xmls.write_scene(tmp, args.scene),
+                               spp_override=1, max_depth_override=args.depth,
+                               device="cuda")
     times, rays = [], []
 
     def progress(done, total, secs, n_rays):
@@ -62,8 +80,8 @@ def main(argv=None) -> int:
     path.render(scene, spp=1, seed=0, progress=progress)
     times.clear()
     rays.clear()
-    tk.reset_counts()
-    pk.reset_counts()
+    for c in counters:
+        c.reset_counts()
     torch.cuda.synchronize()
     t0 = time.time()
     img = path.render(scene, spp=args.waves, seed=1, progress=progress)
@@ -72,14 +90,15 @@ def main(argv=None) -> int:
     rays_w = sum(rays) / len(rays)
     print(json.dumps({
         "label": args.label, "package": hairpt_torch.__file__,
-        "card": smi, "traversal": args.traversal,
+        "card": smi, "scene": args.scene, "traversal": args.traversal,
         "material": args.material, "res": args.res,
         "depth": args.depth, "waves": args.waves, "s_per_wave": secs,
         "wave_seconds": times, "rays_per_wave": rays_w,
         "mrays_per_s": rays_w / secs / 1e6,
         "image_mean": float(img.mean()),
-        "launches": dict(tk.LAUNCHES, **pk.LAUNCHES),
-        "plain_on_cuda": dict(tk.PLAIN_ON_CUDA, **pk.PLAIN_ON_CUDA)}),
+        "launches": {k: v for c in counters for k, v in c.LAUNCHES.items()},
+        "plain_on_cuda": {k: v for c in counters
+                          for k, v in c.PLAIN_ON_CUDA.items()}}),
         flush=True)
     return 0
 

@@ -6,8 +6,11 @@ JAX package writes PNG, BMP and TGA through PIL; the port writes them
 itself with numpy and zlib, so it needs no imaging library: PNG as one
 zlib IDAT of unfiltered rows (filter byte 0) with CRCs from zlib.crc32,
 BMP as a 24-bit bottom-up bitmap, TGA as an uncompressed true-colour
-image. JPEG output and the LDR readers (PNG / JPEG envmaps and textures)
-are not ported yet (ROADMAP item 13) and raise.
+image. The JAX package reads LDR images (bitmap textures, normal and bump
+maps, heightfields, envmaps) through PIL; the port reads PNG itself
+(read_png: 8-bit gray, gray + alpha, RGB and RGBA, the five scanline
+filters, not interlaced). Other PNGs, JPEG input and output are not
+ported yet (ROADMAP item 13) and raise.
 """
 from __future__ import annotations
 
@@ -133,8 +136,97 @@ def write_jpg(path: str, img: np.ndarray, quality: int = 95):
     raise NotImplementedError(f"JPEG output is {ITEM_13}")
 
 
+# colour type -> channels, for the 8-bit PNGs read_png takes
+_PNG_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
+
+
+def _paeth_row(f, prior, bpp):
+    """Undo the Paeth filter of one scanline (bytes, in Python: each byte
+    depends on the one bpp before it)."""
+    out = bytearray(f)
+    for i in range(len(out)):
+        a = out[i - bpp] if i >= bpp else 0
+        b = prior[i]
+        c = prior[i - bpp] if i >= bpp else 0
+        p = a + b - c
+        pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
+        pred = a if pa <= pb and pa <= pc else (b if pb <= pc else c)
+        out[i] = (out[i] + pred) & 0xFF
+    return out
+
+
+def _average_row(f, prior, bpp):
+    out = bytearray(f)
+    for i in range(len(out)):
+        a = out[i - bpp] if i >= bpp else 0
+        out[i] = (out[i] + ((a + prior[i]) >> 1)) & 0xFF
+    return out
+
+
 def read_png(path: str) -> np.ndarray:
-    raise NotImplementedError(f"reading PNG images is {ITEM_13}")
+    """An 8-bit, non-interlaced PNG of colour type gray, gray + alpha, RGB
+    or RGBA as uint8 [H, W] (gray) or [H, W, C], PIL's array layout.
+    Any other PNG raises NotImplementedError."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise ValueError(f"{path} is not a PNG file")
+    pos, ihdr, idat = 8, None, []
+    while pos + 8 <= len(data):
+        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        pos += 12 + n
+        if kind == b"IHDR":
+            ihdr = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat.append(body)
+        elif kind == b"IEND":
+            break
+    if ihdr is None:
+        raise ValueError(f"{path}: no IHDR chunk")
+    w, h, depth, ctype, _, _, interlace = ihdr
+    if depth != 8 or ctype not in _PNG_CHANNELS or interlace != 0:
+        raise NotImplementedError(
+            f"{path}: PNG with bit depth {depth}, colour type {ctype}, "
+            f"interlace {interlace}: only 8-bit, non-interlaced gray, gray + "
+            f"alpha, RGB and RGBA are read; the rest is {ITEM_13}")
+    bpp = _PNG_CHANNELS[ctype]
+    stride = w * bpp
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    raw = raw[:h * (stride + 1)].reshape(h, stride + 1)
+    out = np.zeros((h, stride), np.uint8)
+    prior = np.zeros(stride, np.uint8)
+    for y in range(h):
+        ft, f = int(raw[y, 0]), raw[y, 1:]
+        if ft == 0:
+            row = f.copy()
+        elif ft == 1:
+            row = np.cumsum(f.reshape(w, bpp), axis=0,
+                            dtype=np.uint8).reshape(stride)
+        elif ft == 2:
+            row = f + prior
+        elif ft == 3:
+            row = np.frombuffer(_average_row(f.tobytes(), prior.tobytes(),
+                                             bpp), np.uint8)
+        elif ft == 4:
+            row = np.frombuffer(_paeth_row(f.tobytes(), prior.tobytes(),
+                                           bpp), np.uint8)
+        else:
+            raise ValueError(f"{path}: scanline filter {ft}")
+        out[y] = row
+        prior = out[y]
+    img = out.reshape(h, w, bpp)
+    return img[..., 0] if bpp == 1 else img
+
+
+def png_rgb(img: np.ndarray) -> np.ndarray:
+    """read_png's array as RGB (PIL's convert("RGB"): gray replicated,
+    alpha dropped)."""
+    if img.ndim == 2:
+        return np.repeat(img[..., None], 3, axis=-1)
+    if img.shape[-1] == 2:
+        return np.repeat(img[..., :1], 3, axis=-1)
+    return img[..., :3]
 
 
 def write_npy(path: str, img: np.ndarray):

@@ -192,19 +192,23 @@ SENSOR = ("<sensor type=\"{kind}\"><film type=\"hdrfilm\"><integer "
 HAIR = ("<shape type=\"hair\"><string name=\"filename\" "
         "value=\"furball.mitshair\"/></shape>")
 REFUSED = {
+    # an instance of a shapegroup renders; an animated one is item 11c
     "shapegroup": (SENSOR.format(kind="perspective")
                    + "<shape type=\"shapegroup\" id=\"g\"><shape "
-                     "type=\"sphere\"/></shape>" + HAIR, "11c"),
+                     "type=\"sphere\"/></shape><shape type=\"instance\">"
+                     "<ref id=\"g\"/><animation name=\"toWorld\"/></shape>"
+                   + HAIR, "11c"),
     "point_light": (SENSOR.format(kind="perspective") + HAIR
                     + "<emitter type=\"point\"/>", "13"),
     "orthographic": (SENSOR.format(kind="orthographic") + HAIR, "13"),
     "direct": ("<integrator type=\"direct\"/>"
                + SENSOR.format(kind="perspective") + HAIR, "13"),
+    # a PNG bitmap renders; a JPEG one is item 13
     "bitmap": (SENSOR.format(kind="perspective")
                + "<bsdf type=\"diffuse\" id=\"d\"><texture "
                  "type=\"bitmap\" name=\"reflectance\"><string "
-                 "name=\"filename\" value=\"t.png\"/></texture></bsdf>"
-               + HAIR, "11c"),
+                 "name=\"filename\" value=\"t.jpg\"/></texture></bsdf>"
+               + HAIR, "13"),
     "medium": (SENSOR.format(kind="perspective") + HAIR
                + "<medium type=\"homogeneous\"/>", "13"),
     "conductor": (SENSOR.format(kind="perspective")
@@ -225,6 +229,7 @@ def test_cli_refuses_what_the_port_does_not_render(tmp_path, monkeypatch,
     d = tmp_path / "furball"
     d.mkdir()
     (d / "scene.xml").write_text(f"<scene version=\"0.5.0\">{body}</scene>")
+    (d / "t.jpg").write_bytes(b"\xff\xd8\xff")
     with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}\\)"):
         cli.main(["render", str(d / "scene.xml"), "-o",
                   str(tmp_path / "o.png"), "--cpu"])

@@ -240,7 +240,7 @@ def test_mesh_builder_refusals():
     with pytest.raises(NotImplementedError, match="item 11c"):
         b.add_mesh(tshp.rectangle(), 0, motion=np.eye(4))
     with pytest.raises(NotImplementedError, match="item 11c"):
-        b.add_bitmap_texture(np.zeros((4, 4, 3)))
+        b.add_instance(0, np.eye(4), anim=object())
 
 
 # --- smooth plastic and the textures ---------------------------------------

@@ -1,7 +1,7 @@
 """The packed BVH walk (hairpt_torch/ops/intersect_packed.py) on the CPU:
 its plain walk against hairpt's closest_hit_packed / any_hit_packed on
 triangles and on hair, and a torch transcription of kernel F's per-ray
-loop (csrc/packed.cu, one ray at a time, in Python) against the
+loop (csrc/packed_walk.cuh, one ray at a time, in Python) against the
 vectorised plain walk, bit for bit, on grazing and edge rays.
 
 Both packages pack the same FlatBVH (the port's SAH build) with the same
@@ -267,7 +267,7 @@ def _dot3(a, b):
 
 
 def _tri_test(p, o, d, mint, maxt):
-    """TriLeaf::test, csrc/packed.cu."""
+    """TriLeaf::test, csrc/packed_walk.cuh."""
     pid = int(p[15:16].view(torch.int32))
     p0, e1, e2 = p[0:3], p[3:6], p[6:9]
     pv = (d[1] * e2[2] - d[2] * e2[1], d[2] * e2[0] - d[0] * e2[2],
@@ -287,7 +287,7 @@ def _tri_test(p, o, d, mint, maxt):
 
 
 def _hair_test(p, o, d, mint, maxt):
-    """HairLeaf::test, csrc/packed.cu."""
+    """HairLeaf::test, csrc/packed_walk.cuh."""
     pid = int(p[15:16].view(torch.int32))
     p0, p1, n0, n1, rad = p[0:3], p[3:6], p[6:9], p[9:12], p[12]
     s = (p1[0] - p0[0], p1[1] - p0[1], p1[2] - p0[2])
