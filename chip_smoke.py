@@ -5,17 +5,21 @@ the full-width furball forward render runs through them, with the tiled
 and with the swept traversal, with rough plastic and with the Marschner
 hair BSDF, its gradient paths and inverse rendering with them, the
 scene-XML command line, triangle meshes (the teapot stand-in) through the
-packed BVH walk, and instanced, bitmap-textured and normal-mapped meshes
-(the instanced stand-in) through the two-level walk.
+packed BVH walk, instanced, bitmap-textured and normal-mapped meshes
+(the instanced stand-in) through the two-level walk, the per-ray and the
+blocked walks (traversal 'perray' and 'blocked'), and motion blur (the
+motion stand-in: an animated camera, meshes and instances under an open
+shutter).
 
     python3 chip_smoke.py            # from the repository root, one card
 
 Phases (each prints one line with its elapsed seconds):
   0. the card (nvidia-smi name and power limit) and torch/CUDA versions;
-  1. build the six CUDA libraries (nvcc, sm_90a: tiled.cu with kernels
+  1. build the eight CUDA libraries (nvcc, sm_90a: tiled.cu with kernels
      A and B, octets.cu with C and D, phaseb.cu with E, swept_cull.cu with
-     the swept phase A, packed.cu with F, instanced.cu with G) and the BVH
-     builder (g++), all in parallel;
+     the swept phase A, packed.cu with F, instanced.cu with G, perray.cu
+     with H, blocked.cu with I) and the BVH builder (g++), all nine in
+     parallel;
   2. build the full-width furball scene (84,000 fibers x 12 segments,
      K = 128), take a real camera wave and a first-bounce wave (uniformly
      random directions at the camera hit points, Morton-sorted as the
@@ -151,6 +155,31 @@ Phases (each prints one line with its elapsed seconds):
           (s/wave, Mrays/s, G's and F's launches per wave, no plain
           version on the card), then the CLI as a subprocess at 2 spp
           (wall time, its logged build and render seconds).
+  14. the per-ray and the blocked BVH walks, kernels H (csrc/perray.cu,
+     one thread per ray, kernel F's loop over the BVHArrays) and I
+     (csrc/blocked.cu, one CTA per block of 256 rays sharing one node
+     index), and motion blur:
+       a. H against its plain version on EVERY ray of the furball's
+          camera and first-bounce waves (hair leaf; run in phase 2) and
+          of the teapot stand-in's (triangle leaf), closest and any hit,
+          bit for bit, and against F on the same tree and primitives; I
+          against its plain version on every 61st block of the furball's
+          camera wave and every block of the teapot's waves, bit for
+          bit, and against H on every ray of all four waves; each timed
+          beside its plain version, F (for H) and the bound;
+       b. the motion stand-in (scene_xmls.motion: the furball's hair at
+          quality 14, the moving teapot, the deformable pair, 16
+          animated instances, the animated camera; shutter [0, 1],
+          1024^2, spp 4, depth 65): a warm-up wave, then its four shutter
+          times timed (s/wave, rays/wave, Mrays/s, the rebuild's and the
+          re-pose's host seconds per shutter time, A, B, F and G
+          launches per wave); the small stand-in card against CPU;
+       c. the CLI on the motion stand-in as a subprocess (wall time, its
+          logged build and render seconds);
+       d. one wave of the full-width furball (after phase 5) and the
+          teapot stand-in with traversal 'perray' and 'blocked' (s/wave,
+          H's and I's launches), and the small furball over the
+          checkerboard with both, card against CPU.
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Any failed check exits
 non-zero before that line. Without CUDA the script exits non-zero at once.
@@ -2502,6 +2531,524 @@ def g_kernel_entries(report, launches, n_timed):
     return entries
 
 
+# kernels H and I (csrc/perray.cu, csrc/blocked.cu): bytes read once (the
+# BVHArrays: 24 B of box and 12 B of left, count and skip per node; the
+# sorted geometry, 36 B per triangle, 52 B per hair segment; 32 B per ray)
+# and written once (8 B per ray closest, 4 B any), against the operations
+# of the per-ray walk's counted visits (F_SLAB_FLOPS per node row,
+# F_TRI_FLOPS / F_HAIR_FLOPS per primitive test): the least work of the
+# function both walks compute, so H's and I's rows share one bound per
+# wave and mode (I's own work, a block's union of nodes for every lane,
+# is logged beside it as work_ms)
+H_NODE_BYTES = 36
+H_PRIM_BYTES = {"tri": 36, "hair": 52}
+H_REPLACES = {"closest": "hairpt/ops/intersect.py:143",
+              "any": "hairpt/ops/intersect.py:189"}
+I_REPLACES = {"closest": "hairpt/ops/intersect_blocked.py:111",
+              "any": "hairpt/ops/intersect_blocked.py:176"}
+#  kernels H and I against their plain versions: t and pid (closest) or
+#      the flag (any) bit for bit (the same float32 operations as kernel
+#      F's, in the same order, without fused multiply-adds); I's plain
+#      version on every I_FURBALL_STRIDE-th block of the furball's camera
+#      wave (blocks are independent; 61 is prime to the 32 blocks of a
+#      row of 8 x 8 tiles, so the blocks checked spread over the image)
+#      and on every block of the teapot's waves. The plain loop runs one
+#      iteration per node of the longest block's walk, about 1.7 ms on
+#      the card: a block of the furball's first-bounce wave (256 random
+#      directions) walks some 125,000 nodes, minutes per block, so on
+#      that wave I is held to H on every ray (PERF.md, PR 15: its plain
+#      check on 64 blocks, bit for bit, took 258 s)
+I_FURBALL_STRIDE = 61
+I_BLOCK = 256
+#  H against F on the same tree and the same float32 primitives (F's
+#      packed rows, gathered into sorted order): bit for bit, the any hit
+#      where maxt > mint (F counts maxt <= mint as no hit, the JAX
+#      package's per-ray walk does not)
+#  I against H on every ray: equal, or differing on at most IH_MAX_DIFF
+#      of the rays, each logged (a hair hit outside its segment's box,
+#      chip_smoke.outside_box, is reached by a block whose other lanes
+#      enter the ancestors' boxes, never by the per-ray walk)
+IH_MAX_DIFF = 1e-5
+#  14b, card against CPU: image means within MEAN_RTOL (phase 3's rule)
+MOTION_SMALL = dict(res=32, depth=4, spp=2)
+MOTION_SMALL_QUALITY = 0.02
+
+
+def h_bound(bvh, geom, leaf, counts, n_rays, mode):
+    """(bound ms, its kind) of one walk of a wave over the BVHArrays: the
+    inputs read once and the outputs written once against the per-ray
+    walk's counted operations."""
+    prim = F_TRI_FLOPS if leaf == "tri" else F_HAIR_FLOPS
+    io = n_rays * (F_RAY_BYTES + (8 if mode == "closest" else 4))
+    n_bytes = bvh.node_left.numel() * H_NODE_BYTES \
+        + geom.p0.shape[0] * H_PRIM_BYTES[leaf] + io
+    return bound_ms(n_bytes, F_SLAB_FLOPS * counts["nodes"]
+                    + prim * counts["prims"])
+
+
+def rows_geom(packed, leaf):
+    """The packed BVH's primitives (kernel F's float32 values) in sorted
+    order, as the TriGeom or HairGeom kernel H reads."""
+    import torch
+    from hairpt_torch.scene.scene import HairGeom, TriGeom
+    rows = packed.leaf_rows.view(-1, 16)
+    pid = rows[:, 15].contiguous().view(torch.int32)
+    keep = pid >= 0
+    out = torch.zeros((int(pid.max()) + 1, 16), device=rows.device)
+    out[pid[keep].long()] = rows[keep]
+    if leaf == "tri":
+        return TriGeom(*[out[:, a:a + 3].contiguous() for a in (0, 3, 6)])
+    return HairGeom(*[out[:, a:a + 3].contiguous() for a in (0, 3, 6, 9)],
+                    radius=out[:, 12].contiguous())
+
+
+def _differ(a, b, closest):
+    """Rays where two results differ (closest: pid or the bits of t)."""
+    import torch
+    if not closest:
+        return a != b
+    return (a[1] != b[1]) | (a[0].view(torch.int32) != b[0].view(torch.int32))
+
+
+def check_kernel_h(label, bvh, geom, packed, leaf, ray, report):
+    """Phase 14a: kernel H against its plain version on EVERY ray of a
+    wave, closest and any hit, bit for bit, and against kernel F on the
+    same tree and primitives; timed (CUDA events) beside the plain
+    version, F and the bound. Returns {mode: (H's result, facts)}."""
+    import torch
+    from hairpt_torch.ops import intersect as isec
+    from hairpt_torch.ops import intersect_packed as ipk
+
+    out = {}
+    n = ray.o.shape[0]
+    fg = rows_geom(packed, leaf)
+    live = ray.maxt > ray.mint
+    for mode in ("closest", "any"):
+        closest = mode == "closest"
+        plain_fn = isec.closest_hit_plain if closest else isec.any_hit_plain
+        kern = isec.closest_hit if closest else isec.any_hit
+        f_fn = ipk.closest_hit_packed if closest else ipk.any_hit_packed
+        counts = {}
+        torch.cuda.synchronize()
+        t0 = time.time()
+        p = plain_fn(bvh, geom, leaf, ray, counts=counts)
+        torch.cuda.synchronize()
+        plain_ms = (time.time() - t0) * 1e3
+        k = kern(bvh, geom, leaf, ray)
+        bad = int(_differ(k, p, closest).sum())
+        hf = kern(bvh, fg, leaf, ray)
+        f = f_fn(packed, leaf, ray)
+        bad_f = int(_differ(hf, f, True).sum()) if closest \
+            else int(((hf & live) != f).sum())
+        # the scene's own primitives against F's packed copy: the
+        # triangles' e1, e2 are rounded once from float64 there, from two
+        # float32 vertices in F's rows
+        own = float((k[1] == f[1]).float().mean()) if closest \
+            else float(((k & live) == f).float().mean())
+        ms = cuda_ms(lambda: kern(bvh, geom, leaf, ray), 5)
+        f_ms = cuda_ms(lambda: f_fn(packed, leaf, ray), 5)
+        bms, bby = h_bound(bvh, geom, leaf, counts, n, mode)
+        n_hit = int((p[1] >= 0).sum()) if closest else int(p.sum())
+        vs_f = "bit for bit with F" if bad_f == 0 else f"{bad_f} rays OFF F"
+        log(f"H {leaf} {mode} on {label} ({n} rays, {n_hit} hits): "
+            f"{'bit for bit' if bad == 0 else f'{bad} rays DIFFER'}; on F's "
+            f"primitives {vs_f} (its own primitives: {own:.6f} agree with "
+            f"F); kernel {ms:.3f} "
+            f"ms, F {f_ms:.3f} ms, plain {plain_ms:.1f} ms "
+            f"({counts['steps']} iterations), bound {bms:.4f} ms by {bby} "
+            f"({ms / bms:.1f}x; {counts['nodes']} node rows, "
+            f"{counts['prims']} tests)")
+        require(bad == 0, f"kernel H ({leaf}, {mode}) differs from its plain "
+                f"version on {bad} rays of {label}")
+        require(bad_f == 0, f"kernel H ({leaf}, {mode}) differs from kernel "
+                f"F on {bad_f} rays of {label}")
+        out[mode] = (k, dict(ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                             bound_by=bby, f_ms=f_ms, max_abs_err=0.0,
+                             rays=n, counts=counts, agree_with_f=own))
+        report.setdefault(("perray", leaf, mode), []).append(
+            (label, out[mode][1]))
+    return out
+
+
+def check_kernel_i(label, bvh, geom, leaf, ray, h_out, stride, report):
+    """Phase 14a: kernel I (blocks of I_BLOCK rays, the wave padded as the
+    traversal pads it) against its plain version on every stride-th
+    block (none for stride None), bit for bit, and against kernel H on
+    every ray; timed beside the plain version (on the blocks checked)
+    and H's bound."""
+    import torch
+    from hairpt_torch.integrators import common
+    from hairpt_torch.ops import intersect_blocked as iblk
+
+    n = ray.o.shape[0]
+    pray, _ = common._pad_ray(ray, I_BLOCK)
+    nb = pray.o.shape[0] // I_BLOCK
+    blocks = torch.arange(0, nb if stride else 0, stride or 1,
+                          device=ray.o.device)
+    sel = (blocks[:, None] * I_BLOCK
+           + torch.arange(I_BLOCK, device=ray.o.device)).reshape(-1)
+    sub = type(pray)(*[x[sel] for x in pray])
+    live = ray.maxt > ray.mint
+    for mode in ("closest", "any"):
+        closest = mode == "closest"
+        kern = iblk.closest_hit_blocked if closest else iblk.any_hit_blocked
+        plain_fn = iblk.closest_hit_blocked_plain if closest \
+            else iblk.any_hit_blocked_plain
+        counts = dict(steps=0, nodes=0, prims=0)
+        k = kern(bvh, geom, leaf, pray, I_BLOCK)
+        bad, plain_ms = 0, None
+        if len(blocks):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            p = plain_fn(bvh, geom, leaf, sub, I_BLOCK, counts=counts)
+            torch.cuda.synchronize()
+            plain_ms = (time.time() - t0) * 1e3
+            ks = tuple(x[sel] for x in k) if closest else k[sel]
+            bad = int(_differ(ks, p, closest).sum())
+        h = h_out[mode][0]
+        kn = tuple(x[:n] for x in k) if closest else k[:n]
+        diff = _differ(kn, h, True) if closest else kn != (h & live)
+        off = torch.nonzero(diff)[:, 0].tolist()
+        detail = []
+        for i in off[:8]:
+            detail.append((i, *((float(kn[0][i]), int(kn[1][i]),
+                                 float(h[0][i]), int(h[1][i])) if closest
+                                else (bool(kn[i]), bool(h[i])))))
+        ms = cuda_ms(lambda: kern(bvh, geom, leaf, pray, I_BLOCK), 3)
+        hf = h_out[mode][1]
+        scale = nb / max(len(blocks), 1)
+        work_ms, _ = bound_ms(0, (F_SLAB_FLOPS * counts["nodes"] * I_BLOCK
+                                  + (F_TRI_FLOPS if leaf == "tri"
+                                     else F_HAIR_FLOPS) * counts["prims"])
+                              * scale)
+        plain = (f"plain {plain_ms:.1f} ms on the blocks checked "
+                 f"({counts['steps']} iterations, {counts['nodes']} block "
+                 f"steps, {counts['prims']} lane tests), I's own work "
+                 f"{work_ms:.4f} ms by operations (scaled from the blocks "
+                 f"checked)" if len(blocks)
+                 else "plain version not run on this wave")
+        verdict = ("bit for bit" if bad == 0 else f"{bad} rays DIFFER") \
+            if len(blocks) else "no block against the plain version"
+        log(f"I {leaf} {mode} on {label} ({nb} blocks of {I_BLOCK}, "
+            f"{len(blocks)} checked): {verdict}; "
+            f"against H {len(off)} of {n} rays differ {detail}; kernel "
+            f"{ms:.3f} ms (H {hf['ms']:.3f}), {plain}, bound "
+            f"{hf['bound_ms']:.4f} ms ({ms / hf['bound_ms']:.1f}x)")
+        require(bad == 0, f"kernel I ({leaf}, {mode}) differs from its plain "
+                f"version on {bad} rays of {label}")
+        require(len(off) <= IH_MAX_DIFF * n, f"kernel I ({leaf}, {mode}) "
+                f"differs from H on {len(off)} rays of {label}")
+        report.setdefault(("blocked", leaf, mode), []).append((label, dict(
+            ms=ms, plain_ms=plain_ms, plain_blocks=len(blocks), blocks=nb,
+            bound_ms=hf["bound_ms"], bound_by=hf["bound_by"], work_ms=work_ms,
+            max_abs_err=0.0, rays=n, off_h=len(off))))
+
+
+def furball_walks(scene, wv, report):
+    """Phase 14a (run in phase 2, on its waves): kernels H and I on the
+    full-width furball's camera and first-bounce waves (hair leaf); I's
+    plain version on the camera wave's blocks (I_FURBALL_STRIDE)."""
+    arr = scene.arrays
+    for name, ray in wv.items():
+        label = f"the furball's {name} wave"
+        h = check_kernel_h(label, arr.hair_bvh, arr.hair, arr.hair_packed,
+                           "hair", ray, report)
+        check_kernel_i(label, arr.hair_bvh, arr.hair, "hair", ray, h,
+                       I_FURBALL_STRIDE if name == "camera" else None,
+                       report)
+
+
+def teapot_walks(report, device="cuda", **load_kw):
+    """Phase 14a: kernels H and I on the teapot stand-in's camera and
+    first-bounce waves (triangle leaf), I's plain version on every
+    block. Returns the scene."""
+    import tempfile
+    from hairpt_torch.scene import scene_xmls
+    from hairpt_torch.scene.xml_loader import load_scene
+
+    with tempfile.TemporaryDirectory(prefix="hairpt_teapot_") as tmp:
+        scene = load_scene(scene_xmls.write_scene(tmp, "teapot"),
+                           spp_override=1, device=device, **load_kw)
+    arr = scene.arrays
+    wv, _ = mesh_waves(scene)
+    for name, ray in wv.items():
+        label = f"the teapot's {name} wave"
+        h = check_kernel_h(label, arr.tri_bvh, arr.tri, arr.tri_packed, "tri",
+                           ray, report)
+        check_kernel_i(label, arr.tri_bvh, arr.tri, "tri", ray, h, 1, report)
+    return scene
+
+
+def walk_waves(scene, label, reset_all, warm=True):
+    """Phase 14d: the scene rendered with traversal 'perray' and then
+    'blocked' (triangles and hair through kernels H and I): with warm,
+    one warm-up wave and one or two timed ones, else one timed wave; the
+    counts set to 0 just before the timed waves and read just after.
+    Returns {traversal: (s/wave, rays/wave, launches of H or I, waves)}."""
+    import torch
+    from hairpt_torch.integrators import path
+    from hairpt_torch.ops import intersect as isec
+    from hairpt_torch.ops import intersect_blocked as iblk
+    from hairpt_torch.ops import intersect_packed as ipk
+    from hairpt_torch.ops import tiled_kernels as tk
+
+    out = {}
+    for trav in ("perray", "blocked"):
+        s = with_config(scene, traversal=trav)
+        times, rays = [], []
+
+        def progress(done, total, secs, n_rays):
+            torch.cuda.synchronize()
+            times.append(secs)
+            rays.append(n_rays)
+        n_timed = 1
+        if warm:
+            progress, times, rays, n_timed = warm_up(s, f"{label} {trav}")
+        reset_all()
+        torch.cuda.synchronize()
+        img = path.render(s, spp=n_timed, seed=1, progress=progress)
+        torch.cuda.synchronize()
+        mod = isec if trav == "perray" else iblk
+        launches = dict(mod.LAUNCHES)
+        plain = dict(isec.PLAIN_ON_CUDA, **iblk.PLAIN_ON_CUDA)
+        others = dict(tk.LAUNCHES, **ipk.LAUNCHES)
+        secs = sum(times) / len(times)
+        rays_w = sum(rays) / len(rays)
+        leaves = ("tri",) if scene.arrays.hair is None else ("hair",)
+        log(f"{label}, traversal {trav}: {n_timed} timed wave(s): "
+            f"{rays_w:.0f} rays/wave, {secs:.3f} s/wave, "
+            f"{rays_w / secs / 1e6:.4f} Mrays/s; image mean "
+            f"{float(img.mean()):.6f}; launches {launches}")
+        require(bool(torch.isfinite(img).all()) and float(img.mean()) > 0,
+                f"{label} ({trav}): non-finite or black")
+        require(all(launches[f"{trav}_{lf}_{m}"] > 0 for lf in leaves
+                    for m in ("closest", "any")),
+                f"{label} ({trav}) did not launch its walk: {launches}")
+        require(all(v == 0 for v in plain.values()),
+                f"plain walks ran on CUDA tensors: {plain}")
+        require(all(v == 0 for v in others.values()),
+                f"{label} ({trav}) ran kernels A, B or F: {others}")
+        out[trav] = (secs, rays_w, launches, n_timed)
+        del img
+    return out
+
+
+def walk_floor(reset_all):
+    """Phase 14d: the small furball over the checkerboard with 'perray' and
+    'blocked' on the card and with the plain versions on the CPU: image
+    means within MEAN_RTOL, each kernel's four instances launched."""
+    from hairpt_torch.integrators import path
+    from hairpt_torch.ops import intersect as isec
+    from hairpt_torch.ops import intersect_blocked as iblk
+    from hairpt_torch.scene.furball import furball_floor_scene
+
+    for trav, mod in (("perray", isec), ("blocked", iblk)):
+        means = {}
+        for dev in ("cuda", "cpu"):
+            s = furball_floor_scene(quality=0.1, res=64, depth=8,
+                                    device=dev, traversal=trav)
+            reset_all()
+            means[dev] = float(path.render(s, spp=1).mean())
+            if dev == "cuda":
+                got = dict(mod.LAUNCHES)
+        rel = abs(means["cuda"] - means["cpu"]) / max(abs(means["cpu"]),
+                                                      1e-12)
+        log(f"furball over the checkerboard, {trav}: image mean card "
+            f"{means['cuda']:.6f}, CPU {means['cpu']:.6f}, rel diff "
+            f"{rel:.3g}; card launches {got}")
+        require(means["cpu"] > 0 and rel <= MEAN_RTOL,
+                f"furball over the floor ({trav}): card and CPU differ by "
+                f"{rel}")
+        require(all(v > 0 for v in got.values()),
+                f"the {trav} floor render did not launch every instance: "
+                f"{got}")
+
+
+def _timed(fn, secs):
+    """fn, its host seconds (the card synchronised) appended to secs."""
+    import torch
+
+    def run(*a):
+        t0 = time.time()
+        out = fn(*a)
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        secs.append(time.time() - t0)
+        return out
+    return run
+
+
+def motion_entry_point(reset_all, device="cuda", quality=HAIR_QUALITY,
+                       **xml_kw):
+    """Phase 14b/c: the motion stand-in (scene_xmls.motion: the furball's
+    hair at quality 14, the moving teapot, the deformable pair, 16
+    animated instances, the animated camera; shutter [0, 1], 1024^2, spp
+    4, depth 65): loaded, one warm-up wave, then its four shutter times
+    timed in process (s/wave, rays/wave, Mrays/s, the rebuild's and the
+    re-pose's host seconds per shutter time, A, B, F and G launches per
+    wave, no plain version on the card); the small stand-in on the card
+    and with the plain versions on the CPU (means within MEAN_RTOL); and
+    the CLI as a subprocess (wall, build and render seconds). xml_kw and
+    device "cpu" rehearse it small."""
+    import re
+    import tempfile
+    import numpy as np
+    import torch
+    from hairpt_torch.integrators import path
+    from hairpt_torch.ops import instancing as gi
+    from hairpt_torch.ops import intersect_packed as ipk
+    from hairpt_torch.ops import tiled_kernels as tk
+    from hairpt_torch.scene import scene_xmls
+    from hairpt_torch.scene.xml_loader import load_scene
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    cuda = device == "cuda"
+    with tempfile.TemporaryDirectory(prefix="hairpt_motion_") as tmp:
+        xml = scene_xmls.write_scene(tmp, "motion", **xml_kw)
+        t0 = time.time()
+        scene = load_scene(xml, hair_quality=quality, device=device)
+        built = time.time() - t0
+        spp = scene.config.spp
+        log(f"motion stand-in loaded in {built:.1f}s: "
+            f"{scene.arrays.hair.p0.shape[0]} segments, "
+            f"{scene.arrays.tri.p0.shape[0]} triangles, "
+            f"{len(scene.arrays.inst.proto_ids)} instances, "
+            f"{scene.config.width}^2, spp {spp}, shutter {scene.shutter}")
+        reb, rep = [], []
+        scene = scene._replace(
+            rebuild_geo=_timed(scene.rebuild_geo, reb),
+            repose_inst=_timed(scene.repose_inst, rep))
+        times, rays = [], []
+
+        def progress(done, total, secs, n_rays):
+            if cuda:
+                torch.cuda.synchronize()
+            times.append(secs)
+            rays.append(n_rays)
+        path.render(scene, spp=1, seed=0, progress=progress)
+        log(f"motion: warm-up wave (shutter time 0.5) {times[0]:.2f}s")
+        times.clear()
+        rays.clear()
+        reb.clear()
+        rep.clear()
+        reset_all()
+        if cuda:
+            torch.cuda.synchronize()
+        img = path.render(scene, spp=spp, seed=1, progress=progress)
+        if cuda:
+            torch.cuda.synchronize()
+        ab, f_l, g_l = dict(tk.LAUNCHES), dict(ipk.LAUNCHES), \
+            dict(gi.LAUNCHES)
+        plain = dict(tk.PLAIN_ON_CUDA, **ipk.PLAIN_ON_CUDA,
+                     **gi.PLAIN_ON_CUDA)
+        secs = sum(times) / len(times)
+        rays_w = sum(rays) / len(rays)
+        launches = dict(ab, **f_l, **g_l)
+        log(f"motion render: {spp} waves (shutter times "
+            f"{[round((s + 0.5) / spp, 4) for s in range(spp)]}) at "
+            f"{scene.config.width}^2, depth {scene.config.max_depth}: "
+            f"{rays_w:.0f} rays/wave, {secs:.3f} s/wave (each "
+            f"{[round(x, 3) for x in times]}), {rays_w / secs / 1e6:.4f} "
+            f"Mrays/s; the triangles' rebuild {[round(x, 4) for x in reb]} "
+            f"s and the instances' re-pose {[round(x, 4) for x in rep]} s "
+            f"per shutter time (host); image mean {float(img.mean()):.6f}; "
+            f"launches per wave "
+            f"{ {k: v / spp for k, v in launches.items()} }")
+        require(bool(torch.isfinite(img).all()) and float(img.mean()) > 0,
+                "motion render: non-finite or black")
+        require(len(reb) == len(rep) == spp, f"motion: {len(reb)} rebuilds "
+                f"and {len(rep)} re-poses over {spp} shutter times")
+        if cuda:
+            require(all(v > 0 for v in ab.values())
+                    and f_l["packed_tri_closest"] > 0
+                    and f_l["packed_tri_any"] > 0
+                    and all(v > 0 for v in g_l.values()),
+                    f"the motion render did not launch A, B, F and G: "
+                    f"{launches}")
+            require(all(v == 0 for v in plain.values()),
+                    f"plain versions ran on CUDA tensors: {plain}")
+        result = dict(secs=secs, rays=rays_w, launches=launches, waves=spp,
+                      rebuild_s=list(reb), repose_s=list(rep),
+                      build_s=built)
+        del scene, img
+
+        # 14b: small, card against CPU
+        small = os.path.join(tmp, "small")
+        sxml = scene_xmls.write_scene(small, "motion", **MOTION_SMALL)
+        means = {}
+        for dev in (("cuda", "cpu") if cuda else ("cpu",)):
+            s = load_scene(sxml, hair_quality=MOTION_SMALL_QUALITY,
+                           device=dev)
+            t0 = time.time()
+            means[dev] = float(path.render(s).mean())
+            log(f"motion small ({s.config.width}^2, depth "
+                f"{s.config.max_depth}, spp {s.config.spp}) on {dev}: "
+                f"{time.time() - t0:.1f}s, image mean {means[dev]:.6f}")
+        if cuda:
+            rel = abs(means["cuda"] - means["cpu"]) / max(abs(means["cpu"]),
+                                                          1e-12)
+            log(f"motion small: card against CPU rel diff {rel:.3g}")
+            require(means["cpu"] > 0 and rel <= MEAN_RTOL,
+                    f"motion small: card and CPU differ by {rel}")
+
+        # 14c: the CLI
+        out = os.path.join(tmp, "out", "motion.png")
+        os.makedirs(os.path.dirname(out))
+        env = dict(os.environ, PYTHONPATH=here + os.pathsep
+                   + os.environ.get("PYTHONPATH", ""))
+        t0 = time.time()
+        proc = subprocess.run(
+            [sys.executable, "-m", "hairpt_torch.cli", "render", xml, "-o",
+             out, "--hair-quality", str(quality)]
+            + ([] if cuda else ["--cpu"]),
+            cwd=here, env=env, capture_output=True, text=True, timeout=600)
+        wall = time.time() - t0
+        require(proc.returncode == 0, f"the motion CLI exited "
+                f"{proc.returncode}:\n{proc.stderr[-3000:]}")
+        b_s = re.search(r"scene built in ([0-9.]+)s", proc.stderr)
+        r_s = re.search(r"rendered in ([0-9.]+)s", proc.stderr)
+        require(b_s is not None and r_s is not None,
+                f"the CLI logged no build or render time:\n{proc.stderr}")
+        base = out[:-4]
+        for ext in ("png", "exr", "npy", "pfm"):
+            require(os.path.getsize(f"{base}.{ext}") > 0, f"no {ext} output")
+        img = np.load(f"{base}.npy")
+        require(np.isfinite(img).all() and img.mean() > 0,
+                f"motion CLI image mean {img.mean()}")
+        log(f"CLI motion ({img.shape[1]} x {img.shape[0]}, spp {spp}): exit "
+            f"0 in {wall:.1f}s wall, scene built in {b_s.group(1)}s, "
+            f"rendered in {r_s.group(1)}s; image mean {img.mean():.6f}; "
+            f"four outputs")
+        result.update(cli_wall=wall, cli_build=float(b_s.group(1)),
+                      cli_render=float(r_s.group(1)))
+    return result
+
+
+def hi_kernel_entries(report, launches):
+    """The kernels line's entries for kernels H and I: one per leaf and
+    mode, its time on the first wave checked, its launches over phase
+    14d's timed waves (launches: {traversal: (launches, waves)} for the
+    furball's and the teapot's)."""
+    entries = []
+    for (trav, leaf, mode), rows in sorted(report.items()):
+        (label, f), *rest = rows
+        name = f"{trav}_{leaf}_{mode}"
+        n, waves = launches[(trav, leaf)]
+        entries.append(dict(
+            name=name, route="cuda",
+            source=f"hairpt_torch/csrc/{trav}.cu",
+            replaces=(H_REPLACES if trav == "perray" else I_REPLACES)[mode],
+            launches=n[name], max_abs_err=f["max_abs_err"], ms=f["ms"],
+            plain_ms=f["plain_ms"], bound_ms=f["bound_ms"],
+            bound_by=f["bound_by"], library_ms=None, timed_on=label,
+            launched_by=(f"the {'teapot' if leaf == 'tri' else 'furball'}'s "
+                         f"'{trav}' waves (phase 14d)"),
+            launches_per_wave=n[name] / waves,
+            other_waves={lb: {k: x[k] for k in ("ms", "plain_ms", "bound_ms")}
+                         for lb, x in rest}))
+    return entries
+
+
 def warm_up(scene, label):
     """One warm-up wave. Returns (progress callback, the lists it fills
     with each wave's seconds and rays, the number of waves to time: two,
@@ -2545,6 +3092,8 @@ def main() -> int:
     from hairpt_torch.integrators import path
     from hairpt_torch.ops import _native, bvh
     from hairpt_torch.ops import instancing as gi
+    from hairpt_torch.ops import intersect as isec
+    from hairpt_torch.ops import intersect_blocked as iblk
     from hairpt_torch.ops import intersect_packed as ipk
     from hairpt_torch.ops import intersect_swept as iswept
     from hairpt_torch.ops import intersect_tiled as itiled
@@ -2556,6 +3105,8 @@ def main() -> int:
         pk.reset_counts()
         ipk.reset_counts()
         gi.reset_counts()
+        isec.reset_counts()
+        iblk.reset_counts()
 
     try:
         # ---- 0. the card ----
@@ -2575,9 +3126,10 @@ def main() -> int:
 
         # ---- 1. builds, all at once ----
         t0 = time.time()
-        with ThreadPoolExecutor(7) as ex:
+        with ThreadPoolExecutor(9) as ex:
             futs = [ex.submit(f) for f in (tk.lib, tk.oct_lib, pk.lib,
-                                           pk.cull_lib, ipk.lib, gi.lib)]
+                                           pk.cull_lib, ipk.lib, gi.lib,
+                                           isec.lib, iblk.lib)]
             f_b = ex.submit(bvh._load_native)
             for f in futs:
                 f.result()
@@ -2586,7 +3138,7 @@ def main() -> int:
             log(f"built {name} in {s:.1f}s")
         for name in ("hairpt_tiled", "hairpt_octets", "hairpt_phaseb",
                      "hairpt_swept_cull", "hairpt_packed",
-                     "hairpt_instanced"):
+                     "hairpt_instanced", "hairpt_perray", "hairpt_blocked"):
             for line in _native.BUILD_LOG.get(name, "").splitlines():
                 if "registers" in line or "spill" in line:
                     log(f"  ptxas {name}: {line.strip()}")
@@ -2623,6 +3175,11 @@ def main() -> int:
         furball_kernel_f(scene, wv, f_report)
         log(f"phase 12b ({time.time() - t2:.1f}s): kernel F's hair leaf "
             f"matches its plain walk and agrees with the tiled query")
+        t2 = time.time()
+        hi_report = {}
+        furball_walks(scene, wv, hi_report)
+        log(f"phase 14a, furball ({time.time() - t2:.1f}s): kernels H and I "
+            f"match their plain versions, H matches F, I matches H")
         del wv, wv_sw
         log(f"phase 2 ({time.time() - t0:.1f}s): the swept phase A and "
             f"kernel E match their plain versions ({time.time() - t1:.1f}s)")
@@ -2728,6 +3285,12 @@ def main() -> int:
                 f"plain versions ran on CUDA tensors: {sw_plain}")
         log(f"phase 5 ({time.time() - t0:.1f}s): swept render ok")
         del scene_sw, img
+
+        # ---- 14d. the full-width furball, perray and blocked ----
+        t0 = time.time()
+        fur_walk = walk_waves(scene, "the furball", reset_all, warm=False)
+        log(f"phase 14d, furball ({time.time() - t0:.1f}s): perray and "
+            f"blocked waves ok (phase 4's tiled: {secs:.3f} s/wave)")
 
         # ---- 6. bench.py's backward phase: fwd+bwd at depth 16 ----
         t0 = time.time()
@@ -2855,6 +3418,28 @@ def main() -> int:
             f"and CLI ok")
         kernels += g_kernel_entries(g_report, g_launches, inst_n)
         log(f"phase 13 ({time.time() - t0:.1f}s): ok")
+
+        # ---- 14. motion blur; the perray and blocked walks (H, I) ----
+        t0 = time.time()
+        tea = teapot_walks(hi_report)
+        log(f"phase 14a, teapot ({time.time() - t0:.1f}s): kernels H and I "
+            f"match their plain versions, H matches F, I matches H")
+        t1 = time.time()
+        tea_walk = walk_waves(tea, "the teapot", reset_all)
+        del tea
+        walk_floor(reset_all)
+        log(f"phase 14d, teapot and floor ({time.time() - t1:.1f}s): ok")
+        t1 = time.time()
+        motion = motion_entry_point(reset_all)
+        log(f"phase 14b/c ({time.time() - t1:.1f}s): the motion cell, the "
+            f"small card-against-CPU render and the CLI ok "
+            f"({motion['secs']:.3f} s/wave)")
+        walks = {(trav, leaf): (w[trav][2], w[trav][3])
+                 for leaf, w in (("hair", fur_walk), ("tri", tea_walk))
+                 for trav in ("perray", "blocked")}
+        kernels += hi_kernel_entries(hi_report, walks)
+        log(f"phase 14 ({time.time() - t0:.1f}s, 14a's furball in phase 2, "
+            f"14d's in phase 5): ok")
         require(all(k["launches"] > 0 for k in kernels),
                 "a kernel has no launches")
     except SmokeFailure as e:

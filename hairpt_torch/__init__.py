@@ -16,7 +16,11 @@ through `ops/tiled_kernels.py`; the swept traversal's phase A
 (`swept_cull.cu`) and chunk test (`phaseb.cu`, kernel E), bound through
 `ops/phaseb_kernels.py`; the packed BVH walk over triangles (and hair
 under traversal='packed'), `packed.cu` (kernel F), bound through
-`ops/intersect_packed.py`.
+`ops/intersect_packed.py`; the two-level walk of instanced meshes,
+`instanced.cu` (kernel G), bound through `ops/instancing.py`; and the
+per-ray and the blocked walks over the SoA trees (traversal 'perray'
+and 'blocked'), `perray.cu` (kernel H) and `blocked.cu` (kernel I),
+bound through `ops/intersect.py` and `ops/intersect_blocked.py`.
 """
 from __future__ import annotations
 

@@ -5,7 +5,8 @@ The input is the JAX scene's arrays with every leaf turned into numpy
 module only reads attributes, so it needs no JAX. The result renders the
 identical scene (same prim order, cluster layout, instance tables,
 materials, textures, hair tables and baked environment) through
-hairpt_torch. params_to_torch and
+hairpt_torch, with its shutter, its camera's animation and its animated
+instances. params_to_torch and
 grads_to_numpy carry a parameter dict of the JAX package's inverse
 rendering across and its gradients back, so both packages can be
 differentiated on one dict.
@@ -13,20 +14,23 @@ differentiated on one dict.
 from __future__ import annotations
 
 import dataclasses
+import inspect
 
 import numpy as np
 import torch
 
 from . import resolve_device
+from .core.track import AnimatedTransform
 from .film.film import Film
 from .models import emitters as em
 from .models.bsdf import registry as mat
 from .models.sensors import Camera
 from .ops import instancing as inst_mod
+from .ops.intersect import BVHArrays
 from .ops.intersect_packed import PackedBVH
 from .ops.intersect_swept import SweptHair
-from .scene.scene import (HairGeom, RenderConfig, Scene, SceneArrays,
-                          TriGeom, TriShading)
+from .scene.scene import (TRAVERSALS, HairGeom, RenderConfig, Scene,
+                          SceneArrays, TriGeom, TriShading, repose_fn)
 
 
 def _t(a, device, dtype=None):
@@ -59,10 +63,10 @@ def _instances(inst, dev):
 
 def convert_arrays(arrays, device=None) -> SceneArrays:
     """JAX SceneArrays (numpy leaves) -> hairpt_torch SceneArrays on
-    `device`: triangles (their shading and packed BVH), instances, hair
-    (its packed BVH and swept layout), materials, textures (bitmaps and
-    mips included), hair tables and the environment. Media, area and
-    delta lights raise."""
+    `device`: triangles (their shading, packed BVH and BVHArrays),
+    instances, hair (its packed BVH, BVHArrays and swept layout),
+    materials, textures (bitmaps and mips included), hair tables and the
+    environment. Media, area and delta lights raise."""
     dev = resolve_device(device)
     for name, item in (("media", "13"), ("tri_med", "13"),
                        ("sss", "13"), ("area", "13"), ("delta", "13")):
@@ -94,6 +98,7 @@ def convert_arrays(arrays, device=None) -> SceneArrays:
                         alias_idx=_t(e.alias_idx, dev, torch.int64),
                         alias_prob=_t(e.alias_prob, dev, torch.float32),
                         texel_pdf=_t(e.texel_pdf, dev, torch.float32))
+    bvh_types = {"node_left": i32, "node_count": i32, "node_skip": i32}
     return SceneArrays(
         tri=_tuple(TriGeom, arrays.tri, dev),
         tri_shading=_tuple(TriShading, arrays.tri_shading, dev,
@@ -106,7 +111,32 @@ def convert_arrays(arrays, device=None) -> SceneArrays:
         hair_swept=_tuple(SweptHair, arrays.hair_swept, dev),
         materials=materials, checkers=checkers, hair_tables=ht, env=env,
         inst=None if getattr(arrays, "inst", None) is None
-        else _instances(arrays.inst, dev))
+        else _instances(arrays.inst, dev),
+        tri_bvh=_tuple(BVHArrays, getattr(arrays, "tri_bvh", None), dev,
+                       bvh_types),
+        hair_bvh=_tuple(BVHArrays, getattr(arrays, "hair_bvh", None), dev,
+                        bvh_types))
+
+
+def _animation(anim):
+    """The JAX package's AnimatedTransform as the port's (its decomposed
+    keyframes taken over as they are), or None."""
+    if anim is None:
+        return None
+    return AnimatedTransform.from_tracks(anim.times, anim.tr)
+
+
+def _repose_inst(repose):
+    """The port's repose_inst for the JAX package's: its base instance
+    list and animations are the closure's default arguments (_base,
+    _anims)."""
+    if repose is None:
+        return None
+    params = inspect.signature(repose).parameters
+    return repose_fn([(int(i), np.asarray(m, np.float64))
+                      for i, m in params["_base"].default],
+                     {int(k): _animation(a)
+                      for k, a in params["_anims"].default.items()})
 
 
 def convert_scene(scene, arrays, device=None) -> Scene:
@@ -115,18 +145,27 @@ def convert_scene(scene, arrays, device=None) -> Scene:
     any ported family (DIFFUSE, PLASTIC, ROUGHPLASTIC and the hair kinds),
     its environment a baked sunsky, an envmap or a constant one, its
     sampler any of the five modes, its film any of the six filters and
-    its traversal 'tiled', 'swept' or 'packed'; a thin lens, radial
-    distortion, another camera kind, film annotations, the motion
-    integrator's tables or motion blur (an open shutter over animated
-    geometry) raise."""
+    its traversal any of scene.TRAVERSALS. Its shutter, the camera's
+    animation and the animated instances come across. A JAX rebuild_geo
+    (animated or deformable meshes under an open shutter) is a closure
+    over a JAX builder, so it raises: build such a scene on both sides
+    from one XML or one builder script. A thin lens, radial distortion,
+    another camera kind, film annotations and an integrator other than
+    path raise (the motion integrator's tables, which hairpt's loader
+    builds for every animated shape, are left behind)."""
     cam = scene.camera
-    shutter = tuple(getattr(scene, "shutter", (0.0, 0.0)))
-    blur = shutter[1] > shutter[0] and any(
-        getattr(scene, f, None) is not None
-        for f in ("rebuild_geo", "repose_inst", "camera_anim"))
-    if getattr(scene, "motion", None) is not None or blur:
-        raise NotImplementedError("motion is not ported yet (ROADMAP item "
-                                  "11c)")
+    shutter = tuple(float(x) for x in getattr(scene, "shutter", (0.0, 0.0)))
+    if getattr(scene.config, "integrator", "path") != "path":
+        raise NotImplementedError(f"the {scene.config.integrator} "
+                                  f"integrator is not ported yet (ROADMAP "
+                                  f"item 13)")
+    if shutter[1] > shutter[0] \
+            and getattr(scene, "rebuild_geo", None) is not None:
+        raise NotImplementedError(
+            "the scene's rebuild_geo is a closure over a JAX SceneBuilder "
+            "and cannot be carried across; build the animated meshes on "
+            "both sides from one XML (xml_loader.load_scene) or one "
+            "builder script")
     if int(cam.kind) != 0 or cam.aperture_radius or cam.kc0 or cam.kc1:
         raise NotImplementedError("only the pinhole perspective camera is "
                                   "ported (ROADMAP item 13)")
@@ -145,16 +184,20 @@ def convert_scene(scene, arrays, device=None) -> Scene:
     cfg = RenderConfig(**{k: v for k, v in
                           dataclasses.asdict(scene.config).items()
                           if k in fields})
-    if cfg.traversal not in ("tiled", "swept", "packed"):
-        raise NotImplementedError("only traversal='tiled', 'swept' and "
-                                  "'packed' are ported (ROADMAP item 11c)")
+    if cfg.traversal not in TRAVERSALS:
+        raise NotImplementedError(f"traversal {cfg.traversal!r} is not "
+                                  f"ported (only {TRAVERSALS})")
     active = tuple(int(k) for k in scene.active_kinds)
     mat.check_kinds(active)
     return Scene(arrays=convert_arrays(arrays, device), camera=camera,
                  film=film, config=cfg, active_kinds=active,
                  marschner_rows=tuple(int(r) for r in scene.marschner_rows),
                  has_normal_maps=bool(getattr(scene, "has_normal_maps",
-                                              False)))
+                                              False)),
+                 shutter=shutter,
+                 camera_anim=_animation(getattr(scene, "camera_anim", None)),
+                 repose_inst=_repose_inst(getattr(scene, "repose_inst",
+                                                  None)))
 
 
 def params_to_torch(params: dict, device=None) -> dict:

@@ -1,8 +1,9 @@
 """Scene intersection and shading records (port of
 hairpt/integrators/common.py): the triangles through the packed BVH walk,
-the hair through the tiled, swept or packed traversal, the instanced
-meshes through the two-level walk, and the shading record of the nearest
-hit."""
+the hair through the tiled, swept or packed traversal, both through the
+per-ray or the blocked walk under traversal 'perray' or 'blocked', the
+instanced meshes through the two-level walk, and the shading record of
+the nearest hit."""
 from __future__ import annotations
 
 from typing import NamedTuple
@@ -12,6 +13,8 @@ import torch
 
 from ..core.math import Ray, Frame, dot, frame_from_normal, normalize
 from ..ops import instancing as inst_mod
+from ..ops import intersect as isec
+from ..ops import intersect_blocked as iblk
 from ..ops import intersect_packed as ipk
 from ..ops import intersect_swept as iswept
 from ..ops import intersect_tiled as itiled
@@ -66,17 +69,60 @@ def _check_traversal(traversal: str):
                                   f"(only {TRAVERSALS})")
 
 
+def _pad_ray(ray: Ray, block: int):
+    """(ray padded to a multiple of block, its length before): the padding
+    rays start at 0 along +z with mint = maxt = 0 (the JAX package's
+    _pad_ray)."""
+    n = ray.o.shape[0]
+    pad = (-n) % block
+    if pad == 0:
+        return ray, n
+    z3 = torch.zeros((pad, 3), dtype=ray.o.dtype, device=ray.o.device)
+    zd = z3.clone()
+    zd[:, 2] = 1.0
+    z = torch.zeros((pad,), dtype=ray.mint.dtype, device=ray.o.device)
+    return Ray(o=torch.cat([ray.o, z3]), d=torch.cat([ray.d, zd]),
+               mint=torch.cat([ray.mint, z]),
+               maxt=torch.cat([ray.maxt, z])), n
+
+
+def _walk(arr, leaf: str, ray: Ray, traversal: str, block: int,
+          any_hit: bool):
+    """One kind's closest hit (t, sorted prim) or any hit over its tree:
+    the per-ray walk (kernel H) under 'perray', the blocked walk (kernel
+    I; rays padded to a multiple of block) under 'blocked', else the
+    packed walk (kernel F)."""
+    geom = arr.tri if leaf == "tri" else arr.hair
+    if traversal == "perray":
+        bvh = arr.tri_bvh if leaf == "tri" else arr.hair_bvh
+        return (isec.any_hit if any_hit else isec.closest_hit)(
+            bvh, geom, leaf, ray)
+    if traversal == "blocked":
+        bvh = arr.tri_bvh if leaf == "tri" else arr.hair_bvh
+        pray, n = _pad_ray(ray, block)
+        if any_hit:
+            return iblk.any_hit_blocked(bvh, geom, leaf, pray, block)[:n]
+        t, prim = iblk.closest_hit_blocked(bvh, geom, leaf, pray, block)
+        return t[:n], prim[:n]
+    packed = arr.tri_packed if leaf == "tri" else arr.hair_packed
+    return (ipk.any_hit_packed if any_hit else ipk.closest_hit_packed)(
+        packed, leaf, ray)
+
+
 def scene_intersect(arr, ray: Ray, q_max: int, sort_rays: bool = False,
                     compact: bool = True, traversal: str = "tiled",
-                    p_max: int = 24, chunk: int = 64) -> Hit:
+                    p_max: int = 24, chunk: int = 64,
+                    block: int = 256) -> Hit:
     """Closest hit against the triangles and the hair, and its shading
-    record. The triangles are walked first (the packed walk); the hair
+    record. The triangles are walked first (the packed walk; the per-ray
+    or the blocked walk under 'perray' or 'blocked'); the hair
     ray's maxt is clipped to the triangle hit. traversal 'tiled' queries
     the hair through the tiled intersector (q_max slots per tile,
     sort_rays and compact as there), 'swept' through the swept traversal
     (p_max candidates per ray, chunks of `chunk` pairs), which ignores
     sort_rays and compact as the JAX package's does, 'packed' through the
-    packed walk. The instances are walked last (the two-level walk), up
+    packed walk, 'perray' and 'blocked' (blocks of `block` rays) through
+    those walks. The instances are walked last (the two-level walk), up
     to the nearer of the triangle and hair hits. A triangle hit's
     barycentrics, interpolated normal, uv and vertex colours are
     recomputed for the chosen triangle and its geometric normal turned
@@ -91,7 +137,7 @@ def scene_intersect(arr, ray: Ray, q_max: int, sort_rays: bool = False,
     none = torch.full((n,), -1, dtype=torch.int32, device=dev)
     t_tri, prim_tri = inf, none
     if arr.tri is not None:
-        t_tri, prim_tri = ipk.closest_hit_packed(arr.tri_packed, "tri", ray)
+        t_tri, prim_tri = _walk(arr, "tri", ray, traversal, block, False)
     t_hair, prim_hair = inf, none
     if arr.hair is not None:
         hair_ray = ray if arr.tri is None \
@@ -99,9 +145,9 @@ def scene_intersect(arr, ray: Ray, q_max: int, sort_rays: bool = False,
         if traversal == "swept":
             t_hair, prim_hair = iswept.swept_closest_hit(
                 arr.hair_swept, hair_ray, p_max=p_max, chunk=chunk)
-        elif traversal == "packed":
-            t_hair, prim_hair = ipk.closest_hit_packed(arr.hair_packed,
-                                                       "hair", hair_ray)
+        elif traversal in ("packed", "perray", "blocked"):
+            t_hair, prim_hair = _walk(arr, "hair", hair_ray, traversal,
+                                      block, False)
         else:
             t_hair, prim_hair = itiled.tiled_closest_hit(
                 arr.hair_swept, hair_ray, q_max=q_max, sort_rays=sort_rays,
@@ -220,7 +266,7 @@ def scene_intersect(arr, ray: Ray, q_max: int, sort_rays: bool = False,
 
 def scene_occluded(arr, ray: Ray, q_max: int, sort_rays: bool = False,
                    compact: bool = True, traversal: str = "tiled",
-                   p_max: int = 24, chunk: int = 64):
+                   p_max: int = 24, chunk: int = 64, block: int = 256):
     """[N] bool: does the ray hit a triangle, a hair segment or an
     instance in [mint, maxt]. The triangles are walked first, then the
     hair, then the instances; a later shadow ray starts with maxt = 0
@@ -229,15 +275,15 @@ def scene_occluded(arr, ray: Ray, q_max: int, sort_rays: bool = False,
     _check_traversal(traversal)
     occ = torch.zeros(ray.o.shape[:1], dtype=torch.bool, device=ray.o.device)
     if arr.tri is not None:
-        occ = occ | ipk.any_hit_packed(arr.tri_packed, "tri", ray)
+        occ = occ | _walk(arr, "tri", ray, traversal, block, True)
     if arr.hair is not None:
         ray2 = ray if arr.tri is None \
             else ray._replace(maxt=torch.where(occ, 0.0, ray.maxt))
         if traversal == "swept":
             occ = occ | iswept.swept_any_hit(arr.hair_swept, ray2,
                                              p_max=p_max, chunk=chunk)
-        elif traversal == "packed":
-            occ = occ | ipk.any_hit_packed(arr.hair_packed, "hair", ray2)
+        elif traversal in ("packed", "perray", "blocked"):
+            occ = occ | _walk(arr, "hair", ray2, traversal, block, True)
         else:
             occ = occ | itiled.tiled_any_hit(arr.hair_swept, ray2,
                                              q_max=q_max,

@@ -59,7 +59,8 @@ def _swept_params(cfg):
     """The traversal and its parameters, passed to every query (the JAX
     package's _swept_params; C and K come from the tables' shapes)."""
     return dict(traversal=cfg.traversal, q_max=cfg.tiled_q,
-                p_max=cfg.swept_pmax, chunk=cfg.swept_chunk)
+                p_max=cfg.swept_pmax, chunk=cfg.swept_chunk,
+                block=cfg.block)
 
 
 def _camera_uv_partials(arr, cam, pos, ray, hit):
@@ -289,7 +290,7 @@ def make_li_fn(scene, differentiable: bool = False, antithetic=False):
     bitmaps = has_bitmaps(scene.arrays)
 
     def body(arr, st: PathState, depth: int, smp, query=_run_query,
-             ewa: bool = False):
+             ewa: bool = False, cam=cam):
         n = st.active.shape[0]
         dev = st.active.device
         dims = DIM_BASE + (depth - 1) * DIM_STRIDE
@@ -419,7 +420,12 @@ def make_li_fn(scene, differentiable: bool = False, antithetic=False):
                          emission_allowed=torch.zeros_like(active),
                          duv_dx=st.duv_dx, duv_dy=st.duv_dy), n_new
 
-    def li(arr, pixel_idx, sample_idx):
+    def li(arr, pixel_idx, sample_idx, cam_to_world=None):
+        """cam_to_world: the camera's [4, 4] pose for this wave (motion
+        blur), else the scene camera's; it reaches every use of the
+        camera in the wave."""
+        cam_l = cam if cam_to_world is None \
+            else cam._replace(to_world=np.asarray(cam_to_world, np.float32))
         dev = pixel_idx.device
         smp = rng.Sampler(cfg.sampler, pixel_idx, sample_idx)
         n = pixel_idx.shape[0]
@@ -429,9 +435,9 @@ def make_li_fn(scene, differentiable: bool = False, antithetic=False):
             smp = _Mirrored(smp, anti_rels)
         jitter = smp.next_2d(DIM_CAM_POS)
         pos = torch.stack([px + jitter[..., 0], py + jitter[..., 1]], dim=-1)
-        ray = sensors.sample_ray(cam, pos)
+        ray = sensors.sample_ray(cam_l, pos)
         hit0 = scene_intersect(arr, ray, **params)
-        duv_dx, duv_dy, ewa = camera_footprint(arr, cam, pos, ray, hit0,
+        duv_dx, duv_dy, ewa = camera_footprint(arr, cam_l, pos, ray, hit0,
                                                bitmaps)
         state = PathState(
             active=torch.ones((n,), dtype=torch.bool, device=dev),
@@ -449,7 +455,8 @@ def make_li_fn(scene, differentiable: bool = False, antithetic=False):
                 stash = _QueryStash()
                 state, n_new = checkpoint(
                     lambda st, d=depth, q=stash: body(arr, st, d, smp,
-                                                      q.caller(), ewa),
+                                                      q.caller(), ewa,
+                                                      cam_l),
                     state, use_reentrant=False, preserve_rng_state=False)
                 n_rays = n_rays + n_new
             return _flush_pending(arr, state), pos, n_rays
@@ -476,7 +483,7 @@ def make_li_fn(scene, differentiable: bool = False, antithetic=False):
                 n_act = int(sub.active.sum())
                 if n_act == 0 or (next_cap > 0 and n_act <= next_cap):
                     break
-                sub, n_new = body(arr, sub, depth, ssmp, ewa=ewa)
+                sub, n_new = body(arr, sub, depth, ssmp, ewa=ewa, cam=cam_l)
                 n_rays = n_rays + n_new
                 depth += 1
             if order is None:
@@ -519,6 +526,13 @@ def render(scene, seed: int = 0, spp: int | None = None,
     """Full-frame render: one wave per sample index, splatted on the film.
     Returns the developed [H, W, 3] image (linear radiance).
 
+    Under an open shutter (close > open, and an animated camera, animated
+    or deformable meshes or animated instances) sample index s, seed
+    aside, renders at t_s = open + (s + 1/2) / spp * (close - open): the
+    triangles rebuilt at t_s (scene.rebuild_geo), the instances re-posed
+    (scene.repose_inst) and the camera posed (scene.camera_anim), as the
+    JAX package's render does; a resumed sample keeps its t_s.
+
     progress:    callable(done_spp, total_spp, seconds_of_this_wave,
                  n_rays) after each wave (the wave is complete: its ray
                  count is read back)
@@ -549,11 +563,25 @@ def render(scene, seed: int = 0, spp: int | None = None,
             s_start = int(ck["next_sample"])
     total_rays = 0.0
     t_flush = time.time()
+    blur = scene.shutter[1] > scene.shutter[0] and (
+        scene.rebuild_geo is not None or scene.camera_anim is not None
+        or scene.repose_inst is not None)
     for s in range(s_start, spp):
         t0 = time.time()
+        arrs, ctw = arr, None
+        if blur:
+            t_s = scene.shutter[0] + (s + 0.5) / spp \
+                * (scene.shutter[1] - scene.shutter[0])
+            if scene.rebuild_geo is not None:
+                arrs = scene.rebuild_geo(t_s)
+            if scene.repose_inst is not None:
+                arrs = scene.repose_inst(arrs, t_s)
+            if scene.camera_anim is not None:
+                ctw = scene.camera_anim.eval(t_s)
         sample_idx = torch.full((n_pix,), s + seed * 65536,
                                 dtype=torch.int64, device=dev)
-        radiance, pos, n_rays = li_fn(arr, pixel_idx, sample_idx)
+        radiance, pos, n_rays = li_fn(arrs, pixel_idx, sample_idx,
+                                      cam_to_world=ctw)
         radiance = torch.nan_to_num(radiance, nan=0.0, posinf=0.0,
                                     neginf=0.0)
         image, weight = film_mod.splat_samples(fl, pos, radiance, image,

@@ -22,7 +22,8 @@ closest_hit_packed and any_hit_packed launch kernel F on CUDA tensors and
 run the plain walk (closest_hit_packed_plain, any_hit_packed_plain) on
 CPU tensors; there is no other branch. The plain walk is vectorised: every
 live ray steps its own node per iteration, and the loop ends when every
-ray has reached the sentinel. Both cap a ray's walk at 2 M steps (a
+ray has reached the sentinel (walk_plain, which ops/intersect.py runs
+over the BVHArrays too). Both cap a ray's walk at 2 M steps (a
 stackless walk visits a node at most once) and raise where a ray reaches
 the cap. Kernel F and the plain walk do the same float32 operations in
 the same order (the kernel is built with --fmad=false; the hair leaf
@@ -215,24 +216,46 @@ LEAF_EVAL = {"tri": tri_leaf_eval, "hair": hair_leaf_eval}
 # the plain walk
 # ---------------------------------------------------------------------------
 
-def _walk_plain(bvh: PackedBVH, leaf: str, ray, any_hit: bool,
-                counts: dict | None = None):
-    """The vectorised walk. counts, if given, receives the work kernel F
-    does on these rays: node rows read ("nodes"), leaf rows read
-    ("leaves") and primitive tests in its order ("prims": an any-hit
-    leaf stops at its first hit)."""
+class _PackedLayout:
+    """The node and leaf rows of a PackedBVH, as walk_plain reads them."""
+    degenerate_rule = True    # any hit: maxt <= mint is no hit, no walk
+
+    def __init__(self, bvh: PackedBVH):
+        self.nodes = bvh.nodes
+        self.M = bvh.nodes.shape[0]
+        self.K = bvh.leaf_rows.shape[1] // PRIM_F
+        self.leaf_rows = bvh.leaf_rows.view(-1, self.K, PRIM_F)
+        self.meta = bvh.nodes[:, 6].contiguous().view(torch.int32)
+        self.skip = bvh.nodes[:, 7].contiguous().view(torch.int32).long()
+
+    def node(self, nd):
+        """(lo, hi: per-axis lists, child, count, is_leaf, skip) of nodes
+        nd."""
+        row = self.nodes[nd]
+        meta = self.meta[nd]
+        count = meta & 0x1F
+        return ([row[:, a] for a in range(3)],
+                [row[:, 3 + a] for a in range(3)], (meta >> 5).long(),
+                count, count != INNER, self.skip[nd])
+
+    def rows(self, child):
+        """[s, K, 16] primitive rows of leaves `child`."""
+        return self.leaf_rows[child]
+
+
+def walk_plain(layout, leaf: str, ray, any_hit: bool, name: str,
+               counts: dict | None = None):
+    """The vectorised skip-pointer walk over a layout (_PackedLayout
+    here, intersect._ArraysLayout for the BVHArrays): every live ray
+    steps its own node per iteration until it reaches the sentinel M.
+    counts, if given, receives the work the kernels do on these rays:
+    node rows read ("nodes"), leaf rows read ("leaves") and primitive
+    tests in their order ("prims": an any-hit leaf stops at its first
+    hit)."""
     if leaf not in LEAF_EVAL:
         raise ValueError(f"leaf must be one of {LEAF_KINDS}, got {leaf!r}")
-    name = f"packed_{leaf}_{'any' if any_hit else 'closest'}"
-    if ray.o.is_cuda:
-        PLAIN_ON_CUDA[name] += 1
     leaf_eval = LEAF_EVAL[leaf]
-    nodes = bvh.nodes
-    M = nodes.shape[0]
-    K = bvh.leaf_rows.shape[1] // PRIM_F
-    leaf_rows = bvh.leaf_rows.view(-1, K, PRIM_F)
-    meta_all = nodes[:, 6].contiguous().view(torch.int32)
-    skip_all = nodes[:, 7].contiguous().view(torch.int32).long()
+    M, K = layout.M, layout.K
     dev = ray.o.device
     N = ray.o.shape[0]
     o = ray.o.float()
@@ -242,7 +265,8 @@ def _walk_plain(bvh: PackedBVH, leaf: str, ray, any_hit: bool,
     maxt = ray.maxt.float().clone()          # closest hit: shrinks
     best_t = torch.full((N,), float("inf"), device=dev)
     best_p = torch.full((N,), -1, dtype=torch.int32, device=dev)
-    degenerate = maxt <= mint
+    degenerate = (maxt <= mint) if layout.degenerate_rule \
+        else torch.zeros((N,), dtype=torch.bool, device=dev)
     occ = degenerate.clone()
     node = torch.zeros((N,), dtype=torch.int64, device=dev)
     lanes = torch.arange(K, device=dev)
@@ -255,22 +279,16 @@ def _walk_plain(bvh: PackedBVH, leaf: str, ray, any_hit: bool,
                                f"{2 * M} steps without reaching the "
                                f"sentinel (a corrupt BVH)")
         nd = node[idx]
-        row = nodes[nd]
-        meta = meta_all[nd]
-        count = meta & 0x1F
-        child = (meta >> 5).long()
-        is_leaf = count != INNER
+        lo, hi, child, count, is_leaf, skip = layout.node(nd)
         oi, ii = o[idx], inv_d[idx]
         mt = maxt[idx]
         tn, tf = _slab([oi[:, a] for a in range(3)],
-                       [ii[:, a] for a in range(3)],
-                       [row[:, a] for a in range(3)],
-                       [row[:, 3 + a] for a in range(3)])
+                       [ii[:, a] for a in range(3)], lo, hi)
         hit_box = (tn <= tf) & (tf >= mint[idx]) & (tn <= mt)
         sel = torch.nonzero(hit_box & is_leaf)[:, 0]
         if sel.numel() > 0:
             ri = idx[sel]
-            rows = leaf_rows[child[sel]]                   # [s, K, 16]
+            rows = layout.rows(child[sel])                 # [s, K, 16]
             oc = tuple(o[ri, a, None] for a in range(3))
             dc = tuple(d[ri, a, None] for a in range(3))
             mts = maxt[ri]
@@ -299,7 +317,7 @@ def _walk_plain(bvh: PackedBVH, leaf: str, ray, any_hit: bool,
                 maxt[ri] = torch.where(got, tb, mts)
                 best_t[ri] = torch.where(got, tb, best_t[ri])
                 best_p[ri] = torch.where(got, pb, best_p[ri])
-        node[idx] = torch.where(hit_box & ~is_leaf, child, skip_all[nd])
+        node[idx] = torch.where(hit_box & ~is_leaf, child, skip)
         steps += 1
         n_nodes += idx.numel()
         done = node[idx] == M
@@ -312,6 +330,14 @@ def _walk_plain(bvh: PackedBVH, leaf: str, ray, any_hit: bool,
     if any_hit:
         return occ & ~degenerate
     return best_t, best_p
+
+
+def _walk_plain(bvh: PackedBVH, leaf: str, ray, any_hit: bool,
+                counts: dict | None = None):
+    name = f"packed_{leaf}_{'any' if any_hit else 'closest'}"
+    if ray.o.is_cuda and leaf in LEAF_EVAL:
+        PLAIN_ON_CUDA[name] += 1
+    return walk_plain(_PackedLayout(bvh), leaf, ray, any_hit, name, counts)
 
 
 def closest_hit_packed_plain(bvh: PackedBVH, leaf: str, ray, counts=None):

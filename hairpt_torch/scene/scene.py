@@ -8,7 +8,17 @@ object-space tree per prototype (ops/instancing.py); materials, textures
 environment become tables. The triangles are walked by the packed BVH
 walk (ops/intersect_packed.py, kernel F on the card), the instances by
 the two-level walk (kernel G); the hair by the tiled or the swept
-traversal, or by the packed walk under traversal='packed'.
+traversal, or by the packed walk under traversal='packed'. Under
+traversal='perray' or 'blocked' the triangles and the hair are walked
+over their BVHArrays instead (ops/intersect.py, kernel H;
+ops/intersect_blocked.py, kernel I).
+
+Motion blur: a sensor's shutter (open, close) with close > open makes
+render() give sample index s the time t_s = open + (s + 1/2) / spp *
+(close - open), at which it poses the animated camera (camera_anim),
+rebuilds the triangles (rebuild_geo: deformable pairs re-lerped,
+animated meshes moved) and re-poses the animated instances
+(repose_inst). The hair never moves, so a rebuild keeps its arrays.
 """
 from __future__ import annotations
 
@@ -32,13 +42,13 @@ from ..models.bsdf.fresnel import fresnel_diffuse_reflectance
 from ..models.sensors import Camera
 from ..ops import bvh as bvh_mod
 from ..ops import instancing as inst_mod
+from ..ops import intersect as isec
 from ..ops import intersect_packed as ipk
 from ..ops import intersect_swept as iswept
 from . import hairgen
 
-ITEM_11C = "ROADMAP item 11c"
 ITEM_13 = "ROADMAP item 13"
-TRAVERSALS = ("tiled", "swept", "packed")
+TRAVERSALS = ("tiled", "swept", "packed", "perray", "blocked")
 
 
 class TriGeom(NamedTuple):
@@ -86,6 +96,8 @@ class SceneArrays(NamedTuple):
     hair_tables: Optional[mat.HairTables]
     env: Optional[em.EnvMap]
     inst: Optional[inst_mod.InstancedGeo] = None  # shapegroup / instance
+    tri_bvh: Optional[isec.BVHArrays] = None   # the trees of tri_packed
+    hair_bvh: Optional[isec.BVHArrays] = None  # and hair_packed, as SoA
 
     @property
     def device(self) -> torch.device:
@@ -104,7 +116,10 @@ class RenderConfig:
     strict_normals: bool = True
     sampler: object = rng.INDEPENDENT   # or (rng.SOBOL_QMC, m, width)
     ray_eps: float = 1e-3
-    traversal: str = "tiled"    # the hair's: 'tiled' | 'swept' | 'packed'
+    traversal: str = "tiled"    # the hair's: 'tiled' | 'swept' | 'packed';
+    #                             'perray' | 'blocked' for both triangles
+    #                             and hair
+    block: int = 256            # rays per block ('blocked')
     swept_k: int = 128          # segments per cluster
     swept_c: int = 0            # cluster count (filled at build)
     swept_pmax: int = 24        # phase-A candidate clusters per ray ('swept')
@@ -122,6 +137,13 @@ class Scene(NamedTuple):
     active_kinds: tuple
     marschner_rows: tuple = ()  # material-row index per hair-table aux_id
     has_normal_maps: bool = False  # any normal- or bump-mapped material
+    shutter: tuple = (0.0, 0.0)    # (open, close); close > open: blur
+    camera_anim: object = None     # AnimatedTransform of the sensor
+    rebuild_geo: object = None     # t -> SceneArrays with the triangles
+    #                                posed at time t (animated meshes,
+    #                                deformable pairs)
+    repose_inst: object = None     # (arrays, t) -> arrays with the
+    #                                animated instances posed at t
 
 
 # the bitmaps' pre-blurred pyramid (the JAX package's _build_mips)
@@ -155,6 +177,13 @@ class SceneBuilder:
         self.curvature_scale = 1.0   # the curvature texture
         self.protos = []           # (Mesh in object space, mat_id)
         self.instances = []        # (prototype index, to_world 4 x 4)
+        self.shutter = (0.0, 0.0)  # (open, close); close > open: blur
+        self.camera_anim = None    # the sensor's AnimatedTransform
+        self.animated_meshes = {}  # mesh index -> AnimatedTransform (the
+        #                            mesh stored at shutter open)
+        self.morph_meshes = {}     # mesh index -> (mesh at 0, mesh at 1)
+        #                            in world space (deformable pairs)
+        self.instance_anims = {}   # instance index -> AnimatedTransform
 
     # -- materials and textures --------------------------------------------
 
@@ -246,8 +275,9 @@ class SceneBuilder:
             raise NotImplementedError("area lights are not ported yet "
                                       f"({ITEM_13})")
         if motion is not None:
-            raise NotImplementedError("mesh motion is not ported yet "
-                                      f"({ITEM_11C})")
+            raise NotImplementedError("mesh motion tables (the motion "
+                                      f"integrator) are not ported yet "
+                                      f"({ITEM_13})")
         if to_world is not None:
             mesh = shp.transform_mesh(mesh, to_world)
         self.tri_meshes.append((self._curvature_fixup(mesh, mat_id),
@@ -267,11 +297,17 @@ class SceneBuilder:
 
     def add_morph_mesh(self, m0: shp.Mesh, m1: shp.Mesh, mat_id: int,
                        to_world=None, time: float = 0.0):
-        """A keyframe morph (reference: src/shapes/deformable.cpp) at
-        scene time `time`: the vertices lerped once, at build. Its
-        re-lerp per shutter time (motion blur) is not ported yet."""
+        """A keyframe morph (reference: src/shapes/deformable.cpp) built at
+        scene time `time`; its world-space pair is kept, and under an open
+        shutter rebuild_geo re-lerps it at each shutter time (clipped to
+        [0, 1])."""
+        k = len(self.tri_meshes)
         self.add_mesh(shp.lerp_mesh(m0, m1, float(np.clip(time, 0, 1))),
                       mat_id, to_world=to_world)
+        if to_world is not None:
+            m0 = shp.transform_mesh(m0, to_world)
+            m1 = shp.transform_mesh(m1, to_world)
+        self.morph_meshes[k] = (m0, m1)
 
     def add_prototype(self, mesh: shp.Mesh, mat_id: int) -> int:
         """Register a shared object-space prototype (a shapegroup child,
@@ -281,11 +317,12 @@ class SceneBuilder:
 
     def add_instance(self, proto_idx: int, to_world, anim=None):
         """Instance a prototype (reference: src/shapes/instance.cpp): the
-        geometry is shared through the two-level walk, not flattened."""
-        if anim is not None:
-            raise NotImplementedError("animated instances are not ported "
-                                      f"yet ({ITEM_11C})")
+        geometry is shared through the two-level walk, not flattened.
+        anim: an AnimatedTransform of to_world; under an open shutter
+        repose_inst re-poses the instance table at each shutter time."""
         self.instances.append((proto_idx, np.asarray(to_world, np.float64)))
+        if anim is not None:
+            self.instance_anims[len(self.instances) - 1] = anim
 
     def add_fibers(self, fs: hairgen.FiberSet, mat_id: int):
         """One FiberSet (gen_hair_curl's clumps are added one by one, as
@@ -294,12 +331,29 @@ class SceneBuilder:
 
     # -- build -------------------------------------------------------------
 
-    def _build_triangles(self, t):
-        """(TriGeom, TriShading, PackedBVH) of the meshes: the JAX
-        package's triangle block, dtype for dtype."""
+    def _meshes_at(self, t: float):
+        """The meshes at shutter time t: each deformable pair re-lerped at
+        clip(t, 0, 1) (its curvature colours baked again), then each
+        animated mesh moved by anim(t) inv(anim(open)) (the JAX package's
+        rebuild rules)."""
+        meshes = list(self.tri_meshes)
+        for k, (w0, w1) in self.morph_meshes.items():
+            mid = meshes[k][1]
+            meshes[k] = (self._curvature_fixup(shp.lerp_mesh(
+                w0, w1, float(np.clip(t, 0.0, 1.0))), mid), mid)
+        t_open = float(self.shutter[0])
+        for k, anim in self.animated_meshes.items():
+            rel = anim.eval(float(t)) @ np.linalg.inv(anim.eval(t_open))
+            mesh, mid = meshes[k]
+            meshes[k] = (shp.transform_mesh(mesh, rel), mid)
+        return meshes
+
+    def _build_triangles(self, t, meshes):
+        """(TriGeom, TriShading, PackedBVH, BVHArrays) of the meshes: the
+        JAX package's triangle block, dtype for dtype."""
         v0l, v1l, v2l, n0l, n1l, n2l = [], [], [], [], [], []
         uv0l, uv1l, uv2l, midl, vc0l, vc1l, vc2l = [], [], [], [], [], [], []
-        for mesh, mid in self.tri_meshes:
+        for mesh, mid in meshes:
             f = mesh.faces
             p = mesh.positions
             v0, v1, v2 = p[f[:, 0]], p[f[:, 1]], p[f[:, 2]]
@@ -363,7 +417,7 @@ class SceneBuilder:
                                      (v2 - v0)[o]), f32),
             vc0=t(cat(vc0l)[o], f32), vc1=t(cat(vc1l)[o], f32),
             vc2=t(cat(vc2l)[o], f32))
-        return tri, shading, packed
+        return tri, shading, packed, isec.bvh_to_device(fb, self.device)
 
     def _build_hair(self, t, cfg):
         segs = [hairgen.segments(fs) for fs, _ in self.fibers]
@@ -395,7 +449,8 @@ class SceneBuilder:
         packed = ipk.pack_bvh(fb, rows, device=self.device)
         swept = iswept.build_swept_hair(p0[o], p1[o], n0[o], n1[o], rad[o],
                                         K=cfg.swept_k, device=self.device)
-        return hair, t(mid[o], torch.int32), packed, swept
+        return (hair, t(mid[o], torch.int32), packed, swept,
+                isec.bvh_to_device(fb, self.device))
 
     def build(self, camera: Camera, film: Film, **config_kwargs) -> Scene:
         if "traversal" not in config_kwargs:
@@ -404,8 +459,7 @@ class SceneBuilder:
         if config_kwargs["traversal"] not in TRAVERSALS:
             raise NotImplementedError(
                 f"traversal {config_kwargs['traversal']!r} is not ported "
-                f"(ported: {TRAVERSALS}; 'perray' and 'blocked': "
-                f"{ITEM_11C})")
+                f"(ported: {TRAVERSALS}; 'tiled_sub': ROADMAP item 8)")
         if not self.fibers and not self.tri_meshes and not self.instances:
             raise ValueError("the scene has no geometry")
         cfg = RenderConfig(width=film.width, height=film.height,
@@ -416,12 +470,14 @@ class SceneBuilder:
             return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
                                    device=dev)
 
-        tri = tri_shading = tri_packed = None
+        tri = tri_shading = tri_packed = tri_bvh = None
         if self.tri_meshes:
-            tri, tri_shading, tri_packed = self._build_triangles(t)
-        hair = hair_mat_id = hair_packed = swept = None
+            tri, tri_shading, tri_packed, tri_bvh = self._build_triangles(
+                t, self.tri_meshes)
+        hair = hair_mat_id = hair_packed = swept = hair_bvh = None
         if self.fibers:
-            hair, hair_mat_id, hair_packed, swept = self._build_hair(t, cfg)
+            hair, hair_mat_id, hair_packed, swept, hair_bvh = \
+                self._build_hair(t, cfg)
             cfg = dataclasses.replace(
                 cfg, swept_c=int(swept.seg_rows_t.shape[0]))
 
@@ -454,8 +510,51 @@ class SceneBuilder:
                              hair_mat_id=hair_mat_id,
                              hair_packed=hair_packed, hair_swept=swept,
                              materials=materials, checkers=checkers,
-                             hair_tables=ht, env=env, inst=inst)
+                             hair_tables=ht, env=env, inst=inst,
+                             tri_bvh=tri_bvh, hair_bvh=hair_bvh)
         return Scene(arrays=arrays, camera=camera, film=film, config=cfg,
                      active_kinds=active, marschner_rows=marschner_rows,
                      has_normal_maps=any(int(r.get("nrm_tex_id", -1)) >= 0
-                                         for r in rows))
+                                         for r in rows),
+                     shutter=tuple(float(x) for x in self.shutter),
+                     camera_anim=self.camera_anim,
+                     rebuild_geo=self._rebuild_fn(t, arrays),
+                     repose_inst=self._repose_fn())
+
+    def _rebuild_fn(self, t, arrays: SceneArrays):
+        """rebuild_geo: t_s -> `arrays` with the triangle block (tri,
+        tri_shading, tri_packed, tri_bvh) built anew from the meshes at
+        t_s; the hair, instances, materials, textures and environment stay
+        the build's own objects (the JAX package rebuilds the whole scene,
+        hair included, which never moves). None without animated or
+        deformable meshes."""
+        if not (self.animated_meshes or self.morph_meshes):
+            return None
+
+        def rebuild_geo(t_s: float) -> SceneArrays:
+            tri, shading, packed, bvh = self._build_triangles(
+                t, self._meshes_at(t_s))
+            return arrays._replace(tri=tri, tri_shading=shading,
+                                   tri_packed=packed, tri_bvh=bvh)
+        return rebuild_geo
+
+    def _repose_fn(self):
+        return repose_fn(self.instances, self.instance_anims) \
+            if self.instance_anims else None
+
+
+def repose_fn(instances, anims):
+    """repose_inst: (arrays, t_s) -> arrays with the instance table re-posed
+    at t_s (ops/instancing.repose_instanced: no geometry rebuilt).
+    instances: (prototype index, to_world) in order; anims: instance
+    index -> AnimatedTransform of its to_world."""
+    base = list(instances)
+    anims = dict(anims)
+
+    def repose_inst(arrays, t_s: float):
+        insts = list(base)
+        for k, anim in anims.items():
+            insts[k] = (insts[k][0], anim.eval(float(t_s)))
+        return arrays._replace(
+            inst=inst_mod.repose_instanced(arrays.inst, insts))
+    return repose_inst

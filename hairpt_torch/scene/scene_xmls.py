@@ -36,6 +36,20 @@ stand-in fibers (keyed by those names) take the place of the absent
   sphere1.obj) at time 0.5 under the curvature texture; the constant
   0.8 envmap of a missing EXR; 1280 x 720, Sobol', maxDepth 65. Its
   files are written beside the XML by write_scene.
+- motion/scene.xml: a stand-in for motion blur in the reference's XML
+  syntax (the sensor's shutterOpen / shutterClose; <animation
+  name="toWorld"> with <transform time="t"> keyframes on the sensor, a
+  shape and an instance; a deformable pair), as the JAX loader reads it:
+  the furball's fibers (the stand-in of furball.mitshair, keyed by the
+  file name) under bench.py's rough plastic; teapot.obj (the 2,808-
+  triangle stand-in) under a twosided plastic, moved rigidly between two
+  keyframes (a translation and a y rotation); the sphere pair of the
+  instanced stand-in as a deformable; a 4 x 4 grid of instances of one
+  teapot shapegroup, each turning about y between its two keyframes; a
+  perspective camera with two keyframes; shutter [0, 1], Sobol' with 4
+  samples (four shutter times), 1024^2, the constant 0.8 envmap of a
+  missing EXR, maxDepth 65. No reference scene is animated: the layout
+  and the values are this stand-in's own.
 The hair scenes' cameras are the framing of their generators (straight
 and curly: from (0, 16.5, -25) at (0, 8.5, 0); hair-curl: from
 (0, 5.9, 17) at (0, 6, 0)). Written files are for the CLI and the
@@ -260,11 +274,7 @@ def write_obj(path: str, mesh):
 
 def instanced_files(d: str):
     """The stand-in's meshes and images, made from fixed formulas."""
-    write_obj(os.path.join(d, "teapot.obj"), shp.teapot_standin(scale=1.0))
-    sph = shp.sphere(1.0, 16, 32)
-    write_obj(os.path.join(d, "sphere0.obj"), sph)
-    write_obj(os.path.join(d, "sphere1.obj"), sph._replace(
-        positions=sph.positions * np.array([1.3, 0.7, 1.3])))
+    motion_files(d)
     y, x = np.mgrid[0:256, 0:256] / 256.0
     tile = ((np.floor(x * 4) + np.floor(y * 4)) % 2)[..., None]
     stripe = 0.5 + 0.5 * np.sin(2 * np.pi * 8 * (x + 0.5 * y))[..., None]
@@ -282,6 +292,105 @@ def instanced_files(d: str):
                        np.repeat(h[..., None], 3, -1))
 
 
+_MOTION_EYES = (("-16, 17, 16", "0, 8.5, 0"), ("-15.2, 17.4, 16.6",
+                                              "0.2, 8.5, 0"))
+
+
+def _keyframes(*frames) -> str:
+    """<animation name="toWorld"> of (time, transform children)."""
+    return ("<animation name=\"toWorld\">"
+            + "".join(f"<transform time=\"{t!r}\">{body}</transform>"
+                      for t, body in frames) + "</animation>")
+
+
+def _pose(scale, angle, x, y, z) -> str:
+    return (f"<scale value=\"{scale!r}\"/><rotate y=\"1\" "
+            f"angle=\"{angle!r}\"/><translate x=\"{x!r}\" y=\"{y!r}\" "
+            f"z=\"{z!r}\"/>")
+
+
+def motion(sampler="sobol", spp=4, res=1024, depth=65, hair=True,
+           grid=4, swing=False) -> str:
+    """The motion-blur stand-in; the tests vary its sampler, sample count,
+    resolution and depth, leave out the hair (hair=False) and shrink the
+    instance grid (grid x grid instances). swing=True swings the teapot
+    out and back (keyframes at 0, 1/2 and 1, the first and last equal)
+    and rests the deformable pair (its second file the first), so the
+    triangles are the same at shutter times 1/4 and 3/4 (spp 2), while
+    the camera and the instances still move."""
+    cams = "".join(
+        f"<transform time=\"{t!r}\"><lookat origin=\"{o}\" "
+        f"target=\"{a}\" up=\"0, 1, 0\"/></transform>"
+        for t, (o, a) in zip((0.0, 1.0), _MOTION_EYES))
+    sensor = (f"<sensor type=\"perspective\"><float name=\"fov\" "
+              f"value=\"45.0\"/><float name=\"shutterOpen\" value=\"0\"/>"
+              f"<float name=\"shutterClose\" value=\"1\"/>"
+              f"<animation name=\"toWorld\">{cams}</animation>"
+              f"<sampler type=\"{sampler}\"><integer name=\"sampleCount\" "
+              f"value=\"{spp}\"/></sampler><film type=\"ldrfilm\">"
+              f"<integer name=\"width\" value=\"{res}\"/><integer "
+              f"name=\"height\" value=\"{res}\"/><rfilter type=\"tent\"/>"
+              f"</film></sensor>")
+    half = (grid - 1) / 2.0
+    insts = "".join(
+        "<shape type=\"instance\"><ref id=\"teapots\"/>"
+        + _keyframes((0.0, _pose(0.8, 30.0 * k, 4.0 * (j - half), 4.5,
+                                 4.0 * (i - half))),
+                     (1.0, _pose(0.8, 30.0 * k + 40.0, 4.0 * (j - half),
+                                 4.5, 4.0 * (i - half))))
+        + "</shape>"
+        for k, (i, j) in enumerate((i, j) for i in range(grid)
+                                   for j in range(grid)))
+    fur = ("<bsdf type=\"roughplastic\" id=\"fur\">"
+           "<string name=\"distribution\" value=\"ggx\"/>"
+           "<float name=\"alpha\" value=\"0.2\"/>"
+           "<float name=\"intIOR\" value=\"1.55\"/>"
+           f"<rgb name=\"diffuseReflectance\" value=\"{_rgb(DIFFUSE)}\"/>"
+           "</bsdf>"
+           + _hair("furball.mitshair", 0.00216667, "<ref id=\"fur\"/>")) \
+        if hair else ""
+    return _scene(
+        sensor + fur
+        + "<bsdf type=\"twosided\" id=\"teapot\"><bsdf type=\"plastic\">"
+          "<rgb name=\"diffuseReflectance\" value=\"0.6, 0.12, 0.08\"/>"
+          "<float name=\"intIOR\" value=\"1.5\"/></bsdf></bsdf>"
+        + "<bsdf type=\"twosided\" id=\"ware\"><bsdf "
+          "type=\"roughplastic\"><rgb name=\"diffuseReflectance\" "
+          "value=\"0.2, 0.35, 0.6\"/><float name=\"alpha\" "
+          "value=\"0.15\"/><float name=\"intIOR\" value=\"1.5\"/>"
+          "</bsdf></bsdf>"
+        + "<bsdf type=\"diffuse\" id=\"blob\"><rgb name=\"reflectance\" "
+          "value=\"0.55, 0.5, 0.45\"/></bsdf>"
+        + "<shape type=\"obj\"><string name=\"filename\" "
+          "value=\"teapot.obj\"/>"
+        + (_keyframes((0.0, _pose(1.6, 0.0, -6.5, 6.0, 1.0)),
+                      (0.5, _pose(1.6, 35.0, -5.3, 6.0, 1.0)),
+                      (1.0, _pose(1.6, 0.0, -6.5, 6.0, 1.0))) if swing
+           else _keyframes((0.0, _pose(1.6, 0.0, -6.5, 6.0, 1.0)),
+                           (1.0, _pose(1.6, 35.0, -5.3, 6.0, 1.0))))
+        + "<ref id=\"teapot\"/></shape>"
+        + "<shape type=\"deformable\"><string name=\"filename\" "
+          "value=\"sphere0.obj\"/><string name=\"filename2\" "
+          f"value=\"sphere{0 if swing else 1}.obj\"/><transform "
+          "name=\"toWorld\"><scale value=\"1.8\"/><translate x=\"4\" "
+          "y=\"8.5\" z=\"6\"/></transform><ref id=\"blob\"/></shape>"
+        + "<shape type=\"shapegroup\" id=\"teapots\"><shape type=\"obj\">"
+          "<string name=\"filename\" value=\"teapot.obj\"/>"
+          "<ref id=\"ware\"/></shape></shape>" + insts
+        + "<emitter type=\"envmap\"><string name=\"filename\" "
+          "value=\"envmap.exr\"/></emitter>", depth)
+
+
+def motion_files(d: str):
+    """The motion stand-in's meshes: teapot.obj and the sphere pair, as
+    the instanced stand-in writes them."""
+    write_obj(os.path.join(d, "teapot.obj"), shp.teapot_standin(scale=1.0))
+    sph = shp.sphere(1.0, 16, 32)
+    write_obj(os.path.join(d, "sphere0.obj"), sph)
+    write_obj(os.path.join(d, "sphere1.obj"), sph._replace(
+        positions=sph.positions * np.array([1.3, 0.7, 1.3])))
+
+
 # name -> (directory, file name, XML builder[, writer of its files])
 SCENES = {
     "furball": ("furball", "scene.xml", furball),
@@ -293,13 +402,14 @@ SCENES = {
     "curly": ("curly-hair", "scene.xml", curly),
     "teapot": ("teapot", "scene.xml", teapot),
     "instanced": ("instanced", "scene.xml", instanced, instanced_files),
+    "motion": ("motion", "scene.xml", motion, motion_files),
 }
 
 
 def write_scene(root: str, name: str, **kw) -> str:
     """Write scene `name` under root/<its directory>/ (with its files,
     where it has any) and return the path; kw go to its XML builder
-    (furball(), teapot() and instanced() take any)."""
+    (furball(), teapot(), instanced() and motion() take any)."""
     d, f, make, *files = SCENES[name]
     os.makedirs(os.path.join(root, d), exist_ok=True)
     path = os.path.join(root, d, f)

@@ -35,6 +35,14 @@ What the port renders:
   ply and serialized children become prototypes, each instance adds
   every prototype of its group under its toWorld (the two-level walk,
   ops/instancing.py);
+- motion blur: the sensor's shutterOpen and shutterClose and an
+  `<animation name="toWorld">` of `<transform time="t">` keyframes
+  (core/track.AnimatedTransform) on the sensor, a shape or an instance:
+  each is placed at shutter open, and under an open shutter render()
+  poses the camera, moves the animated meshes, re-lerps the deformable
+  pairs and re-poses the animated instances at each sample's shutter
+  time (an animated hair shape stays at shutter open, as in the JAX
+  loader);
 - the sunsky, sky, sun, envmap (HDR, PFM, EXR or PNG) and constant
   emitters;
 - `<spectrum>` and `<blackbody>` values.
@@ -42,10 +50,9 @@ A `<texture>` at the scene's top level is ignored, as the JAX loader
 ignores it (it reads only a BSDF's own texture).
 
 Every other element the JAX loader accepts raises NotImplementedError
-before any build work, naming the ROADMAP item that ports it (11c: an
-animated instance and a deformable shape under an open shutter, that is
-motion blur; 13: shape emitters, LDR images other than PNG, and the
-rest). Nothing is dropped silently.
+before any build work, naming the ROADMAP item that ports it (13: the
+motion integrator, media, shape emitters, LDR images other than PNG, and
+the rest). Nothing is dropped silently.
 """
 from __future__ import annotations
 
@@ -58,6 +65,7 @@ import numpy as np
 
 from ..core import rng as rng_mod
 from ..core.math import matrix_lookat
+from ..core.track import AnimatedTransform
 from ..film.film import Film
 from ..models import emitters as em
 from ..models import shapes as shp
@@ -104,7 +112,6 @@ IOR_NAMES = {"air": 1.000277, "water": 1.3330, "bk7": 1.5046,
              "benzene": 1.501, "diamond": 2.419, "glass": 1.5046,
              "polypropylene": 1.49}
 
-ITEM_11C = "ROADMAP item 11c"
 ITEM_13 = "ROADMAP item 13"
 
 # the BSDF plugins the port renders; the other names of BSDF_KINDS name
@@ -170,6 +177,17 @@ def _collect_props(node, defines):
             props[name] = (float(ch.get("x", 0)), float(ch.get("y", 0)),
                            float(ch.get("z", 0)))
     return props
+
+
+def _parse_animation(node):
+    """<animation name="toWorld"> with <transform time="t"> keyframes ->
+    AnimatedTransform, or None without keyframes (reference:
+    src/librender/scenehandler.cpp's animation tag, core/track.h)."""
+    if node is None:
+        return None
+    keys = [(float(tr.get("time", 0.0)), _parse_transform(tr))
+            for tr in node.findall("transform")]
+    return AnimatedTransform(keys) if keys else None
 
 
 def _parse_transform(node) -> np.ndarray:
@@ -255,16 +273,6 @@ def _refuse_bsdf(node, defines, scene_dir):
         _refuse_image(tex, defines, scene_dir, "a bitmap texture's")
 
 
-def _shutter_open(root, defines) -> bool:
-    """Does a sensor open its shutter for a duration (motion blur)?"""
-    for sensor in root.findall("sensor"):
-        p = _collect_props(sensor, defines)
-        t_open = float(p.get("shutterOpen", 0.0))
-        if float(p.get("shutterClose", t_open)) > t_open:
-            return True
-    return False
-
-
 def _refuse_unported(root, defines, scene_dir):
     """Raise NotImplementedError for the first element the port does not
     render, before any build work."""
@@ -279,8 +287,6 @@ def _refuse_unported(root, defines, scene_dir):
         if "kc" in p and any(float(x) != 0.0 for x in str(p["kc"]).replace(
                 ",", " ").split()[:2]):
             _refuse("radial distortion (kc)", ITEM_13)
-        if sensor.find("animation") is not None:
-            _refuse("an animated sensor", ITEM_13)
         if sensor.find("medium") is not None:
             _refuse("participating media", ITEM_13)
         fm = sensor.find("film")
@@ -294,25 +300,14 @@ def _refuse_unported(root, defines, scene_dir):
     for bsdf in root.iter("bsdf"):
         _refuse_bsdf(bsdf, defines, scene_dir)
     for shape in root.findall("shape"):
-        stype = shape.get("type")
-        p = _collect_props(shape, defines)
         if shape.find("emitter") is not None:
             _refuse("area lights (shape emitters)", ITEM_13)
         if shape.find("subsurface") is not None:
             _refuse("subsurface scattering", ITEM_13)
         if shape.find("medium") is not None:
             _refuse("participating media", ITEM_13)
-        if shape.find("animation") is not None:
-            if stype == "instance":
-                _refuse("an animated instance", ITEM_11C)
-            _refuse("animated shapes", ITEM_13)
-        if stype == "heightfield":
+        if shape.get("type") == "heightfield":
             _refuse_image(shape, defines, scene_dir, "a heightfield's")
-        if stype == "deformable" and _shutter_open(root, defines) \
-                and os.path.exists(os.path.join(scene_dir,
-                                                p.get("filename", ""))):
-            _refuse("a deformable shape under an open shutter (its motion "
-                    "blur)", ITEM_11C)
     for emit in root.findall("emitter"):
         etype = emit.get("type")
         if etype not in _EMITTERS_PORTED:
@@ -501,6 +496,12 @@ def _standin_fibers(scene_dir: str, filename: str, radius: float,
 def _mesh_shape(stype: str, p: dict, scene_dir: str, to_world):
     """(mesh, toWorld) of a mesh shape with the JAX loader's rules, or
     None for a shape of another type."""
+    if stype == "heightfield":
+        img = _read_texture_image(p.get("filename", ""), scene_dir,
+                                  gamma=1.0)
+        return shp.heightfield(img.mean(-1) if img is not None
+                               else _ripples(),
+                               scale_z=float(p.get("scale", 1.0))), to_world
     if stype in ("obj", "ply", "serialized"):
         fname = os.path.join(scene_dir, p.get("filename", ""))
         if not os.path.exists(fname):
@@ -630,11 +631,19 @@ def load_scene(path: str, defines: dict | None = None,
     cam = film = None
     spp = 16
     sampler_kind = rng_mod.SOBOL
+    shutter_open = 0.0
     for sensor in root.findall("sensor"):
         p = _collect_props(sensor, defines)
         fov = p.get("fov", 35.0)
+        shutter_open = float(p.get("shutterOpen", 0.0))
+        b.shutter = (shutter_open,
+                     float(p.get("shutterClose", shutter_open)))
         tr = sensor.find("transform")
         to_world = _parse_transform(tr) if tr is not None else np.eye(4)
+        anim = _parse_animation(sensor.find("animation"))
+        if anim is not None:
+            to_world = anim.eval(shutter_open)
+            b.camera_anim = anim
         sam = sensor.find("sampler")
         if sam is not None:
             sp = _collect_props(sam, defines)
@@ -683,6 +692,10 @@ def load_scene(path: str, defines: dict | None = None,
         p = _collect_props(shape, defines)
         tr = shape.find("transform")
         to_world = _parse_transform(tr) if tr is not None else np.eye(4)
+        anim = _parse_animation(shape.find("animation"))
+        if anim is not None:
+            to_world = anim.eval(shutter_open)
+        first_mesh = len(b.tri_meshes)
         mid = None
         ref = shape.find("ref")
         if ref is not None and ref.get("id") in mat_ids:
@@ -703,22 +716,19 @@ def load_scene(path: str, defines: dict | None = None,
             gref = shape.find("ref")
             for pidx in shape_groups.get(
                     gref.get("id") if gref is not None else None, []):
-                b.add_instance(pidx, to_world)
-            continue
-        if stype == "heightfield":
-            img = _read_texture_image(p.get("filename", ""), scene_dir,
-                                      gamma=1.0)
-            b.add_mesh(shp.heightfield(
-                img.mean(-1) if img is not None else _ripples(),
-                scale_z=float(p.get("scale", 1.0))), mid, to_world=to_world)
-            continue
-        if stype == "deformable":
-            _deformable(p, defines, scene_dir, mid, to_world, b)
+                b.add_instance(pidx, to_world, anim=anim)
             continue
         if stype != "hair":
-            got = _mesh_shape(stype, p, scene_dir, to_world)
-            if got is not None:
-                b.add_mesh(got[0], mid, to_world=got[1])
+            if stype == "deformable":
+                _deformable(p, defines, scene_dir, mid, to_world, b)
+            else:
+                got = _mesh_shape(stype, p, scene_dir, to_world)
+                if got is not None:
+                    b.add_mesh(got[0], mid, to_world=got[1])
+            if anim is not None:
+                # stored at shutter open, moved by anim(t) inv(anim(open))
+                for k in range(first_mesh, len(b.tri_meshes)):
+                    b.animated_meshes[k] = anim
             continue
         radius = p.get("radius", 0.025)
         fname = os.path.join(scene_dir, p.get("filename", ""))

@@ -192,12 +192,16 @@ SENSOR = ("<sensor type=\"{kind}\"><film type=\"hdrfilm\"><integer "
 HAIR = ("<shape type=\"hair\"><string name=\"filename\" "
         "value=\"furball.mitshair\"/></shape>")
 REFUSED = {
-    # an instance of a shapegroup renders; an animated one is item 11c
+    # an instance of a shapegroup renders, an animated one too (item 11c,
+    # refused by an earlier slice): item None, the CLI renders it
     "shapegroup": (SENSOR.format(kind="perspective")
                    + "<shape type=\"shapegroup\" id=\"g\"><shape "
                      "type=\"sphere\"/></shape><shape type=\"instance\">"
-                     "<ref id=\"g\"/><animation name=\"toWorld\"/></shape>"
-                   + HAIR, "11c"),
+                     "<ref id=\"g\"/><animation name=\"toWorld\"><transform "
+                     "time=\"0\"><translate z=\"5\"/></transform>"
+                     "<transform time=\"1\"><translate x=\"1\" z=\"5\"/>"
+                     "</transform></animation></shape>"
+                   + HAIR + "<emitter type=\"constant\"/>", None),
     "point_light": (SENSOR.format(kind="perspective") + HAIR
                     + "<emitter type=\"point\"/>", "13"),
     "orthographic": (SENSOR.format(kind="orthographic") + HAIR, "13"),
@@ -223,13 +227,27 @@ REFUSED = {
 def test_cli_refuses_what_the_port_does_not_render(tmp_path, monkeypatch,
                                                    case):
     """Each raises NotImplementedError naming its ROADMAP item, before any
-    build work."""
-    monkeypatch.setattr(txl.SceneBuilder, "__init__", None)
+    build work; what a later slice ported (item None) renders through the
+    CLI, its image equal to a render of load_scene's scene."""
     body, item = REFUSED[case]
     d = tmp_path / "furball"
     d.mkdir()
     (d / "scene.xml").write_text(f"<scene version=\"0.5.0\">{body}</scene>")
     (d / "t.jpg").write_bytes(b"\xff\xd8\xff")
+    if item is None:
+        flags = ["--cpu", "--spp", "1", "--depth", "2", "--hair-quality",
+                 "0.01"]
+        out = tmp_path / "o.png"
+        assert cli.main(["render", str(d / "scene.xml"), "-o", str(out)]
+                        + flags) == 0
+        img = np.load(tmp_path / "o.npy")
+        s = txl.load_scene(str(d / "scene.xml"), spp_override=1,
+                           max_depth_override=2, hair_quality=0.01,
+                           device="cpu")
+        assert len(s.arrays.inst.proto_ids) == 1 and img.mean() > 0
+        np.testing.assert_array_equal(img, tpath.render(s, spp=1).numpy())
+        return
+    monkeypatch.setattr(txl.SceneBuilder, "__init__", None)
     with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}\\)"):
         cli.main(["render", str(d / "scene.xml"), "-o",
                   str(tmp_path / "o.png"), "--cpu"])

@@ -234,13 +234,20 @@ def test_mesh_scene_build_matches_jax(same_bvh, fibers):
 
 
 def test_mesh_builder_refusals():
+    """Area lights and the motion integrator's mesh motion tables raise,
+    naming ROADMAP item 13; an animated instance, which an earlier slice
+    refused (item 11c), is taken: its animation drives repose_inst."""
+    from hairpt_torch.core.track import AnimatedTransform
     b = TSceneBuilder(device="cpu")
     with pytest.raises(NotImplementedError, match="item 13"):
         b.add_mesh(tshp.rectangle(), 0, radiance=(1.0, 1.0, 1.0))
-    with pytest.raises(NotImplementedError, match="item 11c"):
+    with pytest.raises(NotImplementedError, match="item 13"):
         b.add_mesh(tshp.rectangle(), 0, motion=np.eye(4))
-    with pytest.raises(NotImplementedError, match="item 11c"):
-        b.add_instance(0, np.eye(4), anim=object())
+    anim = AnimatedTransform([(0.0, np.eye(4)), (1.0, np.diag([2.0] * 3
+                                                               + [1.0]))])
+    b.add_instance(b.add_prototype(tshp.rectangle(), b.add_material()),
+                   np.eye(4), anim=anim)
+    assert b.instance_anims == {0: anim}
 
 
 # --- smooth plastic and the textures ---------------------------------------

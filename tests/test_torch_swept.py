@@ -243,9 +243,15 @@ def test_scene_builder_takes_swept_and_refuses_other_traversals():
                 swept_k=32)
     assert s.config.swept_c == s.arrays.hair_swept.seg_rows_t.shape[0] > 0
     assert (s.config.swept_pmax, s.config.swept_chunk) == (24, 64)
+    # 'perray' and 'blocked', which an earlier slice refused, build the
+    # hair's BVHArrays; 'tiled_sub' (ROADMAP item 8) still raises
     for other in ("perray", "blocked"):
-        with pytest.raises(NotImplementedError):
-            b.build(cam, Film.make(8, 8, "tent"), spp=1, traversal=other)
+        o = b.build(cam, Film.make(8, 8, "tent"), spp=1, traversal=other)
+        assert o.config.traversal == other
+        assert torch.equal(o.arrays.hair_bvh.node_left,
+                           s.arrays.hair_bvh.node_left)
+    with pytest.raises(NotImplementedError, match="item 8"):
+        b.build(cam, Film.make(8, 8, "tent"), spp=1, traversal="tiled_sub")
 
 
 def test_public_builders_default_to_the_card(monkeypatch):

@@ -421,25 +421,42 @@ def test_top_level_texture_is_ignored(same_bvh, tmp_path):
         assert torch.equal(v, w), k
 
 
+def _same_tensors(a, b):
+    got, ref = dict(_tensors(a)), dict(_tensors(b))
+    assert got.keys() == ref.keys()
+    for k, v in got.items():
+        r = ref[k]
+        assert v.dtype == r.dtype and v.shape == r.shape, k
+        if v.is_floating_point():
+            v, r = v.view(torch.int32), r.view(torch.int32)
+        assert torch.equal(v, r), k
+
+
 @pytest.mark.parametrize("case", ["animated_instance", "open_shutter",
                                   "jpeg_bitmap", "jpeg_heightfield"])
-def test_loader_refuses_the_rest(tmp_path, case):
-    """What this slice leaves out raises NotImplementedError before any
-    build, naming its ROADMAP item: an animated instance and a deformable
-    under an open shutter (motion blur, 11c), JPEG images (13)."""
+def test_loader_refuses_the_rest(same_bvh, tmp_path, case):
+    """JPEG images (ROADMAP item 13) raise NotImplementedError before any
+    build, naming the item. An animated instance and a deformable under
+    an open shutter, which an earlier slice refused here (motion blur),
+    now load: both loaders give the same arrays, the same shutter, and,
+    at shutter time 0.5, the same re-posed instance table
+    (repose_inst) or rebuilt triangles (rebuild_geo)."""
     scene_xmls.instanced_files(str(tmp_path))
     (tmp_path / "t.jpg").write_bytes(b"\xff\xd8\xff")
     sensor = ("<sensor type=\"perspective\"><float name=\"shutterClose\" "
-              "value=\"{c}\"/><film type=\"hdrfilm\"/></sensor>")
+              "value=\"{c}\"/><film type=\"hdrfilm\"><integer "
+              "name=\"width\" value=\"16\"/><integer name=\"height\" "
+              "value=\"12\"/></film></sensor>")
     body, item = {
         "animated_instance": (
             "<shape type=\"shapegroup\" id=\"g\"><shape type=\"cube\"/>"
             "</shape><shape type=\"instance\"><ref id=\"g\"/><animation "
             "name=\"toWorld\"><transform time=\"0\"/><transform time=\"1\">"
-            "<translate x=\"1\"/></transform></animation></shape>", "11c"),
+            "<translate x=\"1\"/></transform></animation></shape>", None),
         "open_shutter": (
             "<shape type=\"deformable\"><string name=\"filename\" "
-            "value=\"sphere0.obj\"/></shape>", "11c"),
+            "value=\"sphere0.obj\"/><string name=\"filename2\" "
+            "value=\"sphere1.obj\"/></shape>", None),
         "jpeg_bitmap": (
             "<shape type=\"cube\"><bsdf type=\"diffuse\"><texture "
             "type=\"bitmap\"><string name=\"filename\" value=\"t.jpg\"/>"
@@ -449,8 +466,25 @@ def test_loader_refuses_the_rest(tmp_path, case):
             "value=\"t.jpg\"/></shape>", "13")}[case]
     p = tmp_path / "scene.xml"
     p.write_text(f"<scene version=\"0.5.0\">"
-                 f"{sensor.format(c=1.0 if case == 'open_shutter' else 0.0)}"
+                 f"{sensor.format(c=1.0 if item is None else 0.0)}"
                  f"{body}</scene>")
+    if item is None:
+        ts = txl.load_scene(str(p), device="cpu")
+        js = jxl.load_scene(str(p))
+        assert ts.shutter == tuple(js.shutter) == (0.0, 1.0)
+
+        def port(arrays):
+            return convert.convert_arrays(
+                jax.tree_util.tree_map(np.asarray, arrays), device="cpu")
+        _same_tensors(ts.arrays, port(js.arrays))
+        if case == "animated_instance":
+            assert ts.rebuild_geo is None and js.rebuild_geo is None
+            _same_tensors(ts.repose_inst(ts.arrays, 0.5).inst,
+                          port(js.repose_inst(js.arrays, 0.5)).inst)
+        else:
+            assert ts.repose_inst is None and js.repose_inst is None
+            _same_tensors(ts.rebuild_geo(0.5), port(js.rebuild_geo(0.5)))
+        return
 
     def no_build(*a, **kw):
         raise AssertionError("the scene was built")
