@@ -9,7 +9,8 @@ packed BVH walk, instanced, bitmap-textured and normal-mapped meshes
 (the instanced stand-in) through the two-level walk, the per-ray and the
 blocked walks (traversal 'perray' and 'blocked'), and motion blur (the
 motion stand-in: an animated camera, meshes and instances under an open
-shutter).
+shutter), the tiled query's options (subcull, short-ray-first,
+two-round) and area and delta lights (the lit stand-in).
 
     python3 chip_smoke.py            # from the repository root, one card
 
@@ -180,6 +181,28 @@ Phases (each prints one line with its elapsed seconds):
           teapot stand-in with traversal 'perray' and 'blocked' (s/wave,
           H's and I's launches), and the small furball over the
           checkerboard with both, card against CPU.
+  15. the tiled query's options and the area and delta lights:
+       a. (run in phase 2, on its waves) kernel A over the 32-segment
+          sub-cluster boxes ([6, 4C], subcull's phase A) against its
+          plain version on EVERY tile of both waves (2a's rules), timed
+          beside the cluster-box instance and its bound; subcull,
+          short_t (4x the median cluster-box diagonal) and two_round
+          (256) through the whole query, closest and any hit (two_round
+          closest only, as in hairpt), against the default query: hit
+          flags and pids equal on >= 99.99% of the rays, t equal where
+          the pids are, every differing ray's hit outside its segment's
+          sub-cluster box; each query timed beside the default;
+       b. (run after phase 4) phase 4's render with traversal
+          'tiled_sub' and with tiled_short > 0: a warm-up and a timed
+          wave each, A's instances and B's launches;
+       c. the lit stand-in (scene_xmls.lit: the furball's hair at
+          quality 14, a rectangle and a sphere area light, a spot and a
+          point light, the sunsky; 1024^2, depth 65): the CLI at 2 spp
+          (exit 0, four outputs, a finite positive mean); load_scene
+          against SceneBuilder (config and every tensor equal); a
+          warm-up and two timed 1-spp waves (s/wave, Mrays/s, A, B and
+          F launches); at 64^2 the render and the diffuse gradient card
+          against CPU and PRB against the differentiable mode at depth 3.
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Any failed check exits
 non-zero before that line. Without CUDA the script exits non-zero at once.
@@ -194,7 +217,7 @@ import sys
 import time
 
 # a hang anywhere exits non-zero with every thread's traceback
-faulthandler.dump_traceback_later(900, exit=True)
+faulthandler.dump_traceback_later(1150, exit=True)
 
 T_START = time.time()
 
@@ -3049,6 +3072,483 @@ def hi_kernel_entries(report, launches):
     return entries
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the tiled query's options (subcull, short_t, two_round) and the
+# area and delta lights (the lit stand-in)
+# ---------------------------------------------------------------------------
+
+#  the options against the default query on a whole wave: hit flags and
+#      pids equal on >= OPT_MIN_AGREE of the rays (subcull loses a hit
+#      that lies outside its segment's sub-cluster box, as hairpt's does:
+#      every differing ray must be such a ray), t bit for bit where a
+#      closest-hit pid is equal
+OPT_MIN_AGREE = 0.9999
+#  short-ray-first's clamp: 4x the median cluster-box diagonal (a few
+#      cluster diameters, hairpt/scene/scene.py:104's comment)
+SHORT_T_DIAGS = 4.0
+#  two_round's first round: each tile's 256 nearest clusters
+TWO_ROUND = 256
+
+
+def short_t_of(sw):
+    """The short-ray-first clamp of the rule above, for a cluster layout."""
+    import torch
+    return SHORT_T_DIAGS * float(
+        torch.linalg.norm(sw.cl_hi - sw.cl_lo, dim=1).median())
+
+
+def _host_ms(fn, reps=2):
+    """Host milliseconds per call of fn (a whole query, host syncs
+    included), the card synchronised, after a warm-up call; and its
+    last result."""
+    import torch
+    out = fn()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for _ in range(reps):
+        out = fn()
+    torch.cuda.synchronize()
+    return (time.time() - t0) * 1e3 / reps, out
+
+
+def sub_kernel_a(sw, name, r8, report):
+    """Phase 15a: kernel A over the sub-cluster boxes [6, C K/32] against
+    its plain version on EVERY tile of a wave (2a's rules), timed beside
+    the cluster-box instance and its bound (this wave's work: each live
+    (tile, sub-box) tile test and each live ray against the sub-boxes its
+    tile's rays enter); kernel B's routed and run slots and time on the
+    first routing pass of the cluster-box and of the sub-box cull."""
+    import torch
+    from hairpt_torch.ops import intersect_tiled as itiled
+    from hairpt_torch.ops import tiled_kernels as tk
+
+    sub = itiled.sub_bounds(sw)
+    bounds = torch.cat([sw.cl_lo.T, sw.cl_hi.T]).contiguous()
+    T, C4 = r8.shape[0], sub.shape[1]
+    te_k, tpm_k = tk.cull_phase_a(r8, sub, sub=True)
+    out = {}
+    plain_ms = cuda_ms(lambda: out.update(p=tk.cull_phase_a_plain(
+        r8, sub, sub=True)), 1, warm=False)
+    te_p, tpm_p = out.pop("p")
+    a = te_k.view(torch.int16).int() & 0x7FFF
+    b = te_p.view(torch.int16).int() & 0x7FFF
+    steps = int((a - b).abs().max())
+    fin = torch.isfinite(te_p.float())
+    te_err = float((te_k.float() - te_p.float())[fin].abs().max()) \
+        if bool(fin.any()) else 0.0
+    both_neg = (tpm_k < 0) & (tpm_p < 0)
+    tp_rel = float(torch.where(both_neg, 0.0, (tpm_k - tpm_p).abs()
+                               / tpm_p.abs().clamp(min=1e-30)).max())
+    live = r8[:, 7, :] > r8[:, 6, :]
+    live_t = int(live.any(1).sum())
+    ray_tests = int((fin.sum(1) * live.sum(1)).sum())
+    del te_p, tpm_p
+    require(steps <= TE_MAX_BF16_STEPS and tp_rel <= TPMAX_RTOL,
+            f"{name}: kernel A over the sub-boxes differs from its plain "
+            f"version ({steps} bf16 steps, t_pmax rel {tp_rel})")
+    ms = cuda_ms(lambda: tk.cull_phase_a(r8, sub, sub=True), 5)
+    ms_c = cuda_ms(lambda: tk.cull_phase_a(r8, bounds), 5)
+    # kernel B on the first routing pass of each: the clusters a tile's
+    # rays enter (cluster boxes, or any of a cluster's sub-boxes), the
+    # slots routed, the slots run before the early exit, B's time
+    C = bounds.shape[1]
+    ks = itiled.KeySpace(C)
+    te_c, tpm_c = tk.cull_phase_a(r8, bounds)
+    q = report["q"]
+    b_facts = []
+    for label, te, tpm in (("cluster boxes", te_c, tpm_c),
+                           ("sub-boxes", te_k.view(T, C, C4 // C).amin(2),
+                            tpm_k)):
+        slots, cnt, tmin, tscale, _, _ = itiled._tile_slots(ks.keys(te), ks,
+                                                            q)
+        args = (slots, cnt, tmin, tscale, r8, tpm, sw.seg_rows_t, bounds)
+        _, _, run = tk.phase_b(*args, False, True)
+        ms_b = cuda_ms(lambda: tk.phase_b(*args), 3)
+        b_facts.append((label, float(torch.isfinite(te.float()).sum(1)
+                                     .float().mean()), int(cnt.sum()),
+                        int(run.sum()), ms_b))
+    log(f"{name}: kernel B on the first routing pass, closest hit: "
+        + "; ".join(f"{lb}: {cand:.1f} clusters/tile, {n_sl} slots routed, "
+                    f"{n_run} run, {ms_b:.3f} ms"
+                    for lb, cand, n_sl, n_run, ms_b in b_facts))
+    n_bytes = T * 8 * 64 * 4 + 6 * C4 * 4 + T * 64 * 4 + T * C4 * 2
+    bnd = bound_ms(n_bytes, live_t * C4 * TILE_TEST_FLOPS
+                   + ray_tests * SLAB_FLOPS)
+    log(f"{name}: kernel A over the {C4} sub-boxes on all {T} tiles (plain "
+        f"{plain_ms:.1f} ms): max bf16 step diff {steps}, max |te diff| "
+        f"{te_err:.3g}, max t_pmax rel diff {tp_rel:.3g}; candidates/tile "
+        f"{float(fin.sum(1).float().mean()):.1f}; {ms:.3f} ms (over the "
+        f"{bounds.shape[1]} cluster boxes {ms_c:.3f} ms); bound from this "
+        f"wave's work {bnd[0]:.3f} ms by {bnd[1]} ({ms / bnd[0]:.1f}x)")
+    pre = "" if name == "camera" else "bounce_"
+    report.update({f"{pre}ms": ms, f"{pre}plain_ms": plain_ms,
+                   f"{pre}bound_ms": bnd[0], f"{pre}bound_by": bnd[1],
+                   f"{pre}cluster_box_ms": ms_c,
+                   f"{pre}b_slots_run": [f[3] for f in b_facts],
+                   f"{pre}b_ms": [f[4] for f in b_facts]})
+    report["max_abs_err"] = max(report.get("max_abs_err", 0.0), te_err)
+
+
+def tiled_options(scene, wv):
+    """Phase 15a: kernel A over the sub-cluster boxes on both waves
+    (sub_kernel_a), then subcull, short_t and two_round through the whole
+    query, closest and any hit, against the default query on each wave;
+    each differing ray is checked against its segment's sub-cluster box
+    (intersect_tiled.outside_sub_box) and counted. Each query is timed
+    beside the default. Returns the facts of the sub-box instance for
+    the kernels line."""
+    import torch
+    from hairpt_torch.ops import intersect_tiled as itiled
+    from hairpt_torch.ops import tiled_kernels as tk
+
+    sw = scene.arrays.hair_swept
+    q = scene.config.tiled_q
+    st = short_t_of(sw)
+    log(f"short_t = {SHORT_T_DIAGS} x the median cluster-box diagonal = "
+        f"{st:.6g}; two_round = {TWO_ROUND}; q = {q}")
+    report = {"q": q}
+    for name, ray in wv.items():
+        ray_p, _ = itiled._pad_rays(ray, tk.TILE)
+        sub_kernel_a(sw, name, itiled.rays8_of(ray_p), report)
+        for mode in ("closest", "any"):
+            ms_d, (t_d, p_d) = _host_ms(lambda: itiled.tiled_closest_hit(
+                sw, ray, q, mode=mode))
+            opts = {"subcull": dict(subcull=True),
+                    "short_t": dict(short_t=st, sort_rays=True)}
+            if mode == "closest":     # hairpt's two_round is closest-only
+                opts["two_round"] = dict(two_round=TWO_ROUND)
+            line = []
+            for opt, kw in opts.items():
+                ms, (t_o, p_o) = _host_ms(lambda: itiled.tiled_closest_hit(
+                    sw, ray, q, mode=mode, **kw))
+                differ = (p_o != p_d) | ((p_o >= 0) != (p_d >= 0))
+                agree = 1.0 - float(differ.float().mean())
+                n_diff = int(differ.sum())
+                t_same = True
+                if mode == "closest":
+                    same = ~differ & (p_d >= 0)
+                    t_same = bool(torch.equal(t_o[same], t_d[same]))
+                n_out = 0
+                if n_diff:
+                    t_c, p_c = itiled.tiled_closest_hit(sw, ray, q)
+                    lost = differ & (p_c >= 0)
+                    pt = ray.o[lost] + ray.d[lost] * t_c[lost, None]
+                    n_out = int((itiled.outside_sub_box(
+                        sw, p_c[lost], pt) > 0).sum())
+                    require(n_out == n_diff, f"{name}/{mode}/{opt}: "
+                            f"{n_diff - n_out} differing rays lie inside "
+                            f"their segment's sub-cluster box")
+                require(agree >= OPT_MIN_AGREE and t_same,
+                        f"{name}/{mode}/{opt}: agreement {agree}, t equal "
+                        f"where pids are {t_same}")
+                line.append(f"{opt} {ms:.1f} ms ({n_diff} differ, "
+                            f"{n_out} outside their sub-box)")
+            log(f"{name} wave, {mode}: default {ms_d:.1f} ms, "
+                + ", ".join(line) + f"; hits {int((p_d >= 0).sum())}")
+    return report
+
+
+def option_renders(scene, reset_all):
+    """Phase 15b: phase 4's full-width furball with traversal 'tiled_sub'
+    and with tiled_short > 0 (short_t_of): one warm-up and one timed
+    1-spp wave each, the launches of A (per instance) and B over the
+    timed wave. Returns the sub-box instance's launches and the facts."""
+    import numpy as np
+    import torch
+    from hairpt_torch.integrators import path
+    from hairpt_torch.ops import tiled_kernels as tk
+
+    st = short_t_of(scene.arrays.hair_swept)
+    out = {}
+    for label, fields in (("tiled_sub", dict(traversal="tiled_sub")),
+                          ("tiled_short", dict(tiled_short=st))):
+        s = with_config(scene, **fields)
+        path.render(s, spp=1, seed=0)
+        reset_all()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        img, stats = path.render(s, spp=1, seed=1, return_stats=True)
+        torch.cuda.synchronize()
+        secs = time.time() - t0
+        launches = dict(tk.LAUNCHES, **tk.SUB_LAUNCHES)
+        plain = dict(tk.PLAIN_ON_CUDA, **tk.SUB_PLAIN_ON_CUDA)
+        mean = float(img.mean())
+        log(f"{label} render (1024^2, depth 65, q {s.config.tiled_q}"
+            + (f", tiled_short {st:.6g}" if label == "tiled_short" else "")
+            + f"): timed wave {secs:.3f} s, {stats['rays']:.0f} rays, "
+            f"{stats['rays'] / secs / 1e6:.4f} Mrays/s; image mean "
+            f"{mean:.6f}; launches {launches}")
+        require(np.isfinite(mean) and mean > 0
+                and bool(torch.isfinite(img).all()),
+                f"{label} render: image mean {mean}")
+        require(all(v == 0 for v in plain.values()),
+                f"plain versions ran on CUDA tensors: {plain}")
+        sub = label == "tiled_sub"
+        require(launches["phase_b"] > 0
+                and (launches["cull_phase_a_sub"] > 0) == sub
+                and (launches["cull_phase_a"] > 0) != sub,
+                f"{label} render: kernel A's instances or B not launched "
+                f"as the traversal asks: {launches}")
+        out[label] = dict(secs=secs, rays=stats["rays"], launches=launches)
+    return out
+
+
+def _rot(axis, deg):
+    """The loader's <rotate> matrix (Rodrigues)."""
+    import numpy as np
+    ax = np.asarray(axis, np.float64)
+    ax = ax / np.linalg.norm(ax)
+    ang = np.radians(float(deg))
+    K = np.array([[0, -ax[2], ax[1]], [ax[2], 0, -ax[0]],
+                  [-ax[1], ax[0], 0]])
+    t = np.eye(4)
+    t[:3, :3] = np.eye(3) + np.sin(ang) * K + (1 - np.cos(ang)) * K @ K
+    return t
+
+
+def lit_builder(res=1024, device="cuda", quality=HAIR_QUALITY):
+    """Phase 15c's twin of the lit stand-in (scene_xmls.lit) through
+    SceneBuilder with the values the loader reads: phase 11's furball,
+    the rectangle (scaled 2.5, turned 90 degrees about x, at y 17) and
+    the sphere (radius 0.6 at (5, 11.5, -3)) area lights, each under a
+    default diffuse row, the spot light (its toWorld's position and +z)
+    and the point light (the loader's direction and angle defaults)."""
+    import numpy as np
+    from hairpt_torch.core import rng
+    from hairpt_torch.core.math import matrix_lookat
+    from hairpt_torch.film.film import Film
+    from hairpt_torch.models import emitters as em
+    from hairpt_torch.models import shapes as shp
+    from hairpt_torch.models.bsdf import registry as mat
+    from hairpt_torch.models.sensors import Camera
+    from hairpt_torch.scene import furball, hairgen
+    from hairpt_torch.scene.scene import SceneBuilder
+
+    b = SceneBuilder(device=device)
+    m = b.add_material(kind=mat.ROUGHPLASTIC, twosided=False,
+                       eta=1.55 / 1.000277, diffuse=furball.DIFFUSE,
+                       alpha=0.2, dist=0)
+    radius = 0.00216667 / np.sqrt(min(max(quality, 1e-6), 1.0))
+    b.add_fibers(hairgen.gen_furball(n_fibers=int(6000 * quality),
+                                     radius=radius), m)
+    s = np.eye(4)
+    s[0, 0] = s[1, 1] = s[2, 2] = 2.5
+    tr = np.eye(4)
+    tr[:3, 3] = (0.0, 17.0, 0.0)
+    b.add_mesh(shp.rectangle(), b.add_material(kind=mat.DIFFUSE),
+               to_world=tr @ (_rot((1, 0, 0), 90) @ s),
+               radiance=(6.0, 5.6, 5.0))
+    c = np.eye(4)
+    c[:3, 3] += np.asarray((5.0, 11.5, -3.0))
+    b.add_mesh(shp.sphere(0.6), b.add_material(kind=mat.DIFFUSE),
+               to_world=c, radiance=(4.0, 6.0, 9.0))
+    spot = matrix_lookat((8.0, 15.0, -8.0), (0.0, 11.0, 0.0),
+                         (0.0, 1.0, 0.0))
+    b.delta_lights.append(dict(
+        kind=em.SPOT, position=tuple(spot[:3, 3]),
+        direction=tuple(spot[:3, :3] @ [0, 0, 1]),
+        intensity=(300.0, 300.0, 300.0), cutoff_deg=25.0,
+        beam_deg=25.0 * 0.75))
+    b.delta_lights.append(dict(
+        kind=em.POINT, position=(-6.0, 16.0, 6.0),
+        direction=tuple(np.eye(3) @ [0, 0, 1]),
+        intensity=(60.0, 50.0, 40.0), cutoff_deg=20.0, beam_deg=15.0))
+    b.env = em.bake_sunsky((-0.376047, 0.758426, 0.532333), turbidity=3.0,
+                           sky_scale=5.0, sun_scale=19.0912,
+                           sun_radius_scale=37.9165, device=b.device)
+    cam = Camera.perspective(furball.CAM_TO_WORLD, 35.0, res, res)
+    return b.build(cam, Film.make(res, res, "tent"), spp=1, max_depth=65,
+                   sampler=(rng.SOBOL_QMC, int(np.ceil(np.log2(res))), res))
+
+
+def _cli(xml, out, quality, device, spp=2):
+    """The CLI as a subprocess, as a user runs it: (wall seconds, its
+    logged build and render seconds, the .npy image); four outputs."""
+    import re
+    import numpy as np
+    here = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=here + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    t0 = time.time()
+    proc = subprocess.run(
+        [sys.executable, "-m", "hairpt_torch.cli", "render", xml, "-o", out,
+         "--hair-quality", str(quality), "--spp", str(spp)]
+        + (["--cpu"] if device == "cpu" else []),
+        cwd=here, env=env, capture_output=True, text=True, timeout=600)
+    wall = time.time() - t0
+    require(proc.returncode == 0, f"the CLI exited {proc.returncode}:\n"
+            f"{proc.stderr[-3000:]}")
+    built = re.search(r"scene built in ([0-9.]+)s", proc.stderr)
+    rendered = re.search(r"rendered in ([0-9.]+)s", proc.stderr)
+    require(built is not None and rendered is not None,
+            f"the CLI logged no build or render time:\n{proc.stderr}")
+    base = out[:-4]
+    for ext in ("png", "exr", "npy", "pfm"):
+        require(os.path.getsize(f"{base}.{ext}") > 0, f"no {ext} output")
+    return (wall, float(built.group(1)), float(rendered.group(1)),
+            np.load(f"{base}.npy"))
+
+
+def lit_cell(reset_all, device="cuda", res=1024, quality=HAIR_QUALITY,
+             small_res=64, small_quality=0.1):
+    """Phase 15c: the lit stand-in (scene_xmls.lit: the XML furball under
+    a rectangle and a sphere area light, a spot and a point light and the
+    sunsky). The CLI at res^2, hair quality `quality`, depth 65, 2 spp:
+    exit 0, four outputs, a finite positive mean. In process: load_scene
+    against lit_builder (config and every tensor equal), one warm-up and
+    two timed 1-spp waves (s/wave, Mrays/s, A, B and F launches, no plain
+    version on the card). Then at small_res (hair quality small_quality,
+    depth 8): the render card against CPU (MEAN_RTOL), the diffuse
+    gradient card against CPU (3b's bounds), and PRB against the
+    differentiable mode on the card at depth 3. Returns the in-process
+    facts (None on the CPU, where a small res and quality rehearse it)."""
+    import tempfile
+    tmp_dir = tempfile.TemporaryDirectory(prefix="hairpt_lit_")
+    try:
+        return _lit_cell(reset_all, device, res, quality, small_res,
+                         small_quality, tmp_dir.name)
+    finally:
+        tmp_dir.cleanup()
+
+
+def _lit_cell(reset_all, device, res, quality, small_res, small_quality,
+              tmp):
+    import numpy as np
+    import torch
+    from hairpt_torch.integrators import inverse, path
+    from hairpt_torch.ops import intersect_packed as ipk
+    from hairpt_torch.ops import tiled_kernels as tk
+    from hairpt_torch.scene import scene_xmls
+    from hairpt_torch.scene.xml_loader import load_scene
+
+    xml = scene_xmls.write_scene(tmp, "lit", res=res)
+    xml_s = scene_xmls.write_scene(os.path.join(tmp, "small"), "lit",
+                                   res=small_res)
+    wall, t_build, t_render, img = _cli(
+        xml, os.path.join(tmp, "out", "lit.png"), quality, device)
+    require(img.shape == (res, res, 3) and np.isfinite(img).all()
+            and img.mean() > 0, f"lit CLI image {img.shape}, mean "
+            f"{img.mean()}")
+    log(f"CLI lit ({res}^2, hair quality {quality}, depth 65, 2 spp): "
+        f"exit 0 in {wall:.1f}s wall, scene built in {t_build}s, rendered "
+        f"in {t_render}s; image mean {img.mean():.6f}; four outputs")
+    t0 = time.time()
+    scene = load_scene(xml, hair_quality=quality, spp_override=1,
+                       device=device)
+    t_load = time.time() - t0
+    scene_b = lit_builder(res, device, quality)
+    require(scene.config == scene_b.config,
+            f"configs differ: {scene.config} {scene_b.config}")
+    pairs = list(zip(_scene_tensors(scene.arrays),
+                     _scene_tensors(scene_b.arrays)))
+    require(len(pairs) > 10 and all(
+        pa == pb and _same_bits(x, y) for (pa, x), (pb, y) in pairs),
+        "the lit XML's arrays differ from the builder's: "
+        + str([pa for (pa, x), (pb, y) in pairs if pa != pb
+               or not _same_bits(x, y)]))
+    del scene_b
+    a = scene.arrays
+    log(f"lit: loaded in {t_load:.1f}s, {len(pairs)} tensors equal to "
+        f"SceneBuilder's; {a.hair.p0.shape[0]} segments, "
+        f"{a.tri.p0.shape[0]} triangles ({a.area.cdf.shape[0]} emissive), "
+        f"delta lights {a.delta.kind.tolist()}, nee_probs "
+        f"{scene.config.nee_probs}")
+    facts = None
+    if device == "cuda":
+        progress, times, rays, n_timed = warm_up(scene, "lit")
+        reset_all()
+        torch.cuda.synchronize()
+        img = path.render(scene, spp=n_timed, seed=1, progress=progress)
+        torch.cuda.synchronize()
+        launches = dict(tk.LAUNCHES, **ipk.LAUNCHES)
+        plain = dict(tk.PLAIN_ON_CUDA, **ipk.PLAIN_ON_CUDA)
+        secs = sum(times) / len(times)
+        rays_w = sum(rays) / len(rays)
+        mean = float(img.mean())
+        log(f"lit render: {n_timed} timed waves of 1 spp at {res}^2, depth "
+            f"65: {rays_w:.0f} rays/wave, {secs:.3f} s/wave, "
+            f"{rays_w / secs / 1e6:.4f} Mrays/s; image mean {mean:.6f}; "
+            f"launches over the timed waves {launches}")
+        require(np.isfinite(mean) and mean > 0
+                and bool(torch.isfinite(img).all()),
+                f"lit render: image mean {mean}")
+        require(launches["cull_phase_a"] > 0 and launches["phase_b"] > 0
+                and launches["packed_tri_closest"] > 0
+                and launches["packed_tri_any"] > 0,
+                f"the lit render did not launch A, B and F: {launches}")
+        require(all(v == 0 for v in plain.values()),
+                f"plain versions ran on CUDA tensors: {plain}")
+        facts = dict(secs=secs, rays=rays_w, n_timed=n_timed,
+                     launches=launches)
+        del img
+    del scene
+
+    # small: card against CPU (render, gradient), PRB on the card
+    devs = ("cuda", "cpu") if device == "cuda" else ("cpu",)
+    means, grads = {}, {}
+    for dev in devs:
+        s = load_scene(xml_s, hair_quality=small_quality, spp_override=1,
+                       max_depth_override=8, device=dev)
+        means[dev] = float(path.render(s, spp=1).mean())
+        grads[dev] = scan_ad_grad(s, {"diffuse": s.arrays.materials.diffuse})
+    if device == "cuda":
+        rel = abs(means["cuda"] - means["cpu"]) / max(abs(means["cpu"]),
+                                                      1e-12)
+        (l_k, g_k, _), (l_p, g_p, _) = grads["cuda"], grads["cpu"]
+        scale = float(g_p["diffuse"].abs().max())
+        err = float((g_k["diffuse"].cpu() - g_p["diffuse"]).abs().max())
+        lrel = abs(l_k - l_p) / max(abs(l_p), 1e-12)
+        log(f"small lit ({small_res}^2, hair quality {small_quality}, depth "
+            f"8): image mean card {means['cuda']:.6f}, CPU "
+            f"{means['cpu']:.6f}, rel diff {rel:.3g}; diffuse gradient loss "
+            f"rel diff {lrel:.3g}, largest gradient diff {err:.3g} = "
+            f"{err / scale:.3g} of the largest |g| ({scale:.4g})")
+        require(means["cpu"] > 0 and rel <= MEAN_RTOL,
+                f"small lit render: card and CPU differ by {rel}")
+        require(lrel <= GRAD_LOSS_RTOL and err <= GRAD_REL * scale,
+                f"small lit gradient: card and CPU differ (loss {lrel}, "
+                f"gradient {err / scale} of the largest)")
+    s = load_scene(xml_s, hair_quality=small_quality, spp_override=1,
+                   max_depth_override=3, device=devs[0])
+    s = with_config(s, rr_depth=999)
+    params = {"diffuse": s.arrays.materials.diffuse}
+    l_s, g_s, _ = scan_ad_grad(s, params)
+    n = s.config.width * s.config.height
+    pix = torch.arange(n, device=s.arrays.device)
+    l_r, g_r = inverse.make_prb_loss_grad(s)(s.arrays, params, pix,
+                                             torch.zeros_like(pix))
+    prel = float((g_r["diffuse"] - g_s["diffuse"]).abs().max()
+                 / g_s["diffuse"].abs().max().clamp(min=1e-12))
+    lrel = abs(float(l_r) - l_s) / max(abs(l_s), 1e-12)
+    log(f"small lit, PRB vs the differentiable mode on {devs[0]}, depth 3: "
+        f"loss {float(l_r):.6f} / {l_s:.6f} (rel {lrel:.3g}), diffuse "
+        f"gradient diff over its largest |g| {prel:.3g}")
+    require(lrel <= PRB_LOSS_RTOL and prel <= PRB_REL,
+            f"small lit: PRB differs from the differentiable mode (loss "
+            f"{lrel}, gradient {prel})")
+    return facts
+
+
+def sub_kernel_entry(rep, launches):
+    """The kernels line's entry of kernel A's sub-box instance: 15a's
+    times on the camera wave (bounce_*: the first-bounce wave's), the
+    launches of 15b's timed tiled_sub wave."""
+    r = dict(rep)
+    r.pop("q")
+    return dict(
+        name="cull_phase_a_sub", route="cuda",
+        source="hairpt_torch/csrc/tiled.cu",
+        replaces="hairpt/ops/pallas_tiled.py:882", launches=launches,
+        max_abs_err=r.pop("max_abs_err"), ms=r.pop("ms"),
+        plain_ms=r.pop("plain_ms"), bound_ms=r.pop("bound_ms"),
+        bound_by=r.pop("bound_by"), library_ms=None,
+        launched_by="the timed tiled_sub wave of phase 15b",
+        bound_basis="bound_ms: the work of this run's camera wave over the "
+        "sub-cluster boxes (live (tile, sub-box) tile tests, live-ray tests "
+        "of the sub-boxes the tile's rays enter)", **r)
+
+
 def warm_up(scene, label):
     """One warm-up wave. Returns (progress callback, the lists it fills
     with each wave's seconds and rays, the number of waves to time: two,
@@ -3180,6 +3680,11 @@ def main() -> int:
         furball_walks(scene, wv, hi_report)
         log(f"phase 14a, furball ({time.time() - t2:.1f}s): kernels H and I "
             f"match their plain versions, H matches F, I matches H")
+        t2 = time.time()
+        sub_a = tiled_options(scene, wv)
+        log(f"phase 15a ({time.time() - t2:.1f}s): kernel A over the "
+            f"sub-cluster boxes matches its plain version; subcull, short_t "
+            f"and two_round agree with the default query")
         del wv, wv_sw
         log(f"phase 2 ({time.time() - t0:.1f}s): the swept phase A and "
             f"kernel E match their plain versions ({time.time() - t1:.1f}s)")
@@ -3213,7 +3718,7 @@ def main() -> int:
         img = path.render(scene, spp=n_timed, seed=1, progress=progress)
         torch.cuda.synchronize()
         launches = dict(tk.LAUNCHES)
-        off_path = dict(tk.OCT_LAUNCHES, **pk.LAUNCHES)
+        off_path = dict(tk.OCT_LAUNCHES, **tk.SUB_LAUNCHES, **pk.LAUNCHES)
         plain_cuda = dict(tk.PLAIN_ON_CUDA)
         mean_tiled = float(img.mean())
         secs = sum(times) / len(times)
@@ -3240,6 +3745,12 @@ def main() -> int:
                 f"plain versions ran on CUDA tensors: {plain_cuda}")
         log(f"phase 4 ({time.time() - t0:.1f}s): render ok")
         del img
+
+        # ---- 15b. the full-width furball, tiled_sub and tiled_short ----
+        t0 = time.time()
+        opt_r = option_renders(scene, reset_all)
+        log(f"phase 15b ({time.time() - t0:.1f}s): the tiled_sub and "
+            f"tiled_short renders ok (phase 4's tiled: {secs:.3f} s/wave)")
 
         # ---- 5. the full-width render, swept ----
         t0 = time.time()
@@ -3440,6 +3951,20 @@ def main() -> int:
         kernels += hi_kernel_entries(hi_report, walks)
         log(f"phase 14 ({time.time() - t0:.1f}s, 14a's furball in phase 2, "
             f"14d's in phase 5): ok")
+
+        # ---- 15c. area and delta lights: the lit stand-in ----
+        t0 = time.time()
+        lit = lit_cell(reset_all)
+        log(f"phase 15c ({time.time() - t0:.1f}s): the lit cell, its CLI, "
+            f"the small card-against-CPU render and gradient and PRB ok "
+            f"({lit['secs']:.3f} s/wave)")
+        kernels.append(sub_kernel_entry(
+            sub_a, opt_r["tiled_sub"]["launches"]["cull_phase_a_sub"]))
+        for k in kernels:
+            if k["name"] in lit["launches"]:
+                k["launches_per_lit_wave"] = \
+                    lit["launches"][k["name"]] / lit["n_timed"]
+        log(f"phase 15 (15a in phase 2, 15b after phase 4): ok")
         require(all(k["launches"] > 0 for k in kernels),
                 "a kernel has no launches")
     except SmokeFailure as e:

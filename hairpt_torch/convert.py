@@ -4,7 +4,8 @@ The input is the JAX scene's arrays with every leaf turned into numpy
 (for example `jax.tree_util.tree_map(np.asarray, scene.arrays)`); this
 module only reads attributes, so it needs no JAX. The result renders the
 identical scene (same prim order, cluster layout, instance tables,
-materials, textures, hair tables and baked environment) through
+materials, textures, hair tables, baked environment, area and delta
+lights) through
 hairpt_torch, with its shutter, its camera's animation and its animated
 instances. params_to_torch and
 grads_to_numpy carry a parameter dict of the JAX package's inverse
@@ -65,11 +66,11 @@ def convert_arrays(arrays, device=None) -> SceneArrays:
     """JAX SceneArrays (numpy leaves) -> hairpt_torch SceneArrays on
     `device`: triangles (their shading, packed BVH and BVHArrays),
     instances, hair (its packed BVH, BVHArrays and swept layout),
-    materials, textures (bitmaps and mips included), hair tables and the
-    environment. Media, area and delta lights raise."""
+    materials, textures (bitmaps and mips included), hair tables, the
+    environment, and the area and delta lights. Media and subsurface
+    tables raise."""
     dev = resolve_device(device)
-    for name, item in (("media", "13"), ("tri_med", "13"),
-                       ("sss", "13"), ("area", "13"), ("delta", "13")):
+    for name, item in (("media", "13"), ("tri_med", "13"), ("sss", "13")):
         if getattr(arrays, name, None) is not None:
             raise NotImplementedError(f"the scene's {name} arrays are not "
                                       f"ported yet (ROADMAP item {item})")
@@ -115,7 +116,11 @@ def convert_arrays(arrays, device=None) -> SceneArrays:
         tri_bvh=_tuple(BVHArrays, getattr(arrays, "tri_bvh", None), dev,
                        bvh_types),
         hair_bvh=_tuple(BVHArrays, getattr(arrays, "hair_bvh", None), dev,
-                        bvh_types))
+                        bvh_types),
+        area=_tuple(em.AreaLights, getattr(arrays, "area", None), dev,
+                    {"tri_index": i32}),
+        delta=_tuple(em.DeltaLights, getattr(arrays, "delta", None), dev,
+                     {"kind": i32}))
 
 
 def _animation(anim):
@@ -143,7 +148,8 @@ def convert_scene(scene, arrays, device=None) -> Scene:
     """A JAX Scene (read for its camera, film, config and active kinds)
     plus its numpy arrays -> a hairpt_torch Scene. Its materials may be
     any ported family (DIFFUSE, PLASTIC, ROUGHPLASTIC and the hair kinds),
-    its environment a baked sunsky, an envmap or a constant one, its
+    its environment a baked sunsky, an envmap or a constant one, with
+    area and delta lights beside it or in its place, its
     sampler any of the five modes, its film any of the six filters and
     its traversal any of scene.TRAVERSALS. Its shutter, the camera's
     animation and the animated instances come across. A JAX rebuild_geo
@@ -185,8 +191,8 @@ def convert_scene(scene, arrays, device=None) -> Scene:
                           dataclasses.asdict(scene.config).items()
                           if k in fields})
     if cfg.traversal not in TRAVERSALS:
-        raise NotImplementedError(f"traversal {cfg.traversal!r} is not "
-                                  f"ported (only {TRAVERSALS})")
+        raise ValueError(f"traversal {cfg.traversal!r} is not one of "
+                         f"{TRAVERSALS}")
     active = tuple(int(k) for k in scene.active_kinds)
     mat.check_kinds(active)
     return Scene(arrays=convert_arrays(arrays, device), camera=camera,

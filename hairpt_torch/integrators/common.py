@@ -1,9 +1,10 @@
 """Scene intersection and shading records (port of
 hairpt/integrators/common.py): the triangles through the packed BVH walk,
-the hair through the tiled, swept or packed traversal, both through the
-per-ray or the blocked walk under traversal 'perray' or 'blocked', the
-instanced meshes through the two-level walk, and the shading record of
-the nearest hit."""
+the hair through the tiled (under 'tiled_sub' with kernel A culling the
+sub-cluster boxes), swept or packed traversal, both through the per-ray
+or the blocked walk under traversal 'perray' or 'blocked', the instanced
+meshes through the two-level walk, and the shading record of the nearest
+hit (a triangle's area-light index included)."""
 from __future__ import annotations
 
 from typing import NamedTuple
@@ -49,7 +50,7 @@ class Hit(NamedTuple):
     sh_n: torch.Tensor        # [N, 3]
     uv: torch.Tensor          # [N, 2]
     mat_id: torch.Tensor      # [N] int32
-    emitter_id: torch.Tensor  # [N] int32 area light index, -1 (item 13)
+    emitter_id: torch.Tensor  # [N] int32 area-light index, -1 = none
     is_hair: torch.Tensor     # [N] bool
     uv_density: torch.Tensor  # [N] the triangle's uv density (0 off it)
     bary: torch.Tensor        # [N, 2] triangle barycentrics (b1, b2)
@@ -65,8 +66,8 @@ def frame(hit: Hit) -> Frame:
 
 def _check_traversal(traversal: str):
     if traversal not in TRAVERSALS:
-        raise NotImplementedError(f"traversal {traversal!r} is not ported "
-                                  f"(only {TRAVERSALS})")
+        raise ValueError(f"traversal {traversal!r} is not one of "
+                         f"{TRAVERSALS}")
 
 
 def _pad_ray(ray: Ray, block: int):
@@ -112,13 +113,14 @@ def _walk(arr, leaf: str, ray: Ray, traversal: str, block: int,
 def scene_intersect(arr, ray: Ray, q_max: int, sort_rays: bool = False,
                     compact: bool = True, traversal: str = "tiled",
                     p_max: int = 24, chunk: int = 64,
-                    block: int = 256) -> Hit:
+                    block: int = 256, short_t: float = 0.0) -> Hit:
     """Closest hit against the triangles and the hair, and its shading
     record. The triangles are walked first (the packed walk; the per-ray
     or the blocked walk under 'perray' or 'blocked'); the hair
     ray's maxt is clipped to the triangle hit. traversal 'tiled' queries
     the hair through the tiled intersector (q_max slots per tile,
-    sort_rays and compact as there), 'swept' through the swept traversal
+    sort_rays, compact and short_t as there), 'tiled_sub' likewise with
+    subcull, 'swept' through the swept traversal
     (p_max candidates per ray, chunks of `chunk` pairs), which ignores
     sort_rays and compact as the JAX package's does, 'packed' through the
     packed walk, 'perray' and 'blocked' (blocks of `block` rays) through
@@ -151,7 +153,8 @@ def scene_intersect(arr, ray: Ray, q_max: int, sort_rays: bool = False,
         else:
             t_hair, prim_hair = itiled.tiled_closest_hit(
                 arr.hair_swept, hair_ray, q_max=q_max, sort_rays=sort_rays,
-                compact=compact)
+                compact=compact, subcull=traversal == "tiled_sub",
+                short_t=short_t)
     t_inst, prim_inst, which_inst = inf, none, none
     if arr.inst is not None:
         iray = ray._replace(maxt=torch.minimum(
@@ -173,6 +176,7 @@ def scene_intersect(arr, ray: Ray, q_max: int, sort_rays: bool = False,
     sh_t = e[1].expand(n, 3)
     uv = torch.zeros((n, 2), device=dev)
     mat_id = torch.zeros((n,), dtype=torch.int32, device=dev)
+    emitter_id = torch.full((n,), -1, dtype=torch.int32, device=dev)
     uv_density = torch.zeros((n,), device=dev)
     bary = torch.zeros((n, 2), device=dev)
     vcolor = torch.ones((n, 3), device=dev)
@@ -209,6 +213,7 @@ def scene_intersect(arr, ray: Ray, q_max: int, sort_rays: bool = False,
         sh_t = torch.where(m, f.t, sh_t)
         uv = torch.where(m, uvi, uv)
         mat_id = torch.where(tri_sel, sh.mat_id[i], mat_id)
+        emitter_id = torch.where(tri_sel, sh.emitter_id[i], emitter_id)
         uv_density = torch.where(tri_sel, sh.uv_density[i], uv_density)
         bary = torch.where(m, torch.stack([b1, b2], -1), bary)
         vcolor = torch.where(m, sh.vc0[i] * b0[..., None]
@@ -255,9 +260,7 @@ def scene_intersect(arr, ray: Ray, q_max: int, sort_rays: bool = False,
         bary = torch.where(m, bary_i, bary)
 
     return Hit(valid=valid, t=t, p=p, geo_n=geo_n, sh_s=sh_s, sh_t=sh_t,
-               sh_n=sh_n, uv=uv, mat_id=mat_id,
-               emitter_id=torch.full((n,), -1, dtype=torch.int32,
-                                     device=dev),
+               sh_n=sh_n, uv=uv, mat_id=mat_id, emitter_id=emitter_id,
                is_hair=use_hair & valid, uv_density=uv_density, bary=bary,
                vcolor=vcolor,
                prim=torch.where(use_inst, prim_inst,
@@ -266,7 +269,8 @@ def scene_intersect(arr, ray: Ray, q_max: int, sort_rays: bool = False,
 
 def scene_occluded(arr, ray: Ray, q_max: int, sort_rays: bool = False,
                    compact: bool = True, traversal: str = "tiled",
-                   p_max: int = 24, chunk: int = 64, block: int = 256):
+                   p_max: int = 24, chunk: int = 64, block: int = 256,
+                   short_t: float = 0.0):
     """[N] bool: does the ray hit a triangle, a hair segment or an
     instance in [mint, maxt]. The triangles are walked first, then the
     hair, then the instances; a later shadow ray starts with maxt = 0
@@ -285,10 +289,10 @@ def scene_occluded(arr, ray: Ray, q_max: int, sort_rays: bool = False,
         elif traversal in ("packed", "perray", "blocked"):
             occ = occ | _walk(arr, "hair", ray2, traversal, block, True)
         else:
-            occ = occ | itiled.tiled_any_hit(arr.hair_swept, ray2,
-                                             q_max=q_max,
-                                             sort_rays=sort_rays,
-                                             compact=compact)
+            occ = occ | itiled.tiled_any_hit(
+                arr.hair_swept, ray2, q_max=q_max, sort_rays=sort_rays,
+                compact=compact, subcull=traversal == "tiled_sub",
+                short_t=short_t)
     if arr.inst is not None:
         ray3 = ray._replace(maxt=torch.where(occ, 0.0, ray.maxt))
         occ = occ | inst_mod.inst_any_hit(arr.inst, ray3)

@@ -76,7 +76,7 @@ def make_prb_loss_grad(scene, loss_fn=None):
 
     def f(arrays_base, params, pixel_idx, sample_idx, *loss_args):
         names = list(params)
-        dev = arrays_base.hair.p0.device
+        dev = arrays_base.device
         with torch.enable_grad():
             p = {k: torch.as_tensor(params[k], device=dev).detach()
                  .requires_grad_() for k in names}
@@ -115,7 +115,7 @@ def make_render_fn(scene, spp: int, antithetic=False):
 
     def render(arrays_base, params, seed: int):
         arrays = apply_params_arrays(arrays_base, params, rows)
-        dev = arrays.hair.p0.device
+        dev = arrays.device
         image, weight = film_mod.zeros(fl, dev)
         pixel_idx = torch.arange(n_pix, device=dev)
         for s in range(spp):
@@ -192,7 +192,7 @@ def fit(scene, target, params0: dict, steps: int = 32, lr: float = 0.05,
     given, and returns the saved losses with the new ones."""
     if loss_kind not in ("mse", "relative", "cross"):
         raise ValueError(f"loss_kind {loss_kind!r}")
-    dev = scene.arrays.hair.p0.device
+    dev = scene.arrays.device
     target = torch.as_tensor(target, dtype=torch.float32, device=dev)
     params = {k: torch.as_tensor(v, dtype=torch.float32, device=dev)
               .detach().clone().requires_grad_() for k, v in params0.items()}

@@ -3,8 +3,12 @@ roulette (port of hairpt/integrators/path.py, forward and differentiable
 modes).
 
 The bounce loop runs over a whole wave of path states at once. Emitter
-NEE samples the baked environment through its alias table; shadow rays
-are thinned by shadow-ray RR (cfg.nee_rr). Bitmap textures are looked up
+NEE picks the baked environment (its alias table), an area light (a
+triangle by power, a point on it uniformly) or a delta light (point,
+spot, directional, collimated) with the probabilities cfg.nee_probs;
+a BSDF ray that hits an area light or escapes to the environment adds
+its emission under MIS, a delta light keeps an MIS weight of 1. Shadow
+rays are thinned by shadow-ray RR (cfg.nee_rr). Bitmap textures are looked up
 at the mip level of each hit's isotropic footprint; at the camera hit a
 lane with a uv Jacobian (_camera_uv_partials) is EWA-filtered instead,
 and whether a wave has such a lane is read once, after the camera query,
@@ -32,6 +36,7 @@ from ..film import film as film_mod
 from ..models import emitters as em
 from ..models import sensors
 from ..models.bsdf import registry as mat
+from ..ops.tiled_kernels import sqrt_rn
 from .common import Hit, block_swizzle, frame, scene_intersect, \
     scene_occluded
 
@@ -60,7 +65,7 @@ def _swept_params(cfg):
     package's _swept_params; C and K come from the tables' shapes)."""
     return dict(traversal=cfg.traversal, q_max=cfg.tiled_q,
                 p_max=cfg.swept_pmax, chunk=cfg.swept_chunk,
-                block=cfg.block)
+                block=cfg.block, short_t=cfg.tiled_short)
 
 
 def _camera_uv_partials(arr, cam, pos, ray, hit):
@@ -179,10 +184,23 @@ def _env_radiance(arr, d):
     return em.env_eval(arr.env, d)
 
 
+def _emitter_radiance_at_hit(arr, hit: Hit, wi_world):
+    """Le of an area light at the hit, seen from wi_world (0 where the hit
+    is on no emitter or faces away: its geometric normal)."""
+    if arr.area is None:
+        return torch.zeros(hit.p.shape[:-1] + (3,), device=hit.p.device)
+    le = arr.area.radiance[torch.clamp(hit.emitter_id, min=0).long()]
+    on = (hit.emitter_id >= 0) & (dot(hit.geo_n, wi_world) > 0)
+    return torch.where(on[..., None], le, 0.0)
+
+
 def _sample_emitter_direct(arr, cfg, p, u_sel, u2):
-    """Pick the environment (the only emitter type of this slice) with
-    probability cfg.nee_probs[0] and sample a direction towards it.
-    Returns (d, dist, le, pdf, is_delta_light)."""
+    """Pick an emitter kind (environment, area, delta) by u_sel with the
+    probabilities cfg.nee_probs and sample a direction towards it
+    (reference: Scene::sampleEmitterDirect, scene.cpp:828). Returns (d,
+    dist, le, pdf, is_delta_light); for a delta light le / pdf is its
+    whole contribution (its MIS weight is 1). The shading points carry no
+    gradient, so the square roots are tiled_kernels.sqrt_rn's."""
     n = p.shape[0]
     dev = p.device
     d = torch.zeros((n, 3), device=dev)
@@ -191,24 +209,71 @@ def _sample_emitter_direct(arr, cfg, p, u_sel, u2):
     pdf = torch.zeros((n,), device=dev)
     dist = torch.full((n,), float("inf"), device=dev)
     is_dl = torch.zeros((n,), dtype=torch.bool, device=dev)
-    p_env = cfg.nee_probs[0]
+    p_env, p_area, p_delta = cfg.nee_probs
     if arr.env is not None and p_env > 0:
         d_env, le_env, pdf_env = em.env_sample(arr.env, u2)
         sel = u_sel < p_env
         d = torch.where(sel[..., None], d_env, d)
         le = torch.where(sel[..., None], le_env, le)
         pdf = torch.where(sel, pdf_env * p_env, pdf)
+    if arr.area is not None and p_area > 0:
+        area = arr.area
+        u_resc = torch.clamp((u_sel - p_env) / p_area, 0.0, 1.0 - 1e-7)
+        l, prob_l = em.sample_cdf(area.cdf, u_resc)
+        su = sqrt_rn(torch.clamp(u2[..., 0], min=1e-12))
+        b0 = 1.0 - su
+        b1 = u2[..., 1] * su
+        q = area.p0[l] + area.e1[l] * b0[..., None] \
+            + area.e2[l] * b1[..., None]
+        dq = q - p
+        d2 = torch.sum(dq * dq, dim=-1)
+        dl = sqrt_rn(torch.clamp(d2, min=1e-20))
+        dd = dq / dl[..., None]
+        cos_l = -torch.sum(area.n[l] * dd, dim=-1)
+        pdf_sa = prob_l / torch.clamp(area.area[l], min=1e-12) * d2 \
+            / torch.clamp(cos_l, min=1e-6)
+        ok = cos_l > 1e-6
+        sel = (u_sel >= p_env) & (u_sel < p_env + p_area)
+        d = torch.where(sel[..., None], dd, d)
+        le = torch.where((sel & ok)[..., None], area.radiance[l],
+                         torch.where(sel[..., None], 0.0, le))
+        pdf = torch.where(sel, torch.where(ok, pdf_sa * p_area, 0.0), pdf)
+        dist = torch.where(sel, dl, dist)
+    if arr.delta is not None and p_delta > 0:
+        u_resc = torch.clamp((u_sel - p_env - p_area) / p_delta, 0.0,
+                             1.0 - 1e-7)
+        d_dl, dist_dl, contrib, prob_l = em.delta_light_sample(
+            arr.delta, p, u_resc)
+        sel = u_sel >= p_env + p_area
+        d = torch.where(sel[..., None], d_dl, d)
+        le = torch.where(sel[..., None], contrib, le)
+        pdf = torch.where(sel, prob_l * p_delta, pdf)
+        dist = torch.where(sel, dist_dl, dist)
+        is_dl = is_dl | sel
     return d, dist, le, pdf, is_dl
 
 
 def _pdf_emitter_hit(arr, cfg, hit: Hit, d):
-    """pdf of NEE having produced the direction of a BSDF ray that
-    escaped to the environment."""
+    """pdf of NEE having produced the direction d of a BSDF ray: the
+    environment's where it escaped, the area light's where it hit one
+    (delta lights are not reachable by BSDF rays). prob_l is from the
+    raw power, as in the JAX package (the CDF adds 1e-12 per entry)."""
     pdf = torch.zeros(d.shape[:1], device=d.device)
-    p_env = cfg.nee_probs[0]
+    p_env, p_area, _ = cfg.nee_probs
     if arr.env is not None and p_env > 0:
         pdf_env = em.env_pdf(arr.env, d) * p_env
         pdf = torch.where(hit.valid, pdf, pdf_env)
+    if arr.area is not None and p_area > 0:
+        area = arr.area
+        l = torch.clamp(hit.emitter_id, min=0).long()
+        power_lum = area.area * (area.radiance
+                                 @ area.radiance.new_tensor(LUM))
+        prob_l = power_lum / torch.clamp(power_lum.sum(), min=1e-12)
+        cos_l = -torch.sum(area.n[l] * d, dim=-1)
+        pdf_area = prob_l[l] / torch.clamp(area.area[l], min=1e-12) \
+            * (hit.t * hit.t) / torch.clamp(cos_l, min=1e-6)
+        on = hit.valid & (hit.emitter_id >= 0) & (cos_l > 1e-6)
+        pdf = torch.where(on, pdf_area * p_area, pdf)
     return pdf
 
 
@@ -304,17 +369,26 @@ def make_li_fn(scene, differentiable: bool = False, antithetic=False):
         env_rad = _env_radiance(arr, d_in)
         li_acc = st.li + torch.where((miss & st.emission_allowed)[..., None],
                                      st.throughput * env_rad, zero)
-        if arr.env is not None:
+        if arr.env is not None or arr.area is not None:
             lum_pdf = _pdf_emitter_hit(arr, cfg, hit, d_in)
             w = torch.where(st.prev_delta, 1.0,
                             _mi_weight(st.prev_bsdf_pdf, lum_pdf))
+        if arr.env is not None:
             li_acc = li_acc + torch.where(
                 (miss & ~st.emission_allowed)[..., None],
                 st.throughput * env_rad * w[..., None], zero)
         active = active & hit.valid
+        wi_world = -d_in
+
+        # ---- emitter hit: an area light's emission ----
+        if arr.area is not None:
+            le = _emitter_radiance_at_hit(arr, hit, wi_world)
+            w_sel = torch.where(st.emission_allowed, 1.0, w)
+            li_acc = li_acc + torch.where(
+                active[..., None], st.throughput * le * w_sel[..., None],
+                zero)
 
         # ---- shading frame (twosided flip) ----
-        wi_world = -d_in
         if scene.has_normal_maps:
             p_n, p_s, p_t = mat.perturb_shading_frame(
                 arr.materials, arr.checkers, hit.mat_id, hit.uv, hit.sh_n,
@@ -339,8 +413,11 @@ def make_li_fn(scene, differentiable: bool = False, antithetic=False):
         # ---- NEE ----
         u_sel = smp.next_1d(dims + D_NEE_SEL)
         u_nee = smp.next_2d(dims + D_NEE_POS)
-        d_nee, dist_nee, le_nee, pdf_nee, is_dl = \
-            _sample_emitter_direct(arr, cfg, hit.p, u_sel, u_nee)
+        # a stopped lane's point (at infinity on a miss) is parked at the
+        # origin: its NEE direction stays finite, so the zero gradient its
+        # masked contribution gets is not 0 * NaN
+        d_nee, dist_nee, le_nee, pdf_nee, is_dl = _sample_emitter_direct(
+            arr, cfg, torch.where(active[..., None], hit.p, 0.0), u_sel, u_nee)
         wo_nee = fr.to_local(d_nee)
         f_nee, bsdf_pdf_nee = mat.eval_pdf_mix(
             active_kinds, arr.materials, hit.mat_id, gm, wi, wo_nee,
@@ -502,18 +579,26 @@ def make_li_fn(scene, differentiable: bool = False, antithetic=False):
 
     def _flush_pending(arr, st):
         """The emission pending on paths that stopped by depth while
-        active."""
+        active: the environment where they escaped, an area light where
+        they hit one."""
         li_acc = st.li
+        if arr.env is None and arr.area is None:
+            return li_acc
+        lum_pdf = _pdf_emitter_hit(arr, cfg, st.hit, st.ray_d)
+        w = torch.where(st.prev_delta, 1.0,
+                        _mi_weight(st.prev_bsdf_pdf, lum_pdf))
+        w = torch.where(st.emission_allowed, 1.0, w)
         if arr.env is not None:
             miss = st.active & ~st.hit.valid
-            lum_pdf = _pdf_emitter_hit(arr, cfg, st.hit, st.ray_d)
-            w = torch.where(st.prev_delta, 1.0,
-                            _mi_weight(st.prev_bsdf_pdf, lum_pdf))
-            w = torch.where(st.emission_allowed, 1.0, w)
             li_acc = li_acc + torch.where(
                 miss[..., None],
                 st.throughput * _env_radiance(arr, st.ray_d) * w[..., None],
                 0.0)
+        if arr.area is not None:
+            le = _emitter_radiance_at_hit(arr, st.hit, -st.ray_d)
+            li_acc = li_acc + torch.where(
+                (st.active & st.hit.valid)[..., None],
+                st.throughput * le * w[..., None], 0.0)
         return li_acc
 
     return li

@@ -157,6 +157,13 @@ def make_prb_grad_fn(scene, loss_fn=None):
             was_active = active
             active = active & hit.valid
             wi_world = -d_in
+            if arr.area is not None:
+                le = path_int._emitter_radiance_at_hit(arr, hit, wi_world)
+                lum_pdf = _pdf_emitter_hit(arr, cfg, hit, d_in)
+                w = torch.where(prev_delta | emission_allowed, 1.0,
+                                _mi_weight(prev_bsdf_pdf, lum_pdf))
+                e = e + torch.where(active[..., None], le * w[..., None],
+                                    0.0)
 
             # ---- shading frame (normal / bump maps, twosided flip) ----
             if scene.has_normal_maps:
@@ -177,8 +184,12 @@ def make_prb_grad_fn(scene, loss_fn=None):
 
             u_sel = smp.next_1d(dims + D_NEE_SEL)
             u_nee = smp.next_2d(dims + D_NEE_POS)
+            # a stopped lane's point (at infinity on a miss) is parked at the
+            # origin: its NEE direction stays finite, so the zero gradient its
+            # masked contribution gets is not 0 * NaN
+            p_nee = torch.where(active[..., None], hit.p, 0.0)
             d_nee, dist_nee, le_nee, pdf_nee, is_dl = \
-                _sample_emitter_direct(arr, cfg, hit.p, u_sel, u_nee)
+                _sample_emitter_direct(arr, cfg, p_nee, u_sel, u_nee)
             wo_nee = fr.to_local(d_nee)
             u_lobe = smp.next_1d(dims + D_BSDF_LOBE)
             u2 = smp.next_2d(dims + D_BSDF_U2)

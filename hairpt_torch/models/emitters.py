@@ -1,11 +1,19 @@
-"""Environment emitters for the forward render (port of the parts of
-hairpt/models/emitters.py the hair scenes use).
+"""Emitters for the forward render (port of hairpt/models/emitters.py
+but its emitted-ray samplers area_emit and delta_emit, which only the
+light tracers call).
 
 bake_sunsky rasterizes the Hosek-Wilkie sky and the sun disc into one
 lat-long radiance table on the host (numpy, a copy of the JAX package's
 bake), make_constant fills a uniform one, and make_envmap builds a
 table's Vose alias table. The device queries
 env_eval / env_sample / env_pdf are torch.
+
+Area lights (emissive triangles, AreaLights, built by SceneBuilder) and
+the point, spot, directional and collimated emitters (DeltaLights,
+make_delta_lights) stay analytic, each with a discrete CDF for NEE's
+selection (reference: Scene::sampleEmitterDirect,
+src/librender/scene.cpp:828); delta_light_sample samples one delta light
+for a shading point.
 """
 from __future__ import annotations
 
@@ -16,6 +24,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..ops.tiled_kernels import sqrt_rn
 
 TWO_PI = 2.0 * np.pi
 
@@ -320,3 +329,113 @@ def env_pdf(env: EnvMap, d_world):
     pdf_texel = env.texel_pdf[iy * w + ix]
     return pdf_texel * (h * w) / (2.0 * math.pi * math.pi
                                   * torch.clamp(st, min=1e-5))
+
+
+# ---------------------------------------------------------------------------
+# area and delta lights
+# ---------------------------------------------------------------------------
+
+class AreaLights(NamedTuple):
+    """Emissive triangles for NEE (reference: src/emitters/area.cpp)."""
+    p0: torch.Tensor         # [L, 3]
+    e1: torch.Tensor         # [L, 3]
+    e2: torch.Tensor         # [L, 3]
+    n: torch.Tensor          # [L, 3] geometric normal
+    radiance: torch.Tensor   # [L, 3]
+    area: torch.Tensor       # [L]
+    cdf: torch.Tensor        # [L] selection CDF (by power)
+    tri_index: torch.Tensor  # [L] int32 index into the sorted triangles
+
+
+POINT = 0
+SPOT = 1
+DIRECTIONAL = 2
+COLLIMATED = 3
+
+
+class DeltaLights(NamedTuple):
+    """Point, spot, directional and collimated emitters (reference:
+    src/emitters/{point,spot,directional,collimated}.cpp): delta
+    distributions, reached only by NEE (MIS weight 1). A collimated beam
+    is a delta in position and direction, so NEE to it always fails
+    (collimated.cpp:126-134): it contributes nothing here."""
+    kind: torch.Tensor        # [L] int32 POINT / SPOT / DIRECTIONAL / ...
+    position: torch.Tensor    # [L, 3]
+    direction: torch.Tensor   # [L, 3] spot axis / directional emission
+    intensity: torch.Tensor   # [L, 3] point, spot: W/sr; directional: W/m^2
+    cos_cutoff: torch.Tensor  # [L] spot outer angle
+    cos_beam: torch.Tensor    # [L] spot inner (full-strength) angle
+    cdf: torch.Tensor         # [L] selection CDF (by power luminance)
+
+
+def make_delta_lights(entries, device=None) -> DeltaLights:
+    """entries: dicts with keys kind, position, direction, intensity,
+    cutoff_deg and beam_deg (the JAX package's, and its defaults); the
+    table on `device` (the card unless "cpu")."""
+    device = resolve_device(device)
+    kind = np.array([e["kind"] for e in entries], np.int32)
+    position = np.array([e.get("position", (0, 0, 0)) for e in entries],
+                        np.float32)
+    direction = np.array([e.get("direction", (0, 0, 1)) for e in entries],
+                         np.float64)
+    direction /= np.maximum(np.linalg.norm(direction, axis=-1,
+                                           keepdims=True), 1e-12)
+    intensity = np.array([e.get("intensity", (1, 1, 1)) for e in entries],
+                         np.float32)
+    cutoff = np.array([np.cos(np.radians(e.get("cutoff_deg", 20.0)))
+                       for e in entries], np.float32)
+    beam = np.array([np.cos(np.radians(e.get("beam_deg", 15.0)))
+                     for e in entries], np.float32)
+    lum = intensity @ np.array([0.212671, 0.715160, 0.072169], np.float32)
+    cdf = np.cumsum(lum + 1e-9)
+    cdf /= cdf[-1]
+
+    def t(a, dtype=torch.float32):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                               device=device)
+    return DeltaLights(kind=t(kind, torch.int32), position=t(position),
+                       direction=t(direction), intensity=t(intensity),
+                       cos_cutoff=t(cutoff), cos_beam=t(beam), cdf=t(cdf))
+
+
+def sample_cdf(cdf, u):
+    """(index, its probability) of u in a discrete CDF (searchsorted to
+    the left, clipped to the table): the JAX package's
+    _sample_discrete_cdf, which NEE's area lights and delta_light_sample
+    share."""
+    idx = torch.clamp(torch.searchsorted(cdf, u.contiguous()), 0,
+                      cdf.shape[0] - 1)
+    lo = torch.where(idx > 0, cdf[torch.clamp(idx - 1, min=0)], 0.0)
+    return idx, cdf[idx] - lo
+
+
+def delta_light_sample(dl: DeltaLights, p, u):
+    """Sample one delta light for shading points p [N, 3]. Returns (d [N,
+    3], dist [N], contribution Le / pdf_positional [N, 3], selection
+    probability [N]). The square root is rounded to nearest on every host
+    (tiled_kernels.sqrt_rn; p carries no gradient)."""
+    l, prob = sample_cdf(dl.cdf, u)
+    kind = dl.kind[l]
+    to_l = dl.position[l] - p
+    d2 = torch.sum(to_l * to_l, dim=-1)
+    dist_p = sqrt_rn(torch.clamp(d2, min=1e-20))
+    d_point = to_l / dist_p[..., None]
+    inten = dl.intensity[l]
+    contrib_pt = inten / torch.clamp(d2, min=1e-12)[..., None]
+    # spot falloff (reference: spot.cpp falloffCurve, a linear blend)
+    cos_a = -torch.sum(dl.direction[l] * d_point, dim=-1)
+    cc = dl.cos_cutoff[l]
+    cb = dl.cos_beam[l]
+    fall = torch.clamp((cos_a - cc) / torch.clamp(cb - cc, min=1e-6),
+                       0.0, 1.0)
+    fall = torch.where(cos_a >= cb, 1.0, fall)
+    contrib_spot = contrib_pt * fall[..., None]
+    is_dir = kind == DIRECTIONAL
+    d = torch.where(is_dir[..., None], -dl.direction[l], d_point)
+    dist = torch.where(is_dir, float("inf"), dist_p)
+    contrib = torch.where(is_dir[..., None], inten,
+                          torch.where((kind == SPOT)[..., None],
+                                      contrib_spot, contrib_pt))
+    # collimated: direct sampling of a 0D response always fails
+    contrib = torch.where((kind == COLLIMATED)[..., None], 0.0, contrib)
+    return d, dist, contrib, prob

@@ -33,6 +33,18 @@ The completion loop is capped at ceil(C/q) + 1 passes (each pass retires
 q clusters of every overflowing tile, so ceil(C/q) always suffice; in
 stream mode q is min(q, stream_qo)); past the cap it raises with the
 count of unresolved rays.
+
+Three options of the JAX package's query, all off by default:
+- subcull: kernel A culls the 32-segment sub-cluster boxes (sub_lo /
+  sub_hi, K/32 per cluster) and its te (min), t_pmax and octet words (OR)
+  are reduced to cluster rows; routing, the keys (cluster ids) and phase
+  B are unchanged, and phase B's box cull keeps the cluster boxes.
+- short_t (with sort_rays): short-ray-first. A first query clamps maxt
+  to short_t; a second runs only the rays it left unresolved, from mint =
+  max(mint, short_t (1 - 1e-4)); a first-query hit wins.
+- two_round (closest hit): a first round routes each tile's two_round
+  nearest clusters (with its own completion passes), a second re-culls
+  with maxt clipped to the first round's t at q_max; the nearer hit wins.
 """
 from __future__ import annotations
 
@@ -54,6 +66,8 @@ CHUNK_BYTES = 2 << 30
 
 # per-process counters read by chip_smoke.py: queries, completion passes
 STATS = {"queries": 0, "max_passes": 0, "overflow_tiles": 0}
+
+SUBK = 32   # segments per sub-cluster box (subcull)
 
 # largest [tiles, 8, q] temporary of the stream routing (bytes)
 STREAM_CHUNK_BYTES = 512 << 20
@@ -325,21 +339,45 @@ def _route_and_test(sw, bounds, key_k, oct_k, rays8_k, tpm_k, ks, q_max,
     return t, p, ov, bound
 
 
+def cull_reduce(rays8, cull_bounds, C: int, emit_oct: bool = False,
+                subcull: bool = False):
+    """Phase A of a query: (te [T, C], t_pmax [T, 64], oct [T, C] or None).
+    With subcull, kernel A runs over the sub-cluster boxes cull_bounds [6,
+    C * n_sub] (cluster c's sub-boxes at c * n_sub ...) and te is reduced
+    to cluster rows by min, oct by OR (the JAX package's reduction,
+    intersect_tiled.py:521-532); t_pmax is the rays' own over the
+    sub-boxes."""
+    out = tk.cull_phase_a(rays8, cull_bounds, emit_oct=emit_oct,
+                          sub=subcull)
+    te, t_pmax = out[0], out[1]
+    oct = out[2] if emit_oct else None
+    if subcull:
+        T = te.shape[0]
+        n_sub = cull_bounds.shape[1] // C
+        te = te.view(T, C, n_sub).amin(dim=2)
+        if oct is not None:
+            o3 = oct.view(T, C, n_sub)
+            oct = o3[:, :, 0].clone()
+            for s in range(1, n_sub):
+                oct |= o3[:, :, s]
+    return te, t_pmax, oct
+
+
 def _query_chunk(sw: SweptHair, rays8, bounds, ks: KeySpace, q_max: int,
-                 any_mode: bool, pb: PhaseB = PhaseB()):
+                 any_mode: bool, pb: PhaseB = PhaseB(), cull_bounds=None):
     """Phase A, routing, phase B and the completion loop for one chunk of
-    tiles. Returns (t [T, 64], pid [T, 64], overflow, passes).
+    tiles. Returns (t [T, 64], pid [T, 64], overflow, passes). bounds [6,
+    C] are the cluster boxes of phase B's cull; cull_bounds, the
+    sub-cluster boxes kernel A culls under subcull (None: bounds).
 
     A completion pass re-routes only the tiles that still have clusters
     left (`more`): every other tile would get an empty slot list, so
     leaving it out changes no result. The octet words of the octet and
     stream modes come from the first cull and are re-used by every pass,
     as in the JAX package."""
-    oct = None
-    if pb.octets or pb.streams:
-        te, t_pmax, oct = tk.cull_phase_a(rays8, bounds, emit_oct=True)
-    else:
-        te, t_pmax = tk.cull_phase_a(rays8, bounds)
+    te, t_pmax, oct = cull_reduce(
+        rays8, bounds if cull_bounds is None else cull_bounds, ks.C,
+        emit_oct=pb.octets or pb.streams, subcull=cull_bounds is not None)
     key = ks.keys(te)
     del te
     T = rays8.shape[0]
@@ -391,20 +429,70 @@ def _query_chunk(sw: SweptHair, rays8, bounds, ks: KeySpace, q_max: int,
                        f"(C={ks.C}, q={q_max})")
 
 
+def sub_bounds(sw: SweptHair):
+    """[6, C * K/32] sub-cluster boxes lo.xyz, hi.xyz (subcull's phase A)."""
+    return torch.cat([sw.sub_lo.T, sw.sub_hi.T]).contiguous()
+
+
+def outside_sub_box(sw: SweptHair, pid, point):
+    """float64 [n]: how far each hit point lies outside the sub-cluster
+    box that holds segment pid (subcull's phase-A box), in units of the
+    segment's radius; 0 inside. Only a hit with a positive value can be
+    lost under subcull: a steep miter's hit may lie outside the exact
+    boxes of its segment's cap ellipses, which the cluster box of the
+    default query can still cover through its other segments."""
+    ids = sw.seg_rows_t[:, 15, :].contiguous().view(torch.int32).reshape(-1)
+    row = torch.full((int(ids.max()) + 1,), -1, dtype=torch.int64,
+                     device=ids.device)
+    ok = ids >= 0
+    row[ids[ok].long()] = torch.arange(ids.numel(),
+                                       device=ids.device)[ok]
+    r = row[pid.long()]
+    K = sw.seg_rows_t.shape[2]
+    radius = sw.seg_rows_t[r // K, 12, r % K].double()
+    lo = sw.sub_lo[r // SUBK].double()
+    hi = sw.sub_hi[r // SUBK].double()
+    pt = point.double()
+    out = torch.clamp(lo - pt, min=0.0) + torch.clamp(pt - hi, min=0.0)
+    return out.amax(dim=-1) / radius
+
+
 def _run(sw: SweptHair, ray: Ray, q_max: int, any_mode: bool,
-         pb: PhaseB = PhaseB()):
-    """Pad, lay out as rays8, query chunk by chunk. Returns (t [N], p [N])."""
+         pb: PhaseB = PhaseB(), subcull: bool = False, two_round: int = 0):
+    """Pad, lay out as rays8, query chunk by chunk. Returns (t [N], p [N]).
+    two_round > 0 (closest hit only) runs each chunk in two rounds: at
+    q = two_round, then at q_max with maxt clipped to the first round's
+    t, keeping the nearer hit (tiles are independent, so a chunk's rounds
+    equal the whole wave's)."""
     ray_p, n_in = _pad_rays(ray, TILE)
     rays8 = rays8_of(ray_p)
     T = rays8.shape[0]
     C = sw.cl_lo.shape[0]
     ks = KeySpace(C)
     bounds = torch.cat([sw.cl_lo.T, sw.cl_hi.T]).contiguous()   # [6, C]
-    t_chunk = max(1, CHUNK_BYTES // (8 * C))   # 8 bytes: the widest key
+    cull_bounds = sub_bounds(sw) if subcull else None
+    c_eff = C if cull_bounds is None else cull_bounds.shape[1]
+    # 8 bytes per (tile, box): the widest key, or kernel A's bf16 te and
+    # octet words over the sub-boxes
+    t_chunk = max(1, CHUNK_BYTES // (8 * c_eff))
     ts, ps = [], []
     for t0 in range(0, T, t_chunk):
-        t_c, p_c, ov, passes = _query_chunk(sw, rays8[t0:t0 + t_chunk],
-                                            bounds, ks, q_max, any_mode, pb)
+        r8 = rays8[t0:t0 + t_chunk]
+        if two_round > 0 and not any_mode:
+            pb1 = pb._replace(qo=min(pb.qo, two_round)) if pb.streams \
+                else pb
+            t1, p1, _, _ = _query_chunk(sw, r8, bounds, ks, two_round,
+                                        any_mode, pb1, cull_bounds)
+            r8 = r8.clone()
+            r8[:, 7, :] = torch.minimum(r8[:, 7, :], t1)
+            t2, p2, ov, passes = _query_chunk(sw, r8, bounds, ks, q_max,
+                                              any_mode, pb, cull_bounds)
+            better = t2 < t1
+            t_c = torch.where(better, t2, t1)
+            p_c = torch.where(better, p2, p1)
+        else:
+            t_c, p_c, ov, passes = _query_chunk(sw, r8, bounds, ks, q_max,
+                                                any_mode, pb, cull_bounds)
         ts.append(t_c)
         ps.append(p_c)
         STATS["overflow_tiles"] += ov
@@ -418,12 +506,18 @@ def _run(sw: SweptHair, ray: Ray, q_max: int, any_mode: bool,
 def tiled_closest_hit(sw: SweptHair, ray: Ray, q_max: int = 128,
                       mode: str = "closest", sort_rays: bool = False,
                       compact: bool = True, octets: bool = False,
-                      streams: bool = False, stream_qo: int | None = None):
+                      streams: bool = False, stream_qo: int | None = None,
+                      subcull: bool = False, short_t: float = 0.0,
+                      two_round: int = 0):
     """Closest hit over the cluster layout: (t [N], prim_id [N]),
     inf / -1 = miss. mode='any' lets a tile stop once every ray holds
     some hit. sort_rays Morton-sorts the rays first (bounce waves) and
     unsorts the results. compact runs mostly-dead sorted waves on a
     prefix of N/4 or N/16 rays picked by the live count.
+
+    subcull, short_t (> 0, with sort_rays) and two_round (> 0, closest
+    hit) as in the module's docstring; as in the JAX package, the two
+    queries of short_t run without two_round.
 
     octets runs phase B as kernel C, streams as kernel D (streams wins
     when both are set, as in the JAX package). stream_qo, the entries per
@@ -434,6 +528,19 @@ def tiled_closest_hit(sw: SweptHair, ray: Ray, q_max: int = 128,
     stream_w (the windows of the TPU kernel's DMA ring) and stream_unroll
     (its scheduling) change no result and have no counterpart here."""
     any_mode = mode == "any"
+    if short_t > 0.0 and sort_rays:
+        kw = dict(q_max=q_max, mode=mode, sort_rays=True, compact=compact,
+                  octets=octets, streams=streams, stream_qo=stream_qo,
+                  subcull=subcull)
+        t1, p1 = tiled_closest_hit(
+            sw, ray._replace(maxt=torch.clamp(ray.maxt, max=short_t)), **kw)
+        unresolved = (p1 < 0) & (ray.maxt > short_t) & (ray.maxt > ray.mint)
+        ray2 = ray._replace(
+            mint=torch.clamp(ray.mint, min=short_t * (1.0 - 1e-4)),
+            maxt=torch.where(unresolved, ray.maxt, 0.0))
+        t2, p2 = tiled_closest_hit(sw, ray2, **kw)
+        hit1 = p1 >= 0
+        return torch.where(hit1, t1, t2), torch.where(hit1, p1, p2)
     if streams:
         if stream_qo is None:
             stream_qo = max(256, q_max // 4)
@@ -459,13 +566,13 @@ def tiled_closest_hit(sw: SweptHair, ray: Ray, q_max: int = 128,
     if M_run < N:
         sub = Ray(o=ray.o[:M_run], d=ray.d[:M_run], mint=ray.mint[:M_run],
                   maxt=ray.maxt[:M_run])
-        t_m, p_m = _run(sw, sub, q_max, any_mode, pb)
+        t_m, p_m = _run(sw, sub, q_max, any_mode, pb, subcull, two_round)
         t = torch.full((N,), float("inf"), device=ray.o.device)
         p = torch.full((N,), -1, dtype=torch.int32, device=ray.o.device)
         t[:M_run] = t_m
         p[:M_run] = p_m
     else:
-        t, p = _run(sw, ray, q_max, any_mode, pb)
+        t, p = _run(sw, ray, q_max, any_mode, pb, subcull, two_round)
     if order is not None:
         t_u = torch.empty_like(t)
         p_u = torch.empty_like(p)
@@ -478,11 +585,13 @@ def tiled_closest_hit(sw: SweptHair, ray: Ray, q_max: int = 128,
 def tiled_any_hit(sw: SweptHair, ray: Ray, q_max: int = 128,
                   sort_rays: bool = False, compact: bool = True,
                   octets: bool = False, streams: bool = False,
-                  stream_qo: int | None = None):
+                  stream_qo: int | None = None, subcull: bool = False,
+                  short_t: float = 0.0):
     """Occlusion: True where the ray hits any segment in [mint, maxt]."""
     degenerate = ray.maxt <= ray.mint
     _, p = tiled_closest_hit(sw, ray, q_max, mode="any",
                              sort_rays=sort_rays, compact=compact,
                              octets=octets, streams=streams,
-                             stream_qo=stream_qo)
+                             stream_qo=stream_qo, subcull=subcull,
+                             short_t=short_t)
     return (p >= 0) & ~degenerate

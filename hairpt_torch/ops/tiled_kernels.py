@@ -38,11 +38,12 @@ Layout contract:
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel or raises. LAUNCHES counts the launches of the dense
-path's kernels (A, B) and OCT_LAUNCHES those of the octet and stream
-modes (A's octet variant, C, D), which the default path never runs;
-PLAIN_ON_CUDA and OCT_PLAIN_ON_CUDA count plain-version calls on CUDA
-tensors (the main path makes none; chip_smoke.py calls the plain versions
-on the card only to compare).
+path's kernels (A, B), OCT_LAUNCHES those of the octet and stream modes
+(A's octet variant, C, D) and SUB_LAUNCHES kernel A's over sub-cluster
+boxes (traversal 'tiled_sub'), which the default path never runs;
+PLAIN_ON_CUDA, OCT_PLAIN_ON_CUDA and SUB_PLAIN_ON_CUDA count plain-version
+calls on CUDA tensors (the main path makes none; chip_smoke.py calls the
+plain versions on the card only to compare).
 """
 from __future__ import annotations
 
@@ -66,10 +67,13 @@ OCT_LAUNCHES = {"cull_phase_a_oct": 0, "phase_b_oct": 0,
                 "stream_phase_b": 0}
 OCT_PLAIN_ON_CUDA = {"cull_phase_a_oct": 0, "phase_b_oct": 0,
                      "stream_phase_b": 0}
+SUB_LAUNCHES = {"cull_phase_a_sub": 0}
+SUB_PLAIN_ON_CUDA = {"cull_phase_a_sub": 0}
 
 
 def reset_counts():
-    for d in (LAUNCHES, PLAIN_ON_CUDA, OCT_LAUNCHES, OCT_PLAIN_ON_CUDA):
+    for d in (LAUNCHES, PLAIN_ON_CUDA, OCT_LAUNCHES, OCT_PLAIN_ON_CUDA,
+              SUB_LAUNCHES, SUB_PLAIN_ON_CUDA):
         for k in d:
             d[k] = 0
 
@@ -150,12 +154,14 @@ def _raise_rc(rc, name):
 # phase A
 # ---------------------------------------------------------------------------
 
-def cull_phase_a(rays8, bounds, emit_oct: bool = False):
+def cull_phase_a(rays8, bounds, emit_oct: bool = False, sub: bool = False):
     """(te [T, C] bf16, t_pmax [T, 64] f32) for rays8 [T, 8, 64] and
     bounds [6, C]; emit_oct adds oct [T, C] i32 (the kernel's octet
-    instance, which only the octet and stream modes launch)."""
+    instance, which only the octet and stream modes launch). sub: the
+    bounds are sub-cluster boxes (subcull); the same kernel, counted under
+    SUB_LAUNCHES."""
     if not rays8.is_cuda:
-        return cull_phase_a_plain(rays8, bounds, emit_oct=emit_oct)
+        return cull_phase_a_plain(rays8, bounds, emit_oct=emit_oct, sub=sub)
     T, C = rays8.shape[0], bounds.shape[1]
     dev = rays8.device
     _check(rays8, "rays8", torch.float32, (T, 8, TILE), dev)
@@ -169,11 +175,13 @@ def cull_phase_a(rays8, bounds, emit_oct: bool = False):
                            None if oct is None else oct.data_ptr(),
                            _stream(dev))
     _raise_rc(rc, "cull_phase_a")
-    if emit_oct:
+    if sub:
+        SUB_LAUNCHES["cull_phase_a_sub"] += 1
+    elif emit_oct:
         OCT_LAUNCHES["cull_phase_a_oct"] += 1
-        return te, t_pmax, oct
-    LAUNCHES["cull_phase_a"] += 1
-    return te, t_pmax
+    else:
+        LAUNCHES["cull_phase_a"] += 1
+    return (te, t_pmax, oct) if emit_oct else (te, t_pmax)
 
 
 def _inv_dir(d):
@@ -200,11 +208,14 @@ def _slab(o, inv_d, lo, hi):
 
 
 def cull_phase_a_plain(rays8, bounds, tile_chunk: int = 64,
-                       emit_oct: bool = False):
+                       emit_oct: bool = False, sub: bool = False):
     """Plain version of kernel A (the JAX package's _tile_cluster_mask
     with cull_phase_a's bf16 truncation), chunked over tiles so the
-    [tiles, 64, C] temporaries stay small."""
-    if rays8.is_cuda and emit_oct:
+    [tiles, 64, C] temporaries stay small. sub as in cull_phase_a (it
+    picks the counter only)."""
+    if rays8.is_cuda and sub:
+        SUB_PLAIN_ON_CUDA["cull_phase_a_sub"] += 1
+    elif rays8.is_cuda and emit_oct:
         OCT_PLAIN_ON_CUDA["cull_phase_a_oct"] += 1
     elif rays8.is_cuda:
         PLAIN_ON_CUDA["cull_phase_a"] += 1

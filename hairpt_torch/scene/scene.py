@@ -11,13 +11,20 @@ the two-level walk (kernel G); the hair by the tiled or the swept
 traversal, or by the packed walk under traversal='packed'. Under
 traversal='perray' or 'blocked' the triangles and the hair are walked
 over their BVHArrays instead (ops/intersect.py, kernel H;
-ops/intersect_blocked.py, kernel I).
+ops/intersect_blocked.py, kernel I). 'tiled_sub' is the tiled traversal
+with kernel A culling the 32-segment sub-cluster boxes.
+
+Lights: the environment, area lights (meshes added with a radiance:
+their triangles, in BVH order, become the AreaLights table) and delta
+lights (delta_lights: point, spot, directional, collimated); NEE picks
+among the kinds present with equal probability (RenderConfig.nee_probs).
 
 Motion blur: a sensor's shutter (open, close) with close > open makes
 render() give sample index s the time t_s = open + (s + 1/2) / spp *
 (close - open), at which it poses the animated camera (camera_anim),
 rebuilds the triangles (rebuild_geo: deformable pairs re-lerped,
-animated meshes moved) and re-poses the animated instances
+animated meshes moved, the area-light table built from the moved
+triangles) and re-poses the animated instances
 (repose_inst). The hair never moves, so a rebuild keeps its arrays.
 """
 from __future__ import annotations
@@ -48,7 +55,8 @@ from ..ops import intersect_swept as iswept
 from . import hairgen
 
 ITEM_13 = "ROADMAP item 13"
-TRAVERSALS = ("tiled", "swept", "packed", "perray", "blocked")
+TRAVERSALS = ("tiled", "tiled_sub", "swept", "packed", "perray",
+              "blocked")
 
 
 class TriGeom(NamedTuple):
@@ -67,7 +75,7 @@ class TriShading(NamedTuple):
     uv1: torch.Tensor
     uv2: torch.Tensor
     mat_id: torch.Tensor      # [N] int32
-    emitter_id: torch.Tensor  # [N] int32, -1 (area lights: item 13)
+    emitter_id: torch.Tensor  # [N] int32 area-light index, -1 = none
     uv_density: torch.Tensor  # [N] sqrt(uv area / world area)
     vc0: torch.Tensor         # [N, 3] vertex colours (default 1)
     vc1: torch.Tensor
@@ -98,6 +106,8 @@ class SceneArrays(NamedTuple):
     inst: Optional[inst_mod.InstancedGeo] = None  # shapegroup / instance
     tri_bvh: Optional[isec.BVHArrays] = None   # the trees of tri_packed
     hair_bvh: Optional[isec.BVHArrays] = None  # and hair_packed, as SoA
+    area: Optional[em.AreaLights] = None       # emissive triangles
+    delta: Optional[em.DeltaLights] = None     # point, spot, ... lights
 
     @property
     def device(self) -> torch.device:
@@ -116,15 +126,18 @@ class RenderConfig:
     strict_normals: bool = True
     sampler: object = rng.INDEPENDENT   # or (rng.SOBOL_QMC, m, width)
     ray_eps: float = 1e-3
-    traversal: str = "tiled"    # the hair's: 'tiled' | 'swept' | 'packed';
-    #                             'perray' | 'blocked' for both triangles
-    #                             and hair
+    traversal: str = "tiled"    # the hair's: 'tiled' | 'tiled_sub' |
+    #                             'swept' | 'packed'; 'perray' | 'blocked'
+    #                             for both triangles and hair
     block: int = 256            # rays per block ('blocked')
     swept_k: int = 128          # segments per cluster
     swept_c: int = 0            # cluster count (filled at build)
     swept_pmax: int = 24        # phase-A candidate clusters per ray ('swept')
     swept_chunk: int = 64       # pairs per phase-B chunk ('swept')
     tiled_q: int = 128          # candidate clusters per 64-ray tile
+    tiled_short: float = 0.0    # short-ray-first clamp of the sorted
+    #                             (bounce and shadow) tiled queries; a
+    #                             hair scene's build turns 0 into -1, off
     nee_probs: tuple = (1.0, 0.0, 0.0)   # (env, area, delta)
     nee_rr: float = 0.0         # shadow-ray Russian roulette threshold
 
@@ -140,7 +153,8 @@ class Scene(NamedTuple):
     shutter: tuple = (0.0, 0.0)    # (open, close); close > open: blur
     camera_anim: object = None     # AnimatedTransform of the sensor
     rebuild_geo: object = None     # t -> SceneArrays with the triangles
-    #                                posed at time t (animated meshes,
+    #                                (and the area lights on them) posed
+    #                                at time t (animated meshes,
     #                                deformable pairs)
     repose_inst: object = None     # (arrays, t) -> arrays with the
     #                                animated instances posed at t
@@ -167,7 +181,10 @@ class SceneBuilder:
 
     def __init__(self, device=None):
         self.device = resolve_device(device)
-        self.tri_meshes = []       # (Mesh in world space, mat_id)
+        self.tri_meshes = []       # (Mesh in world space, mat_id,
+        #                            emitter id or -1)
+        self.area_lights = []      # radiance [3] f32 per emissive mesh
+        self.delta_lights = []     # make_delta_lights entries
         self.fibers = []
         self.materials = []
         self.checkers = []         # procedural texture rows
@@ -271,17 +288,21 @@ class SceneBuilder:
 
     def add_mesh(self, mesh: shp.Mesh, mat_id: int, to_world=None,
                  radiance=None, motion=None):
-        if radiance is not None:
-            raise NotImplementedError("area lights are not ported yet "
-                                      f"({ITEM_13})")
+        """radiance: the mesh is an area light of that radiance (reference:
+        src/emitters/area.cpp), each of its triangles an entry of the
+        AreaLights table."""
         if motion is not None:
             raise NotImplementedError("mesh motion tables (the motion "
                                       f"integrator) are not ported yet "
                                       f"({ITEM_13})")
         if to_world is not None:
             mesh = shp.transform_mesh(mesh, to_world)
+        emitter_id = -1
+        if radiance is not None:
+            emitter_id = len(self.area_lights)
+            self.area_lights.append(np.asarray(radiance, np.float32))
         self.tri_meshes.append((self._curvature_fixup(mesh, mat_id),
-                                mat_id))
+                                mat_id, emitter_id))
 
     def _curvature_fixup(self, mesh: shp.Mesh, mat_id: int) -> shp.Mesh:
         """Bake the curvature texture's vertex colours (|K| tanh
@@ -296,14 +317,14 @@ class SceneBuilder:
         return mesh
 
     def add_morph_mesh(self, m0: shp.Mesh, m1: shp.Mesh, mat_id: int,
-                       to_world=None, time: float = 0.0):
+                       to_world=None, radiance=None, time: float = 0.0):
         """A keyframe morph (reference: src/shapes/deformable.cpp) built at
         scene time `time`; its world-space pair is kept, and under an open
         shutter rebuild_geo re-lerps it at each shutter time (clipped to
-        [0, 1])."""
+        [0, 1]). radiance as in add_mesh."""
         k = len(self.tri_meshes)
         self.add_mesh(shp.lerp_mesh(m0, m1, float(np.clip(time, 0, 1))),
-                      mat_id, to_world=to_world)
+                      mat_id, to_world=to_world, radiance=radiance)
         if to_world is not None:
             m0 = shp.transform_mesh(m0, to_world)
             m1 = shp.transform_mesh(m1, to_world)
@@ -338,22 +359,24 @@ class SceneBuilder:
         rebuild rules)."""
         meshes = list(self.tri_meshes)
         for k, (w0, w1) in self.morph_meshes.items():
-            mid = meshes[k][1]
+            _, mid, eid = meshes[k]
             meshes[k] = (self._curvature_fixup(shp.lerp_mesh(
-                w0, w1, float(np.clip(t, 0.0, 1.0))), mid), mid)
+                w0, w1, float(np.clip(t, 0.0, 1.0))), mid), mid, eid)
         t_open = float(self.shutter[0])
         for k, anim in self.animated_meshes.items():
             rel = anim.eval(float(t)) @ np.linalg.inv(anim.eval(t_open))
-            mesh, mid = meshes[k]
-            meshes[k] = (shp.transform_mesh(mesh, rel), mid)
+            mesh, mid, eid = meshes[k]
+            meshes[k] = (shp.transform_mesh(mesh, rel), mid, eid)
         return meshes
 
     def _build_triangles(self, t, meshes):
-        """(TriGeom, TriShading, PackedBVH, BVHArrays) of the meshes: the
-        JAX package's triangle block, dtype for dtype."""
+        """(TriGeom, TriShading, PackedBVH, BVHArrays, AreaLights or None)
+        of the meshes: the JAX package's triangle block and area-light
+        table, dtype for dtype."""
         v0l, v1l, v2l, n0l, n1l, n2l = [], [], [], [], [], []
         uv0l, uv1l, uv2l, midl, vc0l, vc1l, vc2l = [], [], [], [], [], [], []
-        for mesh, mid in meshes:
+        eidl = []
+        for mesh, mid, eid in meshes:
             f = mesh.faces
             p = mesh.positions
             v0, v1, v2 = p[f[:, 0]], p[f[:, 1]], p[f[:, 2]]
@@ -383,6 +406,7 @@ class SceneBuilder:
                 uv1l.append(z)
                 uv2l.append(z)
             midl.append(np.full(len(f), mid, np.int32))
+            eidl.append(np.full(len(f), eid, np.int32))
             if mesh.colors is not None:
                 cc = mesh.colors
                 vc0l.append(cc[f[:, 0]])
@@ -399,8 +423,11 @@ class SceneBuilder:
                            np.maximum(np.maximum(v0, v1), v2))
         o = fb.prim_order
         f32 = torch.float32
-        tri = TriGeom(p0=t(v0[o], f32), e1=t((v1 - v0)[o], f32),
-                      e2=t((v2 - v0)[o], f32))
+        p0_s = v0[o].astype(np.float32)
+        e1_s = (v1 - v0)[o].astype(np.float32)
+        e2_s = (v2 - v0)[o].astype(np.float32)
+        tri = TriGeom(p0=t(p0_s, f32), e1=t(e1_s, f32), e2=t(e2_s, f32))
+        eid = cat(eidl)[o]
         rows = ipk.tri_pack_rows(v0[o].astype(np.float32),
                                  v1[o].astype(np.float32),
                                  v2[o].astype(np.float32),
@@ -411,13 +438,36 @@ class SceneBuilder:
             n2=t(cat(n2l)[o], f32), uv0=t(cat(uv0l)[o], f32),
             uv1=t(cat(uv1l)[o], f32), uv2=t(cat(uv2l)[o], f32),
             mat_id=t(cat(midl)[o], torch.int32),
-            emitter_id=t(np.full(len(o), -1, np.int32), torch.int32),
+            emitter_id=t(eid, torch.int32),
             uv_density=t(_uv_density(cat(uv0l)[o], cat(uv1l)[o],
                                      cat(uv2l)[o], (v1 - v0)[o],
                                      (v2 - v0)[o]), f32),
             vc0=t(cat(vc0l)[o], f32), vc1=t(cat(vc1l)[o], f32),
             vc2=t(cat(vc2l)[o], f32))
-        return tri, shading, packed, isec.bvh_to_device(fb, self.device)
+        return (tri, shading, packed, isec.bvh_to_device(fb, self.device),
+                self._area_table(t, p0_s, e1_s, e2_s, eid))
+
+    def _area_table(self, t, p0, e1, e2, eid):
+        """AreaLights over the emissive triangles in BVH order (the JAX
+        package's build: normals and areas from the f32 edges, the CDF by
+        power luminance with 1e-12 per entry), or None."""
+        sel = np.nonzero(eid >= 0)[0]
+        if not self.area_lights or len(sel) == 0:
+            return None
+        p0, e1, e2 = p0[sel], e1[sel], e2[sel]
+        nrm = np.cross(e1, e2)
+        area = 0.5 * np.linalg.norm(nrm, axis=-1)
+        nrm = nrm / np.maximum(np.linalg.norm(nrm, axis=-1, keepdims=True),
+                               1e-20)
+        rad = np.stack([self.area_lights[e] for e in eid[sel]])
+        power = area * (rad @ np.array([0.212671, 0.715160, 0.072169]))
+        cdf = np.cumsum(power + 1e-12)
+        cdf /= cdf[-1]
+        f32 = torch.float32
+        return em.AreaLights(p0=t(p0, f32), e1=t(e1, f32), e2=t(e2, f32),
+                             n=t(nrm, f32), radiance=t(rad, f32),
+                             area=t(area, f32), cdf=t(cdf, f32),
+                             tri_index=t(sel.astype(np.int32), torch.int32))
 
     def _build_hair(self, t, cfg):
         segs = [hairgen.segments(fs) for fs, _ in self.fibers]
@@ -457,9 +507,8 @@ class SceneBuilder:
             config_kwargs["traversal"] = "tiled"
             config_kwargs.setdefault("tiled_q", 2048)
         if config_kwargs["traversal"] not in TRAVERSALS:
-            raise NotImplementedError(
-                f"traversal {config_kwargs['traversal']!r} is not ported "
-                f"(ported: {TRAVERSALS}; 'tiled_sub': ROADMAP item 8)")
+            raise ValueError(f"traversal {config_kwargs['traversal']!r} is "
+                             f"not one of {TRAVERSALS}")
         if not self.fibers and not self.tri_meshes and not self.instances:
             raise ValueError("the scene has no geometry")
         cfg = RenderConfig(width=film.width, height=film.height,
@@ -470,16 +519,20 @@ class SceneBuilder:
             return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
                                    device=dev)
 
-        tri = tri_shading = tri_packed = tri_bvh = None
+        tri = tri_shading = tri_packed = tri_bvh = area = None
         if self.tri_meshes:
-            tri, tri_shading, tri_packed, tri_bvh = self._build_triangles(
-                t, self.tri_meshes)
+            tri, tri_shading, tri_packed, tri_bvh, area = \
+                self._build_triangles(t, self.tri_meshes)
         hair = hair_mat_id = hair_packed = swept = hair_bvh = None
         if self.fibers:
             hair, hair_mat_id, hair_packed, swept, hair_bvh = \
                 self._build_hair(t, cfg)
+            # short-ray-first stays opt-in, as in the JAX package: 0 means
+            # off (-1), a positive value turns it on
             cfg = dataclasses.replace(
-                cfg, swept_c=int(swept.seg_rows_t.shape[0]))
+                cfg, swept_c=int(swept.seg_rows_t.shape[0]),
+                tiled_short=-1.0 if cfg.tiled_short == 0.0
+                else cfg.tiled_short)
 
         rows = self.materials or [mat.default_material_row(
             kind=mat.ROUGHPLASTIC)]
@@ -492,9 +545,14 @@ class SceneBuilder:
                 [inst_mod.build_proto(m_, mid_, device=dev)
                  for m_, mid_ in self.protos], self.instances, device=dev)
         env = self.env.to(dev) if self.env is not None else None
-        cfg = dataclasses.replace(
-            cfg, nee_probs=(1.0, 0.0, 0.0) if env is not None
-            else (0.0, 0.0, 0.0))
+        delta = em.make_delta_lights(self.delta_lights, device=dev) \
+            if self.delta_lights else None
+        # NEE picks among the kinds of source present with equal
+        # probability
+        present = [env is not None, area is not None, delta is not None]
+        n_src = max(sum(present), 1)
+        cfg = dataclasses.replace(cfg, nee_probs=tuple(
+            (1.0 / n_src) if p else 0.0 for p in present))
         active = tuple(sorted({int(r["kind"]) for r in rows}))
         mat.check_kinds(active)
         ht = None
@@ -511,7 +569,8 @@ class SceneBuilder:
                              hair_packed=hair_packed, hair_swept=swept,
                              materials=materials, checkers=checkers,
                              hair_tables=ht, env=env, inst=inst,
-                             tri_bvh=tri_bvh, hair_bvh=hair_bvh)
+                             tri_bvh=tri_bvh, hair_bvh=hair_bvh, area=area,
+                             delta=delta)
         return Scene(arrays=arrays, camera=camera, film=film, config=cfg,
                      active_kinds=active, marschner_rows=marschner_rows,
                      has_normal_maps=any(int(r.get("nrm_tex_id", -1)) >= 0
@@ -523,19 +582,21 @@ class SceneBuilder:
 
     def _rebuild_fn(self, t, arrays: SceneArrays):
         """rebuild_geo: t_s -> `arrays` with the triangle block (tri,
-        tri_shading, tri_packed, tri_bvh) built anew from the meshes at
-        t_s; the hair, instances, materials, textures and environment stay
-        the build's own objects (the JAX package rebuilds the whole scene,
-        hair included, which never moves). None without animated or
-        deformable meshes."""
+        tri_shading, tri_packed, tri_bvh) and the area lights on it built
+        anew from the meshes at t_s, so NEE samples an emissive mesh where
+        its hits are; the hair, instances, materials, textures, delta
+        lights and environment stay the build's own objects (the JAX
+        package rebuilds the whole scene, hair included, which never
+        moves). None without animated or deformable meshes."""
         if not (self.animated_meshes or self.morph_meshes):
             return None
 
         def rebuild_geo(t_s: float) -> SceneArrays:
-            tri, shading, packed, bvh = self._build_triangles(
+            tri, shading, packed, bvh, area = self._build_triangles(
                 t, self._meshes_at(t_s))
             return arrays._replace(tri=tri, tri_shading=shading,
-                                   tri_packed=packed, tri_bvh=bvh)
+                                   tri_packed=packed, tri_bvh=bvh,
+                                   area=area)
         return rebuild_geo
 
     def _repose_fn(self):

@@ -50,6 +50,16 @@ stand-in fibers (keyed by those names) take the place of the absent
   samples (four shutter times), 1024^2, the constant 0.8 envmap of a
   missing EXR, maxDepth 65. No reference scene is animated: the layout
   and the values are this stand-in's own.
+- lit/scene.xml: a stand-in for the reference's area and delta lights
+  (src/emitters/{area,point,spot,directional}.cpp) in the syntax the JAX
+  loader reads (hairpt/scene/xml_loader.py:672-676 for a shape's
+  <emitter type="area">, :851-863 for the point, spot, directional and
+  collimated emitters): the furball's fibers and camera under bench.py's
+  rough plastic (1,008,000 segments at hair quality 14), a rectangle
+  area light above the fur facing down, a sphere area light beside it,
+  a spot light behind it as the rim light, a point light, and the
+  furball's sunsky; Sobol' 64 spp, 1024^2, maxDepth 65. No reference
+  scene is lit so: the layout and the values are this stand-in's own.
 The hair scenes' cameras are the framing of their generators (straight
 and curly: from (0, 16.5, -25) at (0, 8.5, 0); hair-curl: from
 (0, 5.9, 17) at (0, 6, 0)). Written files are for the CLI and the
@@ -391,6 +401,39 @@ def motion_files(d: str):
         positions=sph.positions * np.array([1.3, 0.7, 1.3])))
 
 
+def lit(sampler="sobol", spp=64, res=1024, depth=65) -> str:
+    """The lit furball; the tests and chip_smoke vary its sampler, sample
+    count, resolution and depth."""
+    m = " ".join(repr(float(x)) for x in CAM_TO_WORLD.reshape(-1))
+    return _scene(
+        _sensor(f"<matrix value=\"{m}\"/>", res, res, sampler, spp)
+        + "<bsdf type=\"roughplastic\" id=\"fur\">"
+          "<string name=\"distribution\" value=\"ggx\"/>"
+          "<float name=\"alpha\" value=\"0.2\"/>"
+          "<float name=\"intIOR\" value=\"1.55\"/>"
+          f"<rgb name=\"diffuseReflectance\" value=\"{_rgb(DIFFUSE)}\"/>"
+          "</bsdf>"
+        + _hair("furball.mitshair", 0.00216667, "<ref id=\"fur\"/>")
+        # the panel above the fur, its +z face turned down
+        + "<shape type=\"rectangle\"><transform name=\"toWorld\">"
+          "<scale value=\"2.5\"/><rotate x=\"1\" angle=\"90\"/>"
+          "<translate x=\"0\" y=\"17\" z=\"0\"/></transform>"
+          "<emitter type=\"area\"><rgb name=\"radiance\" "
+          "value=\"6, 5.6, 5\"/></emitter></shape>"
+        + "<shape type=\"sphere\"><point name=\"center\" x=\"5\" "
+          "y=\"11.5\" z=\"-3\"/><float name=\"radius\" value=\"0.6\"/>"
+          "<emitter type=\"area\"><rgb name=\"radiance\" "
+          "value=\"4, 6, 9\"/></emitter></shape>"
+        + "<emitter type=\"spot\"><transform name=\"toWorld\"><lookat "
+          "origin=\"8, 15, -8\" target=\"0, 11, 0\" up=\"0, 1, 0\"/>"
+          "</transform><spectrum name=\"intensity\" value=\"300\"/>"
+          "<float name=\"cutoffAngle\" value=\"25\"/></emitter>"
+        + "<emitter type=\"point\"><point name=\"position\" x=\"-6\" "
+          "y=\"16\" z=\"6\"/><rgb name=\"intensity\" "
+          "value=\"60, 50, 40\"/></emitter>"
+        + SUN, depth)
+
+
 # name -> (directory, file name, XML builder[, writer of its files])
 SCENES = {
     "furball": ("furball", "scene.xml", furball),
@@ -403,13 +446,15 @@ SCENES = {
     "teapot": ("teapot", "scene.xml", teapot),
     "instanced": ("instanced", "scene.xml", instanced, instanced_files),
     "motion": ("motion", "scene.xml", motion, motion_files),
+    "lit": ("lit", "scene.xml", lit),
 }
+
 
 
 def write_scene(root: str, name: str, **kw) -> str:
     """Write scene `name` under root/<its directory>/ (with its files,
     where it has any) and return the path; kw go to its XML builder
-    (furball(), teapot(), instanced() and motion() take any)."""
+    (furball(), teapot(), instanced(), motion() and lit() take any)."""
     d, f, make, *files = SCENES[name]
     os.makedirs(os.path.join(root, d), exist_ok=True)
     path = os.path.join(root, d, f)

@@ -44,15 +44,19 @@ What the port renders:
   time (an animated hair shape stays at shutter open, as in the JAX
   loader);
 - the sunsky, sky, sun, envmap (HDR, PFM, EXR or PNG) and constant
-  emitters;
+  emitters; the point, spot, directional and collimated emitters
+  (position and direction from toWorld where absent; intensity, else
+  irradiance, else power; cutoffAngle 20 and beamWidth 3/4 of it by
+  default); a shape's `<emitter>` (an area light of its radiance) on
+  every mesh shape, dropped on a hair shape as the JAX loader drops it;
 - `<spectrum>` and `<blackbody>` values.
 A `<texture>` at the scene's top level is ignored, as the JAX loader
 ignores it (it reads only a BSDF's own texture).
 
 Every other element the JAX loader accepts raises NotImplementedError
 before any build work, naming the ROADMAP item that ports it (13: the
-motion integrator, media, shape emitters, LDR images other than PNG, and
-the rest). Nothing is dropped silently.
+motion integrator, media, subsurface scattering, LDR images other than
+PNG, and the rest). Nothing else is dropped silently.
 """
 from __future__ import annotations
 
@@ -123,7 +127,8 @@ _BSDF_PORTED = {"diffuse", "plastic", "roughplastic", "kajiyakay",
 _IMAGE_EXTS = (".png", ".hdr", ".pfm", ".exr")
 _SENSORS_PORTED = {"perspective"}
 _FILMS_PORTED = {"ldrfilm", "hdrfilm", "mfilm"}
-_EMITTERS_PORTED = {"sunsky", "sky", "sun", "envmap", "constant"}
+_DELTA_KINDS = {"point": em.POINT, "spot": em.SPOT,
+                "directional": em.DIRECTIONAL, "collimated": em.COLLIMATED}
 
 
 def _refuse(what: str, item: str):
@@ -300,8 +305,6 @@ def _refuse_unported(root, defines, scene_dir):
     for bsdf in root.iter("bsdf"):
         _refuse_bsdf(bsdf, defines, scene_dir)
     for shape in root.findall("shape"):
-        if shape.find("emitter") is not None:
-            _refuse("area lights (shape emitters)", ITEM_13)
         if shape.find("subsurface") is not None:
             _refuse("subsurface scattering", ITEM_13)
         if shape.find("medium") is not None:
@@ -309,10 +312,7 @@ def _refuse_unported(root, defines, scene_dir):
         if shape.get("type") == "heightfield":
             _refuse_image(shape, defines, scene_dir, "a heightfield's")
     for emit in root.findall("emitter"):
-        etype = emit.get("type")
-        if etype not in _EMITTERS_PORTED:
-            _refuse(f"the {etype} emitter (area and delta lights)", ITEM_13)
-        if etype == "envmap":
+        if emit.get("type") == "envmap":
             fname = os.path.join(scene_dir, _collect_props(
                 emit, defines).get("filename", ""))
             if os.path.exists(fname) and not fname.lower().endswith(
@@ -572,10 +572,10 @@ def _shape_group(shape, defines, scene_dir, mat_ids, mid, b) -> list:
     return group
 
 
-def _deformable(p, defines, scene_dir, mid, to_world, b):
+def _deformable(p, defines, scene_dir, mid, to_world, b, radiance=None):
     """A keyframe morph (reference: src/shapes/deformable.cpp) lerped at
-    `time` (-D time=t, else its own), as the JAX loader adds it; a
-    missing file adds nothing."""
+    `time` (-D time=t, else its own), as the JAX loader adds it (an area
+    light where radiance is given); a missing file adds nothing."""
     f0 = os.path.join(scene_dir, p.get("filename", ""))
     f1 = os.path.join(scene_dir, p.get("filename2", p.get("filename", "")))
     if not os.path.exists(f0):
@@ -587,7 +587,8 @@ def _deformable(p, defines, scene_dir, mid, to_world, b):
             else shp.load_serialized(f)
     m0 = load(f0)
     m1 = load(f1) if os.path.exists(f1) and f1 != f0 else m0
-    b.add_morph_mesh(m0, m1, mid, to_world=to_world, time=t_anim)
+    b.add_morph_mesh(m0, m1, mid, to_world=to_world, radiance=radiance,
+                     time=t_anim)
 
 
 def _read_env_image(fname: str):
@@ -707,6 +708,11 @@ def load_scene(path: str, defines: dict | None = None,
                     inline, defines, b, scene_dir))
         if mid is None:
             mid = b.add_material(kind=mat.DIFFUSE)
+        # an area light: the radiance of the shape's last <emitter>
+        radiance = None
+        for emit in shape.findall("emitter"):
+            radiance = _collect_props(emit, defines).get("radiance",
+                                                         (1.0, 1.0, 1.0))
         stype = shape.get("type")
         if stype == "shapegroup":
             shape_groups[shape.get("id")] = _shape_group(
@@ -720,11 +726,13 @@ def load_scene(path: str, defines: dict | None = None,
             continue
         if stype != "hair":
             if stype == "deformable":
-                _deformable(p, defines, scene_dir, mid, to_world, b)
+                _deformable(p, defines, scene_dir, mid, to_world, b,
+                            radiance)
             else:
                 got = _mesh_shape(stype, p, scene_dir, to_world)
                 if got is not None:
-                    b.add_mesh(got[0], mid, to_world=got[1])
+                    b.add_mesh(got[0], mid, to_world=got[1],
+                               radiance=radiance)
             if anim is not None:
                 # stored at shutter open, moved by anim(t) inv(anim(open))
                 for k in range(first_mesh, len(b.tri_meshes)):
@@ -748,7 +756,8 @@ def load_scene(path: str, defines: dict | None = None,
                                   fs.radius * sc)
         b.add_fibers(fs, mid)
 
-    # environment emitters (the last one wins, as in the JAX loader)
+    # emitters: the environment (the last one wins) and the delta lights,
+    # as in the JAX loader (xml_loader.py:822-863)
     for emit in root.findall("emitter"):
         etype = emit.get("type")
         p = _collect_props(emit, defines)
@@ -772,9 +781,20 @@ def load_scene(path: str, defines: dict | None = None,
             b.env = em.make_envmap(img, to_world[:3, :3],
                                    scale=p.get("scale", 1.0),
                                    device=b.device)
-        else:
+        elif etype == "constant":
             b.env = em.make_constant(p.get("radiance", (1.0, 1.0, 1.0)),
                                      device=b.device)
+        elif etype in _DELTA_KINDS:
+            cutoff = p.get("cutoffAngle", 20.0)
+            b.delta_lights.append(dict(
+                kind=_DELTA_KINDS[etype],
+                position=p.get("position", tuple(to_world[:3, 3])),
+                direction=p.get("direction",
+                                tuple(to_world[:3, :3] @ [0, 0, 1])),
+                intensity=p.get("intensity", p.get(
+                    "irradiance", p.get("power", (1.0, 1.0, 1.0)))),
+                cutoff_deg=cutoff,
+                beam_deg=p.get("beamWidth", cutoff * 0.75)))
 
     if sampler_kind == "sobol":
         # true high-dimensional Sobol' with the per-pixel

@@ -202,8 +202,11 @@ REFUSED = {
                      "<transform time=\"1\"><translate x=\"1\" z=\"5\"/>"
                      "</transform></animation></shape>"
                    + HAIR + "<emitter type=\"constant\"/>", None),
+    # a point light and an area light (an emitter inside a hair shape,
+    # which both loaders drop) render (item 13's lights, refused by an
+    # earlier slice)
     "point_light": (SENSOR.format(kind="perspective") + HAIR
-                    + "<emitter type=\"point\"/>", "13"),
+                    + "<emitter type=\"point\"/>", None),
     "orthographic": (SENSOR.format(kind="orthographic") + HAIR, "13"),
     "direct": ("<integrator type=\"direct\"/>"
                + SENSOR.format(kind="perspective") + HAIR, "13"),
@@ -218,8 +221,9 @@ REFUSED = {
     "conductor": (SENSOR.format(kind="perspective")
                   + "<bsdf type=\"conductor\" id=\"c\"/>" + HAIR, "13"),
     "area_light": (SENSOR.format(kind="perspective")
-                   + "<shape type=\"hair\"><emitter type=\"area\"/></shape>",
-                   "13"),
+                   + HAIR.replace("</shape>",
+                                  "<emitter type=\"area\"/></shape>"),
+                   None),
 }
 
 
@@ -244,7 +248,13 @@ def test_cli_refuses_what_the_port_does_not_render(tmp_path, monkeypatch,
         s = txl.load_scene(str(d / "scene.xml"), spp_override=1,
                            max_depth_override=2, hair_quality=0.01,
                            device="cpu")
-        assert len(s.arrays.inst.proto_ids) == 1 and img.mean() > 0
+        if case == "shapegroup":
+            assert len(s.arrays.inst.proto_ids) == 1 and img.mean() > 0
+        if case == "point_light":
+            assert s.arrays.delta.kind.tolist() == [0]
+        if case == "area_light":
+            # the hair shape's emitter is dropped: no light at all
+            assert s.arrays.area is None and s.config.nee_probs == (0.0,) * 3
         np.testing.assert_array_equal(img, tpath.render(s, spp=1).numpy())
         return
     monkeypatch.setattr(txl.SceneBuilder, "__init__", None)

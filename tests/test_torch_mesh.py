@@ -234,13 +234,14 @@ def test_mesh_scene_build_matches_jax(same_bvh, fibers):
 
 
 def test_mesh_builder_refusals():
-    """Area lights and the motion integrator's mesh motion tables raise,
-    naming ROADMAP item 13; an animated instance, which an earlier slice
-    refused (item 11c), is taken: its animation drives repose_inst."""
+    """The motion integrator's mesh motion tables raise, naming ROADMAP
+    item 13; an area light (item 13's, refused by an earlier slice) is
+    taken: the mesh gets an emitter id; so is an animated instance (item
+    11c): its animation drives repose_inst."""
     from hairpt_torch.core.track import AnimatedTransform
     b = TSceneBuilder(device="cpu")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        b.add_mesh(tshp.rectangle(), 0, radiance=(1.0, 1.0, 1.0))
+    b.add_mesh(tshp.rectangle(), 0, radiance=(1.0, 1.0, 1.0))
+    assert b.tri_meshes[0][2] == 0 and len(b.area_lights) == 1
     with pytest.raises(NotImplementedError, match="item 13"):
         b.add_mesh(tshp.rectangle(), 0, motion=np.eye(4))
     anim = AnimatedTransform([(0.0, np.eye(4)), (1.0, np.diag([2.0] * 3

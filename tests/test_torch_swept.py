@@ -244,14 +244,18 @@ def test_scene_builder_takes_swept_and_refuses_other_traversals():
     assert s.config.swept_c == s.arrays.hair_swept.seg_rows_t.shape[0] > 0
     assert (s.config.swept_pmax, s.config.swept_chunk) == (24, 64)
     # 'perray' and 'blocked', which an earlier slice refused, build the
-    # hair's BVHArrays; 'tiled_sub' (ROADMAP item 8) still raises
+    # hair's BVHArrays; 'tiled_sub' (ROADMAP item 8, refused by an earlier
+    # slice) builds the same layout; a name of no traversal raises
     for other in ("perray", "blocked"):
         o = b.build(cam, Film.make(8, 8, "tent"), spp=1, traversal=other)
         assert o.config.traversal == other
         assert torch.equal(o.arrays.hair_bvh.node_left,
                            s.arrays.hair_bvh.node_left)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        b.build(cam, Film.make(8, 8, "tent"), spp=1, traversal="tiled_sub")
+    o = b.build(cam, Film.make(8, 8, "tent"), spp=1, traversal="tiled_sub")
+    assert o.config.traversal == "tiled_sub"
+    assert torch.equal(o.arrays.hair_swept.sub_lo, s.arrays.hair_swept.sub_lo)
+    with pytest.raises(ValueError, match="traversal"):
+        b.build(cam, Film.make(8, 8, "tent"), spp=1, traversal="tiled32")
 
 
 def test_public_builders_default_to_the_card(monkeypatch):

@@ -121,6 +121,9 @@ for _t in ("gridtexture", "wireframe", "vertexcolors"):
     CASES[f"teapot_{_t}"] = ("teapot", {"floor_texture": _t}, {})
 CASES["mesh_shapes"] = ("teapot", {}, {})
 CASES["furball_over_rectangle"] = ("furball", {"emitter": CONST}, {})
+# the lit stand-in: a rectangle and a sphere area light, a spot and a point
+# light beside the sunsky
+CASES["lit"] = ("lit", {}, {})
 MESH_SHAPES = (
     "<shape type=\"sphere\"><float name=\"radius\" value=\"0.7\"/>"
     "<point name=\"center\" x=\"1\" y=\"2\" z=\"3\"/><bsdf "
@@ -236,6 +239,9 @@ def test_loader_matches_jax(tmp_path, same_bvh, case):
         assert ts.arrays.hair is None and ts.arrays.tri is not None
         assert tmat.PLASTIC in ts.active_kinds
         assert ts.arrays.checkers is not None
+    if case == "lit":
+        assert ts.arrays.area is not None and ts.arrays.delta is not None
+        assert ts.config.nee_probs == (1 / 3,) * 3
     if case == "furball_over_rectangle":
         assert ts.arrays.tri.p0.shape == (2, 3)
         assert ts.arrays.hair is not None
