@@ -10,7 +10,10 @@ packed BVH walk, instanced, bitmap-textured and normal-mapped meshes
 blocked walks (traversal 'perray' and 'blocked'), and motion blur (the
 motion stand-in: an animated camera, meshes and instances under an open
 shutter), the tiled query's options (subcull, short-ray-first,
-two-round) and area and delta lights (the lit stand-in).
+two-round), area and delta lights (the lit stand-in), rendering and the
+inverse step across GPUs (parallel/mesh.py: NCCL at world size 1, two
+gloo ranks on the one card), the surface BSDFs and wrapper materials
+under a thin lens (the materials stand-in) and the other sensors.
 
     python3 chip_smoke.py            # from the repository root, one card
 
@@ -203,6 +206,32 @@ Phases (each prints one line with its elapsed seconds):
           warm-up and two timed 1-spp waves (s/wave, Mrays/s, A, B and
           F launches); at 64^2 the render and the diffuse gradient card
           against CPU and PRB against the differentiable mode at depth 3.
+  16. rendering and the inverse step across GPUs, the materials cell and
+     the other sensors:
+       a. (run after phase 7) NCCL at world size 1 (a local TCP
+          rendezvous): parallel.mesh.render_sharded on phase 4's furball
+          (a warm-up and a timed wave, s/wave, A and B launched) against
+          the same wave in one process in plain pixel order (rtol 2e-4,
+          atol 2e-5 on all but 0.01% of the values, means within 1e-5);
+          the film all_reduce's ms (1024^2 x 4 floats); make_train_step
+          on phase 6's scene (depth 16, the diffuse table) against the
+          one-process step (1e-5 relative);
+       b. two gloo ranks on the one card (subprocesses of this script
+          with a time limit): a 256^2 furball (6,000 fibers) at depth 8,
+          the sharded render and one train step against 16a's world-size-1
+          results with 16a's bounds;
+       c. (at the end) the materials stand-in (scene_xmls.materials: the
+          XML furball at quality 14 ringed by one sphere per surface BSDF
+          family and wrapper material, a checkerboard floor, the sunsky,
+          a thin lens; 1024^2, depth 65): the CLI at 2 spp (exit 0, four
+          outputs, a finite positive mean); load_scene against
+          SceneBuilder (config, camera and every tensor equal); a
+          warm-up and two timed 1-spp waves (s/wave, Mrays/s, tiled
+          queries per wave, A, B and F launches); at 64^2 the render and
+          the diffuse gradient card against CPU and PRB against the
+          differentiable mode at depth 3;
+       d. the small materials stand-in (32^2, depth 4) through each
+          other sensor kind, image means card against CPU within 2%.
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Any failed check exits
 non-zero before that line. Without CUDA the script exits non-zero at once.
@@ -3549,6 +3578,571 @@ def sub_kernel_entry(rep, launches):
         "of the sub-boxes the tile's rays enter)", **r)
 
 
+# ---------------------------------------------------------------------------
+# phase 16: rendering and the inverse step across GPUs (16a, 16b), the
+# materials cell (16c) and the other sensors (16d)
+# ---------------------------------------------------------------------------
+#  16a/16b, a sharded render against one process: each pixel value within
+#      SHARD_RTOL relative + SHARD_ATOL (tests/test_grad_and_sharding.py's
+#      bound for hairpt's sharded render), at most SHARD_OUT_MAX of the
+#      values outside it (the film's float index_add sums in any order on
+#      the card), the image means within SHARD_MEAN_RTOL; the parameters
+#      after a train step within SHARD_PARAM_RTOL relative
+SHARD_RTOL, SHARD_ATOL = 2e-4, 2e-5
+SHARD_OUT_MAX = 1e-4
+SHARD_MEAN_RTOL = 1e-5
+SHARD_PARAM_RTOL = 1e-5
+SHARD_LR = 0.05
+# 16b's small furball (6,000 fibers, 256^2, depth 8) and its two ranks'
+# time limit
+GLOO_QUALITY, GLOO_RES, GLOO_DEPTH = 1.0, 256, 8
+GLOO_TIMEOUT = 240
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def one_process_step(scene, target, params, seed=0, spp=1, lr=SHARD_LR):
+    """parallel.mesh.make_train_step's step in one process, from the
+    port's inverse code: the differentiable mode over every pixel in
+    plain order at sample index seed * 131 + s, the loss on the
+    developed film, SGD. Returns the parameters."""
+    import torch
+    from hairpt_torch.film import film as film_mod
+    from hairpt_torch.integrators import inverse, path
+
+    dev = scene.arrays.device
+    leaves = {k: v.detach().clone().requires_grad_()
+              for k, v in params.items()}
+    arrays = inverse.apply_params(scene, leaves)
+    li = path.make_li_fn(scene, differentiable=True)
+    n = scene.config.width * scene.config.height
+    pix = torch.arange(n, device=dev)
+    image, weight = film_mod.zeros(scene.film, dev)
+    for s in range(spp):
+        rad, pos, _ = li(arrays, pix, torch.full_like(pix, seed * 131 + s))
+        rad = torch.nan_to_num(rad, nan=0.0, posinf=0.0, neginf=0.0)
+        image, weight = film_mod.splat_samples(scene.film, pos, rad, image,
+                                               weight)
+    loss = torch.mean((film_mod.develop(image, weight) - target) ** 2)
+    names = list(leaves)
+    grads = torch.autograd.grad(loss, [leaves[k] for k in names])
+    return {k: (leaves[k] - lr * g).detach() for k, g in zip(names, grads)}
+
+
+def one_process_wave(scene, sample):
+    """One wave in plain pixel order at sample index `sample`, splatted
+    and developed: the sharded wave without the split and the reduce."""
+    import torch
+    from hairpt_torch.film import film as film_mod
+    from hairpt_torch.integrators import path
+
+    dev = scene.arrays.device
+    n = scene.config.width * scene.config.height
+    pix = torch.arange(n, device=dev)
+    with torch.no_grad():
+        rad, pos, _ = path.make_li_fn(scene)(scene.arrays, pix,
+                                            torch.full_like(pix, sample))
+        rad = torch.nan_to_num(rad, nan=0.0, posinf=0.0, neginf=0.0)
+        img, wt = film_mod.splat_samples(scene.film, pos, rad,
+                                         *film_mod.zeros(scene.film, dev))
+    return film_mod.develop(img, wt)
+
+
+def image_agreement(img, ref, label):
+    """Require SHARD_*'s bounds; returns (share outside, mean rel diff)."""
+    import torch
+    img, ref = img.float().cpu(), ref.float().cpu()
+    out = 1.0 - float(torch.isclose(img, ref, rtol=SHARD_RTOL,
+                                    atol=SHARD_ATOL).float().mean())
+    m_ref = float(ref.double().mean())
+    mrel = abs(float(img.double().mean()) - m_ref) / max(abs(m_ref), 1e-30)
+    require(bool(torch.isfinite(img).all()) and m_ref > 0,
+            f"{label}: non-finite or black image (mean {m_ref})")
+    require(out <= SHARD_OUT_MAX and mrel <= SHARD_MEAN_RTOL,
+            f"{label}: {out:.3g} of the values outside rtol {SHARD_RTOL} / "
+            f"atol {SHARD_ATOL}, means differ by {mrel:.3g}")
+    return out, mrel
+
+
+def params_agreement(p, ref, label):
+    import torch
+    worst = 0.0
+    for k, v in ref.items():
+        a, b = p[k].detach().float().cpu(), v.detach().float().cpu()
+        worst = max(worst, float(((a - b).abs()
+                                  / b.abs().clamp(min=1e-30)).max()))
+    require(worst <= SHARD_PARAM_RTOL,
+            f"{label}: the parameters differ by {worst:.3g} relative")
+    return worst
+
+
+def gloo_scene(device="cuda", small=(GLOO_QUALITY, GLOO_RES, GLOO_DEPTH)):
+    return bench_scene(quality=small[0], res=small[1], depth=small[2],
+                       spp=1, device=device)
+
+
+def gloo_worker(argv):
+    """One rank of 16b, run as `chip_smoke.py --gloo-rank RANK WORLD PORT
+    DIR DEVICE QUALITY RES DEPTH`: gloo over the one card (or the CPU), the
+    small furball's sharded render and one train step, written to
+    DIR/rank{RANK}.npz."""
+    import numpy as np
+    import torch
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from hairpt_torch.parallel import mesh as pmesh
+    rank, world, port, out_dir, device = argv[:5]
+    small = (float(argv[5]), int(argv[6]), int(argv[7]))
+    os.environ.update(RANK=rank, WORLD_SIZE=world, LOCAL_RANK=rank,
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=port)
+    torch.set_num_threads(1)
+    pmesh.init(device=device, backend="gloo")
+    s = gloo_scene(device, small)
+    mesh = pmesh.default_mesh()
+    img = pmesh.render_sharded(s, mesh, spp=1, seed=0)
+    step = pmesh.make_train_step(s, mesh, torch.zeros_like(img), spp=1,
+                                 lr=SHARD_LR)
+    p, loss = step({"diffuse": s.arrays.materials.diffuse}, 0)
+    np.savez(os.path.join(out_dir, f"rank{rank}.npz"), img=img.cpu().numpy(),
+             diffuse=p["diffuse"].cpu().numpy(), loss=float(loss))
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def sharded_cells(scene, reset_all, device="cuda",
+                  small=(GLOO_QUALITY, GLOO_RES, GLOO_DEPTH)):
+    """16a: NCCL at world size 1 (a local TCP rendezvous): render_sharded
+    on phase 4's furball (a warm-up and a timed wave) against the same
+    wave in one process; the film all_reduce's ms; make_train_step on
+    phase 6's scene (depth 16, the diffuse table) against the one-process
+    step; the small furball's render and step at world size 1 for 16b.
+    16b: two gloo ranks on the one card (subprocesses with a time limit)
+    on the small furball against 16a's world-size-1 results. Returns the
+    facts."""
+    import numpy as np
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from concurrent.futures import ThreadPoolExecutor
+    from hairpt_torch.ops import tiled_kernels as tk
+    from hairpt_torch.parallel import mesh as pmesh
+
+    cuda = device == "cuda"
+    port = _free_port()
+    dev = pmesh.init(device=device, init_method=f"tcp://127.0.0.1:{port}",
+                     rank=0, world_size=1)
+    require(dist.get_backend() == ("nccl" if cuda else "gloo"),
+            f"16a: backend {dist.get_backend()} on {dev}")
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    facts = {}
+    try:
+        mesh = pmesh.default_mesh()
+        t0 = time.time()
+        pmesh.render_sharded(scene, mesh, spp=1, seed=0)
+        sync()
+        warm = time.time() - t0
+        reset_all()
+        sync()
+        t0 = time.time()
+        img = pmesh.render_sharded(scene, mesh, spp=1, seed=1)
+        sync()
+        secs = time.time() - t0
+        launches = dict(tk.LAUNCHES)
+        plain = dict(tk.PLAIN_ON_CUDA)
+        ref = one_process_wave(scene, 65536)
+        out, mrel = image_agreement(img, ref, "16a sharded furball")
+        h, w = img.shape[:2]
+        require(not cuda or (all(v > 0 for v in launches.values())
+                             and all(v == 0 for v in plain.values())),
+                f"16a: launches {launches}, plain versions {plain}")
+        buf = torch.zeros(h * w * 4, device=dev)
+        ar_ms = cuda_ms(lambda: dist.all_reduce(buf), 20) if cuda else None
+        log(f"16a sharded furball ({dist.get_backend()}, world 1, "
+            f"{w}x{h}, depth {scene.config.max_depth}, q "
+            f"{scene.config.tiled_q}): warm-up {warm:.2f}s, timed wave "
+            f"{secs:.3f} s/wave; against one process: {out:.3g} of the "
+            f"values outside rtol {SHARD_RTOL} / atol {SHARD_ATOL}, means "
+            f"rel diff {mrel:.3g}; launches {launches}; the film all_reduce "
+            f"({h * w * 4 * 4 / 2**20:.0f} MiB, world 1) {ar_ms} ms")
+        del img, ref
+        # the train step on phase 6's scene
+        s6 = with_config(scene, max_depth=16)
+        target = torch.zeros((s6.config.height, s6.config.width, 3),
+                             device=dev)
+        p0 = {"diffuse": s6.arrays.materials.diffuse}
+        step = pmesh.make_train_step(s6, mesh, target, spp=1, lr=SHARD_LR)
+        sync()
+        t0 = time.time()
+        p_sh, loss = step(p0, 0)
+        sync()
+        step_s = time.time() - t0
+        p_ref = one_process_step(s6, target, p0, seed=0)
+        worst = params_agreement(p_sh, p_ref, "16a train step")
+        moved = float((p_sh["diffuse"] - p0["diffuse"]).abs().max())
+        require(moved > 0, "16a: the train step moved no parameter")
+        log(f"16a train step (depth 16, diffuse [M, 3]): {step_s:.2f}s, loss "
+            f"{float(loss):.6g}, parameters within {worst:.3g} relative of "
+            f"the one-process step (moved up to {moved:.3g})")
+        # the small furball at world size 1, for 16b
+        sg = gloo_scene(device, small)
+        img1 = pmesh.render_sharded(sg, mesh, spp=1, seed=0)
+        p1, _ = pmesh.make_train_step(sg, mesh, torch.zeros_like(img1),
+                                      spp=1, lr=SHARD_LR)(
+            {"diffuse": sg.arrays.materials.diffuse}, 0)
+        facts.update(wave_s=secs, allreduce_ms=ar_ms, step_s=step_s,
+                     launches=launches)
+    finally:
+        dist.destroy_process_group()
+
+    # 16b: two gloo ranks sharing the card
+    here = os.path.abspath(__file__)
+    with tempfile.TemporaryDirectory(prefix="hairpt_gloo_") as tmp:
+        gport = _free_port()
+
+        def rank(r):
+            return subprocess.run(
+                [sys.executable, here, "--gloo-rank", str(r), "2",
+                 str(gport), tmp, device] + [str(x) for x in small],
+                cwd=os.path.dirname(here),
+                capture_output=True, text=True, timeout=GLOO_TIMEOUT)
+        t0 = time.time()
+        with ThreadPoolExecutor(2) as ex:
+            procs = list(ex.map(rank, range(2)))
+        wall = time.time() - t0
+        for r, pr in enumerate(procs):
+            require(pr.returncode == 0, f"16b rank {r} exited "
+                    f"{pr.returncode}:\n{pr.stderr[-3000:]}")
+        ranks = [np.load(os.path.join(tmp, f"rank{r}.npz")) for r in range(2)]
+        outs = []
+        for r, z in enumerate(ranks):
+            outs.append(image_agreement(torch.as_tensor(z["img"]), img1,
+                                        f"16b rank {r}"))
+            params_agreement({"diffuse": torch.as_tensor(z["diffuse"])}, p1,
+                             f"16b rank {r} train step")
+        log(f"16b two gloo ranks on the {device} ({small[1]}^2 furball, "
+            f"{int(6000 * small[0])} fibers, depth {small[2]}): "
+            f"{wall:.1f}s wall; images against world size 1 {outs}; the "
+            f"train step's parameters within {SHARD_PARAM_RTOL} on both "
+            f"ranks")
+    facts["gloo_wall_s"] = wall
+    return facts
+
+
+def materials_builder(res=1024, device="cuda", quality=HAIR_QUALITY,
+                      hair=True):
+    """Phase 16c's twin of the materials stand-in
+    (scene_xmls.materials) through SceneBuilder with the rows the loader
+    reads: each sphere's BSDF (a wrapper's nested rows first), the fur,
+    the floor's checkerboard diffuse; the spheres and the floor in
+    document order; the thin lens focused at FOCUS_DISTANCE."""
+    import numpy as np
+    from hairpt_torch.core import rng
+    from hairpt_torch.film.film import Film
+    from hairpt_torch.models import emitters as em
+    from hairpt_torch.models import sensors
+    from hairpt_torch.models import shapes as shp
+    from hairpt_torch.models.bsdf import registry as mat
+    from hairpt_torch.scene import furball, hairgen, scene_xmls
+    from hairpt_torch.scene.scene import SceneBuilder
+
+    bk7 = 1.5046 / 1.000277
+    presets = {"Au": (0.40, (2.82, 2.35, 1.77)), "Cu": (0.95, (3.9, 2.45,
+                                                               2.14)),
+               "Ag": (0.14, (4.16, 3.44, 2.56)), "Al": (1.35, (7.47, 6.40,
+                                                               5.30))}
+
+    def cond(kind, name, **kw):
+        return dict(kind=kind, twosided=False, eta=presets[name][0],
+                    k=presets[name][1], dist=0, **kw)
+
+    def plain(kind, **kw):
+        row = dict(kind=kind, twosided=False, eta=1.5046, dist=0)
+        row.update(kw)
+        return row
+
+    b = SceneBuilder(device=device)
+    ids = []
+    ids.append(b.add_material(**plain(mat.ROUGHDIFFUSE,
+                                      diffuse=(0.6, 0.5, 0.4), alpha=0.5)))
+    ids.append(b.add_material(**cond(mat.CONDUCTOR, "Au")))
+    ids.append(b.add_material(**cond(mat.ROUGHCONDUCTOR, "Cu", alpha=0.2)))
+    ids.append(b.add_material(**plain(mat.DIELECTRIC, eta=bk7)))
+    ids.append(b.add_material(**plain(mat.THINDIELECTRIC, eta=bk7)))
+    ids.append(b.add_material(**plain(mat.ROUGHDIELECTRIC, eta=bk7,
+                                      alpha=0.1, dist=1)))
+    ids.append(b.add_material(**plain(mat.DIFFTRANS)))
+    ids.append(b.add_material(**plain(mat.PHONG, diffuse=(0.3, 0.05, 0.05),
+                                      specular=(0.4, 0.4, 0.4),
+                                      exponent=40.0)))
+    ids.append(b.add_material(**plain(mat.WARD, diffuse=(0.05, 0.2, 0.3),
+                                      specular=(0.3, 0.3, 0.3), alpha=0.15)))
+    ids.append(b.add_material(**plain(mat.NULL)))
+    a = b.add_material(**cond(mat.CONDUCTOR, "Ag"))
+    c = b.add_material(**plain(mat.DIFFUSE, diffuse=(0.2, 0.5, 0.2)))
+    ids.append(b.add_material(kind=mat.MIXTURE, twosided=False, mix_a=a,
+                              mix_b=c, mix_w=0.3))
+    a = b.add_material(**plain(mat.DIFFUSE, diffuse=(0.7, 0.7, 0.2)))
+    ids.append(b.add_material(kind=mat.MASK, twosided=False, mix_a=a,
+                              diffuse=(0.5, 0.5, 0.5)))
+    a = b.add_material(**cond(mat.ROUGHCONDUCTOR, "Al", alpha=0.1))
+    ids.append(b.add_material(
+        kind=mat.COATING, twosided=False, mix_a=a, eta=bk7,
+        sigma_a=tuple(np.asarray((0.1, 0.2, 0.4), np.float32) * 1.0),
+        alpha=0.1, dist=0, specular=(1.0, 1.0, 1.0)))
+    a = b.add_material(**plain(mat.DIFFUSE, diffuse=(0.1, 0.3, 0.6)))
+    ids.append(b.add_material(
+        kind=mat.ROUGHCOATING, twosided=False, mix_a=a, eta=bk7,
+        sigma_a=tuple(np.asarray((0.0, 0.0, 0.0), np.float32) * 1.0),
+        alpha=0.1, dist=0, specular=(1.0, 1.0, 1.0)))
+    if hair:
+        m = b.add_material(kind=mat.ROUGHPLASTIC, twosided=False,
+                           eta=1.55 / 1.000277, diffuse=furball.DIFFUSE,
+                           alpha=0.2, dist=0)
+        radius = 0.00216667 / np.sqrt(min(max(quality, 1e-6), 1.0))
+        b.add_fibers(hairgen.gen_furball(n_fibers=int(6000 * quality),
+                                         radius=radius), m)
+    for mid, cen in zip(ids, scene_xmls.material_centers()):
+        t = np.eye(4)
+        t[:3, 3] += np.asarray([float(x) for x in cen])
+        b.add_mesh(shp.sphere(scene_xmls.PROP_RADIUS), mid, to_world=t)
+    tid = b.add_checkerboard(color0=np.asarray((0.4,) * 3) * 1.0,
+                             color1=np.asarray((0.2,) * 3) * 1.0,
+                             uscale=8.0, vscale=8.0, uoffset=0.0,
+                             voffset=0.0)
+    floor = b.add_material(**plain(mat.DIFFUSE, tex_id=tid))
+    s = np.eye(4)
+    s[0, 0] = s[1, 1] = s[2, 2] = 20.0
+    tr = np.eye(4)
+    tr[:3, 3] = (0.0, 6.0, 0.0)
+    b.add_mesh(shp.rectangle(), floor, to_world=tr @ (_rot((1, 0, 0), -90)
+                                                      @ s))
+    b.env = em.bake_sunsky((-0.376047, 0.758426, 0.532333), turbidity=3.0,
+                           sky_scale=5.0, sun_scale=19.0912,
+                           sun_radius_scale=37.9165, device=b.device)
+    cam = sensors.Camera.perspective(
+        furball.CAM_TO_WORLD, 35.0, res, res, kind=sensors.THINLENS,
+        aperture_radius=0.02, focus_distance=scene_xmls.FOCUS_DISTANCE)
+    return b.build(cam, Film.make(res, res, "tent"), spp=1, max_depth=65,
+                   sampler=(rng.SOBOL_QMC, int(np.ceil(np.log2(res))), res))
+
+
+def materials_cell(reset_all, device="cuda", res=1024, quality=HAIR_QUALITY,
+                   small_res=64, small_quality=0.1):
+    """Phase 16c: the materials stand-in (scene_xmls.materials: the XML
+    furball ringed by one sphere per surface BSDF and wrapper material,
+    a checkerboard floor, the sunsky, a thin lens). The CLI at res^2,
+    hair quality `quality`, depth 65, 2 spp: exit 0, four outputs, a
+    finite positive mean. In process: load_scene against
+    materials_builder (config and every tensor equal), one warm-up and
+    two timed 1-spp waves (s/wave, rays/wave, Mrays/s, A, B and F
+    launches, no plain version on the card). At small_res (hair quality
+    small_quality, depth 8): the render card against CPU (MEAN_RTOL),
+    the diffuse gradient card against CPU (3b's bounds), PRB against the
+    differentiable mode on the card at depth 3. Returns the in-process
+    facts (None on the CPU, where a small res and quality rehearse it)."""
+    import tempfile
+    tmp_dir = tempfile.TemporaryDirectory(prefix="hairpt_materials_")
+    try:
+        return _materials_cell(reset_all, device, res, quality, small_res,
+                               small_quality, tmp_dir.name)
+    finally:
+        tmp_dir.cleanup()
+
+
+def _materials_cell(reset_all, device, res, quality, small_res,
+                    small_quality, tmp):
+    import numpy as np
+    import torch
+    from hairpt_torch.integrators import inverse, path
+    from hairpt_torch.ops import intersect_packed as ipk
+    from hairpt_torch.ops import intersect_tiled as itiled
+    from hairpt_torch.ops import tiled_kernels as tk
+    from hairpt_torch.scene import scene_xmls
+    from hairpt_torch.scene.xml_loader import load_scene
+
+    xml = scene_xmls.write_scene(tmp, "materials", res=res)
+    xml_s = scene_xmls.write_scene(os.path.join(tmp, "small"), "materials",
+                                   res=small_res)
+    wall, t_build, t_render, img = _cli(
+        xml, os.path.join(tmp, "out", "materials.png"), quality, device)
+    require(img.shape == (res, res, 3) and np.isfinite(img).all()
+            and img.mean() > 0, f"materials CLI image {img.shape}, mean "
+            f"{img.mean()}")
+    log(f"CLI materials ({res}^2, hair quality {quality}, depth 65, 2 spp): "
+        f"exit 0 in {wall:.1f}s wall, scene built in {t_build}s, rendered "
+        f"in {t_render}s; image mean {img.mean():.6f}; four outputs")
+    t0 = time.time()
+    scene = load_scene(xml, hair_quality=quality, spp_override=1,
+                       device=device)
+    t_load = time.time() - t0
+    scene_b = materials_builder(res, device, quality)
+    require(scene.config == scene_b.config
+            and scene.active_kinds == scene_b.active_kinds
+            and all(np.array_equal(x, y) for x, y in
+                    zip(scene.camera, scene_b.camera)),
+            f"config, camera or kinds differ: {scene.config} "
+            f"{scene_b.config} {scene.camera} {scene_b.camera}")
+    pairs = list(zip(_scene_tensors(scene.arrays),
+                     _scene_tensors(scene_b.arrays)))
+    require(len(pairs) > 10 and all(
+        pa == pb and _same_bits(x, y) for (pa, x), (pb, y) in pairs),
+        "the materials XML's arrays differ from the builder's: "
+        + str([pa for (pa, x), (pb, y) in pairs if pa != pb
+               or not _same_bits(x, y)]))
+    del scene_b
+    a = scene.arrays
+    log(f"materials: loaded in {t_load:.1f}s, {len(pairs)} tensors equal to "
+        f"SceneBuilder's; {a.hair.p0.shape[0]} segments, "
+        f"{a.tri.p0.shape[0]} triangles, {a.materials.kind.shape[0]} material "
+        f"rows, kinds {scene.active_kinds}, camera kind {scene.camera.kind} "
+        f"(aperture {scene.camera.aperture_radius}, focus "
+        f"{scene.camera.focus_distance:.4f})")
+    facts = None
+    if device == "cuda":
+        progress, times, rays, n_timed = warm_up(scene, "materials")
+        reset_all()
+        itiled.STATS.update(queries=0, max_passes=0, overflow_tiles=0)
+        torch.cuda.synchronize()
+        img = path.render(scene, spp=n_timed, seed=1, progress=progress)
+        torch.cuda.synchronize()
+        launches = dict(tk.LAUNCHES, **ipk.LAUNCHES)
+        plain = dict(tk.PLAIN_ON_CUDA, **ipk.PLAIN_ON_CUDA)
+        queries = itiled.STATS["queries"] / n_timed
+        secs = sum(times) / len(times)
+        rays_w = sum(rays) / len(rays)
+        mean = float(img.mean())
+        log(f"materials render: {n_timed} timed waves of 1 spp at {res}^2, "
+            f"depth 65: {rays_w:.0f} rays/wave, {secs:.3f} s/wave, "
+            f"{rays_w / secs / 1e6:.4f} Mrays/s, {queries:.1f} tiled "
+            f"queries/wave; image mean {mean:.6f}; launches over the timed "
+            f"waves {launches}")
+        require(np.isfinite(mean) and mean > 0
+                and bool(torch.isfinite(img).all()),
+                f"materials render: image mean {mean}")
+        require(launches["cull_phase_a"] > 0 and launches["phase_b"] > 0
+                and launches["packed_tri_closest"] > 0
+                and launches["packed_tri_any"] > 0,
+                f"the materials render did not launch A, B and F: "
+                f"{launches}")
+        require(all(v == 0 for v in plain.values()),
+                f"plain versions ran on CUDA tensors: {plain}")
+        facts = dict(secs=secs, rays=rays_w, n_timed=n_timed,
+                     queries=queries, launches=launches)
+        del img
+    del scene
+
+    devs = ("cuda", "cpu") if device == "cuda" else ("cpu",)
+    means, grads = {}, {}
+    for dev in devs:
+        s = load_scene(xml_s, hair_quality=small_quality, spp_override=1,
+                       max_depth_override=8, device=dev)
+        means[dev] = float(path.render(s, spp=1).mean())
+        grads[dev] = scan_ad_grad(s, {"diffuse": s.arrays.materials.diffuse})
+    if device == "cuda":
+        rel = abs(means["cuda"] - means["cpu"]) / max(abs(means["cpu"]),
+                                                      1e-12)
+        (l_k, g_k, _), (l_p, g_p, _) = grads["cuda"], grads["cpu"]
+        scale = float(g_p["diffuse"].abs().max())
+        err = float((g_k["diffuse"].cpu() - g_p["diffuse"]).abs().max())
+        lrel = abs(l_k - l_p) / max(abs(l_p), 1e-12)
+        log(f"small materials ({small_res}^2, hair quality {small_quality}, "
+            f"depth 8): image mean card {means['cuda']:.6f}, CPU "
+            f"{means['cpu']:.6f}, rel diff {rel:.3g}; diffuse gradient loss "
+            f"rel diff {lrel:.3g}, largest gradient diff {err:.3g} = "
+            f"{err / scale:.3g} of the largest |g| ({scale:.4g})")
+        require(means["cpu"] > 0 and rel <= MEAN_RTOL,
+                f"small materials render: card and CPU differ by {rel}")
+        require(lrel <= GRAD_LOSS_RTOL and err <= GRAD_REL * scale,
+                f"small materials gradient: card and CPU differ (loss "
+                f"{lrel}, gradient {err / scale} of the largest)")
+    s = load_scene(xml_s, hair_quality=small_quality, spp_override=1,
+                   max_depth_override=3, device=devs[0])
+    s = with_config(s, rr_depth=999)
+    params = {"diffuse": s.arrays.materials.diffuse}
+    l_s, g_s, _ = scan_ad_grad(s, params)
+    n = s.config.width * s.config.height
+    pix = torch.arange(n, device=s.arrays.device)
+    l_r, g_r = inverse.make_prb_loss_grad(s)(s.arrays, params, pix,
+                                             torch.zeros_like(pix))
+    prel = float((g_r["diffuse"] - g_s["diffuse"]).abs().max()
+                 / g_s["diffuse"].abs().max().clamp(min=1e-12))
+    lrel = abs(float(l_r) - l_s) / max(abs(l_s), 1e-12)
+    log(f"small materials, PRB vs the differentiable mode on {devs[0]}, "
+        f"depth 3: loss {float(l_r):.6f} / {l_s:.6f} (rel {lrel:.3g}), "
+        f"diffuse gradient diff over its largest |g| {prel:.3g}")
+    require(lrel <= PRB_LOSS_RTOL and prel <= PRB_REL,
+            f"small materials: PRB differs from the differentiable mode "
+            f"(loss {lrel}, gradient {prel})")
+    return facts
+
+
+# 16d: each sensor kind but the perspective one, on the small materials
+# stand-in (32^2, hair quality 0.1, depth 4), card against CPU
+SENSOR_RES, SENSOR_QUALITY, SENSOR_DEPTH = 32, 0.1, 4
+
+
+def sensor_kinds(device="cuda"):
+    """Phase 16d: the small materials stand-in seen through each other
+    sensor kind (thin lens, orthographic, spherical, telecentric, the
+    radiance, fluence and irradiance meters, perspective_rdist with kc =
+    (0.12, -0.03)), the image means card against CPU within MEAN_RTOL.
+    The radiance meter, whose every sample looks along the camera's axis
+    (into the furball's dark core), is aimed from the camera's origin at
+    the first sphere. Returns {kind name: (card mean, CPU mean)}."""
+    import tempfile
+    import numpy as np
+    from hairpt_torch.core.math import matrix_lookat
+    from hairpt_torch.integrators import path
+    from hairpt_torch.models import sensors
+    from hairpt_torch.scene import scene_xmls
+    from hairpt_torch.scene.xml_loader import load_scene
+
+    kinds = {"thinlens": sensors.THINLENS,
+             "orthographic": sensors.ORTHOGRAPHIC,
+             "spherical": sensors.SPHERICAL,
+             "telecentric": sensors.TELECENTRIC,
+             "radiancemeter": sensors.RADIANCEMETER,
+             "fluencemeter": sensors.FLUENCEMETER,
+             "irradiancemeter": sensors.IRRADIANCEMETER,
+             "perspective_rdist": sensors.PERSPECTIVE_RDIST}
+    devs = (device, "cpu") if device == "cuda" else ("cpu",)
+    with tempfile.TemporaryDirectory(prefix="hairpt_sensors_") as tmp:
+        xml = scene_xmls.write_scene(tmp, "materials", res=SENSOR_RES,
+                                     aperture=0.05)
+        scenes = {d: load_scene(xml, hair_quality=SENSOR_QUALITY,
+                                spp_override=1,
+                                max_depth_override=SENSOR_DEPTH, device=d)
+                  for d in devs}
+    out = {}
+    for name, kind in kinds.items():
+        means = {}
+        for d, s in scenes.items():
+            cam = s.camera._replace(kind=kind)
+            if name == "perspective_rdist":
+                cam = cam._replace(kc0=0.12, kc1=-0.03)
+            if name == "radiancemeter":
+                eye = s.camera.to_world[:3, 3].astype(np.float64)
+                cam = cam._replace(to_world=matrix_lookat(
+                    eye, scene_xmls.material_centers()[0],
+                    (0.0, 1.0, 0.0)).astype(np.float32))
+            img = path.render(s._replace(camera=cam), spp=1)
+            require(bool(img.isfinite().all()), f"16d {name} on {d}: "
+                    f"non-finite pixels")
+            means[d] = float(img.mean())
+        out[name] = tuple(means.get(d) for d in ("cuda", "cpu"))
+        if device == "cuda":
+            rel = abs(means["cuda"] - means["cpu"]) \
+                / max(abs(means["cpu"]), 1e-12)
+            require(means["cpu"] > 0 and rel <= MEAN_RTOL,
+                    f"16d {name}: card {means['cuda']} and CPU "
+                    f"{means['cpu']} differ by {rel}")
+    return out
+
+
 def warm_up(scene, label):
     """One warm-up wave. Returns (progress callback, the lists it fills
     with each wave's seconds and rays, the number of waves to time: two,
@@ -3813,6 +4407,15 @@ def main() -> int:
         prb = prb_step(scene, reset_all, bwd)
         log(f"phase 7 ({time.time() - t0:.1f}s): PRB step ok")
 
+        # ---- 16a/16b. rendering and the inverse step across GPUs ----
+        t0 = time.time()
+        shard = sharded_cells(scene, reset_all)
+        log(f"phase 16a/16b ({time.time() - t0:.1f}s): the sharded render "
+            f"and train step agree with one process (NCCL, world 1: "
+            f"{shard['wave_s']:.3f} s/wave, film all_reduce "
+            f"{shard['allreduce_ms']:.4f} ms) and two gloo ranks agree with "
+            f"world size 1")
+
         # ---- 8. the full-width Marschner furball ----
         t0 = time.time()
         del scene
@@ -3965,6 +4568,22 @@ def main() -> int:
                 k["launches_per_lit_wave"] = \
                     lit["launches"][k["name"]] / lit["n_timed"]
         log(f"phase 15 (15a in phase 2, 15b after phase 4): ok")
+
+        # ---- 16c/16d. the materials cell and the other sensors ----
+        t0 = time.time()
+        mats = materials_cell(reset_all)
+        log(f"phase 16c ({time.time() - t0:.1f}s): the materials cell, its "
+            f"CLI, the small card-against-CPU render and gradient and PRB ok "
+            f"({mats['secs']:.3f} s/wave)")
+        for k in kernels:
+            if k["name"] in mats["launches"]:
+                k["launches_per_materials_wave"] = \
+                    mats["launches"][k["name"]] / mats["n_timed"]
+        t0 = time.time()
+        sens = sensor_kinds()
+        log(f"phase 16d ({time.time() - t0:.1f}s): every other sensor kind "
+            f"agrees card against CPU: {sens}")
+        log(f"phase 16 (16a/16b after phase 7): ok")
         require(all(k["launches"] > 0 for k in kernels),
                 "a kernel has no launches")
     except SmokeFailure as e:
@@ -3980,4 +4599,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--gloo-rank"]:
+        sys.exit(gloo_worker(sys.argv[2:]))
     sys.exit(main())

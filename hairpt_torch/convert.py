@@ -147,18 +147,20 @@ def _repose_inst(repose):
 def convert_scene(scene, arrays, device=None) -> Scene:
     """A JAX Scene (read for its camera, film, config and active kinds)
     plus its numpy arrays -> a hairpt_torch Scene. Its materials may be
-    any ported family (DIFFUSE, PLASTIC, ROUGHPLASTIC and the hair kinds),
-    its environment a baked sunsky, an envmap or a constant one, with
+    any ported family (every kind but HK and CLOTH, the wrappers
+    included), its camera any of the nine sensor kinds (a thin lens's
+    aperture and focus and the radial distortion come across), its
+    environment a baked sunsky, an envmap or a constant one, with
     area and delta lights beside it or in its place, its
     sampler any of the five modes, its film any of the six filters and
     its traversal any of scene.TRAVERSALS. Its shutter, the camera's
     animation and the animated instances come across. A JAX rebuild_geo
     (animated or deformable meshes under an open shutter) is a closure
     over a JAX builder, so it raises: build such a scene on both sides
-    from one XML or one builder script. A thin lens, radial distortion,
-    another camera kind, film annotations and an integrator other than
-    path raise (the motion integrator's tables, which hairpt's loader
-    builds for every animated shape, are left behind)."""
+    from one XML or one builder script. Film annotations and an
+    integrator other than path raise (the motion integrator's tables,
+    which hairpt's loader builds for every animated shape, are left
+    behind)."""
     cam = scene.camera
     shutter = tuple(float(x) for x in getattr(scene, "shutter", (0.0, 0.0)))
     if getattr(scene.config, "integrator", "path") != "path":
@@ -172,9 +174,6 @@ def convert_scene(scene, arrays, device=None) -> Scene:
             "and cannot be carried across; build the animated meshes on "
             "both sides from one XML (xml_loader.load_scene) or one "
             "builder script")
-    if int(cam.kind) != 0 or cam.aperture_radius or cam.kc0 or cam.kc1:
-        raise NotImplementedError("only the pinhole perspective camera is "
-                                  "ported (ROADMAP item 13)")
     if scene.film.annotations or scene.film.banner:
         raise NotImplementedError("film annotations and the banner are not "
                                   "ported yet (ROADMAP item 13)")
@@ -182,7 +181,10 @@ def convert_scene(scene, arrays, device=None) -> Scene:
                     to_world=np.asarray(cam.to_world, np.float32),
                     tan_half_fov=float(np.float32(cam.tan_half_fov)),
                     aspect=cam.aspect, width=cam.width, height=cam.height,
-                    near=cam.near, far=cam.far)
+                    near=cam.near, far=cam.far,
+                    aperture_radius=float(cam.aperture_radius),
+                    focus_distance=float(cam.focus_distance),
+                    kc0=float(cam.kc0), kc1=float(cam.kc1))
     fl = scene.film
     film = Film(fl.width, fl.height, fl.filter_kind, fl.filter_radius,
                 fl.gamma)

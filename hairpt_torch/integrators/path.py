@@ -40,9 +40,10 @@ from ..ops.tiled_kernels import sqrt_rn
 from .common import Hit, block_swizzle, frame, scene_intersect, \
     scene_occluded
 
-# sample-dimension layout: camera uses [0,4) (dims 2-3 are the aperture's,
-# unused by the pinhole); bounce b uses [4+16b, 4+16(b+1))
+# sample-dimension layout: camera uses [0,4) (dims 2-3 are the aperture's:
+# the thin lens and the telecentric lens); bounce b uses [4+16b, 4+16(b+1))
 DIM_CAM_POS = 0
+DIM_CAM_APERTURE = 2
 DIM_BASE = 4
 DIM_STRIDE = 16
 D_NEE_SEL = 0
@@ -68,7 +69,15 @@ def _swept_params(cfg):
                 block=cfg.block, short_t=cfg.tiled_short)
 
 
-def _camera_uv_partials(arr, cam, pos, ray, hit):
+def aperture_sample(cam, smp):
+    """The camera's aperture sample (dims DIM_CAM_APERTURE), or None for a
+    camera that has no aperture to sample (its rays do not read it)."""
+    lens = (cam.kind == sensors.THINLENS and cam.aperture_radius > 0.0) \
+        or cam.kind == sensors.TELECENTRIC
+    return smp.next_2d(DIM_CAM_APERTURE) if lens else None
+
+
+def _camera_uv_partials(arr, cam, pos, ray, hit, ap=None):
     """The uv footprint Jacobian at the camera hit (the JAX package's
     _camera_uv_partials; reference: Intersection::computePartials):
     offset rays through the next pixel centres transferred to the hit's
@@ -96,8 +105,8 @@ def _camera_uv_partials(arr, cam, pos, ray, hit):
                                                 dn)
         return rd.o + rd.d * tq[..., None] - hit.p
 
-    dpdx = transfer(sensors.sample_ray(cam, pos + one_x))
-    dpdy = transfer(sensors.sample_ray(cam, pos + one_y))
+    dpdx = transfer(sensors.sample_ray(cam, pos + one_x, ap))
+    dpdy = transfer(sensors.sample_ray(cam, pos + one_y, ap))
     g00 = dot(dpdu, dpdu)
     g01 = dot(dpdu, dpdv)
     g11 = dot(dpdv, dpdv)
@@ -125,15 +134,16 @@ def has_bitmaps(arr) -> bool:
         and bool((arr.checkers.kind == mat.TEX_BITMAP).any())
 
 
-def camera_footprint(arr, cam, pos, ray, hit, bitmaps: bool):
-    """(duv_dx, duv_dy, ewa): the camera hit's uv Jacobian, zero-width
-    [N, 0] when the scene has no bitmap or no triangles, and whether any
-    lane has a nonzero one (one host sync, once per wave)."""
+def camera_footprint(arr, cam, pos, ray, hit, bitmaps: bool, ap=None):
+    """(duv_dx, duv_dy, ewa): the camera hit's uv Jacobian (the offset
+    rays through the primary ray's aperture point ap), zero-width [N, 0]
+    when the scene has no bitmap or no triangles, and whether any lane
+    has a nonzero one (one host sync, once per wave)."""
     n = pos.shape[0]
     if not bitmaps or arr.checkers is None or arr.tri is None:
         z = torch.zeros((n, 0), device=pos.device)
         return z, z, False
-    dx, dy = _camera_uv_partials(arr, cam, pos, ray, hit)
+    dx, dy = _camera_uv_partials(arr, cam, pos, ray, hit, ap)
     ewa = bool(((torch.abs(dx).sum(-1) + torch.abs(dy).sum(-1)) > 0).any())
     return dx, dy, ewa
 
@@ -146,6 +156,34 @@ def texture_lod(arr, cam, width: int, hit, bitmaps: bool):
     pix_ang = 2.0 * cam.tan_half_fov / width
     foot = hit.t * pix_ang * hit.uv_density * arr.checkers.bitmaps.shape[1]
     return torch.log2(torch.clamp(foot, min=1.0))
+
+
+def kind_rows(materials):
+    """Host copies of a material table's kind, mix_a and mix_b (the
+    rows' families and the wrappers' nested rows), for live_kinds."""
+    return (materials.kind.tolist(), materials.mix_a.tolist(),
+            materials.mix_b.tolist())
+
+
+def live_kinds(rows, mat_id, live):
+    """The BSDF kinds the live lanes need: the kinds of the rows they hit
+    and of those rows' nested rows (one host sync). Shading evaluates
+    only these: every family's value is selected by the lane's own kind,
+    so the live lanes' values are the same as over all the scene's
+    kinds, and a bounce deep in a wave of glass and mirrors, where few
+    kinds are left, does not pay the thousands of small launches of
+    the rest (the wrappers evaluate their nested families again)."""
+    kind, mix_a, mix_b = rows
+    hit_rows = torch.bincount(torch.where(live, mat_id.long() + 1, 0),
+                              minlength=len(kind) + 1)[1:]
+    out = set()
+    for r in torch.nonzero(hit_rows).flatten().tolist():
+        out.add(kind[r])
+        if kind[r] in mat.WRAPPER_KINDS:
+            out.add(kind[mix_a[r]])
+            if kind[r] == mat.MIXTURE:
+                out.add(kind[mix_b[r]])
+    return tuple(sorted(out))
 
 
 def _luminance(c):
@@ -348,6 +386,8 @@ def make_li_fn(scene, differentiable: bool = False, antithetic=False):
     cfg = scene.config
     cam = scene.camera
     active_kinds = scene.active_kinds
+    rows = kind_rows(scene.arrays.materials) if len(active_kinds) > 1 \
+        else None
     ray_eps = cfg.ray_eps
     params = _swept_params(cfg)
     anti_rels = (D_BSDF_U2, D_BSDF_U2 + 1) if antithetic is True \
@@ -409,6 +449,8 @@ def make_li_fn(scene, differentiable: bool = False, antithetic=False):
         gm = mat.gather(arr.materials, arr.checkers, hit.mat_id, hit.uv,
                         texture_lod(arr, cam, cfg.width, hit, bitmaps),
                         hit.bary, hit.vcolor, duv)
+        kinds = active_kinds if rows is None \
+            else live_kinds(rows, hit.mat_id, active)
 
         # ---- NEE ----
         u_sel = smp.next_1d(dims + D_NEE_SEL)
@@ -420,8 +462,8 @@ def make_li_fn(scene, differentiable: bool = False, antithetic=False):
             arr, cfg, torch.where(active[..., None], hit.p, 0.0), u_sel, u_nee)
         wo_nee = fr.to_local(d_nee)
         f_nee, bsdf_pdf_nee = mat.eval_pdf_mix(
-            active_kinds, arr.materials, hit.mat_id, gm, wi, wo_nee,
-            arr.hair_tables)
+            kinds, arr.materials, arr.checkers, hit.mat_id, hit.uv,
+            gm, wi, wo_nee, arr.hair_tables)
         nee_ok = active & (pdf_nee > 0) \
             & (torch.amax(torch.abs(f_nee), dim=-1) > 0)
         if cfg.strict_normals:
@@ -450,16 +492,17 @@ def make_li_fn(scene, differentiable: bool = False, antithetic=False):
         u2 = smp.next_2d(dims + D_BSDF_U2)
         u2b = smp.next_2d(dims + D_BSDF_U2B)
         wo, bsdf_weight, bsdf_pdf, is_delta, eta_s = mat.sample_mix(
-            active_kinds, arr.materials, hit.mat_id, gm, wi, u_lobe, u2, u2b,
-            arr.hair_tables)
+            kinds, arr.materials, arr.checkers, hit.mat_id, hit.uv,
+            gm, wi, u_lobe, u2, u2b, arr.hair_tables)
         if differentiable:
             # a delta lane (the faithful Marschner's sampled hair lobe)
             # keeps the sampled weight, its gradient through the sampled
             # direction included; a smooth lane's is f(wo) / sg(pdf(wo))
             wo = wo.detach()
             bsdf_pdf = bsdf_pdf.detach()
-            f2, p2 = mat.eval_pdf_mix(active_kinds, arr.materials,
-                                      hit.mat_id, gm, wi, wo, arr.hair_tables)
+            f2, p2 = mat.eval_pdf_mix(kinds, arr.materials,
+                                      arr.checkers, hit.mat_id, hit.uv, gm,
+                                      wi, wo, arr.hair_tables)
             w_smooth = f2 / torch.clamp(p2.detach(), min=1e-9)[..., None]
             bsdf_weight = torch.where(is_delta[..., None], bsdf_weight,
                                       w_smooth)
@@ -512,10 +555,11 @@ def make_li_fn(scene, differentiable: bool = False, antithetic=False):
             smp = _Mirrored(smp, anti_rels)
         jitter = smp.next_2d(DIM_CAM_POS)
         pos = torch.stack([px + jitter[..., 0], py + jitter[..., 1]], dim=-1)
-        ray = sensors.sample_ray(cam_l, pos)
+        ap = aperture_sample(cam_l, smp)
+        ray = sensors.sample_ray(cam_l, pos, ap)
         hit0 = scene_intersect(arr, ray, **params)
         duv_dx, duv_dy, ewa = camera_footprint(arr, cam_l, pos, ray, hit0,
-                                               bitmaps)
+                                               bitmaps, ap)
         state = PathState(
             active=torch.ones((n,), dtype=torch.bool, device=dev),
             ray_o=ray.o, ray_d=ray.d,

@@ -36,8 +36,8 @@ from .common import frame, scene_intersect, scene_occluded
 from .path import (DIM_BASE, DIM_CAM_POS, DIM_STRIDE, D_BSDF_LOBE,
                    D_BSDF_U2, D_BSDF_U2B, D_NEE_POS, D_NEE_SEL, D_RR,
                    _mi_weight, _pdf_emitter_hit, _sample_emitter_direct,
-                   _swept_params, camera_footprint, has_bitmaps,
-                   texture_lod)
+                   _swept_params, aperture_sample, camera_footprint,
+                   has_bitmaps, texture_lod)
 
 
 def _check_supported(scene):
@@ -121,10 +121,11 @@ def make_prb_grad_fn(scene, loss_fn=None):
         px = (smp.pixel % cfg.width).to(torch.float32)
         py = (smp.pixel // cfg.width).to(torch.float32)
         pos = torch.stack([px + jitter[..., 0], py + jitter[..., 1]], -1)
-        ray = sensors.sample_ray(scene.camera, pos)
+        ap = aperture_sample(scene.camera, smp)
+        ray = sensors.sample_ray(scene.camera, pos, ap)
         hit = scene_intersect(arr, ray, **params)
         duv_dx, duv_dy, ewa = camera_footprint(arr, scene.camera, pos, ray,
-                                               hit, bitmaps)
+                                               hit, bitmaps, ap)
 
         leaves = [theta0[k].clone().requires_grad_() for k in names]
         arr_g = with_theta(arr, dict(zip(names, leaves)))
@@ -203,16 +204,18 @@ def make_prb_grad_fn(scene, loss_fn=None):
                     hit.bary, hit.vcolor,
                     (duv_dx, duv_dy) if depth == 1 and ewa else None)
                 f_nee, bsdf_pdf_nee = mat.eval_pdf_mix(
-                    active_kinds, mats_g, hit.mat_id, gm, wi, wo_nee, ht_g)
+                    active_kinds, mats_g, arr.checkers, hit.mat_id, hit.uv,
+                    gm, wi, wo_nee, ht_g)
                 w_nee = torch.where(is_dl, 1.0,
                                     _mi_weight(pdf_nee, bsdf_pdf_nee))
                 c = le_nee * f_nee \
                     * (w_nee / torch.clamp(pdf_nee, min=1e-20))[..., None]
                 wo, wt_s, bsdf_pdf, is_delta, eta_s = mat.sample_mix(
-                    active_kinds, mats_g, hit.mat_id, gm, wi, u_lobe, u2,
-                    u2b, ht_g)
+                    active_kinds, mats_g, arr.checkers, hit.mat_id, hit.uv,
+                    gm, wi, u_lobe, u2, u2b, ht_g)
                 wo = wo.detach()
-                f2, p2 = mat.eval_pdf_mix(active_kinds, mats_g, hit.mat_id,
+                f2, p2 = mat.eval_pdf_mix(active_kinds, mats_g,
+                                          arr.checkers, hit.mat_id, hit.uv,
                                           gm, wi, wo, ht_g)
                 w_s = torch.where(is_delta[..., None], wt_s,
                                   f2 / torch.clamp(p2.detach(),

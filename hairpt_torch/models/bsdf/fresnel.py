@@ -1,4 +1,6 @@
-"""Dielectric Fresnel term (port of hairpt/models/bsdf/fresnel.py)."""
+"""Dielectric and conductor Fresnel terms (port of
+hairpt/models/bsdf/fresnel.py; reference src/libcore/util.cpp
+fresnelDielectricExt, fresnelConductorExact)."""
 from __future__ import annotations
 
 import numpy as np
@@ -24,6 +26,25 @@ def fresnel_dielectric(cos_theta_i, eta):
     R = torch.where(tir, 1.0, 0.5 * (rs * rs + rp * rp))
     cos_theta_t = torch.where(tir, 0.0, torch.where(outside, -cos_t, cos_t))
     return R, cos_theta_t
+
+
+def fresnel_conductor(cos_theta_i, eta, k):
+    """Exact unpolarized conductor reflectance; eta and k are [..., 3]
+    rgb."""
+    c2 = cos_theta_i * cos_theta_i
+    s2 = 1.0 - c2
+    e2 = eta * eta
+    k2 = k * k
+    t0 = e2 - k2 - s2[..., None]
+    a2b2 = safe_sqrt(t0 * t0 + 4.0 * e2 * k2)
+    t1 = a2b2 + c2[..., None]
+    a = safe_sqrt(0.5 * (a2b2 + t0))
+    t2 = 2.0 * a * cos_theta_i[..., None]
+    rs = (t1 - t2) / torch.clamp(t1 + t2, min=1e-12)
+    t3 = c2[..., None] * a2b2 + s2[..., None] * s2[..., None]
+    t4 = t2 * s2[..., None]
+    rp = rs * (t3 - t4) / torch.clamp(t3 + t4, min=1e-12)
+    return 0.5 * (rp + rs)
 
 
 def fresnel_diffuse_reflectance(eta: float, n: int = 4096) -> float:

@@ -1,6 +1,6 @@
-"""Smooth plastic, the teapot's material, and rough plastic, the
-furball's (port of hairpt/models/bsdf/plastic.py's Plastic and
-RoughPlastic; reference plastic.cpp and roughplastic.cpp).
+"""Smooth plastic, the teapot's material, rough plastic, the furball's,
+and rough conductor (port of hairpt/models/bsdf/plastic.py; reference
+plastic.cpp, roughplastic.cpp and roughconductor.cpp).
 
 The microfacet distribution is a per-lane value: both closed forms are
 evaluated and lane-selected."""
@@ -14,7 +14,7 @@ from ...core import warps
 from ...core.math import normalize, reflect_z
 from . import microfacet as mf
 from . import registry as R
-from .fresnel import fresnel_dielectric
+from .fresnel import fresnel_conductor, fresnel_dielectric
 
 INV_PI = 1.0 / math.pi
 
@@ -164,5 +164,37 @@ class RoughPlastic:
                 torch.ones(n, device=wi.device))
 
 
+class RoughConductor:
+    @staticmethod
+    def eval_pdf(gm, wi, wo, aux=None):
+        valid = (_cos(wi) > 0) & (_cos(wo) > 0)
+        m = _half(wi, wo)
+        D = _dyn_ndf(gm.dist, gm.alpha, m)
+        G = _dyn_g(gm.dist, gm.alpha, wi, wo, m)
+        F = fresnel_conductor(torch.abs(torch.sum(wi * m, dim=-1)),
+                              torch.broadcast_to(gm.eta[..., None],
+                                                 gm.k.shape), gm.k)
+        f = gm.specular * F * (D * G / torch.clamp(4.0 * _cos(wi),
+                                                   min=1e-7))[..., None]
+        pdf_m = _dyn_pdf_m(gm.dist, gm.alpha, wi, m)
+        pdf = mf.half_vector_to_wo_pdf(pdf_m, wo, m)
+        return (torch.where(valid[..., None], f, 0.0),
+                torch.where(valid, pdf, 0.0))
+
+    @staticmethod
+    def sample(gm, wi, u_lobe, u2, u2b, aux=None):
+        n = wi.shape[:-1]
+        m, _ = _dyn_sample_m(gm.dist, gm.alpha, wi, u2)
+        wo = 2.0 * torch.sum(wi * m, dim=-1, keepdim=True) * m - wi
+        f, pdf = RoughConductor.eval_pdf(gm, wi, wo)
+        ok = (pdf > 1e-9) & (_cos(wo) > 0) & (_cos(wi) > 0)
+        weight = torch.where(ok[..., None],
+                             f / torch.clamp(pdf, min=1e-9)[..., None], 0.0)
+        return (wo, weight, torch.where(ok, pdf, 0.0),
+                torch.zeros(n, dtype=torch.bool, device=wi.device),
+                torch.ones(n, device=wi.device))
+
+
 R.register(R.PLASTIC, Plastic)
 R.register(R.ROUGHPLASTIC, RoughPlastic)
+R.register(R.ROUGHCONDUCTOR, RoughConductor)

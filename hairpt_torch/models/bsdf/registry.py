@@ -3,18 +3,21 @@ hairpt/models/bsdf/registry.py the hair and mesh scenes use).
 
 Materials live in an SoA table; a shading wave gathers its per-lane
 parameters and every family present in the scene is evaluated and
-lane-selected by kind. Ported families: DIFFUSE (simple.py), PLASTIC
-and ROUGHPLASTIC (plastic.py) and the hair BSDFs KAJIYAKAY, MARSCHNER,
-MARSCHNER_PURE and MARSCHNERDIELECTRIC (hair.py), whose Marschner kinds
-read the stacked azimuthal tables (HairTables) through the
-`hair_tables` argument. gather resolves a material's diffuse
-reflectance through its texture (CheckerboardTable: the checkerboard,
-gridtexture, wireframe and vertexcolors kinds, and bitmaps: bilinear, or
-trilinear in their mip pyramid at a footprint's level of detail, or the
-elliptical (EWA) filter where the camera hit gives a uv Jacobian);
-perturb_shading_frame applies a material's normal or bump map. The
-scenes have no wrapper materials, so eval_pdf_mix / sample_mix equal
-eval_pdf / sample.
+lane-selected by kind. Ported families: DIFFUSE, ROUGHDIFFUSE,
+CONDUCTOR, DIELECTRIC, THINDIELECTRIC, NULL, PHONG and WARD
+(simple.py), PLASTIC, ROUGHPLASTIC and ROUGHCONDUCTOR (plastic.py),
+ROUGHDIELECTRIC and DIFFTRANS (dielectric_rough.py) and the hair BSDFs
+KAJIYAKAY, MARSCHNER, MARSCHNER_PURE and MARSCHNERDIELECTRIC (hair.py),
+whose Marschner kinds read the stacked azimuthal tables (HairTables)
+through the `hair_tables` argument; the wrapper materials MIXTURE, MASK,
+COATING and ROUGHCOATING (one level of nesting, as in the JAX package)
+go through eval_pdf_mix / sample_mix. gather resolves a material's
+diffuse reflectance through its texture (CheckerboardTable: the
+checkerboard, gridtexture, wireframe and vertexcolors kinds, and
+bitmaps: bilinear, or trilinear in their mip pyramid at a footprint's
+level of detail, or the elliptical (EWA) filter where the camera hit
+gives a uv Jacobian); perturb_shading_frame applies a material's normal
+or bump map. HK and CLOTH are not ported (ROADMAP item 13).
 
 Conventions (as in the reference's bsdf.h): wi, wo in the local shading
 frame, +z the shading normal; eval returns f(wi, wo) |cos theta_o|;
@@ -57,6 +60,8 @@ CLOTH = 22
 MARSCHNER_PURE = 23     # corrected-mode Marschner (true 3-lobe mixture
 #                         pdf, fresh per-decision samples, MIS-compatible)
 
+WRAPPER_KINDS = (MIXTURE, MASK, COATING, ROUGHCOATING)
+
 N_COS = 64  # resolution of the per-material external-transmittance slice
 
 # texture kinds of the JAX package's CheckerboardTable
@@ -78,6 +83,7 @@ class MaterialTable(NamedTuple):
     alpha: torch.Tensor        # [M] microfacet roughness
     dist: torch.Tensor         # [M] 0 = ggx, 1 = beckmann
     eta: torch.Tensor          # [M] int_ior / ext_ior
+    k: torch.Tensor            # [M, 3] conductor absorption
     nonlinear: torch.Tensor    # [M] bool
     spec_weight: torch.Tensor  # [M] specularSamplingWeight
     ext_trans: torch.Tensor    # [M, N_COS] T12(cos theta) slice
@@ -87,6 +93,9 @@ class MaterialTable(NamedTuple):
     scale_tilt: torch.Tensor   # [M] hair scale tilt (radians)
     aux_id: torch.Tensor       # [M] int32 row of the hair tables (-1 none)
     tex_id: torch.Tensor       # [M] int32 row of the texture table (-1 none)
+    mix_a: torch.Tensor        # [M] int32 first sub-material row (wrappers)
+    mix_b: torch.Tensor        # [M] int32 second sub-material row (MIXTURE)
+    mix_w: torch.Tensor        # [M] weight of mix_a (MIXTURE)
     nrm_tex_id: torch.Tensor   # [M] int32 normal or bump texture (-1 none)
     nrm_kind: torch.Tensor     # [M] int32 0 = normal map, 1 = bump map
     nrm_scale: torch.Tensor    # [M] bump height scale
@@ -129,6 +138,7 @@ class GatheredMat(NamedTuple):
     alpha: torch.Tensor
     dist: torch.Tensor
     eta: torch.Tensor
+    k: torch.Tensor
     nonlinear: torch.Tensor
     spec_weight: torch.Tensor
     ext_trans: torch.Tensor
@@ -142,11 +152,12 @@ class GatheredMat(NamedTuple):
 def default_material_row(**over):
     row = dict(kind=DIFFUSE, twosided=False, diffuse=(0.5, 0.5, 0.5),
                specular=(1.0, 1.0, 1.0), transmit=(1.0, 1.0, 1.0),
-               exponent=30.0, alpha=0.1, dist=0, eta=1.5, nonlinear=False,
-               spec_weight=0.5, ext_trans=np.ones(N_COS), int_fdr=0.0,
+               exponent=30.0, alpha=0.1, dist=0, eta=1.5,
+               k=(1.0, 1.0, 1.0), nonlinear=False, spec_weight=0.5,
+               ext_trans=np.ones(N_COS), int_fdr=0.0,
                sigma_a=(0.5, 0.5, 0.5), beta_r=0.1, scale_tilt=-0.1,
-               aux_id=-1, tex_id=-1, nrm_tex_id=-1, nrm_kind=0,
-               nrm_scale=1.0)
+               aux_id=-1, tex_id=-1, mix_a=0, mix_b=0, mix_w=0.5,
+               nrm_tex_id=-1, nrm_kind=0, nrm_scale=1.0)
     row.update(over)
     return row
 
@@ -164,11 +175,13 @@ def pack_materials(rows, device=None) -> MaterialTable:
         diffuse=arr("diffuse"), specular=arr("specular"),
         transmit=arr("transmit"), exponent=arr("exponent"),
         alpha=arr("alpha"), dist=arr("dist", np.int32), eta=arr("eta"),
-        nonlinear=arr("nonlinear", bool), spec_weight=arr("spec_weight"),
+        k=arr("k"), nonlinear=arr("nonlinear", bool),
+        spec_weight=arr("spec_weight"),
         ext_trans=arr("ext_trans"), int_fdr=arr("int_fdr"),
         sigma_a=arr("sigma_a"), beta_r=arr("beta_r"),
         scale_tilt=arr("scale_tilt"), aux_id=arr("aux_id", np.int32),
-        tex_id=arr("tex_id", np.int32),
+        tex_id=arr("tex_id", np.int32), mix_a=arr("mix_a", np.int32),
+        mix_b=arr("mix_b", np.int32), mix_w=arr("mix_w"),
         nrm_tex_id=arr("nrm_tex_id", np.int32),
         nrm_kind=arr("nrm_kind", np.int32), nrm_scale=arr("nrm_scale"))
 
@@ -416,8 +429,7 @@ def gather(table: MaterialTable, tex, mat_id, uv=None, lod=None, bary=None,
     them)."""
     m = torch.clamp(mat_id, min=0).long()
     fields = [getattr(table, f) for f in GatheredMat._fields]
-    gm = GatheredMat(*[_Rows.apply(v, m) if v.requires_grad else v[m]
-                       for v in fields])
+    gm = GatheredMat(*[_field(v, m) for v in fields])
     if tex is None:
         return gm
     return gm._replace(diffuse=eval_checkerboard(
@@ -446,17 +458,23 @@ def register(kind: int, family):
 
 
 def check_kinds(active_kinds):
-    missing = [k for k in active_kinds if k not in FAMILIES]
+    missing = [k for k in active_kinds
+               if k not in FAMILIES and k not in WRAPPER_KINDS]
     if missing:
         raise NotImplementedError(f"BSDF kinds {missing} are not ported "
-                                  f"(ported: {sorted(FAMILIES)})")
+                                  f"yet (ROADMAP item 13; ported: "
+                                  f"{sorted(set(FAMILIES) | set(WRAPPER_KINDS))})")
 
 
 def eval_pdf(active_kinds, gm: GatheredMat, wi, wo, hair_tables=None):
+    """f cos and the sampling pdf of every lane (the wrappers' lanes are
+    eval_pdf_mix's)."""
     n = wi.shape[:-1]
     f = torch.zeros(n + (3,), device=wi.device)
     pdf = torch.zeros(n, device=wi.device)
     for kind in sorted(set(int(k) for k in active_kinds)):
+        if kind in WRAPPER_KINDS:
+            continue
         fk, pk = FAMILIES[kind].eval_pdf(gm, wi, wo, hair_tables)
         sel = gm.kind == kind
         f = torch.where(sel[..., None], fk, f)
@@ -466,6 +484,8 @@ def eval_pdf(active_kinds, gm: GatheredMat, wi, wo, hair_tables=None):
 
 def sample(active_kinds, gm: GatheredMat, wi, u_lobe, u2, u2b,
            hair_tables=None):
+    """(wo, weight, pdf, is_delta, eta_scale) of every lane (the
+    wrappers' lanes are sample_mix's)."""
     n = wi.shape[:-1]
     dev = wi.device
     wo = torch.zeros(n + (3,), device=dev)
@@ -474,6 +494,8 @@ def sample(active_kinds, gm: GatheredMat, wi, u_lobe, u2, u2b,
     is_delta = torch.zeros(n, dtype=torch.bool, device=dev)
     eta_s = torch.ones(n, device=dev)
     for kind in sorted(set(int(k) for k in active_kinds)):
+        if kind in WRAPPER_KINDS:
+            continue
         wk, wtk, pk, dk, ek = FAMILIES[kind].sample(gm, wi, u_lobe, u2, u2b,
                                                     hair_tables)
         sel = gm.kind == kind
@@ -485,15 +507,310 @@ def sample(active_kinds, gm: GatheredMat, wi, u_lobe, u2, u2b,
     return wo, weight, pdf, is_delta, eta_s
 
 
-def eval_pdf_mix(active_kinds, table, mat_id, gm, wi, wo, hair_tables=None):
-    """eval_pdf behind the wrapper-material indirection (none in the
-    ported scenes)."""
-    return eval_pdf(active_kinds, gm, wi, wo, hair_tables)
+# ---------------------------------------------------------------------------
+# Wrapper materials: one level of nested-material indirection (the JAX
+# package's registry.py, reference src/bsdfs/{mixturebsdf,blendbsdf,mask,
+# coating,roughcoating}.cpp).
+#   MIXTURE      rows mix_a and mix_b blended with weight mix_w;
+#   MASK         opacity (in `diffuse`, possibly textured) times row mix_a
+#                plus (1 - opacity) delta pass-through;
+#   COATING      a smooth dielectric layer (ior `eta`, absorption times
+#                thickness in `sigma_a`) over row mix_a, whose directions
+#                are refraction-unfolded;
+#   ROUGHCOATING a microfacet layer: the specular lobe D G F / (4 cos),
+#                the nested transmittance from the row's ext_trans slice.
+# A nested row is a plain family. Its row is fetched with gather (uv only,
+# as in the JAX package), so a gradient to its fields goes through _Rows.
+# ---------------------------------------------------------------------------
+
+def _sub_kinds(active_kinds):
+    return tuple(k for k in active_kinds if k not in WRAPPER_KINDS)
 
 
-def sample_mix(active_kinds, table, mat_id, gm, wi, u_lobe, u2, u2b,
-               hair_tables=None):
-    return sample(active_kinds, gm, wi, u_lobe, u2, u2b, hair_tables)
+def _refract_in(w, eta):
+    """Refraction-unfolded entry into the coating layer: the transmitted
+    direction in the SAME hemisphere as w (reference: coating.cpp
+    refractIn). Returns (w', R12, tir)."""
+    from .fresnel import fresnel_dielectric
+    cos_i = w[..., 2]
+    R, _ = fresnel_dielectric(torch.abs(cos_i), eta)
+    inv_eta = 1.0 / eta
+    sin2_t = (1.0 - cos_i * cos_i) * inv_eta * inv_eta
+    tir = sin2_t >= 1.0
+    cos_t = torch.sqrt(torch.clamp(1.0 - sin2_t, min=0.0))
+    wp = torch.stack([w[..., 0] * inv_eta, w[..., 1] * inv_eta,
+                      torch.sign(cos_i) * cos_t], dim=-1)
+    return wp, torch.where(tir, 1.0, R), tir
+
+
+def _refract_out(wp, eta):
+    """Exit from the layer (reference: coating.cpp refractOut). Returns
+    (w, R21, tir)."""
+    from .fresnel import fresnel_dielectric
+    cos_i = wp[..., 2]
+    R, _ = fresnel_dielectric(torch.abs(cos_i), 1.0 / eta)
+    sin2_t = (1.0 - cos_i * cos_i) * eta * eta
+    tir = sin2_t >= 1.0
+    cos_t = torch.sqrt(torch.clamp(1.0 - sin2_t, min=0.0))
+    w = torch.stack([wp[..., 0] * eta, wp[..., 1] * eta,
+                     torch.sign(cos_i) * cos_t], dim=-1)
+    return w, torch.where(tir, 1.0, R), tir
+
+
+def _coat_absorb(gm, wi_p, wo_p):
+    """exp(-sigma_a d (1 / |cos theta_i'| + 1 / |cos theta_o'|)); sigma_a
+    holds the absorption times the thickness."""
+    path = 1.0 / torch.clamp(torch.abs(wi_p[..., 2]), min=1e-6) \
+        + 1.0 / torch.clamp(torch.abs(wo_p[..., 2]), min=1e-6)
+    return torch.exp(-gm.sigma_a * path[..., None])
+
+
+def _coat_prob_spec(gm, wi, rough: bool):
+    from .fresnel import fresnel_dielectric
+    if rough:
+        r = 1.0 - ext_trans_lookup(gm, torch.abs(wi[..., 2]))
+    else:
+        r, _ = fresnel_dielectric(torch.abs(wi[..., 2]), gm.eta)
+    sw = gm.spec_weight
+    return (r * sw) / torch.clamp(r * sw + (1 - r) * (1 - sw), min=1e-7)
+
+
+def _coat_eval_pdf(sub, gm, gm_n, wi, wo, hair_tables, rough: bool):
+    """(f, pdf) of a coated lane, both lobes, solid-angle measure."""
+    wi_p, R12, tir_i = _refract_in(wi, gm.eta)
+    wo_p, R21, tir_o = _refract_in(wo, gm.eta)
+    f_n, p_n = eval_pdf(sub, gm_n, wi_p, wo_p, hair_tables)
+    inv_eta2 = 1.0 / (gm.eta * gm.eta)
+    jac = inv_eta2 * wo[..., 2] / torch.where(
+        torch.abs(wo_p[..., 2]) < 1e-7, 1e-7, wo_p[..., 2])
+    if rough:
+        T_i = ext_trans_lookup(gm, torch.abs(wi[..., 2]))
+        T_o = ext_trans_lookup(gm, torch.abs(wo[..., 2]))
+        through = (T_i * T_o)[..., None]
+    else:
+        through = ((1.0 - R12) * (1.0 - R21))[..., None]
+    f = f_n * through * _coat_absorb(gm, wi_p, wo_p) * jac[..., None]
+    dead = tir_i | tir_o
+    f = torch.where(dead[..., None], 0.0, f)
+    p_spec = _coat_prob_spec(gm, wi, rough)
+    pdf = torch.where(dead, 0.0, p_n * jac * (1.0 - p_spec))
+    if rough:
+        # the glossy reflection lobe (reference: roughcoating.cpp:273-291)
+        from . import microfacet as mf
+        from .fresnel import fresnel_dielectric
+        from .plastic import _dyn_g, _dyn_ndf, _dyn_pdf_m, _half
+        both_up = wi[..., 2] * wo[..., 2] > 0
+        h = _half(wi, wo) * torch.sign(wo[..., 2])[..., None]
+        D = _dyn_ndf(gm.dist, gm.alpha, h)
+        G = _dyn_g(gm.dist, gm.alpha, wi, wo, h)
+        F, _ = fresnel_dielectric(torch.abs(torch.sum(wi * h, -1)), gm.eta)
+        spec = gm.specular * (F * D * G / torch.clamp(
+            4.0 * torch.abs(wi[..., 2]), min=1e-7))[..., None]
+        pdf_m = _dyn_pdf_m(gm.dist, gm.alpha, wi, h)
+        pdf_spec = mf.half_vector_to_wo_pdf(pdf_m, wo, h)
+        f = f + torch.where(both_up[..., None], spec, 0.0)
+        pdf = pdf + torch.where(both_up, pdf_spec * p_spec, 0.0)
+    return f, pdf
+
+
+def eval_pdf_mix(active_kinds, table, tex, mat_id, uv, gm, wi, wo,
+                 hair_tables=None):
+    """eval_pdf with one level of wrapper-material indirection."""
+    akt = set(int(k) for k in active_kinds)
+    f, pdf = eval_pdf(active_kinds, gm, wi, wo, hair_tables)
+    if not (akt & set(WRAPPER_KINDS)):
+        return f, pdf
+    m = torch.clamp(mat_id, min=0).long()
+    kind_m = table.kind[m]
+    sub = _sub_kinds(active_kinds)
+    gm_a = gather(table, tex, table.mix_a[m], uv)
+    if MIXTURE in akt or MASK in akt:
+        f_a, p_a = eval_pdf(sub, gm_a, wi, wo, hair_tables)
+    if MIXTURE in akt:
+        is_mix = kind_m == MIXTURE
+        w = _field(table.mix_w, m)
+        gm_b = gather(table, tex, table.mix_b[m], uv)
+        f_b, p_b = eval_pdf(sub, gm_b, wi, wo, hair_tables)
+        f = torch.where(is_mix[..., None],
+                        w[..., None] * f_a + (1 - w)[..., None] * f_b, f)
+        pdf = torch.where(is_mix, w * p_a + (1 - w) * p_b, pdf)
+    if MASK in akt:
+        is_mask = kind_m == MASK
+        op = gm.diffuse  # the opacity, texture-resolved
+        f = torch.where(is_mask[..., None], f_a * op, f)
+        pdf = torch.where(is_mask, p_a * _luminance(op), pdf)
+    for rough, kind in ((False, COATING), (True, ROUGHCOATING)):
+        if kind in akt:
+            is_c = kind_m == kind
+            f_c, p_c = _coat_eval_pdf(sub, gm, gm_a, wi, wo, hair_tables,
+                                      rough)
+            f = torch.where(is_c[..., None], f_c, f)
+            pdf = torch.where(is_c, p_c, pdf)
+    return f, pdf
+
+
+def sample_mix(active_kinds, table, tex, mat_id, uv, gm, wi, u_lobe, u2,
+               u2b, hair_tables=None):
+    """sample with one level of wrapper-material indirection."""
+    akt = set(int(k) for k in active_kinds)
+    if not (akt & set(WRAPPER_KINDS)):
+        return sample(active_kinds, gm, wi, u_lobe, u2, u2b, hair_tables)
+    m = torch.clamp(mat_id, min=0).long()
+    kind_m = table.kind[m]
+    sub = _sub_kinds(active_kinds)
+    n = wi.shape[:-1]
+    dev = wi.device
+
+    # ---- route each lane to an effective sub-material, rescaled sample --
+    id_eff = m
+    u_eff = u_lobe
+    if MIXTURE in akt:
+        is_mix = kind_m == MIXTURE
+        w = _field(table.mix_w, m)
+        pick_a = u_lobe < w
+        u_resc = torch.where(pick_a, u_lobe / torch.clamp(w, min=1e-7),
+                             (u_lobe - w) / torch.clamp(1 - w, min=1e-7))
+        id_eff = torch.where(is_mix, torch.where(
+            pick_a, table.mix_a[m], table.mix_b[m]).long(), id_eff)
+        u_eff = torch.where(is_mix, u_resc, u_eff)
+    if MASK in akt:
+        is_mask = kind_m == MASK
+        op_lum = _luminance(gm.diffuse)
+        mask_nested = u_lobe < op_lum
+        id_eff = torch.where(is_mask & mask_nested, table.mix_a[m].long(),
+                             id_eff)
+        u_eff = torch.where(is_mask, u_lobe / torch.clamp(op_lum, min=1e-7),
+                            u_eff)
+    is_coat = torch.zeros(n, dtype=torch.bool, device=dev)
+    coat_rough = torch.zeros(n, dtype=torch.bool, device=dev)
+    if COATING in akt:
+        is_coat = is_coat | (kind_m == COATING)
+    if ROUGHCOATING in akt:
+        sel = kind_m == ROUGHCOATING
+        is_coat = is_coat | sel
+        coat_rough = coat_rough | sel
+    if COATING in akt or ROUGHCOATING in akt:
+        if (COATING in akt) != (ROUGHCOATING in akt):
+            p_spec = _coat_prob_spec(gm, wi, ROUGHCOATING in akt)
+        else:
+            p_spec = torch.where(coat_rough, _coat_prob_spec(gm, wi, True),
+                                 _coat_prob_spec(gm, wi, False))
+        coat_nested = u_lobe >= p_spec
+        id_eff = torch.where(is_coat & coat_nested, table.mix_a[m].long(),
+                             id_eff)
+        u_eff = torch.where(is_coat & coat_nested,
+                            (u_lobe - p_spec)
+                            / torch.clamp(1 - p_spec, min=1e-7), u_eff)
+
+    # coated lanes sample the nested BSDF with the refracted wi
+    wi_p, R12, tir_i = _refract_in(wi, gm.eta)
+    wi_eff = torch.where(is_coat[..., None], wi_p, wi)
+    gm_eff = gather(table, tex, id_eff, uv)
+    wo, wt, pdf, is_delta, eta_s = sample(sub, gm_eff, wi_eff, u_eff, u2,
+                                          u2b, hair_tables)
+
+    # ---- MIXTURE: a smooth lane takes the full blended f / pdf ----
+    if MIXTURE in akt:
+        f_mix, p_mix = eval_pdf_mix(active_kinds, table, tex, mat_id, uv,
+                                    gm, wi, wo, hair_tables)
+        smooth_mix = is_mix & ~is_delta
+        wt = torch.where(smooth_mix[..., None],
+                         f_mix / torch.clamp(p_mix, min=1e-9)[..., None], wt)
+        pdf = torch.where(smooth_mix, p_mix, pdf)
+        delta_mix = is_mix & is_delta
+        pdf = torch.where(delta_mix, pdf * torch.where(pick_a, w, 1 - w),
+                          pdf)
+
+    # ---- MASK ----
+    if MASK in akt:
+        # nested branch: weight x opacity / op_lum, pdf x op_lum
+        sel_n = is_mask & mask_nested
+        wt = torch.where(sel_n[..., None], wt * gm.diffuse
+                         / torch.clamp(op_lum, min=1e-7)[..., None], wt)
+        pdf = torch.where(sel_n, pdf * op_lum, pdf)
+        # pass-through branch: delta transmission straight through
+        sel_t = is_mask & ~mask_nested
+        wo = torch.where(sel_t[..., None], -wi, wo)
+        wt = torch.where(sel_t[..., None], (1.0 - gm.diffuse)
+                         / torch.clamp(1.0 - op_lum, min=1e-7)[..., None],
+                         wt)
+        pdf = torch.where(sel_t, 1.0 - op_lum, pdf)
+        is_delta = torch.where(sel_t, True, is_delta)
+        eta_s = torch.where(sel_t, 1.0, eta_s)
+
+    # ---- COATING / ROUGHCOATING ----
+    if COATING in akt or ROUGHCOATING in akt:
+        from ...core.math import reflect_z
+        # nested branch: refract the sampled wo out of the layer
+        wo_out, R21, tir_o = _refract_out(wo, gm.eta)
+        sel_n = is_coat & coat_nested
+        sel_s = is_coat & ~coat_nested
+        # the specular branch's direction: a mirror for the smooth coat, a
+        # microfacet-sampled glossy reflection for the rough one
+        # (roughcoating.cpp:293-316)
+        wo_s = reflect_z(wi)
+        if ROUGHCOATING in akt:
+            from .plastic import _dyn_sample_m
+            m_h, _ = _dyn_sample_m(gm.dist, gm.alpha, wi, u2)
+            wo_g = 2.0 * torch.sum(wi * m_h, -1, keepdim=True) * m_h - wi
+            wo_s = torch.where(coat_rough[..., None], wo_g, wo_s)
+        # the full coated f / pdf at the outgoing direction (as eval does:
+        # MIS-consistent pdfs for smooth nested lobes)
+        gm_a = gather(table, tex, table.mix_a[m], uv)
+        wo_eval = torch.where(sel_n[..., None], wo_out,
+                              torch.where(sel_s[..., None], wo_s, wo))
+        if COATING in akt:
+            f_c0, p_c0 = _coat_eval_pdf(sub, gm, gm_a, wi, wo_eval,
+                                        hair_tables, False)
+        if ROUGHCOATING in akt:
+            f_c1, p_c1 = _coat_eval_pdf(sub, gm, gm_a, wi, wo_eval,
+                                        hair_tables, True)
+        if COATING in akt and ROUGHCOATING in akt:
+            f_c = torch.where(coat_rough[..., None], f_c1, f_c0)
+            p_c = torch.where(coat_rough, p_c1, p_c0)
+        elif COATING in akt:
+            f_c, p_c = f_c0, p_c0
+        else:
+            f_c, p_c = f_c1, p_c1
+        tir = tir_i | tir_o
+        smooth_n = sel_n & ~is_delta & ~tir
+        wo = torch.where(sel_n[..., None], wo_out, wo)
+        wt = torch.where(smooth_n[..., None],
+                         f_c / torch.clamp(p_c, min=1e-9)[..., None], wt)
+        wt = torch.where((sel_n & (is_delta | tir))[..., None], torch.where(
+            (sel_n & is_delta & ~tir)[..., None],
+            wt * ((1.0 - R12) * (1.0 - R21)
+                  / torch.clamp(1 - p_spec, min=1e-7))[..., None]
+            * _coat_absorb(gm, wi_p, wo), 0.0), wt)
+        pdf = torch.where(smooth_n, p_c, pdf)
+        pdf = torch.where(sel_n & is_delta, pdf * (1 - p_spec), pdf)
+        pdf = torch.where(sel_n & tir, 0.0, pdf)
+        # the specular branch
+        wo = torch.where(sel_s[..., None], wo_s, wo)
+        # smooth coating: a delta mirror of weight specular R12 / p_spec
+        sel_s_delta = sel_s & ~coat_rough
+        wt = torch.where(sel_s_delta[..., None], gm.specular
+                         * (R12 / torch.clamp(p_spec, min=1e-7))[..., None],
+                         wt)
+        pdf = torch.where(sel_s_delta, p_spec, pdf)
+        is_delta = torch.where(sel_s_delta, True, is_delta)
+        # rough coating: a smooth glossy lobe, weight f / pdf with the full
+        # mixture pdf; below-horizon samples are rejected
+        sel_s_rough = sel_s & coat_rough
+        ok_g = sel_s_rough & (wo[..., 2] * wi[..., 2] > 0) & (p_c > 1e-9)
+        wt = torch.where(ok_g[..., None],
+                         f_c / torch.clamp(p_c, min=1e-9)[..., None],
+                         torch.where(sel_s_rough[..., None], 0.0, wt))
+        pdf = torch.where(sel_s_rough, torch.where(ok_g, p_c, 0.0), pdf)
+        is_delta = torch.where(sel_s_rough, False, is_delta)
+        eta_s = torch.where(is_coat, 1.0, eta_s)
+    return wo, wt, pdf, is_delta, eta_s
+
+
+def _field(v, m):
+    """v[m] of a material-table field, through _Rows where v requires
+    grad."""
+    return _Rows.apply(v, m) if v.requires_grad else v[m]
 
 
 def _luminance(c):

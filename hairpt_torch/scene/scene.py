@@ -43,7 +43,8 @@ from ..models import shapes as shp
 from ..models.bsdf import registry as mat
 from ..models.bsdf import hair as hair_bsdf  # registers the hair kinds
 from ..models.bsdf import plastic  # noqa: F401  (registers the plastics)
-from ..models.bsdf import simple  # noqa: F401  (registers DIFFUSE)
+from ..models.bsdf import simple  # noqa: F401  (registers the simple kinds)
+from ..models.bsdf import dielectric_rough  # noqa: F401  (registers them)
 from ..models.bsdf import tables as rt_tables
 from ..models.bsdf.fresnel import fresnel_diffuse_reflectance
 from ..models.sensors import Camera
@@ -209,7 +210,8 @@ class SceneBuilder:
         kind = row.get("kind", mat.DIFFUSE)
         mat.check_kinds([kind])
         # per-material precomputed transmittance slices
-        if kind in (mat.ROUGHPLASTIC, mat.MARSCHNER, mat.MARSCHNER_PURE):
+        if kind in (mat.ROUGHPLASTIC, mat.MARSCHNER, mat.MARSCHNER_PURE,
+                    mat.ROUGHCOATING):
             dist = row.get("dist", 0)
             eta = row.get("eta", 1.5)
             alpha = row.get("alpha", 0.1)
@@ -218,6 +220,12 @@ class SceneBuilder:
             row["ext_trans"] = rt.eval_np(cosg, np.full(mat.N_COS, alpha))
             row["int_fdr"] = 1.0 - rt_tables.get(dist, 1.0 / eta) \
                 .eval_diffuse_np(alpha)
+        if kind in (mat.COATING, mat.ROUGHCOATING):
+            # the specular sampling weight from the layer's average
+            # absorption (coating.cpp configure(): 1 / (avgAbsorption + 1))
+            sa = np.asarray(row.get("sigma_a", (0.0,) * 3), np.float64)
+            avg_absorb = float(np.mean(np.exp(-2.0 * sa)))
+            row.setdefault("spec_weight", 1.0 / (avg_absorb + 1.0))
         if kind == mat.PLASTIC:
             row["int_fdr"] = fresnel_diffuse_reflectance(
                 1.0 / row.get("eta", 1.5))

@@ -60,6 +60,23 @@ stand-in fibers (keyed by those names) take the place of the absent
   a spot light behind it as the rim light, a point light, and the
   furball's sunsky; Sobol' 64 spp, 1024^2, maxDepth 65. No reference
   scene is lit so: the layout and the values are this stand-in's own.
+- materials/scene.xml: a stand-in for the surface BSDFs, the wrapper
+  materials and the thin lens in the reference's syntax
+  (src/bsdfs/{roughdiffuse,conductor,roughconductor,dielectric,
+  thindielectric,roughdielectric,difftrans,phong,ward,null,mixturebsdf,
+  mask,coating,roughcoating}.cpp and src/sensors/thinlens.cpp, as
+  hairpt/scene/xml_loader.py reads them): the furball's fibers under
+  bench.py's rough plastic (1,008,000 segments at hair quality 14),
+  ringed by one sphere per family (roughdiffuse, conductor Au,
+  roughconductor Cu ggx 0.2, dielectric bk7, thindielectric,
+  roughdielectric beckmann 0.1, difftrans, phong, ward, null, a 0.3
+  mixture of a conductor and a diffuse, a mask of opacity 0.5 over a
+  diffuse, a coating over a rough conductor, a rough coating over a
+  diffuse), a checkerboard floor, the furball's sunsky and a thinlens
+  camera (apertureRadius 0.02, focused on the furball); 1024^2, Sobol'
+  64 spp, maxDepth 65. No reference scene uses these plugins: their
+  users shoot hair beside glass and metal props with depth of field,
+  and the layout and the values are this stand-in's own.
 The hair scenes' cameras are the framing of their generators (straight
 and curly: from (0, 16.5, -25) at (0, 8.5, 0); hair-curl: from
 (0, 5.9, 17) at (0, 6, 0)). Written files are for the CLI and the
@@ -434,6 +451,96 @@ def lit(sampler="sobol", spp=64, res=1024, depth=65) -> str:
         + SUN, depth)
 
 
+# the materials stand-in: the spheres' BSDFs, in ring order
+MATERIAL_BSDFS = (
+    ("roughdiffuse", "<rgb name=\"reflectance\" value=\"0.6, 0.5, 0.4\"/>"
+     "<float name=\"alpha\" value=\"0.5\"/>"),
+    ("conductor", "<string name=\"material\" value=\"Au\"/>"),
+    ("roughconductor", "<string name=\"material\" value=\"Cu\"/>"
+     "<string name=\"distribution\" value=\"ggx\"/>"
+     "<float name=\"alpha\" value=\"0.2\"/>"),
+    ("dielectric", "<string name=\"intIOR\" value=\"bk7\"/>"
+     "<string name=\"extIOR\" value=\"air\"/>"),
+    ("thindielectric", "<string name=\"intIOR\" value=\"bk7\"/>"),
+    ("roughdielectric", "<string name=\"distribution\" value=\"beckmann\"/>"
+     "<float name=\"alpha\" value=\"0.1\"/>"
+     "<string name=\"intIOR\" value=\"bk7\"/>"),
+    ("difftrans", ""),
+    ("phong", "<rgb name=\"diffuseReflectance\" value=\"0.3, 0.05, 0.05\"/>"
+     "<rgb name=\"specularReflectance\" value=\"0.4\"/>"
+     "<float name=\"exponent\" value=\"40\"/>"),
+    ("ward", "<rgb name=\"diffuseReflectance\" value=\"0.05, 0.2, 0.3\"/>"
+     "<rgb name=\"specularReflectance\" value=\"0.3\"/>"
+     "<float name=\"alpha\" value=\"0.15\"/>"),
+    ("null", ""),
+    ("mixturebsdf", "<string name=\"weights\" value=\"0.3, 0.7\"/>"
+     "<bsdf type=\"conductor\"><string name=\"material\" value=\"Ag\"/>"
+     "</bsdf><bsdf type=\"diffuse\"><rgb name=\"reflectance\" "
+     "value=\"0.2, 0.5, 0.2\"/></bsdf>"),
+    ("mask", "<rgb name=\"opacity\" value=\"0.5\"/><bsdf type=\"diffuse\">"
+     "<rgb name=\"reflectance\" value=\"0.7, 0.7, 0.2\"/></bsdf>"),
+    ("coating", "<string name=\"intIOR\" value=\"bk7\"/>"
+     "<rgb name=\"sigmaA\" value=\"0.1, 0.2, 0.4\"/>"
+     "<bsdf type=\"roughconductor\"><string name=\"material\" "
+     "value=\"Al\"/><float name=\"alpha\" value=\"0.1\"/></bsdf>"),
+    ("roughcoating", "<float name=\"alpha\" value=\"0.1\"/>"
+     "<bsdf type=\"diffuse\"><rgb name=\"reflectance\" "
+     "value=\"0.1, 0.3, 0.6\"/></bsdf>"),
+)
+# the focus distance: the furball's centre along the camera's axis; the
+# ring of spheres is centred on the axis there, in the plane of the
+# camera's x and y axes (radius 4.0: inside the 35 degree field), the
+# spheres' radius 0.45
+FOCUS_DISTANCE = float(np.dot(CAM_TO_WORLD[:3, 2], np.asarray(
+    (0.0, 11.0, 0.0)) - CAM_TO_WORLD[:3, 3]))
+RING_RADIUS = 4.0
+PROP_RADIUS = 0.45
+
+
+def material_centers():
+    """The spheres' centres, in ring order."""
+    c = CAM_TO_WORLD[:3, 3] + FOCUS_DISTANCE * CAM_TO_WORLD[:3, 2]
+    ang = 2.0 * np.pi * np.arange(len(MATERIAL_BSDFS)) / len(MATERIAL_BSDFS)
+    return [c + RING_RADIUS * (np.cos(a) * CAM_TO_WORLD[:3, 0]
+                               + np.sin(a) * CAM_TO_WORLD[:3, 1])
+            for a in ang]
+
+
+def materials(sampler="sobol", spp=64, res=1024, depth=65, hair=True,
+              aperture=0.02) -> str:
+    """The materials stand-in; the tests and chip_smoke vary its sampler,
+    sample count, resolution, depth and aperture, and drop the hair."""
+    m = " ".join(repr(float(x)) for x in CAM_TO_WORLD.reshape(-1))
+    cam = _sensor(f"<matrix value=\"{m}\"/>", res, res, sampler, spp).replace(
+        "<sensor type=\"perspective\">",
+        "<sensor type=\"thinlens\"><float name=\"apertureRadius\" "
+        f"value=\"{aperture!r}\"/><float name=\"focusDistance\" "
+        f"value=\"{FOCUS_DISTANCE!r}\"/>")
+    body = cam + "".join(f"<bsdf type=\"{t}\" id=\"m{i}\">{props}</bsdf>"
+                         for i, (t, props) in enumerate(MATERIAL_BSDFS))
+    if hair:
+        body += ("<bsdf type=\"roughplastic\" id=\"fur\">"
+                 "<string name=\"distribution\" value=\"ggx\"/>"
+                 "<float name=\"alpha\" value=\"0.2\"/>"
+                 "<float name=\"intIOR\" value=\"1.55\"/>"
+                 f"<rgb name=\"diffuseReflectance\" value=\"{_rgb(DIFFUSE)}\"/>"
+                 "</bsdf>"
+                 + _hair("furball.mitshair", 0.00216667, "<ref id=\"fur\"/>"))
+    for i, c in enumerate(material_centers()):
+        body += (f"<shape type=\"sphere\"><point name=\"center\" "
+                 f"x=\"{float(c[0])!r}\" y=\"{float(c[1])!r}\" "
+                 f"z=\"{float(c[2])!r}\"/>"
+                 f"<float name=\"radius\" value=\"{PROP_RADIUS!r}\"/>"
+                 f"<ref id=\"m{i}\"/></shape>")
+    body += ("<shape type=\"rectangle\"><transform name=\"toWorld\"><scale "
+             "value=\"20\"/><rotate x=\"1\" angle=\"-90\"/><translate "
+             "y=\"6\"/></transform><bsdf type=\"diffuse\"><texture "
+             "type=\"checkerboard\" name=\"reflectance\"><float "
+             "name=\"uscale\" value=\"8\"/><float name=\"vscale\" "
+             "value=\"8\"/></texture></bsdf></shape>")
+    return _scene(body + SUN, depth)
+
+
 # name -> (directory, file name, XML builder[, writer of its files])
 SCENES = {
     "furball": ("furball", "scene.xml", furball),
@@ -447,6 +554,7 @@ SCENES = {
     "instanced": ("instanced", "scene.xml", instanced, instanced_files),
     "motion": ("motion", "scene.xml", motion, motion_files),
     "lit": ("lit", "scene.xml", lit),
+    "materials": ("materials", "scene.xml", materials),
 }
 
 
@@ -454,7 +562,8 @@ SCENES = {
 def write_scene(root: str, name: str, **kw) -> str:
     """Write scene `name` under root/<its directory>/ (with its files,
     where it has any) and return the path; kw go to its XML builder
-    (furball(), teapot(), instanced(), motion() and lit() take any)."""
+    (furball(), teapot(), instanced(), motion(), lit() and materials()
+    take any)."""
     d, f, make, *files = SCENES[name]
     os.makedirs(os.path.join(root, d), exist_ok=True)
     path = os.path.join(root, d, f)

@@ -10,15 +10,22 @@ scene arrays in both packages. `$key` placeholders are substituted from
 
 What the port renders:
 - `<integrator type="path">` with maxDepth;
-- the perspective sensor (fov, fovAxis, a toWorld of matrix, translate,
-  scale, rotate and lookat) with the independent, ldsampler, halton,
-  hammersley, stratified and sobol samplers and an ldrfilm, hdrfilm or
-  mfilm with any of the six reconstruction filters;
-- the BSDFs diffuse, plastic, roughplastic, kajiyakay, marschner
-  (corrected, or faithful with `<boolean name="faithful">` /
-  `-D marschner_faithful=true`), marschner_diffuse and
-  marschnerdielectric, each possibly wrapped in twosided and in a
-  normalmap or bumpmap (its texture image read without de-gamma);
+- every sensor of the JAX loader: perspective, thinlens (apertureRadius,
+  focusDistance), orthographic, spherical, telecentric, radiancemeter,
+  fluencemeter, irradiancemeter and perspective_rdist (kc), an unknown
+  name becoming perspective as in the JAX loader (fov, fovAxis, a toWorld
+  of matrix, translate, scale, rotate and lookat) with the independent,
+  ldsampler, halton, hammersley, stratified and sobol samplers and an
+  ldrfilm, hdrfilm or mfilm with any of the six reconstruction filters;
+- the BSDFs diffuse, roughdiffuse, conductor and mirror (the named
+  conductor presets), roughconductor, dielectric, thindielectric,
+  roughdielectric, difftrans, plastic, roughplastic, phong, ward, null,
+  kajiyakay, marschner (corrected, or faithful with `<boolean
+  name="faithful">` / `-D marschner_faithful=true`), marschner_diffuse
+  and marschnerdielectric, and the wrappers mixturebsdf and blendbsdf,
+  mask, coating and roughcoating over a nested BSDF (one level), each
+  possibly wrapped in twosided and in a normalmap or bumpmap (its
+  texture image read without de-gamma);
 - a BSDF's checkerboard, gridtexture, wireframe, vertexcolors, curvature
   or bitmap texture (PNG, de-gamma 2.2, HDR, PFM or EXR; a missing file
   gives no texture), possibly under a scale texture;
@@ -55,8 +62,9 @@ ignores it (it reads only a BSDF's own texture).
 
 Every other element the JAX loader accepts raises NotImplementedError
 before any build work, naming the ROADMAP item that ports it (13: the
-motion integrator, media, subsurface scattering, LDR images other than
-PNG, and the rest). Nothing else is dropped silently.
+motion integrator, media, subsurface scattering, the hk and irawan
+BSDFs, LDR images other than PNG, and the rest). Nothing else is dropped
+silently.
 """
 from __future__ import annotations
 
@@ -74,6 +82,7 @@ from ..film.film import Film
 from ..models import emitters as em
 from ..models import shapes as shp
 from ..models.bsdf import registry as mat
+from ..models import sensors
 from ..models.sensors import Camera
 from ..utils import io as io_utils
 from . import hairgen
@@ -111,21 +120,39 @@ BSDF_KINDS = {
     "roughcoating": mat.ROUGHCOATING,
 }
 
+SENSOR_KINDS = {
+    "perspective": sensors.PERSPECTIVE, "thinlens": sensors.THINLENS,
+    "orthographic": sensors.ORTHOGRAPHIC, "spherical": sensors.SPHERICAL,
+    "telecentric": sensors.TELECENTRIC,
+    "radiancemeter": sensors.RADIANCEMETER,
+    "fluencemeter": sensors.FLUENCEMETER,
+    "irradiancemeter": sensors.IRRADIANCEMETER,
+    "perspective_rdist": sensors.PERSPECTIVE_RDIST,
+}
+
 # named IOR lookups used by the reference (src/bsdfs/ior.h data subset)
 IOR_NAMES = {"air": 1.000277, "water": 1.3330, "bk7": 1.5046,
              "benzene": 1.501, "diamond": 2.419, "glass": 1.5046,
              "polypropylene": 1.49}
 
+# the JAX loader's conductor presets: (eta, k rgb)
+CONDUCTOR_PRESETS = {
+    "Cu": (0.95, (3.9, 2.45, 2.14)),
+    "Au": (0.40, (2.82, 2.35, 1.77)),
+    "Ag": (0.14, (4.16, 3.44, 2.56)),
+    "Al": (1.35, (7.47, 6.40, 5.30)),
+    "Cr": (3.18, (3.33, 3.33, 3.33)),
+    "none": (1e4, (0.0, 0.0, 0.0)),
+}
+
 ITEM_13 = "ROADMAP item 13"
 
-# the BSDF plugins the port renders; the other names of BSDF_KINDS name
-# item 13
-_BSDF_PORTED = {"diffuse", "plastic", "roughplastic", "kajiyakay",
-                "marschner", "marschner_diffuse", "marschnerdielectric"}
+# the BSDF plugins the port renders: hk waits for the media (its phase
+# function) and irawan (cloth) for a slice of its own, both item 13
+_BSDF_PORTED = set(BSDF_KINDS) - {"hk", "irawan"}
 # the image files the port reads (the JAX package reads any other LDR
 # format through PIL)
 _IMAGE_EXTS = (".png", ".hdr", ".pfm", ".exr")
-_SENSORS_PORTED = {"perspective"}
 _FILMS_PORTED = {"ldrfilm", "hdrfilm", "mfilm"}
 _DELTA_KINDS = {"point": em.POINT, "spot": em.SPOT,
                 "directional": em.DIRECTIONAL, "collimated": em.COLLIMATED}
@@ -256,9 +283,8 @@ def _refuse_image(node, defines, scene_dir, what: str):
 
 
 def _refuse_bsdf(node, defines, scene_dir):
-    """Refuse a <bsdf> the port cannot render: the wrappers other than
-    twosided, normalmap and bumpmap, families without a port, and images
-    it cannot read."""
+    """Refuse a <bsdf> the port cannot render: the families without a
+    port (hk, irawan) and images it cannot read."""
     while node.get("type") in ("twosided", "normalmap", "bumpmap"):
         if node.get("type") != "twosided":
             _refuse_image(node.find("texture"), defines, scene_dir,
@@ -285,13 +311,6 @@ def _refuse_unported(root, defines, scene_dir):
         if (integ.get("type") or "path") != "path":
             _refuse(f'<integrator type="{integ.get("type")}">', ITEM_13)
     for sensor in root.findall("sensor"):
-        skind = sensor.get("type", "perspective")
-        if skind not in _SENSORS_PORTED:
-            _refuse(f"the {skind} sensor", ITEM_13)
-        p = _collect_props(sensor, defines)
-        if "kc" in p and any(float(x) != 0.0 for x in str(p["kc"]).replace(
-                ",", " ").split()[:2]):
-            _refuse("radial distortion (kc)", ITEM_13)
         if sensor.find("medium") is not None:
             _refuse("participating media", ITEM_13)
         fm = sensor.find("film")
@@ -338,6 +357,18 @@ def _read_texture_image(fname: str, scene_dir: str, gamma: float = 2.2):
     return arr ** gamma if gamma != 1.0 else arr
 
 
+def _iors(p):
+    """(intIOR, extIOR) of a BSDF's properties, a name looked up in
+    IOR_NAMES (bk7 and air by default)."""
+    int_ior = p.get("intIOR", "bk7")
+    ext_ior = p.get("extIOR", "air")
+    if isinstance(int_ior, str):
+        int_ior = IOR_NAMES.get(int_ior, 1.5046)
+    if isinstance(ext_ior, str):
+        ext_ior = IOR_NAMES.get(ext_ior, 1.000277)
+    return int_ior, ext_ior
+
+
 def _material_row_from_bsdf(node, defines, builder: SceneBuilder,
                             scene_dir: str = ""):
     """Translate a <bsdf> element (possibly twosided-wrapped, possibly
@@ -373,13 +404,39 @@ def _material_row_from_bsdf(node, defines, builder: SceneBuilder,
     if btype == "marschner" and bool(faithful):
         kind = mat.MARSCHNER
 
+    if kind == mat.MIXTURE:
+        # the two nested rows first (mixturebsdf.cpp, blendbsdf.cpp)
+        children = node.findall("bsdf")[:2]
+        sub_ids = [builder.add_material(
+            **_material_row_from_bsdf(c, defines, builder, scene_dir))
+            for c in children]
+        while len(sub_ids) < 2:
+            sub_ids.append(builder.add_material(kind=mat.DIFFUSE))
+        weights = [float(x) for x in str(p.get("weights", "0.5, 0.5"))
+                   .replace(",", " ").split()] if "weights" in p else None
+        w = weights[0] if weights else p.get("weight", 0.5)
+        return dict(kind=mat.MIXTURE, twosided=twosided,
+                    mix_a=sub_ids[0], mix_b=sub_ids[1], mix_w=w)
+    if kind in (mat.MASK, mat.COATING, mat.ROUGHCOATING):
+        inner = node.find("bsdf")
+        nested_id = builder.add_material(
+            **_material_row_from_bsdf(inner, defines, builder, scene_dir)) \
+            if inner is not None else builder.add_material(kind=mat.DIFFUSE)
+        if kind == mat.MASK:
+            return dict(kind=mat.MASK, twosided=twosided, mix_a=nested_id,
+                        diffuse=p.get("opacity", (0.5, 0.5, 0.5)))
+        int_ior, ext_ior = _iors(p)
+        sa = np.asarray(p.get("sigmaA", (0.0, 0.0, 0.0)), np.float32)
+        return dict(kind=kind, twosided=twosided, mix_a=nested_id,
+                    eta=float(int_ior) / float(ext_ior),
+                    sigma_a=tuple(sa * float(p.get("thickness", 1.0))),
+                    alpha=float(p.get("alpha", 0.1)),
+                    dist=0 if p.get("distribution", "ggx") != "beckmann"
+                    else 1,
+                    specular=p.get("specularReflectance", (1.0, 1.0, 1.0)))
+
     row = dict(kind=kind, twosided=twosided)
-    int_ior = p.get("intIOR", "bk7")
-    ext_ior = p.get("extIOR", "air")
-    if isinstance(int_ior, str):
-        int_ior = IOR_NAMES.get(int_ior, 1.5046)
-    if isinstance(ext_ior, str):
-        ext_ior = IOR_NAMES.get(ext_ior, 1.000277)
+    int_ior, ext_ior = _iors(p)
     defaults_eta = {"marschner": 1.55, "marschnerdielectric": 1.501}
     row["eta"] = float(int_ior) / float(ext_ior) if "intIOR" in p or \
         "extIOR" in p else defaults_eta.get(btype, 1.5046)
@@ -406,6 +463,16 @@ def _material_row_from_bsdf(node, defines, builder: SceneBuilder,
         row["scale_tilt"] = -0.1
         row.setdefault("specular", (0.5, 0.5, 0.5))
         row.setdefault("transmit", (0.5, 0.5, 0.5))
+    if btype in ("conductor", "mirror", "roughconductor"):
+        # the named conductor presets, (eta, k rgb) at the R, G and B
+        # wavelengths (the reference ships spectral .spd tables)
+        eta_c, k_c = CONDUCTOR_PRESETS.get(p.get("material", "Cu"),
+                                           CONDUCTOR_PRESETS["Cu"])
+        row["eta"] = eta_c
+        row["k"] = k_c
+        if btype == "mirror":
+            row["eta"] = 1e4  # F -> 1
+            row["k"] = (0.0, 0.0, 0.0)
 
     # the texture child (the teapot floor's checkerboard), possibly under
     # a scale texture (src/textures/scale.cpp: a constant times it)
@@ -673,8 +740,15 @@ def load_scene(path: str, defines: dict | None = None,
         w = max(8, int(round(w * res_scale)))
         h = max(8, int(round(h * res_scale)))
         film = Film.make(w, h, rfilter, gamma)
-        cam = Camera.perspective(to_world, fov, w, h,
-                                 fov_axis=p.get("fovAxis", "x"))
+        kc = [float(x) for x in str(p["kc"]).replace(",", " ").split()[:2]] \
+            if "kc" in p else [0.0, 0.0]
+        cam = Camera.perspective(
+            to_world, fov, w, h, fov_axis=p.get("fovAxis", "x"),
+            kind=SENSOR_KINDS.get(sensor.get("type", "perspective"),
+                                  sensors.PERSPECTIVE),
+            aperture_radius=float(p.get("apertureRadius", 0.0)),
+            focus_distance=float(p.get("focusDistance", 1.0)))
+        cam = cam._replace(kc0=kc[0], kc1=kc[1] if len(kc) > 1 else 0.0)
     if cam is None:
         raise ValueError(f"{path}: the scene has no <sensor>")
     if spp_override is not None:

@@ -207,7 +207,9 @@ REFUSED = {
     # earlier slice)
     "point_light": (SENSOR.format(kind="perspective") + HAIR
                     + "<emitter type=\"point\"/>", None),
-    "orthographic": (SENSOR.format(kind="orthographic") + HAIR, "13"),
+    # the other sensors and the surface BSDFs render (item 13's, refused
+    # by an earlier slice); hk and irawan stay item 13
+    "orthographic": (SENSOR.format(kind="orthographic") + HAIR, None),
     "direct": ("<integrator type=\"direct\"/>"
                + SENSOR.format(kind="perspective") + HAIR, "13"),
     # a PNG bitmap renders; a JPEG one is item 13
@@ -219,7 +221,11 @@ REFUSED = {
     "medium": (SENSOR.format(kind="perspective") + HAIR
                + "<medium type=\"homogeneous\"/>", "13"),
     "conductor": (SENSOR.format(kind="perspective")
-                  + "<bsdf type=\"conductor\" id=\"c\"/>" + HAIR, "13"),
+                  + "<bsdf type=\"conductor\" id=\"c\"/>" + HAIR, None),
+    "hk": (SENSOR.format(kind="perspective")
+           + "<bsdf type=\"hk\" id=\"h\"/>" + HAIR, "13"),
+    "irawan": (SENSOR.format(kind="perspective")
+               + "<bsdf type=\"irawan\" id=\"c\"/>" + HAIR, "13"),
     "area_light": (SENSOR.format(kind="perspective")
                    + HAIR.replace("</shape>",
                                   "<emitter type=\"area\"/></shape>"),
@@ -252,6 +258,10 @@ def test_cli_refuses_what_the_port_does_not_render(tmp_path, monkeypatch,
             assert len(s.arrays.inst.proto_ids) == 1 and img.mean() > 0
         if case == "point_light":
             assert s.arrays.delta.kind.tolist() == [0]
+        if case == "orthographic":
+            assert s.camera.kind == 2
+        if case == "conductor":
+            assert s.arrays.materials.kind.tolist()[0] == 2
         if case == "area_light":
             # the hair shape's emitter is dropped: no light at all
             assert s.arrays.area is None and s.config.nee_probs == (0.0,) * 3
