@@ -13,17 +13,20 @@ shutter), the tiled query's options (subcull, short-ray-first,
 two-round), area and delta lights (the lit stand-in), rendering and the
 inverse step across GPUs (parallel/mesh.py: NCCL at world size 1, two
 gloo ranks on the one card), the surface BSDFs and wrapper materials
-under a thin lens (the materials stand-in) and the other sensors.
+under a thin lens (the materials stand-in), the other sensors, and
+participating media and subsurface scattering (the volpath integrator
+through kernel J, Woodcock tracking; the hk BSDF; the dipole and single
+scattering).
 
     python3 chip_smoke.py            # from the repository root, one card
 
 Phases (each prints one line with its elapsed seconds):
   0. the card (nvidia-smi name and power limit) and torch/CUDA versions;
-  1. build the eight CUDA libraries (nvcc, sm_90a: tiled.cu with kernels
+  1. build the nine CUDA libraries (nvcc, sm_90a: tiled.cu with kernels
      A and B, octets.cu with C and D, phaseb.cu with E, swept_cull.cu with
      the swept phase A, packed.cu with F, instanced.cu with G, perray.cu
-     with H, blocked.cu with I) and the BVH builder (g++), all nine in
-     parallel;
+     with H, blocked.cu with I, woodcock.cu with J) and the BVH builder
+     (g++), all ten in parallel;
   2. build the full-width furball scene (84,000 fibers x 12 segments,
      K = 128), take a real camera wave and a first-bounce wave (uniformly
      random directions at the camera hit points, Morton-sorted as the
@@ -133,9 +136,10 @@ Phases (each prints one line with its elapsed seconds):
           arithmetic differs (pid >= 99.9%, hit flags differing on at
           most 1e-5 of the rays, t within T_RTOL on >= 99.9% of the
           same-pid hits, a float64-checked graze counting as agreeing);
-       c. the CLI as a subprocess on the teapot stand-in (1280 x 720,
-          depth 65, 2 spp): exit 0, four outputs, a finite positive mean;
-          then one warm-up and two timed 1-spp waves in process: s/wave,
+       c. the CLI as a subprocess on the teapot stand-in (512 x 288,
+          depth 65, 1 spp): exit 0, four outputs, a finite positive mean;
+          then one warm-up and two timed 1-spp waves in process at 1280 x
+          720: s/wave,
           Mrays/s, F's launches per wave, no plain walk on the card;
        d. the small furball over a checkerboard rectangle, tiled and
           packed, card against CPU image means within 2%, with A, B and
@@ -157,8 +161,8 @@ Phases (each prints one line with its elapsed seconds):
           plain versions on the CPU: image means within 2%, G launched;
        c. one warm-up and two timed 1-spp waves at 1280 x 720, depth 65
           (s/wave, Mrays/s, G's and F's launches per wave, no plain
-          version on the card), then the CLI as a subprocess at 2 spp
-          (wall time, its logged build and render seconds).
+          version on the card), then the CLI as a subprocess at 512 x 288
+          and 1 spp (wall time, its logged build and render seconds).
   14. the per-ray and the blocked BVH walks, kernels H (csrc/perray.cu,
      one thread per ray, kernel F's loop over the BVHArrays) and I
      (csrc/blocked.cu, one CTA per block of 256 rays sharing one node
@@ -178,8 +182,9 @@ Phases (each prints one line with its elapsed seconds):
           times timed (s/wave, rays/wave, Mrays/s, the rebuild's and the
           re-pose's host seconds per shutter time, A, B, F and G
           launches per wave); the small stand-in card against CPU;
-       c. the CLI on the motion stand-in as a subprocess (wall time, its
-          logged build and render seconds);
+       c. the CLI on the motion stand-in as a subprocess at 512^2 and 1
+          spp, one shutter time (wall time, its logged build and render
+          seconds);
        d. one wave of the full-width furball (after phase 5) and the
           teapot stand-in with traversal 'perray' and 'blocked' (s/wave,
           H's and I's launches), and the small furball over the
@@ -200,11 +205,12 @@ Phases (each prints one line with its elapsed seconds):
           wave each, A's instances and B's launches;
        c. the lit stand-in (scene_xmls.lit: the furball's hair at
           quality 14, a rectangle and a sphere area light, a spot and a
-          point light, the sunsky; 1024^2, depth 65): the CLI at 2 spp
-          (exit 0, four outputs, a finite positive mean); load_scene
-          against SceneBuilder (config and every tensor equal); a
-          warm-up and two timed 1-spp waves (s/wave, Mrays/s, A, B and
-          F launches); at 64^2 the render and the diffuse gradient card
+          point light, the sunsky; 1024^2, depth 65): the CLI at 512^2
+          and 1 spp (exit 0, four outputs, a finite positive mean);
+          load_scene against SceneBuilder (config and every tensor
+          equal); a warm-up and one timed 1-spp wave (s/wave, Mrays/s,
+          A, B and F launches); at 64^2 the render and the diffuse
+          gradient card
           against CPU and PRB against the differentiable mode at depth 3.
   16. rendering and the inverse step across GPUs, the materials cell and
      the other sensors:
@@ -223,15 +229,41 @@ Phases (each prints one line with its elapsed seconds):
        c. (at the end) the materials stand-in (scene_xmls.materials: the
           XML furball at quality 14 ringed by one sphere per surface BSDF
           family and wrapper material, a checkerboard floor, the sunsky,
-          a thin lens; 1024^2, depth 65): the CLI at 2 spp (exit 0, four
-          outputs, a finite positive mean); load_scene against
-          SceneBuilder (config, camera and every tensor equal); a
-          warm-up and two timed 1-spp waves (s/wave, Mrays/s, tiled
+          a thin lens; 1024^2, depth 65): the CLI at 512^2 and 1 spp
+          (exit 0, four outputs, a finite positive mean); load_scene
+          against SceneBuilder (config, camera and every tensor equal);
+          a warm-up and one timed 1-spp wave (s/wave, Mrays/s, tiled
           queries per wave, A, B and F launches); at 64^2 the render and
           the diffuse gradient card against CPU and PRB against the
           differentiable mode at depth 3;
        d. the small materials stand-in (32^2, depth 4) through each
           other sensor kind, image means card against CPU within 2%.
+  17. participating media and subsurface scattering:
+       a. kernel J (csrc/woodcock.cu, Woodcock tracking, one thread per
+          lane) against its plain loop on EVERY lane of the media cell's
+          camera wave and first-bounce wave (1,048,576 lanes each), delta
+          tracking (t, is_med) and ratio tracking (tr) bit for bit (or
+          within J_FLAG_SHARE / J_MAX_ULPS), through the dense grid and
+          through its block-sparse form (make_hgrid_from_dense), each
+          timed beside its plain version and its bound;
+       b. the media stand-in (scene_xmls.media: the XML furball at
+          quality 14 in a 256^3 smoke grid, HG g 0.3, the sunsky,
+          volpath; 1024^2, depth 65): the CLI at 512^2 and 2 spp (exit 0,
+          four outputs, a finite positive mean); load_scene against
+          SceneBuilder (config, every tensor and the medium equal); a
+          warm-up and two timed 1-spp waves (s/wave, Mrays/s, tiled
+          queries per wave, A, B and J launches, no plain version on the
+          card); at 64^2 the render card against CPU, with the dense grid
+          and with its block-sparse form (J launched on the card);
+       c. the bounded-media stand-in (scene_xmls.bounded: the furball in
+          a null-bounded fog sphere, a dielectric sphere with an interior
+          medium, an hk sphere, a checkerboard floor; volpath, 1024^2):
+          a warm-up and two timed waves (A, B and F launches); at 64^2
+          card against CPU;
+       d. the subsurface stand-ins (scene_xmls.subsurface: the teapot
+          stand-in under a dipole and under single scattering): the
+          dipole prepass's seconds at 1280 x 720, and both at 64 x 36
+          card against CPU.
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Any failed check exits
 non-zero before that line. Without CUDA the script exits non-zero at once.
@@ -304,6 +336,8 @@ GRAD_REL = 1e-2
 #      PRB_REL of its largest |g| (the JAX package's tests/test_prb.py)
 PRB_LOSS_RTOL = 1e-4
 PRB_REL = 5e-3
+#  the tile chunk of the plain phase B versions on the card (phase 2)
+PLAIN_TILES_ON_CARD = 16384
 #  the diffuse albedo bench.py's backward phase starts from
 BENCH_P0 = (0.143016, 0.0156076, 1.80928e-05)
 #  octet and stream queries against the dense query at full width: hit
@@ -1820,6 +1854,9 @@ GRAZE_TOL = 1e-2
 F_REPLACES = {"closest": "hairpt/ops/intersect_packed.py:173",
               "any": "hairpt/ops/intersect_packed.py:228"}
 TEAPOT_RES = (1280, 720)
+# the CLIs of phases 12c-17b render at most CLI_WIDTH pixels across (the
+# 1280 x 720 stand-ins at 512 x 288), 12c-16c at 1 spp
+CLI_WIDTH = 512
 HEIGHTFIELD_G = 1025
 
 
@@ -2111,8 +2148,9 @@ def furball_kernel_f(scene, wv, report):
 
 def teapot_entry_point(reset_all, device="cuda", res_scale=1.0):
     """Phase 12c: the CLI on the teapot stand-in as a user runs it
-    (1280 x 720, depth 65, 2 spp), then one warm-up wave and two timed
-    1-spp waves in process. Returns (s/wave, rays/wave, F's launches over
+    (CLI_WIDTH across, depth 65, 1 spp), then one warm-up wave and two
+    timed 1-spp waves in process at 1280 x 720. Returns (s/wave,
+    rays/wave, F's launches over
     the timed waves, their number)."""
     import tempfile
     import numpy as np
@@ -2131,9 +2169,10 @@ def teapot_entry_point(reset_all, device="cuda", res_scale=1.0):
         env = dict(os.environ, PYTHONPATH=here + os.pathsep
                    + os.environ.get("PYTHONPATH", ""))
         t0 = time.time()
+        cli_scale = res_scale * CLI_WIDTH / TEAPOT_RES[0]
         proc = subprocess.run(
             [sys.executable, "-m", "hairpt_torch.cli", "render", xml, "-o",
-             out, "--spp", "2", "--res-scale", str(res_scale)]
+             out, "--spp", "1", "--res-scale", str(cli_scale)]
             + (["--cpu"] if device == "cpu" else []),
             cwd=here, env=env, capture_output=True, text=True, timeout=600)
         wall = time.time() - t0
@@ -2143,12 +2182,13 @@ def teapot_entry_point(reset_all, device="cuda", res_scale=1.0):
         for ext in ("png", "exr", "npy", "pfm"):
             require(os.path.getsize(f"{base}.{ext}") > 0, f"no {ext} output")
         img = np.load(f"{base}.npy")
-        w, h = (max(8, round(x * res_scale)) for x in TEAPOT_RES)
+        w, h = (max(8, round(x * cli_scale)) for x in TEAPOT_RES)
         require(img.shape == (h, w, 3) and np.isfinite(img).all()
                 and img.mean() > 0, f"teapot CLI image {img.shape}, mean "
                 f"{img.mean()}")
-        log(f"CLI teapot ({w} x {h}, depth 65, 2 spp): exit 0 in {wall:.1f}s "
+        log(f"CLI teapot ({w} x {h}, depth 65, 1 spp): exit 0 in {wall:.1f}s "
             f"wall; image mean {img.mean():.6f}; four outputs")
+        w, h = (max(8, round(x * res_scale)) for x in TEAPOT_RES)
         scene = load_scene(xml, spp_override=1, res_scale=res_scale,
                            device=device)
     if device != "cuda":
@@ -2471,8 +2511,9 @@ def instanced_small(reset_all):
 def instanced_entry_point(reset_all, device="cuda", res_scale=1.0):
     """Phase 13c: the stand-in at full width (1280 x 720, depth 65): one
     warm-up wave and two timed 1-spp waves in process (s/wave, Mrays/s,
-    G's and F's launches per wave), then the CLI as a subprocess at 2
-    spp (wall time, its logged build and render seconds). Returns
+    G's and F's launches per wave), then the CLI as a subprocess at
+    CLI_WIDTH across and 1 spp (wall time, its logged build and render
+    seconds). Returns
     (s/wave, rays/wave, G's launches, F's launches, waves timed)."""
     import re
     import tempfile
@@ -2530,9 +2571,10 @@ def instanced_entry_point(reset_all, device="cuda", res_scale=1.0):
         env = dict(os.environ, PYTHONPATH=here + os.pathsep
                    + os.environ.get("PYTHONPATH", ""))
         t0 = time.time()
+        cli_scale = res_scale * CLI_WIDTH / TEAPOT_RES[0]
         proc = subprocess.run(
             [sys.executable, "-m", "hairpt_torch.cli", "render", xml, "-o",
-             out, "--spp", "2", "--res-scale", str(res_scale)]
+             out, "--spp", "1", "--res-scale", str(cli_scale)]
             + (["--cpu"] if device == "cpu" else []),
             cwd=here, env=env, capture_output=True, text=True, timeout=600)
         wall = time.time() - t0
@@ -2546,11 +2588,11 @@ def instanced_entry_point(reset_all, device="cuda", res_scale=1.0):
         for ext in ("png", "exr", "npy", "pfm"):
             require(os.path.getsize(f"{base}.{ext}") > 0, f"no {ext} output")
         img = np.load(f"{base}.npy")
-        w, h = (max(8, round(x * res_scale)) for x in TEAPOT_RES)
+        w, h = (max(8, round(x * cli_scale)) for x in TEAPOT_RES)
         require(img.shape == (h, w, 3) and np.isfinite(img).all()
                 and img.mean() > 0, f"instanced CLI image {img.shape}, mean "
                 f"{img.mean()}")
-        log(f"CLI instanced ({w} x {h}, depth 65, 2 spp): exit 0 in "
+        log(f"CLI instanced ({w} x {h}, depth 65, 1 spp): exit 0 in "
             f"{wall:.1f}s wall, scene built in {built.group(1)}s, rendered "
             f"in {rendered.group(1)}s; image mean {img.mean():.6f}; four "
             f"outputs")
@@ -3049,9 +3091,13 @@ def motion_entry_point(reset_all, device="cuda", quality=HAIR_QUALITY,
         env = dict(os.environ, PYTHONPATH=here + os.pathsep
                    + os.environ.get("PYTHONPATH", ""))
         t0 = time.time()
+        # one shutter time at CLI_WIDTH across (the XML's width, 1024 on
+        # the card)
         proc = subprocess.run(
             [sys.executable, "-m", "hairpt_torch.cli", "render", xml, "-o",
-             out, "--hair-quality", str(quality)]
+             out, "--hair-quality", str(quality), "--spp", "1",
+             "--res-scale",
+             str(min(1.0, CLI_WIDTH / xml_kw.get("res", 1024)))]
             + ([] if cuda else ["--cpu"]),
             cwd=here, env=env, capture_output=True, text=True, timeout=600)
         wall = time.time() - t0
@@ -3067,7 +3113,7 @@ def motion_entry_point(reset_all, device="cuda", quality=HAIR_QUALITY,
         img = np.load(f"{base}.npy")
         require(np.isfinite(img).all() and img.mean() > 0,
                 f"motion CLI image mean {img.mean()}")
-        log(f"CLI motion ({img.shape[1]} x {img.shape[0]}, spp {spp}): exit "
+        log(f"CLI motion ({img.shape[1]} x {img.shape[0]}, 1 spp): exit "
             f"0 in {wall:.1f}s wall, scene built in {b_s.group(1)}s, "
             f"rendered in {r_s.group(1)}s; image mean {img.mean():.6f}; "
             f"four outputs")
@@ -3390,7 +3436,7 @@ def lit_builder(res=1024, device="cuda", quality=HAIR_QUALITY):
                    sampler=(rng.SOBOL_QMC, int(np.ceil(np.log2(res))), res))
 
 
-def _cli(xml, out, quality, device, spp=2):
+def _cli(xml, out, quality, device, spp=2, res_scale=1.0, extra=()):
     """The CLI as a subprocess, as a user runs it: (wall seconds, its
     logged build and render seconds, the .npy image); four outputs."""
     import re
@@ -3402,7 +3448,8 @@ def _cli(xml, out, quality, device, spp=2):
     t0 = time.time()
     proc = subprocess.run(
         [sys.executable, "-m", "hairpt_torch.cli", "render", xml, "-o", out,
-         "--hair-quality", str(quality), "--spp", str(spp)]
+         "--hair-quality", str(quality), "--spp", str(spp), "--res-scale",
+         str(res_scale)] + list(extra)
         + (["--cpu"] if device == "cpu" else []),
         cwd=here, env=env, capture_output=True, text=True, timeout=600)
     wall = time.time() - t0
@@ -3423,10 +3470,11 @@ def lit_cell(reset_all, device="cuda", res=1024, quality=HAIR_QUALITY,
              small_res=64, small_quality=0.1):
     """Phase 15c: the lit stand-in (scene_xmls.lit: the XML furball under
     a rectangle and a sphere area light, a spot and a point light and the
-    sunsky). The CLI at res^2, hair quality `quality`, depth 65, 2 spp:
-    exit 0, four outputs, a finite positive mean. In process: load_scene
-    against lit_builder (config and every tensor equal), one warm-up and
-    two timed 1-spp waves (s/wave, Mrays/s, A, B and F launches, no plain
+    sunsky). The CLI at min(res, CLI_WIDTH)^2, hair quality `quality`,
+    depth 65, 1 spp: exit 0, four outputs, a finite positive mean. In
+    process: load_scene against lit_builder (config and every tensor
+    equal), one warm-up and one timed 1-spp wave (s/wave, Mrays/s, A, B
+    and F launches, no plain
     version on the card). Then at small_res (hair quality small_quality,
     depth 8): the render card against CPU (MEAN_RTOL), the diffuse
     gradient card against CPU (3b's bounds), and PRB against the
@@ -3454,12 +3502,14 @@ def _lit_cell(reset_all, device, res, quality, small_res, small_quality,
     xml = scene_xmls.write_scene(tmp, "lit", res=res)
     xml_s = scene_xmls.write_scene(os.path.join(tmp, "small"), "lit",
                                    res=small_res)
+    cw = min(res, CLI_WIDTH)
     wall, t_build, t_render, img = _cli(
-        xml, os.path.join(tmp, "out", "lit.png"), quality, device)
-    require(img.shape == (res, res, 3) and np.isfinite(img).all()
+        xml, os.path.join(tmp, "out", "lit.png"), quality, device, spp=1,
+        res_scale=cw / res)
+    require(img.shape == (cw, cw, 3) and np.isfinite(img).all()
             and img.mean() > 0, f"lit CLI image {img.shape}, mean "
             f"{img.mean()}")
-    log(f"CLI lit ({res}^2, hair quality {quality}, depth 65, 2 spp): "
+    log(f"CLI lit ({cw}^2, hair quality {quality}, depth 65, 1 spp): "
         f"exit 0 in {wall:.1f}s wall, scene built in {t_build}s, rendered "
         f"in {t_render}s; image mean {img.mean():.6f}; four outputs")
     t0 = time.time()
@@ -3485,7 +3535,7 @@ def _lit_cell(reset_all, device, res, quality, small_res, small_quality,
         f"{scene.config.nee_probs}")
     facts = None
     if device == "cuda":
-        progress, times, rays, n_timed = warm_up(scene, "lit")
+        progress, times, rays, n_timed = warm_up(scene, "lit", max_timed=1)
         reset_all()
         torch.cuda.synchronize()
         img = path.render(scene, spp=n_timed, seed=1, progress=progress)
@@ -3934,11 +3984,11 @@ def materials_cell(reset_all, device="cuda", res=1024, quality=HAIR_QUALITY,
                    small_res=64, small_quality=0.1):
     """Phase 16c: the materials stand-in (scene_xmls.materials: the XML
     furball ringed by one sphere per surface BSDF and wrapper material,
-    a checkerboard floor, the sunsky, a thin lens). The CLI at res^2,
-    hair quality `quality`, depth 65, 2 spp: exit 0, four outputs, a
-    finite positive mean. In process: load_scene against
-    materials_builder (config and every tensor equal), one warm-up and
-    two timed 1-spp waves (s/wave, rays/wave, Mrays/s, A, B and F
+    a checkerboard floor, the sunsky, a thin lens). The CLI at
+    min(res, CLI_WIDTH)^2, hair quality `quality`, depth 65, 1 spp: exit
+    0, four outputs, a finite positive mean. In process: load_scene
+    against materials_builder (config and every tensor equal), one
+    warm-up and one timed 1-spp wave (s/wave, rays/wave, Mrays/s, A, B and F
     launches, no plain version on the card). At small_res (hair quality
     small_quality, depth 8): the render card against CPU (MEAN_RTOL),
     the diffuse gradient card against CPU (3b's bounds), PRB against the
@@ -3967,12 +4017,14 @@ def _materials_cell(reset_all, device, res, quality, small_res,
     xml = scene_xmls.write_scene(tmp, "materials", res=res)
     xml_s = scene_xmls.write_scene(os.path.join(tmp, "small"), "materials",
                                    res=small_res)
+    cw = min(res, CLI_WIDTH)
     wall, t_build, t_render, img = _cli(
-        xml, os.path.join(tmp, "out", "materials.png"), quality, device)
-    require(img.shape == (res, res, 3) and np.isfinite(img).all()
+        xml, os.path.join(tmp, "out", "materials.png"), quality, device,
+        spp=1, res_scale=cw / res)
+    require(img.shape == (cw, cw, 3) and np.isfinite(img).all()
             and img.mean() > 0, f"materials CLI image {img.shape}, mean "
             f"{img.mean()}")
-    log(f"CLI materials ({res}^2, hair quality {quality}, depth 65, 2 spp): "
+    log(f"CLI materials ({cw}^2, hair quality {quality}, depth 65, 1 spp): "
         f"exit 0 in {wall:.1f}s wall, scene built in {t_build}s, rendered "
         f"in {t_render}s; image mean {img.mean():.6f}; four outputs")
     t0 = time.time()
@@ -4003,7 +4055,8 @@ def _materials_cell(reset_all, device, res, quality, small_res,
         f"{scene.camera.focus_distance:.4f})")
     facts = None
     if device == "cuda":
-        progress, times, rays, n_timed = warm_up(scene, "materials")
+        progress, times, rays, n_timed = warm_up(scene, "materials",
+                                                 max_timed=1)
         reset_all()
         itiled.STATS.update(queries=0, max_passes=0, overflow_tiles=0)
         torch.cuda.synchronize()
@@ -4143,11 +4196,545 @@ def sensor_kinds(device="cuda"):
     return out
 
 
-def warm_up(scene, label):
-    """One warm-up wave. Returns (progress callback, the lists it fills
-    with each wave's seconds and rays, the number of waves to time: two,
-    or one if the warm-up took over 60 s). The caller resets the counters
-    it reads, then renders the timed waves with the callback."""
+# ---------------------------------------------------------------------------
+# phase 17: participating media (volpath, kernel J) and subsurface
+# scattering
+# ---------------------------------------------------------------------------
+# kernel J (csrc/woodcock.cu): f32 operations per lane (the box clip: per
+# axis a compare, a division, 2 subtractions, 2 products, a min and a max;
+# 4 across the axes: 28) and per step of the dense lookup (the step 3, the
+# point 6, the grid coordinates 6 and their 6 compares, the node
+# coordinates 3, 3 floors, 3 subtractions and 6 clamps, the 3 weights' 1 -
+# w, 7 lerps of 3, sigma and the tests 4: 66; the block-sparse lookup's
+# node coordinates are per axis a product, two clamps, a division and a
+# subtraction: 78), counted from the source; bytes: 44 B per lane in (o,
+# d, t_max, pixel, sample), 5 B (delta tracking) or 12 B (ratio tracking)
+# out, and each grid voxel (and block-table entry) that the steps taken
+# read, once (j_grid_bytes)
+J_LANE_FLOPS = 28
+J_STEP_FLOPS = {"dense": 66, "hgrid": 78}
+J_REPLACES = {"woodcock_sample": "hairpt/models/media.py:761",
+              "woodcock_transmittance": "hairpt/models/media.py:797"}
+#  kernel J against its plain version: t, is_med and tr bit for bit
+#  (the same float32 operations in the same order, no contraction, and
+#  CUDA's logf in both); the bound stated if they are not: is_med equal
+#  on >= J_FLAG_SHARE of the lanes, t and tr within J_MAX_ULPS where the
+#  flags agree
+J_FLAG_SHARE = 0.9999
+J_MAX_ULPS = 4
+# 17b-d: the renders card against CPU at 64^2 (the teapot stand-ins at
+# 64 x 36), hair quality 0.1, depth 8, a 64^3 smoke; MEAN_RTOL
+SMALL17 = dict(res=64, quality=0.1, depth=8, vol_res=64)
+
+
+def _ulps(a, b):
+    """|a - b| in float32 units in the last place, per element."""
+    import torch
+
+    def ordered(x):
+        i = x.contiguous().view(torch.int32).to(torch.int64)
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+    return (ordered(a) - ordered(b)).abs()
+
+
+def media_builder(res, device, quality, vol_path):
+    """Phase 17b's twin of the media stand-in (scene_xmls.media) through
+    SceneBuilder with the values the loader reads: phase 11's furball under
+    its rough plastic, the sunsky, the smoke grid (load_vol) as a
+    heterogeneous medium of sigmaS 0.5, sigmaA 0.05 and HG g 0.3, the
+    volpath integrator."""
+    import numpy as np
+    from hairpt_torch.core import rng
+    from hairpt_torch.film.film import Film
+    from hairpt_torch.models import emitters as em
+    from hairpt_torch.models import media
+    from hairpt_torch.models.bsdf import registry as mat
+    from hairpt_torch.models.sensors import Camera
+    from hairpt_torch.scene import furball, hairgen
+    from hairpt_torch.scene.scene import SceneBuilder
+
+    b = SceneBuilder(device=device)
+    m = b.add_material(kind=mat.ROUGHPLASTIC, twosided=False,
+                       eta=1.55 / 1.000277, diffuse=furball.DIFFUSE,
+                       alpha=0.2, dist=0)
+    radius = 0.00216667 / np.sqrt(min(max(quality, 1e-6), 1.0))
+    b.add_fibers(hairgen.gen_furball(n_fibers=int(6000 * quality),
+                                     radius=radius), m)
+    b.env = em.bake_sunsky((-0.376047, 0.758426, 0.532333), turbidity=3.0,
+                           sky_scale=5.0, sun_scale=19.0912,
+                           sun_radius_scale=37.9165, device=b.device)
+    b.medium = media.make_hetero_medium(
+        media.load_vol(vol_path, device=b.device), (0.5,) * 3, (0.05,) * 3,
+        g=0.3, phase_kind=media.HG)
+    cam = Camera.perspective(furball.CAM_TO_WORLD, 35.0, res, res)
+    return b.build(cam, Film.make(res, res, "tent"), spp=1, max_depth=65,
+                   sampler=(rng.SOBOL_QMC, int(np.ceil(np.log2(res))), res),
+                   integrator="volpath")
+
+
+def j_grid_bytes(vol, points):
+    """The bytes of the grid that lookups at `points` (a list of [M, 3]
+    tensors: the steps taken) read, each voxel once: the 8 corners of
+    every lookup inside the grid box (media.grid_density /
+    hgrid_density's index arithmetic), and for a block-sparse volume the
+    block-table entry of each lookup too."""
+    import torch
+    from hairpt_torch.models import media
+
+    if not points:
+        return 0
+    p = torch.cat(points)
+    g = (p - vol.world_min) * vol.inv_extent
+    g = g[((g >= 0.0) & (g <= 1.0)).all(-1)]
+
+    def corners(f, n, base=0):
+        # the flat index of each lookup's 8 corners in an [n2, n1, n0]
+        # array (f [M, 3] node coordinates x, y, z)
+        i0 = [torch.clamp(torch.floor(f[:, a]).long(), 0, n[a] - 2)
+              for a in range(3)]
+        return torch.cat([base + ((i0[2] + dz) * n[1] + i0[1] + dy) * n[0]
+                          + i0[0] + dx for dz in (0, 1) for dy in (0, 1)
+                          for dx in (0, 1)])
+    if not isinstance(vol, media.HGridVolume):
+        D, H, W = vol.data.shape
+        f = g * torch.tensor([W - 1, H - 1, D - 1], device=g.device)
+        return 4 * int(torch.unique(corners(f, (W, H, D))).numel())
+    BZ, BY, BX = vol.block_idx.shape
+    nb = vol.blocks.shape[1]
+    top = torch.tensor([BX * nb - 1, BY * nb - 1, BZ * nb - 1],
+                       device=g.device, dtype=torch.float32)
+    f = torch.minimum(torch.clamp(g * top, min=0.0), top)
+    c = torch.minimum((f / nb).long(),
+                      torch.tensor([BX - 1, BY - 1, BZ - 1], device=g.device))
+    tbl = (c[:, 2] * BY + c[:, 1]) * BX + c[:, 0]
+    bi = vol.block_idx.reshape(-1)[tbl].long()
+    keep = bi >= 0
+    vox = corners(f[keep] - (c[keep] * nb).float(), (nb, nb, nb),
+                  bi[keep] * nb ** 3)
+    return 4 * int(torch.unique(tbl).numel() + torch.unique(vox).numel())
+
+
+def hgrid_medium(med):
+    """The heterogeneous medium with its dense grid made block-sparse
+    (media.make_hgrid_from_dense: 8^3 blocks, the empty ones dropped), on
+    the grid's device."""
+    from hairpt_torch.models import media
+
+    vol = med.vol
+    wmin = vol.world_min.cpu().numpy()
+    return med._replace(vol=media.make_hgrid_from_dense(
+        vol.data.cpu().numpy(), wmin,
+        wmin + 1.0 / vol.inv_extent.cpu().numpy(), device=vol.data.device))
+
+
+def woodcock_waves(scene):
+    """The media cell's Woodcock inputs (o, d, t_max, pixel, sample,
+    dim_base) of its camera wave (lanes in pixel order, the sample-0
+    camera rays, t_max the closest hit's t or 1e30) and of a first-bounce
+    wave (from each camera lane's free-flight end: its medium event, else
+    its surface hit lifted off the surface, uniformly random directions,
+    t_max the closest hit's; lanes with neither at the camera)."""
+    import numpy as np
+    import torch
+    from hairpt_torch.core import rng, warps
+    from hairpt_torch.core.math import Ray
+    from hairpt_torch.integrators import common, path, volpath
+    from hairpt_torch.models import media
+
+    cfg = scene.config
+    arr = scene.arrays
+    dev = arr.device
+    med = scene.medium
+    n = cfg.width * cfg.height
+    pixel = torch.arange(n, device=dev)
+    smp = rng.Sampler(cfg.sampler, pixel, torch.zeros_like(pixel))
+    _, ray = volpath._camera(cfg, scene.camera, smp, n)
+    params = path._swept_params(cfg)
+    hit = common.scene_intersect(arr, ray, **params)
+    t_max = torch.where(hit.valid, hit.t, 1e30)
+    cam = (ray.o, ray.d, t_max, smp.pixel, smp.sample, path.DIM_BASE + 9)
+    t, is_med = media.woodcock_sample(med, *cam)
+    p = torch.where(is_med[:, None], ray.o + ray.d * t[:, None],
+                    hit.p + hit.geo_n * cfg.ray_eps)
+    live = is_med | hit.valid
+    o2 = torch.where(live[:, None], p, ray.o)
+    u = torch.as_tensor(np.random.default_rng(7).random((n, 2)),
+                        dtype=torch.float32, device=dev)
+    d2 = warps.square_to_uniform_sphere(u)
+    hit2 = common.scene_intersect(
+        arr, Ray(o=o2, d=d2, mint=torch.zeros(n, device=dev),
+                 maxt=torch.full((n,), float("inf"), device=dev)),
+        sort_rays=True, **params)
+    bounce = (o2, d2, torch.where(hit2.valid, hit2.t, 1e30), smp.pixel,
+              smp.sample, path.DIM_BASE + path.DIM_STRIDE + 9)
+    return {"camera": cam, "bounce": bounce}
+
+
+def check_kernel_j(label, med, wave, report):
+    """Kernel J against its plain version on every lane of a wave, delta
+    tracking (t, is_med) and ratio tracking (tr, over min(t_max, 1e6) as
+    volpath's shadow rays) bit for bit, or to J_FLAG_SHARE / J_MAX_ULPS,
+    through the medium's dense or block-sparse grid; each timed (CUDA
+    events over 5 launches, the plain loop once) beside its bound (the
+    inputs and the grid voxels that the steps taken read, once, the
+    outputs written once, against the counted operations of the steps
+    taken)."""
+    import torch
+    from hairpt_torch.models import media
+
+    o, d, t_max, pix, smp, dim = wave
+    n = o.shape[0]
+    kind = "hgrid" if isinstance(med.vol, media.HGridVolume) else "dense"
+    for name in ("woodcock_sample", "woodcock_transmittance"):
+        ratio = name == "woodcock_transmittance"
+        tm = torch.clamp(t_max, max=1e6) if ratio else t_max
+        kern = getattr(media, name)
+        plain = getattr(media, f"{name}_plain")
+        counts = {"points": []}
+        out_k = kern(med, o, d, tm, pix, smp, dim)
+        out_p = plain(med, o, d, tm, pix, smp, dim, counts=counts)
+        torch.cuda.synchronize()
+        grid_bytes = j_grid_bytes(med.vol, counts.pop("points"))
+        if ratio:
+            same = (_ulps(out_k, out_p) == 0).all(-1)
+            ulps = int(_ulps(out_k, out_p).max())
+            flag_share = 1.0
+            err = float((out_k - out_p).abs().max())
+        else:
+            (tk_, mk), (tp_, mp) = out_k, out_p
+            agree = mk == mp
+            flag_share = float(agree.float().mean())
+            u = _ulps(tk_, tp_)[agree]
+            ulps = int(u.max()) if u.numel() else 0
+            same = agree & (_ulps(tk_, tp_) == 0)
+            err = float((tk_ - tp_)[agree & mk].abs().max()) \
+                if bool((agree & mk).any()) else 0.0
+        exact = float(same.float().mean())
+        log(f"  J {name} on the {label} wave ({kind} grid, {n} lanes, "
+            f"{counts['steps']} steps, {grid_bytes} grid bytes read): "
+            f"{exact:.6f} of the lanes bit for bit, flags "
+            f"{flag_share:.6f} equal, largest diff {ulps} ulps "
+            f"({err:.3g})" + ("" if ratio else f"; medium events "
+                               f"{float(mk.float().mean()):.4f}"))
+        require(flag_share >= J_FLAG_SHARE and ulps <= J_MAX_ULPS,
+                f"kernel J ({name}, {label}) differs from its plain version: "
+                f"flags {flag_share}, {ulps} ulps")
+        ms = cuda_ms(lambda: kern(med, o, d, tm, pix, smp, dim), 5)
+        plain_ms = cuda_ms(lambda: plain(med, o, d, tm, pix, smp, dim), 1,
+                           warm=False)
+        b_ms, by = bound_ms(n * (44 + (12 if ratio else 5)) + grid_bytes,
+                            n * J_LANE_FLOPS
+                            + counts["steps"] * J_STEP_FLOPS[kind])
+        log(f"  J {name} ({label}, {kind}): {ms:.4f} ms, plain "
+            f"{plain_ms:.2f} ms, bound {b_ms:.4f} ms by {by} "
+            f"({ms / b_ms:.1f}x)")
+        report.setdefault(name, []).append((
+            label if kind == "dense" else f"{label}, {kind}", dict(
+                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
+                max_abs_err=err, ulps=ulps, exact_share=exact,
+                steps=counts["steps"], lanes=n, grid_bytes=grid_bytes)))
+
+
+def media_cell(reset_all, device="cuda", res=1024, quality=HAIR_QUALITY,
+               small=SMALL17):
+    """Phase 17a/b: the media stand-in (scene_xmls.media: the XML furball
+    in a 256^3 smoke grid, HG g 0.3, the sunsky, volpath). The CLI at
+    CLI_WIDTH across and 2 spp (exit 0, four outputs, a finite positive
+    mean); load_scene against media_builder (config, every tensor and the
+    medium equal); 17a, kernel J against its plain version on the camera
+    and first-bounce waves; a warm-up and two timed 1-spp waves (s/wave,
+    Mrays/s, tiled queries per wave, A, B and J launches, no plain
+    version on the card); the small stand-in card against CPU. Returns
+    (the in-process facts, J's report) (None, None on the CPU, where
+    small sizes rehearse it)."""
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix="hairpt_media_") as tmp:
+        return _media_cell(reset_all, device, res, quality, small, tmp)
+
+
+def _media_cell(reset_all, device, res, quality, small, tmp):
+    import numpy as np
+    import torch
+    from hairpt_torch.integrators import volpath
+    from hairpt_torch.models import media
+    from hairpt_torch.ops import intersect_packed as ipk
+    from hairpt_torch.ops import intersect_tiled as itiled
+    from hairpt_torch.ops import tiled_kernels as tk
+    from hairpt_torch.scene import scene_xmls
+    from hairpt_torch.scene.xml_loader import load_scene
+
+    xml = scene_xmls.write_scene(tmp, "media", res=res)
+    cw = min(res, CLI_WIDTH)
+    wall, t_build, t_render, img = _cli(
+        xml, os.path.join(tmp, "out", "media.png"), quality, device, spp=2,
+        res_scale=cw / res)
+    require(img.shape == (cw, cw, 3) and np.isfinite(img).all()
+            and img.mean() > 0, f"media CLI image {img.shape}, mean "
+            f"{img.mean()}")
+    log(f"CLI media ({cw}^2, hair quality {quality}, depth 65, 2 spp, "
+        f"volpath): exit 0 in {wall:.1f}s wall, scene built in {t_build}s, "
+        f"rendered in {t_render}s; image mean {img.mean():.6f}")
+    t0 = time.time()
+    scene = load_scene(xml, hair_quality=quality, spp_override=1,
+                       device=device)
+    t_load = time.time() - t0
+    scene_b = media_builder(res, device, quality,
+                            os.path.join(os.path.dirname(xml), "smoke.vol"))
+    pairs = list(zip(_scene_tensors(scene.arrays),
+                     _scene_tensors(scene_b.arrays)))
+    mpairs = list(zip(_scene_tensors(scene.medium, "medium"),
+                      _scene_tensors(scene_b.medium, "medium")))
+    require(scene.config == scene_b.config
+            and scene.medium[5:] == scene_b.medium[5:],
+            f"configs differ: {scene.config} {scene_b.config}")
+    require(len(pairs) > 10 and len(mpairs) == 7 and all(
+        pa == pb and _same_bits(x, y)
+        for (pa, x), (pb, y) in pairs + mpairs),
+        "the media XML's scene differs from the builder's: "
+        + str([pa for (pa, x), (pb, y) in pairs + mpairs if pa != pb
+               or not _same_bits(x, y)]))
+    del scene_b
+    med = scene.medium
+    log(f"media: loaded in {t_load:.1f}s, {len(pairs)} + {len(mpairs)} "
+        f"tensors equal to SceneBuilder's; {scene.arrays.hair.p0.shape[0]} "
+        f"segments; grid {tuple(med.vol.data.shape)} "
+        f"({med.vol.data.numel() * 4 / 2**20:.0f} MiB), majorant "
+        f"{float(med.majorant):.6f}, integrator {scene.config.integrator}")
+    facts = report = None
+    if device == "cuda":
+        t0 = time.time()
+        report = {}
+        waves = woodcock_waves(scene)
+        for m in (med, hgrid_medium(med)):
+            for label, wave in waves.items():
+                check_kernel_j(label, m, wave, report)
+        hv = m.vol
+        del waves, m
+        log(f"phase 17a ({time.time() - t0:.1f}s): kernel J matches its "
+            f"plain version on the media cell's camera and bounce waves, "
+            f"through the dense grid and its block-sparse form "
+            f"({hv.blocks.shape[0]} of {hv.block_idx.numel()} "
+            f"{hv.blocks.shape[1]}^3 blocks kept)")
+        del hv
+        progress, times, rays, n_timed = warm_up(
+            scene, "media", render=volpath.render_volpath)
+        reset_all()
+        itiled.STATS.update(queries=0, max_passes=0, overflow_tiles=0)
+        torch.cuda.synchronize()
+        img = volpath.render_volpath(scene, spp=n_timed, seed=1,
+                                     progress=progress)
+        torch.cuda.synchronize()
+        launches = dict(tk.LAUNCHES, **media.LAUNCHES)
+        plain = dict(tk.PLAIN_ON_CUDA, **media.PLAIN_ON_CUDA,
+                     **ipk.PLAIN_ON_CUDA)
+        queries = itiled.STATS["queries"] / n_timed
+        secs = sum(times) / len(times)
+        rays_w = sum(rays) / len(rays)
+        mean = float(img.mean())
+        log(f"media render: {n_timed} timed waves of 1 spp at {res}^2, "
+            f"depth 65: {rays_w:.0f} rays/wave, {secs:.3f} s/wave, "
+            f"{rays_w / secs / 1e6:.4f} Mrays/s, {queries:.1f} tiled "
+            f"queries/wave; image mean {mean:.6f}; launches over the timed "
+            f"waves {launches}")
+        require(np.isfinite(mean) and mean > 0
+                and bool(torch.isfinite(img).all()),
+                f"media render: image mean {mean}")
+        require(all(launches[k] > 0 for k in (
+            "cull_phase_a", "phase_b", "woodcock_sample",
+            "woodcock_transmittance")),
+            f"the media render did not launch A, B and J: {launches}")
+        require(all(v == 0 for v in plain.values()),
+                f"plain versions ran on CUDA tensors: {plain}")
+        facts = dict(secs=secs, rays=rays_w, n_timed=n_timed,
+                     queries=queries, launches=launches)
+        del img
+    del scene, med
+    xml_s = scene_xmls.write_scene(os.path.join(tmp, "small"), "media",
+                                   res=small["res"],
+                                   vol_res=small["vol_res"])
+    _card_vs_cpu("media", xml_s, device, small, volpath.render_volpath)
+    j0, p0 = dict(media.LAUNCHES), dict(media.PLAIN_ON_CUDA)
+    _card_vs_cpu("media, block-sparse grid", xml_s, device, small,
+                 volpath.render_volpath,
+                 prepass=lambda s: s._replace(medium=hgrid_medium(s.medium)))
+    if device == "cuda":
+        require(all(media.LAUNCHES[k] > j0[k] for k in j0)
+                and media.PLAIN_ON_CUDA == p0,
+                f"the block-sparse render's Woodcock walks did not run "
+                f"through kernel J: {dict(media.LAUNCHES)}, "
+                f"{dict(media.PLAIN_ON_CUDA)}")
+    return facts, report
+
+
+def _card_vs_cpu(label, xml, device, small, render, prepass=None,
+                 **load_kw):
+    """A small render of the XML on the card and with the plain versions
+    on the CPU (hair quality small["quality"], depth small["depth"], 1
+    spp): finite, positive, means within MEAN_RTOL."""
+    from hairpt_torch.scene.xml_loader import load_scene
+    devs = ("cuda", "cpu") if device == "cuda" else ("cpu",)
+    means = {}
+    for dev in devs:
+        s = load_scene(xml, hair_quality=small["quality"], spp_override=1,
+                       max_depth_override=small["depth"], device=dev,
+                       **load_kw)
+        if prepass is not None:
+            s = prepass(s)
+        img = render(s, spp=1)
+        means[dev] = float(img.mean())
+        require(bool(img.isfinite().all()) and means[dev] > 0,
+                f"small {label} on {dev}: mean {means[dev]}")
+    if device == "cuda":
+        rel = abs(means["cuda"] - means["cpu"]) / means["cpu"]
+        log(f"small {label} ({s.config.width} x {s.config.height}, depth "
+            f"{small['depth']}): image mean card {means['cuda']:.6f}, CPU "
+            f"{means['cpu']:.6f}, rel diff {rel:.3g}")
+        require(rel <= MEAN_RTOL, f"small {label}: card and CPU differ by "
+                f"{rel}")
+    return means
+
+
+def bounded_cell(reset_all, device="cuda", res=1024, quality=HAIR_QUALITY,
+                 small=SMALL17):
+    """Phase 17c: the bounded-media stand-in (scene_xmls.bounded: the
+    furball in a null-bounded fog sphere, a dielectric sphere with an
+    interior medium, an hk sphere, a checkerboard floor, the sunsky;
+    volpath, 1024^2, depth 65): a warm-up and two timed 1-spp waves
+    (s/wave, each wave's seconds, Mrays/s, A, B and F launches); the small
+    stand-in card against CPU. Returns the in-process facts (None on the
+    CPU)."""
+    import tempfile
+    import numpy as np
+    import torch
+    from hairpt_torch.integrators import volpath
+    from hairpt_torch.ops import intersect_packed as ipk
+    from hairpt_torch.ops import intersect_tiled as itiled
+    from hairpt_torch.ops import tiled_kernels as tk
+    from hairpt_torch.scene import scene_xmls
+    from hairpt_torch.scene.xml_loader import load_scene
+
+    facts = None
+    with tempfile.TemporaryDirectory(prefix="hairpt_bounded_") as tmp:
+        xml = scene_xmls.write_scene(tmp, "bounded", res=res)
+        xml_s = scene_xmls.write_scene(os.path.join(tmp, "small"), "bounded",
+                                       res=small["res"])
+        if device == "cuda":
+            scene = load_scene(xml, hair_quality=quality, spp_override=1,
+                               device=device)
+            a = scene.arrays
+            log(f"bounded: {a.hair.p0.shape[0]} segments, "
+                f"{a.tri.p0.shape[0]} triangles, media "
+                f"{a.media.sigma_t.shape[0] - 1}, kinds {scene.active_kinds}")
+            progress, times, rays, n_timed = warm_up(
+                scene, "bounded", render=volpath.render_volpath)
+            reset_all()
+            itiled.STATS.update(queries=0, max_passes=0, overflow_tiles=0)
+            torch.cuda.synchronize()
+            img = volpath.render_volpath(scene, spp=n_timed, seed=1,
+                                         progress=progress)
+            torch.cuda.synchronize()
+            launches = dict(tk.LAUNCHES, **ipk.LAUNCHES)
+            plain = dict(tk.PLAIN_ON_CUDA, **ipk.PLAIN_ON_CUDA)
+            secs = sum(times) / len(times)
+            rays_w = sum(rays) / len(rays)
+            mean = float(img.mean())
+            queries = itiled.STATS["queries"] / n_timed
+            log(f"bounded render: {n_timed} timed waves of 1 spp at {res}^2, "
+                f"depth 65: {rays_w:.0f} rays/wave, {secs:.3f} s/wave ("
+                f"{', '.join(f'{x:.3f}' for x in times)} s), "
+                f"{rays_w / secs / 1e6:.4f} Mrays/s, {queries:.1f} tiled "
+                f"queries/wave; image mean {mean:.6f}; launches {launches}")
+            require(np.isfinite(mean) and mean > 0
+                    and bool(torch.isfinite(img).all()),
+                    f"bounded render: image mean {mean}")
+            require(launches["cull_phase_a"] > 0 and launches["phase_b"] > 0
+                    and launches["packed_tri_closest"] > 0,
+                    f"the bounded render did not launch A, B and F: "
+                    f"{launches}")
+            require(all(v == 0 for v in plain.values()),
+                    f"plain versions ran on CUDA tensors: {plain}")
+            facts = dict(secs=secs, rays=rays_w, n_timed=n_timed,
+                         queries=queries, launches=launches, times=times)
+            del scene, img
+        _card_vs_cpu("bounded", xml_s, device, small,
+                     volpath.render_volpath)
+    return facts
+
+
+def subsurface_cell(reset_all, device="cuda", small=SMALL17):
+    """Phase 17d: the subsurface stand-ins (scene_xmls.subsurface: the
+    teapot stand-in under a dipole and under single scattering, path):
+    the dipole's irradiance prepass at 1280 x 720 (its seconds, F's any
+    hit launched), then each at 64 x 36 card against CPU (the prepass
+    on each device before the render). Returns the prepass seconds (None
+    on the CPU)."""
+    import tempfile
+    import torch
+    from hairpt_torch.integrators import path, sss
+    from hairpt_torch.ops import intersect_packed as ipk
+    from hairpt_torch.scene import scene_xmls
+    from hairpt_torch.scene.xml_loader import load_scene
+
+    secs = None
+    with tempfile.TemporaryDirectory(prefix="hairpt_sss_") as tmp:
+        for kind in ("dipole", "singlescatter"):
+            xml = scene_xmls.write_scene(tmp, kind)
+            if device == "cuda" and kind == "dipole":
+                scene = load_scene(xml, spp_override=1, device=device)
+                reset_all()
+                torch.cuda.synchronize()
+                t0 = time.time()
+                scene = sss.attach_dipole(scene)
+                torch.cuda.synchronize()
+                secs = time.time() - t0
+                s = scene.arrays.sss
+                log(f"dipole prepass at {TEAPOT_RES[0]} x {TEAPOT_RES[1]}: "
+                    f"{secs:.3f} s for {s.pos.shape[0]} points x 16 light "
+                    f"samples, mean irradiance {float(s.irr.mean()):.6f}; F "
+                    f"launches {dict(ipk.LAUNCHES)}")
+                require(ipk.LAUNCHES["packed_tri_any"] > 0
+                        and bool(s.irr.isfinite().all()),
+                        "the dipole prepass did not run through kernel F")
+                del scene, s
+            _card_vs_cpu(kind, xml, device, small, path.render,
+                         prepass=sss.attach_dipole,
+                         res_scale=small["res"] / TEAPOT_RES[0])
+    return secs
+
+
+def j_kernel_entries(report, launches, n_timed):
+    """The kernels line's entries for kernel J: its time on the camera
+    wave through the dense grid, its launches over the media cell's timed
+    waves, and under other_waves its times on the first-bounce wave and
+    on both waves through the block-sparse grid."""
+    entries = []
+    for name, rows in sorted(report.items()):
+        label, f = rows[0]
+        entries.append(dict(
+            name=name, route="cuda", source="hairpt_torch/csrc/woodcock.cu",
+            replaces=J_REPLACES[name], launches=launches[name],
+            max_abs_err=f["max_abs_err"], ms=f["ms"], plain_ms=f["plain_ms"],
+            bound_ms=f["bound_ms"], bound_by=f["bound_by"], library_ms=None,
+            timed_on=label, launched_by="the media cell's timed waves "
+            "(phase 17b)", launches_per_wave=launches[name] / n_timed,
+            ulps=f["ulps"], steps=f["steps"],
+            grid_bytes=f["grid_bytes"],
+            other_waves={lb: dict(ms=x["ms"], plain_ms=x["plain_ms"],
+                                  bound_ms=x["bound_ms"],
+                                  bound_by=x["bound_by"], ulps=x["ulps"],
+                                  max_abs_err=x["max_abs_err"],
+                                  steps=x["steps"],
+                                  grid_bytes=x["grid_bytes"])
+                         for lb, x in rows[1:]}))
+    return entries
+
+
+def warm_up(scene, label, render=None, max_timed=2):
+    """One warm-up wave of render (path.render unless given). Returns
+    (progress callback, the lists it fills with each wave's seconds and
+    rays, the number of waves to time: max_timed, or one if the warm-up
+    took over 60 s). The caller resets the counters it reads, then
+    renders the timed waves with the callback."""
     import torch
     from hairpt_torch.integrators import path
 
@@ -4158,11 +4745,12 @@ def warm_up(scene, label):
         times.append(secs)
         rays.append(n_rays)
 
-    path.render(scene, spp=1, seed=0, progress=progress)
+    (render or path.render)(scene, spp=1, seed=0, progress=progress)
     warm = times[0]
-    n_timed = 2 if warm <= 60.0 else 1
+    n_timed = max_timed if warm <= 60.0 else 1
     log(f"{label}: warm-up wave {warm:.2f}s, {rays[0]:.0f} rays"
-        + ("" if n_timed == 2 else "; over 60 s, so ONE timed wave"))
+        + ("" if n_timed == max_timed or max_timed == 1
+           else "; over 60 s, so ONE timed wave"))
     times.clear()
     rays.clear()
     return progress, times, rays, n_timed
@@ -4193,8 +4781,10 @@ def main() -> int:
     from hairpt_torch.ops import intersect_tiled as itiled
     from hairpt_torch.ops import phaseb_kernels as pk
     from hairpt_torch.ops import tiled_kernels as tk
+    from hairpt_torch.models import media
 
     def reset_all():
+        media.reset_counts()
         tk.reset_counts()
         pk.reset_counts()
         ipk.reset_counts()
@@ -4220,10 +4810,10 @@ def main() -> int:
 
         # ---- 1. builds, all at once ----
         t0 = time.time()
-        with ThreadPoolExecutor(9) as ex:
+        with ThreadPoolExecutor(10) as ex:
             futs = [ex.submit(f) for f in (tk.lib, tk.oct_lib, pk.lib,
                                            pk.cull_lib, ipk.lib, gi.lib,
-                                           isec.lib, iblk.lib)]
+                                           isec.lib, iblk.lib, media.lib)]
             f_b = ex.submit(bvh._load_native)
             for f in futs:
                 f.result()
@@ -4232,13 +4822,19 @@ def main() -> int:
             log(f"built {name} in {s:.1f}s")
         for name in ("hairpt_tiled", "hairpt_octets", "hairpt_phaseb",
                      "hairpt_swept_cull", "hairpt_packed",
-                     "hairpt_instanced", "hairpt_perray", "hairpt_blocked"):
+                     "hairpt_instanced", "hairpt_perray", "hairpt_blocked",
+                     "hairpt_woodcock"):
             for line in _native.BUILD_LOG.get(name, "").splitlines():
                 if "registers" in line or "spill" in line:
                     log(f"  ptxas {name}: {line.strip()}")
         log(f"phase 1 ({time.time() - t0:.1f}s): builds done")
 
         # ---- 2. kernels against plain versions, octet/stream modes ----
+        # the plain phase B versions (B, C, D) take a whole wave's tiles
+        # in one chunk: tiles are independent, so the per-tile arithmetic
+        # is the same, and the host walks each slot loop once per wave
+        # instead of once per 1,024 tiles (a few GiB of temporaries)
+        tk.PLAIN_B_TILES = PLAIN_TILES_ON_CARD
         t0 = time.time()
         scene = bench_scene(quality=14.0, res=1024, depth=65, spp=1,
                             device="cuda")
@@ -4584,6 +5180,30 @@ def main() -> int:
         log(f"phase 16d ({time.time() - t0:.1f}s): every other sensor kind "
             f"agrees card against CPU: {sens}")
         log(f"phase 16 (16a/16b after phase 7): ok")
+
+        # ---- 17. participating media and subsurface scattering ----
+        t0 = time.time()
+        med_facts, j_report = media_cell(reset_all)
+        log(f"phase 17a/b ({time.time() - t0:.1f}s): kernel J, the media "
+            f"cell, its CLI and the small card-against-CPU render ok "
+            f"({med_facts['secs']:.3f} s/wave)")
+        kernels += j_kernel_entries(j_report, med_facts["launches"],
+                                    med_facts["n_timed"])
+        for k in kernels:
+            if k["name"] in med_facts["launches"]:
+                k["launches_per_media_wave"] = \
+                    med_facts["launches"][k["name"]] / med_facts["n_timed"]
+        t1 = time.time()
+        bnd = bounded_cell(reset_all)
+        log(f"phase 17c ({time.time() - t1:.1f}s): the bounded-media cell "
+            f"and its small card-against-CPU render ok "
+            f"({bnd['secs']:.3f} s/wave)")
+        t1 = time.time()
+        pre = subsurface_cell(reset_all)
+        log(f"phase 17d ({time.time() - t1:.1f}s): the dipole prepass "
+            f"({pre:.3f} s) and the dipole and single-scatter renders card "
+            f"against CPU ok")
+        log(f"phase 17 ({time.time() - t0:.1f}s): ok")
         require(all(k["launches"] > 0 for k in kernels),
                 "a kernel has no launches")
     except SmokeFailure as e:

@@ -20,7 +20,10 @@ under traversal='packed'), `packed.cu` (kernel F), bound through
 `instanced.cu` (kernel G), bound through `ops/instancing.py`; and the
 per-ray and the blocked walks over the SoA trees (traversal 'perray'
 and 'blocked'), `perray.cu` (kernel H) and `blocked.cu` (kernel I),
-bound through `ops/intersect.py` and `ops/intersect_blocked.py`.
+bound through `ops/intersect.py` and `ops/intersect_blocked.py`; and
+Woodcock tracking through a grid volume (delta and ratio tracking of a
+heterogeneous medium), `woodcock.cu` (kernel J), bound through
+`models/media.py`.
 """
 from __future__ import annotations
 

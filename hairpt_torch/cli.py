@@ -7,14 +7,17 @@ counterpart of the reference's `mitsuba` executable).
         [--checkpoint F.npz] [-x] [--progress]
 
 Loads a scene XML (scene/xml_loader.py: the hair scenes), renders it with
-the path integrator on the card, or on the CPU with --cpu (the plain
-versions of the kernels), and writes the image named by -o (.png, .exr,
-.bmp or .tga) with .exr, .npy and .pfm of the linear radiance beside it.
-Without --cpu a machine with no card exits non-zero before loading
-anything. What the port does not render raises NotImplementedError naming
-its ROADMAP item: the --spectral, --bands, --profile and --stats options,
---integrator other than path, JPEG output and the util and import
-commands.
+the path integrator, or with volpath (volpath_simple is the same) where
+the XML's <integrator> or --integrator names it, on the card, or on the
+CPU with --cpu (the plain versions of the kernels), and writes the image
+named by -o (.png, .exr, .bmp or .tga) with .exr, .npy and .pfm of the
+linear radiance beside it. A scene with a dipole subsurface material
+gets its irradiance prepass (integrators/sss.attach_dipole) before the
+render. Without --cpu a machine with no card exits non-zero before
+loading anything. What the port does not render raises
+NotImplementedError naming its ROADMAP item: the --spectral, --bands,
+--profile and --stats options, the other integrators, JPEG output and the
+util and import commands.
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ import sys
 import time
 
 ITEM_13 = "ROADMAP item 13"
+INTEGRATORS = ("path", "volpath", "volpath_simple")
 
 
 def _refuse(what: str):
@@ -74,7 +78,8 @@ def _parser():
     r.add_argument("--dispersion", type=float, default=0.0,
                    help="Cauchy B coefficient of --spectral (not ported)")
     r.add_argument("--integrator", default=None,
-                   help="only 'path' is ported")
+                   help="path, volpath or volpath_simple (default: the "
+                        "scene XML's)")
     for name in ("util", "import"):
         u = sub.add_parser(name, help="not ported")
         u.add_argument("args", nargs="*")
@@ -99,7 +104,7 @@ def main(argv=None):
         _refuse("--profile")
     if args.stats:
         _refuse("--stats")
-    if args.integrator not in (None, "path"):
+    if args.integrator not in (None,) + INTEGRATORS:
         _refuse(f"the {args.integrator} integrator")
     out = args.output or "output.png"
     base, ext = out.rsplit(".", 1) if "." in os.path.basename(out) \
@@ -149,11 +154,24 @@ def main(argv=None):
                                                  scene.film.gamma))
         logger.info("flushed partial image (-r)")
 
-    img = path_int.render(scene, seed=args.seed,
-                          progress=_progress if args.progress else None,
-                          flush_every=args.refresh,
-                          flush_cb=_flush if args.refresh > 0 else None,
-                          checkpoint=args.checkpoint)
+    from .models.bsdf import registry as mat
+    if mat.DIPOLE in scene.active_kinds:
+        from .integrators.sss import attach_dipole
+        scene = attach_dipole(scene)
+        logger.info("dipole irradiance prepass done")
+    # no --integrator: the scene XML's integrator type
+    integ = args.integrator or scene.config.integrator
+    if integ in ("volpath", "volpath_simple"):
+        from .integrators import volpath
+        img = volpath.render_volpath(
+            scene, spp=scene.config.spp, seed=args.seed,
+            progress=_progress if args.progress else None)
+    else:
+        img = path_int.render(scene, seed=args.seed,
+                              progress=_progress if args.progress else None,
+                              flush_every=args.refresh,
+                              flush_cb=_flush if args.refresh > 0 else None,
+                              checkpoint=args.checkpoint)
     img = img.cpu().numpy()
     t2 = time.time()
     n_rays_lb = scene.config.width * scene.config.height * scene.config.spp

@@ -5,7 +5,8 @@ The input is the JAX scene's arrays with every leaf turned into numpy
 module only reads attributes, so it needs no JAX. The result renders the
 identical scene (same prim order, cluster layout, instance tables,
 materials, textures, hair tables, baked environment, area and delta
-lights) through
+lights, shape-bounded media, the dipole's samples and the scene medium)
+through
 hairpt_torch, with its shutter, its camera's animation and its animated
 instances. params_to_torch and
 grads_to_numpy carry a parameter dict of the JAX package's inverse
@@ -24,6 +25,8 @@ from . import resolve_device
 from .core.track import AnimatedTransform
 from .film.film import Film
 from .models import emitters as em
+from .models import media as med_mod
+from .models import subsurface as sss_mod
 from .models.bsdf import registry as mat
 from .models.sensors import Camera
 from .ops import instancing as inst_mod
@@ -67,13 +70,9 @@ def convert_arrays(arrays, device=None) -> SceneArrays:
     `device`: triangles (their shading, packed BVH and BVHArrays),
     instances, hair (its packed BVH, BVHArrays and swept layout),
     materials, textures (bitmaps and mips included), hair tables, the
-    environment, and the area and delta lights. Media and subsurface
-    tables raise."""
+    environment, the area and delta lights, the shape-bounded media
+    (tri_med, media) and the dipole's samples (sss)."""
     dev = resolve_device(device)
-    for name, item in (("media", "13"), ("tri_med", "13"), ("sss", "13")):
-        if getattr(arrays, name, None) is not None:
-            raise NotImplementedError(f"the scene's {name} arrays are not "
-                                      f"ported yet (ROADMAP item {item})")
     i32 = torch.int32
     m = arrays.materials
     if getattr(m, "cloth", None) is not None:
@@ -120,7 +119,64 @@ def convert_arrays(arrays, device=None) -> SceneArrays:
         area=_tuple(em.AreaLights, getattr(arrays, "area", None), dev,
                     {"tri_index": i32}),
         delta=_tuple(em.DeltaLights, getattr(arrays, "delta", None), dev,
-                     {"kind": i32}))
+                     {"kind": i32}),
+        sss=_sss(getattr(arrays, "sss", None), dev),
+        tri_med=None if getattr(arrays, "tri_med", None) is None
+        else _t(arrays.tri_med, dev, i32),
+        media=_tuple(med_mod.MediumTable, getattr(arrays, "media", None),
+                     dev))
+
+
+def _sss(s, dev):
+    """The JAX package's SSSSamples (numpy leaves), or None."""
+    if s is None:
+        return None
+    p = s.params
+    params = sss_mod.SSSParams(
+        sigma_s=_t(p.sigma_s, dev, torch.float32),
+        sigma_a=_t(p.sigma_a, dev, torch.float32),
+        eta=_t(p.eta, dev, torch.float32),
+        scale=_t(p.scale, dev, torch.float32), g=float(p.g))
+    return sss_mod.SSSSamples(
+        pos=_t(s.pos, dev, torch.float32), irr=_t(s.irr, dev, torch.float32),
+        area=_t(s.area, dev, torch.float32),
+        cell=_t(s.cell, dev, torch.int64),
+        grid_min=_t(s.grid_min, dev, torch.float32),
+        inv_cell=_t(s.inv_cell, dev, torch.float32),
+        grid_res=int(s.grid_res), params=params)
+
+
+def convert_medium(medium, device=None):
+    """The JAX package's Medium or HeteroMedium (its grid volume dense or
+    block-sparse) on `device`, or None."""
+    if medium is None:
+        return None
+    dev = resolve_device(device)
+
+    def f(x):
+        return None if x is None else _t(x, dev, torch.float32)
+    if hasattr(medium, "vol"):
+        v = medium.vol
+        if hasattr(v, "block_idx"):
+            vol = med_mod.HGridVolume(
+                block_idx=_t(v.block_idx, dev, torch.int32),
+                blocks=f(v.blocks), world_min=f(v.world_min),
+                inv_extent=f(v.inv_extent))
+        else:
+            vol = med_mod.GridVolume(data=f(v.data), world_min=f(v.world_min),
+                                     inv_extent=f(v.inv_extent))
+        return med_mod.HeteroMedium(
+            vol=vol, sigma_t=f(medium.sigma_t), albedo=f(medium.albedo),
+            g=f(medium.g), majorant=f(medium.majorant),
+            phase_kind=int(medium.phase_kind),
+            max_steps=int(medium.max_steps),
+            **med_mod.host_scalars(np.asarray(medium.majorant),
+                                   np.asarray(medium.sigma_t)))
+    return med_mod.Medium(
+        sigma_t=f(medium.sigma_t), albedo=f(medium.albedo), g=f(medium.g),
+        fog_depth=f(medium.fog_depth), phase_kind=int(medium.phase_kind),
+        phase_p=f(medium.phase_p), orientation=f(medium.orientation),
+        mix=tuple((int(k), float(w), float(g)) for k, w, g in medium.mix))
 
 
 def _animation(anim):
@@ -147,7 +203,7 @@ def _repose_inst(repose):
 def convert_scene(scene, arrays, device=None) -> Scene:
     """A JAX Scene (read for its camera, film, config and active kinds)
     plus its numpy arrays -> a hairpt_torch Scene. Its materials may be
-    any ported family (every kind but HK and CLOTH, the wrappers
+    any ported family (every kind but CLOTH, the wrappers and DIPOLE
     included), its camera any of the nine sensor kinds (a thin lens's
     aperture and focus and the radial distortion come across), its
     environment a baked sunsky, an envmap or a constant one, with
@@ -163,7 +219,8 @@ def convert_scene(scene, arrays, device=None) -> Scene:
     behind)."""
     cam = scene.camera
     shutter = tuple(float(x) for x in getattr(scene, "shutter", (0.0, 0.0)))
-    if getattr(scene.config, "integrator", "path") != "path":
+    if getattr(scene.config, "integrator", "path") not in (
+            "path", "volpath", "volpath_simple"):
         raise NotImplementedError(f"the {scene.config.integrator} "
                                   f"integrator is not ported yet (ROADMAP "
                                   f"item 13)")
@@ -205,7 +262,9 @@ def convert_scene(scene, arrays, device=None) -> Scene:
                  shutter=shutter,
                  camera_anim=_animation(getattr(scene, "camera_anim", None)),
                  repose_inst=_repose_inst(getattr(scene, "repose_inst",
-                                                  None)))
+                                                  None)),
+                 medium=convert_medium(getattr(scene, "medium", None),
+                                       device))
 
 
 def params_to_torch(params: dict, device=None) -> dict:

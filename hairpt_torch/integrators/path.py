@@ -17,11 +17,16 @@ loop at staged widths n -> n/4 -> n/16 (live lanes gathered first,
 results scattered back) so deep RR tails do not pay full-width shading.
 The differentiable mode runs max_depth - 1 bounces at full width with
 no RR, each under torch.utils.checkpoint, and hands the recomputation
-the bounce's query results instead of tracing again. Sample dimensions,
-constants and depth semantics are the JAX package's.
+the bounce's query results instead of tracing again. A hit on a DIPOLE
+row (subsurface scattering, the scene's arrays.sss attached by
+integrators/sss.attach_dipole) adds the dipole's gathered radiance, or
+with cfg.sss_single the single-scattering estimate (_single_scatter,
+three queries of its own), and ends the lane, in both modes. Sample
+dimensions, constants and depth semantics are the JAX package's.
 """
 from __future__ import annotations
 
+import math
 import os
 import time
 from typing import NamedTuple
@@ -35,6 +40,7 @@ from ..core.math import Ray, dot
 from ..film import film as film_mod
 from ..models import emitters as em
 from ..models import sensors
+from ..models import subsurface as sss_mod
 from ..models.bsdf import registry as mat
 from ..ops.tiled_kernels import sqrt_rn
 from .common import Hit, block_swizzle, frame, scene_intersect, \
@@ -52,13 +58,30 @@ D_BSDF_LOBE = 3
 D_BSDF_U2 = 4
 D_BSDF_U2B = 6
 D_RR = 8
+D_SSS_DIST = 9              # single scatter: the interior distance
+D_SSS_SEL = 10              # single scatter: the light selection
+D_SSS_POS = 11              # (and 12) single scatter: the light position
 D_NEE_RR = 13
 
 LUM = (0.212671, 0.715160, 0.072169)
 
 # widths of the staged wavefront: n, n/4, n/16 (the JAX package's default
-# HAIRPT_STAGES=3)
+# HAIRPT_STAGES=3), for waves of STAGE_MIN lanes or more
 MAX_STAGES = 3
+STAGE_MIN = 4096
+
+
+def stage_caps(n: int):
+    """The staged wavefront's widths for a wave of n lanes: n, then n/4
+    and n/16 rounded up to 256 lanes (at most MAX_STAGES widths, each
+    narrower than the last; n alone below STAGE_MIN lanes)."""
+    caps = [n]
+    if n >= STAGE_MIN:
+        for f in (4, 16, 64, 256):
+            m = max(256, (-(-n // f) // 256) * 256)
+            if m < caps[-1] and len(caps) < MAX_STAGES:
+                caps.append(m)
+    return caps
 
 
 def _swept_params(cfg):
@@ -315,6 +338,73 @@ def _pdf_emitter_hit(arr, cfg, hit: Hit, d):
     return pdf
 
 
+def _single_scatter(arr, cfg, p, n, wo_world, params, sel, u_dist, u_sel,
+                    u_pos, query, qparams):
+    """Single scattering through the refractive boundary (the JAX
+    package's _single_scatter; reference src/subsurface/singlescatter.cpp
+    LoSingle, with Jensen et al. 2001's estimator): the view ray refracted
+    in, one scatter point sampled along its interior chord (truncated
+    exponential), a light sampled from it, the exit point towards the
+    light and the Snell-corrected inside distance (Jensen eq. 13), both
+    interior lengths' attenuation and both Fresnel transmittances; a
+    shadow ray from the exit point. [N, 3]; lanes with sel False trace
+    degenerate rays and give 0. Its queries go through the bounce's
+    query runner with the traversal's parameters qparams."""
+    from ..models.bsdf.fresnel import fresnel_dielectric
+    dev = p.device
+    nray = p.shape[0]
+    zero = torch.zeros((nray,), device=dev)
+    eta = params.eta
+    cos_o = torch.clamp(dot(wo_world, n), min=0.0)
+    r_o, _ = fresnel_dielectric(cos_o, eta)
+    sin2_t = (1.0 - cos_o * cos_o) / (eta * eta)
+    cos_t = torch.sqrt(torch.clamp(1.0 - sin2_t, min=0.0))
+    w_in = -wo_world / eta + (cos_o / eta - cos_t)[..., None] * n
+    o_in = p - n * cfg.ray_eps
+    r0 = Ray(o=o_in, d=w_in, mint=zero,
+             maxt=torch.where(sel, float("inf"), 0.0))
+    hx0 = query(scene_intersect, arr, r0, sort_rays=True, **qparams)
+    s_max = torch.where(hx0.valid, hx0.t, 0.0)
+    sig_s = params.sigma_s * params.scale
+    sig_t = sig_s + params.sigma_a * params.scale
+    sig_bar = torch.mean(sig_t)
+    cdf_max = 1.0 - torch.exp(-sig_bar * s_max)
+    s = -torch.log1p(-u_dist * cdf_max) / sig_bar
+    pdf_s = sig_bar * torch.exp(-sig_bar * s) / torch.clamp(cdf_max,
+                                                            min=1e-12)
+    x_s = o_in + w_in * s[..., None]
+    ok = sel & hx0.valid & (cdf_max > 1e-6)
+    d_nee, dist_nee, le, pdf_nee, _ = _sample_emitter_direct(
+        arr, cfg, x_s, u_sel, u_pos)
+    ok = ok & (pdf_nee > 0)
+    r1 = Ray(o=x_s, d=d_nee, mint=zero,
+             maxt=torch.where(ok, float("inf"), 0.0))
+    hx1 = query(scene_intersect, arr, r1, sort_rays=True, **qparams)
+    ok = ok & hx1.valid
+    si = torch.where(hx1.valid, hx1.t, 0.0)
+    cos_exit = torch.abs(dot(d_nee, hx1.geo_n))
+    denom = torch.sqrt(torch.clamp(
+        1.0 - (1.0 - cos_exit * cos_exit) / (eta * eta), min=1e-6))
+    s_i = si * cos_exit / denom
+    r_i, _ = fresnel_dielectric(cos_exit, eta)
+    n_out = torch.where(dot(hx1.geo_n, d_nee)[..., None] > 0, hx1.geo_n,
+                        -hx1.geo_n)
+    sh = Ray(o=hx1.p + n_out * cfg.ray_eps, d=d_nee, mint=zero,
+             maxt=torch.where(ok, dist_nee - si - 2 * cfg.ray_eps, 0.0))
+    occ = query(scene_occluded, arr, sh, sort_rays=True, **qparams)
+    ok = ok & ~occ
+    g = torch.tensor(float(params.g), dtype=torch.float32, device=dev)
+    cos_ph = dot(w_in, d_nee)
+    ph = (1.0 - g * g) / (4.0 * math.pi * torch.clamp(
+        1.0 + g * g - 2.0 * g * cos_ph, min=1e-6) ** 1.5)
+    tr = torch.exp(-sig_t[None, :] * (s + s_i)[..., None])
+    lo = sig_s[None, :] * tr * le * (
+        ph * (1.0 - r_o) * (1.0 - r_i)
+        / (torch.clamp(pdf_nee, min=1e-20)
+           * torch.clamp(pdf_s, min=1e-20)))[..., None]
+    return torch.where(ok[..., None], lo, 0.0)
+
+
 class _Mirrored:
     """A sampler whose per-bounce dimensions at the offsets `rels` are
     mirrored, u -> 1 - u: the second render of an antithetic pair. The
@@ -393,6 +483,7 @@ def make_li_fn(scene, differentiable: bool = False, antithetic=False):
     anti_rels = (D_BSDF_U2, D_BSDF_U2 + 1) if antithetic is True \
         else tuple(antithetic or ())
     bitmaps = has_bitmaps(scene.arrays)
+    dipole = mat.DIPOLE in active_kinds
 
     def body(arr, st: PathState, depth: int, smp, query=_run_query,
              ewa: bool = False, cam=cam):
@@ -449,6 +540,20 @@ def make_li_fn(scene, differentiable: bool = False, antithetic=False):
         gm = mat.gather(arr.materials, arr.checkers, hit.mat_id, hit.uv,
                         texture_lod(arr, cam, cfg.width, hit, bitmaps),
                         hit.bary, hit.vcolor, duv)
+        # ---- dipole subsurface lanes: gather Lo and end the lane ----
+        if dipole and arr.sss is not None:
+            is_sss = active & (gm.kind == mat.DIPOLE)
+            if cfg.sss_single:
+                lo_sss = _single_scatter(
+                    arr, cfg, hit.p, sh_n, wi_world, arr.sss.params, is_sss,
+                    smp.next_1d(dims + D_SSS_DIST),
+                    smp.next_1d(dims + D_SSS_SEL),
+                    smp.next_2d(dims + D_SSS_POS), query, params)
+            else:
+                lo_sss = sss_mod.sss_radiance(arr.sss, hit.p, wi[..., 2])
+            li_acc = li_acc + torch.where(is_sss[..., None],
+                                          st.throughput * lo_sss, zero)
+            active = active & ~is_sss
         kinds = active_kinds if rows is None \
             else live_kinds(rows, hit.mat_id, active)
 
@@ -582,17 +687,11 @@ def make_li_fn(scene, differentiable: bool = False, antithetic=False):
                 n_rays = n_rays + n_new
             return _flush_pending(arr, state), pos, n_rays
 
-        stage_caps = [n]
-        if n >= 4096:
-            for f_ in (4, 16, 64, 256):
-                m_ = max(256, (-(-n // f_) // 256) * 256)
-                if m_ < stage_caps[-1] and len(stage_caps) < MAX_STAGES:
-                    stage_caps.append(m_)
-
+        caps = stage_caps(n)
         depth = 1
         st_full = state
-        for si, w_ in enumerate(stage_caps):
-            next_cap = stage_caps[si + 1] if si + 1 < len(stage_caps) else 0
+        for si, w_ in enumerate(caps):
+            next_cap = caps[si + 1] if si + 1 < len(caps) else 0
             if w_ == n:
                 order, sub, ssmp = None, st_full, smp
             else:

@@ -41,6 +41,12 @@ from .path import (DIM_BASE, DIM_CAM_POS, DIM_STRIDE, D_BSDF_LOBE,
 
 
 def _check_supported(scene):
+    arr = scene.arrays
+    if arr.sss is not None or mat.DIPOLE in scene.active_kinds:
+        raise ValueError("PRB: dipole subsurface is not replayed (the "
+                         "differentiable mode takes its branch)")
+    if arr.media is not None:
+        raise ValueError("PRB: media are not replayed")
     if scene.config.nee_rr != 0.0:
         raise ValueError("PRB: shadow-ray RR is not replayed (build the "
                          "scene with nee_rr=0 for gradients)")

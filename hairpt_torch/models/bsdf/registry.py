@@ -17,7 +17,10 @@ checkerboard, gridtexture, wireframe and vertexcolors kinds, and
 bitmaps: bilinear, or trilinear in their mip pyramid at a footprint's
 level of detail, or the elliptical (EWA) filter where the camera hit
 gives a uv Jacobian); perturb_shading_frame applies a material's normal
-or bump map. HK and CLOTH are not ported (ROADMAP item 13).
+or bump map. HK (hk.py, the Hanrahan-Krueger slab) registers itself;
+DIPOLE rows are resolved by the integrator (the subsurface branch of
+integrators/path.py), so eval_pdf and sample leave them out. CLOTH is
+not ported (ROADMAP item 13).
 
 Conventions (as in the reference's bsdf.h): wi, wo in the local shading
 frame, +z the shading normal; eval returns f(wi, wo) |cos theta_o|;
@@ -55,6 +58,8 @@ DIFFTRANS = 16
 MIXTURE = 17
 COATING = 18
 ROUGHCOATING = 19
+DIPOLE = 20             # subsurface dipole: params transmit = sigma_s',
+#                         sigma_a, eta, mix_w = density scale
 HK = 21
 CLOTH = 22
 MARSCHNER_PURE = 23     # corrected-mode Marschner (true 3-lobe mixture
@@ -459,7 +464,8 @@ def register(kind: int, family):
 
 def check_kinds(active_kinds):
     missing = [k for k in active_kinds
-               if k not in FAMILIES and k not in WRAPPER_KINDS]
+               if k not in FAMILIES and k not in WRAPPER_KINDS
+               and k != DIPOLE]
     if missing:
         raise NotImplementedError(f"BSDF kinds {missing} are not ported "
                                   f"yet (ROADMAP item 13; ported: "
@@ -473,7 +479,7 @@ def eval_pdf(active_kinds, gm: GatheredMat, wi, wo, hair_tables=None):
     f = torch.zeros(n + (3,), device=wi.device)
     pdf = torch.zeros(n, device=wi.device)
     for kind in sorted(set(int(k) for k in active_kinds)):
-        if kind in WRAPPER_KINDS:
+        if kind in WRAPPER_KINDS or kind == DIPOLE:
             continue
         fk, pk = FAMILIES[kind].eval_pdf(gm, wi, wo, hair_tables)
         sel = gm.kind == kind
@@ -494,7 +500,7 @@ def sample(active_kinds, gm: GatheredMat, wi, u_lobe, u2, u2b,
     is_delta = torch.zeros(n, dtype=torch.bool, device=dev)
     eta_s = torch.ones(n, device=dev)
     for kind in sorted(set(int(k) for k in active_kinds)):
-        if kind in WRAPPER_KINDS:
+        if kind in WRAPPER_KINDS or kind == DIPOLE:
             continue
         wk, wtk, pk, dk, ek = FAMILIES[kind].sample(gm, wi, u_lobe, u2, u2b,
                                                     hair_tables)

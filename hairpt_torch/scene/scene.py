@@ -19,6 +19,13 @@ their triangles, in BVH order, become the AreaLights table) and delta
 lights (delta_lights: point, spot, directional, collimated); NEE picks
 among the kinds present with equal probability (RenderConfig.nee_probs).
 
+Media and subsurface: SceneBuilder.medium (a media.Medium or
+HeteroMedium, the scene-level medium of integrators/volpath.py),
+add_medium and mesh_media (shape-bounded media: the per-triangle
+tri_med ids, in BVH order, and the MediumTable), and the DIPOLE rows
+whose samples integrators/sss.attach_dipole puts in SceneArrays.sss;
+RenderConfig.integrator, sss_single and sss_g as the loader reads them.
+
 Motion blur: a sensor's shutter (open, close) with close > open makes
 render() give sample index s the time t_s = open + (s + 1/2) / spp *
 (close - open), at which it poses the animated camera (camera_anim),
@@ -45,6 +52,8 @@ from ..models.bsdf import hair as hair_bsdf  # registers the hair kinds
 from ..models.bsdf import plastic  # noqa: F401  (registers the plastics)
 from ..models.bsdf import simple  # noqa: F401  (registers the simple kinds)
 from ..models.bsdf import dielectric_rough  # noqa: F401  (registers them)
+from ..models.bsdf import hk  # noqa: F401  (registers HK)
+from ..models import media as med_mod
 from ..models.bsdf import tables as rt_tables
 from ..models.bsdf.fresnel import fresnel_diffuse_reflectance
 from ..models.sensors import Camera
@@ -109,6 +118,11 @@ class SceneArrays(NamedTuple):
     hair_bvh: Optional[isec.BVHArrays] = None  # and hair_packed, as SoA
     area: Optional[em.AreaLights] = None       # emissive triangles
     delta: Optional[em.DeltaLights] = None     # point, spot, ... lights
+    sss: object = None       # subsurface.SSSSamples (dipole), attached by
+    #                          integrators/sss.attach_dipole
+    tri_med: Optional[torch.Tensor] = None     # [Ntri, 2] int32 (interior,
+    #                          exterior) medium ids, 0 = vacuum
+    media: Optional[med_mod.MediumTable] = None  # shape-bounded media
 
     @property
     def device(self) -> torch.device:
@@ -141,6 +155,9 @@ class RenderConfig:
     #                             hair scene's build turns 0 into -1, off
     nee_probs: tuple = (1.0, 0.0, 0.0)   # (env, area, delta)
     nee_rr: float = 0.0         # shadow-ray Russian roulette threshold
+    integrator: str = "path"    # the scene XML's integrator type
+    sss_single: bool = False    # subsurface: single scattering (vs dipole)
+    sss_g: float = 0.0          # HG anisotropy of single scattering
 
 
 class Scene(NamedTuple):
@@ -159,6 +176,8 @@ class Scene(NamedTuple):
     #                                deformable pairs)
     repose_inst: object = None     # (arrays, t) -> arrays with the
     #                                animated instances posed at t
+    medium: object = None          # media.Medium or HeteroMedium: the
+    #                                scene-level medium of volpath
 
 
 # the bitmaps' pre-blurred pyramid (the JAX package's _build_mips)
@@ -202,6 +221,9 @@ class SceneBuilder:
         self.morph_meshes = {}     # mesh index -> (mesh at 0, mesh at 1)
         #                            in world space (deformable pairs)
         self.instance_anims = {}   # instance index -> AnimatedTransform
+        self.medium = None         # Medium or HeteroMedium (volpath)
+        self.media_rows = []       # shape-bounded media (ids 1-based)
+        self.mesh_media = {}       # mesh index -> (interior, exterior) id
 
     # -- materials and textures --------------------------------------------
 
@@ -353,6 +375,12 @@ class SceneBuilder:
         if anim is not None:
             self.instance_anims[len(self.instances) - 1] = anim
 
+    def add_medium(self, sigma_s, sigma_a, g=0.0) -> int:
+        """A shape-boundable homogeneous medium; returns its 1-based id
+        (0 = vacuum) for mesh_media entries."""
+        self.media_rows.append(dict(sigma_s=sigma_s, sigma_a=sigma_a, g=g))
+        return len(self.media_rows)
+
     def add_fibers(self, fs: hairgen.FiberSet, mat_id: int):
         """One FiberSet (gen_hair_curl's clumps are added one by one, as
         in the JAX package)."""
@@ -378,9 +406,10 @@ class SceneBuilder:
         return meshes
 
     def _build_triangles(self, t, meshes):
-        """(TriGeom, TriShading, PackedBVH, BVHArrays, AreaLights or None)
-        of the meshes: the JAX package's triangle block and area-light
-        table, dtype for dtype."""
+        """(TriGeom, TriShading, PackedBVH, BVHArrays, AreaLights or None,
+        tri_med or None) of the meshes: the JAX package's triangle block,
+        area-light table and per-triangle medium ids (mesh_media, in BVH
+        order), dtype for dtype."""
         v0l, v1l, v2l, n0l, n1l, n2l = [], [], [], [], [], []
         uv0l, uv1l, uv2l, midl, vc0l, vc1l, vc2l = [], [], [], [], [], [], []
         eidl = []
@@ -452,8 +481,15 @@ class SceneBuilder:
                                      (v2 - v0)[o]), f32),
             vc0=t(cat(vc0l)[o], f32), vc1=t(cat(vc1l)[o], f32),
             vc2=t(cat(vc2l)[o], f32))
+        tri_med = None
+        if self.mesh_media:
+            tm = np.concatenate(
+                [np.tile(np.asarray(self.mesh_media.get(k, (0, 0)),
+                                    np.int32), (len(mesh.faces), 1))
+                 for k, (mesh, _, _) in enumerate(meshes)])
+            tri_med = t(tm[o], torch.int32)
         return (tri, shading, packed, isec.bvh_to_device(fb, self.device),
-                self._area_table(t, p0_s, e1_s, e2_s, eid))
+                self._area_table(t, p0_s, e1_s, e2_s, eid), tri_med)
 
     def _area_table(self, t, p0, e1, e2, eid):
         """AreaLights over the emissive triangles in BVH order (the JAX
@@ -527,9 +563,9 @@ class SceneBuilder:
             return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
                                    device=dev)
 
-        tri = tri_shading = tri_packed = tri_bvh = area = None
+        tri = tri_shading = tri_packed = tri_bvh = area = tri_med = None
         if self.tri_meshes:
-            tri, tri_shading, tri_packed, tri_bvh, area = \
+            tri, tri_shading, tri_packed, tri_bvh, area, tri_med = \
                 self._build_triangles(t, self.tri_meshes)
         hair = hair_mat_id = hair_packed = swept = hair_bvh = None
         if self.fibers:
@@ -578,7 +614,11 @@ class SceneBuilder:
                              materials=materials, checkers=checkers,
                              hair_tables=ht, env=env, inst=inst,
                              tri_bvh=tri_bvh, hair_bvh=hair_bvh, area=area,
-                             delta=delta)
+                             delta=delta, tri_med=tri_med,
+                             media=med_mod.make_medium_table(
+                                 self.media_rows, device=dev)
+                             if self.media_rows and tri_med is not None
+                             else None)
         return Scene(arrays=arrays, camera=camera, film=film, config=cfg,
                      active_kinds=active, marschner_rows=marschner_rows,
                      has_normal_maps=any(int(r.get("nrm_tex_id", -1)) >= 0
@@ -586,7 +626,7 @@ class SceneBuilder:
                      shutter=tuple(float(x) for x in self.shutter),
                      camera_anim=self.camera_anim,
                      rebuild_geo=self._rebuild_fn(t, arrays),
-                     repose_inst=self._repose_fn())
+                     repose_inst=self._repose_fn(), medium=self.medium)
 
     def _rebuild_fn(self, t, arrays: SceneArrays):
         """rebuild_geo: t_s -> `arrays` with the triangle block (tri,
@@ -600,11 +640,11 @@ class SceneBuilder:
             return None
 
         def rebuild_geo(t_s: float) -> SceneArrays:
-            tri, shading, packed, bvh, area = self._build_triangles(
-                t, self._meshes_at(t_s))
+            tri, shading, packed, bvh, area, tri_med = \
+                self._build_triangles(t, self._meshes_at(t_s))
             return arrays._replace(tri=tri, tri_shading=shading,
                                    tri_packed=packed, tri_bvh=bvh,
-                                   area=area)
+                                   area=area, tri_med=tri_med)
         return rebuild_geo
 
     def _repose_fn(self):

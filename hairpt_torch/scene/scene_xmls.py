@@ -122,9 +122,9 @@ def _hair(filename: str, radius: float, material: str) -> str:
             f"value=\"{radius!r}\"/>{material}</shape>")
 
 
-def _scene(body: str, depth=65) -> str:
+def _scene(body: str, depth=65, integrator="path") -> str:
     return (f"<?xml version=\"1.0\" encoding=\"utf-8\"?>\n"
-            f"<scene version=\"0.5.0\"><integrator type=\"path\">"
+            f"<scene version=\"0.5.0\"><integrator type=\"{integrator}\">"
             f"<integer name=\"maxDepth\" value=\"{depth}\"/></integrator>"
             f"{body}</scene>\n")
 
@@ -541,6 +541,131 @@ def materials(sampler="sobol", spp=64, res=1024, depth=65, hair=True,
     return _scene(body + SUN, depth)
 
 
+def _fur_xml() -> str:
+    return ("<bsdf type=\"roughplastic\" id=\"fur\">"
+            "<string name=\"distribution\" value=\"ggx\"/>"
+            "<float name=\"alpha\" value=\"0.2\"/>"
+            "<float name=\"intIOR\" value=\"1.55\"/>"
+            f"<rgb name=\"diffuseReflectance\" value=\"{_rgb(DIFFUSE)}\"/>"
+            "</bsdf>"
+            + _hair("furball.mitshair", 0.00216667, "<ref id=\"fur\"/>"))
+
+
+# the media stand-in's smoke: a grid boxed around the furball (whose
+# fibers reach 3.85 from (0, 11, 0))
+SMOKE_MIN = (-5.0, 6.0, -5.0)
+SMOKE_MAX = (5.0, 16.0, 5.0)
+SMOKE_RES = 256
+
+
+def smoke_density(res: int = SMOKE_RES) -> np.ndarray:
+    """[res, res, res] float32 (z, y, x) procedural smoke in [0, 1]: a
+    soft ball of radius 1 in the box's [-1, 1]^3 coordinates, thinned by
+    a product of sines."""
+    t = ((np.arange(res, dtype=np.float32) + 0.5) / res * 2.0 - 1.0)
+    x, y, z = t[None, None, :], t[None, :, None], t[:, None, None]
+    r = np.sqrt(x * x + y * y + z * z)
+    turb = 0.55 + 0.25 * np.sin(7.0 * x + 2.0 * np.sin(5.0 * y)) \
+        * np.sin(6.0 * y + 3.0 * z) + 0.2 * np.sin(9.0 * z - 4.0 * x)
+    return (np.clip(1.0 - r, 0.0, 1.0) * np.clip(turb, 0.0, 1.0)) \
+        .astype(np.float32)
+
+
+def media(sampler="sobol", spp=64, res=1024, depth=65) -> str:
+    """The media stand-in: the furball in a heterogeneous smoke (the grid
+    volume smoke.vol, written by media_files), HG g 0.3, volpath; the
+    tests and chip_smoke vary its sampler, sample count, resolution and
+    depth."""
+    m = " ".join(repr(float(x)) for x in CAM_TO_WORLD.reshape(-1))
+    return _scene(
+        _sensor(f"<matrix value=\"{m}\"/>", res, res, sampler, spp)
+        + _fur_xml()
+        + "<medium type=\"heterogeneous\" id=\"smoke\">"
+          "<volume type=\"gridvolume\" name=\"density\">"
+          "<string name=\"filename\" value=\"smoke.vol\"/></volume>"
+          "<rgb name=\"sigmaS\" value=\"0.5\"/>"
+          "<rgb name=\"sigmaA\" value=\"0.05\"/>"
+          "<phase type=\"hg\"><float name=\"g\" value=\"0.3\"/></phase>"
+          "</medium>"
+        + SUN, depth, integrator="volpath")
+
+
+def media_files(d: str, vol_res: int = SMOKE_RES):
+    """Write the media stand-in's smoke.vol (vol_res^3 float32)."""
+    from ..models.media import write_vol
+    write_vol(os.path.join(d, "smoke.vol"), smoke_density(vol_res),
+              SMOKE_MIN, SMOKE_MAX)
+
+
+def _cam_point(fwd: float, right: float, up: float):
+    """A point fwd along the camera's axis from the furball's centre
+    (towards the camera if negative), moved along its x and y axes."""
+    c = np.asarray((0.0, 11.0, 0.0))
+    return (c + fwd * CAM_TO_WORLD[:3, 2] + right * CAM_TO_WORLD[:3, 0]
+            + up * CAM_TO_WORLD[:3, 1])
+
+
+def _sphere(c, r: float, inner: str) -> str:
+    return (f"<shape type=\"sphere\"><point name=\"center\" "
+            f"x=\"{float(c[0])!r}\" y=\"{float(c[1])!r}\" "
+            f"z=\"{float(c[2])!r}\"/><float name=\"radius\" "
+            f"value=\"{r!r}\"/>{inner}</shape>")
+
+
+def bounded(sampler="sobol", spp=64, res=1024, depth=65) -> str:
+    """The bounded-media stand-in: the furball inside a null-bounded
+    sphere (radius 4.2) of thin homogeneous fog, a dielectric sphere
+    filled with a denser medium and a Hanrahan-Krueger (hk) sphere in
+    front of it, a checkerboard floor and the sunsky; volpath."""
+    m = " ".join(repr(float(x)) for x in CAM_TO_WORLD.reshape(-1))
+    body = (_sensor(f"<matrix value=\"{m}\"/>", res, res, sampler, spp)
+            + _fur_xml()
+            + _sphere((0.0, 11.0, 0.0), 4.2,
+                      "<medium type=\"homogeneous\" name=\"interior\">"
+                      "<rgb name=\"sigmaS\" value=\"0.08, 0.09, 0.1\"/>"
+                      "<rgb name=\"sigmaA\" value=\"0.01\"/>"
+                      "<float name=\"g\" value=\"0.2\"/></medium>")
+            + _sphere(_cam_point(-6.0, 2.5, -1.5), 0.7,
+                      "<bsdf type=\"dielectric\"><float name=\"intIOR\" "
+                      "value=\"1.33\"/></bsdf>"
+                      "<medium type=\"homogeneous\" name=\"interior\">"
+                      "<rgb name=\"sigmaS\" value=\"1.2, 0.8, 0.4\"/>"
+                      "<rgb name=\"sigmaA\" value=\"0.05, 0.1, 0.3\"/>"
+                      "</medium>")
+            + _sphere(_cam_point(-6.0, -2.5, -1.5), 0.7,
+                      "<bsdf type=\"hk\"><rgb name=\"sigmaS\" "
+                      "value=\"2, 1.5, 1\"/><rgb name=\"sigmaA\" "
+                      "value=\"0.05, 0.1, 0.2\"/><float name=\"thickness\" "
+                      "value=\"0.5\"/><float name=\"g\" value=\"0.4\"/>"
+                      "</bsdf>")
+            + "<shape type=\"rectangle\"><transform name=\"toWorld\"><scale "
+              "value=\"20\"/><rotate x=\"1\" angle=\"-90\"/><translate "
+              "y=\"6\"/></transform><bsdf type=\"diffuse\"><texture "
+              "type=\"checkerboard\" name=\"reflectance\"><float "
+              "name=\"uscale\" value=\"8\"/><float name=\"vscale\" "
+              "value=\"8\"/></texture></bsdf></shape>")
+    return _scene(body + SUN, depth, integrator="volpath")
+
+
+def subsurface(kind="dipole", sampler="sobol", spp=64, width=1280,
+               height=720, depth=65) -> str:
+    """The teapot stand-in with a <subsurface type="dipole"> or
+    "singlescatter" (marble-like coefficients at 30x density: a dipole
+    kernel radius of about half a unit on the ~5-unit teapot), path."""
+    ss = (f"<subsurface type=\"{kind}\">"
+          "<rgb name=\"sigmaS\" value=\"2.6, 3.2, 3.9\"/>"
+          "<rgb name=\"sigmaA\" value=\"0.0021, 0.0041, 0.0071\"/>"
+          "<float name=\"scale\" value=\"30\"/>"
+          "<float name=\"intIOR\" value=\"1.3\"/>"
+          + ("<float name=\"g\" value=\"0.3\"/>"
+             if kind == "singlescatter" else "")
+          + "</subsurface>")
+    xml = teapot(sampler=sampler, spp=spp, width=width, height=height,
+                 depth=depth)
+    return xml.replace("value=\"teapot.obj\"/><ref id=\"teapot\"/>",
+                       "value=\"teapot.obj\"/><ref id=\"teapot\"/>" + ss)
+
+
 # name -> (directory, file name, XML builder[, writer of its files])
 SCENES = {
     "furball": ("furball", "scene.xml", furball),
@@ -555,6 +680,11 @@ SCENES = {
     "motion": ("motion", "scene.xml", motion, motion_files),
     "lit": ("lit", "scene.xml", lit),
     "materials": ("materials", "scene.xml", materials),
+    "media": ("media", "scene.xml", media, media_files),
+    "bounded": ("bounded", "scene.xml", bounded),
+    "dipole": ("dipole", "scene.xml", subsurface),
+    "singlescatter": ("singlescatter", "scene.xml",
+                      lambda **kw: subsurface("singlescatter", **kw)),
 }
 
 
@@ -562,13 +692,15 @@ SCENES = {
 def write_scene(root: str, name: str, **kw) -> str:
     """Write scene `name` under root/<its directory>/ (with its files,
     where it has any) and return the path; kw go to its XML builder
-    (furball(), teapot(), instanced(), motion(), lit() and materials()
-    take any)."""
+    (furball(), teapot(), instanced(), motion(), lit(), materials(),
+    media(), bounded() and subsurface() take any), but vol_res, which
+    goes to media_files."""
     d, f, make, *files = SCENES[name]
+    vol = {"vol_res": kw.pop("vol_res")} if "vol_res" in kw else {}
     os.makedirs(os.path.join(root, d), exist_ok=True)
     path = os.path.join(root, d, f)
     with open(path, "w") as fh:
         fh.write(make(**kw))
     for write in files:
-        write(os.path.join(root, d))
+        write(os.path.join(root, d), **vol)
     return path

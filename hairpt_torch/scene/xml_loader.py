@@ -22,7 +22,8 @@ What the port renders:
   roughdielectric, difftrans, plastic, roughplastic, phong, ward, null,
   kajiyakay, marschner (corrected, or faithful with `<boolean
   name="faithful">` / `-D marschner_faithful=true`), marschner_diffuse
-  and marschnerdielectric, and the wrappers mixturebsdf and blendbsdf,
+  and marschnerdielectric, hk (sigmaS, sigmaA, thickness, g), and the
+  wrappers mixturebsdf and blendbsdf,
   mask, coating and roughcoating over a nested BSDF (one level), each
   possibly wrapped in twosided and in a normalmap or bumpmap (its
   texture image read without de-gamma);
@@ -56,15 +57,26 @@ What the port renders:
   irradiance, else power; cutoffAngle 20 and beamWidth 3/4 of it by
   default); a shape's `<emitter>` (an area light of its radiance) on
   every mesh shape, dropped on a hair shape as the JAX loader drops it;
+- participating media: a shape's `<medium name="interior|exterior">`
+  (a shape-bounded homogeneous medium; a shape with a medium and no BSDF
+  gets the implicit null boundary), and the scene-level `<medium
+  type="homogeneous|heterogeneous">` with its phase (isotropic, hg,
+  rayleigh, kkay, kkay_is, microflake with stddev and orientation, a
+  mixturephase of nested phases), a gridvolume (.vol) or a constvolume,
+  scale, and a homogeneous fog's depth of four diagonals of the scene's
+  bounding box (fogDepth overrides it); a sensor's `<medium>` is ignored,
+  as the JAX loader ignores it, with a log line;
+- a shape's `<subsurface type="dipole|singlescatter">` (a DIPOLE
+  material row over the shape's BSDF; singlescatter sets the config's
+  sss_single and sss_g);
 - `<spectrum>` and `<blackbody>` values.
 A `<texture>` at the scene's top level is ignored, as the JAX loader
 ignores it (it reads only a BSDF's own texture).
 
 Every other element the JAX loader accepts raises NotImplementedError
 before any build work, naming the ROADMAP item that ports it (13: the
-motion integrator, media, subsurface scattering, the hk and irawan
-BSDFs, LDR images other than PNG, and the rest). Nothing else is dropped
-silently.
+other integrators, the irawan BSDF, LDR images other than PNG, and the
+rest). Nothing else is dropped silently.
 """
 from __future__ import annotations
 
@@ -80,11 +92,13 @@ from ..core.math import matrix_lookat
 from ..core.track import AnimatedTransform
 from ..film.film import Film
 from ..models import emitters as em
+from ..models import media as med_mod
 from ..models import shapes as shp
 from ..models.bsdf import registry as mat
 from ..models import sensors
 from ..models.sensors import Camera
 from ..utils import io as io_utils
+from ..utils import log as log_mod
 from . import hairgen
 from .scene import Scene, SceneBuilder
 
@@ -147,9 +161,17 @@ CONDUCTOR_PRESETS = {
 
 ITEM_13 = "ROADMAP item 13"
 
-# the BSDF plugins the port renders: hk waits for the media (its phase
-# function) and irawan (cloth) for a slice of its own, both item 13
-_BSDF_PORTED = set(BSDF_KINDS) - {"hk", "irawan"}
+# the BSDF plugins the port renders: irawan (cloth) waits for a slice of
+# its own (item 13)
+_BSDF_PORTED = set(BSDF_KINDS) - {"irawan"}
+# the integrators the port renders (volpath_simple is volpath, as in the
+# JAX package's CLI)
+_INTEGRATORS_PORTED = ("path", "volpath", "volpath_simple")
+_PHASE_KINDS = {"isotropic": med_mod.ISOTROPIC, "hg": med_mod.HG,
+                "rayleigh": med_mod.RAYLEIGH, "kkay": med_mod.KKAY,
+                "kkay_is": med_mod.KKAY_IS,
+                "microflake": med_mod.MICROFLAKE,
+                "mixturephase": med_mod.MIXTURE_PHASE}
 # the image files the port reads (the JAX package reads any other LDR
 # format through PIL)
 _IMAGE_EXTS = (".png", ".hdr", ".pfm", ".exr")
@@ -308,11 +330,9 @@ def _refuse_unported(root, defines, scene_dir):
     """Raise NotImplementedError for the first element the port does not
     render, before any build work."""
     for integ in root.findall("integrator"):
-        if (integ.get("type") or "path") != "path":
+        if (integ.get("type") or "path") not in _INTEGRATORS_PORTED:
             _refuse(f'<integrator type="{integ.get("type")}">', ITEM_13)
     for sensor in root.findall("sensor"):
-        if sensor.find("medium") is not None:
-            _refuse("participating media", ITEM_13)
         fm = sensor.find("film")
         if fm is not None:
             if fm.get("type") not in _FILMS_PORTED:
@@ -324,10 +344,6 @@ def _refuse_unported(root, defines, scene_dir):
     for bsdf in root.iter("bsdf"):
         _refuse_bsdf(bsdf, defines, scene_dir)
     for shape in root.findall("shape"):
-        if shape.find("subsurface") is not None:
-            _refuse("subsurface scattering", ITEM_13)
-        if shape.find("medium") is not None:
-            _refuse("participating media", ITEM_13)
         if shape.get("type") == "heightfield":
             _refuse_image(shape, defines, scene_dir, "a heightfield's")
     for emit in root.findall("emitter"):
@@ -338,8 +354,6 @@ def _refuse_unported(root, defines, scene_dir):
                     _IMAGE_EXTS):
                 _refuse(f"an LDR envmap image ({os.path.basename(fname)}) "
                         f"other than PNG", ITEM_13)
-    if root.find("medium") is not None:
-        _refuse("participating media", ITEM_13)
 
 
 def _read_texture_image(fname: str, scene_dir: str, gamma: float = 2.2):
@@ -455,6 +469,12 @@ def _material_row_from_bsdf(node, defines, builder: SceneBuilder,
         row["alpha"] = p["alpha"]
     if "nonlinear" in p:
         row["nonlinear"] = p["nonlinear"]
+    if btype == "hk":
+        # sigma_s -> transmit, sigma_a, thickness -> alpha, HG g -> beta_r
+        row["transmit"] = p.get("sigmaS", (2.0, 2.0, 2.0))
+        row["sigma_a"] = p.get("sigmaA", (0.05, 0.05, 0.05))
+        row["alpha"] = float(p.get("thickness", 1.0))
+        row["beta_r"] = float(p.get("g", 0.0))
     row["dist"] = 0 if p.get("distribution", "ggx") != "beckmann" else 1
     if btype == "marschner":
         # hardcoded in the reference ctor (marschner_diffuse.cpp:125,152-157)
@@ -690,8 +710,10 @@ def load_scene(path: str, defines: dict | None = None,
 
     # integrator
     max_depth = 65
+    integrator_type = "path"
     for integ in root.findall("integrator"):
         max_depth = _collect_props(integ, defines).get("maxDepth", 65)
+        integrator_type = integ.get("type") or "path"
     if max_depth_override is not None:
         max_depth = max_depth_override
 
@@ -701,6 +723,11 @@ def load_scene(path: str, defines: dict | None = None,
     sampler_kind = rng_mod.SOBOL
     shutter_open = 0.0
     for sensor in root.findall("sensor"):
+        if sensor.find("medium") is not None:
+            # the JAX loader reads no sensor medium either
+            log_mod.get("xml").info("%s: the sensor's <medium> is "
+                                    "ignored, as the JAX loader ignores it",
+                                    path)
         p = _collect_props(sensor, defines)
         fov = p.get("fov", 35.0)
         shutter_open = float(p.get("shutterOpen", 0.0))
@@ -763,6 +790,8 @@ def load_scene(path: str, defines: dict | None = None,
     # shapes (a shape of an unknown type gets its material and no
     # geometry, as in the JAX loader; so do a shapegroup and an instance)
     shape_groups = {}
+    sss_single = False
+    sss_g = 0.0
     for shape in root.findall("shape"):
         p = _collect_props(shape, defines)
         tr = shape.find("transform")
@@ -771,6 +800,23 @@ def load_scene(path: str, defines: dict | None = None,
         if anim is not None:
             to_world = anim.eval(shutter_open)
         first_mesh = len(b.tri_meshes)
+        # a subsurface element makes the shape a DIPOLE material
+        ss_el = shape.find("subsurface")
+        dipole_mat = None
+        if ss_el is not None and ss_el.get("type") in ("dipole",
+                                                       "singlescatter"):
+            sp2 = _collect_props(ss_el, defines)
+            int_ior = sp2.get("intIOR", 1.5)
+            if isinstance(int_ior, str):
+                int_ior = IOR_NAMES.get(int_ior, 1.5)
+            dipole_mat = b.add_material(
+                kind=mat.DIPOLE,
+                transmit=sp2.get("sigmaS", (2.6, 3.2, 3.9)),
+                sigma_a=sp2.get("sigmaA", (0.0021, 0.0041, 0.0071)),
+                eta=float(int_ior), mix_w=float(sp2.get("scale", 1.0)))
+            if ss_el.get("type") == "singlescatter":
+                sss_single = True
+                sss_g = float(sp2.get("g", 0.0))
         mid = None
         ref = shape.find("ref")
         if ref is not None and ref.get("id") in mat_ids:
@@ -780,6 +826,22 @@ def load_scene(path: str, defines: dict | None = None,
             if inline is not None:
                 mid = b.add_material(**_material_row_from_bsdf(
                     inline, defines, b, scene_dir))
+        if dipole_mat is not None:
+            mid = dipole_mat  # subsurface overrides the surface BSDF
+        # shape-bounded media (<medium name="interior|exterior">)
+        med_int = med_ext = 0
+        for md_el in shape.findall("medium"):
+            mp2 = _collect_props(md_el, defines)
+            med_id = b.add_medium(mp2.get("sigmaS", (0.5, 0.5, 0.5)),
+                                  mp2.get("sigmaA", (0.1, 0.1, 0.1)),
+                                  g=float(mp2.get("g", 0.0)))
+            if md_el.get("name") == "exterior":
+                med_ext = med_id
+            else:
+                med_int = med_id
+        if mid is None and (med_int or med_ext):
+            # a medium boundary without a BSDF: the implicit null boundary
+            mid = b.add_material(kind=mat.NULL)
         if mid is None:
             mid = b.add_material(kind=mat.DIFFUSE)
         # an area light: the radiance of the shape's last <emitter>
@@ -811,6 +873,9 @@ def load_scene(path: str, defines: dict | None = None,
                 # stored at shutter open, moved by anim(t) inv(anim(open))
                 for k in range(first_mesh, len(b.tri_meshes)):
                     b.animated_meshes[k] = anim
+            if med_int or med_ext:
+                for k in range(first_mesh, len(b.tri_meshes)):
+                    b.mesh_media[k] = (med_int, med_ext)
             continue
         radius = p.get("radius", 0.025)
         fname = os.path.join(scene_dir, p.get("filename", ""))
@@ -870,6 +935,9 @@ def load_scene(path: str, defines: dict | None = None,
                 cutoff_deg=cutoff,
                 beam_deg=p.get("beamWidth", cutoff * 0.75)))
 
+    for md in root.findall("medium"):
+        b.medium = _scene_medium(md, defines, scene_dir, b)
+
     if sampler_kind == "sobol":
         # true high-dimensional Sobol' with the per-pixel
         # elementary-interval lookup at resolution 2^m
@@ -877,4 +945,76 @@ def load_scene(path: str, defines: dict | None = None,
         sampler_kind = (rng_mod.SOBOL_QMC, m_res, film.width)
 
     return b.build(cam, film, spp=int(spp), max_depth=int(max_depth),
-                   sampler=sampler_kind)
+                   sampler=sampler_kind, integrator=integrator_type,
+                   sss_single=sss_single, sss_g=sss_g)
+
+
+def _scene_medium(md, defines, scene_dir: str, b: SceneBuilder):
+    """A scene-level <medium type="homogeneous|heterogeneous"> (the JAX
+    loader's rules, xml_loader.py:866-948): its phase (any kind, a
+    mixture's children, a micro-flake's stddev and orientation), a
+    gridvolume or constvolume with its scale, or a homogeneous fog whose
+    depth is four diagonals of the scene's bounding box."""
+    mp = _collect_props(md, defines)
+    ph_el = md.find("phase")
+    pk = med_mod.HG
+    g_val = float(mp.get("g", 0.0))
+    kkay_p = {}
+    if ph_el is not None:
+        pp = _collect_props(ph_el, defines)
+        pk = _PHASE_KINDS.get(ph_el.get("type", "isotropic"), med_mod.HG)
+        g_val = float(pp.get("g", g_val))
+        kkay_p = dict(ks=float(pp.get("ks", 0.4)),
+                      kd=float(pp.get("kd", 0.2)),
+                      exponent=float(pp.get("exponent", 4.0)))
+        if pk == med_mod.MICROFLAKE:
+            kkay_p = dict(stddev=float(pp.get("stddev", 0.3)),
+                          orientation=tuple(np.asarray(
+                              pp.get("orientation", (0.0, 0.0, 1.0)),
+                              np.float32)))
+        if pk == med_mod.MIXTURE_PHASE:
+            ws = [float(x) for x in re.split(
+                r"[,\s]+", str(pp.get("weights", "")).strip()) if x]
+            kids = ph_el.findall("phase")
+            mix = []
+            for i, ch in enumerate(kids):
+                cp = _collect_props(ch, defines)
+                ck = _PHASE_KINDS.get(ch.get("type", "isotropic"),
+                                      med_mod.ISOTROPIC)
+                cw = ws[i] if i < len(ws) else 1.0 / max(len(kids), 1)
+                mix.append((ck, cw, float(cp.get("g", 0.0))))
+            kkay_p = dict(mix=tuple(mix))
+    sig_s = mp.get("sigmaS", (0.5, 0.5, 0.5))
+    sig_a = mp.get("sigmaA", (0.1, 0.1, 0.1))
+    if md.get("type") == "heterogeneous":
+        vol = None
+        for ve in md.findall("volume"):
+            vp = _collect_props(ve, defines)
+            if ve.get("type") == "gridvolume" and "filename" in vp:
+                fname = vp["filename"]
+                if not os.path.isabs(fname):
+                    fname = os.path.join(scene_dir, fname)
+                vol = med_mod.load_vol(fname, device=b.device)
+            elif ve.get("type") == "constvolume":
+                val = float(np.mean(vp.get("value", 1.0)))
+                vol = med_mod.make_grid_volume(
+                    np.full((2, 2, 2), val, np.float32), (-1e3,) * 3,
+                    (1e3,) * 3, device=b.device)
+        if vol is None:
+            raise ValueError("heterogeneous medium needs a gridvolume")
+        return med_mod.make_hetero_medium(
+            vol, sig_s, sig_a, g=g_val, phase_kind=pk,
+            density_scale=float(mp.get("scale", 1.0)))
+    # a finite fog: a ray to the environment crosses ~4 bounding-box
+    # diagonals of medium
+    pts = [np.asarray(m.positions).reshape(-1, 3) for m, _, _ in b.tri_meshes]
+    pts += [np.asarray(fs.vertices).reshape(-1, 3) for fs, _ in b.fibers]
+    if pts:
+        allp = np.concatenate(pts, 0)
+        diag = float(np.linalg.norm(allp.max(0) - allp.min(0)))
+    else:
+        diag = 10.0
+    return med_mod.make_medium(
+        sig_s, sig_a, g=g_val, phase_kind=pk,
+        fog_depth=float(mp.get("fogDepth", max(4.0 * diag, 1.0))),
+        device=b.device, **kkay_p)

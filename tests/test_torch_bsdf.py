@@ -13,6 +13,7 @@ from hairpt.scene.scene import SceneBuilder as JSceneBuilder
 from hairpt_torch.models.bsdf import registry as tmat
 from hairpt_torch.models.bsdf.fresnel import fresnel_dielectric as tfresnel
 from hairpt_torch.scene.scene import SceneBuilder as TSceneBuilder
+from torch_threads import one_thread  # noqa: F401
 
 N = 4096
 

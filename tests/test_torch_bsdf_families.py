@@ -32,6 +32,7 @@ from hairpt_torch.models.bsdf.fresnel import fresnel_conductor as tfc
 from hairpt_torch.scene import scene_xmls
 from hairpt_torch.scene.scene import SceneBuilder as TSceneBuilder
 from hairpt_torch.scene.xml_loader import load_scene as tload
+from torch_threads import one_thread  # noqa: F401
 
 N = 4096
 RTOL, ATOL = 1e-4, 1e-6

@@ -25,6 +25,7 @@ from hairpt_torch.models.bsdf import registry as tmat
 from hairpt_torch.ops import bvh as tbvh
 from hairpt_torch.scene import scene_xmls
 from hairpt_torch.scene import xml_loader as txl
+from torch_threads import one_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SMALL = ["--spp", "2", "--res-scale", "0.02", "--hair-quality", "0.02",
@@ -218,12 +219,17 @@ REFUSED = {
                  "type=\"bitmap\" name=\"reflectance\"><string "
                  "name=\"filename\" value=\"t.jpg\"/></texture></bsdf>"
                + HAIR, "13"),
+    # a scene medium, an hk BSDF and volpath render (item 13's, refused
+    # by an earlier slice; the path integrator leaves the medium out);
+    # ptracer and irawan stay item 13
     "medium": (SENSOR.format(kind="perspective") + HAIR
-               + "<medium type=\"homogeneous\"/>", "13"),
+               + "<medium type=\"homogeneous\"/>", None),
+    "ptracer": ("<integrator type=\"ptracer\"/>"
+                + SENSOR.format(kind="perspective") + HAIR, "13"),
     "conductor": (SENSOR.format(kind="perspective")
                   + "<bsdf type=\"conductor\" id=\"c\"/>" + HAIR, None),
     "hk": (SENSOR.format(kind="perspective")
-           + "<bsdf type=\"hk\" id=\"h\"/>" + HAIR, "13"),
+           + "<bsdf type=\"hk\" id=\"h\"/>" + HAIR, None),
     "irawan": (SENSOR.format(kind="perspective")
                + "<bsdf type=\"irawan\" id=\"c\"/>" + HAIR, "13"),
     "area_light": (SENSOR.format(kind="perspective")
@@ -262,6 +268,10 @@ def test_cli_refuses_what_the_port_does_not_render(tmp_path, monkeypatch,
             assert s.camera.kind == 2
         if case == "conductor":
             assert s.arrays.materials.kind.tolist()[0] == 2
+        if case == "medium":
+            assert s.medium is not None and s.config.integrator == "path"
+        if case == "hk":
+            assert s.arrays.materials.kind.tolist()[0] == tmat.HK
         if case == "area_light":
             # the hair shape's emitter is dropped: no light at all
             assert s.arrays.area is None and s.config.nee_probs == (0.0,) * 3
@@ -275,12 +285,29 @@ def test_cli_refuses_what_the_port_does_not_render(tmp_path, monkeypatch,
 
 @pytest.mark.parametrize("extra", [["--spectral", "3"], ["--bands", "4"],
                                    ["--integrator", "direct"], ["--stats"],
-                                   ["--profile", "trace"]],
-                         ids=lambda e: e[0])
+                                   ["--profile", "trace"],
+                                   ["--integrator", "ptracer"]],
+                         ids=lambda e: "_".join(e) if e[0] == "--integrator"
+                         and e[1] == "ptracer" else e[0])
 def test_cli_refuses_unported_options(tmp_path, extra):
     xml = scene_xmls.write_scene(str(tmp_path), "furball")
     with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
         cli.main(["render", xml, "--cpu"] + extra)
+
+
+def test_cli_renders_volpath(tmp_path):
+    """--integrator volpath on the media stand-in (the furball in a 16^3
+    smoke grid): the image equals render_volpath of load_scene's scene."""
+    from hairpt_torch.integrators import volpath
+    xml = scene_xmls.write_scene(str(tmp_path), "media", vol_res=16)
+    out = tmp_path / "v.png"
+    assert cli.main(["render", xml, "-o", str(out), "--cpu",
+                     "--integrator", "volpath"] + SMALL) == 0
+    img = np.load(tmp_path / "v.npy")
+    s = txl.load_scene(xml, device="cpu", **LOAD)
+    ref = volpath.render_volpath(s, spp=2).numpy()
+    assert s.medium is not None and img.mean() > 0
+    np.testing.assert_array_equal(img, ref)
 
 
 @pytest.mark.parametrize("cmd", ["util", "import"])

@@ -11,6 +11,7 @@ from hairpt.core import warps as jwarps
 from hairpt_torch.core import math as tmath
 from hairpt_torch.core import rng as trng
 from hairpt_torch.core import warps as twarps
+from torch_threads import one_thread  # noqa: F401
 
 
 def _u32(n, seed):

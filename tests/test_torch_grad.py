@@ -31,6 +31,7 @@ from hairpt_torch.ops import intersect_packed as tpk
 from hairpt_torch.ops import intersect_tiled as ttl
 from hairpt_torch.scene.furball import furball_floor_scene
 from torch_furball import GRAD_PARAMS, jax_furball, params_of, torch_scene
+from torch_threads import one_thread  # noqa: F401
 
 RES = 32
 # the loss (the mean radiance) within 1e-3 relative, as the forward

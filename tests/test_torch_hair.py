@@ -23,6 +23,7 @@ from hairpt_torch.models.bsdf import hair as thair
 from hairpt_torch.models.bsdf import registry as tmat
 from hairpt_torch.scene import hairgen as tgen
 from hairpt_torch.scene.scene import SceneBuilder as TSceneBuilder
+from torch_threads import one_thread  # noqa: F401
 
 N = 4096
 KINDS = {"kajiyakay": jmat.KAJIYAKAY, "marschner": jmat.MARSCHNER,

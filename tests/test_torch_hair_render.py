@@ -42,6 +42,7 @@ from hairpt_torch.models.sensors import Camera as TCamera
 from hairpt_torch.scene import hairgen as tgen
 from hairpt_torch.scene.scene import SceneBuilder as TSceneBuilder
 from torch_furball import CAM, DIFFUSE
+from torch_threads import one_thread  # noqa: F401
 
 RES = 32
 N = RES * RES

@@ -17,6 +17,7 @@ from hairpt_torch.ops import bvh as tbvh
 from hairpt_torch.scene import scene_xmls
 from hairpt_torch.scene import xml_loader as txl
 from torch_instanced import hand_build
+from torch_threads import one_thread  # noqa: F401
 
 
 def test_instanced_standin_render_matches_jax(monkeypatch, tmp_path):

@@ -40,6 +40,7 @@ from hairpt_torch.scene import scene_xmls
 from hairpt_torch.scene import xml_loader as txl
 from hairpt_torch.scene.scene import SceneBuilder as TSceneBuilder
 from torch_instanced import _chain, _move, _rot, _scale, hand_build
+from torch_threads import one_thread  # noqa: F401
 
 N = 8192
 AGREE = 0.999     # share of rays whose hit (instance, prim) must agree

@@ -9,6 +9,7 @@ import subprocess
 import sys
 
 import pytest
+from torch_threads import one_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "hairpt_torch")

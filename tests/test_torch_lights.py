@@ -44,6 +44,7 @@ from hairpt_torch.models.sensors import Camera as TCamera
 from hairpt_torch.ops import bvh as tbvh
 from hairpt_torch.scene import xml_loader as txl
 from hairpt_torch.scene.scene import SceneBuilder as TSceneBuilder
+from torch_threads import one_thread  # noqa: F401
 
 RES = 32
 DEPTH = 4

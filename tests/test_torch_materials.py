@@ -18,6 +18,7 @@ from hairpt_torch.models.bsdf import registry as tmat
 from hairpt_torch.ops import bvh as tbvh
 from hairpt_torch.scene import scene_xmls
 from hairpt_torch.scene.xml_loader import load_scene as tload
+from torch_threads import one_thread  # noqa: F401
 
 RES, SPP, DEPTH = 32, 4, 6
 

@@ -34,6 +34,7 @@ from hairpt_torch.models.bsdf import registry as tmat
 from hairpt_torch.ops import bvh as tbvh
 from hairpt_torch.scene import furball as tfur
 from hairpt_torch.scene.scene import SceneBuilder as TSceneBuilder
+from torch_threads import one_thread  # noqa: F401
 
 N = 4096
 

@@ -38,6 +38,7 @@ from hairpt_torch.scene import hairgen as th
 from hairpt_torch.scene import scene_xmls
 from hairpt_torch.scene import xml_loader as txl
 from hairpt_torch.scene.scene import SceneBuilder
+from torch_threads import one_thread  # noqa: F401
 
 # loader and rebuild comparisons: 1e-6 (float32 rounding of float64
 # poses); the keyframe interpolation in float64: 1e-12

@@ -21,6 +21,7 @@ from hairpt_torch.ops import intersect_swept as tsw
 from hairpt_torch.ops import intersect_tiled as ttl
 from hairpt_torch.ops import tiled_kernels as tk
 from test_torch_tiled import _grazing_pencil, _tied_inputs, assert_t_near_f64
+from torch_threads import one_thread  # noqa: F401
 
 K = 32
 

@@ -24,6 +24,7 @@ from hairpt_torch.ops import bvh as tbvh
 from hairpt_torch.ops import intersect_packed as tpk
 from hairpt_torch.ops.tiled_kernels import sqrt_rn
 from hairpt_torch.scene import hairgen as th
+from torch_threads import one_thread  # noqa: F401
 
 # t against the float64 evaluation, in ulp of t: 4 for the triangles (as
 # tests/test_torch_tiled.py holds the tiled cylinder test); 8 for the

@@ -27,6 +27,7 @@ from hairpt.models.bsdf import registry as jmat
 from hairpt.models.sensors import Camera as JCamera
 from hairpt.parallel import mesh as jmesh
 from hairpt.scene.scene import SceneBuilder as JSceneBuilder
+from torch_threads import one_thread  # noqa: F401
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(HERE)

@@ -19,6 +19,7 @@ from hairpt_torch import convert
 from hairpt_torch.integrators import common as tcommon
 from hairpt_torch.integrators import path as tpath
 from hairpt_torch.ops import intersect_tiled as ttl
+from torch_threads import one_thread  # noqa: F401
 
 RES = 32
 CAM = np.array([[-0.704024, 0.0939171, 0.703939, -10.6677],

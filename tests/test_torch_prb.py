@@ -13,6 +13,7 @@ import torch
 from hairpt_torch.integrators import inverse as tinv
 from hairpt_torch.integrators import path as tpath
 from torch_furball import GRAD_PARAMS, jax_furball, params_of, torch_scene
+from torch_threads import one_thread  # noqa: F401
 
 RES = 32
 N = RES * RES

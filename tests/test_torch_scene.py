@@ -20,6 +20,7 @@ from hairpt_torch.models import sensors as tsens
 from hairpt_torch.ops import bvh as tbvh
 from hairpt_torch.ops import intersect_swept as tsw
 from hairpt_torch.scene import hairgen as th
+from torch_threads import one_thread  # noqa: F401
 
 SUN = dict(sun_dir=(-0.376047, 0.758426, 0.532333), turbidity=3.0,
            sky_scale=5.0, sun_scale=19.0912, sun_radius_scale=37.9165,

@@ -18,6 +18,7 @@ from hairpt_torch import convert
 from hairpt_torch.integrators import path as tpath
 from hairpt_torch.models import sensors as tsens
 from hairpt_torch.scene.xml_loader import load_scene as tload
+from torch_threads import one_thread  # noqa: F401
 
 N = 4096
 W, H = 48, 32

@@ -31,6 +31,7 @@ from hairpt_torch.models.sensors import Camera
 from hairpt_torch.ops import intersect_swept as tsw
 from hairpt_torch.ops import phaseb_kernels as pk
 from hairpt_torch.scene.scene import SceneBuilder
+from torch_threads import one_thread  # noqa: F401
 
 K = 32
 

@@ -22,6 +22,7 @@ from hairpt_torch.ops import intersect_swept as tsw
 from hairpt_torch.ops import phaseb_kernels as pk
 from hairpt_torch.scene import hairgen as thairgen
 from hairpt_torch.scene.furball import furball_scene
+from torch_threads import one_thread  # noqa: F401
 
 P_MAX = 24
 CHUNK = 64

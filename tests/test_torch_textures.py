@@ -40,6 +40,7 @@ from hairpt_torch.scene import scene as tscene
 from hairpt_torch.scene import scene_xmls
 from hairpt_torch.scene import xml_loader as txl
 from hairpt_torch.utils import io as tio
+from torch_threads import one_thread  # noqa: F401
 
 N = 4096
 R = 32

@@ -27,6 +27,7 @@ from hairpt_torch.scene.furball import furball_scene
 from hairpt_torch.ops import intersect_swept as tsw
 from hairpt_torch.ops import intersect_tiled as ttl
 from hairpt_torch.ops import tiled_kernels as tk
+from torch_threads import one_thread  # noqa: F401
 
 K = 32
 N_RAYS = 256

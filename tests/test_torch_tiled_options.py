@@ -42,6 +42,7 @@ from hairpt_torch.ops import tiled_kernels as tk
 from hairpt_torch.scene import hairgen as thairgen
 from hairpt_torch.scene.furball import CAM_TO_WORLD, furball_scene
 from hairpt_torch.scene.scene import SceneBuilder as TSceneBuilder
+from torch_threads import one_thread  # noqa: F401
 
 K = 128          # four sub-cluster boxes per cluster
 N_RAYS = 256
@@ -50,16 +51,6 @@ TWO_ROUND = 8
 # the least share of rays whose hit flag and pid an option must keep
 PID_MIN_AGREE = 0.9999
 
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """The queries here are many small tensor operations: with one
-    intra-op thread they do not wait on cores that the suite's other
-    worker processes hold (with all of them, a query took 100x longer)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

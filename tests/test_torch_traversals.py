@@ -37,6 +37,7 @@ from hairpt_torch.scene import hairgen as th
 from hairpt_torch.scene.furball import furball_floor_scene
 from hairpt_torch.scene.scene import HairGeom, TriGeom
 from test_torch_packed import T_ULP, _hair_rays, _ripples, _t64, _tri_rays
+from torch_threads import one_thread  # noqa: F401
 
 JLEAF = {"tri": (jisec.tri_intersect_block, jblk.tri_leaf_block),
          "hair": (jisec.hair_intersect_block, jblk.hair_leaf_block)}

@@ -52,6 +52,7 @@ from hairpt_torch.scene.scene import SceneBuilder as TSceneBuilder
 from hairpt_torch.utils import exr as texr
 from hairpt_torch.utils import io as tio
 from test_torch_mesh import _write_files
+from torch_threads import one_thread  # noqa: F401
 
 LOAD = dict(spp_override=2, res_scale=0.02, hair_quality=0.02,
             max_depth_override=3)
