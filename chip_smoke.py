@@ -16,17 +16,19 @@ gloo ranks on the one card), the surface BSDFs and wrapper materials
 under a thin lens (the materials stand-in), the other sensors, and
 participating media and subsurface scattering (the volpath integrator
 through kernel J, Woodcock tracking; the hk BSDF; the dipole and single
-scattering).
+scattering), and the light tracers and photon maps (ptracer, bdpt, vpl,
+ppm, sppm and the beam radiance estimate in fog, through kernel K, the
+hash-grid photon query).
 
     python3 chip_smoke.py            # from the repository root, one card
 
 Phases (each prints one line with its elapsed seconds):
   0. the card (nvidia-smi name and power limit) and torch/CUDA versions;
-  1. build the nine CUDA libraries (nvcc, sm_90a: tiled.cu with kernels
+  1. build the ten CUDA libraries (nvcc, sm_90a: tiled.cu with kernels
      A and B, octets.cu with C and D, phaseb.cu with E, swept_cull.cu with
      the swept phase A, packed.cu with F, instanced.cu with G, perray.cu
-     with H, blocked.cu with I, woodcock.cu with J) and the BVH builder
-     (g++), all ten in parallel;
+     with H, blocked.cu with I, woodcock.cu with J, photons.cu with K) and
+     the BVH builder (g++), all eleven in parallel;
   2. build the full-width furball scene (84,000 fibers x 12 segments,
      K = 128), take a real camera wave and a first-bounce wave (uniformly
      random directions at the camera hit points, Morton-sorted as the
@@ -264,6 +266,30 @@ Phases (each prints one line with its elapsed seconds):
           stand-in under a dipole and under single scattering): the
           dipole prepass's seconds at 1280 x 720, and both at 64 x 36
           card against CPU.
+  18. the light tracers and the photon maps:
+       a. kernel K (csrc/photons.cu, one thread per lane, a count and a
+          write pass) against its plain version, the pair lists bit for
+          bit: surface mode on every lane of the lit stand-in's camera
+          wave (1024^2) against a photon map of 1 << 16 photons, 4
+          bounces, radius 0.3; beam mode on 262,144 contiguous lanes of
+          the fog stand-in's camera wave (32 steps) against its volume
+          photon map (1 << 15 photons, 8 bounces, radius 0.25); each timed
+          beside its plain version and its bound;
+       b. the lit stand-in (1024^2, the XML furball's 1,008,000 segments,
+          the area, spot and point lights, the sunsky, depth 65) through
+          ptracer (its 8 waves of 32,768 paths), bdpt (one wave, s and t
+          up to 4), vpl (one wave, 128 paths x 3 bounces), ppm and sppm
+          (one pass each, 16,384 photons): s per wave or pass, tiled
+          queries, the launches of A, B, F and K; each one's small render
+          (64^2, hair quality 0.1, depth 8, fewer photons and paths) card
+          against CPU first, the warm-up;
+       c. the fog stand-in (scene_xmls.fog: the furball hair, a point
+          light and the sunsky in a homogeneous fog, photonmapper): one
+          timed wave of the volumetric photon map at 1024^2 (both photon
+          passes, the beam estimate and the surface gather: K's two
+          modes); its small render card against CPU;
+       d. the CLI on the lit XML with --integrator bdpt and on the fog
+          XML with its photonmapper, at 512^2 and 1 spp.
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Any failed check exits
 non-zero before that line. Without CUDA the script exits non-zero at once.
@@ -4729,6 +4755,330 @@ def j_kernel_entries(report, launches, n_timed):
     return entries
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the light tracers (ptracer, bdpt, vpl) and the photon maps
+# (photonmapper / ppm, sppm, the beam radiance estimate) through kernels
+# A, B, F and kernel K (csrc/photons.cu, the hash-grid photon query)
+# ---------------------------------------------------------------------------
+
+K_REPLACES = {"photon_surface": "hairpt/integrators/photonmap.py:214",
+              "photon_beam": "hairpt/integrators/photonmap.py:441"}
+# K's operations, counted from photons.cu: per in-grid cell its key (6
+# integer operations) and a binary search of ceil(log2(M + 1)) probes (4
+# each: the midpoint, a load, a compare, a select); per slot read the
+# clamp, the key compare and the validity (3) and the distance test
+# (surface: 3 subtractions, 3 products, 2 sums, a compare = 9; beam: the
+# foot and |rel|^2 (3 subtractions, 6 products, 4 sums), b^2 (2), r^2
+# (1) and five compares = 21); per beam step its bounds, t_mid, the
+# point and its cell (16)
+K_CELL_OPS = 6
+K_PROBE_OPS = 4
+K_SLOT_OPS = {"photon_surface": 12, "photon_beam": 24}
+K_STEP_OPS = 16
+# the photon maps of 18a: the ppm pass's radius and photon count of the
+# lit cell (hairpt's render_photonmap defaults: 1 << 16 photons, 4
+# bounces), the fog cell's volumetric map at its defaults (1 << 15
+# photons, radius 0.25, 8 bounces); the beam check's lanes
+K_SURFACE = dict(n_photons=1 << 16, bounces=4, radius=0.3)
+K_BEAM = dict(n_photons=1 << 15, bounces=8, radius=0.25)
+K_BEAM_LANES = 1 << 18
+SMALL18 = dict(res=64, quality=0.1, depth=8)
+LIGHT_TRACERS = ("ptracer", "bdpt", "vpl", "ppm", "sppm")
+
+
+def k_bound(name, counts, n_lanes, M, n_pairs):
+    """(bound ms, 'bytes' or 'operations') of one photon query: the lane
+    inputs, the sorted keys and the photon rows read once and the pairs
+    written once, against the operations of the plain version's counted
+    cells, slots and steps."""
+    import math
+    beam = name == "photon_beam"
+    n_bytes = n_lanes * (28 if beam else 16) + M * (21 if beam else 17) \
+        + n_pairs * (12 if beam else 8)
+    probes = math.ceil(math.log2(M + 1))
+    ops = counts["cells"] * (K_CELL_OPS + probes * K_PROBE_OPS) \
+        + counts["slots"] * K_SLOT_OPS[name] \
+        + counts.get("steps", 0) * K_STEP_OPS
+    return bound_ms(n_bytes, ops)
+
+
+def check_kernel_k(name, grid, lanes, report, n_steps=0, label=""):
+    """Kernel K against its plain version on the card on `lanes` (surface:
+    p, r2; beam: o, d, t_end): the pair lists (lane, photon and, in beam
+    mode, step * 27 + cell) equal; K timed by CUDA events over 5 calls
+    (two launches each), the plain version once, the bound."""
+    import torch
+    from hairpt_torch.ops import photon_query as pq
+    beam = name == "photon_beam"
+    counts = {}
+    if beam:
+        got = pq.beam_pairs(grid, *lanes, n_steps)
+        want = pq.beam_pairs_plain(grid, *lanes, n_steps, counts=counts)
+    else:
+        got = pq.surface_pairs(grid, *lanes)
+        want = pq.surface_pairs_plain(grid, *lanes, counts=counts)
+    torch.cuda.synchronize()
+    require(all(torch.equal(a, b) for a, b in zip(got, want)),
+            f"{name} ({label}): kernel K's pairs differ from the plain "
+            f"version's: {[int(a.numel()) for a in got]} against "
+            f"{[int(b.numel()) for b in want]}")
+    n = lanes[0].shape[0]
+    P = int(got[0].numel())
+    if beam:
+        k_ms = cuda_ms(lambda: pq.beam_pairs(grid, *lanes, n_steps), 5)
+        p_ms = cuda_ms(lambda: pq.beam_pairs_plain(grid, *lanes, n_steps),
+                       1, warm=False)
+    else:
+        k_ms = cuda_ms(lambda: pq.surface_pairs(grid, *lanes), 5)
+        p_ms = cuda_ms(lambda: pq.surface_pairs_plain(grid, *lanes), 1,
+                       warm=False)
+    b_ms, by = k_bound(name, counts, n, grid.M, P)
+    report[name] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=by,
+                        max_abs_err=0.0, pairs=P, lanes=n,
+                        pairs_per_lane=P / max(n, 1), photons=grid.M,
+                        cells=counts["cells"], slots=counts["slots"],
+                        steps=counts.get("steps"), label=label)
+    log(f"K {name} ({label}): {n} lanes, {grid.M} photons, {P} pairs "
+        f"({P / max(n, 1):.3f} per lane), {counts} equal bit for bit; "
+        f"{k_ms:.3f} ms (plain {p_ms:.1f} ms), bound {b_ms:.4f} ms by {by} "
+        f"({k_ms / max(b_ms, 1e-12):.1f}x)")
+
+
+def _timed_light(name, scene, reset_all):
+    """One timed wave or pass of a light tracer on `scene` (the small
+    card-against-CPU render before it is the warm-up): (s per wave, waves,
+    the launches of A, B, F and K, tiled queries per wave, the image)."""
+    import torch
+    from hairpt_torch.integrators import bdpt, photonmap, ptracer, vpl
+    from hairpt_torch.ops import intersect_packed as ipk
+    from hairpt_torch.ops import intersect_tiled as itiled
+    from hairpt_torch.ops import photon_query as pq
+    from hairpt_torch.ops import tiled_kernels as tk
+    times = []
+
+    def progress(done, total, secs, n):
+        times.append(secs)
+    run = {"ptracer": lambda: ptracer.render_ptracer(scene,
+                                                     progress=progress),
+           "bdpt": lambda: bdpt.render_bdpt(scene, spp=1, progress=progress),
+           "vpl": lambda: vpl.render_vpl(scene, spp=1, progress=progress),
+           "ppm": lambda: photonmap.render_ppm(scene, passes=1,
+                                               progress=progress),
+           "sppm": lambda: photonmap.render_sppm(scene, passes=1,
+                                                 progress=progress),
+           "fog": lambda: photonmap.render_volumetric_photonmap(
+               scene, spp=1, progress=progress)}[name]
+    reset_all()
+    itiled.STATS.update(queries=0, max_passes=0, overflow_tiles=0)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    img = run()
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = dict(tk.LAUNCHES, **ipk.LAUNCHES, **pq.LAUNCHES)
+    plain = dict(tk.PLAIN_ON_CUDA, **ipk.PLAIN_ON_CUDA, **pq.PLAIN_ON_CUDA)
+    n = max(len(times), 1)
+    require(all(v == 0 for v in plain.values()),
+            f"{name}: plain versions ran on CUDA tensors: {plain}")
+    return dict(secs=wall / n, wall=wall, waves=n, launches=launches,
+                queries=itiled.STATS["queries"] / n, img=img)
+
+
+def _small_light(name, xml, device, small):
+    """The light tracer's small render card against CPU (fewer photons and
+    paths than at full width: the CPU's plain versions are slow)."""
+    from hairpt_torch.integrators import bdpt, photonmap, ptracer, vpl
+    render = {
+        "ptracer": lambda s, spp: ptracer.render_ptracer(s, n_paths=1 << 12,
+                                                          s_max=4),
+        "bdpt": lambda s, spp: bdpt.render_bdpt(s, spp=spp),
+        "vpl": lambda s, spp: vpl.render_vpl(s, n_paths=32, spp=spp),
+        "ppm": lambda s, spp: photonmap.render_ppm(s, n_photons=1 << 12,
+                                                   passes=2, spp=spp),
+        "sppm": lambda s, spp: photonmap.render_sppm(s, n_photons=1 << 12,
+                                                     passes=2),
+        "fog": lambda s, spp: photonmap.render_volumetric_photonmap(
+            s, n_photons=1 << 12, spp=spp)}[name]
+    return _card_vs_cpu(f"{name}", xml, device, small, render)
+
+
+def light_cells(reset_all, device="cuda", res=1024, quality=HAIR_QUALITY,
+                small=SMALL18):
+    """Phase 18: the light tracers and the photon maps. 18a kernel K
+    against its plain version (surface: every lane of the lit cell's
+    camera wave against a photon map of 1 << 16 photons; beam:
+    K_BEAM_LANES lanes of the fog cell's camera wave); 18b each of
+    ptracer, bdpt, vpl, ppm and sppm on the lit stand-in at res^2 (one
+    timed wave or pass after its small render card against CPU, the
+    warm-up); 18c the fog stand-in's volumetric photon map (one timed
+    wave; its small render card against CPU); 18d the CLI on the lit XML
+    with --integrator bdpt and on the fog XML with its photonmapper, at
+    CLI_WIDTH across and 1 spp. Returns (facts, K's report) (the report
+    None on the CPU, where small sizes rehearse it)."""
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix="hairpt_light_") as tmp:
+        return _light_cells(reset_all, device, res, quality, small, tmp)
+
+
+def _light_cells(reset_all, device, res, quality, small, tmp):
+    import math
+    import numpy as np
+    import torch
+    from hairpt_torch.integrators import photonmap
+    from hairpt_torch.scene import scene_xmls
+    from hairpt_torch.scene.xml_loader import load_scene
+
+    facts = {}
+    report = {} if device == "cuda" else None
+    lit_xml = scene_xmls.write_scene(tmp, "lit", res=res)
+    fog_xml = scene_xmls.write_scene(tmp, "fog", res=res)
+    lit_s = scene_xmls.write_scene(os.path.join(tmp, "small"), "lit",
+                                   res=small["res"])
+    fog_s = scene_xmls.write_scene(os.path.join(tmp, "small"), "fog",
+                                   res=small["res"])
+    t0 = time.time()
+    scene = load_scene(lit_xml, hair_quality=quality, spp_override=1,
+                       device=device)
+    log(f"lit: loaded in {time.time() - t0:.1f}s, "
+        f"{scene.arrays.hair.p0.shape[0]} segments, "
+        f"{scene.arrays.tri.p0.shape[0]} triangles, nee_probs "
+        f"{scene.config.nee_probs}")
+    if device == "cuda":
+        t1 = time.time()
+        ks = K_SURFACE
+        pm = photonmap.build_photon_map(*photonmap.trace_photons(
+            scene, ks["n_photons"], ks["bounces"], seed=0), ks["radius"])
+        _, _, hit, _, _ = photonmap._camera_wave(scene, 0)
+        r2 = torch.full_like(hit.t, ks["radius"] ** 2)
+        check_kernel_k("photon_surface", pm.grid(), (hit.p, r2), report,
+                       label=f"the lit cell's camera wave, "
+                       f"{int(pm.valid.sum())} of {pm.pos.shape[0]} "
+                       f"photon slots valid, radius {ks['radius']}")
+        del pm, hit, r2
+        log(f"phase 18a, surface ({time.time() - t1:.1f}s): kernel K "
+            f"matches its plain version")
+    # 18b: every light tracer on the lit cell
+    for name in LIGHT_TRACERS:
+        t1 = time.time()
+        _small_light(name, lit_s, device, small)
+        if device != "cuda":
+            continue
+        f = _timed_light(name, scene, reset_all)
+        img = f.pop("img")
+        mean = float(img.mean())
+        require(np.isfinite(mean) and mean > 0
+                and bool(torch.isfinite(img).all()),
+                f"lit {name}: image mean {mean}")
+        need = ["cull_phase_a", "phase_b", "packed_tri_closest"] + (
+            ["photon_surface"] if name in ("ppm", "sppm") else [])
+        require(all(f["launches"][k] > 0 for k in need),
+                f"lit {name} did not launch {need}: {f['launches']}")
+        f["mean"] = mean
+        facts[name] = f
+        log(f"phase 18b {name} ({time.time() - t1:.1f}s): {res}^2, "
+            f"{f['waves']} timed wave(s) or pass(es), {f['secs']:.3f} s "
+            f"each, {f['queries']:.1f} tiled queries each; image mean "
+            f"{mean:.6f}; launches {f['launches']}")
+        del img
+    del scene
+    # 18a (beam) and 18c: the fog cell
+    t1 = time.time()
+    scene = load_scene(fog_xml, hair_quality=quality, spp_override=1,
+                       device=device)
+    med = scene.medium
+    log(f"fog: loaded in {time.time() - t1:.1f}s, integrator "
+        f"{scene.config.integrator}, sigma_t {med.sigma_t.tolist()}, "
+        f"fog depth {float(med.fog_depth)}")
+    if device == "cuda":
+        t1 = time.time()
+        kb = K_BEAM
+        vpm = photonmap.build_volume_photon_map(
+            *photonmap.trace_volume_photons(scene, med, kb["n_photons"],
+                                            kb["bounces"], seed=0),
+            kb["radius"])
+        _, ray, hit, _, _ = photonmap._camera_wave(scene, 0)
+        t_end = torch.where(hit.valid, hit.t,
+                            torch.clamp(med.fog_depth, max=1e6))
+        n = t_end.shape[0]
+        sl = slice(n // 2 - K_BEAM_LANES // 2, n // 2 + K_BEAM_LANES // 2)
+        n_steps = int(min(256, math.ceil(min(float(med.fog_depth), 60.0)
+                                         / kb["radius"])))
+        check_kernel_k("photon_beam", vpm.grid(),
+                       (ray.o[sl].contiguous(), ray.d[sl].contiguous(),
+                        t_end[sl].contiguous()), report, n_steps=n_steps,
+                       label=f"{K_BEAM_LANES} lanes of the fog cell's "
+                       f"camera wave (lanes {sl.start}..{sl.stop - 1}), "
+                       f"{n_steps} steps, {int(vpm.valid.sum())} of "
+                       f"{vpm.pos.shape[0]} photon slots valid")
+        del vpm, ray, hit, t_end
+        log(f"phase 18a, beam ({time.time() - t1:.1f}s): kernel K matches "
+            f"its plain version")
+    t1 = time.time()
+    _small_light("fog", fog_s, device, small)
+    if device == "cuda":
+        f = _timed_light("fog", scene, reset_all)
+        img = f.pop("img")
+        mean = float(img.mean())
+        require(np.isfinite(mean) and mean > 0
+                and bool(torch.isfinite(img).all()),
+                f"fog: image mean {mean}")
+        need = ("cull_phase_a", "phase_b", "photon_surface", "photon_beam")
+        require(all(f["launches"][k] > 0 for k in need),
+                f"the fog cell did not launch {need}: {f['launches']}")
+        f["mean"] = mean
+        facts["fog"] = f
+        log(f"phase 18c ({time.time() - t1:.1f}s): fog {res}^2, one timed "
+            f"wave {f['secs']:.3f} s (both photon passes included), "
+            f"{f['queries']:.1f} tiled queries; image mean {mean:.6f}; "
+            f"launches {f['launches']}")
+        del img
+    del scene, med
+    # 18d: the CLI
+    t1 = time.time()
+    cw = min(res, CLI_WIDTH)
+    for label, xml, extra in (("lit, bdpt", lit_xml, ["--integrator",
+                                                      "bdpt"]),
+                              ("fog, photonmapper", fog_xml, [])):
+        wall, t_build, t_render, img = _cli(
+            xml, os.path.join(tmp, "out", label.split(",")[0] + ".png"),
+            quality, device, spp=1, res_scale=cw / res, extra=extra)
+        require(img.shape == (cw, cw, 3) and np.isfinite(img).all()
+                and img.mean() > 0, f"{label} CLI image {img.shape}, mean "
+                f"{img.mean()}")
+        facts[f"cli {label}"] = dict(wall=wall, build=t_build,
+                                     render=t_render)
+        log(f"CLI {label} ({cw}^2, hair quality {quality}, 1 spp): exit 0 "
+            f"in {wall:.1f}s wall, scene built in {t_build}s, rendered in "
+            f"{t_render}s; image mean {img.mean():.6f}")
+    log(f"phase 18d ({time.time() - t1:.1f}s): the light tracers' CLIs ok")
+    return facts, report
+
+
+def k_kernel_entries(report, facts):
+    """The kernels line's entries for kernel K: its time on the checked
+    lanes, its launches over the main path's runs (the ppm and sppm
+    passes and the fog wave for the surface mode, the fog wave for the
+    beam mode)."""
+    runs = {"photon_surface": ("ppm", "sppm", "fog"),
+            "photon_beam": ("fog",)}
+    entries = []
+    for name, f in sorted(report.items()):
+        launched = {r: facts[r]["launches"][name] for r in runs[name]}
+        entries.append(dict(
+            name=name, route="cuda", source="hairpt_torch/csrc/photons.cu",
+            replaces=K_REPLACES[name], launches=sum(launched.values()),
+            max_abs_err=f["max_abs_err"], ms=f["ms"],
+            plain_ms=f["plain_ms"], bound_ms=f["bound_ms"],
+            bound_by=f["bound_by"], library_ms=None, timed_on=f["label"],
+            launched_by="the timed ppm and sppm passes (phase 18b) and the "
+            "fog wave (18c)" if name == "photon_surface" else
+            "the fog wave (phase 18c)", launches_by_run=launched,
+            pairs=f["pairs"], lanes=f["lanes"],
+            pairs_per_lane=f["pairs_per_lane"], photons=f["photons"],
+            cells=f["cells"], slots=f["slots"], steps=f["steps"]))
+    return entries
+
+
 def warm_up(scene, label, render=None, max_timed=2):
     """One warm-up wave of render (path.render unless given). Returns
     (progress callback, the lists it fills with each wave's seconds and
@@ -4780,11 +5130,13 @@ def main() -> int:
     from hairpt_torch.ops import intersect_swept as iswept
     from hairpt_torch.ops import intersect_tiled as itiled
     from hairpt_torch.ops import phaseb_kernels as pk
+    from hairpt_torch.ops import photon_query as pq
     from hairpt_torch.ops import tiled_kernels as tk
     from hairpt_torch.models import media
 
     def reset_all():
         media.reset_counts()
+        pq.reset_counts()
         tk.reset_counts()
         pk.reset_counts()
         ipk.reset_counts()
@@ -4810,10 +5162,11 @@ def main() -> int:
 
         # ---- 1. builds, all at once ----
         t0 = time.time()
-        with ThreadPoolExecutor(10) as ex:
+        with ThreadPoolExecutor(11) as ex:
             futs = [ex.submit(f) for f in (tk.lib, tk.oct_lib, pk.lib,
                                            pk.cull_lib, ipk.lib, gi.lib,
-                                           isec.lib, iblk.lib, media.lib)]
+                                           isec.lib, iblk.lib, media.lib,
+                                           pq.lib)]
             f_b = ex.submit(bvh._load_native)
             for f in futs:
                 f.result()
@@ -4823,7 +5176,7 @@ def main() -> int:
         for name in ("hairpt_tiled", "hairpt_octets", "hairpt_phaseb",
                      "hairpt_swept_cull", "hairpt_packed",
                      "hairpt_instanced", "hairpt_perray", "hairpt_blocked",
-                     "hairpt_woodcock"):
+                     "hairpt_woodcock", "hairpt_photons"):
             for line in _native.BUILD_LOG.get(name, "").splitlines():
                 if "registers" in line or "spill" in line:
                     log(f"  ptxas {name}: {line.strip()}")
@@ -5204,6 +5557,20 @@ def main() -> int:
             f"({pre:.3f} s) and the dipole and single-scatter renders card "
             f"against CPU ok")
         log(f"phase 17 ({time.time() - t0:.1f}s): ok")
+
+        # ---- 18. the light tracers and the photon maps (kernel K) ----
+        t0 = time.time()
+        light, k_report = light_cells(reset_all)
+        kernels += k_kernel_entries(k_report, light)
+        for k in kernels:
+            for run in LIGHT_TRACERS + ("fog",):
+                if k["name"] in light[run]["launches"]:
+                    k[f"launches_per_{run}_wave"] = \
+                        light[run]["launches"][k["name"]] \
+                        / light[run]["waves"]
+        log(f"phase 18 ({time.time() - t0:.1f}s): ok; s per wave or pass "
+            + ", ".join(f"{r} {light[r]['secs']:.3f}"
+                        for r in LIGHT_TRACERS + ("fog",)))
         require(all(k["launches"] > 0 for k in kernels),
                 "a kernel has no launches")
     except SmokeFailure as e:

@@ -7,11 +7,13 @@ counterpart of the reference's `mitsuba` executable).
         [--checkpoint F.npz] [-x] [--progress]
 
 Loads a scene XML (scene/xml_loader.py: the hair scenes), renders it with
-the path integrator, or with volpath (volpath_simple is the same) where
-the XML's <integrator> or --integrator names it, on the card, or on the
-CPU with --cpu (the plain versions of the kernels), and writes the image
-named by -o (.png, .exr, .bmp or .tga) with .exr, .npy and .pfm of the
-linear radiance beside it. A scene with a dipole subsurface material
+the path integrator, or with the one the XML's <integrator> or
+--integrator names (volpath, volpath_simple = volpath, ptracer, bdpt,
+vpl, ppm, photonmapper = ppm, sppm; ppm in a scene with a medium is the
+volumetric photon map), as the JAX package's CLI dispatches them, on the
+card, or on the CPU with --cpu (the plain versions of the kernels), and
+writes the image named by -o (.png, .exr, .bmp or .tga) with .exr, .npy
+and .pfm of the linear radiance beside it. A scene with a dipole subsurface material
 gets its irradiance prepass (integrators/sss.attach_dipole) before the
 render. Without --cpu a machine with no card exits non-zero before
 loading anything. What the port does not render raises
@@ -27,7 +29,10 @@ import sys
 import time
 
 ITEM_13 = "ROADMAP item 13"
-INTEGRATORS = ("path", "volpath", "volpath_simple")
+INTEGRATORS = ("path", "volpath", "volpath_simple", "ptracer", "bdpt",
+               "vpl", "photonmapper", "ppm", "sppm")
+# the JAX package's CLI aliases
+ALIASES = {"volpath_simple": "volpath", "photonmapper": "ppm"}
 
 
 def _refuse(what: str):
@@ -78,8 +83,8 @@ def _parser():
     r.add_argument("--dispersion", type=float, default=0.0,
                    help="Cauchy B coefficient of --spectral (not ported)")
     r.add_argument("--integrator", default=None,
-                   help="path, volpath or volpath_simple (default: the "
-                        "scene XML's)")
+                   help=", ".join(INTEGRATORS) + " (default: the scene "
+                        "XML's)")
     for name in ("util", "import"):
         u = sub.add_parser(name, help="not ported")
         u.add_argument("args", nargs="*")
@@ -160,16 +165,39 @@ def main(argv=None):
         scene = attach_dipole(scene)
         logger.info("dipole irradiance prepass done")
     # no --integrator: the scene XML's integrator type
-    integ = args.integrator or scene.config.integrator
-    if integ in ("volpath", "volpath_simple"):
+    integ = args.integrator or scene.config.integrator or "path"
+    integ = ALIASES.get(integ, integ)
+    prog = _progress if args.progress else None
+    if integ == "volpath":
         from .integrators import volpath
-        img = volpath.render_volpath(
-            scene, spp=scene.config.spp, seed=args.seed,
-            progress=_progress if args.progress else None)
+        img = volpath.render_volpath(scene, spp=scene.config.spp,
+                                     seed=args.seed, progress=prog)
+    elif integ == "ptracer":
+        from .integrators import ptracer
+        img = ptracer.render_ptracer(scene, seed=args.seed, progress=prog)
+    elif integ == "bdpt":
+        from .integrators import bdpt
+        img = bdpt.render_bdpt(scene, spp=scene.config.spp, seed=args.seed,
+                               progress=prog)
+    elif integ == "vpl":
+        from .integrators import vpl
+        img = vpl.render_vpl(scene, spp=scene.config.spp, seed=args.seed,
+                             progress=prog)
+    elif integ == "ppm":
+        from .integrators import photonmap
+        if scene.medium is not None:
+            # a scene medium: the beam radiance estimate (photonmapper/
+            # bre.cpp)
+            img = photonmap.render_volumetric_photonmap(
+                scene, seed=args.seed, progress=prog)
+        else:
+            img = photonmap.render_ppm(scene, seed=args.seed, progress=prog)
+    elif integ == "sppm":
+        from .integrators import photonmap
+        img = photonmap.render_sppm(scene, seed=args.seed, progress=prog)
     else:
         img = path_int.render(scene, seed=args.seed,
-                              progress=_progress if args.progress else None,
-                              flush_every=args.refresh,
+                              progress=prog, flush_every=args.refresh,
                               flush_cb=_flush if args.refresh > 0 else None,
                               checkpoint=args.checkpoint)
     img = img.cpu().numpy()

@@ -35,6 +35,7 @@ from .ops.intersect_packed import PackedBVH
 from .ops.intersect_swept import SweptHair
 from .scene.scene import (TRAVERSALS, HairGeom, RenderConfig, Scene,
                           SceneArrays, TriGeom, TriShading, repose_fn)
+from .scene.xml_loader import _INTEGRATORS_PORTED
 
 
 def _t(a, device, dtype=None):
@@ -214,13 +215,14 @@ def convert_scene(scene, arrays, device=None) -> Scene:
     (animated or deformable meshes under an open shutter) is a closure
     over a JAX builder, so it raises: build such a scene on both sides
     from one XML or one builder script. Film annotations and an
-    integrator other than path raise (the motion integrator's tables,
-    which hairpt's loader builds for every animated shape, are left
-    behind)."""
+    integrator the port does not render raise (the motion integrator's
+    tables, which hairpt's loader builds for every animated shape, are
+    left behind); the integrator type, the scene medium and the delta
+    lights come across."""
     cam = scene.camera
     shutter = tuple(float(x) for x in getattr(scene, "shutter", (0.0, 0.0)))
-    if getattr(scene.config, "integrator", "path") not in (
-            "path", "volpath", "volpath_simple"):
+    if getattr(scene.config, "integrator", "path") not in \
+            _INTEGRATORS_PORTED:
         raise NotImplementedError(f"the {scene.config.integrator} "
                                   f"integrator is not ported yet (ROADMAP "
                                   f"item 13)")

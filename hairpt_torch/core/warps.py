@@ -20,6 +20,19 @@ def square_to_uniform_sphere(s):
     return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], dim=-1)
 
 
+def square_to_uniform_cone(s, cos_cutoff):
+    cos_theta = (1.0 - s[..., 0]) + s[..., 0] * cos_cutoff
+    sin_theta = safe_sqrt(1.0 - cos_theta * cos_theta)
+    phi = 2.0 * PI * s[..., 1]
+    return torch.stack([torch.cos(phi) * sin_theta,
+                        torch.sin(phi) * sin_theta, cos_theta], dim=-1)
+
+
+def square_to_uniform_triangle(s):
+    a = safe_sqrt(1.0 - s[..., 0])
+    return torch.stack([1.0 - a, a * s[..., 1]], dim=-1)
+
+
 def square_to_uniform_disk_concentric(s):
     ox = 2.0 * s[..., 0] - 1.0
     oy = 2.0 * s[..., 1] - 1.0

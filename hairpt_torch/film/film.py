@@ -1,6 +1,9 @@
 """Film: filter-weighted sample splatting and develop (port of
 hairpt/film/film.py). One scatter-add per filter tap and wave into an RGB
-accumulator plus a weight channel; develop divides like HDRFilm."""
+accumulator plus a weight channel; develop divides like HDRFilm.
+splat_add_only is the light tracers' nearest-pixel splat. On the card a
+scatter-add sums in the order its atomics land, so two runs differ in
+the last bits of a pixel that takes several adds."""
 from __future__ import annotations
 
 import math
@@ -64,3 +67,19 @@ def develop(image, weight):
 def zeros(film: Film, device):
     return (torch.zeros((film.height, film.width, 3), device=device),
             torch.zeros((film.height, film.width), device=device))
+
+
+def splat_add_only(film: Film, pos, value, image):
+    """Nearest-pixel scatter-add with no weight bookkeeping, for the
+    measurement-estimate splats (bdpt's t = 1 and light tracing), which
+    are already normalized by the sample count (reference: hdrfilm's
+    separate splat buffer with splatScale). A position off the film adds
+    nothing. Returns the new image [H, W, 3]; `image` is updated in place
+    and returned."""
+    H, W = film.height, film.width
+    ix = torch.clamp(torch.floor(pos[..., 0]).to(torch.int64), 0, W - 1)
+    iy = torch.clamp(torch.floor(pos[..., 1]).to(torch.int64), 0, H - 1)
+    inb = (pos[..., 0] >= 0) & (pos[..., 0] < W) \
+        & (pos[..., 1] >= 0) & (pos[..., 1] < H)
+    return image.index_put_((iy, ix), torch.where(inb[..., None], value,
+                                                  0.0), accumulate=True)

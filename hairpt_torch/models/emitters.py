@@ -1,6 +1,4 @@
-"""Emitters for the forward render (port of hairpt/models/emitters.py
-but its emitted-ray samplers area_emit and delta_emit, which only the
-light tracers call).
+"""Emitters (port of hairpt/models/emitters.py).
 
 bake_sunsky rasterizes the Hosek-Wilkie sky and the sun disc into one
 lat-long radiance table on the host (numpy, a copy of the JAX package's
@@ -13,7 +11,9 @@ the point, spot, directional and collimated emitters (DeltaLights,
 make_delta_lights) stay analytic, each with a discrete CDF for NEE's
 selection (reference: Scene::sampleEmitterDirect,
 src/librender/scene.cpp:828); delta_light_sample samples one delta light
-for a shading point.
+for a shading point. delta_emit and area_emit sample emitted rays for
+the light tracers (ptracer, vpl and the photon maps; bdpt samples its
+light vertices itself).
 """
 from __future__ import annotations
 
@@ -439,3 +439,76 @@ def delta_light_sample(dl: DeltaLights, p, u):
     # collimated: direct sampling of a 0D response always fails
     contrib = torch.where((kind == COLLIMATED)[..., None], 0.0, contrib)
     return d, dist, contrib, prob
+
+
+def delta_emit(dl: DeltaLights, u_sel, u_dir, center, radius):
+    """Sample an emitted ray from the delta-light set (light tracing and
+    photon shooting; reference: {point,spot,directional,collimated}.cpp
+    sampleRay). Returns (o [N, 3], d [N, 3], power [N, 3], (light index,
+    selection probability)) where power is the per-ray flux estimate
+    Phi / pdf already divided by the selection probability (the caller
+    divides by the photon count). center / radius: the scene's bounding
+    sphere (directional emitters start on a tangent disk)."""
+    from ..core import warps
+    from ..core.math import coordinate_system
+    l, prob = sample_cdf(dl.cdf, u_sel)
+    prob = torch.clamp(prob, min=1e-12)
+    kind = dl.kind[l]
+    pos = dl.position[l]
+    axis = dl.direction[l]
+    inten = dl.intensity[l]
+
+    # point: uniform sphere, Phi = 4 pi I
+    d_sph = warps.square_to_uniform_sphere(u_dir)
+    pw_point = inten * (4.0 * math.pi)
+
+    # spot: uniform cone inside the cutoff, weighted by the falloff curve;
+    # Phi / pdf = I 2 pi (1 - cosCutoff) falloff (spot.cpp sampleRay)
+    cc = dl.cos_cutoff[l]
+    cb = dl.cos_beam[l]
+    s_a, t_a = coordinate_system(axis)
+    cone = warps.square_to_uniform_cone(u_dir, cc)
+    d_cone = s_a * cone[..., 0:1] + t_a * cone[..., 1:2] \
+        + axis * cone[..., 2:3]
+    cos_a = cone[..., 2]
+    fall = torch.clamp((cos_a - cc) / torch.clamp(cb - cc, min=1e-6),
+                       0.0, 1.0)
+    fall = torch.where(cos_a >= cb, 1.0, fall)
+    pw_spot = inten * (TWO_PI * (1.0 - cc))[..., None] * fall[..., None]
+
+    # directional: start on a tangent disk behind the scene; Phi = E pi R^2
+    disk = warps.square_to_uniform_disk_concentric(u_dir) * radius
+    o_dir = center - axis * radius * 1.5 \
+        + s_a * disk[..., 0:1] + t_a * disk[..., 1:2]
+    pw_dir = inten * (math.pi * radius * radius)
+
+    # collimated: the exact beam; the intensity field stores the power Phi
+    is_dir = (kind == DIRECTIONAL)[..., None]
+    is_coll = (kind == COLLIMATED)[..., None]
+    is_spot = (kind == SPOT)[..., None]
+    o = torch.where(is_dir, o_dir, pos)
+    d = torch.where(is_dir | is_coll, axis,
+                    torch.where(is_spot, d_cone, d_sph))
+    pw = torch.where(is_coll, inten,
+                     torch.where(is_dir, pw_dir,
+                                 torch.where(is_spot, pw_spot, pw_point)))
+    return o, d, pw / prob[..., None], (l, prob)
+
+
+def area_emit(al: AreaLights, u_sel, u_tri, u_dir):
+    """Sample an emitted ray from the area-light set (area.cpp
+    samplePosition and the cosine sampleDirection). Returns (o, d, n,
+    power) with power = L pi A / p_sel (the flux estimate, divided by the
+    selection probability)."""
+    from ..core import warps
+    from ..core.math import coordinate_system
+    l, prob = sample_cdf(al.cdf, u_sel)
+    prob = torch.clamp(prob, min=1e-12)
+    b = warps.square_to_uniform_triangle(u_tri)
+    o = al.p0[l] + al.e1[l] * b[..., 0:1] + al.e2[l] * b[..., 1:2]
+    n = al.n[l]
+    s_a, t_a = coordinate_system(n)
+    loc = warps.square_to_cosine_hemisphere(u_dir)
+    d = s_a * loc[..., 0:1] + t_a * loc[..., 1:2] + n * loc[..., 2:3]
+    pw = al.radiance[l] * (math.pi * al.area[l] / prob)[..., None]
+    return o, d, n, pw

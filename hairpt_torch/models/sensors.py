@@ -2,8 +2,9 @@
 perspective, thin lens, orthographic, spherical, telecentric, the
 radiance, fluence and irradiance meters and the perspective camera with
 radial distortion (reference src/sensors/). Ray generation is a batched
-function of continuous film coordinates. camera_importance, whose only
-callers are the light tracers, is not ported (ROADMAP item 13)."""
+function of continuous film coordinates. camera_importance is the
+pinhole importance the light tracers splat through, for every sensor
+kind, as in the JAX package."""
 from __future__ import annotations
 
 import math
@@ -161,3 +162,35 @@ def sample_ray(cam: Camera, pos, aperture_sample=None) -> Ray:
     inv_z = 1.0 / d_cam[..., 2]
     return Ray(o=o.contiguous(), d=d, mint=cam.near * inv_z,
                maxt=cam.far * inv_z)
+
+
+def camera_importance(cam: Camera, p_world):
+    """Pinhole-perspective importance for light-to-camera connections
+    (bdpt's t = 1 strategies and particle tracing; reference:
+    PerspectiveCamera::sampleDirect and importance,
+    src/sensors/perspective.cpp:329-408). The JAX package uses it for
+    every sensor kind, and so does the port.
+
+    Returns (film_pos [N, 2], We [N], dist [N], dir_to_cam [N, 3],
+    valid [N]); the splat estimator for a point x with scattered value
+    f cos(theta_x) is f cos(theta_x) We / dist^2."""
+    m = torch.as_tensor(cam.to_world, device=p_world.device)
+    R = m[:3, :3]
+    rel = p_world - m[:3, 3]
+    pc = rel @ R                       # camera space (columns = axes)
+    z = pc[..., 2]
+    valid = z > cam.near
+    zs = torch.where(valid, z, 1.0)
+    xi = pc[..., 0] / zs
+    yi = pc[..., 1] / zs
+    t = cam.tan_half_fov
+    u = (1.0 - xi / t) * 0.5
+    v = (1.0 - yi * cam.aspect / t) * 0.5
+    valid = valid & (u >= 0) & (u < 1) & (v >= 0) & (v < 1)
+    film_pos = torch.stack([u * cam.width, v * cam.height], dim=-1)
+    dist = torch.sqrt(torch.clamp(torch.sum(rel * rel, dim=-1), min=1e-20))
+    cos_theta = z / dist
+    area = 4.0 * t * t / cam.aspect    # film area on the z = 1 plane
+    we = 1.0 / torch.clamp(area * cos_theta ** 3, min=1e-9)
+    d_to_cam = -rel / dist[..., None]
+    return film_pos, torch.where(valid, we, 0.0), dist, d_to_cam, valid

@@ -77,6 +77,14 @@ stand-in fibers (keyed by those names) take the place of the absent
   64 spp, maxDepth 65. No reference scene uses these plugins: their
   users shoot hair beside glass and metal props with depth of field,
   and the layout and the values are this stand-in's own.
+- fog/scene.xml: a stand-in for the reference's photon mapper in a
+  participating medium (src/integrators/photonmapper/bre.cpp, the JAX
+  package's volumetric branch of ppm): the lit stand-in's furball hair
+  (1,008,000 segments at hair quality 14), its point light and the
+  sunsky in a scene-scope homogeneous <medium> (sigmaS 0.1, sigmaA
+  0.01, isotropic, fogDepth 8; hairpt/scene/xml_loader.py:866-948),
+  integrator photonmapper; Sobol' 64 spp, 1024^2, maxDepth 65. The
+  values are this stand-in's own.
 The hair scenes' cameras are the framing of their generators (straight
 and curly: from (0, 16.5, -25) at (0, 8.5, 0); hair-curl: from
 (0, 5.9, 17) at (0, 6, 0)). Written files are for the CLI and the
@@ -418,9 +426,11 @@ def motion_files(d: str):
         positions=sph.positions * np.array([1.3, 0.7, 1.3])))
 
 
-def lit(sampler="sobol", spp=64, res=1024, depth=65) -> str:
+def lit(sampler="sobol", spp=64, res=1024, depth=65,
+        integrator="path") -> str:
     """The lit furball; the tests and chip_smoke vary its sampler, sample
-    count, resolution and depth."""
+    count, resolution, depth and integrator type (the light tracers
+    render it too)."""
     m = " ".join(repr(float(x)) for x in CAM_TO_WORLD.reshape(-1))
     return _scene(
         _sensor(f"<matrix value=\"{m}\"/>", res, res, sampler, spp)
@@ -448,7 +458,7 @@ def lit(sampler="sobol", spp=64, res=1024, depth=65) -> str:
         + "<emitter type=\"point\"><point name=\"position\" x=\"-6\" "
           "y=\"16\" z=\"6\"/><rgb name=\"intensity\" "
           "value=\"60, 50, 40\"/></emitter>"
-        + SUN, depth)
+        + SUN, depth, integrator)
 
 
 # the materials stand-in: the spheres' BSDFs, in ring order
@@ -597,6 +607,40 @@ def media_files(d: str, vol_res: int = SMOKE_RES):
               SMOKE_MIN, SMOKE_MAX)
 
 
+# the fog stand-in's homogeneous medium: sigma_t 0.11, so the furball 11
+# to 15 from the camera keeps a quarter of its radiance and an escaping
+# ray crosses an optical depth of 0.88; at a depth of 8 nearly all the
+# volume photons (8 bounces) stay inside the photon map's 128 cells of
+# radius 0.25 (32 units), which the camera's beams cross; a deeper fog's
+# photons spread past that window
+FOG_SIGMA_S = 0.1
+FOG_SIGMA_A = 0.01
+FOG_DEPTH = 8.0
+
+
+def fog(sampler="sobol", spp=64, res=1024, depth=65,
+        integrator="photonmapper") -> str:
+    """The fog stand-in: the lit furball's hair (roughplastic), the lit
+    stand-in's point light and the sunsky in a scene-scope homogeneous
+    <medium> (isotropic phase, fogDepth FOG_DEPTH), rendered by the
+    photon mapper (its volumetric branch: the beam radiance estimate);
+    the tests and chip_smoke vary its sampler, sample count, resolution,
+    depth and integrator type."""
+    m = " ".join(repr(float(x)) for x in CAM_TO_WORLD.reshape(-1))
+    return _scene(
+        _sensor(f"<matrix value=\"{m}\"/>", res, res, sampler, spp)
+        + _fur_xml()
+        + "<emitter type=\"point\"><point name=\"position\" x=\"-6\" "
+          "y=\"16\" z=\"6\"/><rgb name=\"intensity\" "
+          "value=\"60, 50, 40\"/></emitter>"
+        + "<medium type=\"homogeneous\" id=\"fog\">"
+          f"<rgb name=\"sigmaS\" value=\"{FOG_SIGMA_S!r}\"/>"
+          f"<rgb name=\"sigmaA\" value=\"{FOG_SIGMA_A!r}\"/>"
+          f"<float name=\"fogDepth\" value=\"{FOG_DEPTH!r}\"/>"
+          "<phase type=\"isotropic\"/></medium>"
+        + SUN, depth, integrator)
+
+
 def _cam_point(fwd: float, right: float, up: float):
     """A point fwd along the camera's axis from the furball's centre
     (towards the camera if negative), moved along its x and y axes."""
@@ -679,6 +723,7 @@ SCENES = {
     "instanced": ("instanced", "scene.xml", instanced, instanced_files),
     "motion": ("motion", "scene.xml", motion, motion_files),
     "lit": ("lit", "scene.xml", lit),
+    "fog": ("fog", "scene.xml", fog),
     "materials": ("materials", "scene.xml", materials),
     "media": ("media", "scene.xml", media, media_files),
     "bounded": ("bounded", "scene.xml", bounded),
@@ -693,8 +738,8 @@ def write_scene(root: str, name: str, **kw) -> str:
     """Write scene `name` under root/<its directory>/ (with its files,
     where it has any) and return the path; kw go to its XML builder
     (furball(), teapot(), instanced(), motion(), lit(), materials(),
-    media(), bounded() and subsurface() take any), but vol_res, which
-    goes to media_files."""
+    media(), fog(), bounded() and subsurface() take any), but vol_res,
+    which goes to media_files."""
     d, f, make, *files = SCENES[name]
     vol = {"vol_res": kw.pop("vol_res")} if "vol_res" in kw else {}
     os.makedirs(os.path.join(root, d), exist_ok=True)

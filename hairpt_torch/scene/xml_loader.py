@@ -9,7 +9,9 @@ scene arrays in both packages. `$key` placeholders are substituted from
 `defines` (`mitsuba -D`).
 
 What the port renders:
-- `<integrator type="path">` with maxDepth;
+- `<integrator type="path">` with maxDepth, and the types volpath,
+  volpath_simple, ptracer, bdpt, vpl, photonmapper, ppm and sppm, whose
+  renders the CLI dispatches;
 - every sensor of the JAX loader: perspective, thinlens (apertureRadius,
   focusDistance), orthographic, spherical, telecentric, radiancemeter,
   fluencemeter, irradiancemeter and perspective_rdist (kc), an unknown
@@ -75,8 +77,9 @@ ignores it (it reads only a BSDF's own texture).
 
 Every other element the JAX loader accepts raises NotImplementedError
 before any build work, naming the ROADMAP item that ports it (13: the
-other integrators, the irawan BSDF, LDR images other than PNG, and the
-rest). Nothing else is dropped silently.
+other integrators (direct, ao, motion, the MLT family, ...), the irawan
+BSDF, LDR images other than PNG, and the rest). Nothing else is dropped
+silently.
 """
 from __future__ import annotations
 
@@ -164,9 +167,10 @@ ITEM_13 = "ROADMAP item 13"
 # the BSDF plugins the port renders: irawan (cloth) waits for a slice of
 # its own (item 13)
 _BSDF_PORTED = set(BSDF_KINDS) - {"irawan"}
-# the integrators the port renders (volpath_simple is volpath, as in the
-# JAX package's CLI)
-_INTEGRATORS_PORTED = ("path", "volpath", "volpath_simple")
+# the integrators the port renders (volpath_simple is volpath and
+# photonmapper is ppm, as in the JAX package's CLI)
+_INTEGRATORS_PORTED = ("path", "volpath", "volpath_simple", "ptracer",
+                       "bdpt", "vpl", "photonmapper", "ppm", "sppm")
 _PHASE_KINDS = {"isotropic": med_mod.ISOTROPIC, "hg": med_mod.HG,
                 "rayleigh": med_mod.RAYLEIGH, "kkay": med_mod.KKAY,
                 "kkay_is": med_mod.KKAY_IS,

@@ -21,6 +21,7 @@ from hairpt.ops import bvh as jbvh
 from hairpt.scene import xml_loader as jxl
 from hairpt_torch import cli
 from hairpt_torch.integrators import path as tpath
+from hairpt_torch.integrators import ptracer as tptracer
 from hairpt_torch.models.bsdf import registry as tmat
 from hairpt_torch.ops import bvh as tbvh
 from hairpt_torch.scene import scene_xmls
@@ -221,11 +222,13 @@ REFUSED = {
                + HAIR, "13"),
     # a scene medium, an hk BSDF and volpath render (item 13's, refused
     # by an earlier slice; the path integrator leaves the medium out);
-    # ptracer and irawan stay item 13
+    # ptracer renders (item 13's light tracers, refused by an earlier
+    # slice; given an emitter to trace from); irawan stays item 13
     "medium": (SENSOR.format(kind="perspective") + HAIR
                + "<medium type=\"homogeneous\"/>", None),
     "ptracer": ("<integrator type=\"ptracer\"/>"
-                + SENSOR.format(kind="perspective") + HAIR, "13"),
+                + SENSOR.format(kind="perspective") + HAIR
+                + "<emitter type=\"constant\"/>", None),
     "conductor": (SENSOR.format(kind="perspective")
                   + "<bsdf type=\"conductor\" id=\"c\"/>" + HAIR, None),
     "hk": (SENSOR.format(kind="perspective")
@@ -275,7 +278,12 @@ def test_cli_refuses_what_the_port_does_not_render(tmp_path, monkeypatch,
         if case == "area_light":
             # the hair shape's emitter is dropped: no light at all
             assert s.arrays.area is None and s.config.nee_probs == (0.0,) * 3
-        np.testing.assert_array_equal(img, tpath.render(s, spp=1).numpy())
+        if case == "ptracer":
+            assert s.config.integrator == "ptracer"
+            ref = tptracer.render_ptracer(s)
+        else:
+            ref = tpath.render(s, spp=1)
+        np.testing.assert_array_equal(img, ref.numpy())
         return
     monkeypatch.setattr(txl.SceneBuilder, "__init__", None)
     with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}\\)"):
@@ -286,9 +294,9 @@ def test_cli_refuses_what_the_port_does_not_render(tmp_path, monkeypatch,
 @pytest.mark.parametrize("extra", [["--spectral", "3"], ["--bands", "4"],
                                    ["--integrator", "direct"], ["--stats"],
                                    ["--profile", "trace"],
-                                   ["--integrator", "ptracer"]],
+                                   ["--integrator", "mlt"]],
                          ids=lambda e: "_".join(e) if e[0] == "--integrator"
-                         and e[1] == "ptracer" else e[0])
+                         and e[1] == "mlt" else e[0])
 def test_cli_refuses_unported_options(tmp_path, extra):
     xml = scene_xmls.write_scene(str(tmp_path), "furball")
     with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
