@@ -16,19 +16,22 @@ gloo ranks on the one card), the surface BSDFs and wrapper materials
 under a thin lens (the materials stand-in), the other sensors, and
 participating media and subsurface scattering (the volpath integrator
 through kernel J, Woodcock tracking; the hk BSDF; the dipole and single
-scattering), and the light tracers and photon maps (ptracer, bdpt, vpl,
+scattering), the light tracers and photon maps (ptracer, bdpt, vpl,
 ppm, sppm and the beam radiance estimate in fog, through kernel K, the
-hash-grid photon query).
+hash-grid photon query), and the other integrators (direct, ao, field,
+adaptive, multichannel, irrcache through kernel L, the irradiance-cache
+interpolation, pssmlt, erpt and spectral).
 
     python3 chip_smoke.py            # from the repository root, one card
 
 Phases (each prints one line with its elapsed seconds):
   0. the card (nvidia-smi name and power limit) and torch/CUDA versions;
-  1. build the ten CUDA libraries (nvcc, sm_90a: tiled.cu with kernels
-     A and B, octets.cu with C and D, phaseb.cu with E, swept_cull.cu with
-     the swept phase A, packed.cu with F, instanced.cu with G, perray.cu
-     with H, blocked.cu with I, woodcock.cu with J, photons.cu with K) and
-     the BVH builder (g++), all eleven in parallel;
+  1. build the eleven CUDA libraries (nvcc, sm_90a: tiled.cu with
+     kernels A and B, octets.cu with C and D, phaseb.cu with E,
+     swept_cull.cu with the swept phase A, packed.cu with F, instanced.cu
+     with G, perray.cu with H, blocked.cu with I, woodcock.cu with J,
+     photons.cu with K, irrcache.cu with L) and the BVH builder (g++), all
+     twelve in parallel;
   2. build the full-width furball scene (84,000 fibers x 12 segments,
      K = 128), take a real camera wave and a first-bounce wave (uniformly
      random directions at the camera hit points, Morton-sorted as the
@@ -53,12 +56,12 @@ Phases (each prints one line with its elapsed seconds):
           as the swept traversal takes it) and the dead lanes at the
           camera hits (slots, cnt and n_hit equal; on the camera wave
           also with a p_max whose key lists leave shared memory), and
-          kernel E (the
-          swept traversal's chunk test) against its plain version on
-          EVERY live chunk those slots route and a tail of dead chunks
-          (t and pid bit for bit); time both on the camera and bounce
-          waves beside their bounds, with the shares of padding lanes,
-          dead lanes and entered sub-boxes that set kernel E's work;
+          kernel E (the swept traversal's chunk test) against its plain
+          version on a contiguous quarter of the live chunks those slots
+          route and a tail of dead chunks (t and pid bit for bit); time
+          both on the camera and bounce waves beside their bounds, with
+          the shares of padding lanes, dead lanes and entered sub-boxes
+          that set kernel E's work;
      and time every kernel and its plain version at the camera wave's
      shapes;
   2d. kernels A and B against their plain versions, with 2a's rules, on
@@ -106,8 +109,8 @@ Phases (each prints one line with its elapsed seconds):
      and beta_r [1] (the hair tables recomputed from them), depth 16, one
      warm-up and two timed steps, the launches equal to the forward
      passes' alone, every gradient finite, the peak memory;
-  10. the inverse-rendering twin (hairpt_torch.tools.inverse_furball) at
-     its defaults: res 256, 6,000 fibers, spp 2, depth 3, 24 steps,
+  10. (run while 16b's gloo ranks work) the inverse-rendering twin
+     (hairpt_torch.tools.inverse_furball) at its defaults: res 256, 6,000 fibers, spp 2, depth 3, 24 steps,
      antithetic, the cross loss; the loss's mean over the last third of
      the steps must be below step 1's (step 0 shares a sample index with
      the target).
@@ -134,12 +137,14 @@ Phases (each prints one line with its elapsed seconds):
           operations of the walk's counted visits);
        b. (run in phase 2, on its waves) F's hair leaf on the full
           furball's camera and first-bounce waves: against its plain walk
-          bit for bit, and against the tiled query, whose cylinder
-          arithmetic differs (pid >= 99.9%, hit flags differing on at
-          most 1e-5 of the rays, t within T_RTOL on >= 99.9% of the
-          same-pid hits, a float64-checked graze counting as agreeing);
+          bit for bit on a contiguous quarter of each wave's rays, and
+          against the tiled query, whose cylinder arithmetic differs
+          (pid >= 99.9%, hit flags differing on at most 1e-5 of the
+          rays, t within T_RTOL on >= 99.9% of the same-pid hits, a
+          float64-checked graze counting as agreeing);
        c. the CLI as a subprocess on the teapot stand-in (512 x 288,
-          depth 65, 1 spp): exit 0, four outputs, a finite positive mean;
+          depth 65, 1 spp), run beside 12d: exit 0, four outputs, a
+          finite positive mean;
           then one warm-up and two timed 1-spp waves in process at 1280 x
           720: s/wave,
           Mrays/s, F's launches per wave, no plain walk on the card;
@@ -152,27 +157,30 @@ Phases (each prints one line with its elapsed seconds):
      stand-in of hairpt_torch.scene.scene_xmls (64 instances of the
      2,808-triangle teapot, a bitmap floor in a normal map, a bump-mapped
      heightfield, a deformable pair under the curvature texture):
-       a. G against its plain version on EVERY ray of the camera and
-          first-bounce waves (1280 x 720), closest and any hit, t, prim,
-          instance and the flag bit for bit; timed beside its plain
-          version (one call), its bound and two yardsticks: the JAX
-          package's structure carried over (per instance, the box test
-          and object ray as tensor ops and one launch of F) and the 64
-          instances flattened into one 179,712-triangle mesh walked by F;
+       a. G against its plain version on a contiguous eighth of the
+          rays of the camera and first-bounce waves (1280 x 720), closest
+          and any hit, t, prim, instance and the flag bit for bit; timed
+          beside its plain version (one call on those rays), its bound
+          and two yardsticks: the JAX package's structure carried over
+          (per instance, the box test and object ray as tensor ops and
+          one launch of F) and the 64 instances flattened into one
+          179,712-triangle mesh walked by F;
        b. a small render (96 x 54, depth 5) on the card and with the
           plain versions on the CPU: image means within 2%, G launched;
-       c. one warm-up and two timed 1-spp waves at 1280 x 720, depth 65
+       c. the CLI as a subprocess at 512 x 288 and 1 spp, run beside
+          13b (wall time, its logged build and render seconds), then one
+          warm-up and two timed 1-spp waves at 1280 x 720, depth 65
           (s/wave, Mrays/s, G's and F's launches per wave, no plain
-          version on the card), then the CLI as a subprocess at 512 x 288
-          and 1 spp (wall time, its logged build and render seconds).
+          version on the card).
   14. the per-ray and the blocked BVH walks, kernels H (csrc/perray.cu,
      one thread per ray, kernel F's loop over the BVHArrays) and I
      (csrc/blocked.cu, one CTA per block of 256 rays sharing one node
      index), and motion blur:
-       a. H against its plain version on EVERY ray of the furball's
-          camera and first-bounce waves (hair leaf; run in phase 2) and
-          of the teapot stand-in's (triangle leaf), closest and any hit,
-          bit for bit, and against F on the same tree and primitives; I
+       a. H against its plain version on a contiguous quarter of the
+          rays of the furball's camera and first-bounce waves (hair leaf;
+          run in phase 2) and on every ray of the teapot stand-in's
+          (triangle leaf), closest and any hit, bit for bit, and against
+          F on the same tree and primitives on every ray; I
           against its plain version on every 61st block of the furball's
           camera wave and every block of the teapot's waves, bit for
           bit, and against H on every ray of all four waves; each timed
@@ -185,8 +193,8 @@ Phases (each prints one line with its elapsed seconds):
           re-pose's host seconds per shutter time, A, B, F and G
           launches per wave); the small stand-in card against CPU;
        c. the CLI on the motion stand-in as a subprocess at 512^2 and 1
-          spp, one shutter time (wall time, its logged build and render
-          seconds);
+          spp, one shutter time, run beside 14b's small renders (wall
+          time, its logged build and render seconds);
        d. one wave of the full-width furball (after phase 5) and the
           teapot stand-in with traversal 'perray' and 'blocked' (s/wave,
           H's and I's launches), and the small furball over the
@@ -290,6 +298,35 @@ Phases (each prints one line with its elapsed seconds):
           modes); its small render card against CPU;
        d. the CLI on the lit XML with --integrator bdpt and on the fog
           XML with its photonmapper, at 512^2 and 1 spp.
+  19. the rest of the CLI's integrators but mlt and motion:
+       a. kernel L (csrc/irrcache.cu, the Ward-weighted cache
+          interpolation, one thread per lane) against its plain version
+          (which adds the records in L's order) on every valid lane of the
+          floor cell's 1024^2 camera wave against that cell's cache of
+          4,096 records, with the (8, 16) grid's gradients and without
+          (the cosine-ray cache): has_cut exactly, e within L_RTOL (bit for
+          bit expected); each timed beside its plain version and bound;
+       b. the floor cell (scene/furball.py furball_floor_scene at quality
+          14, 1024^2, depth 65: the furball's 1,008,000 segments over the
+          checkerboard floor, in the sunsky) through irrcache with each
+          cache: the cache pass's seconds, one timed wave after a warm-up,
+          tiled queries, the launches of A, B, F and L; its small render
+          (64^2, quality 0.1, 256 records) card against CPU first;
+       c. the XML furball at 1024^2: one timed wave each of direct, ao and
+          field (shNormal, albedo), adaptive with 2 + 2 samples (hairpt:
+          8 + 24), A and B launched in each; each one's small render and
+          multichannel's four channels card against CPU;
+       d. pssmlt and erpt on it with 16,384 chains and 8 mutations
+          (hairpt: 64 and 16): s per Metropolis step, tiled queries per
+          step; the pool's eval_u card against CPU on the small furball
+          (4,096 lanes); the small renders card against CPU;
+       e. render_spectral on the Marschner furball at 1024^2, 6 bins, 1
+          spp: s per band and the band tables' s; a small render with
+          Cauchy dispersion on the materials stand-in (its dielectrics)
+          card against CPU;
+       f. the CLI with --integrator multichannel on the furball XML (the
+          .npy channels checked) and --integrator irrcache on the teapot
+          XML, at 512 across and 1 spp.
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Any failed check exits
 non-zero before that line. Without CUDA the script exits non-zero at once.
@@ -974,11 +1011,11 @@ def swept_a_work(sw, ray):
 def check_swept_kernels(scene, wv):
     """Phase 2c: the swept phase-A kernel against _phase_a_dense on EVERY
     ray of the camera, first-bounce and dead-lane waves (slots, cnt and
-    n_hit equal), and kernel E against its plain version on EVERY live
-    chunk the kernel's slots route, and on a tail of dead chunks (t and
-    pid bit for bit); both timed on the camera and bounce waves beside
-    their bounds, with the shares that set kernel E's work. Returns the
-    two entries of the kernels line."""
+    n_hit equal), and kernel E against its plain version on every
+    E_PLAIN_SHARE-th of the live chunks the kernel's slots route, and on
+    a tail of dead chunks (t and pid bit for bit); both timed on the
+    camera and bounce waves beside their bounds, with the shares that
+    set kernel E's work. Returns the two entries of the kernels line."""
     import torch
     from hairpt_torch.core.math import Ray
     from hairpt_torch.ops import intersect_swept as iswept
@@ -1045,8 +1082,9 @@ def check_swept_kernels(scene, wv):
         rays = iswept._chunk_rays(ray, chunk_ray)
         n = chunk_cl.shape[0]
         live = torch.nonzero(chunk_cl >= 0).squeeze(1)
-        idx = torch.cat([live, torch.arange(n - min(n, 64), n,
-                                            device=live.device)]).unique()
+        idx = torch.cat([live[_strided(live.numel(), E_PLAIN_SHARE)],
+                         torch.arange(n - min(n, 64), n,
+                                      device=live.device)]).unique()
         t_k, p_k = pk.phase_b_chunks(chunk_cl, rays, sw.seg_rows_t,
                                      sw.sub_lo, sw.sub_hi)
         out = {}
@@ -1883,6 +1921,11 @@ TEAPOT_RES = (1280, 720)
 # the CLIs of phases 12c-17b render at most CLI_WIDTH pixels across (the
 # 1280 x 720 stand-ins at 512 x 288), 12c-16c at 1 spp
 CLI_WIDTH = 512
+# the hair quality of the CLIs of phases 14c-19f, which time no full-width
+# furball (phase 11's CLI keeps the full furball: its wall time is the
+# entry layer's metric); most of a CLI's wall at quality 14 was the
+# 1,008,000-segment build
+CLI_HAIR_QUALITY = 1.0
 HEIGHTFIELD_G = 1025
 
 
@@ -1937,18 +1980,23 @@ def f_bound(bvh, counts, n_rays, leaf, mode):
     return bms, bby, visits / HBM_BYTES_PER_S * 1e3
 
 
-def check_kernel_f(label, bvh, leaf, ray, report=None):
+def check_kernel_f(label, bvh, leaf, ray, report=None, share=1):
     """Phase 12a/b: kernel F against its plain version on EVERY ray of a
-    wave, closest and any hit (any on the same rays: the bounce wave's
-    maxt is infinite where live), bit for bit; each timed (CUDA events,
-    the wrapper's error-flag read included) beside its plain version and
-    its bound from the walk's counted work. Returns {mode: (result,
-    facts)}."""
+    wave (share > 1: on every share-th ray), closest and any
+    hit (any on the same rays: the bounce wave's maxt is infinite where
+    live), bit for bit; each timed (CUDA events, the wrapper's error-flag
+    read included) beside its plain version and its bound from the
+    walk's counted work (scaled to the whole wave). Returns {mode:
+    (result on the whole wave, facts)}."""
     import torch
+    from hairpt_torch.core.math import Ray
     from hairpt_torch.ops import intersect_packed as ipk
 
     out = {}
     n = ray.o.shape[0]
+    sl = _strided(n, share)
+    sub = Ray(*[x[sl].contiguous() for x in ray])
+    m = sub.o.shape[0]
     for mode in ("closest", "any"):
         plain_fn = ipk.closest_hit_packed_plain if mode == "closest" \
             else ipk.any_hit_packed_plain
@@ -1957,10 +2005,12 @@ def check_kernel_f(label, bvh, leaf, ray, report=None):
         counts = {}
         torch.cuda.synchronize()
         t0 = time.time()
-        p = plain_fn(bvh, leaf, ray, counts=counts)
+        p = plain_fn(bvh, leaf, sub, counts=counts)
         torch.cuda.synchronize()
         plain_ms = (time.time() - t0) * 1e3
-        k = kern_fn(bvh, leaf, ray)
+        k_all = kern_fn(bvh, leaf, ray)
+        k = tuple(x[sl] for x in k_all) if mode == "closest" \
+            else k_all[sl]
         if mode == "closest":
             same_t = torch.equal(k[0].view(torch.int32),
                                  p[0].view(torch.int32))
@@ -1976,18 +2026,22 @@ def check_kernel_f(label, bvh, leaf, ray, report=None):
             err = 0.0
             bad = int((k != p).sum())
         ms = cuda_ms(lambda: kern_fn(bvh, leaf, ray), 5)
-        bms, bby, vms = f_bound(bvh, counts, n, leaf, mode)
-        log(f"F {leaf} {mode} on {label} ({n} rays, {n_hit} hits): "
-            f"{'bit for bit' if same else f'{bad} rays DIFFER'}; kernel "
-            f"{ms:.3f} ms, plain {plain_ms:.1f} ms ({counts['steps']} "
+        bms, bby, vms = f_bound(bvh, _scaled(counts, n / m), n, leaf, mode)
+        checked = "" if m == n else \
+            f"; every {share}th ray against the plain version"
+        log(f"F {leaf} {mode} on {label} ({n} rays{checked}, {n_hit} "
+            f"hits): {'bit for bit' if same else f'{bad} rays DIFFER'}; "
+            f"kernel {ms:.3f} ms, plain {plain_ms:.1f} ms on {m} rays "
+            f"({counts['steps']} "
             f"iterations), bound {bms:.4f} ms by {bby} ({ms / bms:.1f}x; "
             f"{counts['nodes']} node rows, {counts['leaves']} leaf rows, "
             f"{counts['prims']} tests visited: {vms:.3f} ms of traffic)")
         require(same, f"kernel F ({leaf}, {mode}) differs from its plain "
                 f"version on {bad} rays of {label}")
-        out[mode] = (k, dict(ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                             bound_by=bby, visit_bytes_ms=vms,
-                             max_abs_err=err, rays=n, counts=counts))
+        out[mode] = (k_all, dict(ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                                 bound_by=bby, visit_bytes_ms=vms,
+                                 max_abs_err=err, rays=n, plain_rays=m,
+                                 counts=counts))
         if report is not None:
             report.setdefault((leaf, mode), []).append((label, out[mode][1]))
     return out
@@ -2116,7 +2170,7 @@ def furball_kernel_f(scene, wv, report):
     arr = scene.arrays
     for name, ray in wv.items():
         res = check_kernel_f(f"the furball's {name} wave", arr.hair_packed,
-                             "hair", ray, report)
+                             "hair", ray, report, F_HAIR_PLAIN_SHARE)
         t_f, p_f = res["closest"][0]
         t_q, p_q = itiled.tiled_closest_hit(arr.hair_swept, ray, q_max=2048)
         occ_q = itiled.tiled_any_hit(arr.hair_swept, ray, q_max=2048)
@@ -2172,12 +2226,13 @@ def furball_kernel_f(scene, wv, report):
                 f"off a graze, any-hit {own}")
 
 
-def teapot_entry_point(reset_all, device="cuda", res_scale=1.0):
+def teapot_entry_point(reset_all, device="cuda", res_scale=1.0,
+                       between=None):
     """Phase 12c: the CLI on the teapot stand-in as a user runs it
-    (CLI_WIDTH across, depth 65, 1 spp), then one warm-up wave and two
-    timed 1-spp waves in process at 1280 x 720. Returns (s/wave,
-    rays/wave, F's launches over
-    the timed waves, their number)."""
+    (CLI_WIDTH across, depth 65, 1 spp; beside between(), the CPU-bound
+    phase 12d, when given), then one warm-up wave and two timed 1-spp
+    waves in process at 1280 x 720. Returns (s/wave, rays/wave, F's
+    launches over the timed waves, their number)."""
     import tempfile
     import numpy as np
     import torch
@@ -2187,33 +2242,21 @@ def teapot_entry_point(reset_all, device="cuda", res_scale=1.0):
     from hairpt_torch.scene import scene_xmls
     from hairpt_torch.scene.xml_loader import load_scene
 
-    here = os.path.dirname(os.path.abspath(__file__))
     with tempfile.TemporaryDirectory(prefix="hairpt_teapot_") as tmp:
         xml = scene_xmls.write_scene(tmp, "teapot")
-        out = os.path.join(tmp, "out", "teapot.png")
-        os.makedirs(os.path.dirname(out))
-        env = dict(os.environ, PYTHONPATH=here + os.pathsep
-                   + os.environ.get("PYTHONPATH", ""))
-        t0 = time.time()
         cli_scale = res_scale * CLI_WIDTH / TEAPOT_RES[0]
-        proc = subprocess.run(
-            [sys.executable, "-m", "hairpt_torch.cli", "render", xml, "-o",
-             out, "--spp", "1", "--res-scale", str(cli_scale)]
-            + (["--cpu"] if device == "cpu" else []),
-            cwd=here, env=env, capture_output=True, text=True, timeout=600)
-        wall = time.time() - t0
-        require(proc.returncode == 0, f"the teapot CLI exited "
-                f"{proc.returncode}:\n{proc.stderr[-3000:]}")
-        base = out[:-4]
-        for ext in ("png", "exr", "npy", "pfm"):
-            require(os.path.getsize(f"{base}.{ext}") > 0, f"no {ext} output")
-        img = np.load(f"{base}.npy")
+        cli_h = _cli_start(xml, os.path.join(tmp, "out", "teapot.png"), 1.0,
+                           device, spp=1, res_scale=cli_scale)
+        if between is not None:
+            between()
+        wall, _, _, img = _cli_wait(cli_h)
         w, h = (max(8, round(x * cli_scale)) for x in TEAPOT_RES)
         require(img.shape == (h, w, 3) and np.isfinite(img).all()
                 and img.mean() > 0, f"teapot CLI image {img.shape}, mean "
                 f"{img.mean()}")
         log(f"CLI teapot ({w} x {h}, depth 65, 1 spp): exit 0 in {wall:.1f}s "
-            f"wall; image mean {img.mean():.6f}; four outputs")
+            f"wall{' beside phase 12d' if between else ''}; image mean "
+            f"{img.mean():.6f}; four outputs")
         w, h = (max(8, round(x * res_scale)) for x in TEAPOT_RES)
         scene = load_scene(xml, spp_override=1, res_scale=res_scale,
                            device=device)
@@ -2313,7 +2356,8 @@ def f_kernel_entries(report, tri_launches, hair_launches, n_timed):
             max_abs_err=f["max_abs_err"], ms=f["ms"],
             plain_ms=f["plain_ms"], bound_ms=f["bound_ms"],
             bound_by=f["bound_by"], library_ms=None,
-            visit_bytes_ms=f["visit_bytes_ms"], timed_on=label,
+            visit_bytes_ms=f["visit_bytes_ms"], rays=f["rays"],
+            plain_rays=f["plain_rays"], timed_on=label,
             launched_by=("the teapot's timed waves (phase 12c)" if tri else
                          "the packed floor render (phase 12d)"),
             launches_per_wave=((tri_launches[name] / n_timed) if tri
@@ -2418,13 +2462,27 @@ def flattened_f(scene):
     return ipk.pack_bvh(fb, rows, device="cuda"), len(f)
 
 
+def _strided(n, share):
+    """Every share-th of n lanes, from the first, as a slice: an even
+    sample of a wave in its ray order, so that the plain version's counted
+    work, times share, estimates the whole wave's."""
+    return slice(0, n, share)
+
+
+def _scaled(counts, factor):
+    return {k: v * factor for k, v in counts.items()}
+
+
 def instanced_kernels(report):
-    """Phase 13a: kernel G against its plain version on EVERY ray of the
-    instanced stand-in's camera and first-bounce waves (1280 x 720, 64
-    instances), closest and any hit, t, prim, which and occ bit for bit;
-    each timed beside its plain version (one call), its bound and two
-    yardsticks: the JAX structure carried over (per_instance_f) and the
-    instances flattened into one mesh walked by F (flattened_f)."""
+    """Phase 13a: kernel G against its plain version on every
+    G_PLAIN_SHARE-th ray of the instanced stand-in's camera and
+    first-bounce waves (1280 x 720, 64 instances), closest and any hit,
+    t, prim, which and occ bit for bit; each timed beside its plain
+    version (one call on those rays), its bound (the plain version's
+    counted work scaled to the whole wave) and two yardsticks: the JAX
+    structure carried over (per_instance_f, which must equal the plain
+    version on the same rays) and the instances flattened into one mesh
+    walked by F (flattened_f)."""
     import tempfile
     import torch
     from hairpt_torch.ops import instancing as gi
@@ -2447,19 +2505,25 @@ def instanced_kernels(report):
     flat, n_flat = flattened_f(scene)
     log(f"instanced camera wave hit fraction {frac:.4f}; flattened "
         f"yardstick: {n_flat} triangles, built in {time.time() - t1:.1f}s")
+    from hairpt_torch.core.math import Ray
     for name, ray in wv.items():
         n = ray.o.shape[0]
+        sl = _strided(n, G_PLAIN_SHARE)
+        sub = Ray(*[x[sl].contiguous() for x in ray])
+        m = sub.o.shape[0]
         for mode in ("closest", "any"):
             closest = mode == "closest"
             counts = {}
             torch.cuda.synchronize()
             t1 = time.time()
             p = (gi.inst_closest_hit_plain if closest
-                 else gi.inst_any_hit_plain)(a, ray, counts=counts)
+                 else gi.inst_any_hit_plain)(a, sub, counts=counts)
             torch.cuda.synchronize()
             plain_ms = (time.time() - t1) * 1e3
             k = (gi.inst_closest_hit if closest else gi.inst_any_hit)(a, ray)
-            y = per_instance_f(a, ray, mode)
+            y = per_instance_f(a, sub, mode)
+            k_all = k
+            k = tuple(x[sl] for x in k) if closest else k[sl]
             if closest:
                 bad = int(((k[0].view(torch.int32) != p[0].view(torch.int32))
                            | (k[1] != p[1]) | (k[2] != p[2])).sum())
@@ -2476,12 +2540,16 @@ def instanced_kernels(report):
             f_fn = ipk.closest_hit_packed if closest else ipk.any_hit_packed
             f_ms = cuda_ms(lambda: f_fn(flat, "tri", ray), 5)
             fk = f_fn(flat, "tri", ray)
-            f_same = float(((fk[1] >= 0) == (k[1] >= 0)).float().mean()) \
-                if closest else float((fk == k).float().mean())
-            bms, bby = g_bound(a, counts, n, mode)
-            log(f"G {mode} on the instanced {name} wave ({n} rays, {n_hit} "
-                f"hits): {'bit for bit' if bad == 0 else f'{bad} rays DIFFER'}"
-                f"; kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, bound "
+            f_same = float(((fk[1] >= 0) == (k_all[1] >= 0)).float()
+                           .mean()) if closest \
+                else float((fk == k_all).float().mean())
+            bms, bby = g_bound(a, _scaled(counts, n / m), n, mode)
+            log(f"G {mode} on the instanced {name} wave ({n} rays; every "
+                f"{G_PLAIN_SHARE}th ray, {m} rays and {n_hit} hits, "
+                f"against the plain version): "
+                f"{'bit for bit' if bad == 0 else f'{bad} rays DIFFER'}"
+                f"; kernel {ms:.3f} ms, plain {plain_ms:.1f} ms on the "
+                f"checked rays, bound "
                 f"{bms:.4f} ms by {bby} ({ms / bms:.1f}x; {counts['boxes']} "
                 f"box tests, {counts['walked']} walks, {counts['nodes']} node "
                 f"rows, {counts['prims']} tests); the JAX structure (64 F "
@@ -2493,7 +2561,8 @@ def instanced_kernels(report):
             report.setdefault(mode, []).append((name, dict(
                 ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=bby,
                 max_abs_err=0.0, per_instance_f_ms=y_ms,
-                flattened_f_ms=f_ms, rays=n, counts=counts)))
+                flattened_f_ms=f_ms, rays=n, plain_rays=m,
+                counts=counts)))
     del scene, wv, flat
 
 
@@ -2534,14 +2603,14 @@ def instanced_small(reset_all):
             f"plain versions ran on CUDA tensors: {plain}")
 
 
-def instanced_entry_point(reset_all, device="cuda", res_scale=1.0):
-    """Phase 13c: the stand-in at full width (1280 x 720, depth 65): one
-    warm-up wave and two timed 1-spp waves in process (s/wave, Mrays/s,
-    G's and F's launches per wave), then the CLI as a subprocess at
-    CLI_WIDTH across and 1 spp (wall time, its logged build and render
-    seconds). Returns
+def instanced_entry_point(reset_all, device="cuda", res_scale=1.0,
+                          between=None):
+    """Phase 13c: the CLI as a subprocess at CLI_WIDTH across and 1 spp
+    (wall time, its logged build and render seconds; beside between(),
+    the CPU-bound phase 13b, when given), then the stand-in at full width
+    (1280 x 720, depth 65): one warm-up wave and two timed 1-spp waves in
+    process (s/wave, Mrays/s, G's and F's launches per wave). Returns
     (s/wave, rays/wave, G's launches, F's launches, waves timed)."""
-    import re
     import tempfile
     import numpy as np
     import torch
@@ -2552,9 +2621,22 @@ def instanced_entry_point(reset_all, device="cuda", res_scale=1.0):
     from hairpt_torch.scene import scene_xmls
     from hairpt_torch.scene.xml_loader import load_scene
 
-    here = os.path.dirname(os.path.abspath(__file__))
     with tempfile.TemporaryDirectory(prefix="hairpt_inst_") as tmp:
         xml = scene_xmls.write_scene(tmp, "instanced")
+        cli_scale = res_scale * CLI_WIDTH / TEAPOT_RES[0]
+        cli_h = _cli_start(xml, os.path.join(tmp, "out", "instanced.png"),
+                           1.0, device, spp=1, res_scale=cli_scale)
+        if between is not None:
+            between()
+        wall, t_build, t_render, img = _cli_wait(cli_h)
+        w, h = (max(8, round(x * cli_scale)) for x in TEAPOT_RES)
+        require(img.shape == (h, w, 3) and np.isfinite(img).all()
+                and img.mean() > 0, f"instanced CLI image {img.shape}, mean "
+                f"{img.mean()}")
+        log(f"CLI instanced ({w} x {h}, depth 65, 1 spp): exit 0 in "
+            f"{wall:.1f}s wall{' beside phase 13b' if between else ''}, "
+            f"scene built in {t_build}s, rendered in {t_render}s; image "
+            f"mean {img.mean():.6f}; four outputs")
         t0 = time.time()
         scene = load_scene(xml, spp_override=1, res_scale=res_scale,
                            device=device)
@@ -2592,36 +2674,6 @@ def instanced_entry_point(reset_all, device="cuda", res_scale=1.0):
                     f"the instanced render ran a hair kernel: {hair}")
             del img
         del scene
-        out = os.path.join(tmp, "out", "instanced.png")
-        os.makedirs(os.path.dirname(out))
-        env = dict(os.environ, PYTHONPATH=here + os.pathsep
-                   + os.environ.get("PYTHONPATH", ""))
-        t0 = time.time()
-        cli_scale = res_scale * CLI_WIDTH / TEAPOT_RES[0]
-        proc = subprocess.run(
-            [sys.executable, "-m", "hairpt_torch.cli", "render", xml, "-o",
-             out, "--spp", "1", "--res-scale", str(cli_scale)]
-            + (["--cpu"] if device == "cpu" else []),
-            cwd=here, env=env, capture_output=True, text=True, timeout=600)
-        wall = time.time() - t0
-        require(proc.returncode == 0, f"the instanced CLI exited "
-                f"{proc.returncode}:\n{proc.stderr[-3000:]}")
-        built = re.search(r"scene built in ([0-9.]+)s", proc.stderr)
-        rendered = re.search(r"rendered in ([0-9.]+)s", proc.stderr)
-        require(built is not None and rendered is not None,
-                f"the CLI logged no build or render time:\n{proc.stderr}")
-        base = out[:-4]
-        for ext in ("png", "exr", "npy", "pfm"):
-            require(os.path.getsize(f"{base}.{ext}") > 0, f"no {ext} output")
-        img = np.load(f"{base}.npy")
-        w, h = (max(8, round(x * cli_scale)) for x in TEAPOT_RES)
-        require(img.shape == (h, w, 3) and np.isfinite(img).all()
-                and img.mean() > 0, f"instanced CLI image {img.shape}, mean "
-                f"{img.mean()}")
-        log(f"CLI instanced ({w} x {h}, depth 65, 1 spp): exit 0 in "
-            f"{wall:.1f}s wall, scene built in {built.group(1)}s, rendered "
-            f"in {rendered.group(1)}s; image mean {img.mean():.6f}; four "
-            f"outputs")
     if device != "cuda":
         return None
     return secs, rays_w, g_l, f_l, n_timed
@@ -2642,7 +2694,9 @@ def g_kernel_entries(report, launches, n_timed):
             bound_by=f["bound_by"], library_ms=None,
             per_instance_f_ms=f["per_instance_f_ms"],
             flattened_f_ms=f["flattened_f_ms"],
-            timed_on=f"the instanced {label} wave",
+            plain_rays=f["plain_rays"], rays=f["rays"],
+            timed_on=f"the instanced {label} wave (plain_ms on plain_rays "
+            f"of its rays)",
             launched_by="the instanced stand-in's timed waves (phase 13c)",
             launches_per_wave=launches[name] / n_timed,
             other_waves={lb: {k: x[k] for k in (
@@ -2679,6 +2733,15 @@ I_REPLACES = {"closest": "hairpt/ops/intersect_blocked.py:111",
 #      that wave I is held to H on every ray (PERF.md, PR 15: its plain
 #      check on 64 blocks, bit for bit, took 258 s)
 I_FURBALL_STRIDE = 61
+# the plain versions of G (phase 13a) and of F's and H's hair leaf (12b,
+# 14a) run on every share-th ray of each wave (every ray took 50, 21 and
+# 19 s); the kernels run on the whole wave, and their bounds scale the
+# plain version's counted work on that even sample to it
+G_PLAIN_SHARE = 8
+F_HAIR_PLAIN_SHARE = 4
+# kernel E's plain version on every share-th of each wave's live chunks,
+# and the dead tail (phase 2c)
+E_PLAIN_SHARE = 4
 I_BLOCK = 256
 #  H against F on the same tree and the same float32 primitives (F's
 #      packed rows, gathered into sorted order): bit for bit, the any hit
@@ -2730,17 +2793,23 @@ def _differ(a, b, closest):
     return (a[1] != b[1]) | (a[0].view(torch.int32) != b[0].view(torch.int32))
 
 
-def check_kernel_h(label, bvh, geom, packed, leaf, ray, report):
+def check_kernel_h(label, bvh, geom, packed, leaf, ray, report, share=1):
     """Phase 14a: kernel H against its plain version on EVERY ray of a
-    wave, closest and any hit, bit for bit, and against kernel F on the
-    same tree and primitives; timed (CUDA events) beside the plain
-    version, F and the bound. Returns {mode: (H's result, facts)}."""
+    wave (share > 1: on every share-th ray), closest and any
+    hit, bit for bit, and against kernel F on the same tree and
+    primitives on every ray; timed (CUDA events) beside the plain
+    version, F and the bound (the plain version's counted work scaled to
+    the whole wave). Returns {mode: (H's result, facts)}."""
     import torch
+    from hairpt_torch.core.math import Ray
     from hairpt_torch.ops import intersect as isec
     from hairpt_torch.ops import intersect_packed as ipk
 
     out = {}
     n = ray.o.shape[0]
+    sl = _strided(n, share)
+    sub = Ray(*[x[sl].contiguous() for x in ray])
+    m = sub.o.shape[0]
     fg = rows_geom(packed, leaf)
     live = ray.maxt > ray.mint
     for mode in ("closest", "any"):
@@ -2751,11 +2820,12 @@ def check_kernel_h(label, bvh, geom, packed, leaf, ray, report):
         counts = {}
         torch.cuda.synchronize()
         t0 = time.time()
-        p = plain_fn(bvh, geom, leaf, ray, counts=counts)
+        p = plain_fn(bvh, geom, leaf, sub, counts=counts)
         torch.cuda.synchronize()
         plain_ms = (time.time() - t0) * 1e3
         k = kern(bvh, geom, leaf, ray)
-        bad = int(_differ(k, p, closest).sum())
+        bad = int(_differ(tuple(x[sl] for x in k) if closest else k[sl], p,
+                          closest).sum())
         hf = kern(bvh, fg, leaf, ray)
         f = f_fn(packed, leaf, ray)
         bad_f = int(_differ(hf, f, True).sum()) if closest \
@@ -2767,14 +2837,17 @@ def check_kernel_h(label, bvh, geom, packed, leaf, ray, report):
             else float(((k & live) == f).float().mean())
         ms = cuda_ms(lambda: kern(bvh, geom, leaf, ray), 5)
         f_ms = cuda_ms(lambda: f_fn(packed, leaf, ray), 5)
-        bms, bby = h_bound(bvh, geom, leaf, counts, n, mode)
+        bms, bby = h_bound(bvh, geom, leaf, _scaled(counts, n / m), n, mode)
         n_hit = int((p[1] >= 0).sum()) if closest else int(p.sum())
         vs_f = "bit for bit with F" if bad_f == 0 else f"{bad_f} rays OFF F"
-        log(f"H {leaf} {mode} on {label} ({n} rays, {n_hit} hits): "
-            f"{'bit for bit' if bad == 0 else f'{bad} rays DIFFER'}; on F's "
+        checked = "" if m == n else \
+            f"; every {share}th ray against the plain version"
+        log(f"H {leaf} {mode} on {label} ({n} rays{checked}, {n_hit} "
+            f"hits): {'bit for bit' if bad == 0 else f'{bad} rays DIFFER'}; "
+            f"on F's "
             f"primitives {vs_f} (its own primitives: {own:.6f} agree with "
             f"F); kernel {ms:.3f} "
-            f"ms, F {f_ms:.3f} ms, plain {plain_ms:.1f} ms "
+            f"ms, F {f_ms:.3f} ms, plain {plain_ms:.1f} ms on {m} rays "
             f"({counts['steps']} iterations), bound {bms:.4f} ms by {bby} "
             f"({ms / bms:.1f}x; {counts['nodes']} node rows, "
             f"{counts['prims']} tests)")
@@ -2784,7 +2857,8 @@ def check_kernel_h(label, bvh, geom, packed, leaf, ray, report):
                 f"F on {bad_f} rays of {label}")
         out[mode] = (k, dict(ms=ms, plain_ms=plain_ms, bound_ms=bms,
                              bound_by=bby, f_ms=f_ms, max_abs_err=0.0,
-                             rays=n, counts=counts, agree_with_f=own))
+                             rays=n, plain_rays=m, counts=counts,
+                             agree_with_f=own))
         report.setdefault(("perray", leaf, mode), []).append(
             (label, out[mode][1]))
     return out
@@ -2872,7 +2946,7 @@ def furball_walks(scene, wv, report):
     for name, ray in wv.items():
         label = f"the furball's {name} wave"
         h = check_kernel_h(label, arr.hair_bvh, arr.hair, arr.hair_packed,
-                           "hair", ray, report)
+                           "hair", ray, report, F_HAIR_PLAIN_SHARE)
         check_kernel_i(label, arr.hair_bvh, arr.hair, "hair", ray, h,
                        I_FURBALL_STRIDE if name == "camera" else None,
                        report)
@@ -3010,7 +3084,6 @@ def motion_entry_point(reset_all, device="cuda", quality=HAIR_QUALITY,
     and with the plain versions on the CPU (means within MEAN_RTOL); and
     the CLI as a subprocess (wall, build and render seconds). xml_kw and
     device "cpu" rehearse it small."""
-    import re
     import tempfile
     import numpy as np
     import torch
@@ -3021,7 +3094,6 @@ def motion_entry_point(reset_all, device="cuda", quality=HAIR_QUALITY,
     from hairpt_torch.scene import scene_xmls
     from hairpt_torch.scene.xml_loader import load_scene
 
-    here = os.path.dirname(os.path.abspath(__file__))
     cuda = device == "cuda"
     with tempfile.TemporaryDirectory(prefix="hairpt_motion_") as tmp:
         xml = scene_xmls.write_scene(tmp, "motion", **xml_kw)
@@ -3092,6 +3164,11 @@ def motion_entry_point(reset_all, device="cuda", quality=HAIR_QUALITY,
                       build_s=built)
         del scene, img
 
+        # 14c's CLI (one shutter time at CLI_WIDTH across; the XML's
+        # width is 1024 on the card) runs beside 14b's small renders
+        cli_h = _cli_start(xml, os.path.join(tmp, "out", "motion.png"),
+                           quality, device, spp=1, res_scale=min(
+                               1.0, CLI_WIDTH / xml_kw.get("res", 1024)))
         # 14b: small, card against CPU
         small = os.path.join(tmp, "small")
         sxml = scene_xmls.write_scene(small, "motion", **MOTION_SMALL)
@@ -3112,39 +3189,14 @@ def motion_entry_point(reset_all, device="cuda", quality=HAIR_QUALITY,
                     f"motion small: card and CPU differ by {rel}")
 
         # 14c: the CLI
-        out = os.path.join(tmp, "out", "motion.png")
-        os.makedirs(os.path.dirname(out))
-        env = dict(os.environ, PYTHONPATH=here + os.pathsep
-                   + os.environ.get("PYTHONPATH", ""))
-        t0 = time.time()
-        # one shutter time at CLI_WIDTH across (the XML's width, 1024 on
-        # the card)
-        proc = subprocess.run(
-            [sys.executable, "-m", "hairpt_torch.cli", "render", xml, "-o",
-             out, "--hair-quality", str(quality), "--spp", "1",
-             "--res-scale",
-             str(min(1.0, CLI_WIDTH / xml_kw.get("res", 1024)))]
-            + ([] if cuda else ["--cpu"]),
-            cwd=here, env=env, capture_output=True, text=True, timeout=600)
-        wall = time.time() - t0
-        require(proc.returncode == 0, f"the motion CLI exited "
-                f"{proc.returncode}:\n{proc.stderr[-3000:]}")
-        b_s = re.search(r"scene built in ([0-9.]+)s", proc.stderr)
-        r_s = re.search(r"rendered in ([0-9.]+)s", proc.stderr)
-        require(b_s is not None and r_s is not None,
-                f"the CLI logged no build or render time:\n{proc.stderr}")
-        base = out[:-4]
-        for ext in ("png", "exr", "npy", "pfm"):
-            require(os.path.getsize(f"{base}.{ext}") > 0, f"no {ext} output")
-        img = np.load(f"{base}.npy")
+        wall, t_build, t_render, img = _cli_wait(cli_h)
         require(np.isfinite(img).all() and img.mean() > 0,
                 f"motion CLI image mean {img.mean()}")
         log(f"CLI motion ({img.shape[1]} x {img.shape[0]}, 1 spp): exit "
-            f"0 in {wall:.1f}s wall, scene built in {b_s.group(1)}s, "
-            f"rendered in {r_s.group(1)}s; image mean {img.mean():.6f}; "
-            f"four outputs")
-        result.update(cli_wall=wall, cli_build=float(b_s.group(1)),
-                      cli_render=float(r_s.group(1)))
+            f"0 in {wall:.1f}s wall beside the small renders, scene built "
+            f"in {t_build}s, rendered in {t_render}s; image mean "
+            f"{img.mean():.6f}; four outputs")
+        result.update(cli_wall=wall, cli_build=t_build, cli_render=t_render)
     return result
 
 
@@ -3165,6 +3217,7 @@ def hi_kernel_entries(report, launches):
             launches=n[name], max_abs_err=f["max_abs_err"], ms=f["ms"],
             plain_ms=f["plain_ms"], bound_ms=f["bound_ms"],
             bound_by=f["bound_by"], library_ms=None, timed_on=label,
+            plain_rays=f.get("plain_rays"),
             launched_by=(f"the {'teapot' if leaf == 'tri' else 'furball'}'s "
                          f"'{trav}' waves (phase 14d)"),
             launches_per_wave=n[name] / waves,
@@ -3462,29 +3515,46 @@ def lit_builder(res=1024, device="cuda", quality=HAIR_QUALITY):
                    sampler=(rng.SOBOL_QMC, int(np.ceil(np.log2(res))), res))
 
 
-def _cli(xml, out, quality, device, spp=2, res_scale=1.0, extra=()):
-    """The CLI as a subprocess, as a user runs it: (wall seconds, its
-    logged build and render seconds, the .npy image); four outputs."""
-    import re
-    import numpy as np
+def _cli_start(xml, out, quality, device, spp=2, res_scale=1.0, extra=()):
+    """Start the CLI as a subprocess, as a user runs it (its stderr in a
+    file beside `out`); _cli_wait collects it. The CLIs of phases 15c-19f
+    run beside their phase's scene load or CPU renders: most of a CLI's
+    wall is the interpreter's and the card's start-up."""
     here = os.path.dirname(os.path.abspath(__file__))
     os.makedirs(os.path.dirname(out), exist_ok=True)
     env = dict(os.environ, PYTHONPATH=here + os.pathsep
                + os.environ.get("PYTHONPATH", ""))
-    t0 = time.time()
-    proc = subprocess.run(
+    err = open(out[:-4] + ".stderr", "w+")
+    proc = subprocess.Popen(
         [sys.executable, "-m", "hairpt_torch.cli", "render", xml, "-o", out,
-         "--hair-quality", str(quality), "--spp", str(spp), "--res-scale",
-         str(res_scale)] + list(extra)
+         "--hair-quality", str(min(quality, CLI_HAIR_QUALITY)), "--spp",
+         str(spp), "--res-scale", str(res_scale)] + list(extra)
         + (["--cpu"] if device == "cpu" else []),
-        cwd=here, env=env, capture_output=True, text=True, timeout=600)
+        cwd=here, env=env, stdout=subprocess.DEVNULL, stderr=err)
+    return proc, err, out, time.time()
+
+
+def _cli_wait(handle):
+    """(wall seconds, its logged build and render seconds, the .npy image)
+    of a started CLI; it must exit 0 with four outputs."""
+    import re
+    import numpy as np
+    proc, err, out, t0 = handle
+    try:
+        rc = proc.wait(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
     wall = time.time() - t0
-    require(proc.returncode == 0, f"the CLI exited {proc.returncode}:\n"
-            f"{proc.stderr[-3000:]}")
-    built = re.search(r"scene built in ([0-9.]+)s", proc.stderr)
-    rendered = re.search(r"rendered in ([0-9.]+)s", proc.stderr)
+    err.seek(0)
+    stderr = err.read()
+    err.close()
+    require(rc == 0, f"the CLI exited {rc}:\n{stderr[-3000:]}")
+    built = re.search(r"scene built in ([0-9.]+)s", stderr)
+    rendered = re.search(r"rendered in ([0-9.]+)s", stderr)
     require(built is not None and rendered is not None,
-            f"the CLI logged no build or render time:\n{proc.stderr}")
+            f"the CLI logged no build or render time:\n{stderr}")
     base = out[:-4]
     for ext in ("png", "exr", "npy", "pfm"):
         require(os.path.getsize(f"{base}.{ext}") > 0, f"no {ext} output")
@@ -3496,7 +3566,8 @@ def lit_cell(reset_all, device="cuda", res=1024, quality=HAIR_QUALITY,
              small_res=64, small_quality=0.1):
     """Phase 15c: the lit stand-in (scene_xmls.lit: the XML furball under
     a rectangle and a sphere area light, a spot and a point light and the
-    sunsky). The CLI at min(res, CLI_WIDTH)^2, hair quality `quality`,
+    sunsky). The CLI at min(res, CLI_WIDTH)^2, hair quality
+    min(quality, CLI_HAIR_QUALITY),
     depth 65, 1 spp: exit 0, four outputs, a finite positive mean. In
     process: load_scene against lit_builder (config and every tensor
     equal), one warm-up and one timed 1-spp wave (s/wave, Mrays/s, A, B
@@ -3529,15 +3600,9 @@ def _lit_cell(reset_all, device, res, quality, small_res, small_quality,
     xml_s = scene_xmls.write_scene(os.path.join(tmp, "small"), "lit",
                                    res=small_res)
     cw = min(res, CLI_WIDTH)
-    wall, t_build, t_render, img = _cli(
+    cli_h = _cli_start(
         xml, os.path.join(tmp, "out", "lit.png"), quality, device, spp=1,
         res_scale=cw / res)
-    require(img.shape == (cw, cw, 3) and np.isfinite(img).all()
-            and img.mean() > 0, f"lit CLI image {img.shape}, mean "
-            f"{img.mean()}")
-    log(f"CLI lit ({cw}^2, hair quality {quality}, depth 65, 1 spp): "
-        f"exit 0 in {wall:.1f}s wall, scene built in {t_build}s, rendered "
-        f"in {t_render}s; image mean {img.mean():.6f}; four outputs")
     t0 = time.time()
     scene = load_scene(xml, hair_quality=quality, spp_override=1,
                        device=device)
@@ -3553,6 +3618,15 @@ def _lit_cell(reset_all, device, res, quality, small_res, small_quality,
         + str([pa for (pa, x), (pb, y) in pairs if pa != pb
                or not _same_bits(x, y)]))
     del scene_b
+    wall, t_build, t_render, img = _cli_wait(cli_h)
+    require(img.shape == (cw, cw, 3) and np.isfinite(img).all()
+            and img.mean() > 0, f"lit CLI image {img.shape}, mean "
+            f"{img.mean()}")
+    log(f"CLI lit ({cw}^2, hair quality {min(quality, CLI_HAIR_QUALITY)}, "
+        f"depth 65, 1 spp): "
+        f"exit 0 in {wall:.1f}s wall beside the scene load, scene built "
+        f"in {t_build}s, rendered in {t_render}s; image mean "
+        f"{img.mean():.6f}; four outputs")
     a = scene.arrays
     log(f"lit: loaded in {t_load:.1f}s, {len(pairs)} tensors equal to "
         f"SceneBuilder's; {a.hair.p0.shape[0]} segments, "
@@ -3790,15 +3864,16 @@ def gloo_worker(argv):
 
 
 def sharded_cells(scene, reset_all, device="cuda",
-                  small=(GLOO_QUALITY, GLOO_RES, GLOO_DEPTH)):
+                  small=(GLOO_QUALITY, GLOO_RES, GLOO_DEPTH), between=None):
     """16a: NCCL at world size 1 (a local TCP rendezvous): render_sharded
     on phase 4's furball (a warm-up and a timed wave) against the same
     wave in one process; the film all_reduce's ms; make_train_step on
     phase 6's scene (depth 16, the diffuse table) against the one-process
     step; the small furball's render and step at world size 1 for 16b.
     16b: two gloo ranks on the one card (subprocesses with a time limit)
-    on the small furball against 16a's world-size-1 results. Returns the
-    facts."""
+    on the small furball against 16a's world-size-1 results; between(),
+    when given, runs while they work (its times then share the card).
+    Returns the facts."""
     import numpy as np
     import tempfile
     import torch
@@ -3887,7 +3962,10 @@ def sharded_cells(scene, reset_all, device="cuda",
                 capture_output=True, text=True, timeout=GLOO_TIMEOUT)
         t0 = time.time()
         with ThreadPoolExecutor(2) as ex:
-            procs = list(ex.map(rank, range(2)))
+            futs = [ex.submit(rank, r) for r in range(2)]
+            if between is not None:
+                between()
+            procs = [f.result() for f in futs]
         wall = time.time() - t0
         for r, pr in enumerate(procs):
             require(pr.returncode == 0, f"16b rank {r} exited "
@@ -3901,7 +3979,8 @@ def sharded_cells(scene, reset_all, device="cuda",
                              f"16b rank {r} train step")
         log(f"16b two gloo ranks on the {device} ({small[1]}^2 furball, "
             f"{int(6000 * small[0])} fibers, depth {small[2]}): "
-            f"{wall:.1f}s wall; images against world size 1 {outs}; the "
+            f"{wall:.1f}s wall{' beside phase 10' if between else ''}; "
+            f"images against world size 1 {outs}; the "
             f"train step's parameters within {SHARD_PARAM_RTOL} on both "
             f"ranks")
     facts["gloo_wall_s"] = wall
@@ -4011,7 +4090,8 @@ def materials_cell(reset_all, device="cuda", res=1024, quality=HAIR_QUALITY,
     """Phase 16c: the materials stand-in (scene_xmls.materials: the XML
     furball ringed by one sphere per surface BSDF and wrapper material,
     a checkerboard floor, the sunsky, a thin lens). The CLI at
-    min(res, CLI_WIDTH)^2, hair quality `quality`, depth 65, 1 spp: exit
+    min(res, CLI_WIDTH)^2, hair quality min(quality, CLI_HAIR_QUALITY),
+    depth 65, 1 spp: exit
     0, four outputs, a finite positive mean. In process: load_scene
     against materials_builder (config and every tensor equal), one
     warm-up and one timed 1-spp wave (s/wave, rays/wave, Mrays/s, A, B and F
@@ -4044,15 +4124,9 @@ def _materials_cell(reset_all, device, res, quality, small_res,
     xml_s = scene_xmls.write_scene(os.path.join(tmp, "small"), "materials",
                                    res=small_res)
     cw = min(res, CLI_WIDTH)
-    wall, t_build, t_render, img = _cli(
+    cli_h = _cli_start(
         xml, os.path.join(tmp, "out", "materials.png"), quality, device,
         spp=1, res_scale=cw / res)
-    require(img.shape == (cw, cw, 3) and np.isfinite(img).all()
-            and img.mean() > 0, f"materials CLI image {img.shape}, mean "
-            f"{img.mean()}")
-    log(f"CLI materials ({cw}^2, hair quality {quality}, depth 65, 1 spp): "
-        f"exit 0 in {wall:.1f}s wall, scene built in {t_build}s, rendered "
-        f"in {t_render}s; image mean {img.mean():.6f}; four outputs")
     t0 = time.time()
     scene = load_scene(xml, hair_quality=quality, spp_override=1,
                        device=device)
@@ -4072,6 +4146,15 @@ def _materials_cell(reset_all, device, res, quality, small_res,
         + str([pa for (pa, x), (pb, y) in pairs if pa != pb
                or not _same_bits(x, y)]))
     del scene_b
+    wall, t_build, t_render, img = _cli_wait(cli_h)
+    require(img.shape == (cw, cw, 3) and np.isfinite(img).all()
+            and img.mean() > 0, f"materials CLI image {img.shape}, mean "
+            f"{img.mean()}")
+    log(f"CLI materials ({cw}^2, hair quality "
+        f"{min(quality, CLI_HAIR_QUALITY)}, depth 65, 1 spp): "
+        f"exit 0 in {wall:.1f}s wall beside the scene load, scene built "
+        f"in {t_build}s, rendered in {t_render}s; image mean "
+        f"{img.mean():.6f}; four outputs")
     a = scene.arrays
     log(f"materials: loaded in {t_load:.1f}s, {len(pairs)} tensors equal to "
         f"SceneBuilder's; {a.hair.p0.shape[0]} segments, "
@@ -4491,15 +4574,9 @@ def _media_cell(reset_all, device, res, quality, small, tmp):
 
     xml = scene_xmls.write_scene(tmp, "media", res=res)
     cw = min(res, CLI_WIDTH)
-    wall, t_build, t_render, img = _cli(
+    cli_h = _cli_start(
         xml, os.path.join(tmp, "out", "media.png"), quality, device, spp=2,
         res_scale=cw / res)
-    require(img.shape == (cw, cw, 3) and np.isfinite(img).all()
-            and img.mean() > 0, f"media CLI image {img.shape}, mean "
-            f"{img.mean()}")
-    log(f"CLI media ({cw}^2, hair quality {quality}, depth 65, 2 spp, "
-        f"volpath): exit 0 in {wall:.1f}s wall, scene built in {t_build}s, "
-        f"rendered in {t_render}s; image mean {img.mean():.6f}")
     t0 = time.time()
     scene = load_scene(xml, hair_quality=quality, spp_override=1,
                        device=device)
@@ -4520,6 +4597,15 @@ def _media_cell(reset_all, device, res, quality, small, tmp):
         + str([pa for (pa, x), (pb, y) in pairs + mpairs if pa != pb
                or not _same_bits(x, y)]))
     del scene_b
+    wall, t_build, t_render, img = _cli_wait(cli_h)
+    require(img.shape == (cw, cw, 3) and np.isfinite(img).all()
+            and img.mean() > 0, f"media CLI image {img.shape}, mean "
+            f"{img.mean()}")
+    log(f"CLI media ({cw}^2, hair quality "
+        f"{min(quality, CLI_HAIR_QUALITY)}, depth 65, 2 spp, "
+        f"volpath): exit 0 in {wall:.1f}s wall beside the scene load, "
+        f"scene built in {t_build}s, "
+        f"rendered in {t_render}s; image mean {img.mean():.6f}")
     med = scene.medium
     log(f"media: loaded in {t_load:.1f}s, {len(pairs)} + {len(mpairs)} "
         f"tensors equal to SceneBuilder's; {scene.arrays.hair.p0.shape[0]} "
@@ -4936,6 +5022,33 @@ def _light_cells(reset_all, device, res, quality, small, tmp):
                                    res=small["res"])
     fog_s = scene_xmls.write_scene(os.path.join(tmp, "small"), "fog",
                                    res=small["res"])
+    # 18d's CLIs run beside the small renders (card against CPU), which
+    # are also each timed run's warm-up
+    t1 = time.time()
+    cw = min(res, CLI_WIDTH)
+    clis = [(label, _cli_start(
+        xml, os.path.join(tmp, "out", label.split(",")[0] + ".png"),
+        quality, device, spp=1, res_scale=cw / res, extra=extra))
+        for label, xml, extra in (("lit, bdpt", lit_xml,
+                                   ["--integrator", "bdpt"]),
+                                  ("fog, photonmapper", fog_xml, []))]
+    for name in LIGHT_TRACERS:
+        _small_light(name, lit_s, device, small)
+    _small_light("fog", fog_s, device, small)
+    for label, h in clis:
+        wall, t_build, t_render, img = _cli_wait(h)
+        require(img.shape == (cw, cw, 3) and np.isfinite(img).all()
+                and img.mean() > 0, f"{label} CLI image {img.shape}, mean "
+                f"{img.mean()}")
+        facts[f"cli {label}"] = dict(wall=wall, build=t_build,
+                                     render=t_render)
+        log(f"CLI {label} ({cw}^2, hair quality "
+            f"{min(quality, CLI_HAIR_QUALITY)}, 1 spp): exit 0 "
+            f"in {wall:.1f}s wall beside the small renders, scene built in "
+            f"{t_build}s, rendered in {t_render}s; image mean "
+            f"{img.mean():.6f}")
+    log(f"phase 18d and the small renders ({time.time() - t1:.1f}s): the "
+        f"light tracers' CLIs ok")
     t0 = time.time()
     scene = load_scene(lit_xml, hair_quality=quality, spp_override=1,
                        device=device)
@@ -4960,7 +5073,6 @@ def _light_cells(reset_all, device, res, quality, small, tmp):
     # 18b: every light tracer on the lit cell
     for name in LIGHT_TRACERS:
         t1 = time.time()
-        _small_light(name, lit_s, device, small)
         if device != "cuda":
             continue
         f = _timed_light(name, scene, reset_all)
@@ -5014,7 +5126,6 @@ def _light_cells(reset_all, device, res, quality, small, tmp):
         log(f"phase 18a, beam ({time.time() - t1:.1f}s): kernel K matches "
             f"its plain version")
     t1 = time.time()
-    _small_light("fog", fog_s, device, small)
     if device == "cuda":
         f = _timed_light("fog", scene, reset_all)
         img = f.pop("img")
@@ -5033,24 +5144,6 @@ def _light_cells(reset_all, device, res, quality, small, tmp):
             f"launches {f['launches']}")
         del img
     del scene, med
-    # 18d: the CLI
-    t1 = time.time()
-    cw = min(res, CLI_WIDTH)
-    for label, xml, extra in (("lit, bdpt", lit_xml, ["--integrator",
-                                                      "bdpt"]),
-                              ("fog, photonmapper", fog_xml, [])):
-        wall, t_build, t_render, img = _cli(
-            xml, os.path.join(tmp, "out", label.split(",")[0] + ".png"),
-            quality, device, spp=1, res_scale=cw / res, extra=extra)
-        require(img.shape == (cw, cw, 3) and np.isfinite(img).all()
-                and img.mean() > 0, f"{label} CLI image {img.shape}, mean "
-                f"{img.mean()}")
-        facts[f"cli {label}"] = dict(wall=wall, build=t_build,
-                                     render=t_render)
-        log(f"CLI {label} ({cw}^2, hair quality {quality}, 1 spp): exit 0 "
-            f"in {wall:.1f}s wall, scene built in {t_build}s, rendered in "
-            f"{t_render}s; image mean {img.mean():.6f}")
-    log(f"phase 18d ({time.time() - t1:.1f}s): the light tracers' CLIs ok")
     return facts, report
 
 
@@ -5076,6 +5169,459 @@ def k_kernel_entries(report, facts):
             pairs=f["pairs"], lanes=f["lanes"],
             pairs_per_lane=f["pairs_per_lane"], photons=f["photons"],
             cells=f["cells"], slots=f["slots"], steps=f["steps"]))
+    return entries
+
+
+# ---------------------------------------------------------------------------
+# phase 19: the rest of the CLI's integrators but mlt and motion (direct,
+# ao, field, adaptive, multichannel, irrcache, pssmlt, erpt, spectral)
+# through kernels A, B, F and kernel L (csrc/irrcache.cu, the Ward-weighted
+# irradiance-cache interpolation)
+# ---------------------------------------------------------------------------
+
+L_REPLACES = "hairpt/integrators/irrcache.py:273 (XLA, no Pallas kernel)"
+# L's f32 operations per (lane, record) pair, counted from irrcache.cu:
+# diff 3, d2 5, ndot 5 and its clip 2, the two square roots, the division
+# by k, 1 - ndot and its max, two sums (8), the ndot test, the reciprocal
+# and its select, the kappa test and its select (5) = 28; the sums: w and
+# w_cut (2), w e and w_cut e (12) = 14; with the gradients the cross
+# product (9) and per colour 2 x (3 products, 2 sums), 2 sums and the max
+# (13 x 3 = 39): 48 more
+L_PAIR_FLOPS = {False: 42, True: 90}
+#  kernel L against its plain version (which adds the records in L's
+#  order): has_cut exactly; e bit for bit expected, held to L_RTOL relative
+L_RTOL = 1e-5
+# hairpt's defaults: 4,096 records, 16 rays (the cosine estimator), the
+# (8, 16) grid with the gradients
+IC_POINTS = 4096
+IC_GRID = (8, 16)
+SMALL19 = dict(res=64, quality=0.1, depth=8)
+# the Markov-chain integrators at full width: hairpt's 16,384 chains or
+# seeds, the mutations cut to 8 (hairpt: pssmlt 64, erpt 16)
+MC_CHAINS = 1 << 14
+MC_MUTATIONS = 8
+# adaptive at full width: the base and extra samples cut to 2 + 2
+# (hairpt: 8 + 24)
+ADAPTIVE_CUT = dict(base_spp=2, extra_spp=2)
+# the pool's eval_u card against CPU (19d, on the small furball): >= 99%
+# of the lanes within 1e-3 relative + 1e-6
+EVAL_U_SHARE = 0.99
+SPECTRAL_BINS = 6
+AUX_RUNS = ("direct", "ao", "field_shNormal", "field_albedo", "adaptive")
+
+
+def l_bound(n_live, M, grad, N):
+    """(bound ms, 'bytes' or 'operations') of one interpolation: the lanes
+    (p, n, valid) and records read once, e and has_cut written once,
+    against L_PAIR_FLOPS per (valid lane, record) pair."""
+    n_bytes = N * (12 + 12 + 1 + 12 + 1) + M * (27 if grad else 9) * 4
+    return bound_ms(n_bytes, n_live * M * L_PAIR_FLOPS[grad])
+
+
+def check_kernel_l(hit, rec, report, label):
+    """Kernel L against its plain version on every valid lane of a wave:
+    has_cut exactly, e within L_RTOL (bit for bit expected); L timed by
+    CUDA events over 5 launches, the plain version once, the bound."""
+    import numpy as np
+    import torch
+    from hairpt_torch.ops import irrcache_interp as ic
+    name = "irrcache_interp_grad" if rec.grad else "irrcache_interp"
+    e_k, cut_k = ic.interp(hit.p, hit.sh_n, hit.valid, rec)
+    e_p, cut_p = ic.interp_plain(hit.p, hit.sh_n, hit.valid, rec)
+    torch.cuda.synchronize()
+    v = hit.valid
+    n_cut = int((cut_k != cut_p).sum())
+    a, b = e_k[v], e_p[v]
+    d = (a - b).abs()
+    m = torch.maximum(a.abs(), b.abs())
+    rel = torch.where(d == 0, 0.0, d / torch.where(m == 0, 1.0, m))
+    max_rel = float(rel.max()) if rel.numel() else 0.0
+    n_bits = int((a.view(torch.int32) != b.view(torch.int32)).any(-1).sum())
+    k_ms = cuda_ms(lambda: ic.interp(hit.p, hit.sh_n, hit.valid, rec), 5)
+    p_ms = cuda_ms(lambda: ic.interp_plain(hit.p, hit.sh_n, hit.valid, rec),
+                   1, warm=False)
+    N, M, n_live = hit.p.shape[0], rec.cpos.shape[0], int(v.sum())
+    b_ms, by = l_bound(n_live, M, rec.grad, N)
+    report[name] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=by,
+                        max_abs_err=float(d.max()) if d.numel() else 0.0,
+                        max_rel_err=max_rel, has_cut_differ=n_cut,
+                        lanes_off_bits=n_bits, lanes=N, valid_lanes=n_live,
+                        records=M, cut_share=float(cut_k[v].float().mean()),
+                        label=label)
+    log(f"L {name} ({label}): {n_live} valid of {N} lanes x {M} records: "
+        f"has_cut differs on {n_cut}, e off the plain version's bits on "
+        f"{n_bits} lanes (largest relative difference {max_rel:.3g}); "
+        f"has_cut on {report[name]['cut_share']:.4f}; {k_ms:.3f} ms "
+        f"(plain {p_ms:.1f} ms), bound {b_ms:.4f} ms by {by} "
+        f"({k_ms / max(b_ms, 1e-12):.1f}x)")
+    require(n_cut == 0 and max_rel <= L_RTOL and bool(np.isfinite(max_rel)),
+            f"{name}: kernel L differs from its plain version ({n_cut} "
+            f"has_cut, largest relative e difference {max_rel})")
+
+
+def _timed_run(fn, reset_all):
+    """Run fn(progress) once after resetting the counters: (wall s, the
+    progress calls' seconds, the launches of A, B, F and L, tiled queries,
+    the result). No plain version may run on the card."""
+    import torch
+    from hairpt_torch.ops import intersect_packed as ipk
+    from hairpt_torch.ops import intersect_tiled as itiled
+    from hairpt_torch.ops import irrcache_interp as ic
+    from hairpt_torch.ops import tiled_kernels as tk
+    times = []
+
+    def progress(done, total, secs, n):
+        times.append(secs)
+    reset_all()
+    itiled.STATS.update(queries=0, max_passes=0, overflow_tiles=0)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    out = fn(progress)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    plain = dict(tk.PLAIN_ON_CUDA, **ipk.PLAIN_ON_CUDA, **ic.PLAIN_ON_CUDA)
+    require(all(v == 0 for v in plain.values()),
+            f"plain versions ran on CUDA tensors: {plain}")
+    return dict(wall=wall, steps=times, queries=itiled.STATS["queries"],
+                launches=dict(tk.LAUNCHES, **ipk.LAUNCHES, **ic.LAUNCHES),
+                out=out)
+
+
+def _check_image(img, label, positive=True):
+    import numpy as np
+    import torch
+    mean = float(img.mean())
+    require(bool(torch.isfinite(img).all()) and np.isfinite(mean)
+            and (mean > 0 if positive else float(img.abs().mean()) > 0),
+            f"{label}: image mean {mean}")
+    return mean
+
+
+def _card_cpu_images(label, make, render, metric=None):
+    """render(make(dev)) on the card and on the CPU: the image means (of
+    |image| for a field) within MEAN_RTOL."""
+    means = {}
+    for dev in ("cuda", "cpu"):
+        img = render(make(dev))
+        _check_image(img, f"small {label} on {dev}", metric is None)
+        means[dev] = float((img.abs() if metric == "abs" else img).mean())
+    rel = abs(means["cuda"] - means["cpu"]) / means["cpu"]
+    log(f"small {label}: image mean card {means['cuda']:.6f}, CPU "
+        f"{means['cpu']:.6f}, rel diff {rel:.3g}")
+    require(rel <= MEAN_RTOL, f"small {label}: card and CPU differ by {rel}")
+    return rel
+
+
+def integrator_cells(reset_all, device="cuda", res=1024,
+                     quality=HAIR_QUALITY, small=SMALL19):
+    """Phase 19: the rest of the CLI's integrators. 19a kernel L against
+    its plain version on every valid lane of the floor cell's camera
+    wave, with and without the records' gradients; 19b the floor cell
+    through irrcache (the cache pass timed, one timed wave after a
+    warm-up, with the gradient grid and with the cosine estimator); 19c
+    direct, ao, field, adaptive (cut) on the XML furball; 19d pssmlt and
+    erpt on it (cut mutations); 19e spectral on the Marschner furball;
+    each one's small render card against CPU; 19f the CLI with
+    multichannel on the furball XML and irrcache on the teapot XML.
+    Returns (facts, L's report). device "cpu" rehearses the small
+    renders and the CLIs only (no card)."""
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix="hairpt_integ_") as tmp:
+        return _integrator_cells(reset_all, device, res, quality, small, tmp)
+
+
+def _integrator_cells(reset_all, device, res, quality, small, tmp):
+    import numpy as np
+    import torch
+    from hairpt_torch.integrators import aux_integrators as aux
+    from hairpt_torch.core import spectral as spec_basis
+    from hairpt_torch.integrators import erpt, irrcache, pssmlt, spectral
+    from hairpt_torch.ops import irrcache_interp as ic
+    from hairpt_torch.scene import scene_xmls
+    from hairpt_torch.scene.furball import furball_floor_scene
+    from hairpt_torch.scene.xml_loader import load_scene
+
+    cuda = device == "cuda"
+    facts = {}
+    report = {} if cuda else None
+
+    def small_floor(dev):
+        return furball_floor_scene(quality=small["quality"],
+                                   res=small["res"], depth=small["depth"],
+                                   device=dev)
+
+    # ---- 19a / 19b: the floor cell through irrcache ----
+    t0 = time.time()
+    if cuda:
+        _card_cpu_images("irrcache (floor; 256 records, grid (4, 8))",
+                         small_floor, lambda s: irrcache.render_irrcache(
+                             s, n_points=256, grid=(4, 8), spp=1))
+        scene = furball_floor_scene(quality=quality, res=res, depth=65,
+                                    device=device, q=2048)
+        arr = scene.arrays
+        log(f"floor cell: {arr.hair.p0.shape[0]} segments, "
+            f"{arr.tri.p0.shape[0]} triangles, built in "
+            f"{time.time() - t0:.1f}s")
+        for grad in (True, False):
+            t1 = time.time()
+            torch.cuda.synchronize()
+            if grad:
+                cache = irrcache.build_irradiance_cache(
+                    scene, IC_POINTS, 16, 0, grid=IC_GRID, gradients=True)
+            else:
+                cache = irrcache.build_irradiance_cache(scene, IC_POINTS, 16,
+                                                        0)
+            torch.cuda.synchronize()
+            cache_s = time.time() - t1
+            rec = ic.Records(*cache)
+            # 19a: L against its plain version on the camera wave
+            _, _, _, _, hit = aux.camera_wave(scene, arr, 0)
+            check_kernel_l(hit, rec, report,
+                           f"every valid lane of the floor cell's {res}^2 "
+                           f"camera wave, {IC_POINTS} records"
+                           + (f", grid {IC_GRID}" if grad else
+                              ", 16 cosine rays"))
+            del hit
+            # 19b: a warm-up wave, then one timed wave
+            irrcache.render_irrcache(scene, spp=1, cache=cache)
+            f = _timed_run(lambda pr: irrcache.render_irrcache(
+                scene, spp=1, cache=cache, progress=pr), reset_all)
+            img = f.pop("out")
+            f["mean"] = _check_image(img, "floor irrcache")
+            f["cache_s"] = cache_s
+            f["secs"] = f["steps"][0]
+            lname = "irrcache_interp_grad" if grad else "irrcache_interp"
+            need = ["cull_phase_a", "phase_b", "packed_tri_closest",
+                    "packed_tri_any", lname]
+            require(all(f["launches"][k] > 0 for k in need),
+                    f"floor irrcache did not launch {need}: {f['launches']}")
+            key = "irrcache" if grad else "irrcache_nograd"
+            facts[key] = f
+            est = "gradients (8, 16)" if grad \
+                else "cosine rays, no gradients"
+            log(f"phase 19a/b, irrcache {est} "
+                f"({time.time() - t1:.1f}s): cache pass {cache_s:.3f} s "
+                f"({IC_POINTS} points), one timed {res}^2 wave "
+                f"{f['secs']:.3f} s, {f['queries']} tiled queries; image "
+                f"mean {f['mean']:.6f}; launches {f['launches']}")
+            del img, cache, rec
+        del scene, arr
+
+    # ---- 19c / 19d: the XML furball ----
+    fur_xml = scene_xmls.write_scene(tmp, "furball", res=res)
+    fur_s = scene_xmls.write_scene(os.path.join(tmp, "small"), "furball",
+                                   res=small["res"])
+
+    def small_fur(dev):
+        return load_scene(fur_s, hair_quality=small["quality"],
+                          spp_override=1, max_depth_override=small["depth"],
+                          device=dev)
+    # 19f: the CLIs run beside the small renders (card against CPU)
+    t_cli = time.time()
+    cw = min(res, CLI_WIDTH)
+    tea = scene_xmls.write_scene(tmp, "teapot")
+    multi = os.path.join(tmp, "out", "multi.png")
+    clis = [("multichannel", _cli_start(
+        fur_xml, multi, quality, device, spp=1, res_scale=cw / res,
+        extra=["--integrator", "multichannel"])),
+        ("irrcache", _cli_start(
+            tea, os.path.join(tmp, "out", "tea_ic.png"), quality, device,
+            spp=1, res_scale=CLI_WIDTH / TEAPOT_RES[0],
+            extra=["--integrator", "irrcache"]))]
+    runs = {
+        "direct": (lambda s, pr: aux.render_direct(s, spp=1, progress=pr),
+                   None),
+        "ao": (lambda s, pr: aux.render_ao(s, spp=1, progress=pr), None),
+        "field_shNormal": (lambda s, pr: aux.render_field(
+            s, "shNormal", progress=pr), "abs"),
+        "field_albedo": (lambda s, pr: aux.render_field(
+            s, "albedo", progress=pr), None),
+        "adaptive": (lambda s, pr: aux.render_adaptive(
+            s, seed=0, progress=pr, **ADAPTIVE_CUT), None),
+    }
+    for name, (run, metric) in runs.items():
+        if cuda:
+            _card_cpu_images(name, small_fur, lambda s: run(s, None), metric)
+    if cuda:
+        chans = {d: aux.render_multichannel(small_fur(d), spp=1)
+                 for d in ("cuda", "cpu")}
+        for ch in chans["cpu"]:
+            _card_cpu_images(f"multichannel {ch}", lambda d: chans[d][ch],
+                             lambda img: img,
+                             "abs" if ch == "shNormal" else None)
+        del chans
+    for name, h in clis:
+        wall, t_build, t_render, img = _cli_wait(h)
+        require(np.isfinite(img).all() and img.mean() > 0,
+                f"{name} CLI image mean {img.mean()}")
+        if name == "multichannel":
+            require(img.shape == (cw, cw, 3), f"multichannel CLI image "
+                    f"{img.shape}")
+            for ch in ("shNormal", "distance", "albedo"):
+                c = np.load(multi[:-4] + f".{ch}.npy")
+                require(c.shape == (cw, cw, 3) and np.isfinite(c).all()
+                        and np.abs(c).mean() > 0, f"multichannel CLI "
+                        f"channel {ch}: {c.shape}")
+        facts[f"cli {name}"] = dict(wall=wall, build=t_build,
+                                    render=t_render)
+        on = "the furball" if name == "multichannel" else "the teapot"
+        log(f"CLI {name} on {on} ({img.shape[1]} x {img.shape[0]}, hair "
+            f"quality "
+            f"{min(quality, CLI_HAIR_QUALITY)}, 1 spp): exit 0 in "
+            f"{wall:.1f}s wall beside the small renders, built in "
+            f"{t_build}s, rendered in {t_render}s"
+            + ("; the radiance and the shNormal, distance and albedo .npy "
+               "channels finite" if name == "multichannel" else
+               f" ({IC_POINTS} records, the cache pass included)")
+            + f"; image mean {img.mean():.6f}")
+    log(f"phase 19f and the small renders of 19c "
+        f"({time.time() - t_cli:.1f}s): the CLIs ok")
+    if cuda:
+        t0 = time.time()
+        scene = load_scene(fur_xml, hair_quality=quality, spp_override=1,
+                           device=device)
+        log(f"XML furball loaded in {time.time() - t0:.1f}s, "
+            f"{scene.arrays.hair.p0.shape[0]} segments")
+        for name, (run, metric) in runs.items():
+            t1 = time.time()
+            f = _timed_run(lambda pr: run(scene, pr), reset_all)
+            img = f.pop("out")
+            f["mean"] = _check_image(img, name, metric is None)
+            f["secs"] = sum(f["steps"]) / max(len(f["steps"]), 1)
+            require(all(f["launches"][k] > 0
+                        for k in ("cull_phase_a", "phase_b")),
+                    f"{name} did not launch A and B: {f['launches']}")
+            facts[name] = f
+            log(f"phase 19c {name} ({time.time() - t1:.1f}s): {res}^2, "
+                f"{len(f['steps'])} timed wave(s), {f['secs']:.3f} s each, "
+                f"{f['queries'] / max(len(f['steps']), 1):.1f} tiled "
+                f"queries each; image mean {f['mean']:.6f}; launches "
+                f"{f['launches']}" + (f" (base and extra samples cut to "
+                                      f"{ADAPTIVE_CUT})"
+                                      if name == "adaptive" else ""))
+            del img
+    # 19d: the Markov chains
+    t0 = time.time()
+    if cuda:
+        sf = {d: small_fur(d) for d in ("cuda", "cpu")}
+        got = {}
+        for d, s in sf.items():
+            ev, n_dims = pssmlt.make_eval_u(s)
+            idx = torch.arange(4096, device=s.arrays.device)
+            u = pssmlt.fresh_uniforms(idx, 7919 + 1, 0, n_dims)
+            got[d] = [x.cpu() for x in ev(s.arrays, u)]
+        ok = torch.isclose(got["cuda"][1], got["cpu"][1], rtol=1e-3,
+                           atol=1e-6).all(-1)
+        share = float(ok.float().mean())
+        pos_eq = bool(torch.equal(got["cuda"][0], got["cpu"][0]))
+        log(f"small pool eval_u (4096 lanes, {n_dims} dims): positions "
+            f"equal {pos_eq}, radiance within 1e-3 on {share:.4f} of the "
+            f"lanes")
+        require(pos_eq and share >= EVAL_U_SHARE,
+                f"eval_u card against CPU: positions equal {pos_eq}, "
+                f"{share} of the lanes agree")
+        facts["eval_u_share"] = share
+        del sf
+        _card_cpu_images("pssmlt", small_fur, lambda s: pssmlt.render_pssmlt(
+            s, n_chains=1024, n_mutations=4))
+        _card_cpu_images("erpt", small_fur, lambda s: erpt.render_erpt(
+            s, n_seeds=1024, n_mutations=4))
+        for name, fn, chains in (
+                ("pssmlt", pssmlt.render_pssmlt, pssmlt.pssmlt_chains),
+                ("erpt", erpt.render_erpt, erpt.erpt_chains)):
+            t1 = time.time()
+            kw = {"n_chains" if name == "pssmlt" else "n_seeds": MC_CHAINS}
+            f = _timed_run(lambda pr: fn(scene, n_mutations=MC_MUTATIONS,
+                                         progress=pr, **kw), reset_all)
+            img = f.pop("out")
+            f["mean"] = _check_image(img, name)
+            f["secs"] = sum(f["steps"]) / len(f["steps"])
+            # the same chains again, for their pool's b and accept flags
+            ch = chains(scene, n_mutations=MC_MUTATIONS, **kw)
+            f["accept_share"] = float(torch.stack(
+                [acc for _, acc in ch.steps]).float().mean())
+            f["b"] = float(ch.b)
+            require(all(f["launches"][k] > 0
+                        for k in ("cull_phase_a", "phase_b")),
+                    f"{name} did not launch A and B: {f['launches']}")
+            facts[name] = f
+            log(f"phase 19d {name} ({time.time() - t1:.1f}s): {MC_CHAINS} "
+                f"chains x {MC_MUTATIONS} mutations (cut) at {res}^2, "
+                f"depth 65: {f['wall']:.2f} s in all with the pool, "
+                f"{f['secs']:.3f} s per Metropolis step, "
+                f"{f['queries'] / (MC_MUTATIONS + 1):.1f} tiled queries per "
+                f"step, accepted {f['accept_share']:.3f}, b {f['b']:.5f}; "
+                f"image mean {f['mean']:.6f}; launches {f['launches']}")
+            del img
+        del scene
+
+    # ---- 19e: spectral on the Marschner furball ----
+    t0 = time.time()
+    if cuda:
+        mat_s = scene_xmls.write_scene(os.path.join(tmp, "small"),
+                                       "materials", res=32)
+        _card_cpu_images(
+            f"spectral ({SPECTRAL_BINS} bins, dispersion 0.0042, the "
+            f"materials stand-in's dielectrics)",
+            lambda d: load_scene(mat_s, hair_quality=0.1, spp_override=1,
+                                 max_depth_override=4, device=d),
+            lambda s: spectral.render_spectral(s, n_bins=SPECTRAL_BINS,
+                                               spp=1, cauchy_b=0.0042))
+        scene = bench_scene(quality=quality, res=res, depth=65, spp=1,
+                            device=device, material="marschner")
+        f = _timed_run(lambda pr: spectral.render_spectral(
+            scene, n_bins=SPECTRAL_BINS, spp=1, progress=pr), reset_all)
+        img = f.pop("out")
+        f["mean"] = _check_image(img, "spectral")
+        # at 1 spp a band's path render is one wave: one progress call
+        bands = SPECTRAL_BINS // 3
+        require(len(f["steps"]) == bands, f"spectral: {len(f['steps'])} "
+                f"waves for {bands} bands")
+        f["band_s"] = f["steps"]
+        f["secs"] = sum(f["band_s"]) / bands
+        # each band's arrays and Marschner tables, timed alone
+        A, lam, _ = spec_basis.upsample_basis(SPECTRAL_BINS)
+        f["tables_s"] = []
+        for g in range(bands):
+            torch.cuda.synchronize()
+            t1 = time.time()
+            spectral.respectralize_arrays(scene, A[3 * g:3 * g + 3],
+                                          lam[3 * g:3 * g + 3])
+            torch.cuda.synchronize()
+            f["tables_s"].append(time.time() - t1)
+        require(all(f["launches"][k] > 0 for k in ("cull_phase_a", "phase_b")),
+                f"spectral did not launch A and B: {f['launches']}")
+        facts["spectral"] = f
+        log(f"phase 19e ({time.time() - t0:.1f}s): spectral, "
+            f"{SPECTRAL_BINS} bins in {bands} bands at {res}^2, 1 spp, "
+            f"the Marschner furball: {f['secs']:.3f} s per band, the band "
+            f"arrays and tables {[round(x, 3) for x in f['tables_s']]} s; "
+            f"image mean {f['mean']:.6f}; launches {f['launches']}")
+        del scene, img
+
+    return facts, report
+
+
+def l_kernel_entries(report, facts):
+    """The kernels line's entries for kernel L: its time on the floor
+    cell's camera wave, its launches over the timed irrcache waves (the
+    gradient instance in the default wave, the other in the wave on the
+    cosine-ray cache)."""
+    runs = {"irrcache_interp_grad": "irrcache",
+            "irrcache_interp": "irrcache_nograd"}
+    entries = []
+    for name, f in sorted(report.items()):
+        run = runs[name]
+        entries.append(dict(
+            name=name, route="cuda", source="hairpt_torch/csrc/irrcache.cu",
+            replaces=L_REPLACES, launches=facts[run]["launches"][name],
+            max_abs_err=f["max_abs_err"], max_rel_err=f["max_rel_err"],
+            has_cut_differ=f["has_cut_differ"], ms=f["ms"],
+            plain_ms=f["plain_ms"], bound_ms=f["bound_ms"],
+            bound_by=f["bound_by"], library_ms=None, timed_on=f["label"],
+            launched_by=f"the timed floor-cell wave of phase 19b ({run})",
+            lanes=f["lanes"], valid_lanes=f["valid_lanes"],
+            records=f["records"], cut_share=f["cut_share"]))
     return entries
 
 
@@ -5130,11 +5676,13 @@ def main() -> int:
     from hairpt_torch.ops import intersect_swept as iswept
     from hairpt_torch.ops import intersect_tiled as itiled
     from hairpt_torch.ops import phaseb_kernels as pk
+    from hairpt_torch.ops import irrcache_interp as ic
     from hairpt_torch.ops import photon_query as pq
     from hairpt_torch.ops import tiled_kernels as tk
     from hairpt_torch.models import media
 
     def reset_all():
+        ic.reset_counts()
         media.reset_counts()
         pq.reset_counts()
         tk.reset_counts()
@@ -5162,11 +5710,11 @@ def main() -> int:
 
         # ---- 1. builds, all at once ----
         t0 = time.time()
-        with ThreadPoolExecutor(11) as ex:
+        with ThreadPoolExecutor(12) as ex:
             futs = [ex.submit(f) for f in (tk.lib, tk.oct_lib, pk.lib,
                                            pk.cull_lib, ipk.lib, gi.lib,
                                            isec.lib, iblk.lib, media.lib,
-                                           pq.lib)]
+                                           pq.lib, ic.lib)]
             f_b = ex.submit(bvh._load_native)
             for f in futs:
                 f.result()
@@ -5176,7 +5724,8 @@ def main() -> int:
         for name in ("hairpt_tiled", "hairpt_octets", "hairpt_phaseb",
                      "hairpt_swept_cull", "hairpt_packed",
                      "hairpt_instanced", "hairpt_perray", "hairpt_blocked",
-                     "hairpt_woodcock", "hairpt_photons"):
+                     "hairpt_woodcock", "hairpt_photons",
+                     "hairpt_irrcache"):
             for line in _native.BUILD_LOG.get(name, "").splitlines():
                 if "registers" in line or "spill" in line:
                     log(f"  ptxas {name}: {line.strip()}")
@@ -5356,12 +5905,19 @@ def main() -> int:
         prb = prb_step(scene, reset_all, bwd)
         log(f"phase 7 ({time.time() - t0:.1f}s): PRB step ok")
 
-        # ---- 16a/16b. rendering and the inverse step across GPUs ----
+        # ---- 16a/16b. rendering and the inverse step across GPUs; 10. the
+        # inverse-rendering twin, beside 16b's gloo ranks ----
         t0 = time.time()
-        shard = sharded_cells(scene, reset_all)
-        log(f"phase 16a/16b ({time.time() - t0:.1f}s): the sharded render "
-            f"and train step agree with one process (NCCL, world 1: "
-            f"{shard['wave_s']:.3f} s/wave, film all_reduce "
+
+        def phase_10():
+            t2 = time.time()
+            inverse_twin()
+            log(f"phase 10 ({time.time() - t2:.1f}s, beside 16b's gloo "
+                f"ranks): inverse twin ok")
+        shard = sharded_cells(scene, reset_all, between=phase_10)
+        log(f"phase 16a/16b ({time.time() - t0:.1f}s, 10 included): the "
+            f"sharded render and train step agree with one process (NCCL, "
+            f"world 1: {shard['wave_s']:.3f} s/wave, film all_reduce "
             f"{shard['allreduce_ms']:.4f} ms) and two gloo ranks agree with "
             f"world size 1")
 
@@ -5412,11 +5968,6 @@ def main() -> int:
         del scene_m
         log(f"phase 9 ({time.time() - t0:.1f}s): Marschner fwd+bwd step ok")
 
-        # ---- 10. the inverse-rendering twin ----
-        t0 = time.time()
-        inverse_twin()
-        log(f"phase 10 ({time.time() - t0:.1f}s): inverse twin ok")
-
         # ---- 11. the scene-XML entry point ----
         t0 = time.time()
         xml_launches = xml_entry_point(reset_all, rays_w / secs / 1e6)
@@ -5452,14 +6003,18 @@ def main() -> int:
             f"matches its plain walk on the teapot's and the heightfield's "
             f"waves")
         t1 = time.time()
+        floor = {}
+
+        def phase_12d():
+            t2 = time.time()
+            floor["launches"] = furball_floor(reset_all)
+            log(f"phase 12d ({time.time() - t2:.1f}s, beside 12c's CLI): "
+                f"the furball over the checkerboard agrees card against CPU")
         tea_secs, tea_rays, tea_launches, tea_n = teapot_entry_point(
-            reset_all)
-        log(f"phase 12c ({time.time() - t1:.1f}s): the teapot CLI and "
-            f"render ok")
-        t1 = time.time()
-        floor_launches = furball_floor(reset_all)
-        log(f"phase 12d ({time.time() - t1:.1f}s): the furball over the "
-            f"checkerboard agrees card against CPU")
+            reset_all, between=phase_12d)
+        floor_launches = floor["launches"]
+        log(f"phase 12c ({time.time() - t1:.1f}s, 12d included): the teapot "
+            f"CLI and render ok")
         kernels += f_kernel_entries(f_report, tea_launches, floor_launches,
                                     tea_n)
         log(f"phase 12 ({time.time() - t0:.1f}s, 12b in phase 2): ok")
@@ -5471,14 +6026,16 @@ def main() -> int:
         log(f"phase 13a ({time.time() - t0:.1f}s): kernel G matches its "
             f"plain version on the instanced stand-in's waves")
         t1 = time.time()
-        instanced_small(reset_all)
-        log(f"phase 13b ({time.time() - t1:.1f}s): the small instanced "
-            f"render agrees card against CPU")
-        t1 = time.time()
+
+        def phase_13b():
+            t2 = time.time()
+            instanced_small(reset_all)
+            log(f"phase 13b ({time.time() - t2:.1f}s, beside 13c's CLI): the "
+                f"small instanced render agrees card against CPU")
         inst_secs, inst_rays, g_launches, _, inst_n = instanced_entry_point(
-            reset_all)
-        log(f"phase 13c ({time.time() - t1:.1f}s): the instanced render "
-            f"and CLI ok")
+            reset_all, between=phase_13b)
+        log(f"phase 13c ({time.time() - t1:.1f}s, 13b included): the "
+            f"instanced render and CLI ok")
         kernels += g_kernel_entries(g_report, g_launches, inst_n)
         log(f"phase 13 ({time.time() - t0:.1f}s): ok")
 
@@ -5571,6 +6128,24 @@ def main() -> int:
         log(f"phase 18 ({time.time() - t0:.1f}s): ok; s per wave or pass "
             + ", ".join(f"{r} {light[r]['secs']:.3f}"
                         for r in LIGHT_TRACERS + ("fog",)))
+
+        # ---- 19. the other integrators (kernel L) ----
+        t0 = time.time()
+        integ, l_report = integrator_cells(reset_all)
+        kernels += l_kernel_entries(l_report, integ)
+        per = {"irrcache": ("wave", 1), "irrcache_nograd": ("wave", 1),
+               "pssmlt": ("step", MC_MUTATIONS + 1),
+               "erpt": ("step", MC_MUTATIONS + 1),
+               "spectral": ("band", SPECTRAL_BINS // 3)}
+        per.update({r: ("wave", len(integ[r]["steps"])) for r in AUX_RUNS})
+        for k in kernels:
+            for run, (unit, n) in per.items():
+                if k["name"] in integ[run]["launches"]:
+                    k[f"launches_per_{run}_{unit}"] = \
+                        integ[run]["launches"][k["name"]] / n
+        log(f"phase 19 ({time.time() - t0:.1f}s): ok; s per wave, step or "
+            f"band " + ", ".join(f"{r} {integ[r]['secs']:.3f}"
+                                 for r in per))
         require(all(k["launches"] > 0 for k in kernels),
                 "a kernel has no launches")
     except SmokeFailure as e:

@@ -8,18 +8,23 @@ counterpart of the reference's `mitsuba` executable).
 
 Loads a scene XML (scene/xml_loader.py: the hair scenes), renders it with
 the path integrator, or with the one the XML's <integrator> or
---integrator names (volpath, volpath_simple = volpath, ptracer, bdpt,
-vpl, ppm, photonmapper = ppm, sppm; ppm in a scene with a medium is the
-volumetric photon map), as the JAX package's CLI dispatches them, on the
-card, or on the CPU with --cpu (the plain versions of the kernels), and
-writes the image named by -o (.png, .exr, .bmp or .tga) with .exr, .npy
-and .pfm of the linear radiance beside it. A scene with a dipole subsurface material
-gets its irradiance prepass (integrators/sss.attach_dipole) before the
-render. Without --cpu a machine with no card exits non-zero before
-loading anything. What the port does not render raises
-NotImplementedError naming its ROADMAP item: the --spectral, --bands,
---profile and --stats options, the other integrators, JPEG output and the
-util and import commands.
+--integrator names, as the JAX package's CLI dispatches them: volpath
+(volpath_simple = volpath), ptracer, bdpt, vpl, ppm (photonmapper = ppm;
+in a scene with a medium the volumetric photon map), sppm, direct, ao,
+irrcache, erpt, pssmlt, adaptive, multichannel (the radiance image, and
+each other channel as <base>.<channel>.npy beside it) and field:<name>
+(one of aux_integrators.FIELDS; field alone is shNormal); --spectral N
+renders N wavelength bins (--dispersion B: Cauchy dispersion of every
+eta) whatever the integrator. It runs on the card, or on the CPU with
+--cpu (the plain versions of the kernels), and writes the image named by
+-o (.png, .exr, .bmp or .tga) with .exr, .npy and .pfm of the linear
+radiance beside it. A scene with a dipole subsurface material gets its
+irradiance prepass (integrators/sss.attach_dipole) before the render.
+Without --cpu a machine with no card exits non-zero before loading
+anything. What the port does not render raises NotImplementedError
+naming its ROADMAP item: the mlt and motion integrators, the --bands,
+--profile and --stats options, JPEG output and the util and import
+commands.
 """
 from __future__ import annotations
 
@@ -30,7 +35,9 @@ import time
 
 ITEM_13 = "ROADMAP item 13"
 INTEGRATORS = ("path", "volpath", "volpath_simple", "ptracer", "bdpt",
-               "vpl", "photonmapper", "ppm", "sppm")
+               "vpl", "photonmapper", "ppm", "sppm", "direct", "ao",
+               "irrcache", "erpt", "pssmlt", "adaptive", "multichannel",
+               "field")
 # the JAX package's CLI aliases
 ALIASES = {"volpath_simple": "volpath", "photonmapper": "ppm"}
 
@@ -79,12 +86,14 @@ def _parser():
     r.add_argument("--bands", type=int, default=0,
                    help="out-of-core banded render (not ported)")
     r.add_argument("--spectral", type=int, default=0, metavar="N",
-                   help="spectral rendering (not ported)")
+                   help="render with N spectral bins (a multiple of 3) "
+                        "instead of RGB")
     r.add_argument("--dispersion", type=float, default=0.0,
-                   help="Cauchy B coefficient of --spectral (not ported)")
+                   help="Cauchy B coefficient (um^2) of dielectric "
+                        "dispersion in --spectral mode (0.0042: BK7)")
     r.add_argument("--integrator", default=None,
-                   help=", ".join(INTEGRATORS) + " (default: the scene "
-                        "XML's)")
+                   help=", ".join(INTEGRATORS) + ", field:<name> (default: "
+                        "the scene XML's)")
     for name in ("util", "import"):
         u = sub.add_parser(name, help="not ported")
         u.add_argument("args", nargs="*")
@@ -101,15 +110,14 @@ def main(argv=None):
                            logfile=args.log,
                            warnings_as_errors=args.warn_error)
 
-    if args.spectral or args.dispersion:
-        _refuse("spectral rendering (--spectral)")
     if args.bands > 0:
         _refuse("the banded render (--bands)")
     if args.profile:
         _refuse("--profile")
     if args.stats:
         _refuse("--stats")
-    if args.integrator not in (None,) + INTEGRATORS:
+    if args.integrator is not None \
+            and args.integrator.split(":", 1)[0] not in INTEGRATORS:
         _refuse(f"the {args.integrator} integrator")
     out = args.output or "output.png"
     base, ext = out.rsplit(".", 1) if "." in os.path.basename(out) \
@@ -168,7 +176,43 @@ def main(argv=None):
     integ = args.integrator or scene.config.integrator or "path"
     integ = ALIASES.get(integ, integ)
     prog = _progress if args.progress else None
-    if integ == "volpath":
+    if args.spectral:
+        from .integrators.spectral import render_spectral
+        img = render_spectral(scene, n_bins=args.spectral,
+                              spp=scene.config.spp, seed=args.seed,
+                              cauchy_b=args.dispersion)
+    elif integ == "ao":
+        from .integrators import aux_integrators as aux
+        img = aux.render_ao(scene, spp=scene.config.spp, progress=prog)
+    elif integ == "direct":
+        from .integrators import aux_integrators as aux
+        img = aux.render_direct(scene, seed=args.seed, progress=prog)
+    elif integ == "irrcache":
+        from .integrators import irrcache
+        img = irrcache.render_irrcache(scene, spp=scene.config.spp,
+                                       seed=args.seed, progress=prog)
+    elif integ == "erpt":
+        from .integrators import erpt
+        img = erpt.render_erpt(scene, seed=args.seed, progress=prog)
+    elif integ == "pssmlt":
+        from .integrators import pssmlt
+        img = pssmlt.render_pssmlt(scene, seed=args.seed, progress=prog)
+    elif integ == "adaptive":
+        from .integrators import aux_integrators as aux
+        img = aux.render_adaptive(scene, seed=args.seed, progress=prog)
+    elif integ == "multichannel":
+        from .integrators import aux_integrators as aux
+        chans = aux.render_multichannel(scene, spp=scene.config.spp,
+                                        seed=args.seed)
+        for name, im in chans.items():
+            if name != "radiance":
+                io_utils.write_npy(f"{base}.{name}.npy", im.cpu().numpy())
+        img = chans["radiance"]
+    elif integ.startswith("field"):
+        from .integrators import aux_integrators as aux
+        name = integ.split(":", 1)[1] if ":" in integ else "shNormal"
+        img = aux.render_field(scene, name, progress=prog)
+    elif integ == "volpath":
         from .integrators import volpath
         img = volpath.render_volpath(scene, spp=scene.config.spp,
                                      seed=args.seed, progress=prog)

@@ -431,6 +431,26 @@ class _Mirrored:
                             self._flip(u[..., 1], dim + 1)], dim=-1)
 
 
+class UniformSampler:
+    """A sampler that reads its values from explicit primary samples: dim
+    d of a lane is column d mod D of its row of uniforms [N, D] (the JAX
+    package's n_uniform_dims hook, the primary-sample space of pssmlt and
+    erpt; reference: ReplayableSampler, bidir/rsampler.h)."""
+
+    def __init__(self, uniforms):
+        self.u = uniforms
+
+    def take(self, order) -> "UniformSampler":
+        return UniformSampler(self.u[order])
+
+    def next_1d(self, dim: int):
+        return self.u[:, dim % self.u.shape[1]]
+
+    def next_2d(self, dim: int):
+        return torch.stack([self.next_1d(dim), self.next_1d(dim + 1)],
+                           dim=-1)
+
+
 def _run_query(fn, *args, **kwargs):
     return fn(*args, **kwargs)
 
@@ -459,7 +479,8 @@ class _QueryStash:
         return run
 
 
-def make_li_fn(scene, differentiable: bool = False, antithetic=False):
+def make_li_fn(scene, differentiable: bool = False, antithetic=False,
+               n_uniform_dims: int = 0):
     """The per-wave radiance estimator li(arr, pixel_idx, sample_idx) ->
     (radiance [N, 3], pos [N, 2], n_rays [] tensor).
 
@@ -472,7 +493,13 @@ def make_li_fn(scene, differentiable: bool = False, antithetic=False):
     table's float fields and the hair tables in `arr` may require grad.
 
     antithetic: False, True (mirror the BSDF sample's 2D dims, D_BSDF_U2
-    and D_BSDF_U2 + 1) or a tuple of per-bounce dim offsets to mirror."""
+    and D_BSDF_U2 + 1) or a tuple of per-bounce dim offsets to mirror.
+
+    n_uniform_dims > 0: li takes `uniforms` [N, n_uniform_dims] and every
+    sample dimension d reads its column d mod n_uniform_dims
+    (UniformSampler) instead of the procedural sampler; the wave then
+    runs at full width, without the staged widths, as in the JAX
+    package."""
     cfg = scene.config
     cam = scene.camera
     active_kinds = scene.active_kinds
@@ -645,19 +672,28 @@ def make_li_fn(scene, differentiable: bool = False, antithetic=False):
                          emission_allowed=torch.zeros_like(active),
                          duv_dx=st.duv_dx, duv_dy=st.duv_dy), n_new
 
-    def li(arr, pixel_idx, sample_idx, cam_to_world=None):
+    def li(arr, pixel_idx, sample_idx, cam_to_world=None, uniforms=None):
         """cam_to_world: the camera's [4, 4] pose for this wave (motion
         blur), else the scene camera's; it reaches every use of the
-        camera in the wave."""
+        camera in the wave. uniforms: [N, n_uniform_dims], the primary
+        samples (required when n_uniform_dims > 0)."""
         cam_l = cam if cam_to_world is None \
             else cam._replace(to_world=np.asarray(cam_to_world, np.float32))
         dev = pixel_idx.device
-        smp = rng.Sampler(cfg.sampler, pixel_idx, sample_idx)
         n = pixel_idx.shape[0]
-        px = (smp.pixel % cfg.width).to(torch.float32)
-        py = (smp.pixel // cfg.width).to(torch.float32)
-        if anti_rels:
-            smp = _Mirrored(smp, anti_rels)
+        pix = rng._u32(pixel_idx)
+        px = (pix % cfg.width).to(torch.float32)
+        py = (pix // cfg.width).to(torch.float32)
+        if n_uniform_dims > 0:
+            if uniforms is None or tuple(uniforms.shape) != (
+                    n, n_uniform_dims):
+                raise ValueError(f"li needs uniforms [{n}, "
+                                 f"{n_uniform_dims}]")
+            smp = UniformSampler(uniforms)
+        else:
+            smp = rng.Sampler(cfg.sampler, pixel_idx, sample_idx)
+            if anti_rels:
+                smp = _Mirrored(smp, anti_rels)
         jitter = smp.next_2d(DIM_CAM_POS)
         pos = torch.stack([px + jitter[..., 0], py + jitter[..., 1]], dim=-1)
         ap = aperture_sample(cam_l, smp)
@@ -687,7 +723,7 @@ def make_li_fn(scene, differentiable: bool = False, antithetic=False):
                 n_rays = n_rays + n_new
             return _flush_pending(arr, state), pos, n_rays
 
-        caps = stage_caps(n)
+        caps = stage_caps(n) if n_uniform_dims == 0 else [n]
         depth = 1
         st_full = state
         for si, w_ in enumerate(caps):

@@ -10,8 +10,10 @@ scene arrays in both packages. `$key` placeholders are substituted from
 
 What the port renders:
 - `<integrator type="path">` with maxDepth, and the types volpath,
-  volpath_simple, ptracer, bdpt, vpl, photonmapper, ppm and sppm, whose
-  renders the CLI dispatches;
+  volpath_simple, ptracer, bdpt, vpl, photonmapper, ppm, sppm, direct
+  (maxDepth 2 unless --depth overrides it, as in the JAX loader), ao,
+  irrcache, erpt, pssmlt, adaptive, multichannel and field, whose renders
+  the CLI dispatches;
 - every sensor of the JAX loader: perspective, thinlens (apertureRadius,
   focusDistance), orthographic, spherical, telecentric, radiancemeter,
   fluencemeter, irradiancemeter and perspective_rdist (kc), an unknown
@@ -77,7 +79,7 @@ ignores it (it reads only a BSDF's own texture).
 
 Every other element the JAX loader accepts raises NotImplementedError
 before any build work, naming the ROADMAP item that ports it (13: the
-other integrators (direct, ao, motion, the MLT family, ...), the irawan
+mlt and motion integrators, the irawan
 BSDF, LDR images other than PNG, and the rest). Nothing else is dropped
 silently.
 """
@@ -168,9 +170,12 @@ ITEM_13 = "ROADMAP item 13"
 # its own (item 13)
 _BSDF_PORTED = set(BSDF_KINDS) - {"irawan"}
 # the integrators the port renders (volpath_simple is volpath and
-# photonmapper is ppm, as in the JAX package's CLI)
+# photonmapper is ppm, as in the JAX package's CLI); mlt and motion wait
+# for item 13
 _INTEGRATORS_PORTED = ("path", "volpath", "volpath_simple", "ptracer",
-                       "bdpt", "vpl", "photonmapper", "ppm", "sppm")
+                       "bdpt", "vpl", "photonmapper", "ppm", "sppm",
+                       "direct", "ao", "irrcache", "erpt", "pssmlt",
+                       "adaptive", "multichannel", "field")
 _PHASE_KINDS = {"isotropic": med_mod.ISOTROPIC, "hg": med_mod.HG,
                 "rayleigh": med_mod.RAYLEIGH, "kkay": med_mod.KKAY,
                 "kkay_is": med_mod.KKAY_IS,
@@ -718,6 +723,8 @@ def load_scene(path: str, defines: dict | None = None,
     for integ in root.findall("integrator"):
         max_depth = _collect_props(integ, defines).get("maxDepth", 65)
         integrator_type = integ.get("type") or "path"
+        if integrator_type == "direct":
+            max_depth = 2
     if max_depth_override is not None:
         max_depth = max_depth_override
 

@@ -20,6 +20,7 @@ from hairpt.integrators import path as jpath
 from hairpt.ops import bvh as jbvh
 from hairpt.scene import xml_loader as jxl
 from hairpt_torch import cli
+from hairpt_torch.integrators import aux_integrators as taux
 from hairpt_torch.integrators import path as tpath
 from hairpt_torch.integrators import ptracer as tptracer
 from hairpt_torch.models.bsdf import registry as tmat
@@ -212,8 +213,11 @@ REFUSED = {
     # the other sensors and the surface BSDFs render (item 13's, refused
     # by an earlier slice); hk and irawan stay item 13
     "orthographic": (SENSOR.format(kind="orthographic") + HAIR, None),
+    # the direct integrator renders (item 13's, refused by an earlier
+    # slice): the path render at depth 2
     "direct": ("<integrator type=\"direct\"/>"
-               + SENSOR.format(kind="perspective") + HAIR, "13"),
+               + SENSOR.format(kind="perspective") + HAIR
+               + "<emitter type=\"constant\"/>", None),
     # a PNG bitmap renders; a JPEG one is item 13
     "bitmap": (SENSOR.format(kind="perspective")
                + "<bsdf type=\"diffuse\" id=\"d\"><texture "
@@ -281,6 +285,9 @@ def test_cli_refuses_what_the_port_does_not_render(tmp_path, monkeypatch,
         if case == "ptracer":
             assert s.config.integrator == "ptracer"
             ref = tptracer.render_ptracer(s)
+        elif case == "direct":
+            assert s.config.integrator == "direct"
+            ref = taux.render_direct(s)
         else:
             ref = tpath.render(s, spp=1)
         np.testing.assert_array_equal(img, ref.numpy())
@@ -291,13 +298,16 @@ def test_cli_refuses_what_the_port_does_not_render(tmp_path, monkeypatch,
                   str(tmp_path / "o.png"), "--cpu"])
 
 
-@pytest.mark.parametrize("extra", [["--spectral", "3"], ["--bands", "4"],
-                                   ["--integrator", "direct"], ["--stats"],
+@pytest.mark.parametrize("extra", [["-o", "out.jpg"], ["--bands", "4"],
+                                   ["--integrator", "motion"], ["--stats"],
                                    ["--profile", "trace"],
                                    ["--integrator", "mlt"]],
                          ids=lambda e: "_".join(e) if e[0] == "--integrator"
                          and e[1] == "mlt" else e[0])
 def test_cli_refuses_unported_options(tmp_path, extra):
+    """Each raises before anything is written (--spectral and the direct
+    integrator render now: JPEG output and the motion integrator took
+    their places here)."""
     xml = scene_xmls.write_scene(str(tmp_path), "furball")
     with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
         cli.main(["render", xml, "--cpu"] + extra)
