@@ -20,7 +20,8 @@ scattering), the light tracers and photon maps (ptracer, bdpt, vpl,
 ppm, sppm and the beam radiance estimate in fog, through kernel K, the
 hash-grid photon query), and the other integrators (direct, ao, field,
 adaptive, multichannel, irrcache through kernel L, the irradiance-cache
-interpolation, pssmlt, erpt and spectral).
+interpolation, pssmlt, erpt and spectral), path-space MLT with the
+specular manifold walk and the motion-vector integrator.
 
     python3 chip_smoke.py            # from the repository root, one card
 
@@ -327,6 +328,30 @@ Phases (each prints one line with its elapsed seconds):
        f. the CLI with --integrator multichannel on the furball XML (the
           .npy channels checked) and --integrator irrcache on the teapot
           XML, at 512 across and 1 spp.
+  20. path-space MLT, the manifold walk and motion vectors (kernels A, B
+      and F; no new kernel):
+       a. (inside 16c, on its loaded 1024^2 materials cell) render_mlt's
+          chains at hairpt's 16,384 chains and 16-fold pool, the
+          mutations cut from 64 to MLT_MUTATIONS (two rounds of lens,
+          caustic, manifold, bidir, mchain): the pool's s, s per round
+          and per mutation kind, tiled queries and A, B, F launches per
+          round, the share of chains matching each kind's pattern and
+          its mean acceptance; a finite image with a positive mean;
+       b. the small materials cell (64^2, hair quality 0.1, depth 8, 1,024
+          chains, one round) card against CPU: the pool pick and each
+          step's ok flags and acceptance on >= 97% of the lanes, the image
+          means within 2%;
+       c. the manifold walk on tests/test_manifold.py's mirror sphere
+          (4,096 lanes) on the card and the CPU: the converged share, the
+          distance to the analytic reflection point, ok flags and x card
+          against CPU;
+       d. (inside 14b, on its loaded motion cell) one render_motion wave
+          with 'd' at 1024^2 (s per wave, A, B, F and G launches); 'rd'
+          and 'ttd' on tests/test_motion.py's scenes at 64^2 card against
+          CPU (+inf pixels equal, finite ones within 1e-3 px);
+       e. the CLI with --integrator mlt on the teapot XML (hairpt's
+          defaults) and --integrator motion on the motion XML, at 512
+          across, beside 20b-20d.
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Any failed check exits
 non-zero before that line. Without CUDA the script exits non-zero at once.
@@ -3073,7 +3098,7 @@ def _timed(fn, secs):
 
 
 def motion_entry_point(reset_all, device="cuda", quality=HAIR_QUALITY,
-                       **xml_kw):
+                       also=None, **xml_kw):
     """Phase 14b/c: the motion stand-in (scene_xmls.motion: the furball's
     hair at quality 14, the moving teapot, the deformable pair, 16
     animated instances, the animated camera; shutter [0, 1], 1024^2, spp
@@ -3082,7 +3107,9 @@ def motion_entry_point(reset_all, device="cuda", quality=HAIR_QUALITY,
     re-pose's host seconds per shutter time, A, B, F and G launches per
     wave, no plain version on the card); the small stand-in on the card
     and with the plain versions on the CPU (means within MEAN_RTOL); and
-    the CLI as a subprocess (wall, build and render seconds). xml_kw and
+    the CLI as a subprocess (wall, build and render seconds). also:
+    callable(scene) run on the loaded cell after its timed waves, its
+    result under "also" (phase 20d's motion-vector wave). xml_kw and
     device "cpu" rehearse it small."""
     import tempfile
     import numpy as np
@@ -3162,6 +3189,8 @@ def motion_entry_point(reset_all, device="cuda", quality=HAIR_QUALITY,
         result = dict(secs=secs, rays=rays_w, launches=launches, waves=spp,
                       rebuild_s=list(reb), repose_s=list(rep),
                       build_s=built)
+        if also is not None:
+            result["also"] = also(scene)
         del scene, img
 
         # 14c's CLI (one shutter time at CLI_WIDTH across; the XML's
@@ -4086,7 +4115,7 @@ def materials_builder(res=1024, device="cuda", quality=HAIR_QUALITY,
 
 
 def materials_cell(reset_all, device="cuda", res=1024, quality=HAIR_QUALITY,
-                   small_res=64, small_quality=0.1):
+                   small_res=64, small_quality=0.1, also=None):
     """Phase 16c: the materials stand-in (scene_xmls.materials: the XML
     furball ringed by one sphere per surface BSDF and wrapper material,
     a checkerboard floor, the sunsky, a thin lens). The CLI at
@@ -4098,19 +4127,21 @@ def materials_cell(reset_all, device="cuda", res=1024, quality=HAIR_QUALITY,
     launches, no plain version on the card). At small_res (hair quality
     small_quality, depth 8): the render card against CPU (MEAN_RTOL),
     the diffuse gradient card against CPU (3b's bounds), PRB against the
-    differentiable mode on the card at depth 3. Returns the in-process
-    facts (None on the CPU, where a small res and quality rehearse it)."""
+    differentiable mode on the card at depth 3. also: callable(scene) run
+    on the loaded cell after its timed wave on the card, its result under
+    "also" (phase 20a's MLT). Returns the in-process facts (None on the
+    CPU, where a small res and quality rehearse it)."""
     import tempfile
     tmp_dir = tempfile.TemporaryDirectory(prefix="hairpt_materials_")
     try:
         return _materials_cell(reset_all, device, res, quality, small_res,
-                               small_quality, tmp_dir.name)
+                               small_quality, tmp_dir.name, also)
     finally:
         tmp_dir.cleanup()
 
 
 def _materials_cell(reset_all, device, res, quality, small_res,
-                    small_quality, tmp):
+                    small_quality, tmp, also=None):
     import numpy as np
     import torch
     from hairpt_torch.integrators import inverse, path
@@ -4195,6 +4226,8 @@ def _materials_cell(reset_all, device, res, quality, small_res,
         facts = dict(secs=secs, rays=rays_w, n_timed=n_timed,
                      queries=queries, launches=launches)
         del img
+        if also is not None:
+            facts["also"] = also(scene)
     del scene
 
     devs = ("cuda", "cpu") if device == "cuda" else ("cpu",)
@@ -5625,6 +5658,511 @@ def l_kernel_entries(report, facts):
     return entries
 
 
+# ---------------------------------------------------------------------------
+# phase 20: path-space MLT with the manifold walk, and the motion-vector
+# integrator, through kernels A, B and F (no new kernel: queries of 16,384
+# lanes and per-lane algebra)
+# ---------------------------------------------------------------------------
+
+# 20a: the mutations cut from hairpt's 64 to 10 (two rounds of the five
+# phases, so both bidirectional classes run); hairpt's 16,384 chains and
+# 16-fold pool
+MLT_MUTATIONS = 10
+MLT_PHASES = ("lens", "caustic", "manifold", "bidir", "mchain")
+# 20b: the small materials cell's first round, card against CPU: the pool
+# pick, each step's ok flags and its a (within 1e-3 relative + 1e-5) on
+# >= MLT_LANE_SHARE of the lanes
+MLT_SMALL_CHAINS = 1024
+MLT_LANE_SHARE = 0.97
+# 20c: the manifold walk on tests/test_manifold.py's mirror sphere (4,096
+# lanes): ok equal on >= 99% of the lanes, x within 1e-4 of the chord, and
+# every converged point within 0.03 of the analytic Fermat point
+WALK_LANES = 4096
+WALK_A = (0.0, 0.0, -3.0)
+WALK_B = (2.0, 1.0, -2.5)
+# 20d: the motion vectors' chain configs card against CPU: +inf pixels
+# equal, finite ones within MOTION_PX_TOL
+MOTION_PX_TOL = 1e-3
+MOTION_W = 64
+
+
+def _ab_f(launches):
+    """The launches of A, B and F in a counter dict."""
+    return {k: launches.get(k, 0) for k in ("cull_phase_a", "phase_b",
+                                            "packed_tri_closest",
+                                            "packed_tri_any")}
+
+
+def mlt_full(scene, reset_all, n_mutations=MLT_MUTATIONS, n_chains=None):
+    """20a (on the materials cell, inside phase 16c): render_mlt's chains
+    at hairpt's 16,384 chains and 16-fold pool with n_mutations steps:
+    the pool's s, each step's s (after a sync) and its phase's share of
+    matching chains and mean a, tiled queries and A, B, F launches per
+    round; the image (render_mlt's scale) finite with a positive mean."""
+    import numpy as np
+    import torch
+    from hairpt_torch.film import film as film_mod
+    from hairpt_torch.integrators import mlt
+    from hairpt_torch.ops import intersect_packed as ipk
+    from hairpt_torch.ops import intersect_tiled as itiled
+    from hairpt_torch.ops import tiled_kernels as tk
+
+    n = n_chains or MC_CHAINS
+    cfg = scene.config
+    dev = scene.arrays.device
+    cuda = dev.type == "cuda"
+
+    def counts():
+        return dict(_ab_f(dict(tk.LAUNCHES, **ipk.LAUNCHES)),
+                    queries=itiled.STATS["queries"])
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+    reset_all()
+    itiled.STATS.update(queries=0, max_passes=0, overflow_tiles=0)
+    sync()
+    t0 = time.time()
+    ch = mlt.mlt_chains(scene, n_chains=n, n_mutations=n_mutations, seed=0)
+    pool = counts()
+    splat = torch.zeros((cfg.height, cfg.width, 3), device=dev)
+    steps, rounds = [], []
+    last = counts()
+    t1 = time.time()
+    for s in ch.steps:
+        for pos, rgb in s.splats:
+            splat = film_mod.splat_add_only(scene.film, pos, rgb, splat)
+        sync()
+        secs = time.time() - t1
+        steps.append(dict(phase=s.phase, r=s.r, secs=secs,
+                          match=mlt.match_share(s.phase, s.st,
+                                                scene.arrays),
+                          ok=float((s.a > 0).float().mean()),
+                          mean_a=float(s.a.mean()),
+                          accepted=float(s.acc.float().mean())))
+        if s.phase == MLT_PHASES[-1]:
+            now = counts()
+            rounds.append({k: now[k] - last[k] for k in now})
+            last = now
+        t1 = time.time()
+    img = splat * (ch.b * (cfg.width * cfg.height) / (n * ch.total_steps))
+    sync()
+    wall = time.time() - t0
+    mean = float(img.mean())
+    plain = dict(tk.PLAIN_ON_CUDA, **ipk.PLAIN_ON_CUDA)
+    require(bool(torch.isfinite(img).all()) and np.isfinite(mean)
+            and mean > 0, f"mlt image mean {mean}")
+    per_round = [sum(x["secs"] for x in steps if x["r"] == r)
+                 for r in range(len(rounds))]
+    kinds = {}
+    for ph in MLT_PHASES:
+        xs = [x for x in steps if x["phase"] == ph]
+        kinds[ph] = dict(secs=sum(x["secs"] for x in xs) / len(xs),
+                         match=sum(x["match"] for x in xs) / len(xs),
+                         ok=sum(x["ok"] for x in xs) / len(xs),
+                         mean_a=sum(x["mean_a"] for x in xs) / len(xs),
+                         accepted=sum(x["accepted"] for x in xs) / len(xs))
+    facts = dict(pool_s=ch.pool_s, wall=wall, round_s=per_round,
+                 kinds=kinds, rounds=rounds, pool=pool, mean=mean,
+                 b=float(ch.b), n=n, steps=ch.total_steps)
+    log(f"20a mlt: {n} chains, a pool of {n * 16} lanes in "
+        f"{ch.pool_s:.3f} s ({pool['queries']} tiled queries, A/B/F "
+        f"{_ab_f(pool)}), {ch.total_steps} steps ({n_mutations} of hairpt's "
+        f"64) in {len(rounds)} rounds: {[round(x, 3) for x in per_round]} "
+        f"s per round; per kind s, matching share, ok share, mean a, "
+        + "; ".join(f"{k} {v['secs']:.3f} s {v['match']:.4f} {v['ok']:.4f} "
+                    f"{v['mean_a']:.4f}" for k, v in kinds.items())
+        + f"; per round {rounds}; image mean {mean:.6f}, b {facts['b']:.6f},"
+          f" {wall:.2f} s in all")
+    if cuda:
+        require(all(all(r[k] > 0 for k in ("cull_phase_a", "phase_b",
+                                            "packed_tri_closest",
+                                            "packed_tri_any"))
+                    for r in rounds),
+                f"an mlt round did not launch A, B and F: {rounds}")
+        require(all(v == 0 for v in plain.values()),
+                f"plain versions ran on CUDA tensors: {plain}")
+    return facts
+
+
+def motion_full(scene, reset_all):
+    """20d's full-width part (on the motion cell, inside phase 14b): one
+    wave of render_motion with the 'd' configuration: s per wave, tiled
+    queries, A, B, F and G launches; finite vectors on the hit pixels."""
+    import torch
+    from hairpt_torch.integrators import motion
+    from hairpt_torch.ops import instancing as gi
+    from hairpt_torch.ops import intersect_packed as ipk
+    from hairpt_torch.ops import intersect_tiled as itiled
+    from hairpt_torch.ops import tiled_kernels as tk
+
+    motion.render_motion(scene)            # warm-up
+    reset_all()
+    itiled.STATS.update(queries=0, max_passes=0, overflow_tiles=0)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    img = motion.render_motion(scene)
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    launches = dict(_ab_f(dict(tk.LAUNCHES, **ipk.LAUNCHES)),
+                    **gi.LAUNCHES)
+    fin = torch.isfinite(img).all(-1)
+    share = float(fin.float().mean())
+    moving = float((img[fin].abs().amax(-1) > 1e-3).float().mean())
+    log(f"20d motion vectors ('d') on the motion cell "
+        f"({scene.config.width}^2): {secs:.3f} s per wave, "
+        f"{itiled.STATS['queries']} tiled queries, launches {launches}; "
+        f"{share:.4f} of the pixels tracked, {moving:.4f} of them moving; "
+        f"+inf elsewhere")
+    require(share > 0.1 and moving > 0.1 and bool(
+        (img[~fin] == float("inf")).all()), f"motion vectors: {share} "
+        f"tracked, {moving} moving")
+    require(launches["cull_phase_a"] > 0 and launches["phase_b"] > 0
+            and launches["packed_tri_closest"] > 0,
+            f"the motion-vector wave did not launch A, B and F: {launches}")
+    return dict(secs=secs, launches=launches, tracked=share,
+                queries=itiled.STATS["queries"])
+
+
+def _translate(v):
+    import numpy as np
+    m = np.eye(4)
+    m[:3, 3] = v
+    return m
+
+
+def motion_chain_scene(kind, device):
+    """tests/test_motion.py's 'rd' mirror (a mirror at z = 3, a quad
+    behind the camera moving +0.4 in x) or 'ttd' thin glass (a slab of
+    IOR 1.5 at z = 1.4 / 1.6, a quad at z = 3 moving +0.3), at
+    MOTION_W^2."""
+    import numpy as np
+    from hairpt_torch.film.film import Film
+    from hairpt_torch.models import shapes as shp
+    from hairpt_torch.models.bsdf import registry as mat
+    from hairpt_torch.models.sensors import Camera
+    from hairpt_torch.scene.scene import SceneBuilder
+
+    def scaled(z, s):
+        m = _translate([0, 0, z])
+        m[0, 0] = m[1, 1] = s
+        return m
+    b = SceneBuilder(device=device)
+    d = b.add_material(kind=mat.DIFFUSE, diffuse=(0.5, 0.5, 0.5))
+    if kind == "rd":
+        m = b.add_material(kind=mat.CONDUCTOR, diffuse=(1.0, 1.0, 1.0))
+        b.add_mesh(shp.rectangle(), m, to_world=scaled(3.0, 3.0))
+        b.add_mesh(shp.rectangle(), d, to_world=_translate([0, 0, -2.0]),
+                   motion=_translate([0.4, 0, 0]))
+    else:
+        g = b.add_material(kind=mat.DIELECTRIC, eta=1.5)
+        for z in (1.4, 1.6):
+            b.add_mesh(shp.rectangle(), g, to_world=scaled(z, 3.0))
+        b.add_mesh(shp.rectangle(), d, to_world=scaled(3.0, 2.0),
+                   motion=_translate([0.3, 0, 0]))
+    W = MOTION_W
+    return b.build(Camera.perspective(np.eye(4), 90.0, W, W),
+                   Film.make(W, W, "box"), spp=1, max_depth=4,
+                   traversal="packed")
+
+
+def _fermat_sphere(a, b):
+    """The reflection point on the unit sphere seen from a and b
+    (tests/test_manifold.py's oracle: a grid, then local refinement)."""
+    import numpy as np
+    th = np.linspace(0, np.pi, 400)
+    ph = np.linspace(-np.pi, np.pi, 800)
+    T, P = np.meshgrid(th, ph, indexing="ij")
+    x = np.stack([np.sin(T) * np.cos(P), np.sin(T) * np.sin(P),
+                  np.cos(T)], -1)
+    cost = np.linalg.norm(x - a, axis=-1) + np.linalg.norm(x - b, axis=-1)
+    cost[~((x @ a > 0) & (x @ b > 0))] = np.inf
+    i, j = np.unravel_index(np.argmin(cost), cost.shape)
+    for _ in range(40):
+        dth = th[1] - th[0]
+        th2 = np.linspace(T[i, j] - dth, T[i, j] + dth, 21)
+        ph2 = np.linspace(P[i, j] - dth, P[i, j] + dth, 21)
+        T, P = np.meshgrid(th2, ph2, indexing="ij")
+        x = np.stack([np.sin(T) * np.cos(P), np.sin(T) * np.sin(P),
+                      np.cos(T)], -1)
+        cost = np.linalg.norm(x - a, axis=-1) \
+            + np.linalg.norm(x - b, axis=-1)
+        i, j = np.unravel_index(np.argmin(cost), cost.shape)
+        th = th2
+    return x[i, j]
+
+
+def walk_run(dev):
+    """20c on one device: the manifold walk (16 iterations, 80 queries) on
+    the unit mirror sphere (96 x 192 triangles) from WALK_A to WALK_B,
+    WALK_LANES lanes started from jittered rays: x, ok, the seconds, the
+    converged share and the converged points' largest distance to the
+    analytic reflection point."""
+    import numpy as np
+    import torch
+    from hairpt_torch.core.math import Ray
+    from hairpt_torch.film.film import Film
+    from hairpt_torch.integrators import manifold
+    from hairpt_torch.integrators.common import scene_intersect
+    from hairpt_torch.integrators.path import _swept_params
+    from hairpt_torch.models import shapes as shp
+    from hairpt_torch.models.bsdf import registry as mat
+    from hairpt_torch.models.sensors import Camera
+    from hairpt_torch.scene.scene import SceneBuilder
+
+    a = np.asarray(WALK_A, np.float32)
+    bp = np.asarray(WALK_B, np.float32)
+    rs = np.random.RandomState(0)
+    tgt = np.array([0.15, 0.1, 1.0]) + rs.randn(WALK_LANES, 3) * 0.05
+    d0 = (tgt / np.linalg.norm(tgt, axis=-1, keepdims=True)).astype(
+        np.float32)
+    b = SceneBuilder(device=dev)
+    b.add_mesh(shp.sphere(1.0, 96, 192), b.add_material(kind=mat.DIFFUSE))
+    s = b.build(Camera.perspective(np.eye(4), 60.0, 8, 8),
+                Film.make(8, 8, "box"), spp=1, max_depth=2)
+    n = WALK_LANES
+    at = torch.as_tensor(np.tile(a, (n, 1)), device=dev)
+    bt = torch.as_tensor(np.tile(bp, (n, 1)), device=dev)
+    h = scene_intersect(s.arrays, Ray(
+        o=at, d=torch.as_tensor(d0, device=dev),
+        mint=torch.zeros(n, device=dev),
+        maxt=torch.full((n,), float("inf"), device=dev)),
+        **_swept_params(s.config))
+    t0 = time.time()
+    x, _, ok = manifold.walk(s.arrays, s.config, at, bt, h)
+    x, ok = x.cpu().numpy(), ok.cpu().numpy()
+    secs = time.time() - t0
+    dist = np.linalg.norm(x[ok] - _fermat_sphere(a, bp), axis=-1)
+    out = dict(x=x, ok=ok, secs=secs, conv=float(ok.mean()),
+               dist=float(dist.max()) if ok.any() else float("inf"))
+    log(f"20c manifold walk on {dev}: {n} lanes, {out['conv']:.4f} "
+        f"converged in {secs:.3f} s (80 queries), largest distance to the "
+        f"Fermat point {out['dist']:.4g}")
+    require(out["conv"] > 0.5 and out["dist"] < 0.03,
+            f"the manifold walk on {dev}: {out['conv']} converged, "
+            f"{out['dist']} from the Fermat point")
+    return out
+
+
+def walk_compare(c, p):
+    """20c card against CPU: ok equal on >= 99% of the lanes, x within
+    1e-4 of the chord on the lanes both call ok."""
+    import numpy as np
+    ok_eq = float((c["ok"] == p["ok"]).mean())
+    both = c["ok"] & p["ok"]
+    chord = np.linalg.norm(np.asarray(WALK_A) - p["x"][both], axis=-1)
+    err = float((np.linalg.norm(c["x"][both] - p["x"][both], axis=-1)
+                 / chord).max())
+    log(f"20c card against CPU: ok equal on {ok_eq:.4f} of the lanes, x "
+        f"within {err:.3g} of the chord")
+    require(ok_eq >= 0.99 and err <= 1e-4, f"the manifold walk card against "
+            f"CPU: ok equal on {ok_eq}, x within {err}")
+    return dict(ok_eq=ok_eq, err=err)
+
+
+def mlt_small_run(dev, small=SMALL19):
+    """20b on one device: the small materials cell (materials_builder at
+    small's res and quality, depth 8) through MLT_SMALL_CHAINS chains,
+    one round: the pool's luminances, the pick, each step's ok flags and
+    a, the image mean."""
+    import torch
+    from hairpt_torch.film import film as film_mod
+    from hairpt_torch.integrators import mlt
+
+    s = with_config(materials_builder(small["res"], dev, small["quality"]),
+                    max_depth=small["depth"])
+    t0 = time.time()
+    ch = mlt.mlt_chains(s, n_chains=MLT_SMALL_CHAINS,
+                        n_mutations=len(MLT_PHASES), seed=0)
+    splat = torch.zeros((s.config.height, s.config.width, 3),
+                        device=s.arrays.device)
+    ok, a = [], []
+    for st in ch.steps:
+        for pos, rgb in st.splats:
+            splat = film_mod.splat_add_only(s.film, pos, rgb, splat)
+        ok.append((st.a > 0).cpu())
+        a.append(st.a.cpu())
+    img = splat * (ch.b * (s.config.width * s.config.height)
+                   / (MLT_SMALL_CHAINS * ch.total_steps))
+    out = dict(pick=ch.pick.cpu(), l_pool=ch.l_pool.cpu(), ok=ok, a=a,
+               mean=_check_image(img, f"small mlt on {dev}"),
+               secs=time.time() - t0)
+    log(f"20b small mlt on {dev}: {out['secs']:.1f} s, image mean "
+        f"{out['mean']:.6f}")
+    return out
+
+
+def mlt_small_compare(c, p):
+    """20b card against CPU: the pool's luminances lane by lane (>=
+    MLT_LANE_SHARE within 1e-3 relative + 1e-6); the pick from the CPU's
+    luminances on the card equal to the CPU's on >= 99.9% of the chains;
+    on the chains whose own picks agree, each step's ok flags and a
+    (1e-3 relative + 1e-5) on >= MLT_LANE_SHARE; the image means within
+    MEAN_RTOL. The share of chains whose picks agree is reported: a pool
+    path that diverges between the devices (float32 rounding of a
+    sampling decision) moves the cumulative sum behind it."""
+    import torch
+    from hairpt_torch.core import rng
+    from hairpt_torch.integrators.pssmlt import pick_from_pool
+
+    lp = torch.isclose(c["l_pool"], p["l_pool"], rtol=1e-3, atol=1e-6)
+    l_share = float(lp.float().mean())
+    n = c["pick"].shape[0]
+    idx = torch.arange(n, device="cuda")
+    pick_k = pick_from_pool(p["l_pool"].cuda(),
+                            rng.uniform_1d(idx, 9, 0)).cpu()
+    machine = float((pick_k == p["pick"]).float().mean())
+    same = c["pick"] == p["pick"]
+    pick = float(same.float().mean())
+    shares = []
+    for oc, op, ac, ap in zip(c["ok"], p["ok"], c["a"], p["a"]):
+        agree = (oc == op) & torch.isclose(ac, ap, rtol=1e-3, atol=1e-5)
+        shares.append(float(agree[same].float().mean()))
+    rel = abs(c["mean"] - p["mean"]) / p["mean"]
+    log(f"20b card against CPU: pool luminances within 1e-3 on {l_share:.4f}"
+        f" of the {c['l_pool'].shape[0]} lanes; the card's pick from the "
+        f"CPU's pool equal on {machine:.4f}; the chains' own picks equal on "
+        f"{pick:.4f}; on those, ok and a agree per step on "
+        f"{dict(zip(MLT_PHASES, [round(x, 4) for x in shares]))}; image "
+        f"means rel diff {rel:.3g}")
+    require(l_share >= MLT_LANE_SHARE and machine >= 0.999
+            and min(shares) >= MLT_LANE_SHARE and rel <= MEAN_RTOL,
+            f"small mlt card against CPU: pool {l_share}, pick {machine}, "
+            f"steps {shares}, means {rel}")
+    return dict(pool=l_share, pick_machine=machine, pick=pick,
+                shares=shares, rel=rel)
+
+
+def motion_chains_run(dev):
+    """20d's small part on one device: 'rd' and 'ttd' on
+    tests/test_motion.py's scenes at MOTION_W^2."""
+    import numpy as np
+    from hairpt_torch.integrators import motion
+
+    imgs = {}
+    for kind in ("rd", "ttd"):
+        t0 = time.time()
+        imgs[kind] = motion.render_motion(motion_chain_scene(kind, dev),
+                                          config=kind).cpu().numpy()
+        log(f"20d '{kind}' on {dev}: {time.time() - t0:.2f} s, "
+            f"{np.isfinite(imgs[kind]).all(-1).mean():.4f} of the pixels "
+            f"tracked")
+    return imgs
+
+
+def motion_chains_compare(c, p):
+    """20d card against CPU: the +inf pixels equal, the finite ones
+    within MOTION_PX_TOL."""
+    import numpy as np
+    out = {}
+    for kind in ("rd", "ttd"):
+        a, b = c[kind], p[kind]
+        fa, fb = np.isfinite(a), np.isfinite(b)
+        same = bool((fa == fb).all()) and bool((a[~fa] == np.inf).all())
+        err = float(np.abs(a[fa & fb] - b[fa & fb]).max()) \
+            if (fa & fb).any() else 0.0
+        out[kind] = dict(same_inf=same, err=err,
+                         tracked=float(fb.all(-1).mean()))
+        log(f"20d '{kind}' card against CPU: +inf pixels equal {same}, "
+            f"finite ones within {err:.3g}")
+        require(same and err <= MOTION_PX_TOL and fb.any(),
+                f"motion '{kind}' card against CPU: +inf equal {same}, "
+                f"largest difference {err}")
+    return out
+
+
+def cpu_refs(path):
+    """The CPU sides of 20b, 20c and 20d (chip_smoke.py --cpu-refs PATH,
+    a subprocess of phase 20 beside its card work), saved to PATH with
+    torch.save. Four intra-op threads, so the card's process keeps its
+    cores."""
+    import torch
+    torch.set_num_threads(4)
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    try:
+        refs = dict(mlt=mlt_small_run("cpu"), walk=walk_run("cpu"),
+                    motion=motion_chains_run("cpu"))
+    except SmokeFailure as e:
+        print(f"chip_smoke --cpu-refs: FAILED: {e}", file=sys.stderr)
+        return 1
+    torch.save(refs, path)
+    return 0
+
+
+def mlt_motion_cells(device="cuda", quality=HAIR_QUALITY):
+    """Phase 20's parts after phase 19: the CPU sides of 20b-20d in a
+    subprocess (cpu_refs) and the CLIs (20e: --integrator mlt on the
+    teapot XML at CLI_WIDTH across with hairpt's defaults, --integrator
+    motion on the motion XML) started first; the card sides of 20b, 20c
+    and 20d's chain configs beside them, then each held against its CPU
+    side. device "cpu" rehearses the CLIs and the CPU sides only."""
+    import tempfile
+    import numpy as np
+    import torch
+    from hairpt_torch.scene import scene_xmls
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    facts = {}
+    with tempfile.TemporaryDirectory(prefix="hairpt_mlt_") as tmp:
+        t_all = time.time()
+        refs = os.path.join(tmp, "cpu_refs.pt")
+        err = open(os.path.join(tmp, "cpu_refs.stderr"), "w+")
+        ref_proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--cpu-refs", refs],
+            cwd=here, stdout=subprocess.DEVNULL, stderr=err)
+        tea = scene_xmls.write_scene(tmp, "teapot")
+        mot = scene_xmls.write_scene(tmp, "motion")
+        clis = [("mlt", _cli_start(
+            tea, os.path.join(tmp, "out", "tea_mlt.png"), quality, device,
+            spp=1, res_scale=CLI_WIDTH / TEAPOT_RES[0],
+            extra=["--integrator", "mlt"])),
+            ("motion", _cli_start(
+                mot, os.path.join(tmp, "out", "motion_vec.exr"), quality,
+                device, spp=1, res_scale=CLI_WIDTH / 1024,
+                extra=["--integrator", "motion"]))]
+        card = None
+        if device == "cuda":
+            t0 = time.time()
+            card = dict(mlt=mlt_small_run("cuda"), walk=walk_run("cuda"),
+                        motion=motion_chains_run("cuda"))
+            log(f"phase 20b-20d on the card ({time.time() - t0:.1f}s)")
+        try:
+            rc = ref_proc.wait(timeout=600)
+        finally:
+            if ref_proc.poll() is None:
+                ref_proc.kill()
+                ref_proc.wait()
+        err.seek(0)
+        msg = err.read()
+        err.close()
+        require(rc == 0, f"the CPU references exited {rc}:\n{msg[-3000:]}")
+        log(f"20b-20d CPU references in a subprocess: "
+            f"{time.time() - t_all:.1f}s wall")
+        if card is not None:
+            ref = torch.load(refs, weights_only=False)
+            facts["small"] = mlt_small_compare(card["mlt"], ref["mlt"])
+            facts["walk"] = walk_compare(card["walk"], ref["walk"])
+            facts["chains"] = motion_chains_compare(card["motion"],
+                                                    ref["motion"])
+        for name, h in clis:
+            wall, t_build, t_render, img = _cli_wait(h)
+            fin = np.isfinite(img)
+            if name == "mlt":
+                require(fin.all() and img.mean() > 0,
+                        f"mlt CLI image mean {img.mean()}")
+            else:
+                require(fin.any() and (img[~fin] == np.inf).all(),
+                        "motion CLI image has no tracked pixel")
+            facts[f"cli {name}"] = dict(wall=wall, build=t_build,
+                                        render=t_render)
+            log(f"20e CLI {name} ({img.shape[1]} x {img.shape[0]}): exit 0 "
+                f"in {wall:.1f}s wall beside 20b-20d, built in {t_build}s, "
+                f"rendered in {t_render}s"
+                + (f"; image mean {img.mean():.6f}" if name == "mlt" else
+                   f"; {fin.all(-1).mean():.4f} of the pixels tracked"))
+        log(f"phase 20b-20e ({time.time() - t_all:.1f}s): ok")
+    return facts
+
 def warm_up(scene, label, render=None, max_timed=2):
     """One warm-up wave of render (path.render unless given). Returns
     (progress callback, the lists it fills with each wave's seconds and
@@ -6050,10 +6588,11 @@ def main() -> int:
         walk_floor(reset_all)
         log(f"phase 14d, teapot and floor ({time.time() - t1:.1f}s): ok")
         t1 = time.time()
-        motion = motion_entry_point(reset_all)
-        log(f"phase 14b/c ({time.time() - t1:.1f}s): the motion cell, the "
-            f"small card-against-CPU render and the CLI ok "
-            f"({motion['secs']:.3f} s/wave)")
+        motion = motion_entry_point(
+            reset_all, also=lambda s: motion_full(s, reset_all))
+        log(f"phase 14b/c ({time.time() - t1:.1f}s, 20d's full-width wave "
+            f"included): the motion cell, the small card-against-CPU render "
+            f"and the CLI ok ({motion['secs']:.3f} s/wave)")
         walks = {(trav, leaf): (w[trav][2], w[trav][3])
                  for leaf, w in (("hair", fur_walk), ("tri", tea_walk))
                  for trav in ("perray", "blocked")}
@@ -6077,10 +6616,11 @@ def main() -> int:
 
         # ---- 16c/16d. the materials cell and the other sensors ----
         t0 = time.time()
-        mats = materials_cell(reset_all)
-        log(f"phase 16c ({time.time() - t0:.1f}s): the materials cell, its "
-            f"CLI, the small card-against-CPU render and gradient and PRB ok "
-            f"({mats['secs']:.3f} s/wave)")
+        mats = materials_cell(reset_all,
+                              also=lambda s: mlt_full(s, reset_all))
+        log(f"phase 16c ({time.time() - t0:.1f}s, 20a's MLT included): the "
+            f"materials cell, its CLI, the small card-against-CPU render and "
+            f"gradient and PRB ok ({mats['secs']:.3f} s/wave)")
         for k in kernels:
             if k["name"] in mats["launches"]:
                 k["launches_per_materials_wave"] = \
@@ -6146,6 +6686,24 @@ def main() -> int:
         log(f"phase 19 ({time.time() - t0:.1f}s): ok; s per wave, step or "
             f"band " + ", ".join(f"{r} {integ[r]['secs']:.3f}"
                                  for r in per))
+
+        # ---- 20. path-space MLT, the manifold walk, motion vectors ----
+        t0 = time.time()
+        mlt_f, mv_f = mats["also"], motion["also"]
+        mlt_motion_cells()
+        rounds = mlt_f["rounds"]
+        for k in kernels:
+            if k["name"] in rounds[0]:
+                k["launches_per_mlt_round"] = \
+                    sum(r[k["name"]] for r in rounds) / len(rounds)
+            if k["name"] in mv_f["launches"]:
+                k["launches_per_motion_vector_wave"] = \
+                    mv_f["launches"][k["name"]]
+        log(f"phase 20 ({time.time() - t0:.1f}s after phase 19; 20a in 16c, "
+            f"20d's full-width wave in 14b): ok; mlt pool "
+            f"{mlt_f['pool_s']:.3f} s, s per round "
+            f"{[round(x, 3) for x in mlt_f['round_s']]}; motion vectors "
+            f"{mv_f['secs']:.3f} s per wave")
         require(all(k["launches"] > 0 for k in kernels),
                 "a kernel has no launches")
     except SmokeFailure as e:
@@ -6163,4 +6721,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--gloo-rank"]:
         sys.exit(gloo_worker(sys.argv[2:]))
+    if sys.argv[1:2] == ["--cpu-refs"]:
+        sys.exit(cpu_refs(sys.argv[2]))
     sys.exit(main())

@@ -11,9 +11,11 @@ the path integrator, or with the one the XML's <integrator> or
 --integrator names, as the JAX package's CLI dispatches them: volpath
 (volpath_simple = volpath), ptracer, bdpt, vpl, ppm (photonmapper = ppm;
 in a scene with a medium the volumetric photon map), sppm, direct, ao,
-irrcache, erpt, pssmlt, adaptive, multichannel (the radiance image, and
-each other channel as <base>.<channel>.npy beside it) and field:<name>
-(one of aux_integrators.FIELDS; field alone is shNormal); --spectral N
+irrcache, erpt, pssmlt, mlt (path-space MLT), motion (the motion-vector
+AOV, in the XML's path configuration), adaptive, multichannel (the
+radiance image, and each other channel as <base>.<channel>.npy beside it)
+and field:<name> (one of aux_integrators.FIELDS; field alone is
+shNormal); --spectral N
 renders N wavelength bins (--dispersion B: Cauchy dispersion of every
 eta) whatever the integrator. It runs on the card, or on the CPU with
 --cpu (the plain versions of the kernels), and writes the image named by
@@ -22,9 +24,8 @@ radiance beside it. A scene with a dipole subsurface material gets its
 irradiance prepass (integrators/sss.attach_dipole) before the render.
 Without --cpu a machine with no card exits non-zero before loading
 anything. What the port does not render raises NotImplementedError
-naming its ROADMAP item: the mlt and motion integrators, the --bands,
---profile and --stats options, JPEG output and the util and import
-commands.
+naming its ROADMAP item: the --bands, --profile and --stats options,
+JPEG output and the util and import commands.
 """
 from __future__ import annotations
 
@@ -36,8 +37,8 @@ import time
 ITEM_13 = "ROADMAP item 13"
 INTEGRATORS = ("path", "volpath", "volpath_simple", "ptracer", "bdpt",
                "vpl", "photonmapper", "ppm", "sppm", "direct", "ao",
-               "irrcache", "erpt", "pssmlt", "adaptive", "multichannel",
-               "field")
+               "irrcache", "erpt", "pssmlt", "mlt", "motion", "adaptive",
+               "multichannel", "field")
 # the JAX package's CLI aliases
 ALIASES = {"volpath_simple": "volpath", "photonmapper": "ppm"}
 
@@ -197,6 +198,12 @@ def main(argv=None):
     elif integ == "pssmlt":
         from .integrators import pssmlt
         img = pssmlt.render_pssmlt(scene, seed=args.seed, progress=prog)
+    elif integ == "mlt":
+        from .integrators import mlt
+        img = mlt.render_mlt(scene, seed=args.seed, progress=prog)
+    elif integ == "motion":
+        from .integrators import motion
+        img = motion.render_motion(scene)
     elif integ == "adaptive":
         from .integrators import aux_integrators as aux
         img = aux.render_adaptive(scene, seed=args.seed, progress=prog)

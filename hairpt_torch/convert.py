@@ -7,8 +7,8 @@ identical scene (same prim order, cluster layout, instance tables,
 materials, textures, hair tables, baked environment, area and delta
 lights, shape-bounded media, the dipole's samples and the scene medium)
 through
-hairpt_torch, with its shutter, its camera's animation and its animated
-instances. params_to_torch and
+hairpt_torch, with its shutter, its camera's animation, its animated
+instances and its motion tables. params_to_torch and
 grads_to_numpy carry a parameter dict of the JAX package's inverse
 rendering across and its gradients back, so both packages can be
 differentiated on one dict.
@@ -33,8 +33,8 @@ from .ops import instancing as inst_mod
 from .ops.intersect import BVHArrays
 from .ops.intersect_packed import PackedBVH
 from .ops.intersect_swept import SweptHair
-from .scene.scene import (TRAVERSALS, HairGeom, RenderConfig, Scene,
-                          SceneArrays, TriGeom, TriShading, repose_fn)
+from .scene.scene import (TRAVERSALS, HairGeom, MotionTables, RenderConfig,
+                          Scene, SceneArrays, TriGeom, TriShading, repose_fn)
 from .scene.xml_loader import _INTEGRATORS_PORTED
 
 
@@ -214,18 +214,16 @@ def convert_scene(scene, arrays, device=None) -> Scene:
     animation and the animated instances come across. A JAX rebuild_geo
     (animated or deformable meshes under an open shutter) is a closure
     over a JAX builder, so it raises: build such a scene on both sides
-    from one XML or one builder script. Film annotations and an
-    integrator the port does not render raise (the motion integrator's
-    tables, which hairpt's loader builds for every animated shape, are
-    left behind); the integrator type, the scene medium and the delta
-    lights come across."""
-    cam = scene.camera
+    from one XML or one builder script. Film annotations raise
+    NotImplementedError, an integrator type the loader does not know
+    ValueError; the integrator type, the scene medium, the delta lights
+    and the motion integrator's tables (tri_obj, obj_m and the camera at
+    the target time) come across."""
     shutter = tuple(float(x) for x in getattr(scene, "shutter", (0.0, 0.0)))
     if getattr(scene.config, "integrator", "path") not in \
             _INTEGRATORS_PORTED:
-        raise NotImplementedError(f"the {scene.config.integrator} "
-                                  f"integrator is not ported yet (ROADMAP "
-                                  f"item 13)")
+        raise ValueError(f"the {scene.config.integrator} integrator is "
+                         f"not one of {_INTEGRATORS_PORTED}")
     if shutter[1] > shutter[0] \
             and getattr(scene, "rebuild_geo", None) is not None:
         raise NotImplementedError(
@@ -236,14 +234,7 @@ def convert_scene(scene, arrays, device=None) -> Scene:
     if scene.film.annotations or scene.film.banner:
         raise NotImplementedError("film annotations and the banner are not "
                                   "ported yet (ROADMAP item 13)")
-    camera = Camera(kind=int(cam.kind),
-                    to_world=np.asarray(cam.to_world, np.float32),
-                    tan_half_fov=float(np.float32(cam.tan_half_fov)),
-                    aspect=cam.aspect, width=cam.width, height=cam.height,
-                    near=cam.near, far=cam.far,
-                    aperture_radius=float(cam.aperture_radius),
-                    focus_distance=float(cam.focus_distance),
-                    kc0=float(cam.kc0), kc1=float(cam.kc1))
+    camera = convert_camera(scene.camera)
     fl = scene.film
     film = Film(fl.width, fl.height, fl.filter_kind, fl.filter_radius,
                 fl.gamma)
@@ -266,7 +257,34 @@ def convert_scene(scene, arrays, device=None) -> Scene:
                  repose_inst=_repose_inst(getattr(scene, "repose_inst",
                                                   None)),
                  medium=convert_medium(getattr(scene, "medium", None),
+                                       device),
+                 motion=convert_motion(getattr(scene, "motion", None),
                                        device))
+
+
+def convert_camera(cam) -> Camera:
+    """The JAX package's Camera (any leaf type) -> the port's."""
+    return Camera(kind=int(cam.kind),
+                  to_world=np.asarray(cam.to_world, np.float32),
+                  tan_half_fov=float(np.float32(cam.tan_half_fov)),
+                  aspect=cam.aspect, width=cam.width, height=cam.height,
+                  near=cam.near, far=cam.far,
+                  aperture_radius=float(cam.aperture_radius),
+                  focus_distance=float(cam.focus_distance),
+                  kc0=float(cam.kc0), kc1=float(cam.kc1))
+
+
+def convert_motion(motion, device=None):
+    """The JAX package's MotionTables (any leaf type) -> the port's, or
+    None."""
+    if motion is None:
+        return None
+    dev = resolve_device(device)
+    return MotionTables(
+        tri_obj=None if motion.tri_obj is None
+        else _t(motion.tri_obj, dev, torch.int32),
+        obj_m=_t(motion.obj_m, dev, torch.float32),
+        cam1=convert_camera(motion.cam1))
 
 
 def params_to_torch(params: dict, device=None) -> dict:

@@ -33,6 +33,11 @@ rebuilds the triangles (rebuild_geo: deformable pairs re-lerped,
 animated meshes moved, the area-light table built from the moved
 triangles) and re-poses the animated instances
 (repose_inst). The hair never moves, so a rebuild keeps its arrays.
+
+Motion vectors: add_mesh(motion=M) and SceneBuilder.camera1 give the
+scene its MotionTables (the motion integrator's): each triangle's object
+id in BVH order, each object's relative motion T(t1) T(t0)^-1 and the
+camera at the target time.
 """
 from __future__ import annotations
 
@@ -64,7 +69,6 @@ from ..ops import intersect_packed as ipk
 from ..ops import intersect_swept as iswept
 from . import hairgen
 
-ITEM_13 = "ROADMAP item 13"
 TRAVERSALS = ("tiled", "tiled_sub", "swept", "packed", "perray",
               "blocked")
 
@@ -129,6 +133,16 @@ class SceneArrays(NamedTuple):
         return self.materials.kind.device
 
 
+class MotionTables(NamedTuple):
+    """Per-object rigid motion for the motion integrator (reference:
+    src/integrators/misc/motion.cpp): obj_m[k] maps a world-space point
+    on object k at the frame time to the target time (T(t1) T(t0)^-1);
+    cam1 is the sensor at the target time."""
+    tri_obj: Optional[torch.Tensor]  # [Ntri] int32 object id, BVH order
+    obj_m: torch.Tensor              # [O, 4, 4] relative motion
+    cam1: Camera                     # the camera at the target time
+
+
 @dataclasses.dataclass(frozen=True)
 class RenderConfig:
     """Static render parameters (the JAX package's names and defaults;
@@ -158,6 +172,7 @@ class RenderConfig:
     integrator: str = "path"    # the scene XML's integrator type
     sss_single: bool = False    # subsurface: single scattering (vs dipole)
     sss_g: float = 0.0          # HG anisotropy of single scattering
+    motion_config: str = "d"    # the motion integrator's path config
 
 
 class Scene(NamedTuple):
@@ -178,6 +193,7 @@ class Scene(NamedTuple):
     #                                animated instances posed at t
     medium: object = None          # media.Medium or HeteroMedium: the
     #                                scene-level medium of volpath
+    motion: object = None          # MotionTables (the motion integrator)
 
 
 # the bitmaps' pre-blurred pyramid (the JAX package's _build_mips)
@@ -224,6 +240,8 @@ class SceneBuilder:
         self.medium = None         # Medium or HeteroMedium (volpath)
         self.media_rows = []       # shape-bounded media (ids 1-based)
         self.mesh_media = {}       # mesh index -> (interior, exterior) id
+        self.mesh_motion = {}      # mesh index -> 4 x 4 relative motion
+        self.camera1 = None        # the camera at the motion target time
 
     # -- materials and textures --------------------------------------------
 
@@ -320,11 +338,11 @@ class SceneBuilder:
                  radiance=None, motion=None):
         """radiance: the mesh is an area light of that radiance (reference:
         src/emitters/area.cpp), each of its triangles an entry of the
-        AreaLights table."""
+        AreaLights table. motion: the world-space relative motion
+        T(t1) T(t0)^-1 of the mesh, for the motion integrator."""
         if motion is not None:
-            raise NotImplementedError("mesh motion tables (the motion "
-                                      f"integrator) are not ported yet "
-                                      f"({ITEM_13})")
+            self.mesh_motion[len(self.tri_meshes)] = np.asarray(motion,
+                                                                np.float32)
         if to_world is not None:
             mesh = shp.transform_mesh(mesh, to_world)
         emitter_id = -1
@@ -407,7 +425,7 @@ class SceneBuilder:
 
     def _build_triangles(self, t, meshes):
         """(TriGeom, TriShading, PackedBVH, BVHArrays, AreaLights or None,
-        tri_med or None) of the meshes: the JAX package's triangle block,
+        tri_med or None, the BVH's triangle order) of the meshes: the JAX package's triangle block,
         area-light table and per-triangle medium ids (mesh_media, in BVH
         order), dtype for dtype."""
         v0l, v1l, v2l, n0l, n1l, n2l = [], [], [], [], [], []
@@ -489,7 +507,7 @@ class SceneBuilder:
                  for k, (mesh, _, _) in enumerate(meshes)])
             tri_med = t(tm[o], torch.int32)
         return (tri, shading, packed, isec.bvh_to_device(fb, self.device),
-                self._area_table(t, p0_s, e1_s, e2_s, eid), tri_med)
+                self._area_table(t, p0_s, e1_s, e2_s, eid), tri_med, o)
 
     def _area_table(self, t, p0, e1, e2, eid):
         """AreaLights over the emissive triangles in BVH order (the JAX
@@ -564,8 +582,9 @@ class SceneBuilder:
                                    device=dev)
 
         tri = tri_shading = tri_packed = tri_bvh = area = tri_med = None
+        order = None
         if self.tri_meshes:
-            tri, tri_shading, tri_packed, tri_bvh, area, tri_med = \
+            tri, tri_shading, tri_packed, tri_bvh, area, tri_med, order = \
                 self._build_triangles(t, self.tri_meshes)
         hair = hair_mat_id = hair_packed = swept = hair_bvh = None
         if self.fibers:
@@ -620,6 +639,7 @@ class SceneBuilder:
                              if self.media_rows and tri_med is not None
                              else None)
         return Scene(arrays=arrays, camera=camera, film=film, config=cfg,
+                     motion=self._motion_tables(t, camera, order),
                      active_kinds=active, marschner_rows=marschner_rows,
                      has_normal_maps=any(int(r.get("nrm_tex_id", -1)) >= 0
                                          for r in rows),
@@ -627,6 +647,26 @@ class SceneBuilder:
                      camera_anim=self.camera_anim,
                      rebuild_geo=self._rebuild_fn(t, arrays),
                      repose_inst=self._repose_fn(), medium=self.medium)
+
+    def _motion_tables(self, t, camera: Camera, order):
+        """MotionTables when a mesh has a motion or camera1 is set (the
+        JAX package's rule), else None. order: the triangles' BVH order
+        (None without triangles)."""
+        if not (self.mesh_motion or self.camera1 is not None):
+            return None
+        tri_obj = None
+        if order is not None:
+            obj = np.concatenate([np.full(len(mesh.faces), k, np.int32)
+                                  for k, (mesh, _, _) in
+                                  enumerate(self.tri_meshes)])
+            tri_obj = t(obj[order], torch.int32)
+        obj_m = np.tile(np.eye(4, dtype=np.float32),
+                        (max(len(self.tri_meshes), 1), 1, 1))
+        for k, m4 in self.mesh_motion.items():
+            obj_m[k] = m4
+        return MotionTables(tri_obj=tri_obj, obj_m=t(obj_m, torch.float32),
+                            cam1=self.camera1 if self.camera1 is not None
+                            else camera)
 
     def _rebuild_fn(self, t, arrays: SceneArrays):
         """rebuild_geo: t_s -> `arrays` with the triangle block (tri,
@@ -640,7 +680,7 @@ class SceneBuilder:
             return None
 
         def rebuild_geo(t_s: float) -> SceneArrays:
-            tri, shading, packed, bvh, area, tri_med = \
+            tri, shading, packed, bvh, area, tri_med, _ = \
                 self._build_triangles(t, self._meshes_at(t_s))
             return arrays._replace(tri=tri, tri_shading=shading,
                                    tri_packed=packed, tri_bvh=bvh,

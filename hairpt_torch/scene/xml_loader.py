@@ -54,7 +54,10 @@ What the port renders:
   poses the camera, moves the animated meshes, re-lerps the deformable
   pairs and re-poses the animated instances at each sample's shutter
   time (an animated hair shape stays at shutter open, as in the JAX
-  loader);
+  loader); the same animations, evaluated at the motion integrator's
+  target time (its `time`, 1 by default), give the motion tables: the
+  camera at that time and each animated mesh's relative motion
+  T(time) T(shutterOpen)^-1;
 - the sunsky, sky, sun, envmap (HDR, PFM, EXR or PNG) and constant
   emitters; the point, spot, directional and collimated emitters
   (position and direction from toWorld where absent; intensity, else
@@ -77,11 +80,12 @@ What the port renders:
 A `<texture>` at the scene's top level is ignored, as the JAX loader
 ignores it (it reads only a BSDF's own texture).
 
-Every other element the JAX loader accepts raises NotImplementedError
-before any build work, naming the ROADMAP item that ports it (13: the
-mlt and motion integrators, the irawan
-BSDF, LDR images other than PNG, and the rest). Nothing else is dropped
-silently.
+Every integrator of the JAX loader is taken (the motion integrator's
+`time` a float target time or a string path configuration, its `config`
+the configuration). Every other element the JAX loader accepts raises
+NotImplementedError before any build work, naming the ROADMAP item that
+ports it (13: the irawan BSDF, LDR images other than PNG, and the rest).
+Nothing else is dropped silently.
 """
 from __future__ import annotations
 
@@ -170,12 +174,13 @@ ITEM_13 = "ROADMAP item 13"
 # its own (item 13)
 _BSDF_PORTED = set(BSDF_KINDS) - {"irawan"}
 # the integrators the port renders (volpath_simple is volpath and
-# photonmapper is ppm, as in the JAX package's CLI); mlt and motion wait
-# for item 13
+# photonmapper is ppm, as in the JAX package's CLI): all of the JAX
+# loader's
 _INTEGRATORS_PORTED = ("path", "volpath", "volpath_simple", "ptracer",
                        "bdpt", "vpl", "photonmapper", "ppm", "sppm",
                        "direct", "ao", "irrcache", "erpt", "pssmlt",
-                       "adaptive", "multichannel", "field")
+                       "adaptive", "multichannel", "field", "mlt",
+                       "motion")
 _PHASE_KINDS = {"isotropic": med_mod.ISOTROPIC, "hg": med_mod.HG,
                 "rayleigh": med_mod.RAYLEIGH, "kkay": med_mod.KKAY,
                 "kkay_is": med_mod.KKAY_IS,
@@ -720,11 +725,23 @@ def load_scene(path: str, defines: dict | None = None,
     # integrator
     max_depth = 65
     integrator_type = "path"
+    motion_time = 1.0
+    motion_cfg = "d"
     for integ in root.findall("integrator"):
-        max_depth = _collect_props(integ, defines).get("maxDepth", 65)
+        ip = _collect_props(integ, defines)
+        max_depth = ip.get("maxDepth", 65)
         integrator_type = integ.get("type") or "path"
         if integrator_type == "direct":
             max_depth = 2
+        elif integrator_type == "motion":
+            # the reference overloads `time`: a float is the target time,
+            # a string the path configuration (motion.cpp)
+            tm = ip.get("time", 1.0)
+            if isinstance(tm, str) and not tm.replace(".", "", 1).isdigit():
+                motion_cfg = tm
+            else:
+                motion_time = float(tm)
+            motion_cfg = ip.get("config", motion_cfg)
     if max_depth_override is not None:
         max_depth = max_depth_override
 
@@ -787,6 +804,9 @@ def load_scene(path: str, defines: dict | None = None,
             aperture_radius=float(p.get("apertureRadius", 0.0)),
             focus_distance=float(p.get("focusDistance", 1.0)))
         cam = cam._replace(kc0=kc[0], kc1=kc[1] if len(kc) > 1 else 0.0)
+        if anim is not None:
+            b.camera1 = cam._replace(to_world=np.asarray(
+                anim.eval(motion_time), np.float32))
     if cam is None:
         raise ValueError(f"{path}: the scene has no <sensor>")
     if spp_override is not None:
@@ -881,9 +901,13 @@ def load_scene(path: str, defines: dict | None = None,
                     b.add_mesh(got[0], mid, to_world=got[1],
                                radiance=radiance)
             if anim is not None:
-                # stored at shutter open, moved by anim(t) inv(anim(open))
+                # stored at shutter open, moved by anim(t) inv(anim(open));
+                # the motion integrator's relative motion to motion_time
+                rel = (anim.eval(motion_time)
+                       @ np.linalg.inv(to_world)).astype(np.float32)
                 for k in range(first_mesh, len(b.tri_meshes)):
                     b.animated_meshes[k] = anim
+                    b.mesh_motion[k] = rel
             if med_int or med_ext:
                 for k in range(first_mesh, len(b.tri_meshes)):
                     b.mesh_media[k] = (med_int, med_ext)
@@ -957,7 +981,8 @@ def load_scene(path: str, defines: dict | None = None,
 
     return b.build(cam, film, spp=int(spp), max_depth=int(max_depth),
                    sampler=sampler_kind, integrator=integrator_type,
-                   sss_single=sss_single, sss_g=sss_g)
+                   sss_single=sss_single, sss_g=sss_g,
+                   motion_config=motion_cfg)
 
 
 def _scene_medium(md, defines, scene_dir: str, b: SceneBuilder):

@@ -9,7 +9,10 @@ scene with the arguments the CLI passes (hairpt/cli.py:203-282). The
 Markov-chain integrators and the cache run at smaller sizes than their
 defaults here (the tests bind them with functools.partial for both the
 CLI and the reference): the defaults' 16,384 chains and 4,096 records
-take minutes on one CPU thread. mlt and motion still raise."""
+take minutes on one CPU thread; so do mlt's 16,384 chains, bound here
+too. The motion integrator renders the stand-in's zero motion (it has
+no animation: within 1e-3 px, the reprojection's rounding) and +inf
+where nothing is hit."""
 import functools
 
 import numpy as np
@@ -19,6 +22,8 @@ from hairpt_torch import cli
 from hairpt_torch.integrators import aux_integrators as taux
 from hairpt_torch.integrators import erpt as terpt
 from hairpt_torch.integrators import irrcache as tic
+from hairpt_torch.integrators import mlt as tmlt
+from hairpt_torch.integrators import motion as tmotion
 from hairpt_torch.integrators import pssmlt as tpss
 from hairpt_torch.integrators import spectral as tspec
 from hairpt_torch.scene import scene_xmls
@@ -39,7 +44,9 @@ def smaller(monkeypatch):
                           (terpt, "render_erpt",
                            dict(n_seeds=256, n_mutations=3)),
                           (tic, "render_irrcache",
-                           dict(n_points=64, grid=(4, 8)))):
+                           dict(n_points=64, grid=(4, 8))),
+                          (tmlt, "render_mlt",
+                           dict(n_chains=256, n_mutations=5, n_boot=2))):
         monkeypatch.setattr(mod, name,
                             functools.partial(getattr(mod, name), **kw))
 
@@ -123,10 +130,29 @@ def test_cli_spectral(lit, extra):
 
 @pytest.mark.parametrize("name", ["mlt", "motion"])
 def test_mlt_and_motion_still_raise(tmp_path, lit, name):
-    root, xml, _ = lit
-    with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
-        cli.main(["render", xml, "--cpu", "--integrator", name])
+    """They used to raise (ROADMAP item 13); now --integrator mlt and
+    motion, and an XML of that integrator type, render: the CLI's image
+    equals render_mlt's (seed 0) or render_motion's of the loaded
+    scene."""
+    root, xml, scene = lit
+    ref = {"mlt": lambda s: tmlt.render_mlt(s, seed=0),
+           "motion": lambda s: tmotion.render_motion(s)}[name]
+    out = root / f"{name}.npy"
+    assert cli.main(["render", xml, "-o", str(out.with_suffix(".png")),
+                     "--cpu", "--integrator", name] + SMALL) == 0
+    img = np.load(out)
+    np.testing.assert_array_equal(img, ref(scene).numpy())
     x2 = scene_xmls.write_scene(str(tmp_path), "lit", res=RES,
                                 integrator=name)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
-        cli.main(["render", x2, "--cpu"])
+    s2 = txl.load_scene(x2, device="cpu", **LOAD)
+    assert s2.config.integrator == name
+    assert cli.main(["render", x2, "-o", str(tmp_path / "o.png"),
+                     "--cpu"] + SMALL) == 0
+    img2 = np.load(tmp_path / "o.npy")
+    np.testing.assert_array_equal(img2, ref(s2).numpy())
+    if name == "mlt":
+        assert np.isfinite(img).all() and img.mean() > 0
+    else:
+        fin = np.isfinite(img)
+        assert fin.any() and (np.abs(img[fin]) < 1e-3).all() \
+            and (img[~fin] == np.inf).all()

@@ -304,11 +304,29 @@ def test_cli_refuses_what_the_port_does_not_render(tmp_path, monkeypatch,
                                    ["--integrator", "mlt"]],
                          ids=lambda e: "_".join(e) if e[0] == "--integrator"
                          and e[1] == "mlt" else e[0])
-def test_cli_refuses_unported_options(tmp_path, extra):
+def test_cli_refuses_unported_options(tmp_path, extra, monkeypatch):
     """Each raises before anything is written (--spectral and the direct
     integrator render now: JPEG output and the motion integrator took
-    their places here)."""
+    their places here). The mlt and motion integrators render now too:
+    their cases check that the CLI takes them, loads the scene and
+    writes the image (the scene loaded at LOAD's size and mlt bound to
+    256 chains here; test_torch_aux_cli.py holds their images to the
+    in-process renders)."""
+    import functools
+    from hairpt_torch.integrators import mlt as tmlt
     xml = scene_xmls.write_scene(str(tmp_path), "furball")
+    if extra[0] == "--integrator":
+        load = txl.load_scene
+        monkeypatch.setattr(txl, "load_scene", lambda path, defines=None,
+                            **kw: load(path, defines, **dict(kw, **LOAD)))
+        monkeypatch.setattr(tmlt, "render_mlt", functools.partial(
+            tmlt.render_mlt, n_chains=256, n_mutations=5, n_boot=2))
+        out = tmp_path / "o.png"
+        assert cli.main(["render", xml, "-o", str(out), "--cpu"]
+                        + extra) == 0
+        img = np.load(tmp_path / "o.npy")
+        assert img.ndim == 3 and img.shape[-1] == 3 and out.exists()
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
         cli.main(["render", xml, "--cpu"] + extra)
 

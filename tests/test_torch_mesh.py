@@ -235,16 +235,19 @@ def test_mesh_scene_build_matches_jax(same_bvh, fibers):
 
 
 def test_mesh_builder_refusals():
-    """The motion integrator's mesh motion tables raise, naming ROADMAP
-    item 13; an area light (item 13's, refused by an earlier slice) is
-    taken: the mesh gets an emitter id; so is an animated instance (item
-    11c): its animation drives repose_inst."""
+    """The motion integrator's mesh motion tables (item 13's, refused by
+    an earlier slice) are taken: the mesh's relative motion is kept for
+    the build; so is an area light (item 13's): the mesh gets an emitter
+    id; and an animated instance (item 11c): its animation drives
+    repose_inst."""
     from hairpt_torch.core.track import AnimatedTransform
     b = TSceneBuilder(device="cpu")
     b.add_mesh(tshp.rectangle(), 0, radiance=(1.0, 1.0, 1.0))
     assert b.tri_meshes[0][2] == 0 and len(b.area_lights) == 1
-    with pytest.raises(NotImplementedError, match="item 13"):
-        b.add_mesh(tshp.rectangle(), 0, motion=np.eye(4))
+    m = np.eye(4)
+    m[:3, 3] = (1.0, 2.0, 3.0)
+    b.add_mesh(tshp.rectangle(), 0, motion=m)
+    np.testing.assert_array_equal(b.mesh_motion[1], m.astype(np.float32))
     anim = AnimatedTransform([(0.0, np.eye(4)), (1.0, np.diag([2.0] * 3
                                                                + [1.0]))])
     b.add_instance(b.add_prototype(tshp.rectangle(), b.add_material()),
