@@ -21,7 +21,9 @@ ppm, sppm and the beam radiance estimate in fog, through kernel K, the
 hash-grid photon query), and the other integrators (direct, ao, field,
 adaptive, multichannel, irrcache through kernel L, the irradiance-cache
 interpolation, pssmlt, erpt and spectral), path-space MLT with the
-specular manifold walk and the motion-vector integrator.
+specular manifold walk and the motion-vector integrator, the irawan
+woven-cloth BSDF and the command line's banded render, statistics,
+profiler trace, image tools and COLLADA import.
 
     python3 chip_smoke.py            # from the repository root, one card
 
@@ -352,6 +354,26 @@ Phases (each prints one line with its elapsed seconds):
        e. the CLI with --integrator mlt on the teapot XML (hairpt's
           defaults) and --integrator motion on the motion XML, at 512
           across, beside 20b-20d.
+  21. the irawan woven cloth and the CLI's banded render, --stats,
+      --profile, util and import (kernels A, B and F; no new kernel):
+       a. the cloth stand-in (the furball on a noisy-twill floor before a
+          plain-weave backdrop, 1024^2, depth 65, hair quality 14): the
+          share of the camera wave's lanes on cloth (>= 20%), a warm-up
+          and two timed 1-spp waves: s/wave, tiled queries and A, B, F
+          launches per wave, a finite image with a positive mean;
+       b. card against CPU (the CPU side a --cpu-refs subprocess beside
+          21a): cloth_resolve, gather, eval_pdf and sample on 2^20 lanes
+          of both weaves at uvs in [-2, 3]^2, pack_cloth's spec_norm, and
+          a small cloth render (64^2, depth 8, the hair left out, 32
+          spp, means within 2%);
+       c. the CLI beside 21a: render --bands 64 --stats (its EXR against
+          an in-process 1-spp render within half precision, its 'Rays
+          traced' equal to an in-process banded render's); --profile on
+          a 64^2 render at depth 8 (the Chrome trace holds kernels A and
+          B); util
+          resample of the banded EXR to 512^2 on the card against --cpu
+          (1e-5); import of a COLLADA document and a 64^2 render of the
+          imported scene on the card.
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Any failed check exits
 non-zero before that line. Without CUDA the script exits non-zero at once.
@@ -3544,28 +3566,36 @@ def lit_builder(res=1024, device="cuda", quality=HAIR_QUALITY):
                    sampler=(rng.SOBOL_QMC, int(np.ceil(np.log2(res))), res))
 
 
-def _cli_start(xml, out, quality, device, spp=2, res_scale=1.0, extra=()):
+def _cli_start(xml, out, quality, device, spp=2, res_scale=1.0, extra=(),
+               before=()):
     """Start the CLI as a subprocess, as a user runs it (its stderr in a
     file beside `out`); _cli_wait collects it. The CLIs of phases 15c-19f
     run beside their phase's scene load or CPU renders: most of a CLI's
-    wall is the interpreter's and the card's start-up."""
+    wall is the interpreter's and the card's start-up. before: commands
+    (argument lists) run first, in one shell chain with the render, each
+    of which must exit 0."""
+    import shlex
     here = os.path.dirname(os.path.abspath(__file__))
     os.makedirs(os.path.dirname(out), exist_ok=True)
     env = dict(os.environ, PYTHONPATH=here + os.pathsep
                + os.environ.get("PYTHONPATH", ""))
     err = open(out[:-4] + ".stderr", "w+")
-    proc = subprocess.Popen(
-        [sys.executable, "-m", "hairpt_torch.cli", "render", xml, "-o", out,
-         "--hair-quality", str(min(quality, CLI_HAIR_QUALITY)), "--spp",
-         str(spp), "--res-scale", str(res_scale)] + list(extra)
-        + (["--cpu"] if device == "cpu" else []),
-        cwd=here, env=env, stdout=subprocess.DEVNULL, stderr=err)
+    cmd = [sys.executable, "-m", "hairpt_torch.cli", "render", xml, "-o",
+           out, "--hair-quality", str(min(quality, CLI_HAIR_QUALITY)),
+           "--spp", str(spp), "--res-scale", str(res_scale)] + list(extra) \
+        + (["--cpu"] if device == "cpu" else [])
+    if before:
+        cmd = ["sh", "-c", " && ".join(shlex.join(c)
+                                       for c in list(before) + [cmd])]
+    proc = subprocess.Popen(cmd, cwd=here, env=env,
+                            stdout=subprocess.DEVNULL, stderr=err)
     return proc, err, out, time.time()
 
 
-def _cli_wait(handle):
-    """(wall seconds, its logged build and render seconds, the .npy image)
-    of a started CLI; it must exit 0 with four outputs."""
+def _cli_wait(handle, exts=("png", "exr", "npy", "pfm")):
+    """(wall seconds, its logged build and render seconds, the .npy image
+    or None without one) of a started CLI; it must exit 0 with an output
+    of each extension in exts (the banded render writes only its EXR)."""
     import re
     import numpy as np
     proc, err, out, t0 = handle
@@ -3585,10 +3615,10 @@ def _cli_wait(handle):
     require(built is not None and rendered is not None,
             f"the CLI logged no build or render time:\n{stderr}")
     base = out[:-4]
-    for ext in ("png", "exr", "npy", "pfm"):
+    for ext in exts:
         require(os.path.getsize(f"{base}.{ext}") > 0, f"no {ext} output")
     return (wall, float(built.group(1)), float(rendered.group(1)),
-            np.load(f"{base}.npy"))
+            np.load(f"{base}.npy") if "npy" in exts else None)
 
 
 def lit_cell(reset_all, device="cuda", res=1024, quality=HAIR_QUALITY,
@@ -6071,17 +6101,23 @@ def motion_chains_compare(c, p):
     return out
 
 
-def cpu_refs(path):
+def cpu_refs(path, which="mlt", xml=None):
     """The CPU sides of 20b, 20c and 20d (chip_smoke.py --cpu-refs PATH,
-    a subprocess of phase 20 beside its card work), saved to PATH with
-    torch.save. Four intra-op threads, so the card's process keeps its
-    cores."""
+    a subprocess of phase 20 beside its card work), or with which
+    "cloth" those of 21b (chip_smoke.py --cpu-refs PATH cloth XML, the
+    small cloth render of XML; a subprocess of phase 21), saved to PATH
+    with torch.save. Four intra-op threads, so the card's process keeps
+    its cores."""
     import torch
     torch.set_num_threads(4)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
-        refs = dict(mlt=mlt_small_run("cpu"), walk=walk_run("cpu"),
-                    motion=motion_chains_run("cpu"))
+        if which == "cloth":
+            refs = dict(lanes=cloth_lanes_run("cpu"),
+                        small=cloth_small_run("cpu", xml))
+        else:
+            refs = dict(mlt=mlt_small_run("cpu"), walk=walk_run("cpu"),
+                        motion=motion_chains_run("cpu"))
     except SmokeFailure as e:
         print(f"chip_smoke --cpu-refs: FAILED: {e}", file=sys.stderr)
         return 1
@@ -6162,6 +6198,447 @@ def mlt_motion_cells(device="cuda", quality=HAIR_QUALITY):
                    f"; {fin.all(-1).mean():.4f} of the pixels tracked"))
         log(f"phase 20b-20e ({time.time() - t_all:.1f}s): ok")
     return facts
+
+# ---------------------------------------------------------------------------
+# phase 21: the irawan woven cloth under the furball, and the CLI's banded
+# render, --stats, --profile, util and import, through kernels A, B and F
+# (no new kernel: the cloth's yarn resolution and integrand are per-lane
+# algebra at the gather and at shading)
+# ---------------------------------------------------------------------------
+
+# 21a: at least this share of the camera wave's lanes hit cloth
+CLOTH_SHARE_MIN = 0.2
+# 21b: lanes of the resolve, eval and sample checks; cloth_resolve's floats
+# and pack_cloth's spec_norm within 1e-5 relative (the same IEEE + - * /
+# on both, the card's log, tan and atan a few ulps apart), the yarn ids
+# and flags equal; f within 1e-4 relative on >= 99.9% of the lanes (the
+# integrand's selections may flip where a transcendental rounds across an
+# edge); pdf within 1e-6
+CLOTH_LANES = 1 << 20
+CLOTH_RESOLVE_RTOL = 1e-5
+CLOTH_F_RTOL = 1e-4
+CLOTH_F_SHARE = 0.999
+CLOTH_PDF_ATOL = 1e-6
+# the small render: the cloth stand-in without its hair (the plain tiled
+# traversal dominates the CPU side's time) at 32 spp. The cloth's
+# highlights (spec_norm about 60) give single pixels hundreds of times
+# the mean, and its weave (512 tiles of 4 yarns across the floor's uv)
+# magnifies a hit's uv rounding 2,048-fold, so a path that rounds across
+# a highlight's edge on one side only turns into a firefly there: card
+# and CPU means were 5.2% apart at 1 spp and 2.2% at 4 spp with the hair
+# (NVIDIA H100, 700 W), one firefly each time
+SMALL21 = dict(res=64, depth=8, spp=32)
+# 21c: the banded CLI's rows per band; util resample's size and its card
+# against CPU tolerance (relative, plus 1e-6 of the largest value: the
+# products' summation orders differ); the EXR against the in-process
+# image: half precision's rounding (2^-11 relative, subnormals below
+# 2^-14 to 2^-24 absolute) plus the film's atomics order (1e-5 relative)
+CLOTH_BANDS = 64
+# appends a constant emitter to the scene XML named by argv[1]
+GRAFT_EMITTER = ("import sys; p = sys.argv[1]; t = open(p).read(); "
+                 "open(p, 'w').write(t.replace('</scene>', "
+                 "'<emitter type=\"constant\"/></scene>'))")
+RESAMPLE_SIZE = 512
+RESAMPLE_RTOL = 1e-5
+EXR_RTOL = 2.0 ** -11 + 1e-5
+EXR_ATOL = 2.0 ** -24
+
+
+def cloth_material_table(dev):
+    """The cloth cell's two weaves (the built-in plain one of the backdrop
+    and the floor's twill.wv with its $vars) as material rows through the
+    SceneBuilder, packed with their ClothTable on `dev`."""
+    from hairpt_torch.models.bsdf import cloth
+    from hairpt_torch.models.bsdf import registry as mat
+    from hairpt_torch.scene import scene_xmls
+    from hairpt_torch.scene.scene import SceneBuilder
+    b = SceneBuilder(device=dev)
+    for text, props, part in (
+            (cloth.BUILTIN_WEAVES["plain"], {}, "backdrop"),
+            (scene_xmls.TWILL_WV, scene_xmls.TWILL_PROPS, "floor")):
+        r = float(scene_xmls.CLOTH_REPEAT[part])
+        b.add_material(kind=mat.CLOTH, weave=cloth.parse_weave(text, props),
+                       repeat_u=r, repeat_v=r)
+    ct = cloth.pack_cloth([c[0] for c in b.cloth],
+                          [(c[1], c[2]) for c in b.cloth], device=dev)
+    return mat.pack_materials(b.materials, device=dev, cloth=ct)
+
+
+def cloth_lanes_run(dev):
+    """21b's lanes on `dev`: CLOTH_LANES uvs in [-2, 3]^2 over both weaves
+    (numpy seed 21) through cloth_resolve, registry.gather and the
+    family's eval_pdf and sample. Returns CPU tensors."""
+    import numpy as np
+    import torch
+    from hairpt_torch.models.bsdf import cloth
+    from hairpt_torch.models.bsdf import registry as mat
+    table = cloth_material_table(dev)
+    rs = np.random.RandomState(21)
+    n = CLOTH_LANES
+    uv = rs.uniform(-2, 3, (n, 2)).astype(np.float32)
+    mid = rs.randint(0, 2, n).astype(np.int64)
+
+    def dirs():
+        d = rs.normal(size=(n, 3))
+        d /= np.linalg.norm(d, axis=-1, keepdims=True)
+        d[:, 2] = np.abs(d[:, 2]) * np.where(rs.rand(n) < 0.1, -1, 1)
+        return torch.as_tensor(d.astype(np.float32), device=dev)
+    wi, wo = dirs(), dirs()
+    u2 = torch.as_tensor(rs.rand(n, 2).astype(np.float32), device=dev)
+    uv_t = torch.as_tensor(uv, device=dev)
+    mid_t = torch.as_tensor(mid, device=dev)
+    # gather's cloth stage is cloth_resolve on these lanes: its outputs
+    # are the GatheredMat fields cloth.py maps
+    gm = mat.gather(table, None, mid_t, uv_t)
+    res = dict(cloth._cloth_res_from_gm(gm), kd=gm.diffuse, ks=gm.specular)
+    f, pdf = cloth.Cloth.eval_pdf(gm, wi, wo, None)
+    wo_s, wt, pdf_s, _, _ = cloth.Cloth.sample(gm, wi, None, u2, None, None)
+    out = dict(spec_norm=table.cloth.spec_norm, f=f, pdf=pdf, wo_s=wo_s,
+               wt=wt, pdf_s=pdf_s, **{f"res_{k}": v for k, v in res.items()})
+    return {k: v.cpu() for k, v in out.items()}
+
+
+def cloth_lanes_compare(c, p):
+    """21b: the card's lanes (c) against the CPU's (p)."""
+    import torch
+
+    def rel(a, b):
+        return (a - b).abs() / torch.maximum(a.abs(), b.abs()).clamp(
+            min=1e-30)
+    sn = float(rel(c["spec_norm"], p["spec_norm"]).max())
+    require(sn <= CLOTH_RESOLVE_RTOL, f"spec_norm card {c['spec_norm']} CPU "
+            f"{p['spec_norm']}")
+    worst = {}
+    for k in c:
+        if not k.startswith("res_"):
+            continue
+        if c[k].dtype == torch.bool:
+            require(bool((c[k] == p[k]).all()), f"cloth_resolve {k} differs")
+            continue
+        worst[k[4:]] = float(rel(c[k], p[k]).max())
+        require(worst[k[4:]] <= CLOTH_RESOLVE_RTOL,
+                f"cloth_resolve {k}: {worst[k[4:]]}")
+    f_ok = (rel(c["f"], p["f"]) <= CLOTH_F_RTOL).all(-1).float().mean()
+    w_ok = (rel(c["wt"], p["wt"]) <= CLOTH_F_RTOL).all(-1).float().mean()
+    pdf = max(float((c["pdf"] - p["pdf"]).abs().max()),
+              float((c["pdf_s"] - p["pdf_s"]).abs().max()))
+    wo = float((c["wo_s"] - p["wo_s"]).abs().max())
+    live = float((p["f"].amax(-1) > 0).float().mean())
+    log(f"21b cloth lanes ({CLOTH_LANES}, both weaves, uv in [-2, 3]^2): "
+        f"spec_norm {c['spec_norm'].tolist()} (rel {sn:.3g}); resolve worst "
+        f"rel {worst}; eval f within {CLOTH_F_RTOL} on {float(f_ok):.6f} of "
+        f"the lanes ({live:.4f} nonzero), sample weight on {float(w_ok):.6f},"
+        f" pdf max diff {pdf:.3g}, sampled wo max diff {wo:.3g}")
+    require(f_ok >= CLOTH_F_SHARE and w_ok >= CLOTH_F_SHARE,
+            f"cloth f agrees on {float(f_ok)}, weight on {float(w_ok)}")
+    require(pdf <= CLOTH_PDF_ATOL, f"cloth pdf differs by {pdf}")
+    return dict(spec_norm=sn, resolve=worst, f_share=float(f_ok),
+                w_share=float(w_ok), pdf=pdf)
+
+
+def cloth_small_run(dev, xml, small=SMALL21):
+    """21b's small cloth render on `dev`: its image (on the CPU)."""
+    from hairpt_torch.integrators import path
+    from hairpt_torch.scene.xml_loader import load_scene
+    s = load_scene(xml, spp_override=1, max_depth_override=small["depth"],
+                   device=dev)
+    img = path.render(s, spp=small["spp"]).cpu()
+    mean = float(img.mean())
+    require(bool(img.isfinite().all()) and mean > 0,
+            f"small cloth on {dev}: mean {mean}")
+    return img
+
+
+def cloth_share(scene):
+    """The share of a camera wave's lanes whose hit is cloth."""
+    import torch
+    from hairpt_torch.core import rng
+    from hairpt_torch.integrators import common
+    from hairpt_torch.models import sensors
+    from hairpt_torch.models.bsdf import registry as mat
+    cfg = scene.config
+    arr = scene.arrays
+    dev = arr.device
+    pixel = torch.arange(cfg.width * cfg.height, device=dev)
+    smp = rng.Sampler(cfg.sampler, pixel, torch.zeros_like(pixel))
+    jitter = smp.next_2d(0)
+    pos = torch.stack([(pixel % cfg.width).float() + jitter[:, 0],
+                       (pixel // cfg.width).float() + jitter[:, 1]], -1)
+    hit = common.scene_intersect(arr, sensors.sample_ray(scene.camera, pos),
+                                 cfg.tiled_q)
+    kind = arr.materials.kind[torch.clamp(hit.mat_id, min=0).long()]
+    return float((hit.valid & (kind == mat.CLOTH)).float().mean())
+
+
+def _stat(stderr, name):
+    """A counter's value from the CLI's --stats table."""
+    import re
+    m = re.search(rf"-  {name}\s*: ([0-9,.]+)", stderr)
+    require(m is not None, f"the CLI printed no '{name}':\n{stderr[-3000:]}")
+    return float(m.group(1).replace(",", ""))
+
+
+def _run_util(args, device):
+    """Start `python -m hairpt_torch.cli util ...` (on the card, or with
+    --cpu)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    return subprocess.Popen(
+        [sys.executable, "-m", "hairpt_torch.cli", "util"] + list(args)
+        + (["--cpu"] if device == "cpu" else []), cwd=here, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def _wait_util(proc, label):
+    try:
+        out, _ = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    require(proc.returncode == 0, f"util {label} exited {proc.returncode}:"
+            f"\n{out[-3000:]}")
+
+
+def cloth_cells(reset_all, device="cuda", res=1024, quality=HAIR_QUALITY,
+                small=SMALL21):
+    """Phase 21. The CPU sides of 21b in a subprocess (cpu_refs 'cloth')
+    and the CLIs of 21c started first; beside them 21a: the cloth cell
+    (scene_xmls.cloth, 1024^2, depth 65, hair quality 14) built, a
+    warm-up wave and timed 1-spp waves (s/wave, tiled queries and A, B
+    and F launches per wave), the share of camera lanes on cloth; 21b's
+    card sides (cloth_resolve, eval_pdf and sample on CLOTH_LANES lanes,
+    spec_norm, the small render) held against the CPU's; 21c: the banded
+    CLI (--bands 64 --stats, at the CLIs' hair quality) against an
+    in-process 1-spp path.render of the same scene (its EXR) and an
+    in-process banded render (its 'Rays traced'), --profile's trace
+    holding kernels A and B, util resample of the banded EXR to 512^2 on
+    the card against --cpu, and the import command's XML rendered at 64^2
+    on the card. device "cpu" rehearses it at a small res and quality."""
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix="hairpt_cloth_") as tmp:
+        return _cloth_cells(reset_all, device, res, quality, small, tmp)
+
+
+def _cloth_cells(reset_all, device, res, quality, small, tmp):
+    import numpy as np
+    import torch
+    from hairpt_torch.film.tiled import render_tiled_exr
+    from hairpt_torch.integrators import path
+    from hairpt_torch.ops import intersect_packed as ipk
+    from hairpt_torch.ops import intersect_tiled as itiled
+    from hairpt_torch.ops import tiled_kernels as tk
+    from hairpt_torch.scene import scene_xmls
+    from hairpt_torch.scene.xml_loader import load_scene
+    from hairpt_torch.utils import exr as exr_utils
+    from hairpt_torch.utils import stats
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    cuda = device == "cuda"
+    t_all = time.time()
+    xml = scene_xmls.write_scene(tmp, "cloth", res=res)
+    small_xml = scene_xmls.write_scene(os.path.join(tmp, "small"), "cloth",
+                                       res=small["res"], hair=False)
+    refs = os.path.join(tmp, "cloth_refs.pt")
+    err = open(os.path.join(tmp, "cloth_refs.stderr"), "w+")
+    ref_proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--cpu-refs", refs,
+         "cloth", small_xml], cwd=here, stdout=subprocess.DEVNULL,
+        stderr=err)
+    out = os.path.join(tmp, "out")
+    cli_q = min(quality, CLI_HAIR_QUALITY)
+    band_h = _cli_start(xml, os.path.join(out, "band.png"), quality, device,
+                        spp=1, extra=["--bands", str(CLOTH_BANDS), "--stats"])
+    prof_dir = os.path.join(out, "trace")
+    prof_h = _cli_start(xml, os.path.join(out, "prof.png"), quality, device,
+                        spp=1, res_scale=64 / res,
+                        extra=["--profile", prof_dir, "--depth", "8"])
+    os.makedirs(os.path.join(tmp, "imp"))
+    dae = scene_xmls.write_dae(os.path.join(tmp, "imp", "props.dae"))
+    imp_xml = os.path.join(tmp, "imp", "scene.xml")
+    # the import command, then (the imported scene has no emitter) the
+    # constant one of hairpt's own round trip (tests/test_collada.py)
+    # grafted in, then the render: one chain of processes
+    imp_h = _cli_start(imp_xml, os.path.join(out, "imp.png"), quality,
+                       device, spp=1, res_scale=64 / 512, before=[
+                           [sys.executable, "-m", "hairpt_torch.cli",
+                            "import", dae, imp_xml],
+                           [sys.executable, "-c", GRAFT_EMITTER, imp_xml]])
+    facts = {}
+
+    # ---- 21a: the full-width cell ----
+    t0 = time.time()
+    scene = load_scene(xml, hair_quality=quality, device=device)
+    t_build = time.time() - t0
+    share = cloth_share(scene)
+    if cuda:
+        progress, times, rays, n_timed = warm_up(scene, "cloth")
+    else:
+        times, rays, n_timed = [], [], 1
+
+        def progress(done, total, secs_, n):
+            times.append(secs_)
+            rays.append(n)
+    reset_all()
+    itiled.STATS.update(queries=0, max_passes=0, overflow_tiles=0)
+    if cuda:
+        torch.cuda.synchronize()
+    img = path.render(scene, spp=n_timed, seed=1, progress=progress)
+    if cuda:
+        torch.cuda.synchronize()
+    launches = _ab_f(dict(tk.LAUNCHES, **ipk.LAUNCHES))
+    off = dict(tk.OCT_LAUNCHES, **tk.SUB_LAUNCHES)
+    plain = dict(tk.PLAIN_ON_CUDA, **ipk.PLAIN_ON_CUDA)
+    queries = itiled.STATS["queries"]
+    secs = sum(times) / len(times)
+    n_rays = sum(rays) / len(rays)
+    mean = _check_image(img, "cloth")
+    del img
+    facts.update(secs=secs, rays=n_rays, queries=queries / n_timed,
+                 launches=launches, n_timed=n_timed, share=share,
+                 build=t_build, mean=mean)
+    log(f"21a cloth cell ({res}^2, depth 65, hair quality {quality}, built "
+        f"in {t_build:.1f}s): {share:.4f} of the camera lanes on cloth; "
+        f"{n_timed} timed waves: {secs:.3f} s/wave, {n_rays:.0f} rays/wave, "
+        f"{n_rays / secs / 1e6:.4f} Mrays/s, {queries / n_timed:.1f} tiled "
+        f"queries/wave, launches per wave "
+        f"{ {k: v / n_timed for k, v in launches.items()} }; image mean "
+        f"{mean:.6f}")
+    require(share >= CLOTH_SHARE_MIN, f"only {share} of the camera lanes hit "
+            f"cloth")
+    if cuda:
+        require(all(launches[k] > 0 for k in launches),
+                f"the cloth waves did not launch A, B and F: {launches}")
+        require(all(v == 0 for v in off.values()),
+                f"the cloth waves ran an octet or subcull kernel: {off}")
+        require(all(v == 0 for v in plain.values()),
+                f"plain versions ran on CUDA tensors: {plain}")
+    del scene
+
+    # ---- 21b, the card's side ----
+    t0 = time.time()
+    card = None
+    if cuda:
+        card = dict(lanes=cloth_lanes_run("cuda"),
+                    small=cloth_small_run("cuda", small_xml, small))
+    log(f"21b on the card ({time.time() - t0:.1f}s)")
+
+    # ---- 21c, in process: the CLIs' scene at 1 spp, monolithic and
+    # banded ----
+    t0 = time.time()
+    s1 = load_scene(xml, hair_quality=cli_q, spp_override=1, device=device)
+    ref_img = path.render(s1, spp=1, seed=0).cpu().numpy()
+    stats.reset()
+    band_ref = os.path.join(tmp, "band_ref.exr")
+    render_tiled_exr(s1, band_ref, band_rows=CLOTH_BANDS, spp=1, seed=0)
+    rays_in = stats._registry["Path tracer"]["Rays traced"].value
+    del s1
+    log(f"21c in process ({time.time() - t0:.1f}s): the 1-spp render and "
+        f"the banded one ({rays_in:.0f} rays traced)")
+
+    def exr_agrees(path_, label):
+        got = exr_utils.read_exr(path_)[..., :3].astype(np.float64)
+        want = ref_img.astype(np.float64)
+        require(got.shape == want.shape and np.isfinite(got).all(),
+                f"{label}: shape {got.shape} or non-finite")
+        bad = np.abs(got - want) > EXR_RTOL * np.abs(want) + EXR_ATOL
+        require(not bad.any(), f"{label}: {int(bad.sum())} values beyond "
+                f"half rounding, worst {np.abs(got - want).max()}")
+        return float(np.abs(got - want).max())
+    d_in = exr_agrees(band_ref, "the in-process banded EXR")
+
+    # ---- the CLIs ----
+    wall, t_b, t_r, _ = _cli_wait(band_h, exts=("exr",))
+    band_err = open(os.path.join(out, "band.stderr")).read()
+    rays_cli = _stat(band_err, "Rays traced")
+    d_cli = exr_agrees(os.path.join(out, "band.exr"), "the banded CLI's EXR")
+    require(rays_cli == rays_in, f"the banded CLI traced {rays_cli} rays, "
+            f"the in-process banded render {rays_in}")
+    log(f"21c CLI --bands {CLOTH_BANDS} --stats ({res}^2, hair quality "
+        f"{cli_q}): exit 0 in {wall:.1f}s wall, built in {t_b}s, rendered "
+        f"in {t_r}s; its EXR within {d_cli:.3g} of the in-process 1-spp "
+        f"render (the in-process banded EXR within {d_in:.3g}); Rays traced "
+        f"{rays_cli:.0f} = in process")
+    facts.update(cli_band=dict(wall=wall, build=t_b, render=t_r,
+                               rays=rays_cli))
+    band_exr = os.path.join(out, "band.exr")
+    utils = [(dev_, _run_util(["resample", band_exr, "-o",
+                               os.path.join(out, f"rs_{dev_}.npy"),
+                               "--size", f"{RESAMPLE_SIZE}x{RESAMPLE_SIZE}"],
+                              dev_))
+             for dev_ in (("cuda", "cpu") if cuda else ("cpu",))]
+    wall, t_b, t_r, _ = _cli_wait(prof_h)
+    with open(os.path.join(prof_dir, "trace.json")) as fh:
+        names = [e.get("name", "") for e in json.load(fh).get(
+            "traceEvents", [])]
+    n_a = sum("cull_kernel" in n for n in names)
+    n_b = sum("phase_b_kernel" in n for n in names)
+    log(f"21c CLI --profile (64^2): exit 0 in {wall:.1f}s wall, rendered in "
+        f"{t_r}s; its trace holds {len(names)} events, {n_a} of kernel A "
+        f"(cull_kernel) and {n_b} of kernel B (phase_b_kernel)")
+    if cuda:
+        require(n_a > 0 and n_b > 0, "the profiler trace holds no launch of "
+                "kernel A or B")
+    facts.update(profile=dict(wall=wall, events=len(names), a=n_a, b=n_b))
+    wall, t_b, t_r, img_i = _cli_wait(imp_h)
+    mean_i = float(img_i.mean())
+    require(np.isfinite(img_i).all() and mean_i > 0 and img_i.shape[:2] ==
+            (64, 64), f"the imported scene's image: {img_i.shape}, mean "
+            f"{mean_i}")
+    log(f"21c import and a 64^2 render of the imported scene: exit 0 in "
+        f"{wall:.1f}s wall; image mean {mean_i:.6f}")
+    for dev_, proc in utils:
+        _wait_util(proc, f"resample on {dev_}")
+    rs = {dev_: np.load(os.path.join(out, f"rs_{dev_}.npy"))
+          for dev_, _ in utils}
+    rs_c = rs[utils[0][0]]
+    require(rs_c.shape == (RESAMPLE_SIZE, RESAMPLE_SIZE, 3)
+            and np.isfinite(rs_c).all(), f"resample: {rs_c.shape}")
+    if cuda:
+        d = np.abs(rs["cuda"].astype(np.float64) - rs["cpu"])
+        tol = RESAMPLE_RTOL * np.abs(rs["cpu"]) + 1e-6 * np.abs(
+            rs["cpu"]).max()
+        log(f"21c util resample to {RESAMPLE_SIZE}^2: card against --cpu max "
+            f"diff {d.max():.3g} (the largest value "
+            f"{np.abs(rs['cpu']).max():.4g})")
+        require((d <= tol).all(), f"util resample card and CPU differ by "
+                f"{d.max()}")
+
+    # ---- 21b, the CPU's side ----
+    try:
+        rc = ref_proc.wait(timeout=600)
+    finally:
+        if ref_proc.poll() is None:
+            ref_proc.kill()
+            ref_proc.wait()
+    err.seek(0)
+    msg = err.read()
+    err.close()
+    require(rc == 0, f"the cloth CPU references exited {rc}:\n{msg[-3000:]}")
+    log(f"21b CPU references in a subprocess: {time.time() - t_all:.1f}s "
+        f"wall after the phase began")
+    if card is not None:
+        ref = torch.load(refs, weights_only=False)
+        facts["lanes"] = cloth_lanes_compare(card["lanes"], ref["lanes"])
+        a, b = card["small"], ref["small"]
+        rel = abs(float(a.mean()) - float(b.mean())) / float(b.mean())
+        d = (a - b).abs().amax(-1).flatten()
+        close = float(((a - b).abs() <= 1e-3 * b.abs() + 1e-4).all(-1)
+                      .float().mean())
+        worst = torch.argsort(d, descending=True)[:3].tolist()
+        log(f"21b small cloth ({small['res']}^2, depth {small['depth']}, no "
+            f"hair, {small['spp']} spp): image mean "
+            f"card {float(a.mean()):.6f}, CPU {float(b.mean()):.6f}, rel "
+            f"diff {rel:.3g}; {close:.4f} of the pixels within 1e-3; the "
+            f"largest differences (card, CPU) at pixels "
+            + ", ".join(f"{i}: ({float(a.flatten(0, 1)[i].mean()):.3f}, "
+                        f"{float(b.flatten(0, 1)[i].mean()):.3f})"
+                        for i in worst))
+        require(rel <= MEAN_RTOL, f"small cloth: card and CPU differ by {rel}")
+    log(f"phase 21b-21c ({time.time() - t_all:.1f}s): ok")
+    return facts
+
 
 def warm_up(scene, label, render=None, max_timed=2):
     """One warm-up wave of render (path.render unless given). Returns
@@ -6704,6 +7181,18 @@ def main() -> int:
             f"{mlt_f['pool_s']:.3f} s, s per round "
             f"{[round(x, 3) for x in mlt_f['round_s']]}; motion vectors "
             f"{mv_f['secs']:.3f} s per wave")
+
+        # ---- 21. the irawan cloth cell; the CLI's banded render, --stats,
+        # --profile, util and import ----
+        t0 = time.time()
+        cl = cloth_cells(reset_all)
+        for k in kernels:
+            if k["name"] in cl["launches"]:
+                k["launches_per_cloth_wave"] = \
+                    cl["launches"][k["name"]] / cl["n_timed"]
+        log(f"phase 21 ({time.time() - t0:.1f}s): ok; the cloth cell "
+            f"{cl['secs']:.3f} s per wave, {cl['queries']:.1f} tiled queries "
+            f"per wave, {cl['share']:.4f} of the camera lanes on cloth")
         require(all(k["launches"] > 0 for k in kernels),
                 "a kernel has no launches")
     except SmokeFailure as e:
@@ -6722,5 +7211,5 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--gloo-rank"]:
         sys.exit(gloo_worker(sys.argv[2:]))
     if sys.argv[1:2] == ["--cpu-refs"]:
-        sys.exit(cpu_refs(sys.argv[2]))
+        sys.exit(cpu_refs(*sys.argv[2:5]))
     sys.exit(main())

@@ -7,7 +7,8 @@ the caller passes `device="cpu"`; asking for CUDA on a machine without it
 raises instead of silently falling back. The command line,
 `python -m hairpt_torch.cli render scene.xml`, renders a scene XML
 (`scene/xml_loader.py`: hair and triangle-mesh scenes) on the card, or
-on the CPU with `--cpu`.
+on the CPU with `--cpu`; its `util` command resamples, tonemaps and
+combines images and its `import` command converts COLLADA documents.
 
 The hand-written CUDA kernels live in `csrc/`: the tiled intersector's
 phase-A tile cull and phase-B miter-cylinder test (`tiled.cu`, kernels A

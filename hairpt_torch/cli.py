@@ -1,31 +1,43 @@
-"""Headless renderer CLI (port of hairpt/cli.py's render command;
-counterpart of the reference's `mitsuba` executable).
+"""Headless renderer CLI (port of hairpt/cli.py; counterpart of the
+reference's `mitsuba`, `mtsutil` and `mtsimport` executables).
 
     python -m hairpt_torch.cli render scene.xml -o out.png [-D key=value]
         [--spp N] [--res-scale S] [--hair-quality Q] [--depth D]
         [--seed S] [-v|-q] [-l log] [-w] [--cpu] [-r SEC]
-        [--checkpoint F.npz] [-x] [--progress]
+        [--checkpoint F.npz] [-x] [--progress] [--stats] [--profile DIR]
+        [--bands N]
+    python -m hairpt_torch.cli util {tonemap,addimages,joinrgb,resample}
+        inputs... -o out [--gamma G] [--weights w,..] [--size WxH]
+        [--filter F] [--boundary B] [--clamp] [--cpu]
+    python -m hairpt_torch.cli import scene.dae scene.xml [--obj-dir D]
 
-Loads a scene XML (scene/xml_loader.py: the hair scenes), renders it with
-the path integrator, or with the one the XML's <integrator> or
---integrator names, as the JAX package's CLI dispatches them: volpath
-(volpath_simple = volpath), ptracer, bdpt, vpl, ppm (photonmapper = ppm;
-in a scene with a medium the volumetric photon map), sppm, direct, ao,
-irrcache, erpt, pssmlt, mlt (path-space MLT), motion (the motion-vector
-AOV, in the XML's path configuration), adaptive, multichannel (the
-radiance image, and each other channel as <base>.<channel>.npy beside it)
-and field:<name> (one of aux_integrators.FIELDS; field alone is
-shNormal); --spectral N
+render loads a scene XML (scene/xml_loader.py), renders it with the path
+integrator, or with the one the XML's <integrator> or --integrator
+names, as the JAX package's CLI dispatches them: volpath (volpath_simple
+= volpath), ptracer, bdpt, vpl, ppm (photonmapper = ppm; in a scene with
+a medium the volumetric photon map), sppm, direct, ao, irrcache, erpt,
+pssmlt, mlt (path-space MLT), motion (the motion-vector AOV, in the XML's
+path configuration), adaptive, multichannel (the radiance image, and
+each other channel as <base>.<channel>.npy beside it) and field:<name>
+(one of aux_integrators.FIELDS; field alone is shNormal); --spectral N
 renders N wavelength bins (--dispersion B: Cauchy dispersion of every
-eta) whatever the integrator. It runs on the card, or on the CPU with
---cpu (the plain versions of the kernels), and writes the image named by
--o (.png, .exr, .bmp or .tga) with .exr, .npy and .pfm of the linear
-radiance beside it. A scene with a dipole subsurface material gets its
-irradiance prepass (integrators/sss.attach_dipole) before the render.
-Without --cpu a machine with no card exits non-zero before loading
-anything. What the port does not render raises NotImplementedError
-naming its ROADMAP item: the --bands, --profile and --stats options,
-JPEG output and the util and import commands.
+eta) whatever the integrator. The path integrator renders in bands of N
+rows streamed to <base>.exr (film/tiled.py) under --bands N or a
+tiledhdrfilm (64 rows unless --bands says), and under --profile DIR
+inside torch.profiler (CPU and CUDA activities), its Chrome trace written
+to DIR/trace.json; --stats prints utils/stats' table after any
+integrator (only the path render records counters, as in the JAX
+package; the banded render records its own). It runs on the card, or on
+the CPU with --cpu (the plain versions of the kernels), and writes the
+image named by -o (.png, .exr, .bmp or .tga) with .exr, .npy and .pfm of
+the linear radiance beside it. A scene with a dipole subsurface material
+gets its irradiance prepass (integrators/sss.attach_dipole) before the
+render. util (the reference's mtsutil tools) reads .npy, .pfm, .hdr and
+.exr images and computes on the card, or on the CPU with --cpu; import
+(mtsimport) converts a COLLADA document into OBJ meshes and a scene XML
+(scene/collada.py). Without --cpu a machine with no card exits non-zero
+before loading anything. JPEG output raises NotImplementedError naming
+its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -47,6 +59,91 @@ def _refuse(what: str):
     raise NotImplementedError(f"{what} is not ported yet ({ITEM_13})")
 
 
+def _ldr_writer(path: str):
+    """The writer of an 8-bit image by its extension (PNG unless .bmp or
+    .tga; the JAX package's PIL picks the format the same way). JPEG is
+    refused."""
+    from .utils import io as io_utils
+    ext = path.rsplit(".", 1)[-1].lower() if "." in path else "png"
+    if ext in ("jpg", "jpeg"):
+        _refuse("JPEG output")
+    return {"bmp": io_utils.write_bmp,
+            "tga": io_utils.write_tga}.get(ext, io_utils.write_png)
+
+
+def _read_any(path):
+    """An image of the util command: .npy, .pfm, .hdr or .exr."""
+    import numpy as np
+    from .utils import exr as exr_utils
+    from .utils import io as io_utils
+    p = path.lower()
+    if p.endswith(".npy"):
+        return np.load(path).astype(np.float32)
+    if p.endswith(".pfm"):
+        return io_utils.read_pfm(path)
+    if p.endswith(".hdr"):
+        return io_utils.read_hdr(path)
+    if p.endswith(".exr"):
+        return exr_utils.read_exr(path)[..., :3]
+    raise ValueError(f"unsupported input format: {path}")
+
+
+def _write_any(path, img):
+    import numpy as np
+    from .utils import exr as exr_utils
+    from .utils import io as io_utils
+    p = path.lower()
+    if p.endswith(".npy"):
+        np.save(path, img)
+    elif p.endswith(".pfm"):
+        io_utils.write_pfm(path, img)
+    elif p.endswith(".exr"):
+        exr_utils.write_exr(path, img)
+    else:
+        _ldr_writer(path)(path, img)
+
+
+def _util_main(args):
+    """The reference's mtsutil image tools, as the JAX package's CLI has
+    them: tonemap (HDR to a gamma-encoded 8-bit image), addimages (a
+    weighted sum), joinrgb (three single-channel images to RGB) and
+    resample (utils/resample.py: any reconstruction filter and boundary
+    mode). The images are read on the host and computed on the card, or
+    on the CPU with --cpu."""
+    import numpy as np
+    import torch
+    from .utils import log as log_mod
+    logger = log_mod.setup()
+    if not args.cpu and not torch.cuda.is_available():
+        logger.error("no CUDA card (torch.cuda.is_available() is False); "
+                     "pass --cpu to compute on the CPU")
+        return 2
+    dev = torch.device("cpu" if args.cpu else "cuda")
+    imgs = [torch.as_tensor(_read_any(p), device=dev) for p in args.inputs]
+    if args.tool == "tonemap":
+        out = torch.clamp(imgs[0], 0.0, 1.0) ** (1.0 / args.gamma)
+        _ldr_writer(args.output)(args.output, out.cpu().numpy())
+    else:
+        if args.tool == "addimages":
+            w = [float(x) for x in args.weights.split(",")] \
+                if args.weights else [1.0] * len(imgs)
+            out = sum(wi * im for wi, im in zip(w, imgs))
+        elif args.tool == "resample":
+            from .utils.resample import resample
+            w, h = (int(x) for x in args.size.split("x"))
+            out = resample(imgs[0], w, h, filter_name=args.filter,
+                           boundary=args.boundary,
+                           clamp="auto" if args.clamp else None)
+        else:  # joinrgb
+            if len(imgs) != 3:
+                raise ValueError("joinrgb needs R, G, B inputs")
+            out = torch.stack([im if im.dim() == 2 else im[..., 0]
+                               for im in imgs], -1)
+        _write_any(args.output, out.cpu().numpy().astype(np.float32))
+    print(f"[hairpt_torch] wrote {args.output}", file=sys.stderr)
+    return 0
+
+
 def _parser():
     ap = argparse.ArgumentParser(prog="hairpt_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -60,7 +157,8 @@ def _parser():
     r.add_argument("--depth", type=int, default=None)
     r.add_argument("--seed", type=int, default=0)
     r.add_argument("--stats", action="store_true",
-                   help="the render-statistics table (not ported)")
+                   help="print the render-statistics table at exit "
+                        "(Statistics::printStats)")
     r.add_argument("-v", "--verbose", action="count", default=0,
                    help="-v debug, -vv trace (mitsuba -v)")
     r.add_argument("-q", "--quiet", action="store_true",
@@ -83,9 +181,11 @@ def _parser():
     r.add_argument("--progress", action="store_true",
                    help="per-wave progress and ETA")
     r.add_argument("--profile", default=None,
-                   help="a profiler trace (not ported)")
+                   help="write a torch.profiler Chrome trace of the path "
+                        "render to this directory")
     r.add_argument("--bands", type=int, default=0,
-                   help="out-of-core banded render (not ported)")
+                   help="out-of-core: render N-row bands streamed to the "
+                        "output EXR (tiledhdrfilm; path only)")
     r.add_argument("--spectral", type=int, default=0, metavar="N",
                    help="render with N spectral bins (a multiple of 3) "
                         "instead of RGB")
@@ -95,28 +195,54 @@ def _parser():
     r.add_argument("--integrator", default=None,
                    help=", ".join(INTEGRATORS) + ", field:<name> (default: "
                         "the scene XML's)")
-    for name in ("util", "import"):
-        u = sub.add_parser(name, help="not ported")
-        u.add_argument("args", nargs="*")
+    # the reference's mtsutil tools (src/utils/{tonemap,addimages,
+    # joinrgb}.cpp) and Bitmap::resample
+    u = sub.add_parser("util")
+    u.add_argument("tool", choices=["tonemap", "addimages", "joinrgb",
+                                    "resample"])
+    u.add_argument("inputs", nargs="+",
+                   help="input images (.npy/.pfm/.exr/.hdr)")
+    u.add_argument("-o", "--output", required=True)
+    u.add_argument("--gamma", type=float, default=2.2)
+    u.add_argument("--weights", default=None,
+                   help="comma-separated blend weights (addimages)")
+    u.add_argument("--size", default="256x256",
+                   help="WxH output size (resample)")
+    u.add_argument("--filter", default="lanczos",
+                   choices=["box", "tent", "gaussian", "mitchell",
+                            "catmullrom", "lanczos"])
+    u.add_argument("--boundary", default="clamp",
+                   choices=["clamp", "wrap", "mirror", "zero"])
+    u.add_argument("--clamp", action="store_true",
+                   help="clamp the output to the source's range "
+                        "(anti-ringing)")
+    u.add_argument("--cpu", action="store_true",
+                   help="compute on the CPU (the default is the card)")
+    # the reference's mtsimport (src/converter/collada.cpp): COLLADA to
+    # mesh files and a scene XML
+    imp = sub.add_parser("import")
+    imp.add_argument("dae", help="input COLLADA .dae file")
+    imp.add_argument("output", help="output scene .xml path")
+    imp.add_argument("--obj-dir", default=None,
+                     help="directory for the extracted OBJ meshes "
+                          "(default: next to the XML)")
     return ap
 
 
 def main(argv=None):
     args = _parser().parse_args(argv)
-    if args.cmd != "render":
-        _refuse(f"the {args.cmd} command")
+    if args.cmd == "util":
+        return _util_main(args)
+    if args.cmd == "import":
+        from .scene.collada import convert
+        print(f"wrote {convert(args.dae, args.output, obj_dir=args.obj_dir)}")
+        return 0
 
     from .utils import log as log_mod
     logger = log_mod.setup(verbosity=args.verbose, quiet=args.quiet,
                            logfile=args.log,
                            warnings_as_errors=args.warn_error)
 
-    if args.bands > 0:
-        _refuse("the banded render (--bands)")
-    if args.profile:
-        _refuse("--profile")
-    if args.stats:
-        _refuse("--stats")
     if args.integrator is not None \
             and args.integrator.split(":", 1)[0] not in INTEGRATORS:
         _refuse(f"the {args.integrator} integrator")
@@ -138,6 +264,9 @@ def main(argv=None):
     from .scene.xml_loader import load_scene
     from .utils import exr as exr_utils
     from .utils import io as io_utils
+    from .utils import stats as stats_mod
+
+    stats_mod.reset()
 
     defines = dict(d.split("=", 1) for d in args.define)
     t0 = time.time()
@@ -246,30 +375,64 @@ def main(argv=None):
     elif integ == "sppm":
         from .integrators import photonmap
         img = photonmap.render_sppm(scene, seed=args.seed, progress=prog)
+    elif args.bands > 0 or scene.config.tiled_film:
+        # out-of-core banded path render streamed straight to the EXR
+        from .film.tiled import render_tiled_exr
+        render_tiled_exr(scene, base + ".exr", band_rows=args.bands or 64,
+                         seed=args.seed)
+        logger.info("rendered in %.2fs, streamed %s.exr (%dx%d)",
+                    time.time() - t1, base, scene.config.width,
+                    scene.config.height)
+        if args.stats:
+            stats_mod.print_stats()
+        return 0
     else:
-        img = path_int.render(scene, seed=args.seed,
-                              progress=prog, flush_every=args.refresh,
-                              flush_cb=_flush if args.refresh > 0 else None,
-                              checkpoint=args.checkpoint)
+        kw = dict(seed=args.seed, progress=prog, flush_every=args.refresh,
+                  flush_cb=_flush if args.refresh > 0 else None,
+                  checkpoint=args.checkpoint)
+        if args.profile:
+            img = _profiled(args.profile, device, logger,
+                            lambda: path_int.render(scene, **kw))
+        else:
+            img = path_int.render(scene, **kw)
     img = img.cpu().numpy()
     t2 = time.time()
     n_rays_lb = scene.config.width * scene.config.height * scene.config.spp
     logger.info("rendered in %.2fs (>=%.2f Mprimary-rays/s)", t2 - t1,
                 n_rays_lb / max(t2 - t1, 1e-9) / 1e6)
+    if args.stats:
+        # the counters' table at exit (reference: Statistics::printStats,
+        # mitsuba.cpp:408)
+        stats_mod.print_stats()
 
     ldr = io_utils.tonemap_srgb(img, scene.film.gamma)
     if ext == "exr":
         exr_utils.write_exr(out, img)
         io_utils.write_png(base + ".png", ldr)
     else:
-        writer = {"bmp": io_utils.write_bmp,
-                  "tga": io_utils.write_tga}.get(ext, io_utils.write_png)
-        writer(out, ldr)
+        _ldr_writer(out)(out, ldr)
         exr_utils.write_exr(base + ".exr", img)
     io_utils.write_npy(base + ".npy", img)
     io_utils.write_pfm(base + ".pfm", img)
     logger.info("wrote %s.{%s,exr,npy,pfm}", base, ext)
     return 0
+
+
+def _profiled(out_dir, device, logger, render):
+    """render() inside torch.profiler (CPU activity, and CUDA on the
+    card), its Chrome trace written to out_dir/trace.json (the JAX
+    package's CLI writes a jax.profiler trace there)."""
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU]
+    if device == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    os.makedirs(out_dir, exist_ok=True)
+    with profile(activities=acts) as prof:
+        img = render()
+    trace = os.path.join(out_dir, "trace.json")
+    prof.export_chrome_trace(trace)
+    logger.info("wrote the profiler trace %s", trace)
+    return img
 
 
 if __name__ == "__main__":

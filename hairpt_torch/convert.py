@@ -4,14 +4,13 @@ The input is the JAX scene's arrays with every leaf turned into numpy
 (for example `jax.tree_util.tree_map(np.asarray, scene.arrays)`); this
 module only reads attributes, so it needs no JAX. The result renders the
 identical scene (same prim order, cluster layout, instance tables,
-materials, textures, hair tables, baked environment, area and delta
-lights, shape-bounded media, the dipole's samples and the scene medium)
-through
-hairpt_torch, with its shutter, its camera's animation, its animated
-instances and its motion tables. params_to_torch and
-grads_to_numpy carry a parameter dict of the JAX package's inverse
-rendering across and its gradients back, so both packages can be
-differentiated on one dict.
+materials (and the cloth BSDF's weave tables), textures, hair tables,
+baked environment, area and delta lights, shape-bounded media, the
+dipole's samples and the scene medium) through hairpt_torch, with its
+shutter, its camera's animation, its animated instances and its motion
+tables. params_to_torch and grads_to_numpy carry a parameter dict of the
+JAX package's inverse rendering across and its gradients back, so both
+packages can be differentiated on one dict.
 """
 from __future__ import annotations
 
@@ -27,6 +26,7 @@ from .film.film import Film
 from .models import emitters as em
 from .models import media as med_mod
 from .models import subsurface as sss_mod
+from .models.bsdf import cloth as cloth_mod
 from .models.bsdf import registry as mat
 from .models.sensors import Camera
 from .ops import instancing as inst_mod
@@ -76,11 +76,11 @@ def convert_arrays(arrays, device=None) -> SceneArrays:
     dev = resolve_device(device)
     i32 = torch.int32
     m = arrays.materials
-    if getattr(m, "cloth", None) is not None:
-        raise NotImplementedError("the cloth BSDF is not ported yet "
-                                  "(ROADMAP item 13)")
-    materials = mat.MaterialTable(**{
-        f: _t(getattr(m, f), dev) for f in mat.MaterialTable._fields})
+    cloth = _tuple(cloth_mod.ClothTable, getattr(m, "cloth", None), dev,
+                   {"pattern": i32})
+    materials = mat.MaterialTable(cloth=cloth, **{
+        f: _t(getattr(m, f), dev) for f in mat.MaterialTable._fields
+        if f != "cloth"})
     ck = arrays.checkers
     checkers = None
     if ck is not None:
@@ -204,7 +204,7 @@ def _repose_inst(repose):
 def convert_scene(scene, arrays, device=None) -> Scene:
     """A JAX Scene (read for its camera, film, config and active kinds)
     plus its numpy arrays -> a hairpt_torch Scene. Its materials may be
-    any ported family (every kind but CLOTH, the wrappers and DIPOLE
+    any family (CLOTH with its weave tables, the wrappers and DIPOLE
     included), its camera any of the nine sensor kinds (a thin lens's
     aperture and focus and the radial distortion come across), its
     environment a baked sunsky, an envmap or a constant one, with

@@ -43,6 +43,7 @@ from ..models import sensors
 from ..models import subsurface as sss_mod
 from ..models.bsdf import registry as mat
 from ..ops.tiled_kernels import sqrt_rn
+from ..utils import stats
 from .common import Hit, block_swizzle, frame, scene_intersect, \
     scene_occluded
 
@@ -806,7 +807,9 @@ def render(scene, seed: int = 0, spp: int | None = None,
                  JAX package's keys: loaded if present and made for the
                  same spp and film, saved after every wave. The
                  accumulators are explicit values, so a resumed render
-                 equals an uninterrupted one bit for bit."""
+                 equals an uninterrupted one bit for bit.
+    The render's rays, camera samples and waves, its time and its rate
+    are recorded in utils/stats (the CLI's --stats prints them)."""
     cfg = scene.config
     spp = spp if spp is not None else cfg.spp
     fl = scene.film
@@ -827,6 +830,7 @@ def render(scene, seed: int = 0, spp: int | None = None,
             s_start = int(ck["next_sample"])
     total_rays = 0.0
     t_flush = time.time()
+    stats.start_timer("render")
     blur = scene.shutter[1] > scene.shutter[0] and (
         scene.rebuild_geo is not None or scene.camera_anim is not None
         or scene.repose_inst is not None)
@@ -864,6 +868,14 @@ def render(scene, seed: int = 0, spp: int | None = None,
             flush_cb(film_mod.develop(image, weight))
             t_flush = now
     img = film_mod.develop(image, weight)
+    # the JAX package's counters (reference: statistics.h, path.cpp:24
+    # avgPathLength), read back after each wave and recorded here
+    stats.stop_timer("Path tracer", "render", total_rays, "rays")
+    stats.record("Path tracer", "Rays traced", total_rays)
+    stats.record("Path tracer", "Camera samples", float(n_pix) * spp)
+    stats.record("Path tracer", "Rays per camera sample", total_rays,
+                 float(n_pix) * spp, kind="average")
+    stats.record("Path tracer", "Sample waves", spp)
     if return_stats:
         return img, {"rays": total_rays}
     return img

@@ -61,7 +61,7 @@ def float_theta(arrays) -> dict:
         table = getattr(arrays, group)
         for f in (table._fields if table is not None else ()):
             v = getattr(table, f)
-            if v is not None and v.is_floating_point():
+            if torch.is_tensor(v) and v.is_floating_point():
                 theta[(group, f)] = v
     return theta
 

@@ -19,8 +19,9 @@ level of detail, or the elliptical (EWA) filter where the camera hit
 gives a uv Jacobian); perturb_shading_frame applies a material's normal
 or bump map. HK (hk.py, the Hanrahan-Krueger slab) registers itself;
 DIPOLE rows are resolved by the integrator (the subsurface branch of
-integrators/path.py), so eval_pdf and sample leave them out. CLOTH is
-not ported (ROADMAP item 13).
+integrators/path.py), so eval_pdf and sample leave them out. CLOTH (the
+irawan woven cloth, cloth.py) reads its weave patterns from
+MaterialTable.cloth: gather resolves the yarn at each cloth lane's uv.
 
 Conventions (as in the reference's bsdf.h): wi, wo in the local shading
 frame, +z the shading normal; eval returns f(wi, wo) |cos theta_o|;
@@ -104,6 +105,8 @@ class MaterialTable(NamedTuple):
     nrm_tex_id: torch.Tensor   # [M] int32 normal or bump texture (-1 none)
     nrm_kind: torch.Tensor     # [M] int32 0 = normal map, 1 = bump map
     nrm_scale: torch.Tensor    # [M] bump height scale
+    cloth: object = None       # cloth.ClothTable of the CLOTH rows' aux_id
+    #                            (None without cloth)
 
 
 class CheckerboardTable(NamedTuple):
@@ -167,9 +170,10 @@ def default_material_row(**over):
     return row
 
 
-def pack_materials(rows, device=None) -> MaterialTable:
+def pack_materials(rows, device=None, cloth=None) -> MaterialTable:
     """The material rows as an SoA table on `device` (the card unless
-    "cpu")."""
+    "cpu"); cloth: the ClothTable of the CLOTH rows (cloth.pack_cloth),
+    or None."""
     device = resolve_device(device)
 
     def arr(key, dtype=np.float32):
@@ -188,7 +192,8 @@ def pack_materials(rows, device=None) -> MaterialTable:
         tex_id=arr("tex_id", np.int32), mix_a=arr("mix_a", np.int32),
         mix_b=arr("mix_b", np.int32), mix_w=arr("mix_w"),
         nrm_tex_id=arr("nrm_tex_id", np.int32),
-        nrm_kind=arr("nrm_kind", np.int32), nrm_scale=arr("nrm_scale"))
+        nrm_kind=arr("nrm_kind", np.int32), nrm_scale=arr("nrm_scale"),
+        cloth=cloth)
 
 
 def build_mips(bitmaps: np.ndarray, levels: int = 4) -> np.ndarray:
@@ -431,15 +436,47 @@ def gather(table: MaterialTable, tex, mat_id, uv=None, lod=None, bary=None,
     """Each lane's material row, its diffuse reflectance resolved through
     its texture (tex: a CheckerboardTable or None; uv, bary and vcolor
     the hit's; lod and duv the footprint's, as eval_checkerboard takes
-    them)."""
+    them), and each cloth lane's yarn resolved at its uv (_cloth_stage;
+    a cloth lane without a uv raises)."""
     m = torch.clamp(mat_id, min=0).long()
     fields = [getattr(table, f) for f in GatheredMat._fields]
     gm = GatheredMat(*[_field(v, m) for v in fields])
-    if tex is None:
+    if tex is not None:
+        gm = gm._replace(diffuse=eval_checkerboard(
+            tex, table.tex_id[m], uv, gm.diffuse, bary, vcolor, lod=lod,
+            duv=duv))
+    if table.cloth is not None:
+        gm = _cloth_stage(table.cloth, gm, uv)
+    return gm
+
+
+def _cloth_stage(ct, gm: GatheredMat, uv) -> GatheredMat:
+    """The irawan lanes' yarn resolved at their uv (the JAX package's
+    gather, registry.py:384-401, which resolves every lane and selects
+    the cloth ones): cloth.cloth_resolve on the cloth lanes only, its
+    results written into the GatheredMat fields cloth.py's docstring
+    maps (kd, ks, u, v, umax, psi, kappa and (w, l, is_weft))."""
+    from . import cloth as cloth_mod
+    idx = torch.nonzero(gm.kind == CLOTH).view(-1)
+    if idx.numel() == 0:
         return gm
-    return gm._replace(diffuse=eval_checkerboard(
-        tex, table.tex_id[m], uv, gm.diffuse, bary, vcolor, lod=lod,
-        duv=duv))
+    if uv is None:
+        raise ValueError("gather: cloth lanes need the hit's uv")
+    res = cloth_mod.cloth_resolve(ct, torch.clamp(gm.aux_id[idx], min=0),
+                                  uv[idx])
+
+    def put(field, value):
+        return field.index_put((idx,), value.to(field.dtype))
+    return gm._replace(
+        diffuse=put(gm.diffuse, res["kd"]),
+        specular=put(gm.specular, res["ks"]),
+        exponent=put(gm.exponent, res["u"]),
+        alpha=put(gm.alpha, res["v"]),
+        beta_r=put(gm.beta_r, res["umax"]),
+        scale_tilt=put(gm.scale_tilt, res["psi"]),
+        eta=put(gm.eta, res["kappa"]),
+        sigma_a=put(gm.sigma_a, torch.stack(
+            [res["w"], res["l"], res["is_weft"].to(res["w"].dtype)], -1)))
 
 
 def ext_trans_lookup(gm: GatheredMat, cos_theta):

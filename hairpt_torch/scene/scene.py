@@ -58,6 +58,7 @@ from ..models.bsdf import plastic  # noqa: F401  (registers the plastics)
 from ..models.bsdf import simple  # noqa: F401  (registers the simple kinds)
 from ..models.bsdf import dielectric_rough  # noqa: F401  (registers them)
 from ..models.bsdf import hk  # noqa: F401  (registers HK)
+from ..models.bsdf import cloth as cloth_bsdf  # registers CLOTH
 from ..models import media as med_mod
 from ..models.bsdf import tables as rt_tables
 from ..models.bsdf.fresnel import fresnel_diffuse_reflectance
@@ -173,6 +174,7 @@ class RenderConfig:
     sss_single: bool = False    # subsurface: single scattering (vs dipole)
     sss_g: float = 0.0          # HG anisotropy of single scattering
     motion_config: str = "d"    # the motion integrator's path config
+    tiled_film: bool = False    # a tiledhdrfilm: the CLI streams bands
 
 
 class Scene(NamedTuple):
@@ -225,6 +227,8 @@ class SceneBuilder:
         self.materials = []
         self.checkers = []         # procedural texture rows
         self.hair_aux = []         # (sigma_a, beta_r, eta) per hair table
+        self.cloth = []            # (WeavePattern, repeatU, repeatV) per
+        #                            CLOTH row's aux_id
         self.env: Optional[em.EnvMap] = None
         self.curvature_mats = set()  # material ids whose texture is
         self.curvature_scale = 1.0   # the curvature texture
@@ -274,6 +278,21 @@ class SceneBuilder:
             self.hair_aux.append((row.get("sigma_a", (0.5, 0.5, 0.5)),
                                   row.get("beta_r", 0.1),
                                   row.get("eta", 1.55)))
+        if kind == mat.CLOTH:
+            # irawan woven cloth: the weave pattern rides a side table
+            # (ClothTable), the pattern's scalars ride the row (see
+            # models/bsdf/cloth.py)
+            wp = row.pop("weave")
+            ru = row.pop("repeat_u", 1.0)
+            rv = row.pop("repeat_v", 1.0)
+            row["aux_id"] = len(self.cloth)
+            self.cloth.append((wp, ru, rv))
+            row["transmit"] = (wp.alpha, wp.beta, wp.ss)
+            row["k"] = (wp.h_width, 0.0, 0.0)
+            row.setdefault("diffuse", tuple(np.mean(
+                [y["kd"] for y in wp.yarns], axis=0)))
+            row.setdefault("specular", tuple(np.mean(
+                [y["ks"] for y in wp.yarns], axis=0)))
         # luminance-based lobe weights (reference: configure() of each BSDF)
         lum = np.array([0.212671, 0.715160, 0.072169])
         d = float(np.dot(np.asarray(row.get("diffuse", (0.5,) * 3)), lum))
@@ -599,7 +618,10 @@ class SceneBuilder:
 
         rows = self.materials or [mat.default_material_row(
             kind=mat.ROUGHPLASTIC)]
-        materials = mat.pack_materials(rows, device=dev)
+        cloth = cloth_bsdf.pack_cloth(
+            [c[0] for c in self.cloth], [(c[1], c[2]) for c in self.cloth],
+            device=dev) if self.cloth else None
+        materials = mat.pack_materials(rows, device=dev, cloth=cloth)
         checkers = mat.pack_checkers(self.checkers, device=dev) \
             if self.checkers else None
         inst = None

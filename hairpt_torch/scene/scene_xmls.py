@@ -85,6 +85,26 @@ stand-in fibers (keyed by those names) take the place of the absent
   0.01, isotropic, fogDepth 8; hairpt/scene/xml_loader.py:866-948),
   integrator photonmapper; Sobol' 64 spp, 1024^2, maxDepth 65. The
   values are this stand-in's own.
+- cloth/scene.xml: a stand-in for the reference's irawan woven cloth
+  (src/bsdfs/irawan.cpp, as hairpt/scene/xml_loader.py:246-260 reads
+  it) under hair: the furball's fibers, camera and sunsky (as
+  furball()) standing on a 40 x 40 rectangle floor at y = 7.2 under a
+  one-sided irawan that reads the weave file twill.wv (written beside
+  the XML by cloth_files: the JAX package's built-in 2/2 twill with
+  fineness 4, period 24 and dWarpUmaxOverDWarp 20, dWarpUmaxOverDWeft
+  10, dWeftUmaxOverDWarp 10, dWeftUmaxOverDWeft 20 degrees, so that the
+  TEA intensity variation and the Perlin umax noise run, and the warp
+  yarn's kd and the fineness given through $warp_kd and $fineness),
+  before a 24 x 24 backdrop facing the camera 9 units behind the
+  furball's centre under a twosided irawan with the built-in plain weave
+  (staple yarns, psi 30 degrees). repeatU = repeatV = 512 on the floor
+  and 256 on the backdrop: one weave tile spans about 6 pixels at
+  1024^2 (the backdrop 67 pixels per unit at 24 units from the camera,
+  24 / 256 units per tile; the floor about 80 pixels per unit across at
+  20 units, 40 / 512 units per tile). Sobol' 64 spp, 1024^2, maxDepth
+  65. Its users put hair on fabric (portraits with hair on a collar or a
+  scarf, fur on a cushion); the layout and the values are this
+  stand-in's own.
 The hair scenes' cameras are the framing of their generators (straight
 and curly: from (0, 16.5, -25) at (0, 8.5, 0); hair-curl: from
 (0, 5.9, 17) at (0, 6, 0)). Written files are for the CLI and the
@@ -710,6 +730,173 @@ def subsurface(kind="dipole", sampler="sobol", spp=64, width=1280,
                        "value=\"teapot.obj\"/><ref id=\"teapot\"/>" + ss)
 
 
+# the cloth stand-in: the JAX package's built-in twill with the noise
+# turned on, its warp kd and fineness left to the XML's properties
+TWILL_WV = """/* the 2/2 twill of hairpt's BUILTIN_WEAVES with intensity
+   variation (fineness) and correlated umax noise (period, dUmax) */
+weave {
+  name = "2/2 twill, noisy",
+  tileWidth = 4, tileHeight = 4,
+  alpha = 0.15, beta = 8.0, ss = 0.2, hWidth = 0.5,
+  warpArea = 2.0, weftArea = 1.0,
+  fineness = $fineness, period = 24.0,
+  dWarpUmaxOverDWarp = 20, dWarpUmaxOverDWeft = 10,
+  dWeftUmaxOverDWarp = 10, dWeftUmaxOverDWeft = 20,
+  pattern { 1, 1, 2, 2,  2, 1, 1, 2,  2, 2, 1, 1,  1, 2, 2, 1 },
+  yarn { type = warp, psi = 0, umax = 40, kappa = 0.0,
+         width = 1.2, length = 3.5, centerU = 0.5, centerV = 0.5,
+         kd = $warp_kd, ks = {0.5, 0.5, 0.55} },
+  yarn { type = weft, psi = 0, umax = 40, kappa = 0.0,
+         width = 1.2, length = 3.5, centerU = 0.5, centerV = 0.5,
+         kd = {0.6, 0.6, 0.62}, ks = {0.5, 0.5, 0.5} }
+}
+"""
+# the $vars of twill.wv, given by the floor's irawan element
+TWILL_PROPS = {"warp_kd": (0.1, 0.12, 0.35), "fineness": 4.0}
+CLOTH_FLOOR_Y = 7.2
+CLOTH_REPEAT = {"floor": 512, "backdrop": 256}
+# the backdrop: 9 units beyond the furball's centre (0, 11, 0) along the
+# camera's view axis, facing the camera
+_VIEW = CAM_TO_WORLD[:3, 2]
+_BACKDROP_C = np.array([0.0, 11.0, 0.0]) + 9.0 * _VIEW
+
+
+def _irawan(weave: str, repeat: int, extra: str = "") -> str:
+    return (f"<bsdf type=\"irawan\"><string name=\"filename\" "
+            f"value=\"{weave}\"/><float name=\"repeatU\" "
+            f"value=\"{repeat}\"/><float name=\"repeatV\" "
+            f"value=\"{repeat}\"/>{extra}</bsdf>")
+
+
+def cloth(sampler="sobol", spp=64, res=1024, depth=65, hair=True) -> str:
+    """The cloth stand-in; the tests and chip_smoke vary its sampler,
+    sample count, resolution and depth, and drop the hair."""
+    m = " ".join(repr(float(x)) for x in CAM_TO_WORLD.reshape(-1))
+    floor = _irawan("twill.wv", CLOTH_REPEAT["floor"],
+                    f"<rgb name=\"warp_kd\" "
+                    f"value=\"{_rgb(TWILL_PROPS['warp_kd'])}\"/>"
+                    f"<float name=\"fineness\" "
+                    f"value=\"{TWILL_PROPS['fineness']!r}\"/>")
+    back = ("<bsdf type=\"twosided\">"
+            + _irawan("plain", CLOTH_REPEAT["backdrop"]) + "</bsdf>")
+    c = _BACKDROP_C
+    t = c - _VIEW
+    body = (_sensor(f"<matrix value=\"{m}\"/>", res, res, sampler, spp)
+            + (_fur_xml() if hair else "")
+            + "<shape type=\"rectangle\"><transform name=\"toWorld\">"
+              "<scale value=\"20\"/><rotate x=\"1\" angle=\"-90\"/>"
+              f"<translate y=\"{CLOTH_FLOOR_Y!r}\"/></transform>{floor}"
+              "</shape>"
+            + "<shape type=\"rectangle\"><transform name=\"toWorld\">"
+              "<scale value=\"12\"/><lookat origin=\"" + _rgb(c)
+            + "\" target=\"" + _rgb(t) + "\" up=\"0, 1, 0\"/>"
+              f"</transform>{back}</shape>")
+    return _scene(body + SUN, depth)
+
+
+def cloth_files(d: str):
+    """The cloth stand-in's weave file, twill.wv, in directory d."""
+    with open(os.path.join(d, "twill.wv"), "w") as fh:
+        fh.write(TWILL_WV)
+
+
+def write_dae(path: str) -> str:
+    """A small COLLADA document for the import command (the reference's
+    mtsimport; hairpt/scene/collada.py reads it): Z_UP at centimetres, a
+    cube (a polylist of quads with normals and texture coordinates) and a
+    floor quad (triangles) under two lambert materials, each placed by a
+    node's transform stack (translate, rotate, scale), and a camera
+    placed by a lookat. Returns `path`."""
+    cube = shp.cube()
+    pos = " ".join(f"{v:g}" for v in cube.positions.reshape(-1))
+    nrm = " ".join(f"{v:g}" for v in cube.normals.reshape(-1))
+    uvs = " ".join(f"{v:g}" for v in cube.uvs.reshape(-1))
+    nv = len(cube.positions)
+    # the cube's triangles as a polylist of triangles (each corner
+    # indexes position, normal and uv alike)
+    idx = " ".join(f"{i} {i} {i}" for i in cube.faces.reshape(-1))
+    doc = f"""<?xml version="1.0" encoding="utf-8"?>
+<COLLADA xmlns="http://www.collada.org/2005/11/COLLADASchema" version="1.4.1">
+  <asset><unit meter="0.01"/><up_axis>Z_UP</up_axis></asset>
+  <library_cameras><camera id="cam" name="cam"><optics><technique_common>
+    <perspective><xfov>40</xfov><aspect_ratio>1</aspect_ratio></perspective>
+  </technique_common></optics></camera></library_cameras>
+  <library_effects>
+    <effect id="red-fx"><profile_COMMON><technique sid="common">
+      <lambert><diffuse><color>0.8 0.1 0.2 1</color></diffuse></lambert>
+    </technique></profile_COMMON></effect>
+    <effect id="grey-fx"><profile_COMMON><technique sid="common">
+      <lambert><diffuse><color>0.5 0.5 0.45 1</color></diffuse></lambert>
+    </technique></profile_COMMON></effect>
+  </library_effects>
+  <library_materials>
+    <material id="red-mat" name="red"><instance_effect url="#red-fx"/>
+    </material>
+    <material id="grey-mat" name="grey"><instance_effect url="#grey-fx"/>
+    </material>
+  </library_materials>
+  <library_geometries>
+    <geometry id="cube-geo" name="cube"><mesh>
+      <source id="cube-pos"><float_array id="cube-pos-arr" count="{3 * nv}">
+        {pos}</float_array><technique_common><accessor
+        source="#cube-pos-arr" count="{nv}" stride="3"/></technique_common>
+      </source>
+      <source id="cube-nrm"><float_array id="cube-nrm-arr" count="{3 * nv}">
+        {nrm}</float_array><technique_common><accessor
+        source="#cube-nrm-arr" count="{nv}" stride="3"/></technique_common>
+      </source>
+      <source id="cube-uv"><float_array id="cube-uv-arr" count="{2 * nv}">
+        {uvs}</float_array><technique_common><accessor
+        source="#cube-uv-arr" count="{nv}" stride="2"/></technique_common>
+      </source>
+      <vertices id="cube-vtx"><input semantic="POSITION"
+        source="#cube-pos"/></vertices>
+      <polylist material="red" count="{len(cube.faces)}">
+        <input semantic="VERTEX" source="#cube-vtx" offset="0"/>
+        <input semantic="NORMAL" source="#cube-nrm" offset="1"/>
+        <input semantic="TEXCOORD" source="#cube-uv" offset="2"/>
+        <vcount>{" ".join("3" for _ in cube.faces)}</vcount>
+        <p>{idx}</p>
+      </polylist>
+    </mesh></geometry>
+    <geometry id="floor-geo" name="floor"><mesh>
+      <source id="floor-pos"><float_array id="floor-pos-arr" count="12">
+        -1 -1 0  1 -1 0  1 1 0  -1 1 0</float_array><technique_common>
+        <accessor source="#floor-pos-arr" count="4" stride="3"/>
+        </technique_common></source>
+      <vertices id="floor-vtx"><input semantic="POSITION"
+        source="#floor-pos"/></vertices>
+      <triangles material="grey" count="2">
+        <input semantic="VERTEX" source="#floor-vtx" offset="0"/>
+        <p>0 1 2 0 2 3</p>
+      </triangles>
+    </mesh></geometry>
+  </library_geometries>
+  <library_visual_scenes><visual_scene id="vscene">
+    <node id="camera-node"><lookat>600 -800 500 0 0 60 0 0 1</lookat>
+      <instance_camera url="#cam"/></node>
+    <node id="props">
+      <node id="cube-node"><translate>0 0 100</translate>
+        <rotate>0 0 1 30</rotate><scale>100 100 100</scale>
+        <instance_geometry url="#cube-geo"><bind_material>
+          <technique_common><instance_material symbol="red"
+          target="#red-mat"/></technique_common></bind_material>
+        </instance_geometry></node>
+      <node id="floor-node"><scale>500 500 500</scale>
+        <instance_geometry url="#floor-geo"><bind_material>
+          <technique_common><instance_material symbol="grey"
+          target="#grey-mat"/></technique_common></bind_material>
+        </instance_geometry></node>
+    </node>
+  </visual_scene></library_visual_scenes>
+  <scene><instance_visual_scene url="#vscene"/></scene>
+</COLLADA>
+"""
+    with open(path, "w") as fh:
+        fh.write(doc)
+    return path
+
+
 # name -> (directory, file name, XML builder[, writer of its files])
 SCENES = {
     "furball": ("furball", "scene.xml", furball),
@@ -730,6 +917,7 @@ SCENES = {
     "dipole": ("dipole", "scene.xml", subsurface),
     "singlescatter": ("singlescatter", "scene.xml",
                       lambda **kw: subsurface("singlescatter", **kw)),
+    "cloth": ("cloth", "scene.xml", cloth, cloth_files),
 }
 
 
@@ -738,8 +926,8 @@ def write_scene(root: str, name: str, **kw) -> str:
     """Write scene `name` under root/<its directory>/ (with its files,
     where it has any) and return the path; kw go to its XML builder
     (furball(), teapot(), instanced(), motion(), lit(), materials(),
-    media(), fog(), bounded() and subsurface() take any), but vol_res,
-    which goes to media_files."""
+    media(), fog(), bounded(), subsurface() and cloth() take any), but
+    vol_res, which goes to media_files."""
     d, f, make, *files = SCENES[name]
     vol = {"vol_res": kw.pop("vol_res")} if "vol_res" in kw else {}
     os.makedirs(os.path.join(root, d), exist_ok=True)

@@ -20,17 +20,21 @@ What the port renders:
   name becoming perspective as in the JAX loader (fov, fovAxis, a toWorld
   of matrix, translate, scale, rotate and lookat) with the independent,
   ldsampler, halton, hammersley, stratified and sobol samplers and an
-  ldrfilm, hdrfilm or mfilm with any of the six reconstruction filters;
+  ldrfilm, hdrfilm, mfilm or tiledhdrfilm (RenderConfig.tiled_film: the
+  CLI streams the path render to an EXR in bands) with any of the six
+  reconstruction filters;
 - the BSDFs diffuse, roughdiffuse, conductor and mirror (the named
   conductor presets), roughconductor, dielectric, thindielectric,
   roughdielectric, difftrans, plastic, roughplastic, phong, ward, null,
   kajiyakay, marschner (corrected, or faithful with `<boolean
   name="faithful">` / `-D marschner_faithful=true`), marschner_diffuse
   and marschnerdielectric, hk (sigmaS, sigmaA, thickness, g), and the
-  wrappers mixturebsdf and blendbsdf,
-  mask, coating and roughcoating over a nested BSDF (one level), each
-  possibly wrapped in twosided and in a normalmap or bumpmap (its
-  texture image read without de-gamma);
+  wrappers mixturebsdf and blendbsdf, irawan (a built-in weave, plain or
+  twill, or a weave file beside the XML, with repeatU / repeatV and the
+  $var properties of its grammar; its textures are not read, as in the
+  JAX loader), mask, coating and roughcoating over a nested BSDF (one
+  level), each possibly wrapped in twosided and in a normalmap or
+  bumpmap (its texture image read without de-gamma);
 - a BSDF's checkerboard, gridtexture, wireframe, vertexcolors, curvature
   or bitmap texture (PNG, de-gamma 2.2, HDR, PFM or EXR; a missing file
   gives no texture), possibly under a scale texture;
@@ -84,7 +88,8 @@ Every integrator of the JAX loader is taken (the motion integrator's
 `time` a float target time or a string path configuration, its `config`
 the configuration). Every other element the JAX loader accepts raises
 NotImplementedError before any build work, naming the ROADMAP item that
-ports it (13: the irawan BSDF, LDR images other than PNG, and the rest).
+ports it (13: LDR images other than PNG, film annotations and the
+banner).
 Nothing else is dropped silently.
 """
 from __future__ import annotations
@@ -103,6 +108,7 @@ from ..film.film import Film
 from ..models import emitters as em
 from ..models import media as med_mod
 from ..models import shapes as shp
+from ..models.bsdf import cloth as cloth_bsdf
 from ..models.bsdf import registry as mat
 from ..models import sensors
 from ..models.sensors import Camera
@@ -170,9 +176,6 @@ CONDUCTOR_PRESETS = {
 
 ITEM_13 = "ROADMAP item 13"
 
-# the BSDF plugins the port renders: irawan (cloth) waits for a slice of
-# its own (item 13)
-_BSDF_PORTED = set(BSDF_KINDS) - {"irawan"}
 # the integrators the port renders (volpath_simple is volpath and
 # photonmapper is ppm, as in the JAX package's CLI): all of the JAX
 # loader's
@@ -189,7 +192,7 @@ _PHASE_KINDS = {"isotropic": med_mod.ISOTROPIC, "hg": med_mod.HG,
 # the image files the port reads (the JAX package reads any other LDR
 # format through PIL)
 _IMAGE_EXTS = (".png", ".hdr", ".pfm", ".exr")
-_FILMS_PORTED = {"ldrfilm", "hdrfilm", "mfilm"}
+_FILMS_PORTED = {"ldrfilm", "hdrfilm", "mfilm", "tiledhdrfilm"}
 _DELTA_KINDS = {"point": em.POINT, "spot": em.SPOT,
                 "directional": em.DIRECTIONAL, "collimated": em.COLLIMATED}
 
@@ -319,8 +322,7 @@ def _refuse_image(node, defines, scene_dir, what: str):
 
 
 def _refuse_bsdf(node, defines, scene_dir):
-    """Refuse a <bsdf> the port cannot render: the families without a
-    port (hk, irawan) and images it cannot read."""
+    """Refuse a <bsdf> whose images the port cannot read."""
     while node.get("type") in ("twosided", "normalmap", "bumpmap"):
         if node.get("type") != "twosided":
             _refuse_image(node.find("texture"), defines, scene_dir,
@@ -329,9 +331,6 @@ def _refuse_bsdf(node, defines, scene_dir):
         if inner is None:
             break
         node = inner
-    btype = node.get("type")
-    if btype in BSDF_KINDS and btype not in _BSDF_PORTED:
-        _refuse(f"the {btype} BSDF", ITEM_13)
     tex = node.find("texture")
     if tex is not None and tex.get("type") == "scale" \
             and tex.find("texture") is not None:
@@ -462,6 +461,21 @@ def _material_row_from_bsdf(node, defines, builder: SceneBuilder,
                     dist=0 if p.get("distribution", "ggx") != "beckmann"
                     else 1,
                     specular=p.get("specularReflectance", (1.0, 1.0, 1.0)))
+
+    if kind == mat.CLOTH:
+        # irawan woven cloth (src/bsdfs/irawan.cpp): a weave DSL file
+        # relative to the scene's directory (or a built-in name),
+        # repeatU / repeatV, and the properties forwarded to the pattern
+        # grammar's $var substitution
+        fname = str(p.get("filename", "plain"))
+        text = cloth_bsdf.BUILTIN_WEAVES.get(fname)
+        if text is None:
+            with open(os.path.join(scene_dir, fname)) as fh:
+                text = fh.read()
+        return dict(kind=mat.CLOTH, twosided=twosided,
+                    weave=cloth_bsdf.parse_weave(text, p),
+                    repeat_u=float(p.get("repeatU", 1.0)),
+                    repeat_v=float(p.get("repeatV", 1.0)))
 
     row = dict(kind=kind, twosided=twosided)
     int_ior, ext_ior = _iors(p)
@@ -750,6 +764,7 @@ def load_scene(path: str, defines: dict | None = None,
     spp = 16
     sampler_kind = rng_mod.SOBOL
     shutter_open = 0.0
+    tiled_film = False
     for sensor in root.findall("sensor"):
         if sensor.find("medium") is not None:
             # the JAX loader reads no sensor medium either
@@ -784,6 +799,7 @@ def load_scene(path: str, defines: dict | None = None,
                 sampler_kind = rng_mod.INDEPENDENT
         fm = sensor.find("film")
         w, h, gamma, rfilter = 768, 576, 2.2, "tent"
+        tiled_film = fm is not None and fm.get("type") == "tiledhdrfilm"
         if fm is not None:
             fp = _collect_props(fm, defines)
             w = fp.get("width", 768)
@@ -982,7 +998,7 @@ def load_scene(path: str, defines: dict | None = None,
     return b.build(cam, film, spp=int(spp), max_depth=int(max_depth),
                    sampler=sampler_kind, integrator=integrator_type,
                    sss_single=sss_single, sss_g=sss_g,
-                   motion_config=motion_cfg)
+                   motion_config=motion_cfg, tiled_film=tiled_film)
 
 
 def _scene_medium(md, defines, scene_dir: str, b: SceneBuilder):

@@ -51,6 +51,9 @@ def tables():
 def test_material_tables_equal(tables):
     tj, tt, _, _, _ = tables
     for f in tmat.MaterialTable._fields:
+        if f == "cloth":  # no irawan row: no weave table
+            assert getattr(tt, f) is None and getattr(tj, f) is None
+            continue
         np.testing.assert_array_equal(getattr(tt, f).numpy(),
                                       np.asarray(getattr(tj, f)),
                                       err_msg=f)

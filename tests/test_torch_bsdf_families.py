@@ -129,6 +129,9 @@ def test_family_matches_jax(family):
     rows = FAMILY_ROWS[family]
     tj, tt, mid = _tables(rows, 2)
     for f in tmat.MaterialTable._fields:
+        if f == "cloth":  # no irawan row: no weave table
+            assert getattr(tt, f) is None and getattr(tj, f) is None
+            continue
         np.testing.assert_array_equal(getattr(tt, f).numpy(),
                                       np.asarray(getattr(tj, f)), err_msg=f)
     rs = np.random.default_rng(3)
@@ -187,6 +190,9 @@ def test_wrappers_match_jax():
     conductor) and ROUGHCOATING, lanes on every row."""
     tj, tt, mid = _tables(WRAPPER_ROWS, 4)
     for f in tmat.MaterialTable._fields:
+        if f == "cloth":  # no irawan row: no weave table
+            assert getattr(tt, f) is None and getattr(tj, f) is None
+            continue
         np.testing.assert_array_equal(getattr(tt, f).numpy(),
                                       np.asarray(getattr(tj, f)), err_msg=f)
     rs = np.random.default_rng(5)

@@ -211,7 +211,7 @@ REFUSED = {
     "point_light": (SENSOR.format(kind="perspective") + HAIR
                     + "<emitter type=\"point\"/>", None),
     # the other sensors and the surface BSDFs render (item 13's, refused
-    # by an earlier slice); hk and irawan stay item 13
+    # by an earlier slice)
     "orthographic": (SENSOR.format(kind="orthographic") + HAIR, None),
     # the direct integrator renders (item 13's, refused by an earlier
     # slice): the path render at depth 2
@@ -227,7 +227,8 @@ REFUSED = {
     # a scene medium, an hk BSDF and volpath render (item 13's, refused
     # by an earlier slice; the path integrator leaves the medium out);
     # ptracer renders (item 13's light tracers, refused by an earlier
-    # slice; given an emitter to trace from); irawan stays item 13
+    # slice; given an emitter to trace from); irawan renders (item 13's,
+    # refused by an earlier slice)
     "medium": (SENSOR.format(kind="perspective") + HAIR
                + "<medium type=\"homogeneous\"/>", None),
     "ptracer": ("<integrator type=\"ptracer\"/>"
@@ -238,7 +239,7 @@ REFUSED = {
     "hk": (SENSOR.format(kind="perspective")
            + "<bsdf type=\"hk\" id=\"h\"/>" + HAIR, None),
     "irawan": (SENSOR.format(kind="perspective")
-               + "<bsdf type=\"irawan\" id=\"c\"/>" + HAIR, "13"),
+               + "<bsdf type=\"irawan\" id=\"c\"/>" + HAIR, None),
     "area_light": (SENSOR.format(kind="perspective")
                    + HAIR.replace("</shape>",
                                   "<emitter type=\"area\"/></shape>"),
@@ -279,6 +280,9 @@ def test_cli_refuses_what_the_port_does_not_render(tmp_path, monkeypatch,
             assert s.medium is not None and s.config.integrator == "path"
         if case == "hk":
             assert s.arrays.materials.kind.tolist()[0] == tmat.HK
+        if case == "irawan":
+            assert s.arrays.materials.kind.tolist()[0] == tmat.CLOTH
+            assert s.arrays.materials.cloth.tile_w.tolist() == [2.0]
         if case == "area_light":
             # the hair shape's emitter is dropped: no light at all
             assert s.arrays.area is None and s.config.nee_probs == (0.0,) * 3
@@ -304,31 +308,56 @@ def test_cli_refuses_what_the_port_does_not_render(tmp_path, monkeypatch,
                                    ["--integrator", "mlt"]],
                          ids=lambda e: "_".join(e) if e[0] == "--integrator"
                          and e[1] == "mlt" else e[0])
-def test_cli_refuses_unported_options(tmp_path, extra, monkeypatch):
-    """Each raises before anything is written (--spectral and the direct
-    integrator render now: JPEG output and the motion integrator took
-    their places here). The mlt and motion integrators render now too:
-    their cases check that the CLI takes them, loads the scene and
-    writes the image (the scene loaded at LOAD's size and mlt bound to
-    256 chains here; test_torch_aux_cli.py holds their images to the
-    in-process renders)."""
+def test_cli_refuses_unported_options(tmp_path, extra, monkeypatch, capsys):
+    """JPEG output raises before anything is written (--spectral and the
+    direct integrator render now: JPEG output and the motion integrator
+    took their places here). The other options render now: their cases
+    check that the CLI takes them, loads the scene (at LOAD's size, mlt
+    bound to 256 chains here; test_torch_aux_cli.py holds the mlt and
+    motion images to the in-process renders) and writes its outputs:
+    --bands 4 the banded EXR (16-row bands: the EXR's blocks) equal to
+    render_tiled_exr's within half rounding, --stats the counters' table
+    with the render's rays, --profile the Chrome trace of the render."""
     import functools
+    from hairpt_torch.film import tiled as ttiled
     from hairpt_torch.integrators import mlt as tmlt
+    from hairpt_torch.utils import exr as texr
     xml = scene_xmls.write_scene(str(tmp_path), "furball")
-    if extra[0] == "--integrator":
-        load = txl.load_scene
-        monkeypatch.setattr(txl, "load_scene", lambda path, defines=None,
-                            **kw: load(path, defines, **dict(kw, **LOAD)))
-        monkeypatch.setattr(tmlt, "render_mlt", functools.partial(
-            tmlt.render_mlt, n_chains=256, n_mutations=5, n_boot=2))
-        out = tmp_path / "o.png"
-        assert cli.main(["render", xml, "-o", str(out), "--cpu"]
-                        + extra) == 0
-        img = np.load(tmp_path / "o.npy")
-        assert img.ndim == 3 and img.shape[-1] == 3 and out.exists()
+    if extra[0] == "-o":
+        with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
+            cli.main(["render", xml, "--cpu"] + extra)
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
-        cli.main(["render", xml, "--cpu"] + extra)
+    load = txl.load_scene
+    monkeypatch.setattr(txl, "load_scene", lambda path, defines=None,
+                        **kw: load(path, defines, **dict(kw, **LOAD)))
+    monkeypatch.setattr(tmlt, "render_mlt", functools.partial(
+        tmlt.render_mlt, n_chains=256, n_mutations=5, n_boot=2))
+    out = tmp_path / "o.png"
+    capsys.readouterr()
+    assert cli.main(["render", xml, "-o", str(out), "--cpu"]
+                    + [str(tmp_path / e) if e == "trace" else e
+                       for e in extra]) == 0
+    if extra[0] == "--bands":
+        assert not out.exists() and not (tmp_path / "o.npy").exists()
+        got = texr.read_exr(str(tmp_path / "o.exr"))[..., :3]
+        ref = str(tmp_path / "ref.exr")
+        ttiled.render_tiled_exr(txl.load_scene(xml, device="cpu"), ref,
+                                band_rows=4, half=False)
+        want = texr.read_exr(ref)[..., :3]
+        assert got.shape == want.shape == (20, 20, 3) and want.mean() > 0
+        np.testing.assert_allclose(got, want, rtol=2.0 ** -11, atol=2e-7)
+        return
+    img = np.load(tmp_path / "o.npy")
+    assert img.ndim == 3 and img.shape[-1] == 3 and out.exists()
+    if extra[0] == "--stats":
+        err = capsys.readouterr().err
+        assert "Render statistics" in err and "Rays traced" in err
+        assert "Sample waves           : 2" in err
+    if extra[0] == "--profile":
+        import json
+        with open(tmp_path / "trace" / "trace.json") as fh:
+            events = json.load(fh)["traceEvents"]
+        assert len(events) > 100
 
 
 def test_cli_renders_volpath(tmp_path):
@@ -347,9 +376,27 @@ def test_cli_renders_volpath(tmp_path):
 
 
 @pytest.mark.parametrize("cmd", ["util", "import"])
-def test_cli_refuses_unported_commands(cmd):
-    with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
-        cli.main([cmd, "a", "b"])
+def test_cli_refuses_unported_commands(cmd, tmp_path):
+    """The util and import commands run now (tests/test_torch_util_cli.py
+    and tests/test_torch_collada.py hold them to hairpt's): util tonemap
+    of an .npy on the CPU, import of the COLLADA stand-in; an unknown
+    tool is an argparse error."""
+    if cmd == "util":
+        src = tmp_path / "a.npy"
+        np.save(src, np.full((4, 6, 3), 0.25, np.float32))
+        out = tmp_path / "a.png"
+        assert cli.main(["util", "tonemap", str(src), "-o", str(out),
+                         "--cpu"]) == 0
+        from hairpt_torch.utils import io as tio
+        assert (tio.read_png(str(out)) == 136).all()
+        with pytest.raises(SystemExit):
+            cli.main(["util", "nosuchtool", str(src), "-o", str(out)])
+    else:
+        dae = scene_xmls.write_dae(str(tmp_path / "p.dae"))
+        assert cli.main(["import", dae, str(tmp_path / "s.xml")]) == 0
+        s = txl.load_scene(str(tmp_path / "s.xml"), device="cpu",
+                           res_scale=0.03125, spp_override=1)
+        assert s.arrays.tri is not None and s.config.width == 16
 
 
 def test_cli_without_a_card_exits_nonzero(tmp_path):

@@ -146,6 +146,10 @@ def test_converted_scene_has_the_hair_tables(hair):
     assert built.marschner_rows == (1, 2)
     assert built.config.sampler == trng.SOBOL
     for f in built.arrays.materials._fields:
+        if f == "cloth":  # no irawan row: no weave table
+            assert built.arrays.materials.cloth is None \
+                and ts.arrays.materials.cloth is None
+            continue
         np.testing.assert_array_equal(
             getattr(built.arrays.materials, f).numpy(),
             getattr(ts.arrays.materials, f).numpy(), err_msg=f)

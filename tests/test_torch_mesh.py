@@ -280,6 +280,9 @@ def plastic_tables():
     tj = jmat.pack_materials(bj.materials)
     tt = tmat.pack_materials(bt.materials, device="cpu")
     for f in tmat.MaterialTable._fields:
+        if f == "cloth":  # no irawan row: no weave table
+            assert getattr(tt, f) is None and getattr(tj, f) is None
+            continue
         np.testing.assert_array_equal(getattr(tt, f).numpy(),
                                       np.asarray(getattr(tj, f)), err_msg=f)
     mid = np.random.default_rng(0).integers(0, 2, N).astype(np.int32)

@@ -512,6 +512,9 @@ def test_diffuse_matches_jax():
     tj = jmat.pack_materials(bj.materials)
     tt = tmat.pack_materials(bt.materials, device="cpu")
     for f in tmat.MaterialTable._fields:
+        if f == "cloth":  # no irawan row: no weave table
+            assert getattr(tt, f) is None and getattr(tj, f) is None
+            continue
         np.testing.assert_array_equal(getattr(tt, f).numpy(),
                                       np.asarray(getattr(tj, f)), err_msg=f)
     n = 4096
