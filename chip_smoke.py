@@ -23,7 +23,9 @@ adaptive, multichannel, irrcache through kernel L, the irradiance-cache
 interpolation, pssmlt, erpt and spectral), path-space MLT with the
 specular manifold walk and the motion-vector integrator, the irawan
 woven-cloth BSDF and the command line's banded render, statistics,
-profiler trace, image tools and COLLADA import.
+profiler trace, image tools and COLLADA import, and the image codecs
+(JPEG written and read on the card, no imaging library), the film's
+annotations and banner, and make_li_fn's ablate knobs.
 
     python3 chip_smoke.py            # from the repository root, one card
 
@@ -144,7 +146,8 @@ Phases (each prints one line with its elapsed seconds):
           against the tiled query, whose cylinder arithmetic differs
           (pid >= 99.9%, hit flags differing on at most 1e-5 of the
           rays, t within T_RTOL on >= 99.9% of the same-pid hits, a
-          float64-checked graze counting as agreeing);
+          float64-checked graze counting as agreeing); the plain walks
+          in a subprocess beside phases 2d-3c (see 14a);
        c. the CLI as a subprocess on the teapot stand-in (512 x 288,
           depth 65, 1 spp), run beside 12d: exit 0, four outputs, a
           finite positive mean;
@@ -167,7 +170,8 @@ Phases (each prints one line with its elapsed seconds):
           and two yardsticks: the JAX package's structure carried over
           (per instance, the box test and object ray as tensor ops and
           one launch of F) and the 64 instances flattened into one
-          179,712-triangle mesh walked by F;
+          179,712-triangle mesh walked by F; the plain walks in a
+          subprocess (PlainWalks) beside 13b and 13c's CLI;
        b. a small render (96 x 54, depth 5) on the card and with the
           plain versions on the CPU: image means within 2%, G launched;
        c. the CLI as a subprocess at 512 x 288 and 1 spp, run beside
@@ -187,7 +191,11 @@ Phases (each prints one line with its elapsed seconds):
           against its plain version on every 61st block of the furball's
           camera wave and every block of the teapot's waves, bit for
           bit, and against H on every ray of all four waves; each timed
-          beside its plain version, F (for H) and the bound;
+          beside its plain version, F (for H) and the bound; the
+          furball's plain walks (with 12b's) in a subprocess
+          (PlainWalks: chip_smoke.py --plain-walks PATH, on the card)
+          beside phases 2d-3c, which time nothing, their results read
+          back before phase 4;
        b. the motion stand-in (scene_xmls.motion: the furball's hair at
           quality 14, the moving teapot, the deformable pair, 16
           animated instances, the animated camera; shutter [0, 1],
@@ -374,6 +382,28 @@ Phases (each prints one line with its elapsed seconds):
           resample of the banded EXR to 512^2 on the card against --cpu
           (1e-5); import of a COLLADA document and a 64^2 render of the
           imported scene on the card.
+  22. the image codecs, the film's annotations and banner, and the
+      leftovers (kernels A and B; no new kernel):
+       a. (started beside 21a) the CLI on phase 11's furball XML with two
+          label[x, y] strings (film, sampler and integrator keys; the
+          render time) and the banner, 1024^2, 1 spp, --stats, -o
+          furball.jpg: exit 0, Rays traced > 0, A's and B's launches in
+          its log; the JPEG decoded on the card against the tonemapped
+          .npy beside it outside the text (PSNR >= JPEG_PSNR_MIN), each
+          label's glyphs near white in the decode (label_drawn);
+       b. write_jpg of that 1024^2 frame on the card and with
+          device="cpu": byte-identical files; read_image of the file on
+          both: the same pixels, within JPEG_PSNR_MIN of the source;
+          encode and decode seconds on each side;
+       c. (after phase 15b, on phase 4's scene) a warm-up round and 4
+          timed rounds of one 1-spp wave of make_li_fn with no knob and
+          under each ablate knob (nonee, noshadow, cheapshade, nosort) in
+          turn: per knob the
+          median s/wave and the median of each round's ratio to its
+          round's no-knob wave, each with its least and most; rays,
+          tiled queries, A's and B's launches; a finite image every wave;
+       d. core/distribution, core/numerics and spectrum's helpers on 2^20
+          lanes, card against CPU with the CPU tests' bounds.
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Any failed check exits
 non-zero before that line. Without CUDA the script exits non-zero at once.
@@ -2027,35 +2057,157 @@ def f_bound(bvh, counts, n_rays, leaf, mode):
     return bms, bby, visits / HBM_BYTES_PER_S * 1e3
 
 
+def _plain_fns():
+    from hairpt_torch.ops import instancing as gi
+    from hairpt_torch.ops import intersect as isec
+    from hairpt_torch.ops import intersect_blocked as iblk
+    from hairpt_torch.ops import intersect_packed as ipk
+    return {"F_closest": ipk.closest_hit_packed_plain,
+            "F_any": ipk.any_hit_packed_plain,
+            "G_closest": gi.inst_closest_hit_plain,
+            "G_any": gi.inst_any_hit_plain,
+            "H_closest": isec.closest_hit_plain,
+            "H_any": isec.any_hit_plain,
+            "I_closest": iblk.closest_hit_blocked_plain,
+            "I_any": iblk.any_hit_blocked_plain}
+
+
+def run_plain(fn, args, kw, counts):
+    """(result, counts, ms) of the plain walk `fn` (a key of _plain_fns),
+    timed around a device synchronize."""
+    import torch
+    sync = torch.cuda.synchronize if torch.cuda.is_available() \
+        else (lambda: None)
+    sync()
+    t0 = time.time()
+    out = _plain_fns()[fn](*args, counts=counts, **kw)
+    sync()
+    return out, counts, (time.time() - t0) * 1e3
+
+
+def plain_job(plain, fn, *args, counts=None, **kw):
+    """The plain walk `fn` (a key of _plain_fns) on `args`: queued in
+    `plain` (PlainWalks), or run now where `plain` is None. Returns the
+    function that gives its (result, counts, ms)."""
+    counts = counts if counts is not None else {}
+    if plain is not None:
+        return plain.call(fn, args, kw, counts)
+    res = run_plain(fn, args, kw, counts)
+    return lambda: res
+
+
+class PlainWalks:
+    """The host-bound plain walks of phases 12b, 13a and 14a, still on the
+    card, in a subprocess (chip_smoke.py --plain-walks PATH) beside the
+    main process's untimed card work, as the CPU references of phases 20
+    and 21 run (cpu_refs). The checks time their kernels and queue their
+    plain walks; start() saves every queued walk with its inputs in one
+    file and starts the subprocess, which runs them in order and saves
+    their results (each walk's output, counts and ms, timed there) in one
+    file; a check's finish reads that file back. close() ends the
+    subprocess and removes the files."""
+
+    def __init__(self):
+        import tempfile
+        self.dir = tempfile.mkdtemp(prefix="hairpt_plain_")
+        self.path = os.path.join(self.dir, "walks.pt")
+        self.jobs, self.res, self.proc = [], None, None
+
+    def call(self, fn, args, kw, counts):
+        self.jobs.append((fn, args, kw, counts))
+        i = len(self.jobs) - 1
+        return lambda: self.result(i)
+
+    def start(self):
+        import torch
+        torch.save(self.jobs, self.path)
+        self.jobs = None
+        self.err = open(os.path.join(self.dir, "stderr"), "w+")
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--plain-walks",
+             self.path], cwd=os.path.dirname(os.path.abspath(__file__)),
+            stdout=subprocess.DEVNULL, stderr=self.err)
+
+    def result(self, i):
+        import torch
+        if self.res is None:
+            try:
+                rc = self.proc.wait(timeout=900)
+            except subprocess.TimeoutExpired:
+                rc = None
+            self.err.seek(0)
+            require(rc == 0, f"the plain walks' subprocess exited {rc}:\n"
+                    f"{self.err.read()[-3000:]}")
+            self.res = torch.load(self.path + ".res", weights_only=False)
+        return self.res[i]
+
+    def close(self):
+        import shutil
+        if self.proc is not None:
+            if self.proc.poll() is None:
+                self.proc.kill()
+            self.proc.wait()
+            self.err.close()
+            self.proc = None
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
+def plain_walks_worker(path):
+    """chip_smoke.py --plain-walks PATH: run the plain walks saved in PATH
+    (PlainWalks.start) in order on the card and save their (result,
+    counts, ms) to PATH.res."""
+    import torch
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    jobs = torch.load(path, weights_only=False)
+    torch.save([run_plain(*job) for job in jobs], path + ".res")
+    return 0
+
+
 def check_kernel_f(label, bvh, leaf, ray, report=None, share=1):
+    """check_kernel_f_queued with its plain walks run now: {mode: (result
+    on the whole wave, facts)}."""
+    return check_kernel_f_queued(label, bvh, leaf, ray, report, share)[1]()
+
+
+def check_kernel_f_queued(label, bvh, leaf, ray, report=None, share=1,
+                          plain=None):
     """Phase 12a/b: kernel F against its plain version on EVERY ray of a
     wave (share > 1: on every share-th ray), closest and any
     hit (any on the same rays: the bounce wave's maxt is infinite where
     live), bit for bit; each timed (CUDA events, the wrapper's error-flag
     read included) beside its plain version and its bound from the
-    walk's counted work (scaled to the whole wave). Returns {mode:
-    (result on the whole wave, facts)}."""
+    walk's counted work (scaled to the whole wave). The kernels run and
+    are timed now, the plain walks in `plain` (plain_job). Returns ({mode: result on the whole wave}, finish), finish() the
+    comparison, returning {mode: (result, facts)}."""
     import torch
     from hairpt_torch.core.math import Ray
     from hairpt_torch.ops import intersect_packed as ipk
 
-    out = {}
     n = ray.o.shape[0]
     sl = _strided(n, share)
     sub = Ray(*[x[sl].contiguous() for x in ray])
     m = sub.o.shape[0]
+    kern, pending = {}, []
     for mode in ("closest", "any"):
-        plain_fn = ipk.closest_hit_packed_plain if mode == "closest" \
-            else ipk.any_hit_packed_plain
         kern_fn = ipk.closest_hit_packed if mode == "closest" \
             else ipk.any_hit_packed
-        counts = {}
-        torch.cuda.synchronize()
-        t0 = time.time()
-        p = plain_fn(bvh, leaf, sub, counts=counts)
-        torch.cuda.synchronize()
-        plain_ms = (time.time() - t0) * 1e3
-        k_all = kern_fn(bvh, leaf, ray)
+        kern[mode] = kern_fn(bvh, leaf, ray)
+        ms = cuda_ms(lambda: kern_fn(bvh, leaf, ray), 5)
+        pending.append((mode, ms, plain_job(plain, f"F_{mode}", bvh, leaf,
+                                            sub)))
+
+    def finish():
+        return _finish_f(label, bvh, leaf, report, share, n, m, sl, kern,
+                         pending)
+    return kern, finish
+
+
+def _finish_f(label, bvh, leaf, report, share, n, m, sl, kern, pending):
+    import torch
+    out = {}
+    for mode, ms, job in pending:
+        p, counts, plain_ms = job()
+        k_all = kern[mode]
         k = tuple(x[sl] for x in k_all) if mode == "closest" \
             else k_all[sl]
         if mode == "closest":
@@ -2072,7 +2224,6 @@ def check_kernel_f(label, bvh, leaf, ray, report=None, share=1):
             n_hit = int(p.sum())
             err = 0.0
             bad = int((k != p).sum())
-        ms = cuda_ms(lambda: kern_fn(bvh, leaf, ray), 5)
         bms, bby, vms = f_bound(bvh, _scaled(counts, n / m), n, leaf, mode)
         checked = "" if m == n else \
             f"; every {share}th ray against the plain version"
@@ -2198,9 +2349,11 @@ def outside_box(hair, pid, o, d, t):
     return float(np.max(out) / r)
 
 
-def furball_kernel_f(scene, wv, report):
+def furball_kernel_f(scene, wv, report, plain=None):
     """Phase 12b: kernel F's hair leaf on the full-width furball's camera
-    and first-bounce waves: against its plain version bit for bit, and
+    and first-bounce waves: against its plain version bit for bit (the
+    plain walks in `plain`; returns the function that finishes those
+    checks), and
     against the tiled query (kernels A and B, another float32 cylinder
     arithmetic): pid >= PID_MIN_AGREE; closest-hit flags differing on at
     most FLAG_MAX_DIFF of the rays; where the pids agree, t within T_RTOL
@@ -2215,17 +2368,20 @@ def furball_kernel_f(scene, wv, report):
     from hairpt_torch.ops import intersect_tiled as itiled
 
     arr = scene.arrays
+    finishes = []
     for name, ray in wv.items():
-        res = check_kernel_f(f"the furball's {name} wave", arr.hair_packed,
-                             "hair", ray, report, F_HAIR_PLAIN_SHARE)
-        t_f, p_f = res["closest"][0]
+        res, finish = check_kernel_f_queued(
+            f"the furball's {name} wave", arr.hair_packed, "hair", ray,
+            report, F_HAIR_PLAIN_SHARE, plain)
+        finishes.append(finish)
+        t_f, p_f = res["closest"]
         t_q, p_q = itiled.tiled_closest_hit(arr.hair_swept, ray, q_max=2048)
         occ_q = itiled.tiled_any_hit(arr.hair_swept, ray, q_max=2048)
         n = p_f.shape[0]
         same = p_f == p_q
         agree = float(same.float().mean())
         flags = int(((p_f >= 0) != (p_q >= 0)).sum())
-        own = int((res["any"][0] != (p_f >= 0)).sum()) \
+        own = int((res["any"] != (p_f >= 0)).sum()) \
             + int((occ_q != (p_q >= 0)).sum())
         rel = (t_f - t_q).abs() / t_q.abs().clamp(min=1e-30)
         n_same = int((same & (p_f >= 0)).sum())
@@ -2271,6 +2427,7 @@ def furball_kernel_f(scene, wv, report):
                 f"F's hair leaf disagrees with the tiled query on the "
                 f"{name} wave: pid {agree}, {flags} flags, {len(t_bad)} t "
                 f"off a graze, any-hit {own}")
+    return lambda: [f() for f in finishes]
 
 
 def teapot_entry_point(reset_all, device="cuda", res_scale=1.0,
@@ -2520,7 +2677,7 @@ def _scaled(counts, factor):
     return {k: v * factor for k, v in counts.items()}
 
 
-def instanced_kernels(report):
+def instanced_kernels(report, plain=None):
     """Phase 13a: kernel G against its plain version on every
     G_PLAIN_SHARE-th ray of the instanced stand-in's camera and
     first-bounce waves (1280 x 720, 64 instances), closest and any hit,
@@ -2529,9 +2686,12 @@ def instanced_kernels(report):
     counted work scaled to the whole wave) and two yardsticks: the JAX
     structure carried over (per_instance_f, which must equal the plain
     version on the same rays) and the instances flattened into one mesh
-    walked by F (flattened_f)."""
+    walked by F (flattened_f). The kernels and yardsticks run and are
+    timed now, the plain walks in `plain`; returns the function that
+    finishes the checks."""
     import tempfile
     import torch
+    from hairpt_torch.core.math import Ray
     from hairpt_torch.ops import instancing as gi
     from hairpt_torch.ops import intersect_packed as ipk
     from hairpt_torch.scene import scene_xmls
@@ -2552,7 +2712,7 @@ def instanced_kernels(report):
     flat, n_flat = flattened_f(scene)
     log(f"instanced camera wave hit fraction {frac:.4f}; flattened "
         f"yardstick: {n_flat} triangles, built in {time.time() - t1:.1f}s")
-    from hairpt_torch.core.math import Ray
+    pending = []
     for name, ray in wv.items():
         n = ray.o.shape[0]
         sl = _strided(n, G_PLAIN_SHARE)
@@ -2560,29 +2720,10 @@ def instanced_kernels(report):
         m = sub.o.shape[0]
         for mode in ("closest", "any"):
             closest = mode == "closest"
-            counts = {}
-            torch.cuda.synchronize()
-            t1 = time.time()
-            p = (gi.inst_closest_hit_plain if closest
-                 else gi.inst_any_hit_plain)(a, sub, counts=counts)
-            torch.cuda.synchronize()
-            plain_ms = (time.time() - t1) * 1e3
-            k = (gi.inst_closest_hit if closest else gi.inst_any_hit)(a, ray)
+            kern = gi.inst_closest_hit if closest else gi.inst_any_hit
+            k_all = kern(a, ray)
             y = per_instance_f(a, sub, mode)
-            k_all = k
-            k = tuple(x[sl] for x in k) if closest else k[sl]
-            if closest:
-                bad = int(((k[0].view(torch.int32) != p[0].view(torch.int32))
-                           | (k[1] != p[1]) | (k[2] != p[2])).sum())
-                bad_y = int(((y[0].view(torch.int32)
-                              != p[0].view(torch.int32)) | (y[1] != p[1])
-                             | (y[2] != p[2])).sum())
-                n_hit = int((p[1] >= 0).sum())
-            else:
-                bad, bad_y, n_hit = int((k != p).sum()), int((y != p).sum()), \
-                    int(p.sum())
-            ms = cuda_ms(lambda: (gi.inst_closest_hit if closest
-                                  else gi.inst_any_hit)(a, ray), 5)
+            ms = cuda_ms(lambda: kern(a, ray), 5)
             y_ms = cuda_ms(lambda: per_instance_f(a, ray, mode), 2)
             f_fn = ipk.closest_hit_packed if closest else ipk.any_hit_packed
             f_ms = cuda_ms(lambda: f_fn(flat, "tri", ray), 5)
@@ -2590,6 +2731,24 @@ def instanced_kernels(report):
             f_same = float(((fk[1] >= 0) == (k_all[1] >= 0)).float()
                            .mean()) if closest \
                 else float((fk == k_all).float().mean())
+            k = tuple(x[sl] for x in k_all) if closest else k_all[sl]
+            pending.append((name, mode, n, m, k, y, ms, y_ms, f_ms, f_same,
+                            plain_job(plain, f"G_{mode}", a, sub)))
+    del scene, wv, flat
+
+    def finish():
+        for name, mode, n, m, k, y, ms, y_ms, f_ms, f_same, job in pending:
+            p, counts, plain_ms = job()
+            if mode == "closest":
+                bad = int(((k[0].view(torch.int32) != p[0].view(torch.int32))
+                           | (k[1] != p[1]) | (k[2] != p[2])).sum())
+                bad_y = int(((y[0].view(torch.int32)
+                              != p[0].view(torch.int32)) | (y[1] != p[1])
+                             | (y[2] != p[2])).sum())
+                n_hit = int((p[1] >= 0).sum())
+            else:
+                bad, bad_y, n_hit = int((k != p).sum()), \
+                    int((y != p).sum()), int(p.sum())
             bms, bby = g_bound(a, _scaled(counts, n / m), n, mode)
             log(f"G {mode} on the instanced {name} wave ({n} rays; every "
                 f"{G_PLAIN_SHARE}th ray, {m} rays and {n_hit} hits, "
@@ -2610,7 +2769,7 @@ def instanced_kernels(report):
                 max_abs_err=0.0, per_instance_f_ms=y_ms,
                 flattened_f_ms=f_ms, rays=n, plain_rays=m,
                 counts=counts)))
-    del scene, wv, flat
+    return finish
 
 
 def instanced_small(reset_all):
@@ -2840,39 +2999,33 @@ def _differ(a, b, closest):
     return (a[1] != b[1]) | (a[0].view(torch.int32) != b[0].view(torch.int32))
 
 
-def check_kernel_h(label, bvh, geom, packed, leaf, ray, report, share=1):
+def check_kernel_h(label, bvh, geom, packed, leaf, ray, report, share=1,
+                   plain=None):
     """Phase 14a: kernel H against its plain version on EVERY ray of a
     wave (share > 1: on every share-th ray), closest and any
     hit, bit for bit, and against kernel F on the same tree and
     primitives on every ray; timed (CUDA events) beside the plain
     version, F and the bound (the plain version's counted work scaled to
-    the whole wave). Returns {mode: (H's result, facts)}."""
+    the whole wave). The kernels run and are timed now, the plain walks
+    in `plain`. Returns ({mode: H's result}, finish), finish() the
+    comparison, returning {mode: (H's result, facts)}."""
     import torch
     from hairpt_torch.core.math import Ray
     from hairpt_torch.ops import intersect as isec
     from hairpt_torch.ops import intersect_packed as ipk
 
-    out = {}
     n = ray.o.shape[0]
     sl = _strided(n, share)
     sub = Ray(*[x[sl].contiguous() for x in ray])
     m = sub.o.shape[0]
     fg = rows_geom(packed, leaf)
     live = ray.maxt > ray.mint
+    kern_out, pending = {}, []
     for mode in ("closest", "any"):
         closest = mode == "closest"
-        plain_fn = isec.closest_hit_plain if closest else isec.any_hit_plain
         kern = isec.closest_hit if closest else isec.any_hit
         f_fn = ipk.closest_hit_packed if closest else ipk.any_hit_packed
-        counts = {}
-        torch.cuda.synchronize()
-        t0 = time.time()
-        p = plain_fn(bvh, geom, leaf, sub, counts=counts)
-        torch.cuda.synchronize()
-        plain_ms = (time.time() - t0) * 1e3
         k = kern(bvh, geom, leaf, ray)
-        bad = int(_differ(tuple(x[sl] for x in k) if closest else k[sl], p,
-                          closest).sum())
         hf = kern(bvh, fg, leaf, ray)
         f = f_fn(packed, leaf, ray)
         bad_f = int(_differ(hf, f, True).sum()) if closest \
@@ -2884,39 +3037,57 @@ def check_kernel_h(label, bvh, geom, packed, leaf, ray, report, share=1):
             else float(((k & live) == f).float().mean())
         ms = cuda_ms(lambda: kern(bvh, geom, leaf, ray), 5)
         f_ms = cuda_ms(lambda: f_fn(packed, leaf, ray), 5)
-        bms, bby = h_bound(bvh, geom, leaf, _scaled(counts, n / m), n, mode)
-        n_hit = int((p[1] >= 0).sum()) if closest else int(p.sum())
-        vs_f = "bit for bit with F" if bad_f == 0 else f"{bad_f} rays OFF F"
-        checked = "" if m == n else \
-            f"; every {share}th ray against the plain version"
-        log(f"H {leaf} {mode} on {label} ({n} rays{checked}, {n_hit} "
-            f"hits): {'bit for bit' if bad == 0 else f'{bad} rays DIFFER'}; "
-            f"on F's "
-            f"primitives {vs_f} (its own primitives: {own:.6f} agree with "
-            f"F); kernel {ms:.3f} "
-            f"ms, F {f_ms:.3f} ms, plain {plain_ms:.1f} ms on {m} rays "
-            f"({counts['steps']} iterations), bound {bms:.4f} ms by {bby} "
-            f"({ms / bms:.1f}x; {counts['nodes']} node rows, "
-            f"{counts['prims']} tests)")
-        require(bad == 0, f"kernel H ({leaf}, {mode}) differs from its plain "
-                f"version on {bad} rays of {label}")
-        require(bad_f == 0, f"kernel H ({leaf}, {mode}) differs from kernel "
-                f"F on {bad_f} rays of {label}")
-        out[mode] = (k, dict(ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                             bound_by=bby, f_ms=f_ms, max_abs_err=0.0,
-                             rays=n, plain_rays=m, counts=counts,
-                             agree_with_f=own))
-        report.setdefault(("perray", leaf, mode), []).append(
-            (label, out[mode][1]))
-    return out
+        kern_out[mode] = k
+        pending.append((mode, k, bad_f, own, ms, f_ms,
+                        plain_job(plain, f"H_{mode}", bvh, geom, leaf,
+                                  sub)))
+
+    def finish():
+        out = {}
+        for mode, k, bad_f, own, ms, f_ms, job in pending:
+            closest = mode == "closest"
+            p, counts, plain_ms = job()
+            bad = int(_differ(tuple(x[sl] for x in k) if closest else k[sl],
+                              p, closest).sum())
+            bms, bby = h_bound(bvh, geom, leaf, _scaled(counts, n / m), n,
+                               mode)
+            n_hit = int((p[1] >= 0).sum()) if closest else int(p.sum())
+            vs_f = "bit for bit with F" if bad_f == 0 \
+                else f"{bad_f} rays OFF F"
+            checked = "" if m == n else \
+                f"; every {share}th ray against the plain version"
+            log(f"H {leaf} {mode} on {label} ({n} rays{checked}, {n_hit} "
+                f"hits): {'bit for bit' if bad == 0 else f'{bad} rays DIFFER'}"
+                f"; on F's "
+                f"primitives {vs_f} (its own primitives: {own:.6f} agree "
+                f"with F); kernel {ms:.3f} "
+                f"ms, F {f_ms:.3f} ms, plain {plain_ms:.1f} ms on {m} rays "
+                f"({counts['steps']} iterations), bound {bms:.4f} ms by "
+                f"{bby} ({ms / bms:.1f}x; {counts['nodes']} node rows, "
+                f"{counts['prims']} tests)")
+            require(bad == 0, f"kernel H ({leaf}, {mode}) differs from its "
+                    f"plain version on {bad} rays of {label}")
+            require(bad_f == 0, f"kernel H ({leaf}, {mode}) differs from "
+                    f"kernel F on {bad_f} rays of {label}")
+            out[mode] = (k, dict(ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                                 bound_by=bby, f_ms=f_ms, max_abs_err=0.0,
+                                 rays=n, plain_rays=m, counts=counts,
+                                 agree_with_f=own))
+            report.setdefault(("perray", leaf, mode), []).append(
+                (label, out[mode][1]))
+        return out
+    return kern_out, finish
 
 
-def check_kernel_i(label, bvh, geom, leaf, ray, h_out, stride, report):
+def check_kernel_i(label, bvh, geom, leaf, ray, h_kern, stride, report,
+                   plain=None):
     """Phase 14a: kernel I (blocks of I_BLOCK rays, the wave padded as the
     traversal pads it) against its plain version on every stride-th
-    block (none for stride None), bit for bit, and against kernel H on
-    every ray; timed beside the plain version (on the blocks checked)
-    and H's bound."""
+    block (none for stride None), bit for bit, and against kernel H's
+    results h_kern on every ray; timed beside the plain version (on the
+    blocks checked) and H's bound. The kernel runs and is timed now, the
+    plain walk in `plain`; returns finish(h_out), h_out check_kernel_h's
+    finished facts."""
     import torch
     from hairpt_torch.integrators import common
     from hairpt_torch.ops import intersect_blocked as iblk
@@ -2930,23 +3101,12 @@ def check_kernel_i(label, bvh, geom, leaf, ray, h_out, stride, report):
            + torch.arange(I_BLOCK, device=ray.o.device)).reshape(-1)
     sub = type(pray)(*[x[sel] for x in pray])
     live = ray.maxt > ray.mint
+    pending = []
     for mode in ("closest", "any"):
         closest = mode == "closest"
         kern = iblk.closest_hit_blocked if closest else iblk.any_hit_blocked
-        plain_fn = iblk.closest_hit_blocked_plain if closest \
-            else iblk.any_hit_blocked_plain
-        counts = dict(steps=0, nodes=0, prims=0)
         k = kern(bvh, geom, leaf, pray, I_BLOCK)
-        bad, plain_ms = 0, None
-        if len(blocks):
-            torch.cuda.synchronize()
-            t0 = time.time()
-            p = plain_fn(bvh, geom, leaf, sub, I_BLOCK, counts=counts)
-            torch.cuda.synchronize()
-            plain_ms = (time.time() - t0) * 1e3
-            ks = tuple(x[sel] for x in k) if closest else k[sel]
-            bad = int(_differ(ks, p, closest).sum())
-        h = h_out[mode][0]
+        h = h_kern[mode]
         kn = tuple(x[:n] for x in k) if closest else k[:n]
         diff = _differ(kn, h, True) if closest else kn != (h & live)
         off = torch.nonzero(diff)[:, 0].tolist()
@@ -2956,47 +3116,73 @@ def check_kernel_i(label, bvh, geom, leaf, ray, h_out, stride, report):
                                  float(h[0][i]), int(h[1][i])) if closest
                                 else (bool(kn[i]), bool(h[i])))))
         ms = cuda_ms(lambda: kern(bvh, geom, leaf, pray, I_BLOCK), 3)
-        hf = h_out[mode][1]
-        scale = nb / max(len(blocks), 1)
-        work_ms, _ = bound_ms(0, (F_SLAB_FLOPS * counts["nodes"] * I_BLOCK
-                                  + (F_TRI_FLOPS if leaf == "tri"
-                                     else F_HAIR_FLOPS) * counts["prims"])
-                              * scale)
-        plain = (f"plain {plain_ms:.1f} ms on the blocks checked "
-                 f"({counts['steps']} iterations, {counts['nodes']} block "
-                 f"steps, {counts['prims']} lane tests), I's own work "
-                 f"{work_ms:.4f} ms by operations (scaled from the blocks "
-                 f"checked)" if len(blocks)
-                 else "plain version not run on this wave")
-        verdict = ("bit for bit" if bad == 0 else f"{bad} rays DIFFER") \
-            if len(blocks) else "no block against the plain version"
-        log(f"I {leaf} {mode} on {label} ({nb} blocks of {I_BLOCK}, "
-            f"{len(blocks)} checked): {verdict}; "
-            f"against H {len(off)} of {n} rays differ {detail}; kernel "
-            f"{ms:.3f} ms (H {hf['ms']:.3f}), {plain}, bound "
-            f"{hf['bound_ms']:.4f} ms ({ms / hf['bound_ms']:.1f}x)")
-        require(bad == 0, f"kernel I ({leaf}, {mode}) differs from its plain "
-                f"version on {bad} rays of {label}")
-        require(len(off) <= IH_MAX_DIFF * n, f"kernel I ({leaf}, {mode}) "
-                f"differs from H on {len(off)} rays of {label}")
-        report.setdefault(("blocked", leaf, mode), []).append((label, dict(
-            ms=ms, plain_ms=plain_ms, plain_blocks=len(blocks), blocks=nb,
-            bound_ms=hf["bound_ms"], bound_by=hf["bound_by"], work_ms=work_ms,
-            max_abs_err=0.0, rays=n, off_h=len(off))))
+        job = plain_job(plain, f"I_{mode}", bvh, geom, leaf, sub, I_BLOCK,
+                        counts=dict(steps=0, nodes=0, prims=0)) \
+            if len(blocks) else None
+        pending.append((mode, k, off, detail, ms, job))
+
+    def finish(h_out):
+        for mode, k, off, detail, ms, job in pending:
+            closest = mode == "closest"
+            bad, plain_ms = 0, None
+            counts = dict(steps=0, nodes=0, prims=0)
+            if job is not None:
+                p, counts, plain_ms = job()
+                ks = tuple(x[sel] for x in k) if closest else k[sel]
+                bad = int(_differ(ks, p, closest).sum())
+            hf = h_out[mode][1]
+            scale = nb / max(len(blocks), 1)
+            work_ms, _ = bound_ms(0, (F_SLAB_FLOPS * counts["nodes"]
+                                      * I_BLOCK
+                                      + (F_TRI_FLOPS if leaf == "tri"
+                                         else F_HAIR_FLOPS)
+                                      * counts["prims"]) * scale)
+            plain_s = (f"plain {plain_ms:.1f} ms on the blocks checked "
+                       f"({counts['steps']} iterations, {counts['nodes']} "
+                       f"block steps, {counts['prims']} lane tests), I's "
+                       f"own work {work_ms:.4f} ms by operations (scaled "
+                       f"from the blocks checked)" if len(blocks)
+                       else "plain version not run on this wave")
+            verdict = ("bit for bit" if bad == 0
+                       else f"{bad} rays DIFFER") \
+                if len(blocks) else "no block against the plain version"
+            log(f"I {leaf} {mode} on {label} ({nb} blocks of {I_BLOCK}, "
+                f"{len(blocks)} checked): {verdict}; "
+                f"against H {len(off)} of {n} rays differ {detail}; kernel "
+                f"{ms:.3f} ms (H {hf['ms']:.3f}), {plain_s}, bound "
+                f"{hf['bound_ms']:.4f} ms ({ms / hf['bound_ms']:.1f}x)")
+            require(bad == 0, f"kernel I ({leaf}, {mode}) differs from its "
+                    f"plain version on {bad} rays of {label}")
+            require(len(off) <= IH_MAX_DIFF * n, f"kernel I ({leaf}, "
+                    f"{mode}) differs from H on {len(off)} rays of {label}")
+            report.setdefault(("blocked", leaf, mode), []).append(
+                (label, dict(ms=ms, plain_ms=plain_ms,
+                             plain_blocks=len(blocks), blocks=nb,
+                             bound_ms=hf["bound_ms"],
+                             bound_by=hf["bound_by"], work_ms=work_ms,
+                             max_abs_err=0.0, rays=n, off_h=len(off))))
+    return finish
 
 
-def furball_walks(scene, wv, report):
+def furball_walks(scene, wv, report, plain=None):
     """Phase 14a (run in phase 2, on its waves): kernels H and I on the
     full-width furball's camera and first-bounce waves (hair leaf); I's
-    plain version on the camera wave's blocks (I_FURBALL_STRIDE)."""
+    plain version on the camera wave's blocks (I_FURBALL_STRIDE). The
+    plain walks in `plain`; returns the function that finishes the
+    checks."""
     arr = scene.arrays
+    finishes = []
     for name, ray in wv.items():
         label = f"the furball's {name} wave"
-        h = check_kernel_h(label, arr.hair_bvh, arr.hair, arr.hair_packed,
-                           "hair", ray, report, F_HAIR_PLAIN_SHARE)
-        check_kernel_i(label, arr.hair_bvh, arr.hair, "hair", ray, h,
-                       I_FURBALL_STRIDE if name == "camera" else None,
-                       report)
+        h_kern, h_finish = check_kernel_h(label, arr.hair_bvh, arr.hair,
+                                          arr.hair_packed, "hair", ray,
+                                          report, F_HAIR_PLAIN_SHARE, plain)
+        i_finish = check_kernel_i(label, arr.hair_bvh, arr.hair, "hair",
+                                  ray, h_kern,
+                                  I_FURBALL_STRIDE if name == "camera"
+                                  else None, report, plain)
+        finishes.append((h_finish, i_finish))
+    return lambda: [i_f(h_f()) for h_f, i_f in finishes]
 
 
 def teapot_walks(report, device="cuda", **load_kw):
@@ -3014,9 +3200,10 @@ def teapot_walks(report, device="cuda", **load_kw):
     wv, _ = mesh_waves(scene)
     for name, ray in wv.items():
         label = f"the teapot's {name} wave"
-        h = check_kernel_h(label, arr.tri_bvh, arr.tri, arr.tri_packed, "tri",
-                           ray, report)
-        check_kernel_i(label, arr.tri_bvh, arr.tri, "tri", ray, h, 1, report)
+        h_kern, h_finish = check_kernel_h(label, arr.tri_bvh, arr.tri,
+                                          arr.tri_packed, "tri", ray, report)
+        check_kernel_i(label, arr.tri_bvh, arr.tri, "tri", ray, h_kern, 1,
+                       report)(h_finish())
     return scene
 
 
@@ -6640,6 +6827,379 @@ def _cloth_cells(reset_all, device, res, quality, small, tmp):
     return facts
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the image codecs, the film's annotations and banner, and the
+# leftovers (core/distribution, core/numerics, spectrum's helpers,
+# make_li_fn's ablate), through kernels A and B (no new kernel: the JPEG
+# block stage is integer tensor code, the leftovers are tensor code)
+# ---------------------------------------------------------------------------
+
+# 22a: the annotated CLI's labels (one with film, sampler and integrator
+# keys, one with the render time, whose digits only the CLI knows). A box:
+# the label's 6 x 11 cells, a column either side and 14 rows
+# (utils/font.py).
+# 22a, 22b: the decoded JPEG against its source outside the text's boxes,
+# PSNR in dB. Quality 95 with 4:2:0 chroma on a 1-spp frame: the hair's
+# pixels are noise, whose red chroma the 2 x 2 subsampling averages away
+# (tests/test_torch_annotate.py: 30.0 dB on a 64^2 frame that hair fills;
+# a 128^2 CPU rehearsal: 28.1 dB, the hair's pixels 24.1 dB with a red
+# RMSE of 12.9 levels, the sky's 40.1 dB). The encoder writes libjpeg's
+# bytes (tests/test_torch_jpeg.py), so the bound is the codec's loss on
+# such a frame, not the port's
+ANNOT_LABELS = (
+    (8, 8, "$film['width']x$film['height'] spp "
+           "$sampler['sampleCount'] depth $integrator['maxDepth']"),
+    (8, 24, "t=$scene['renderTime']s"))
+RENDER_TIME = "$scene['renderTime']"
+JPEG_PSNR_MIN = 25.0
+# 22c: make_li_fn's ablate knobs on phase 4's scene, a warm-up round and
+# ABLATE_ROUNDS timed rounds of one 1-spp wave for each set in turn (the
+# first, no knob, the baseline)
+ABLATE_SETS = ((), ("nonee",), ("noshadow",), ("cheapshade",), ("nosort",))
+ABLATE_ROUNDS = 4
+# 22d: lanes of the leftovers' card-against-CPU check; the CDF rounding
+# (in ulps of 1) that u_rescaled may carry divided by its bin's probability
+LEFTOVER_LANES = 1 << 20
+CDF_ULPS = 64
+
+
+def annotated_xml(tmp, res):
+    """Phase 11's furball XML with ANNOT_LABELS and the banner in its
+    film."""
+    from hairpt_torch.scene import scene_xmls
+    xml = scene_xmls.write_scene(tmp, "furball", res=res)
+    labels = "".join(f'<string name="label[{x}, {y}]" value="{t}"/>'
+                     for x, y, t in ANNOT_LABELS)
+    src = open(xml).read()
+    film_end = '<rfilter type="tent"/></film>'
+    require(film_end in src, "the furball XML's film has no tent filter")
+    with open(xml, "w") as f:
+        f.write(src.replace(film_end, labels + '<boolean name="banner" '
+                            'value="true"/>' + film_end))
+    return xml
+
+
+def _text_boxes(labels, subst, h, w, banner):
+    import numpy as np
+    from hairpt_torch.utils import font
+    boxes = [(x - 1, x + font.text_width(font.substitute(t, subst)) + 1, y,
+              y + 14) for x, y, t in labels]
+    if banner:
+        tw = font.text_width("hairpt")
+        boxes.append((w - tw - 5, w, h - 14, h))
+    inside = np.zeros((h, w), bool)
+    for x0, x1, y0, y1 in boxes:
+        inside[max(y0, 0):max(y1, 0), max(x0, 0):max(x1, 0)] = True
+    return boxes, inside
+
+
+def label_drawn(dec, src, x, y, text):
+    """Whether `text`, drawn white at (x, y), shows in the decoded JPEG
+    `dec` of the annotated frame whose tonemapped source without the text
+    is `src`: the mean luma of its glyph pixels
+    is >= 240 and has risen over the source's by half its headroom to
+    white, at most 8 levels. 4:2:0 blurs a 1-pixel white stroke's chroma
+    into its neighbours', so no channel test holds on a bright sky; the
+    luma keeps full resolution. Returns (drawn, decoded luma, source
+    luma)."""
+    import numpy as np
+    from hairpt_torch.utils import font
+    h, w = dec.shape[:2]
+    mask = np.zeros((h, w, 3), np.uint8)
+    font.draw_text(mask, x, y, text, (255, 255, 255))
+    mask = mask[..., 0] > 0
+    lum = np.array([0.299, 0.587, 0.114])
+    yd = float((np.asarray(dec, np.float64) @ lum)[mask].mean())
+    ys = float((np.asarray(src, np.float64) @ lum)[mask].mean())
+    drawn = yd >= 240.0 and yd - ys >= min(8.0, (255.0 - ys) / 2)
+    return drawn, round(yd, 2), round(ys, 2)
+
+
+def psnr(a, b, mask=None):
+    import numpy as np
+    d = (np.asarray(a, np.float64) - np.asarray(b, np.float64)) ** 2
+    mse = (d[mask] if mask is not None else d).mean()
+    return float(10 * np.log10(255.0 ** 2 / max(mse, 1e-12)))
+
+
+def annotated_cli_start(tmp, device="cuda", res=1024, quality=HAIR_QUALITY):
+    """22a, started beside phase 21: the CLI on the annotated furball XML,
+    1 spp, --stats, -o furball.jpg."""
+    xml = annotated_xml(tmp, res)
+    return _cli_start(xml, os.path.join(tmp, "out", "furball.jpg"), quality,
+                      device, spp=1, extra=["--stats"])
+
+
+def annotated_cli_check(handle, device="cuda"):
+    """22a's checks: exit 0, Rays traced > 0, A's and B's launches in its
+    log, the JPEG decoded on the card against the tonemapped .npy outside
+    the text (JPEG_PSNR_MIN), each label's glyphs shown (label_drawn; the
+    render time's digits unknown, its label's text before them). Returns the
+    facts and the 8-bit tonemapped frame for 22b."""
+    import numpy as np
+    import ast
+    import re
+    from hairpt_torch.utils import font
+    from hairpt_torch.utils import io as io_utils
+    from hairpt_torch.utils import jpeg
+    wall, t_b, t_r, img = _cli_wait(handle, exts=("jpg", "exr", "npy",
+                                                  "pfm"))
+    out = handle[2]
+    stderr = open(out[:-4] + ".stderr").read()
+    rays = _stat(stderr, "Rays traced")
+    require(rays > 0, "the annotated CLI traced no ray")
+    m = re.search(r"kernel launches: (\{.*\})", stderr)
+    launched = ast.literal_eval(m.group(1)) if m else {}
+    if device == "cuda":
+        require(launched.get("cull_phase_a", 0) > 0
+                and launched.get("phase_b", 0) > 0,
+                f"the annotated CLI's log shows no launch of A and B: "
+                f"{launched}")
+    h, w = img.shape[:2]
+    # the render time's digits are not known here: a box as wide as
+    # 9,999.99 s needs
+    subst = {"film.width": w, "film.height": h, "sampler.sampleCount": 1,
+             "integrator.maxDepth": 65, "scene.renderTime": 9999.99}
+    boxes, inside = _text_boxes(ANNOT_LABELS, subst, h, w, True)
+    t0 = time.time()
+    dec = jpeg.read_jpeg(out, device).cpu().numpy()
+    t_dec = time.time() - t0
+    tm = np.clip(io_utils.tonemap_srgb(img, 2.2) * 255.0, 0, 255)
+    q = psnr(dec, tm, ~inside)
+    drawn = [label_drawn(dec, tm, x, y, font.substitute(
+        t.split(RENDER_TIME)[0], subst)) for x, y, t in ANNOT_LABELS]
+    log(f"22a CLI render -o furball.jpg --stats ({w}x{h}, 1 spp, two labels "
+        f"and the banner): exit 0 in {wall:.1f}s wall, built in {t_b}s, "
+        f"rendered in {t_r}s; Rays traced {rays:.0f}; launches {launched}; "
+        f"the JPEG ({os.path.getsize(out)} bytes) decoded on the card in "
+        f"{t_dec:.3f}s: PSNR {q:.2f} dB against the tonemapped .npy outside "
+        f"the text ({int(inside.sum())} pixels inside); the labels' glyph "
+        f"luma (decoded, source) {[d[1:] for d in drawn]}")
+    require(np.isfinite(img).all() and img.mean() > 0, "the annotated "
+            "CLI's image is not finite and positive")
+    require(q >= JPEG_PSNR_MIN, f"the CLI's JPEG: PSNR {q:.2f} dB < "
+            f"{JPEG_PSNR_MIN}")
+    require(all(d[0] for d in drawn), f"a label does not show in the JPEG: "
+            f"glyph luma (decoded, source) {[d[1:] for d in drawn]}")
+    u8 = np.clip(io_utils.tonemap_srgb(img, 2.2) * 255.0 + 0.5, 0, 255) \
+        .astype(np.uint8)
+    return dict(wall=wall, build=t_b, render=t_r, rays=rays, psnr=q,
+                launches=launched), u8
+
+
+def codec_sides(u8, tmp, devices=("cuda", "cpu")):
+    """22b: write_jpg of the frame on each device (byte-identical files),
+    read_image of that file on each (the same pixels), the decode against
+    the source (JPEG_PSNR_MIN); encode and decode seconds per side."""
+    import numpy as np
+    from hairpt_torch.utils import io as io_utils
+    facts, files, pix = {}, {}, {}
+    for dev in devices:
+        p = os.path.join(tmp, f"frame_{dev}.jpg")
+        t0 = time.time()
+        io_utils.write_jpg(p, u8, device=dev)
+        t_enc = time.time() - t0
+        files[dev] = open(p, "rb").read()
+        t0 = time.time()
+        pix[dev] = io_utils.read_image(p, device=dev)
+        t_dec = time.time() - t0
+        facts[dev] = dict(encode=t_enc, decode=t_dec)
+    ref = devices[0]
+    same_bytes = all(files[d] == files[ref] for d in devices)
+    same_pix = all(np.array_equal(pix[d], pix[ref]) for d in devices)
+    q = psnr(np.round(pix[ref] * 255.0), u8)
+    log(f"22b write_jpg / read_image of a {u8.shape[1]}x{u8.shape[0]} frame "
+        f"({len(files[ref])} bytes): "
+        + "; ".join(f"{d}: encode {facts[d]['encode']:.3f}s, decode "
+                    f"{facts[d]['decode']:.3f}s" for d in devices)
+        + f"; files byte-identical {same_bytes}, pixels equal {same_pix}; "
+          f"PSNR against the source {q:.2f} dB")
+    require(same_bytes, "write_jpg on the card and on the CPU wrote "
+            "different bytes")
+    require(same_pix, "read_image on the card and on the CPU differ")
+    require(q >= JPEG_PSNR_MIN, f"the JPEG's decode: PSNR {q:.2f} dB")
+    facts["psnr"] = q
+    return facts
+
+
+def ablate_waves(scene, reset_all, phase4_secs):
+    """22c: a warm-up round, then ABLATE_ROUNDS timed rounds, of one 1-spp
+    wave of make_li_fn(scene, ablate=knobs) for each entry of ABLATE_SETS
+    in turn, so that every round holds each knob set beside its own
+    no-knob baseline (the first). Per knob set: the median s/wave and the median of the rounds'
+    ratios to their baseline, each with its least and most; one wave's
+    rays, tiled queries and A's and B's launches; a finite image every
+    wave."""
+    import statistics
+    import torch
+    from hairpt_torch.film import film as film_mod
+    from hairpt_torch.integrators import path
+    from hairpt_torch.integrators.common import block_swizzle
+    from hairpt_torch.ops import intersect_tiled as itiled
+    from hairpt_torch.ops import tiled_kernels as tk
+    cfg = scene.config
+    dev = scene.arrays.device
+    n_pix = cfg.width * cfg.height
+    swz = block_swizzle(cfg.width, cfg.height)
+    pixel_idx = torch.as_tensor(swz, device=dev) if swz is not None \
+        else torch.arange(n_pix, device=dev)
+    sample_idx = torch.full((n_pix,), 1 + 65536, dtype=torch.int64,
+                            device=dev)
+    lis = {knobs: path.make_li_fn(scene, ablate=knobs)
+           for knobs in ABLATE_SETS}
+    secs = {knobs: [] for knobs in ABLATE_SETS}
+    facts = {}
+    for rnd in range(ABLATE_ROUNDS + 1):
+        for knobs in ABLATE_SETS:
+            name = "+".join(knobs) or "none"
+            reset_all()
+            itiled.STATS.update(queries=0, max_passes=0, overflow_tiles=0)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.time()
+            rad, pos, n_rays = lis[knobs](scene.arrays, pixel_idx,
+                                          sample_idx)
+            n_rays = float(n_rays)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            if rnd:
+                secs[knobs].append(time.time() - t0)
+            img, wt = film_mod.zeros(scene.film, dev)
+            img, wt = film_mod.splat_samples(scene.film, pos, rad, img, wt)
+            img = film_mod.develop(img, wt)
+            require(bool(torch.isfinite(img).all()),
+                    f"ablate={name}: non-finite pixels")
+            facts[knobs] = dict(rays=n_rays,
+                                queries=itiled.STATS["queries"],
+                                launches=dict(tk.LAUNCHES),
+                                mean=float(img.mean()))
+            del rad, pos, img, wt
+    out = {}
+    for knobs in ABLATE_SETS:
+        name = "+".join(knobs) or "none"
+        s, f = secs[knobs], facts[knobs]
+        ratio = [a / b for a, b in zip(s, secs[()])]
+        out[name] = dict(secs=statistics.median(s), secs_min=min(s),
+                         secs_max=max(s), secs_all=s,
+                         ratio=statistics.median(ratio),
+                         ratio_min=min(ratio), ratio_max=max(ratio), **f)
+        log(f"22c ablate={name}: median {out[name]['secs']:.4f} s/wave "
+            f"({min(s):.4f}-{max(s):.4f} over {len(s)} waves), "
+            f"{out[name]['ratio']:.3f}x its round's no-knob wave "
+            f"({min(ratio):.3f}-{max(ratio):.3f}); {f['rays']:.0f} rays, "
+            f"{f['queries']} tiled queries, launches {f['launches']}, image "
+            f"mean {f['mean']:.6f} (phase 4: {phase4_secs:.3f} s/wave)")
+    return out
+
+
+def leftovers_run(dev, n=LEFTOVER_LANES):
+    """22d's computations on `dev`: core/distribution, core/numerics and
+    spectrum's helpers on n lanes (inputs from a numpy seed)."""
+    import numpy as np
+    import torch
+    from hairpt_torch.core import distribution as dist
+    from hairpt_torch.core import numerics as num
+    from hairpt_torch.core import spectrum as spec
+    rng = np.random.default_rng(22)
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    w = rng.random((64,)).astype(np.float32) ** 3
+    u = t(rng.random(n))
+    cdf, _ = dist.build_cdf(t(w))
+    out = {"cdf": cdf, "u": u}
+    out["idx"], out["prob"], out["ur"] = dist.sample_discrete(
+        cdf.expand(n, 64), u)
+    out["pdf"] = dist.pdf_continuous(cdf.expand(n, 64), u)
+    icdf = dist.InterpolatedCdf1D(rng.random((9, 13)), device=dev)
+    v = t(rng.random(n) * 8.5 - 0.2)
+    out["i_idx"], out["i_ur"], out["i_p"] = icdf.sample(v, u)
+    c = t(rng.random(n) * 7 + 0.1)
+    out["brent"] = num.brent_solve(lambda x: x ** 3 - c, torch.zeros_like(c),
+                                   torch.full_like(c, 2.5))
+    vals = (np.sin(np.linspace(0, 5, 23)) + 1.3).astype(np.float32)
+    out["cubic"] = num.eval_cubic_1d(t(rng.random(n) * 2.6 - 0.3), vals,
+                                     0.0, 2.0)
+    out["cubic_x"], out["cubic_pdf"] = num.sample_cubic_1d(u, vals, 0.0, 2.0)
+    th = t(rng.random(n) * (np.pi - 0.1) + 0.05)
+    ph = t(rng.random(n) * 2 * np.pi)
+    out["sh"] = num.sh_eval_basis(4, th, ph)
+    rgb = t(rng.random((n, 3)) * 1.4 - 0.2)
+    out["lum"] = spec.luminance(rgb)
+    out["srgb"] = spec.srgb_gamma(rgb)
+    out["inv_srgb"] = spec.inv_srgb_gamma(rgb)
+    out["gamma"] = spec.gamma_encode(rgb, 2.2)
+    out["bb"] = spec.blackbody_rgb(t(rng.random(n) * 20000 + 800))
+    return {k: x.cpu() for k, x in out.items()}
+
+
+def leftovers_cell(devices=("cuda", "cpu")):
+    """22d: leftovers_run on the card against the CPU, with the CPU tests'
+    bounds (tests/test_torch_numerics.py): a sampled bin equal but where
+    the lane's u lies within 1 ulp of a CDF step (the interpolated CDF's
+    on >= 99% of the lanes), floats within 1e-6 absolute plus 1e-6
+    relative (where the bins agree; blackbody_rgb reaches 3 and its
+    powf and logf differ by a few ulps between the card and the CPU, as
+    the CPU test's 1e-6 relative allows), the cubic pdf within 1e-5
+    relative, the SH basis within 1e-5 of its largest magnitude. The card's cumsum rounds otherwise than the
+    CPU's (the CPU tests' two sides round alike): the CDF is held within
+    1e-6 + CDF_ULPS ulps of 1, a bin's probability (hi - lo) within twice
+    that, the piecewise-constant pdf (its probability times the 64 bins)
+    within 64 times that, and u_rescaled = (u - lo) / prob within that
+    divided by the bin's probability."""
+    import numpy as np
+    import torch
+    t0 = time.time()
+    card = leftovers_run(devices[0])
+    t_card = time.time() - t0
+    cpu = leftovers_run(devices[1])
+    cdf_tol = CDF_ULPS * 2.0 ** -24
+    worst = {}
+    for k in card:
+        a, b = card[k], cpu[k]
+        if not a.is_floating_point():
+            worst[k] = float((a != b).double().mean())
+            continue
+        d = (a.double() - b.double()).abs()
+        if k == "sh":
+            tol = 1e-5 * float(b.abs().max())
+        elif k == "cubic_pdf":
+            tol = 1e-5 * b.abs().double()
+        elif k in ("ur", "i_ur"):
+            prob = cpu["prob" if k == "ur" else "i_p"].double()
+            tol = 1e-6 + 2 * cdf_tol / prob.clamp(min=1e-30)
+        elif k == "cdf":
+            tol = 1e-6 + cdf_tol
+        elif k in ("prob", "i_p"):
+            tol = 1e-6 + 2 * cdf_tol
+        elif k == "pdf":
+            tol = 1e-6 + 2 * cdf_tol * cpu["cdf"].shape[-1]
+        else:
+            tol = 1e-6 * (1.0 + b.abs().double())
+        same = torch.ones_like(d, dtype=torch.bool)
+        if k in ("prob", "ur"):
+            same = card["idx"] == cpu["idx"]
+        elif k in ("i_ur", "i_p"):
+            same = (card["i_idx"] == cpu["i_idx"])
+        worst[k] = float(d[same].max()) if bool(same.any()) else 0.0
+        require(not bool(((d > tol) & same).any()),
+                f"22d {k}: card and CPU differ by {worst[k]}")
+    lanes = torch.nonzero(card["idx"] != cpu["idx"]).flatten().numpy()
+    u = cpu["u"].numpy()[lanes].astype(np.float32)
+    cdf = cpu["cdf"].numpy()
+    near = (np.abs(cdf[None, :] - u[:, None])
+            <= np.spacing(u)[:, None]).any(-1)
+    require(near.all(), f"22d: {int((~near).sum())} lanes pick another bin "
+            f"away from a CDF step")
+    require(worst["i_idx"] <= 0.01, f"22d: the interpolated CDF picks "
+            f"another bin on {worst['i_idx']} of the lanes")
+    log(f"22d leftovers on {LEFTOVER_LANES} lanes card against CPU (card "
+        f"{t_card:.2f}s): {len(lanes)} bins differ, each at a CDF step; "
+        f"largest differences " + ", ".join(f"{k} {v:.3g}"
+                                            for k, v in worst.items()))
+    return worst
+
+
 def warm_up(scene, label, render=None, max_timed=2):
     """One warm-up wave of render (path.render unless given). Returns
     (progress callback, the lists it fills with each wave's seconds and
@@ -6695,6 +7255,8 @@ def main() -> int:
     from hairpt_torch.ops import photon_query as pq
     from hairpt_torch.ops import tiled_kernels as tk
     from hairpt_torch.models import media
+
+    plains = []
 
     def reset_all():
         ic.reset_counts()
@@ -6779,20 +7341,26 @@ def main() -> int:
         kernels += check_swept_kernels(scene, wv_sw)
         t2 = time.time()
         f_report = {}
-        furball_kernel_f(scene, wv, f_report)
+        plain_2 = PlainWalks()
+        plains.append(plain_2)
+        finish_12b = furball_kernel_f(scene, wv, f_report, plain_2)
         log(f"phase 12b ({time.time() - t2:.1f}s): kernel F's hair leaf "
-            f"matches its plain walk and agrees with the tiled query")
+            f"agrees with the tiled query; its plain walks queued")
         t2 = time.time()
         hi_report = {}
-        furball_walks(scene, wv, hi_report)
+        finish_14a = furball_walks(scene, wv, hi_report, plain_2)
         log(f"phase 14a, furball ({time.time() - t2:.1f}s): kernels H and I "
-            f"match their plain versions, H matches F, I matches H")
+            f"timed; their plain walks queued")
         t2 = time.time()
         sub_a = tiled_options(scene, wv)
         log(f"phase 15a ({time.time() - t2:.1f}s): kernel A over the "
             f"sub-cluster boxes matches its plain version; subcull, short_t "
             f"and two_round agree with the default query")
         del wv, wv_sw
+        # 12b's and 14a's plain walks run beside phases 2d-3c, which time
+        # nothing; they finish before phase 4's timed waves
+        plain_2.start()
+        t_plain = time.time()
         log(f"phase 2 ({time.time() - t0:.1f}s): the swept phase A and "
             f"kernel E match their plain versions ({time.time() - t1:.1f}s)")
         t0 = time.time()
@@ -6814,6 +7382,17 @@ def main() -> int:
         t0 = time.time()
         small_hair_renders(reset_all)
         log(f"phase 3c ({time.time() - t0:.1f}s): the hair BSDFs agree")
+
+        # ---- 12b, 14a: the plain walks queued in phase 2 ----
+        t0 = time.time()
+        finish_12b()
+        log(f"phase 12b: kernel F's hair leaf matches its plain walk")
+        finish_14a()
+        plain_2.close()
+        log(f"phase 12b/14a plain walks ({time.time() - t_plain:.1f}s in "
+            f"their subprocess beside phases 2d-3c, {time.time() - t0:.1f}s "
+            f"waited here): kernels H and I match their plain versions, H "
+            f"matches F, I matches H")
 
         # ---- 4. the full-width render, tiled ----
         t0 = time.time()
@@ -6858,6 +7437,12 @@ def main() -> int:
         opt_r = option_renders(scene, reset_all)
         log(f"phase 15b ({time.time() - t0:.1f}s): the tiled_sub and "
             f"tiled_short renders ok (phase 4's tiled: {secs:.3f} s/wave)")
+
+        # ---- 22c. make_li_fn's ablate knobs on phase 4's scene ----
+        t0 = time.time()
+        ablated = ablate_waves(scene, reset_all, secs)
+        log(f"phase 22c ({time.time() - t0:.1f}s): {ABLATE_ROUNDS} timed "
+            f"rounds of a wave under each ablate knob ok")
 
         # ---- 5. the full-width render, swept ----
         t0 = time.time()
@@ -7037,9 +7622,13 @@ def main() -> int:
         # ---- 13. instanced meshes through kernel G ----
         t0 = time.time()
         g_report = {}
-        instanced_kernels(g_report)
-        log(f"phase 13a ({time.time() - t0:.1f}s): kernel G matches its "
-            f"plain version on the instanced stand-in's waves")
+        plain_13 = PlainWalks()
+        plains.append(plain_13)
+        finish_13a = instanced_kernels(g_report, plain_13)
+        plain_13.start()
+        log(f"phase 13a ({time.time() - t0:.1f}s): kernel G and its "
+            f"yardsticks timed; its plain walks started beside 13b and 13c's "
+            f"CLI")
         t1 = time.time()
 
         def phase_13b():
@@ -7047,6 +7636,13 @@ def main() -> int:
             instanced_small(reset_all)
             log(f"phase 13b ({time.time() - t2:.1f}s, beside 13c's CLI): the "
                 f"small instanced render agrees card against CPU")
+            t2 = time.time()
+            finish_13a()
+            plain_13.close()
+            log(f"phase 13a's plain walks ({time.time() - t1:.1f}s after "
+                f"they started, {time.time() - t2:.1f}s waited here): kernel "
+                f"G matches its plain version on the instanced stand-in's "
+                f"waves")
         inst_secs, inst_rays, g_launches, _, inst_n = instanced_entry_point(
             reset_all, between=phase_13b)
         log(f"phase 13c ({time.time() - t1:.1f}s, 13b included): the "
@@ -7183,9 +7779,17 @@ def main() -> int:
             f"{mv_f['secs']:.3f} s per wave")
 
         # ---- 21. the irawan cloth cell; the CLI's banded render, --stats,
-        # --profile, util and import ----
+        # --profile, util and import; 22a's CLI started beside 21a ----
         t0 = time.time()
-        cl = cloth_cells(reset_all)
+        import tempfile
+        tmp22 = tempfile.mkdtemp(prefix="hairpt_codecs_")
+        h22 = annotated_cli_start(tmp22)
+        try:
+            cl = cloth_cells(reset_all)
+        except BaseException:
+            h22[0].kill()
+            h22[0].wait()
+            raise
         for k in kernels:
             if k["name"] in cl["launches"]:
                 k["launches_per_cloth_wave"] = \
@@ -7193,11 +7797,41 @@ def main() -> int:
         log(f"phase 21 ({time.time() - t0:.1f}s): ok; the cloth cell "
             f"{cl['secs']:.3f} s per wave, {cl['queries']:.1f} tiled queries "
             f"per wave, {cl['share']:.4f} of the camera lanes on cloth")
+
+        # ---- 22. the annotated JPEG CLI (started beside 21a), the codec on
+        # the card and the CPU, the leftovers (22c after phase 15b) ----
+        t0 = time.time()
+        try:
+            annot, frame = annotated_cli_check(h22)
+            codec = codec_sides(frame, tmp22)
+            leftovers_cell()
+        finally:
+            import shutil
+            shutil.rmtree(tmp22, ignore_errors=True)
+        for k in kernels:
+            if k["name"] in annot["launches"]:
+                k["launches_in_the_annotated_cli"] = \
+                    annot["launches"][k["name"]]
+            if k["name"] in ablated["none"]["launches"]:
+                k["launches_per_ablated_wave"] = {
+                    n: a["launches"][k["name"]] for n, a in ablated.items()}
+        enc, dec = ({d: codec[d][k] for d in ("cuda", "cpu")}
+                    for k in ("encode", "decode"))
+        log(f"phase 22 ({time.time() - t0:.1f}s after phase 21; 22a's CLI "
+            f"beside 21a, 22c after 15b): ok; the CLI's JPEG PSNR "
+            f"{annot['psnr']:.2f} dB; write_jpg card {enc['cuda']:.3f} s, "
+            f"CPU {enc['cpu']:.3f} s; read_image card {dec['cuda']:.3f} s, "
+            f"CPU {dec['cpu']:.3f} s; ablated median s/wave "
+            + ", ".join(f"{n} {a['secs']:.3f} ({a['ratio']:.3f}x)"
+                        for n, a in ablated.items()))
         require(all(k["launches"] > 0 for k in kernels),
                 "a kernel has no launches")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
         return 1
+    finally:
+        for pw in plains:
+            pw.close()
     log(f"total {time.time() - T_START:.1f}s")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -7212,4 +7846,6 @@ if __name__ == "__main__":
         sys.exit(gloo_worker(sys.argv[2:]))
     if sys.argv[1:2] == ["--cpu-refs"]:
         sys.exit(cpu_refs(*sys.argv[2:5]))
+    if sys.argv[1:2] == ["--plain-walks"]:
+        sys.exit(plain_walks_worker(sys.argv[2]))
     sys.exit(main())

@@ -29,15 +29,19 @@ to DIR/trace.json; --stats prints utils/stats' table after any
 integrator (only the path render records counters, as in the JAX
 package; the banded render records its own). It runs on the card, or on
 the CPU with --cpu (the plain versions of the kernels), and writes the
-image named by -o (.png, .exr, .bmp or .tga) with .exr, .npy and .pfm of
-the linear radiance beside it. A scene with a dipole subsurface material
-gets its irradiance prepass (integrators/sss.attach_dipole) before the
-render. util (the reference's mtsutil tools) reads .npy, .pfm, .hdr and
-.exr images and computes on the card, or on the CPU with --cpu; import
+image named by -o (.png, .jpg / .jpeg at quality 95, .exr, .bmp or .tga;
+a .png beside an .exr) with .exr, .npy and .pfm of the linear radiance
+beside it; the film's label[] annotations and banner are drawn onto the
+8-bit image (utils/io.annotate_image), as the JAX package's CLI draws
+them, except under the banded render, which writes only its EXR. A scene
+with a dipole subsurface material gets its irradiance prepass
+(integrators/sss.attach_dipole) before the render. util (the
+reference's mtsutil tools) reads .npy, .pfm, .hdr and .exr images and
+computes on the card, or on the CPU with --cpu; import
 (mtsimport) converts a COLLADA document into OBJ meshes and a scene XML
 (scene/collada.py). Without --cpu a machine with no card exits non-zero
-before loading anything. JPEG output raises NotImplementedError naming
-its ROADMAP item.
+before loading anything. util writes a .jpg at quality 75 (the JAX
+package's util saves it through PIL at PIL's default quality).
 """
 from __future__ import annotations
 
@@ -59,14 +63,15 @@ def _refuse(what: str):
     raise NotImplementedError(f"{what} is not ported yet ({ITEM_13})")
 
 
-def _ldr_writer(path: str):
-    """The writer of an 8-bit image by its extension (PNG unless .bmp or
-    .tga; the JAX package's PIL picks the format the same way). JPEG is
-    refused."""
+def _ldr_writer(path: str, device, quality: int = 95):
+    """The writer of an 8-bit image by its extension (PNG unless .jpg,
+    .jpeg, .bmp or .tga; the JAX package's PIL picks the format the same
+    way); a JPEG at `quality`, its block stage on `device`."""
     from .utils import io as io_utils
     ext = path.rsplit(".", 1)[-1].lower() if "." in path else "png"
     if ext in ("jpg", "jpeg"):
-        _refuse("JPEG output")
+        return lambda p, img: io_utils.write_jpg(p, img, quality,
+                                                 device=device)
     return {"bmp": io_utils.write_bmp,
             "tga": io_utils.write_tga}.get(ext, io_utils.write_png)
 
@@ -88,7 +93,7 @@ def _read_any(path):
     raise ValueError(f"unsupported input format: {path}")
 
 
-def _write_any(path, img):
+def _write_any(path, img, device):
     import numpy as np
     from .utils import exr as exr_utils
     from .utils import io as io_utils
@@ -100,7 +105,8 @@ def _write_any(path, img):
     elif p.endswith(".exr"):
         exr_utils.write_exr(path, img)
     else:
-        _ldr_writer(path)(path, img)
+        # the JAX package's util writes through PIL at its default quality
+        _ldr_writer(path, device, quality=75)(path, img)
 
 
 def _util_main(args):
@@ -122,7 +128,8 @@ def _util_main(args):
     imgs = [torch.as_tensor(_read_any(p), device=dev) for p in args.inputs]
     if args.tool == "tonemap":
         out = torch.clamp(imgs[0], 0.0, 1.0) ** (1.0 / args.gamma)
-        _ldr_writer(args.output)(args.output, out.cpu().numpy())
+        _ldr_writer(args.output, dev, quality=75)(args.output,
+                                                  out.cpu().numpy())
     else:
         if args.tool == "addimages":
             w = [float(x) for x in args.weights.split(",")] \
@@ -139,7 +146,7 @@ def _util_main(args):
                 raise ValueError("joinrgb needs R, G, B inputs")
             out = torch.stack([im if im.dim() == 2 else im[..., 0]
                                for im in imgs], -1)
-        _write_any(args.output, out.cpu().numpy().astype(np.float32))
+        _write_any(args.output, out.cpu().numpy().astype(np.float32), dev)
     print(f"[hairpt_torch] wrote {args.output}", file=sys.stderr)
     return 0
 
@@ -250,8 +257,6 @@ def main(argv=None):
     base, ext = out.rsplit(".", 1) if "." in os.path.basename(out) \
         else (out, "png")
     ext = ext.lower()
-    if ext in ("jpg", "jpeg"):
-        _refuse("JPEG output")
 
     import torch
     if not args.cpu and not torch.cuda.is_available():
@@ -397,6 +402,14 @@ def main(argv=None):
             img = path_int.render(scene, **kw)
     img = img.cpu().numpy()
     t2 = time.time()
+    if device == "cuda":
+        # the kernels this render launched (the counts of the tiled query's
+        # A and B and the packed walk's F)
+        from .ops import intersect_packed, tiled_kernels
+        launched = {k: v for k, v in dict(tiled_kernels.LAUNCHES,
+                                          **intersect_packed.LAUNCHES)
+                    .items() if v}
+        logger.info("kernel launches: %s", launched)
     n_rays_lb = scene.config.width * scene.config.height * scene.config.spp
     logger.info("rendered in %.2fs (>=%.2f Mprimary-rays/s)", t2 - t1,
                 n_rays_lb / max(t2 - t1, 1e-9) / 1e6)
@@ -406,11 +419,19 @@ def main(argv=None):
         stats_mod.print_stats()
 
     ldr = io_utils.tonemap_srgb(img, scene.film.gamma)
+    fl = scene.film
+    if fl.annotations or fl.banner:
+        subst = {"scene.renderTime": time.time() - t1,
+                 "film.width": scene.config.width,
+                 "film.height": scene.config.height,
+                 "sampler.sampleCount": scene.config.spp,
+                 "integrator.maxDepth": scene.config.max_depth}
+        ldr = io_utils.annotate_image(ldr, fl.annotations, subst, fl.banner)
     if ext == "exr":
         exr_utils.write_exr(out, img)
         io_utils.write_png(base + ".png", ldr)
     else:
-        _ldr_writer(out)(out, ldr)
+        _ldr_writer(out, device)(out, ldr)
         exr_utils.write_exr(base + ".exr", img)
     io_utils.write_npy(base + ".npy", img)
     io_utils.write_pfm(base + ".pfm", img)

@@ -214,8 +214,8 @@ def convert_scene(scene, arrays, device=None) -> Scene:
     animation and the animated instances come across. A JAX rebuild_geo
     (animated or deformable meshes under an open shutter) is a closure
     over a JAX builder, so it raises: build such a scene on both sides
-    from one XML or one builder script. Film annotations raise
-    NotImplementedError, an integrator type the loader does not know
+    from one XML or one builder script. The film's annotations and
+    banner come across; an integrator type the loader does not know raises
     ValueError; the integrator type, the scene medium, the delta lights
     and the motion integrator's tables (tri_obj, obj_m and the camera at
     the target time) come across."""
@@ -231,13 +231,12 @@ def convert_scene(scene, arrays, device=None) -> Scene:
             "and cannot be carried across; build the animated meshes on "
             "both sides from one XML (xml_loader.load_scene) or one "
             "builder script")
-    if scene.film.annotations or scene.film.banner:
-        raise NotImplementedError("film annotations and the banner are not "
-                                  "ported yet (ROADMAP item 13)")
     camera = convert_camera(scene.camera)
     fl = scene.film
     film = Film(fl.width, fl.height, fl.filter_kind, fl.filter_radius,
-                fl.gamma)
+                fl.gamma, tuple((int(x), int(y), str(t))
+                                for x, y, t in fl.annotations),
+                bool(fl.banner))
     fields = {f.name for f in dataclasses.fields(RenderConfig)}
     cfg = RenderConfig(**{k: v for k, v in
                           dataclasses.asdict(scene.config).items()

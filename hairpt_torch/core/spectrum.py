@@ -1,13 +1,61 @@
-"""Spectra of the scene XML (numpy copy of the parts of
-hairpt/core/spectrum.py the loader needs): the `<spectrum>` tag's
-'lambda:value' form as an InterpolatedSpectrum integrated to linear sRGB,
-and the `<blackbody>` tag's exact Planck spectrum. Host-side, once per
-scene load."""
+"""RGB spectrum helpers and the spectra of the scene XML (port of
+hairpt/core/spectrum.py). The traced helpers (luminance, the sRGB and
+power-law gamma curves, the Planckian-locus blackbody_rgb) work on
+tensors; the `<spectrum>` tag's 'lambda:value' form (an
+InterpolatedSpectrum integrated to linear sRGB) and the `<blackbody>`
+tag's exact Planck spectrum are numpy on the host, once per scene load."""
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from . import spectral
+
+
+def luminance(rgb):
+    """ITU-R BT.709 luminance of [..., 3] (Spectrum::getLuminance)."""
+    w = torch.tensor([0.212671, 0.715160, 0.072169], dtype=rgb.dtype,
+                     device=rgb.device)
+    return (rgb * w).sum(-1)
+
+
+def srgb_gamma(x):
+    """Linear -> sRGB transfer curve (src/libcore/bitmap.cpp)."""
+    x = torch.clamp(x, 0.0, 1.0)
+    return torch.where(x <= 0.0031308, 12.92 * x,
+                       1.055 * torch.pow(torch.clamp(x, min=1e-8),
+                                         1.0 / 2.4) - 0.055)
+
+
+def inv_srgb_gamma(y):
+    y = torch.clamp(y, 0.0, 1.0)
+    return torch.where(y <= 0.04045, y / 12.92,
+                       torch.pow((y + 0.055) / 1.055, 2.4))
+
+
+def gamma_encode(x, gamma: float):
+    """The power-law gamma of ldrfilm (2.2 in every reference scene)."""
+    return torch.pow(torch.clamp(x, 0.0, 1.0), 1.0 / gamma)
+
+
+def blackbody_rgb(temperature_k):
+    """The Planckian-locus fit (Tanner Helland's) of a blackbody's colour:
+    linear RGB [..., 3] of unit luminance. The exact spectrum is
+    blackbody_rgb_exact."""
+    t = torch.clamp(temperature_k, 1000.0, 40000.0) / 100.0
+    r = torch.where(t <= 66.0, 255.0, 329.698727446 * torch.pow(
+        torch.clamp(t - 60.0, min=1e-3), -0.1332047592))
+    g = torch.where(
+        t <= 66.0,
+        99.4708025861 * torch.log(torch.clamp(t, min=1e-3)) - 161.1195681661,
+        288.1221695283 * torch.pow(torch.clamp(t - 60.0, min=1e-3),
+                                   -0.0755148492))
+    b = torch.where(t >= 66.0, 255.0, torch.where(
+        t <= 19.0, 0.0,
+        138.5177312231 * torch.log(torch.clamp(t - 10.0, min=1e-3))
+        - 305.0447927307))
+    rgb = torch.clamp(torch.stack([r, g, b], -1) / 255.0, 0.0, 1.0) ** 2.2
+    return rgb / torch.clamp(luminance(rgb), min=1e-6)[..., None]
 
 
 def planck_radiance(lam_nm, temperature_k):

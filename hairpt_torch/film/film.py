@@ -20,15 +20,16 @@ class Film(NamedTuple):
     filter_kind: int
     filter_radius: float
     gamma: float = 2.2
+    annotations: tuple = ()     # ((x, y, text), ...) label[] overlays
+    #                             (src/films/annotations.h)
+    banner: bool = False        # hdrfilm / ldrfilm banner overlay
 
     @staticmethod
     def make(width: int, height: int, rfilter: str = "tent",
              gamma: float = 2.2, annotations=(), banner=False) -> "Film":
-        if annotations or banner:
-            raise NotImplementedError("film annotations and the banner are "
-                                      "not ported yet (ROADMAP item 13)")
         kind, radius = FILTERS[rfilter]
-        return Film(width, height, kind, radius, gamma)
+        return Film(width, height, kind, radius, gamma, tuple(annotations),
+                    bool(banner))
 
 
 def splat_samples(film: Film, pos, value, image, weight):

@@ -35,7 +35,7 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ..core import rng
+from ..core import rng, warps
 from ..core.math import Ray, dot
 from ..film import film as film_mod
 from ..models import emitters as em
@@ -480,8 +480,11 @@ class _QueryStash:
         return run
 
 
+ABLATE_KNOBS = ("nonee", "noshadow", "cheapshade", "nosort")
+
+
 def make_li_fn(scene, differentiable: bool = False, antithetic=False,
-               n_uniform_dims: int = 0):
+               n_uniform_dims: int = 0, ablate: tuple = ()):
     """The per-wave radiance estimator li(arr, pixel_idx, sample_idx) ->
     (radiance [N, 3], pos [N, 2], n_rays [] tensor).
 
@@ -500,7 +503,21 @@ def make_li_fn(scene, differentiable: bool = False, antithetic=False,
     sample dimension d reads its column d mod n_uniform_dims
     (UniformSampler) instead of the procedural sampler; the wave then
     runs at full width, without the staged widths, as in the JAX
-    package."""
+    package.
+
+    ablate: the JAX package's diagnostic knobs, which split a wave's time
+    into its parts (each takes a part away, so the image is wrong under
+    any of them): 'nonee' skips emitter sampling and the shadow query,
+    'noshadow' treats every shadow ray as unoccluded, 'cheapshade' puts
+    closed-form Lambert in place of the BSDF's eval and sample, 'nosort'
+    turns off the Morton / octant resort of the bounce and shadow waves.
+    path.render and the CLI pass none."""
+    bad = set(ablate) - set(ABLATE_KNOBS)
+    if bad:
+        raise ValueError(f"unknown ablate knobs {sorted(bad)}; the knobs "
+                         f"are {ABLATE_KNOBS}")
+    nonee, noshadow = "nonee" in ablate, "noshadow" in ablate
+    cheapshade, sort_rays = "cheapshade" in ablate, "nosort" not in ablate
     cfg = scene.config
     cam = scene.camera
     active_kinds = scene.active_kinds
@@ -585,57 +602,78 @@ def make_li_fn(scene, differentiable: bool = False, antithetic=False,
         kinds = active_kinds if rows is None \
             else live_kinds(rows, hit.mat_id, active)
 
+        def eval_pdf(wo_q):
+            if cheapshade:
+                cz = torch.clamp(wo_q[..., 2], min=0.0) / math.pi
+                return gm.diffuse * cz[..., None], cz
+            return mat.eval_pdf_mix(kinds, arr.materials, arr.checkers,
+                                    hit.mat_id, hit.uv, gm, wi, wo_q,
+                                    arr.hair_tables)
+
         # ---- NEE ----
-        u_sel = smp.next_1d(dims + D_NEE_SEL)
-        u_nee = smp.next_2d(dims + D_NEE_POS)
-        # a stopped lane's point (at infinity on a miss) is parked at the
-        # origin: its NEE direction stays finite, so the zero gradient its
-        # masked contribution gets is not 0 * NaN
-        d_nee, dist_nee, le_nee, pdf_nee, is_dl = _sample_emitter_direct(
-            arr, cfg, torch.where(active[..., None], hit.p, 0.0), u_sel, u_nee)
-        wo_nee = fr.to_local(d_nee)
-        f_nee, bsdf_pdf_nee = mat.eval_pdf_mix(
-            kinds, arr.materials, arr.checkers, hit.mat_id, hit.uv,
-            gm, wi, wo_nee, arr.hair_tables)
-        nee_ok = active & (pdf_nee > 0) \
-            & (torch.amax(torch.abs(f_nee), dim=-1) > 0)
-        if cfg.strict_normals:
-            nee_ok = nee_ok & (dot(geo_n, d_nee) * wo_nee[..., 2] > 0)
-        w_nee = torch.where(is_dl, 1.0, _mi_weight(pdf_nee, bsdf_pdf_nee))
-        contrib = st.throughput * le_nee * f_nee \
-            * (w_nee / torch.clamp(pdf_nee, min=1e-20))[..., None]
-        if cfg.nee_rr > 0.0:
-            p_tr = torch.clamp(_luminance(contrib.detach()) / cfg.nee_rr,
-                               0.05, 1.0)
-            u_srr = smp.next_1d(dims + D_NEE_RR)
-            nee_ok = nee_ok & (u_srr < p_tr)
-            contrib = contrib / p_tr[..., None]
-        shadow_o = hit.p + geo_n * torch.where(
-            dot(d_nee, geo_n) > 0, ray_eps, -ray_eps)[..., None]
-        shadow = Ray(o=shadow_o, d=d_nee, mint=torch.zeros((n,), device=dev),
-                     maxt=torch.where(nee_ok, dist_nee - 2.0 * ray_eps,
-                                      0.0))
-        occluded = query(scene_occluded, arr, shadow, sort_rays=True,
-                         compact=False, **params)
-        vis = nee_ok & ~occluded
-        li_acc = li_acc + torch.where(vis[..., None], contrib, zero)
+        nee_ok = torch.zeros_like(active)
+        if not nonee:
+            u_sel = smp.next_1d(dims + D_NEE_SEL)
+            u_nee = smp.next_2d(dims + D_NEE_POS)
+            # a stopped lane's point (at infinity on a miss) is parked at
+            # the origin: its NEE direction stays finite, so the zero
+            # gradient its masked contribution gets is not 0 * NaN
+            d_nee, dist_nee, le_nee, pdf_nee, is_dl = \
+                _sample_emitter_direct(
+                    arr, cfg, torch.where(active[..., None], hit.p, 0.0),
+                    u_sel, u_nee)
+            wo_nee = fr.to_local(d_nee)
+            f_nee, bsdf_pdf_nee = eval_pdf(wo_nee)
+            nee_ok = active & (pdf_nee > 0) \
+                & (torch.amax(torch.abs(f_nee), dim=-1) > 0)
+            if cfg.strict_normals:
+                nee_ok = nee_ok & (dot(geo_n, d_nee) * wo_nee[..., 2] > 0)
+            w_nee = torch.where(is_dl, 1.0,
+                                _mi_weight(pdf_nee, bsdf_pdf_nee))
+            contrib = st.throughput * le_nee * f_nee \
+                * (w_nee / torch.clamp(pdf_nee, min=1e-20))[..., None]
+            if cfg.nee_rr > 0.0:
+                p_tr = torch.clamp(_luminance(contrib.detach())
+                                   / cfg.nee_rr, 0.05, 1.0)
+                u_srr = smp.next_1d(dims + D_NEE_RR)
+                nee_ok = nee_ok & (u_srr < p_tr)
+                contrib = contrib / p_tr[..., None]
+            shadow_o = hit.p + geo_n * torch.where(
+                dot(d_nee, geo_n) > 0, ray_eps, -ray_eps)[..., None]
+            shadow = Ray(o=shadow_o, d=d_nee,
+                         mint=torch.zeros((n,), device=dev),
+                         maxt=torch.where(nee_ok, dist_nee - 2.0 * ray_eps,
+                                          0.0))
+            if noshadow:
+                occluded = torch.zeros_like(nee_ok)
+            else:
+                occluded = query(scene_occluded, arr, shadow,
+                                 sort_rays=sort_rays, compact=False,
+                                 **params)
+            vis = nee_ok & ~occluded
+            li_acc = li_acc + torch.where(vis[..., None], contrib, zero)
 
         # ---- BSDF sampling ----
         u_lobe = smp.next_1d(dims + D_BSDF_LOBE)
         u2 = smp.next_2d(dims + D_BSDF_U2)
         u2b = smp.next_2d(dims + D_BSDF_U2B)
-        wo, bsdf_weight, bsdf_pdf, is_delta, eta_s = mat.sample_mix(
-            kinds, arr.materials, arr.checkers, hit.mat_id, hit.uv,
-            gm, wi, u_lobe, u2, u2b, arr.hair_tables)
+        if cheapshade:
+            wo = warps.square_to_cosine_hemisphere(u2)
+            bsdf_pdf = torch.clamp(wo[..., 2], min=0.0) / math.pi
+            bsdf_weight = gm.diffuse
+            is_delta = torch.zeros_like(active)
+            eta_s = torch.ones((n,), device=dev)
+        else:
+            wo, bsdf_weight, bsdf_pdf, is_delta, eta_s = mat.sample_mix(
+                kinds, arr.materials, arr.checkers, hit.mat_id, hit.uv,
+                gm, wi, u_lobe, u2, u2b, arr.hair_tables)
         if differentiable:
             # a delta lane (the faithful Marschner's sampled hair lobe)
             # keeps the sampled weight, its gradient through the sampled
             # direction included; a smooth lane's is f(wo) / sg(pdf(wo))
             wo = wo.detach()
             bsdf_pdf = bsdf_pdf.detach()
-            f2, p2 = mat.eval_pdf_mix(kinds, arr.materials,
-                                      arr.checkers, hit.mat_id, hit.uv, gm,
-                                      wi, wo, arr.hair_tables)
+            f2, p2 = eval_pdf(wo)
             w_smooth = f2 / torch.clamp(p2.detach(), min=1e-9)[..., None]
             bsdf_weight = torch.where(is_delta[..., None], bsdf_weight,
                                       w_smooth)
@@ -652,7 +690,7 @@ def make_li_fn(scene, differentiable: bool = False, antithetic=False,
         next_ray = Ray(o=next_o, d=wo_world,
                        mint=torch.zeros((n,), device=dev),
                        maxt=torch.where(active, float("inf"), 0.0))
-        hit2 = query(scene_intersect, arr, next_ray, sort_rays=True,
+        hit2 = query(scene_intersect, arr, next_ray, sort_rays=sort_rays,
                      compact=False, **params)
 
         # ---- RR (none in the differentiable mode) ----

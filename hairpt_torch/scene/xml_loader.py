@@ -88,8 +88,12 @@ Every integrator of the JAX loader is taken (the motion integrator's
 `time` a float target time or a string path configuration, its `config`
 the configuration). Every other element the JAX loader accepts raises
 NotImplementedError before any build work, naming the ROADMAP item that
-ports it (13: LDR images other than PNG, film annotations and the
-banner).
+ports it (13: image formats other than PNG, JPEG, BMP, TGA, HDR, PFM and
+EXR, which the JAX loader hands to PIL, and the JPEG and TGA variants
+utils/io.probe_image finds in a file's header). The film's label[x, y]
+annotations and banner are read as the JAX loader reads them; every LDR
+image (a bitmap texture, a normal or bump map, a heightfield, an envmap)
+goes through utils/io.read_image.
 Nothing else is dropped silently.
 """
 from __future__ import annotations
@@ -189,9 +193,10 @@ _PHASE_KINDS = {"isotropic": med_mod.ISOTROPIC, "hg": med_mod.HG,
                 "kkay_is": med_mod.KKAY_IS,
                 "microflake": med_mod.MICROFLAKE,
                 "mixturephase": med_mod.MIXTURE_PHASE}
-# the image files the port reads (the JAX package reads any other LDR
-# format through PIL)
-_IMAGE_EXTS = (".png", ".hdr", ".pfm", ".exr")
+# the image files the port reads (the JAX package reads any other format
+# through PIL)
+_IMAGE_EXTS = (".png", ".jpg", ".jpeg", ".bmp", ".tga", ".hdr", ".pfm",
+               ".exr")
 _FILMS_PORTED = {"ldrfilm", "hdrfilm", "mfilm", "tiledhdrfilm"}
 _DELTA_KINDS = {"point": em.POINT, "spot": em.SPOT,
                 "directional": em.DIRECTIONAL, "collimated": em.COLLIMATED}
@@ -311,14 +316,18 @@ def _resolve_file(fname: str, scene_dir: str):
 
 
 def _refuse_image(node, defines, scene_dir, what: str):
-    """Refuse an existing image file the port cannot read."""
+    """Refuse an existing image file the port cannot read: its format, or
+    a variant of its format (io.probe_image reads its header)."""
     if node is None:
         return
     path = _resolve_file(_collect_props(node, defines).get("filename", ""),
                          scene_dir)
-    if path is not None and not path.lower().endswith(_IMAGE_EXTS):
-        _refuse(f"{what} image {os.path.basename(path)} (LDR images other "
-                f"than PNG)", ITEM_13)
+    if path is None:
+        return
+    if not path.lower().endswith(_IMAGE_EXTS):
+        _refuse(f"{what} image {os.path.basename(path)} (image formats "
+                f"other than {', '.join(_IMAGE_EXTS)})", ITEM_13)
+    io_utils.probe_image(path)
 
 
 def _refuse_bsdf(node, defines, scene_dir):
@@ -350,10 +359,6 @@ def _refuse_unported(root, defines, scene_dir):
         if fm is not None:
             if fm.get("type") not in _FILMS_PORTED:
                 _refuse(f"the {fm.get('type')} film", ITEM_13)
-            fp = _collect_props(fm, defines)
-            if fp.get("banner", False) or any(
-                    re.match(r"^label\[", k.replace(" ", "")) for k in fp):
-                _refuse("film annotations and the banner", ITEM_13)
     for bsdf in root.iter("bsdf"):
         _refuse_bsdf(bsdf, defines, scene_dir)
     for shape in root.findall("shape"):
@@ -363,24 +368,31 @@ def _refuse_unported(root, defines, scene_dir):
         if emit.get("type") == "envmap":
             fname = os.path.join(scene_dir, _collect_props(
                 emit, defines).get("filename", ""))
-            if os.path.exists(fname) and not fname.lower().endswith(
-                    _IMAGE_EXTS):
-                _refuse(f"an LDR envmap image ({os.path.basename(fname)}) "
-                        f"other than PNG", ITEM_13)
+            if not os.path.exists(fname):
+                continue
+            if not fname.lower().endswith(_IMAGE_EXTS):
+                _refuse(f"the envmap image {os.path.basename(fname)} "
+                        f"(image formats other than "
+                        f"{', '.join(_IMAGE_EXTS)})", ITEM_13)
+            io_utils.probe_image(fname)
 
 
-def _read_texture_image(fname: str, scene_dir: str, gamma: float = 2.2):
-    """A texture image (HDR, PFM and EXR linear; PNG with the given
-    de-gamma), or None when missing (the JAX loader's
-    _read_texture_image)."""
+def _read_texture_image(fname: str, scene_dir: str, gamma: float = 2.2,
+                        device=None):
+    """A texture image (HDR, PFM and EXR linear; an LDR image with the
+    given de-gamma), or None when missing or corrupt (the JAX loader's
+    _read_texture_image, which returns None where PIL fails). A valid
+    file the port does not read raised before the build
+    (_refuse_unported). A JPEG's block stage runs on `device`."""
     path = _resolve_file(fname, scene_dir)
     if path is None:
         return None
     if path.lower().endswith((".hdr", ".pfm", ".exr")):
         return _read_env_image(path)
-    # a PNG: _refuse_unported refused the other LDR formats
-    arr = io_utils.png_rgb(io_utils.read_png(path)).astype(np.float32) \
-        / 255.0
+    try:
+        arr = io_utils.read_image(path, device=device)
+    except ValueError:
+        return None
     return arr ** gamma if gamma != 1.0 else arr
 
 
@@ -561,7 +573,8 @@ def _material_row_from_bsdf(node, defines, builder: SceneBuilder,
             uscale=tp.get("uscale", 1.0), vscale=tp.get("vscale", 1.0),
             uoffset=tp.get("uoffset", 0.0), voffset=tp.get("voffset", 0.0))
     elif ttype == "bitmap":
-        img = _read_texture_image(tp.get("filename", ""), scene_dir)
+        img = _read_texture_image(tp.get("filename", ""), scene_dir,
+                                  device=builder.device)
         if img is not None:
             row["tex_id"] = builder.add_bitmap_texture(
                 np.asarray(img) * tex_gain, uscale=tp.get("uscale", 1.0),
@@ -572,7 +585,7 @@ def _material_row_from_bsdf(node, defines, builder: SceneBuilder,
         # the normal or bump texture, read without de-gamma
         ntp = _collect_props(nrm[1], defines)
         nimg = _read_texture_image(ntp.get("filename", ""), scene_dir,
-                                   gamma=1.0)
+                                   gamma=1.0, device=builder.device)
         if nimg is not None:
             row["nrm_tex_id"] = builder.add_bitmap_texture(
                 nimg, uscale=ntp.get("uscale", 1.0),
@@ -608,12 +621,13 @@ def _standin_fibers(scene_dir: str, filename: str, radius: float,
     return hairgen.gen_straight_hair(n_fibers=int(800 * q), radius=radius)
 
 
-def _mesh_shape(stype: str, p: dict, scene_dir: str, to_world):
+def _mesh_shape(stype: str, p: dict, scene_dir: str, to_world,
+                device=None):
     """(mesh, toWorld) of a mesh shape with the JAX loader's rules, or
     None for a shape of another type."""
     if stype == "heightfield":
         img = _read_texture_image(p.get("filename", ""), scene_dir,
-                                  gamma=1.0)
+                                  gamma=1.0, device=device)
         return shp.heightfield(img.mean(-1) if img is not None
                                else _ripples(),
                                scale_z=float(p.get("scale", 1.0))), to_world
@@ -706,17 +720,18 @@ def _deformable(p, defines, scene_dir, mid, to_world, b, radiance=None):
                      time=t_anim)
 
 
-def _read_env_image(fname: str):
+def _read_env_image(fname: str, device=None):
+    """An envmap image: HDR, PFM and EXR linear, an LDR image de-gammaed
+    with 2.2 (the JAX loader's envmap branch)."""
     low = fname.lower()
     if low.endswith(".hdr"):
         return io_utils.read_hdr(fname)
     if low.endswith(".pfm"):
         return io_utils.read_pfm(fname)
-    if low.endswith(".png"):
-        return (io_utils.png_rgb(io_utils.read_png(fname)).astype(np.float32)
-                / 255.0) ** 2.2
-    from ..utils import exr as exr_utils
-    return exr_utils.read_exr(fname)[..., :3]
+    if low.endswith(".exr"):
+        from ..utils import exr as exr_utils
+        return exr_utils.read_exr(fname)[..., :3]
+    return io_utils.read_image(fname, device=device) ** 2.2
 
 
 def load_scene(path: str, defines: dict | None = None,
@@ -800,6 +815,9 @@ def load_scene(path: str, defines: dict | None = None,
         fm = sensor.find("film")
         w, h, gamma, rfilter = 768, 576, 2.2, "tent"
         tiled_film = fm is not None and fm.get("type") == "tiledhdrfilm"
+        # label[x, y] annotations and the banner flag
+        # (src/films/annotations.h, banner.h)
+        annotations, banner = [], False
         if fm is not None:
             fp = _collect_props(fm, defines)
             w = fp.get("width", 768)
@@ -808,9 +826,17 @@ def load_scene(path: str, defines: dict | None = None,
             rf = fm.find("rfilter")
             if rf is not None:
                 rfilter = rf.get("type", "tent")
+            banner = bool(fp.get("banner", False))
+            for k, v in fp.items():
+                m_lab = re.match(r"^label\[(-?\d+),(-?\d+)\]$",
+                                 k.replace(" ", ""))
+                if m_lab and isinstance(v, str):
+                    annotations.append((int(m_lab.group(1)),
+                                        int(m_lab.group(2)), v))
         w = max(8, int(round(w * res_scale)))
         h = max(8, int(round(h * res_scale)))
-        film = Film.make(w, h, rfilter, gamma)
+        film = Film.make(w, h, rfilter, gamma, annotations=annotations,
+                         banner=banner)
         kc = [float(x) for x in str(p["kc"]).replace(",", " ").split()[:2]] \
             if "kc" in p else [0.0, 0.0]
         cam = Camera.perspective(
@@ -912,7 +938,7 @@ def load_scene(path: str, defines: dict | None = None,
                 _deformable(p, defines, scene_dir, mid, to_world, b,
                             radiance)
             else:
-                got = _mesh_shape(stype, p, scene_dir, to_world)
+                got = _mesh_shape(stype, p, scene_dir, to_world, b.device)
                 if got is not None:
                     b.add_mesh(got[0], mid, to_world=got[1],
                                radiance=radiance)
@@ -965,7 +991,7 @@ def load_scene(path: str, defines: dict | None = None,
         elif etype == "envmap":
             fname = os.path.join(scene_dir, p.get("filename", ""))
             if os.path.exists(fname):
-                img = _read_env_image(fname)
+                img = _read_env_image(fname, b.device)
             else:
                 img = np.full((64, 128, 3), 0.8, np.float32)
             b.env = em.make_envmap(img, to_world[:3, :3],

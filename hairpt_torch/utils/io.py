@@ -1,16 +1,20 @@
 """Image / array IO (port of hairpt/utils/io.py).
 
-PNG (ldrfilm), .npy (the fork's mfilm addition), PFM (hdrfilm) and
-Radiance RGBE .hdr input (envmap textures), as in the JAX package. The
-JAX package writes PNG, BMP and TGA through PIL; the port writes them
-itself with numpy and zlib, so it needs no imaging library: PNG as one
-zlib IDAT of unfiltered rows (filter byte 0) with CRCs from zlib.crc32,
-BMP as a 24-bit bottom-up bitmap, TGA as an uncompressed true-colour
-image. The JAX package reads LDR images (bitmap textures, normal and bump
-maps, heightfields, envmaps) through PIL; the port reads PNG itself
-(read_png: 8-bit gray, gray + alpha, RGB and RGBA, the five scanline
-filters, not interlaced). Other PNGs, JPEG input and output are not
-ported yet (ROADMAP item 13) and raise.
+PNG (ldrfilm), JPEG, BMP and TGA, .npy (the fork's mfilm addition), PFM
+(hdrfilm) and Radiance RGBE .hdr input (envmap textures), as in the JAX
+package. The JAX package codes its LDR images through PIL; the port
+needs no imaging library. It writes PNG as one zlib IDAT of unfiltered
+rows (filter byte 0) with CRCs from zlib.crc32, BMP as a 24-bit
+bottom-up bitmap, TGA as an uncompressed true-colour image and JPEG
+through utils/jpeg.py (libjpeg's integer arithmetic, on the card unless
+device="cpu"). It reads the PNG (read_png), BMP (read_bmp), TGA
+(read_tga) and JPEG (utils/jpeg.py) files that the JAX package's loaders
+read through PIL, as PIL's convert("RGB") reads them, but for the JPEG
+variants utils/jpeg.py names and 1-bit TGA. Those and the other formats
+PIL opens (GIF, TIFF, WebP, ...) are not ported yet (ROADMAP item 13):
+they raise NotImplementedError, which probe_image finds from a file's
+header; corrupt data raises ValueError. annotate_image draws the film's label[] annotations and banner
+with the port's bitmap font (utils/font.py).
 """
 from __future__ import annotations
 
@@ -20,6 +24,8 @@ import zlib
 import numpy as np
 
 ITEM_13 = "not ported yet (ROADMAP item 13)"
+# the extensions read_image reads
+_READ_EXTS = ("hdr", "pfm", "exr", "npy", "png", "jpg", "jpeg", "bmp", "tga")
 
 
 # ---------------------------------------------------------------------------
@@ -132,12 +138,23 @@ def write_tga(path: str, img: np.ndarray):
         f.write(np.ascontiguousarray(u8[:, :, ::-1]).tobytes())
 
 
-def write_jpg(path: str, img: np.ndarray, quality: int = 95):
-    raise NotImplementedError(f"JPEG output is {ITEM_13}")
+def write_jpg(path: str, img: np.ndarray, quality: int = 95, device=None):
+    """JPEG writer (the JAX package's write_jpg: PIL at quality 95 by
+    default): baseline 4:2:0 through utils/jpeg.py, its block stage on
+    `device` (the card unless "cpu")."""
+    import torch
+    from .. import resolve_device
+    from . import jpeg
+    u8 = torch.as_tensor(_to_u8(img), device=resolve_device(device))
+    with open(path, "wb") as f:
+        f.write(jpeg.encode(u8, quality))
 
 
-# colour type -> channels, for the 8-bit PNGs read_png takes
-_PNG_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
+# colour type -> channels
+_PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+# Adam7 passes: (x0, y0, dx, dy)
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+          (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
 
 
 def _paeth_row(f, prior, bpp):
@@ -163,46 +180,21 @@ def _average_row(f, prior, bpp):
     return out
 
 
-def read_png(path: str) -> np.ndarray:
-    """An 8-bit, non-interlaced PNG of colour type gray, gray + alpha, RGB
-    or RGBA as uint8 [H, W] (gray) or [H, W, C], PIL's array layout.
-    Any other PNG raises NotImplementedError."""
-    with open(path, "rb") as f:
-        data = f.read()
-    if data[:8] != b"\x89PNG\r\n\x1a\n":
-        raise ValueError(f"{path} is not a PNG file")
-    pos, ihdr, idat = 8, None, []
-    while pos + 8 <= len(data):
-        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
-        body = data[pos + 8:pos + 8 + n]
-        pos += 12 + n
-        if kind == b"IHDR":
-            ihdr = struct.unpack(">IIBBBBB", body)
-        elif kind == b"IDAT":
-            idat.append(body)
-        elif kind == b"IEND":
-            break
-    if ihdr is None:
-        raise ValueError(f"{path}: no IHDR chunk")
-    w, h, depth, ctype, _, _, interlace = ihdr
-    if depth != 8 or ctype not in _PNG_CHANNELS or interlace != 0:
-        raise NotImplementedError(
-            f"{path}: PNG with bit depth {depth}, colour type {ctype}, "
-            f"interlace {interlace}: only 8-bit, non-interlaced gray, gray + "
-            f"alpha, RGB and RGBA are read; the rest is {ITEM_13}")
-    bpp = _PNG_CHANNELS[ctype]
-    stride = w * bpp
-    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    raw = raw[:h * (stride + 1)].reshape(h, stride + 1)
-    out = np.zeros((h, stride), np.uint8)
+def _unfilter(raw, rows: int, stride: int, bpp: int, path: str):
+    """Undo the scanline filters of `rows` rows of `stride` bytes (each
+    row led by its filter byte) -> uint8 [rows, stride]."""
+    raw = raw.reshape(rows, stride + 1)
+    out = np.zeros((rows, stride), np.uint8)
     prior = np.zeros(stride, np.uint8)
-    for y in range(h):
+    for y in range(rows):
         ft, f = int(raw[y, 0]), raw[y, 1:]
         if ft == 0:
             row = f.copy()
         elif ft == 1:
-            row = np.cumsum(f.reshape(w, bpp), axis=0,
-                            dtype=np.uint8).reshape(stride)
+            pad = (-stride) % bpp
+            row = np.cumsum(np.concatenate([f, np.zeros(pad, np.uint8)])
+                            .reshape(-1, bpp), axis=0, dtype=np.uint8) \
+                .reshape(-1)[:stride]
         elif ft == 2:
             row = f + prior
         elif ft == 3:
@@ -215,18 +207,374 @@ def read_png(path: str) -> np.ndarray:
             raise ValueError(f"{path}: scanline filter {ft}")
         out[y] = row
         prior = out[y]
-    img = out.reshape(h, w, bpp)
-    return img[..., 0] if bpp == 1 else img
+    return out
+
+
+def _unpack_samples(rows, width: int, channels: int, depth: int):
+    """Scanline bytes [h, stride] -> samples [h, width, channels] (uint8,
+    uint16 at depth 16), the sub-byte depths MSB first."""
+    h = rows.shape[0]
+    if depth == 8:
+        return rows[:, :width * channels].reshape(h, width, channels)
+    if depth == 16:
+        return rows[:, :2 * width * channels].copy().view(">u2") \
+            .astype(np.uint16).reshape(h, width, channels)
+    bits = np.unpackbits(rows, axis=1)[:, :width * depth] \
+        .reshape(h, width, depth)
+    weights = (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
+    return (bits * weights).sum(-1, dtype=np.uint8)[..., None]
+
+
+def read_png(path: str) -> np.ndarray:
+    """Any PNG (bit depths 1, 2, 4, 8 and 16; gray, RGB, palette, gray +
+    alpha and RGBA; interlaced or not) in PIL's array layout: gray uint8
+    [H, W] (depths 1, 2 and 4 scaled to 0..255 as PIL's "1" / "L" modes
+    read them) or, at depth 16, uint16 [H, W] ("I;16"); gray + alpha, RGB
+    and RGBA uint8 [H, W, C] (depth 16: the high byte, as PIL reads them);
+    a palette image as its uint8 RGB colours [H, W, 3] (tRNS dropped)."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise ValueError(f"{path} is not a PNG file")
+    pos, ihdr, idat, plte = 8, None, [], b""
+    while pos + 8 <= len(data):
+        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        pos += 12 + n
+        if kind == b"IHDR":
+            ihdr = struct.unpack(">IIBBBBB", body)
+        elif kind == b"PLTE":
+            plte = body
+        elif kind == b"IDAT":
+            idat.append(body)
+        elif kind == b"IEND":
+            break
+    if ihdr is None:
+        raise ValueError(f"{path}: no IHDR chunk")
+    w, h, depth, ctype, _, _, interlace = ihdr
+    if ctype not in _PNG_CHANNELS or depth not in (1, 2, 4, 8, 16):
+        raise ValueError(f"{path}: PNG colour type {ctype} at bit depth "
+                         f"{depth}")
+    ch = _PNG_CHANNELS[ctype]
+    bpp = max(1, ch * depth // 8)
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    samples = np.zeros((h, w, ch), np.uint16 if depth == 16 else np.uint8)
+    pos = 0
+    for x0, y0, dx, dy in (_ADAM7 if interlace else ((0, 0, 1, 1),)):
+        pw, ph = -(-(w - x0) // dx), -(-(h - y0) // dy)
+        if pw <= 0 or ph <= 0:
+            continue
+        stride = -(-pw * ch * depth // 8)
+        rows = _unfilter(raw[pos:pos + ph * (stride + 1)], ph, stride, bpp,
+                         path)
+        pos += ph * (stride + 1)
+        samples[y0::dy, x0::dx] = _unpack_samples(rows, pw, ch, depth)
+    if ctype == 3:
+        pal = np.zeros((256, 3), np.uint8)
+        pv = np.frombuffer(plte, np.uint8)[:768].reshape(-1, 3)
+        pal[:len(pv)] = pv
+        return pal[samples[..., 0]]
+    if ctype == 0:
+        g = samples[..., 0]
+        return g if depth >= 8 else (g * (255 // ((1 << depth) - 1))) \
+            .astype(np.uint8)
+    if depth == 16:
+        return (samples >> 8).astype(np.uint8)
+    return samples
 
 
 def png_rgb(img: np.ndarray) -> np.ndarray:
-    """read_png's array as RGB (PIL's convert("RGB"): gray replicated,
-    alpha dropped)."""
+    """read_png's array as uint8 RGB (PIL's convert("RGB"): gray
+    replicated, 16-bit gray clipped to 255, alpha dropped)."""
     if img.ndim == 2:
-        return np.repeat(img[..., None], 3, axis=-1)
+        return np.repeat(np.minimum(img, 255).astype(np.uint8)[..., None],
+                         3, axis=-1)
     if img.shape[-1] == 2:
         return np.repeat(img[..., :1], 3, axis=-1)
     return img[..., :3]
+
+
+def _channel(pix, mask: int):
+    """The field under `mask` of every pixel, scaled to 0..255 as PIL's
+    unpackers scale 5- and 6-bit fields (v * 255 // max)."""
+    if mask == 0:
+        return np.zeros(pix.shape, np.uint8)
+    shift = (mask & -mask).bit_length() - 1
+    top = mask >> shift
+    v = (pix.astype(np.int64) & mask) >> shift
+    return (v * 255 // top).astype(np.uint8)
+
+
+def _rle_bmp(buf, w: int, h: int, four: bool):
+    """Decode BI_RLE8 / BI_RLE4 palette indices -> [h, w], bottom row
+    first (pixels the stream skips stay index 0)."""
+    out = np.zeros((h, w), np.uint8)
+    x = y = i = 0
+    n = len(buf)
+    while i + 1 < n and y < h:
+        a, b = buf[i], buf[i + 1]
+        i += 2
+        if a:
+            px = [b >> 4, b & 15] if four else [b]
+            for k in range(a):
+                if x < w:
+                    out[y, x] = px[k % len(px)]
+                x += 1
+        elif b == 0:
+            x, y = 0, y + 1
+        elif b == 1:
+            break
+        elif b == 2:
+            x += buf[i]
+            y += buf[i + 1]
+            i += 2
+        else:
+            if four:
+                nb = (b + 1) // 2
+                vals = [v for c in buf[i:i + nb] for v in (c >> 4, c & 15)]
+            else:
+                nb = b
+                vals = list(buf[i:i + nb])
+            for k in range(b):
+                if x < w and y < h:
+                    out[y, x] = vals[k]
+                x += 1
+            i += nb + (nb & 1)
+    return out
+
+
+def read_bmp(path: str) -> np.ndarray:
+    """A Windows or OS/2 bitmap as uint8 RGB [H, W, 3]: 1, 4 and 8 bits
+    with a palette (uncompressed, BI_RLE8 or BI_RLE4), 16, 24 and 32 bits
+    (BI_RGB, or BI_BITFIELDS masks), bottom-up or top-down; PIL's
+    convert("RGB") of it (alpha dropped)."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:2] != b"BM":
+        raise ValueError(f"{path} is not a BMP file")
+    off = struct.unpack("<I", data[10:14])[0]
+    hsize = struct.unpack("<I", data[14:18])[0]
+    if hsize == 12:
+        w, h, _, bits = struct.unpack("<HHHH", data[18:26])
+        comp, ncol, pal_entry = 0, 0, 3
+    else:
+        w, h, _, bits, comp = struct.unpack("<iiHHI", data[18:34])
+        ncol = struct.unpack("<I", data[46:50])[0]
+        pal_entry = 4
+    top_down = h < 0
+    h = abs(h)
+    masks = None
+    if comp in (3, 6):
+        if hsize >= 52:
+            masks = struct.unpack("<IIII", data[54:70])
+        else:
+            nm = 4 if comp == 6 else 3
+            masks = struct.unpack(f"<{nm}I", data[54:54 + 4 * nm]) + \
+                ((0,) if nm == 3 else ())
+    elif comp not in (0, 1, 2):
+        # BI_JPEG / BI_PNG (printer bitmaps): PIL does not read them either
+        raise ValueError(f"{path}: BMP compression {comp}")
+    body = np.frombuffer(data, np.uint8, offset=off)
+    if bits <= 8:
+        ncol = ncol or (1 << bits)
+        p0 = 14 + hsize + (12 if comp == 3 and hsize == 40 else 0)
+        pal = np.zeros((256, 3), np.uint8)
+        pv = np.frombuffer(data[p0:p0 + ncol * pal_entry], np.uint8) \
+            .reshape(-1, pal_entry)[:, 2::-1]
+        pal[:len(pv)] = pv
+        if comp in (1, 2):
+            idx = _rle_bmp(body, w, h, comp == 2)
+        else:
+            stride = (w * bits + 31) // 32 * 4
+            rows = body[:stride * h].reshape(h, stride)
+            idx = _unpack_samples(rows, w, 1, bits)[..., 0] if bits < 8 \
+                else rows[:, :w]
+        img = pal[idx]
+    else:
+        stride = (w * bits + 31) // 32 * 4
+        rows = body[:stride * h].reshape(h, stride)
+        if bits == 24:
+            img = rows[:, :3 * w].reshape(h, w, 3)[..., ::-1]
+        else:
+            nb = bits // 8
+            pix = rows[:, :nb * w].copy().view("<u2" if nb == 2 else "<u4") \
+                .reshape(h, w)
+            if masks is None:
+                masks = (0x7C00, 0x3E0, 0x1F, 0) if bits == 16 \
+                    else (0xFF0000, 0xFF00, 0xFF, 0)
+            img = np.stack([_channel(pix, m) for m in masks[:3]], -1)
+    return np.ascontiguousarray(img if top_down else img[::-1])
+
+
+def _tga_pixels(raw, depth: int):
+    """TGA pixel bytes [n, depth / 8] -> uint8 RGB [n, 3] (gray for one
+    byte)."""
+    if depth in (15, 16):
+        pix = raw[:, 0].astype(np.int64) | (raw[:, 1].astype(np.int64) << 8)
+        return np.stack([_channel(pix, m) for m in (0x7C00, 0x3E0, 0x1F)],
+                        -1)
+    if depth == 8:
+        return np.repeat(raw[:, :1], 3, axis=-1)
+    # BGR or BGRA
+    return raw[:, 2::-1]
+
+
+def _tga_rle(data, pos: int, n: int, nb: int):
+    """Expand TGA run-length packets to n pixels of nb bytes each."""
+    out = np.zeros((n, nb), np.uint8)
+    k = 0
+    while k < n:
+        if pos >= len(data):
+            raise ValueError("truncated TGA run-length data")
+        hdr = data[pos]
+        pos += 1
+        cnt = (hdr & 0x7F) + 1
+        cnt_ = min(cnt, n - k)
+        if hdr & 0x80:
+            out[k:k + cnt_] = np.frombuffer(data[pos:pos + nb], np.uint8)
+            pos += nb
+        else:
+            out[k:k + cnt_] = np.frombuffer(data[pos:pos + cnt_ * nb],
+                                            np.uint8).reshape(-1, nb)
+            pos += cnt * nb
+        k += cnt_
+    return out
+
+
+def _tga_check(path: str, data: bytes):
+    """Refuse a TGA header: NotImplementedError for a 1-bit gray image
+    (which PIL reads), ValueError for an image type PIL does not read
+    either (none, or compressed otherwise than by runs) or a short
+    header."""
+    if len(data) < 18:
+        raise ValueError(f"{path}: truncated TGA header")
+    itype, depth = data[2], data[16]
+    if itype in (3, 11) and depth == 1:
+        raise NotImplementedError(f"{path}: a 1-bit TGA is {ITEM_13}")
+    if itype not in (1, 2, 3, 9, 10, 11):
+        raise ValueError(f"{path}: TGA image type {itype}")
+
+
+def read_tga(path: str) -> np.ndarray:
+    """A Truevision TGA as uint8 RGB [H, W, 3]: image types 1, 2, 3 and
+    their run-length forms 9, 10, 11; 8, 15, 16, 24 and 32 bits per pixel
+    (a colour map of 15, 16, 24 or 32 bits); top-left or bottom-left
+    origin; PIL's convert("RGB") of it."""
+    with open(path, "rb") as f:
+        data = f.read()
+    _tga_check(path, data)
+    (id_len, cm_type, itype, cm_first, cm_len, cm_depth, _, _, w, h, depth,
+     flags) = struct.unpack("<BBBHHBHHHHBB", data[:18])
+    pos = 18 + id_len
+    cmap = None
+    if cm_type:
+        eb = (cm_depth + 7) // 8
+        entries = np.frombuffer(data[pos:pos + cm_len * eb], np.uint8) \
+            .reshape(-1, eb)
+        pos += cm_len * eb
+        cmap = np.zeros((cm_first + cm_len + 256, 3), np.uint8)
+        cmap[cm_first:cm_first + len(entries)] = _tga_pixels(entries,
+                                                             cm_depth)
+    nb = (depth + 7) // 8
+    if itype >= 9:
+        raw = _tga_rle(data, pos, w * h, nb)
+    else:
+        raw = np.frombuffer(data[pos:pos + w * h * nb], np.uint8)
+        if len(raw) < w * h * nb:
+            raise ValueError(f"{path}: truncated TGA pixel data")
+        raw = raw.reshape(-1, nb)
+    if itype in (1, 9):
+        idx = raw[:, 0].astype(np.int64) if nb == 1 else \
+            raw[:, 0].astype(np.int64) | (raw[:, 1].astype(np.int64) << 8)
+        img = cmap[idx]
+    elif itype in (3, 11):
+        img = np.repeat(raw[:, :1], 3, axis=-1)
+    else:
+        img = _tga_pixels(raw, depth)
+    img = img.reshape(h, w, 3)
+    if not flags & 0x20:
+        img = img[::-1]
+    if flags & 0x10:
+        img = img[:, ::-1]
+    return np.ascontiguousarray(img)
+
+
+def probe_image(path: str):
+    """Raise NotImplementedError where `path` is an image the JAX package
+    reads through PIL and read_image does not (ROADMAP item 13), from the
+    extension and the header alone. Corrupt data is left to read_image,
+    which raises ValueError for it."""
+    ext = path.rsplit(".", 1)[-1].lower()
+    if ext not in _READ_EXTS:
+        raise NotImplementedError(f"{path}: the .{ext} image format is "
+                                  f"{ITEM_13}")
+    if ext in ("jpg", "jpeg", "tga"):
+        with open(path, "rb") as f:
+            data = f.read()
+        if ext == "tga":
+            if len(data) >= 18:
+                _tga_check(path, data)
+        else:
+            from . import jpeg
+            jpeg.probe(data)
+
+
+def read_image(path: str, device=None) -> np.ndarray:
+    """Load any supported bitmap, the JAX package's read_image dispatch:
+    HDR, PFM, EXR and .npy linear; PNG, JPEG, BMP and TGA as gamma-encoded
+    [0, 1] float32 RGB (PIL's convert("RGB") / 255). A JPEG's block stage
+    runs on `device` (the card unless "cpu"). The formats PIL opens beyond
+    those (GIF, TIFF, WebP, ...) and the variants probe_image finds are
+    not ported (ROADMAP item 13) and raise NotImplementedError; corrupt
+    data raises ValueError."""
+    ext = path.rsplit(".", 1)[-1].lower()
+    if ext == "hdr":
+        return read_hdr(path)
+    if ext == "pfm":
+        return read_pfm(path)
+    if ext == "exr":
+        from . import exr as exr_mod
+        return exr_mod.read_exr(path)
+    if ext == "npy":
+        return np.load(path).astype(np.float32)
+    if ext == "png":
+        u8 = png_rgb(read_png(path))
+    elif ext in ("jpg", "jpeg"):
+        from . import jpeg
+        u8 = jpeg.read_jpeg(path, device).cpu().numpy()
+        if u8.ndim == 2:
+            u8 = np.repeat(u8[..., None], 3, axis=-1)
+    elif ext == "bmp":
+        u8 = read_bmp(path)
+    elif ext == "tga":
+        u8 = read_tga(path)
+    else:
+        raise NotImplementedError(f"{path}: the .{ext} image format is "
+                                  f"{ITEM_13}")
+    return u8.astype(np.float32) / 255.0
+
+
+def annotate_image(img: np.ndarray, labels, subst: dict | None = None,
+                   banner: bool = False) -> np.ndarray:
+    """Draw the film's label[] annotations and the banner onto a
+    gamma-encoded float [0, 1] image, as the JAX package's annotate_image
+    does (reference: src/films/annotations.h, banner.h): `$source['key']`
+    placeholders substituted from `subst` (floats with 2 decimals, an
+    unknown key as ""), each label white with its top-left at (x, y), the
+    banner "hairpt" in (160, 160, 160) at (W - its width - 4, H - 14).
+    The text is the port's bitmap font (utils/font.py), clipped to the
+    image; the JAX package's is PIL's font. Returns the 8-bit image / 255,
+    float32."""
+    from . import font
+    u8 = _to_u8(img).copy()
+    for x, y, text in labels or ():
+        font.draw_text(u8, int(x), int(y), font.substitute(str(text), subst),
+                       (255, 255, 255))
+    if banner:
+        tag = "hairpt"
+        font.draw_text(u8, u8.shape[1] - font.text_width(tag) - 4,
+                       u8.shape[0] - 14, tag, (160, 160, 160))
+    return u8.astype(np.float32) / 255.0
 
 
 def write_npy(path: str, img: np.ndarray):

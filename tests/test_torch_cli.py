@@ -180,13 +180,30 @@ def test_cli_skip_existing(tmp_path, fake_render):
     assert not (tmp_path / "o.npy").exists()
 
 
-def test_cli_refuses_jpeg_before_the_build(tmp_path, monkeypatch):
-    def no_build(*a, **kw):
-        raise AssertionError("the scene was loaded")
-    monkeypatch.setattr(txl, "load_scene", no_build)
+def test_cli_refuses_jpeg_before_the_build(tmp_path):
+    """JPEG output, which an earlier slice refused here, renders: -o o.jpg
+    writes write_jpg(tonemap(.npy)) at quality 95 (with .exr, .npy and
+    .pfm beside it), and PIL reads it with the quantization tables of its
+    own quality-95 file of the same pixels (hairpt's write_jpg), its
+    decode within 2 levels of that file's."""
+    from PIL import Image
+    from hairpt.utils import io as jio
+    from hairpt_torch.utils import io as tio
     xml = scene_xmls.write_scene(str(tmp_path), "furball")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
-        cli.main(["render", xml, "-o", str(tmp_path / "o.jpg"), "--cpu"])
+    out = tmp_path / "o.jpg"
+    assert cli.main(["render", xml, "-o", str(out), "--cpu"] + SMALL) == 0
+    for ext in ("exr", "npy", "pfm"):
+        assert (tmp_path / f"o.{ext}").exists()
+    ldr = tio.tonemap_srgb(np.load(tmp_path / "o.npy"), 2.2)
+    ref = tmp_path / "ref.jpg"
+    tio.write_jpg(str(ref), ldr, device="cpu")
+    assert out.read_bytes() == ref.read_bytes()
+    jio.write_jpg(str(tmp_path / "j.jpg"), ldr)
+    im_t, im_j = Image.open(out), Image.open(tmp_path / "j.jpg")
+    assert im_t.quantization == im_j.quantization
+    d = np.abs(np.asarray(im_t.convert("RGB"), int)
+               - np.asarray(im_j.convert("RGB"), int))
+    assert d.max() <= 2
 
 
 SENSOR = ("<sensor type=\"{kind}\"><film type=\"hdrfilm\"><integer "
@@ -218,12 +235,13 @@ REFUSED = {
     "direct": ("<integrator type=\"direct\"/>"
                + SENSOR.format(kind="perspective") + HAIR
                + "<emitter type=\"constant\"/>", None),
-    # a PNG bitmap renders; a JPEG one is item 13
+    # a PNG bitmap renders, and a JPEG one (item 13's, refused by an
+    # earlier slice)
     "bitmap": (SENSOR.format(kind="perspective")
                + "<bsdf type=\"diffuse\" id=\"d\"><texture "
                  "type=\"bitmap\" name=\"reflectance\"><string "
                  "name=\"filename\" value=\"t.jpg\"/></texture></bsdf>"
-               + HAIR, "13"),
+               + HAIR, None),
     # a scene medium, an hk BSDF and volpath render (item 13's, refused
     # by an earlier slice; the path integrator leaves the medium out);
     # ptracer renders (item 13's light tracers, refused by an earlier
@@ -257,7 +275,9 @@ def test_cli_refuses_what_the_port_does_not_render(tmp_path, monkeypatch,
     d = tmp_path / "furball"
     d.mkdir()
     (d / "scene.xml").write_text(f"<scene version=\"0.5.0\">{body}</scene>")
-    (d / "t.jpg").write_bytes(b"\xff\xd8\xff")
+    from PIL import Image
+    Image.fromarray(np.random.default_rng(5).integers(
+        0, 256, (8, 12, 3), dtype=np.uint8)).save(d / "t.jpg")
     if item is None:
         flags = ["--cpu", "--spp", "1", "--depth", "2", "--hair-quality",
                  "0.01"]
@@ -274,6 +294,8 @@ def test_cli_refuses_what_the_port_does_not_render(tmp_path, monkeypatch,
             assert s.arrays.delta.kind.tolist() == [0]
         if case == "orthographic":
             assert s.camera.kind == 2
+        if case == "bitmap":
+            assert s.arrays.checkers.kind.tolist() == [tmat.TEX_BITMAP]
         if case == "conductor":
             assert s.arrays.materials.kind.tolist()[0] == 2
         if case == "medium":
@@ -309,10 +331,10 @@ def test_cli_refuses_what_the_port_does_not_render(tmp_path, monkeypatch,
                          ids=lambda e: "_".join(e) if e[0] == "--integrator"
                          and e[1] == "mlt" else e[0])
 def test_cli_refuses_unported_options(tmp_path, extra, monkeypatch, capsys):
-    """JPEG output raises before anything is written (--spectral and the
-    direct integrator render now: JPEG output and the motion integrator
-    took their places here). The other options render now: their cases
-    check that the CLI takes them, loads the scene (at LOAD's size, mlt
+    """JPEG output renders now, as the other options do (--spectral and
+    the direct integrator render too: JPEG output and the motion
+    integrator took their places here). Their cases check that the CLI
+    takes them, loads the scene (at LOAD's size, mlt
     bound to 256 chains here; test_torch_aux_cli.py holds the mlt and
     motion images to the in-process renders) and writes its outputs:
     --bands 4 the banded EXR (16-row bands: the EXR's blocks) equal to
@@ -323,10 +345,6 @@ def test_cli_refuses_unported_options(tmp_path, extra, monkeypatch, capsys):
     from hairpt_torch.integrators import mlt as tmlt
     from hairpt_torch.utils import exr as texr
     xml = scene_xmls.write_scene(str(tmp_path), "furball")
-    if extra[0] == "-o":
-        with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
-            cli.main(["render", xml, "--cpu"] + extra)
-        return
     load = txl.load_scene
     monkeypatch.setattr(txl, "load_scene", lambda path, defines=None,
                         **kw: load(path, defines, **dict(kw, **LOAD)))
@@ -334,9 +352,19 @@ def test_cli_refuses_unported_options(tmp_path, extra, monkeypatch, capsys):
         tmlt.render_mlt, n_chains=256, n_mutations=5, n_boot=2))
     out = tmp_path / "o.png"
     capsys.readouterr()
+    if extra[0] == "-o":
+        out, extra = tmp_path / "o.jpg", []
     assert cli.main(["render", xml, "-o", str(out), "--cpu"]
                     + [str(tmp_path / e) if e == "trace" else e
                        for e in extra]) == 0
+    if out.suffix == ".jpg":
+        from hairpt_torch.utils import io as tio
+        img = np.load(tmp_path / "o.npy")
+        got = tio.read_image(str(out), device="cpu")
+        want = tio.tonemap_srgb(img, 2.2)
+        assert got.shape == want.shape == (20, 20, 3)
+        assert np.abs(got - want).mean() < 0.05
+        return
     if extra[0] == "--bands":
         assert not out.exists() and not (tmp_path / "o.npy").exists()
         got = texr.read_exr(str(tmp_path / "o.exr"))[..., :3]

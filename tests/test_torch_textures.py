@@ -13,6 +13,7 @@ inside its _material_row_from_bsdf makes `os` a local there; ROADMAP
 Queue C), so the scene its loader reads here has normal and bump maps
 but no bitmap reflectance."""
 import dataclasses
+import io
 import struct
 import zlib
 
@@ -288,7 +289,10 @@ def test_read_png_matches_pil(tmp_path, mode):
 
 def test_read_png_reads_write_png_and_refuses_the_rest(tmp_path):
     """io.write_png's files read back exactly; 16-bit, palette and
-    interlaced PNGs raise naming ROADMAP item 13."""
+    interlaced PNGs, which an earlier slice refused here, read as PIL
+    reads them (read_png: PIL's array, the palette's colours for "P";
+    png_rgb: PIL's convert("RGB")). tests/test_torch_ldr_readers.py holds
+    every other PNG variant to hairpt's read_image."""
     img = np.random.default_rng(9).integers(0, 256, (17, 29, 3),
                                             dtype=np.uint8)
     p = str(tmp_path / "w.png")
@@ -298,14 +302,27 @@ def test_read_png_reads_write_png_and_refuses_the_rest(tmp_path):
     Image.fromarray(img[..., 0].astype(np.uint16) * 200).save(
         str(tmp_path / "16.png"))
     Image.fromarray(img).convert("P").save(str(tmp_path / "p.png"))
-    # interlaced: write_png's file with the IHDR's interlace byte set
+    # interlaced: write_png's pixels in Adam7's seven passes, the IHDR's
+    # interlace byte set
     raw = bytearray(open(p, "rb").read())
     raw[28] = 1
     raw[29:33] = struct.pack(">I", zlib.crc32(bytes(raw[12:29])) & 0xFFFFFFFF)
-    (tmp_path / "i.png").write_bytes(bytes(raw))
+    passes = b"".join(
+        b"".join(b"\0" + img[y, x0::dx].tobytes()
+                 for y in range(y0, img.shape[0], dy))
+        for x0, y0, dx, dy in tio._ADAM7 if img[y0::dy, x0::dx].size)
+    idat = zlib.compress(passes)
+    (tmp_path / "i.png").write_bytes(
+        bytes(raw[:33]) + struct.pack(">I", len(idat)) + b"IDAT" + idat
+        + struct.pack(">I", zlib.crc32(b"IDAT" + idat) & 0xFFFFFFFF)
+        + b"\0\0\0\0IEND\xaeB`\x82")
     for f in ("16.png", "p.png", "i.png"):
-        with pytest.raises(NotImplementedError, match="item 13"):
-            tio.read_png(str(tmp_path / f))
+        ref = Image.open(str(tmp_path / f))
+        got = tio.read_png(str(tmp_path / f))
+        want = np.asarray(ref.convert("RGB") if f == "p.png" else ref)
+        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(tio.png_rgb(got),
+                                      np.asarray(ref.convert("RGB")))
 
 
 # --- the loader --------------------------------------------------------------
@@ -434,16 +451,34 @@ def _same_tensors(a, b):
 
 
 @pytest.mark.parametrize("case", ["animated_instance", "open_shutter",
-                                  "jpeg_bitmap", "jpeg_heightfield"])
+                                  "jpeg_bitmap", "jpeg_heightfield",
+                                  "gif_bitmap", "cmyk_jpeg_bitmap",
+                                  "arithmetic_jpeg_envmap"])
 def test_loader_refuses_the_rest(same_bvh, tmp_path, case):
-    """JPEG images (ROADMAP item 13) raise NotImplementedError before any
-    build, naming the item. An animated instance and a deformable under
-    an open shutter, which an earlier slice refused here (motion blur),
-    now load: both loaders give the same arrays, the same shutter, and,
-    at shutter time 0.5, the same re-posed instance table
-    (repose_inst) or rebuilt triangles (rebuild_geo)."""
+    """What an earlier slice refused here now loads. A JPEG heightfield
+    (ROADMAP item 13's): both loaders give the same arrays. A JPEG bitmap
+    texture: hairpt's bitmap branch cannot run (ROADMAP Queue C), so the
+    port's texture table is held to its own load of the same pixels
+    written as a PNG. An animated instance and a deformable under an open
+    shutter (motion blur): both loaders give the same arrays, the same
+    shutter, and, at shutter time 0.5, the same re-posed instance table
+    (repose_inst) or rebuilt triangles (rebuild_geo). A GIF bitmap (an
+    image format the port does not read, ROADMAP item 13), a CMYK JPEG
+    bitmap and an arithmetic-coded JPEG envmap (JPEG variants that PIL
+    reads and the port does not) raise NotImplementedError before any
+    build, naming the item."""
     scene_xmls.instanced_files(str(tmp_path))
-    (tmp_path / "t.jpg").write_bytes(b"\xff\xd8\xff")
+    Image.new("RGB", (4, 4)).save(tmp_path / "t.gif")
+    Image.new("CMYK", (8, 8), (10, 20, 30, 40)).save(tmp_path / "c.jpg")
+    b = io.BytesIO()
+    Image.new("RGB", (8, 8), (90, 20, 30)).save(b, "JPEG")
+    data = b.getvalue()
+    sof = data.index(b"\xff\xc0")
+    (tmp_path / "a.jpg").write_bytes(data[:sof + 1] + b"\xc9"
+                                     + data[sof + 2:])
+    Image.fromarray(np.random.default_rng(4).integers(
+        0, 256, (20, 30, 3), dtype=np.uint8)).save(tmp_path / "t.jpg",
+                                                    quality=90)
     sensor = ("<sensor type=\"perspective\"><float name=\"shutterClose\" "
               "value=\"{c}\"/><film type=\"hdrfilm\"><integer "
               "name=\"width\" value=\"16\"/><integer name=\"height\" "
@@ -461,17 +496,43 @@ def test_loader_refuses_the_rest(same_bvh, tmp_path, case):
         "jpeg_bitmap": (
             "<shape type=\"cube\"><bsdf type=\"diffuse\"><texture "
             "type=\"bitmap\"><string name=\"filename\" value=\"t.jpg\"/>"
-            "</texture></bsdf></shape>", "13"),
+            "</texture></bsdf></shape>", "bitmap"),
         "jpeg_heightfield": (
             "<shape type=\"heightfield\"><string name=\"filename\" "
-            "value=\"t.jpg\"/></shape>", "13")}[case]
+            "value=\"t.jpg\"/></shape>", None),
+        "gif_bitmap": (
+            "<shape type=\"cube\"><bsdf type=\"diffuse\"><texture "
+            "type=\"bitmap\"><string name=\"filename\" value=\"t.gif\"/>"
+            "</texture></bsdf></shape>", "13"),
+        "cmyk_jpeg_bitmap": (
+            "<shape type=\"cube\"><bsdf type=\"diffuse\"><texture "
+            "type=\"bitmap\"><string name=\"filename\" value=\"c.jpg\"/>"
+            "</texture></bsdf></shape>", "13"),
+        "arithmetic_jpeg_envmap": (
+            "<shape type=\"cube\"/><emitter type=\"envmap\"><string "
+            "name=\"filename\" value=\"a.jpg\"/></emitter>", "13")}[case]
     p = tmp_path / "scene.xml"
     p.write_text(f"<scene version=\"0.5.0\">"
                  f"{sensor.format(c=1.0 if item is None else 0.0)}"
                  f"{body}</scene>")
+    if item == "bitmap":
+        ts = txl.load_scene(str(p), device="cpu")
+        png = tmp_path / "t.png"
+        tio.write_png(str(png), tio.read_image(str(tmp_path / "t.jpg"),
+                                               device="cpu"))
+        p.write_text(p.read_text().replace("t.jpg", "t.png"))
+        _same_tensors(ts.arrays, txl.load_scene(str(p), device="cpu").arrays)
+        assert ts.arrays.checkers.kind.tolist() == [tmat.TEX_BITMAP]
+        return
     if item is None:
         ts = txl.load_scene(str(p), device="cpu")
         js = jxl.load_scene(str(p))
+        if case == "jpeg_heightfield":
+            assert ts.shutter == tuple(js.shutter)
+            _same_tensors(ts.arrays, convert.convert_arrays(
+                jax.tree_util.tree_map(np.asarray, js.arrays),
+                device="cpu"))
+            return
         assert ts.shutter == tuple(js.shutter) == (0.0, 1.0)
 
         def port(arrays):
