@@ -404,6 +404,26 @@ Phases (each prints one line with its elapsed seconds):
           tiled queries, A's and B's launches; a finite image every wave;
        d. core/distribution, core/numerics and spectrum's helpers on 2^20
           lanes, card against CPU with the CPU tests' bounds.
+  23. the image formats the JAX package reads and writes through PIL
+      (kernels A, B and F; no new kernel: the readers run on the host, a
+      JPEG's block stage is integer tensor code):
+       a. (started beside 21a) the CLI on phase 11's furball XML under a
+          1024 x 512 lossy WebP envmap, over a floor whose bitmap is an
+          LZW TIFF (predictor 2) in a lossless WebP normal map, a GIF
+          backdrop and an arithmetic-coded JPEG heightfield, 1024^2, 1
+          spp, --stats, -o frame.tif: exit 0, Rays traced > 0, A's, B's
+          and F's launches in its log, each texture's decode seconds from
+          its log; frame.tif read back by the port's TIFF reader equals
+          the 8-bit tonemapped .npy;
+       b. every fixture of tests/torch_images (one per reader branch)
+          decoded on the card machine equals PIL's committed array; the
+          JPEG block stage on the card equals the CPU's; seconds per file;
+          the fixtures of a size users have (large.json, decoded in a
+          process of their own started beside 23a) equal PIL's array by
+          shape and SHA-256;
+       c. 23a's XML at 64^2 (hair quality 0.1, depth 8, 1 spp) loaded and
+          rendered on the card and on the CPU: every texture table equal,
+          the image means within MEAN_RTOL.
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Any failed check exits
 non-zero before that line. Without CUDA the script exits non-zero at once.
@@ -3777,6 +3797,14 @@ def _cli_start(xml, out, quality, device, spp=2, res_scale=1.0, extra=(),
     proc = subprocess.Popen(cmd, cwd=here, env=env,
                             stdout=subprocess.DEVNULL, stderr=err)
     return proc, err, out, time.time()
+
+
+def _stop(*procs):
+    """Kill and reap each of the started processes that still runs."""
+    for proc in procs:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
 
 
 def _cli_wait(handle, exts=("png", "exr", "npy", "pfm")):
@@ -7200,6 +7228,273 @@ def leftovers_cell(devices=("cuda", "cpu")):
     return worst
 
 
+# ---------------------------------------------------------------------------
+# phase 23: the image formats the JAX package reads and writes through PIL
+# (TIFF, GIF, WebP, Netpbm, the JPEG variants PIL decodes) and the
+# integrator and film types it does not know, through kernels A, B and F
+# (no new kernel: the readers run on the host; a JPEG's block stage is
+# integer tensor code on the card)
+# ---------------------------------------------------------------------------
+
+# the committed fixtures (tests/torch_images/make_fixtures.py writes them
+# with PIL, which the card's machine lacks) and PIL's arrays of them
+IMAGES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                      "torch_images")
+# the scene textures: the floor's LZW TIFF (predictor 2) bitmap and
+# lossless WebP normal map, the backdrop's GIF, the heightfield's
+# arithmetic-coded JPEG, the lossy WebP envmap (23c's, 128 x 64)
+TEXTURES23 = ("lzw_pred2.tif", "normal_lossless.webp", "backdrop.gif",
+              "height_arith.jpg", "env_lossy.webp")
+# 23a's envmap, of a size users have: 1024 x 512 (large.json)
+ENV23A = "env_1k.webp"
+# 23c: the small card-against-CPU render of 23a's XML
+SMALL23 = dict(res=64, quality=0.1, depth=8)
+TEXTURED_FLOOR = (
+    "<bsdf type=\"normalmap\" id=\"floor23\"><texture type=\"bitmap\" "
+    "name=\"normals\"><string name=\"filename\" value=\"{1}\"/></texture>"
+    "<bsdf type=\"twosided\"><bsdf type=\"diffuse\"><texture "
+    "type=\"bitmap\" name=\"reflectance\"><string name=\"filename\" "
+    "value=\"{0}\"/><float name=\"uscale\" value=\"4\"/><float "
+    "name=\"vscale\" value=\"4\"/></texture></bsdf></bsdf></bsdf>"
+    "<bsdf type=\"twosided\" id=\"backdrop23\"><bsdf type=\"diffuse\">"
+    "<texture type=\"bitmap\" name=\"reflectance\"><string "
+    "name=\"filename\" value=\"{2}\"/></texture></bsdf></bsdf>"
+    "<bsdf type=\"diffuse\" id=\"ground23\"><rgb name=\"reflectance\" "
+    "value=\"0.5, 0.45, 0.4\"/></bsdf>"
+    "<shape type=\"rectangle\"><transform name=\"toWorld\"><scale "
+    "value=\"8\"/><rotate x=\"1\" angle=\"-90\"/><translate y=\"7\"/>"
+    "</transform><ref id=\"floor23\"/></shape>"
+    "<shape type=\"rectangle\"><transform name=\"toWorld\"><scale x=\"6\" "
+    "y=\"3\"/><rotate y=\"1\" angle=\"-45\"/><translate x=\"12\" "
+    "y=\"16\" z=\"-6\"/></transform><ref id=\"backdrop23\"/></shape>"
+    "<shape type=\"heightfield\"><string name=\"filename\" value=\"{3}\"/>"
+    "<float name=\"scale\" value=\"1\"/><transform name=\"toWorld\"><scale "
+    "x=\"2.5\" y=\"2.5\" z=\"1\"/><rotate x=\"1\" angle=\"-90\"/><translate "
+    "x=\"-1\" y=\"7\" z=\"2\"/></transform><ref id=\"ground23\"/></shape>")
+
+
+def textured_xml(tmp, res, env=TEXTURES23[4]):
+    """Phase 11's furball XML under the lossy WebP envmap `env`, over a
+    floor (LZW TIFF bitmap in a lossless WebP normal map), a GIF backdrop
+    and an arithmetic-coded JPEG heightfield; the textures copied beside
+    it."""
+    import shutil
+    from hairpt_torch.scene import scene_xmls
+    emitter = (f"<emitter type=\"envmap\"><string name=\"filename\" "
+               f"value=\"{env}\"/></emitter>")
+    xml = scene_xmls.write_scene(tmp, "furball", res=res, emitter=emitter)
+    for name in TEXTURES23[:4] + (env,):
+        shutil.copy(os.path.join(IMAGES, name), os.path.dirname(xml))
+    src = open(xml).read()
+    require(src.count("</scene>") == 1, "the furball XML has no </scene>")
+    with open(xml, "w") as f:
+        f.write(src.replace("</scene>", TEXTURED_FLOOR.format(*TEXTURES23)
+                            + "</scene>"))
+    return xml
+
+
+def textured_cli_start(tmp, device="cuda", res=1024, quality=HAIR_QUALITY):
+    """23a, started beside phase 21 as 22a is: the CLI on textured_xml
+    under the 1024 x 512 envmap, 1 spp, --stats, -o frame.tif; and 23b's
+    decode of the large fixtures, a process of its own beside it. Returns
+    both handles."""
+    xml = textured_xml(tmp, res, ENV23A)
+    cli = _cli_start(xml, os.path.join(tmp, "out", "frame.tif"), quality,
+                     device, spp=1, extra=["--stats"])
+    out = os.path.join(tmp, "large.json")
+    here = os.path.dirname(os.path.abspath(__file__))
+    large = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                              "--large-fixtures", out, device], cwd=here,
+                             stdout=subprocess.DEVNULL)
+    return cli, (large, out)
+
+
+def large_fixtures_worker(out, device="cuda"):
+    """The fixtures of a size users have (tests/torch_images/large.json),
+    each read by the port as the loader reads it; writes to `out` per
+    file its seconds, pixels and whether its shape and the SHA-256 of its
+    uint8 array equal PIL's."""
+    import hashlib
+    import numpy as np
+    from hairpt_torch.utils import io as io_utils
+    with open(os.path.join(IMAGES, "large.json")) as f:
+        want = json.load(f)
+    res = {}
+    for name in sorted(want):
+        t0 = time.time()
+        got = io_utils.read_ldr(os.path.join(IMAGES, name), device=device)
+        secs = time.time() - t0
+        digest = hashlib.sha256(np.ascontiguousarray(got).tobytes())
+        res[name] = dict(s=secs, px=int(got.shape[0] * got.shape[1]),
+                         equal=list(got.shape) == want[name]["shape"]
+                         and digest.hexdigest() == want[name]["sha256"])
+    with open(out, "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def large_fixtures_check(handle):
+    """23b's check of large_fixtures_worker: exit 0, every file equal to
+    PIL's array; the seconds per file and per megapixel."""
+    proc, out = handle
+    try:
+        rc = proc.wait(timeout=600)
+    finally:
+        _stop(proc)
+    require(rc == 0, f"the large fixtures' decode exited {rc}")
+    with open(out) as f:
+        res = json.load(f)
+    log("23b large fixtures decoded on the host in a process of their own: "
+        + ", ".join(f"{k} {v['px']} px in {v['s']:.3f}s "
+                    f"({v['s'] / v['px'] * 1e6:.3f} s/Mpx), equal to PIL's: "
+                    f"{v['equal']}" for k, v in res.items()))
+    require(res and all(v["equal"] for v in res.values()),
+            f"large fixtures that do not decode as PIL does: {res}")
+    return res
+
+
+def textured_cli_check(handle, device="cuda"):
+    """23a's checks: exit 0, Rays traced > 0, A's, B's and F's launches in
+    its log, and the port's TIFF reader giving back exactly the 8-bit
+    tonemapped frame the render wrote."""
+    import ast
+    import re
+    import numpy as np
+    from hairpt_torch.utils import io as io_utils
+    wall, t_b, t_r, img = _cli_wait(handle, exts=("tif", "exr", "npy",
+                                                  "pfm"))
+    out = handle[2]
+    stderr = open(out[:-4] + ".stderr").read()
+    # the loader's line per texture: its size and decode seconds
+    decoded = {os.path.basename(m.group(1)): (int(m.group(2)),
+                                              int(m.group(3)),
+                                              float(m.group(4)))
+               for m in re.finditer(r"image (\S+): (\d+)x(\d+) decoded in "
+                                    r"([0-9.]+) s", stderr)}
+    require(len(decoded) == 5, f"the textured CLI logged the decode of "
+            f"{sorted(decoded)}, not its five textures")
+    rays = _stat(stderr, "Rays traced")
+    require(rays > 0, "the textured CLI traced no ray")
+    m = re.search(r"kernel launches: (\{.*\})", stderr)
+    launched = ast.literal_eval(m.group(1)) if m else {}
+    if device == "cuda":
+        abf = _ab_f(launched)
+        require(abf["cull_phase_a"] > 0 and abf["phase_b"] > 0
+                and abf["packed_tri_closest"] > 0,
+                f"the textured CLI's log shows no launch of A, B and F: "
+                f"{launched}")
+    require(np.isfinite(img).all() and img.mean() > 0, "the textured "
+            "CLI's image is not finite and positive")
+    t0 = time.time()
+    frame = io_utils.read_ldr(out)
+    t_read = time.time() - t0
+    want = np.clip(io_utils.tonemap_srgb(img, 2.2) * 255.0 + 0.5, 0, 255) \
+        .astype(np.uint8)
+    same = frame.shape == want.shape and bool((frame == want).all())
+    h, w = img.shape[:2]
+    log(f"23a CLI render -o frame.tif --stats ({w}x{h}, 1 spp; TIFF, WebP, "
+        f"GIF and arithmetic JPEG textures): exit 0 in {wall:.1f}s wall, "
+        f"built in {t_b}s (textures decoded in "
+        f"{sum(v[2] for v in decoded.values()):.3f}s: "
+        + ", ".join(f"{k} {v[0]}x{v[1]} {v[2]:.3f}s"
+                    for k, v in decoded.items())
+        + f"), rendered in {t_r}s; Rays traced {rays:.0f}; "
+        f"launches {launched}; frame.tif ({os.path.getsize(out)} bytes) read "
+        f"back in {t_read:.3f}s, equal to the tonemapped .npy: {same}")
+    require(same, "the TIFF the CLI wrote does not read back as the frame "
+            "it rendered")
+    return dict(wall=wall, build=t_b, render=t_r, rays=rays,
+                launches=launched, decoded=decoded)
+
+
+def fixture_decodes(devices=("cuda", "cpu")):
+    """23b: every committed fixture read on the card machine equals PIL's
+    committed array bit for bit; the JPEG block stage (the .jpg files and
+    the JPEG-compressed TIFF) on the card equals the CPU's; the decode
+    seconds per file."""
+    import numpy as np
+    from hairpt_torch.utils import io as io_utils
+    with np.load(os.path.join(IMAGES, "expected.npz")) as npz:
+        want = {k: npz[k] for k in npz.files}
+    require(len(want) >= 30, f"only {len(want)} image fixtures")
+    secs, bad = {}, []
+    for name in sorted(want):
+        p = os.path.join(IMAGES, name)
+        t0 = time.time()
+        got = io_utils.read_ldr(p, device=devices[0])
+        secs[name] = time.time() - t0
+        if got.shape != want[name].shape or not (got == want[name]).all():
+            bad.append(name)
+        if len(devices) > 1 and (name.endswith(".jpg")
+                                 or name == "jpeg_ycbcr.tif"):
+            other = io_utils.read_ldr(p, device=devices[1])
+            if not (other == got).all():
+                bad.append(f"{name} ({devices[0]} against {devices[1]})")
+    slow = sorted(secs.items(), key=lambda kv: -kv[1])
+    log(f"23b {len(want)} fixtures decoded in {sum(secs.values()):.3f}s on "
+        f"the host (block stage on {devices[0]}); slowest "
+        + ", ".join(f"{k} {v:.3f}s" for k, v in slow[:6])
+        + "; per file " + json.dumps({k: round(v, 4) for k, v in
+                                      secs.items()}))
+    require(not bad, f"fixtures that do not decode as PIL does: {bad}")
+    return secs
+
+
+def textured_small(tmp, device="cuda", small=SMALL23):
+    """23c: textured_xml at small["res"]^2 loaded and rendered on the card
+    and with the plain versions on the CPU: every texture table (the
+    bitmaps' and the envmap's) equal, the images' means within
+    MEAN_RTOL."""
+    import torch
+    from hairpt_torch.integrators import path as path_int
+    from hairpt_torch.scene.xml_loader import load_scene
+    xml = textured_xml(tmp, small["res"])
+    devs = ("cuda", "cpu") if device == "cuda" else ("cpu",)
+    scenes, means = {}, {}
+    for dev in devs:
+        s = load_scene(xml, hair_quality=small["quality"], spp_override=1,
+                       max_depth_override=small["depth"], device=dev)
+        img = path_int.render(s, spp=1)
+        means[dev] = float(img.mean())
+        require(bool(img.isfinite().all()) and means[dev] > 0,
+                f"small textured render on {dev}: mean {means[dev]}")
+        scenes[dev] = s
+    tables = {}
+    for part in ("checkers", "env"):
+        for f in getattr(scenes[devs[0]].arrays, part)._fields:
+            a = getattr(getattr(scenes[devs[0]].arrays, part), f)
+            if torch.is_tensor(a):
+                tables[f"{part}.{f}"] = [getattr(getattr(scenes[d].arrays,
+                                                         part), f).cpu()
+                                         for d in devs]
+    unequal = [k for k, v in tables.items()
+               if any(not torch.equal(v[0], x) for x in v[1:])]
+    rel = 0.0
+    if len(devs) > 1:
+        rel = abs(means["cuda"] - means["cpu"]) / means["cpu"]
+    log(f"23c textured XML at {small['res']}^2 (hair quality "
+        f"{small['quality']}, depth {small['depth']}, 1 spp): image mean "
+        + ", ".join(f"{d} {means[d]:.6f}" for d in devs)
+        + f", rel diff {rel:.3g}; {len(tables)} texture tables, unequal "
+          f"{unequal}")
+    require(not unequal, f"texture tables differ between the card and the "
+            f"CPU: {unequal}")
+    require(rel <= MEAN_RTOL, f"small textured render: card and CPU differ "
+            f"by {rel}")
+    return dict(rel=rel, tables=len(tables))
+
+
+def image_formats_cell(handles, tmp, device="cuda"):
+    """Phase 23's checks after phase 22: 23a and 23b's large fixtures
+    (both started beside 21a: textured_cli_start's handles), 23b, 23c."""
+    facts = textured_cli_check(handles[0], device)
+    facts["large_s"] = large_fixtures_check(handles[1])
+    facts["decode_s"] = fixture_decodes((device, "cpu") if device == "cuda"
+                                        else ("cpu",))
+    facts["small"] = textured_small(tmp, device)
+    return facts
+
+
 def warm_up(scene, label, render=None, max_timed=2):
     """One warm-up wave of render (path.render unless given). Returns
     (progress callback, the lists it fills with each wave's seconds and
@@ -7783,12 +8078,15 @@ def main() -> int:
         t0 = time.time()
         import tempfile
         tmp22 = tempfile.mkdtemp(prefix="hairpt_codecs_")
+        tmp23 = tempfile.mkdtemp(prefix="hairpt_formats_")
         h22 = annotated_cli_start(tmp22)
+        h23 = textured_cli_start(tmp23)
+        # 23a's CLI and 23b's large-fixture decode
+        procs23 = (h23[0][0], h23[1][0])
         try:
             cl = cloth_cells(reset_all)
         except BaseException:
-            h22[0].kill()
-            h22[0].wait()
+            _stop(h22[0], *procs23)
             raise
         for k in kernels:
             if k["name"] in cl["launches"]:
@@ -7805,6 +8103,9 @@ def main() -> int:
             annot, frame = annotated_cli_check(h22)
             codec = codec_sides(frame, tmp22)
             leftovers_cell()
+        except BaseException:
+            _stop(*procs23)
+            raise
         finally:
             import shutil
             shutil.rmtree(tmp22, ignore_errors=True)
@@ -7824,6 +8125,28 @@ def main() -> int:
             f"CPU {dec['cpu']:.3f} s; ablated median s/wave "
             + ", ".join(f"{n} {a['secs']:.3f} ({a['ratio']:.3f}x)"
                         for n, a in ablated.items()))
+
+        # ---- 23. the image formats through PIL's readers and writers:
+        # 23a's textured CLI (started beside 21a), the fixtures, the small
+        # card-against-CPU render ----
+        t0 = time.time()
+        try:
+            fmt = image_formats_cell(h23, tmp23)
+        finally:
+            _stop(*procs23)
+            import shutil
+            shutil.rmtree(tmp23, ignore_errors=True)
+        for k in kernels:
+            if k["name"] in fmt["launches"]:
+                k["launches_in_the_textured_cli"] = \
+                    fmt["launches"][k["name"]]
+        log(f"phase 23 ({time.time() - t0:.1f}s after phase 22; 23a's CLI "
+            f"beside 21a): ok; the textured CLI built in {fmt['build']}s "
+            f"(its {ENV23A} decoded in {fmt['decoded'][ENV23A][2]:.3f}s), "
+            f"rendered in {fmt['render']}s; fixtures decoded in "
+            f"{sum(fmt['decode_s'].values()):.3f}s, the large ones in "
+            f"{sum(v['s'] for v in fmt['large_s'].values()):.3f}s beside "
+            f"23a; small card against CPU {fmt['small']['rel']:.3g}")
         require(all(k["launches"] > 0 for k in kernels),
                 "a kernel has no launches")
     except SmokeFailure as e:
@@ -7848,4 +8171,6 @@ if __name__ == "__main__":
         sys.exit(cpu_refs(*sys.argv[2:5]))
     if sys.argv[1:2] == ["--plain-walks"]:
         sys.exit(plain_walks_worker(sys.argv[2]))
+    if sys.argv[1:2] == ["--large-fixtures"]:
+        sys.exit(large_fixtures_worker(*sys.argv[2:4]))
     sys.exit(main())

@@ -19,7 +19,8 @@ a medium the volumetric photon map), sppm, direct, ao, irrcache, erpt,
 pssmlt, mlt (path-space MLT), motion (the motion-vector AOV, in the XML's
 path configuration), adaptive, multichannel (the radiance image, and
 each other channel as <base>.<channel>.npy beside it) and field:<name>
-(one of aux_integrators.FIELDS; field alone is shNormal); --spectral N
+(one of aux_integrators.FIELDS; field alone is shNormal); any other
+name renders with the path integrator, as in the JAX package; --spectral N
 renders N wavelength bins (--dispersion B: Cauchy dispersion of every
 eta) whatever the integrator. The path integrator renders in bands of N
 rows streamed to <base>.exr (film/tiled.py) under --bands N or a
@@ -29,19 +30,25 @@ to DIR/trace.json; --stats prints utils/stats' table after any
 integrator (only the path render records counters, as in the JAX
 package; the banded render records its own). It runs on the card, or on
 the CPU with --cpu (the plain versions of the kernels), and writes the
-image named by -o (.png, .jpg / .jpeg at quality 95, .exr, .bmp or .tga;
-a .png beside an .exr) with .exr, .npy and .pfm of the linear radiance
-beside it; the film's label[] annotations and banner are drawn onto the
-8-bit image (utils/io.annotate_image), as the JAX package's CLI draws
-them, except under the banded render, which writes only its EXR. A scene
+image named by -o in the format its extension names, as the JAX
+package's PIL picks it (utils/io.ldr_writer: .png, .jpg / .jpeg at
+quality 95, .bmp, .tga, .tif / .tiff and .ppm / .pgm / .pbm / .pnm; .exr
+with a .png beside it; a format PIL writes and the port does not yet,
+such as .gif or .webp, raises NotImplementedError naming ROADMAP item
+13, and an extension PIL has no writer for ValueError, both before the
+render) with .exr, .npy and .pfm of the linear radiance beside it; the
+film's label[] annotations and banner are drawn onto the 8-bit image
+(utils/io.annotate_image), as the JAX package's CLI draws them, except
+under the banded render, which writes only its EXR. A scene
 with a dipole subsurface material gets its irradiance prepass
 (integrators/sss.attach_dipole) before the render. util (the
 reference's mtsutil tools) reads .npy, .pfm, .hdr and .exr images and
 computes on the card, or on the CPU with --cpu; import
 (mtsimport) converts a COLLADA document into OBJ meshes and a scene XML
 (scene/collada.py). Without --cpu a machine with no card exits non-zero
-before loading anything. util writes a .jpg at quality 75 (the JAX
-package's util saves it through PIL at PIL's default quality).
+before loading anything. util writes its 8-bit outputs by the same
+rules, checked before it reads its inputs, a .jpg at quality 75 (the
+JAX package's util saves it through PIL at PIL's default quality).
 """
 from __future__ import annotations
 
@@ -50,7 +57,6 @@ import os
 import sys
 import time
 
-ITEM_13 = "ROADMAP item 13"
 INTEGRATORS = ("path", "volpath", "volpath_simple", "ptracer", "bdpt",
                "vpl", "photonmapper", "ppm", "sppm", "direct", "ao",
                "irrcache", "erpt", "pssmlt", "mlt", "motion", "adaptive",
@@ -59,21 +65,16 @@ INTEGRATORS = ("path", "volpath", "volpath_simple", "ptracer", "bdpt",
 ALIASES = {"volpath_simple": "volpath", "photonmapper": "ppm"}
 
 
-def _refuse(what: str):
-    raise NotImplementedError(f"{what} is not ported yet ({ITEM_13})")
-
-
 def _ldr_writer(path: str, device, quality: int = 95):
-    """The writer of an 8-bit image by its extension (PNG unless .jpg,
-    .jpeg, .bmp or .tga; the JAX package's PIL picks the format the same
-    way); a JPEG at `quality`, its block stage on `device`."""
+    """The writer of an 8-bit image by its extension, as the JAX
+    package's PIL picks the format (utils/io.ldr_writer: PNG without an
+    extension; a format PIL writes and the port does not yet raises
+    NotImplementedError, one PIL has no writer for ValueError); a JPEG at
+    `quality`, its block stage on `device`."""
     from .utils import io as io_utils
-    ext = path.rsplit(".", 1)[-1].lower() if "." in path else "png"
-    if ext in ("jpg", "jpeg"):
-        return lambda p, img: io_utils.write_jpg(p, img, quality,
-                                                 device=device)
-    return {"bmp": io_utils.write_bmp,
-            "tga": io_utils.write_tga}.get(ext, io_utils.write_png)
+    if "." not in os.path.basename(path):
+        return io_utils.write_png
+    return io_utils.ldr_writer(path, device, quality)
 
 
 def _read_any(path):
@@ -125,6 +126,10 @@ def _util_main(args):
                      "pass --cpu to compute on the CPU")
         return 2
     dev = torch.device("cpu" if args.cpu else "cuda")
+    if args.tool == "tonemap" or not args.output.lower().endswith(
+            (".npy", ".pfm", ".exr")):
+        # an output format the port cannot write fails before any work
+        _ldr_writer(args.output, dev, quality=75)
     imgs = [torch.as_tensor(_read_any(p), device=dev) for p in args.inputs]
     if args.tool == "tonemap":
         out = torch.clamp(imgs[0], 0.0, 1.0) ** (1.0 / args.gamma)
@@ -250,9 +255,6 @@ def main(argv=None):
                            logfile=args.log,
                            warnings_as_errors=args.warn_error)
 
-    if args.integrator is not None \
-            and args.integrator.split(":", 1)[0] not in INTEGRATORS:
-        _refuse(f"the {args.integrator} integrator")
     out = args.output or "output.png"
     base, ext = out.rsplit(".", 1) if "." in os.path.basename(out) \
         else (out, "png")
@@ -310,6 +312,14 @@ def main(argv=None):
     # no --integrator: the scene XML's integrator type
     integ = args.integrator or scene.config.integrator or "path"
     integ = ALIASES.get(integ, integ)
+    # every listed integrator but path dispatches to its own render; any
+    # other name is the path integrator's
+    banded = not args.spectral and not integ.startswith("field") \
+        and (integ == "path" or integ not in INTEGRATORS) \
+        and (args.bands > 0 or scene.config.tiled_film)
+    # the 8-bit image's writer, found before the render (the JAX
+    # package's PIL raises for an extension it cannot write after it)
+    write_ldr = None if banded or ext == "exr" else _ldr_writer(out, device)
     prog = _progress if args.progress else None
     if args.spectral:
         from .integrators.spectral import render_spectral
@@ -380,7 +390,7 @@ def main(argv=None):
     elif integ == "sppm":
         from .integrators import photonmap
         img = photonmap.render_sppm(scene, seed=args.seed, progress=prog)
-    elif args.bands > 0 or scene.config.tiled_film:
+    elif banded:
         # out-of-core banded path render streamed straight to the EXR
         from .film.tiled import render_tiled_exr
         render_tiled_exr(scene, base + ".exr", band_rows=args.bands or 64,
@@ -431,7 +441,7 @@ def main(argv=None):
         exr_utils.write_exr(out, img)
         io_utils.write_png(base + ".png", ldr)
     else:
-        _ldr_writer(out, device)(out, ldr)
+        write_ldr(out, ldr)
         exr_utils.write_exr(base + ".exr", img)
     io_utils.write_npy(base + ".npy", img)
     io_utils.write_pfm(base + ".pfm", img)

@@ -35,7 +35,6 @@ from .ops.intersect_packed import PackedBVH
 from .ops.intersect_swept import SweptHair
 from .scene.scene import (TRAVERSALS, HairGeom, MotionTables, RenderConfig,
                           Scene, SceneArrays, TriGeom, TriShading, repose_fn)
-from .scene.xml_loader import _INTEGRATORS_PORTED
 
 
 def _t(a, device, dtype=None):
@@ -215,15 +214,11 @@ def convert_scene(scene, arrays, device=None) -> Scene:
     (animated or deformable meshes under an open shutter) is a closure
     over a JAX builder, so it raises: build such a scene on both sides
     from one XML or one builder script. The film's annotations and
-    banner come across; an integrator type the loader does not know raises
-    ValueError; the integrator type, the scene medium, the delta lights
-    and the motion integrator's tables (tri_obj, obj_m and the camera at
-    the target time) come across."""
+    banner come across; the integrator type (any string, as the loaders
+    take it), the scene medium, the delta lights and the motion
+    integrator's tables (tri_obj, obj_m and the camera at the target
+    time) come across."""
     shutter = tuple(float(x) for x in getattr(scene, "shutter", (0.0, 0.0)))
-    if getattr(scene.config, "integrator", "path") not in \
-            _INTEGRATORS_PORTED:
-        raise ValueError(f"the {scene.config.integrator} integrator is "
-                         f"not one of {_INTEGRATORS_PORTED}")
     if shutter[1] > shutter[0] \
             and getattr(scene, "rebuild_geo", None) is not None:
         raise NotImplementedError(

@@ -36,8 +36,8 @@ What the port renders:
   level), each possibly wrapped in twosided and in a normalmap or
   bumpmap (its texture image read without de-gamma);
 - a BSDF's checkerboard, gridtexture, wireframe, vertexcolors, curvature
-  or bitmap texture (PNG, de-gamma 2.2, HDR, PFM or EXR; a missing file
-  gives no texture), possibly under a scale texture;
+  or bitmap texture (an 8-bit image de-gammaed with 2.2, or HDR, PFM or
+  EXR; a missing file gives no texture), possibly under a scale texture;
 - `<shape type="hair">` from a .mitshair file, or the procedural
   stand-in keyed by the scene directory and file name when the file is
   missing, with its toWorld (the radius scales with it);
@@ -62,8 +62,8 @@ What the port renders:
   target time (its `time`, 1 by default), give the motion tables: the
   camera at that time and each animated mesh's relative motion
   T(time) T(shutterOpen)^-1;
-- the sunsky, sky, sun, envmap (HDR, PFM, EXR or PNG) and constant
-  emitters; the point, spot, directional and collimated emitters
+- the sunsky, sky, sun, envmap (HDR, PFM, EXR or an 8-bit image) and
+  constant emitters; the point, spot, directional and collimated emitters
   (position and direction from toWorld where absent; intensity, else
   irradiance, else power; cutoffAngle 20 and beamWidth 3/4 of it by
   default); a shape's `<emitter>` (an area light of its radiance) on
@@ -84,16 +84,23 @@ What the port renders:
 A `<texture>` at the scene's top level is ignored, as the JAX loader
 ignores it (it reads only a BSDF's own texture).
 
-Every integrator of the JAX loader is taken (the motion integrator's
-`time` a float target time or a string path configuration, its `config`
-the configuration). Every other element the JAX loader accepts raises
-NotImplementedError before any build work, naming the ROADMAP item that
-ports it (13: image formats other than PNG, JPEG, BMP, TGA, HDR, PFM and
-EXR, which the JAX loader hands to PIL, and the JPEG and TGA variants
-utils/io.probe_image finds in a file's header). The film's label[x, y]
-annotations and banner are read as the JAX loader reads them; every LDR
-image (a bitmap texture, a normal or bump map, a heightfield, an envmap)
-goes through utils/io.read_image.
+Any integrator type is taken, as the JAX loader takes it (the motion
+integrator's `time` a float target time or a string path configuration,
+its `config` the configuration), and any film type's width, height,
+gamma and filter are read; validation refuses the types neither package
+knows, as hairpt's does, unless validate=False or the type is a `$var`.
+Every LDR image (a bitmap texture, a normal or bump map, a heightfield,
+an envmap) goes through utils/io.read_ldr, which reads what PIL opens as
+PIL's convert("RGB") gives it: PNG, JPEG (its variants), BMP, TGA,
+Netpbm, TIFF, GIF and WebP, found by their content as PIL finds them.
+An image PIL opens and the port does not read (utils/io.probe_image: a
+format such as QOI or JPEG 2000, or a variant such as a ZSTD TIFF)
+raises NotImplementedError before any build work, naming ROADMAP item
+13. Where PIL cannot decode a file either, a bitmap, normal map, bump map
+or heightfield is missing (None, as in the JAX loader) and an envmap
+raises ValueError, as the JAX loader's does, each with one warning
+naming the file. The film's label[x, y] annotations and banner are read
+as the JAX loader reads them.
 Nothing else is dropped silently.
 """
 from __future__ import annotations
@@ -101,6 +108,7 @@ from __future__ import annotations
 import math
 import os
 import re
+import time
 import xml.etree.ElementTree as ET
 
 import numpy as np
@@ -178,32 +186,16 @@ CONDUCTOR_PRESETS = {
     "none": (1e4, (0.0, 0.0, 0.0)),
 }
 
-ITEM_13 = "ROADMAP item 13"
-
-# the integrators the port renders (volpath_simple is volpath and
-# photonmapper is ppm, as in the JAX package's CLI): all of the JAX
-# loader's
-_INTEGRATORS_PORTED = ("path", "volpath", "volpath_simple", "ptracer",
-                       "bdpt", "vpl", "photonmapper", "ppm", "sppm",
-                       "direct", "ao", "irrcache", "erpt", "pssmlt",
-                       "adaptive", "multichannel", "field", "mlt",
-                       "motion")
 _PHASE_KINDS = {"isotropic": med_mod.ISOTROPIC, "hg": med_mod.HG,
                 "rayleigh": med_mod.RAYLEIGH, "kkay": med_mod.KKAY,
                 "kkay_is": med_mod.KKAY_IS,
                 "microflake": med_mod.MICROFLAKE,
                 "mixturephase": med_mod.MIXTURE_PHASE}
-# the image files the port reads (the JAX package reads any other format
-# through PIL)
-_IMAGE_EXTS = (".png", ".jpg", ".jpeg", ".bmp", ".tga", ".hdr", ".pfm",
-               ".exr")
-_FILMS_PORTED = {"ldrfilm", "hdrfilm", "mfilm", "tiledhdrfilm"}
+# the images the loaders read linear, by their extension (any other file
+# is an 8-bit image, which the JAX loader hands to PIL)
+_LINEAR_EXTS = (".hdr", ".pfm", ".exr")
 _DELTA_KINDS = {"point": em.POINT, "spot": em.SPOT,
                 "directional": em.DIRECTIONAL, "collimated": em.COLLIMATED}
-
-
-def _refuse(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported yet ({item})")
 
 
 def _parse_rgb(s: str):
@@ -315,27 +307,22 @@ def _resolve_file(fname: str, scene_dir: str):
     return fname if fname and os.path.exists(fname) else None
 
 
-def _refuse_image(node, defines, scene_dir, what: str):
-    """Refuse an existing image file the port cannot read: its format, or
-    a variant of its format (io.probe_image reads its header)."""
+def _refuse_image(node, defines, scene_dir):
+    """Refuse an existing image file the port cannot read, a format or a
+    variant of one that PIL reads (io.probe_image reads its header)."""
     if node is None:
         return
     path = _resolve_file(_collect_props(node, defines).get("filename", ""),
                          scene_dir)
-    if path is None:
-        return
-    if not path.lower().endswith(_IMAGE_EXTS):
-        _refuse(f"{what} image {os.path.basename(path)} (image formats "
-                f"other than {', '.join(_IMAGE_EXTS)})", ITEM_13)
-    io_utils.probe_image(path)
+    if path is not None and not path.lower().endswith(_LINEAR_EXTS):
+        io_utils.probe_image(path)
 
 
 def _refuse_bsdf(node, defines, scene_dir):
     """Refuse a <bsdf> whose images the port cannot read."""
     while node.get("type") in ("twosided", "normalmap", "bumpmap"):
         if node.get("type") != "twosided":
-            _refuse_image(node.find("texture"), defines, scene_dir,
-                          f"the {node.get('type')}'s")
+            _refuse_image(node.find("texture"), defines, scene_dir)
         inner = node.find("bsdf")
         if inner is None:
             break
@@ -345,52 +332,58 @@ def _refuse_bsdf(node, defines, scene_dir):
             and tex.find("texture") is not None:
         tex = tex.find("texture")
     if tex is not None and tex.get("type") == "bitmap":
-        _refuse_image(tex, defines, scene_dir, "a bitmap texture's")
+        _refuse_image(tex, defines, scene_dir)
 
 
 def _refuse_unported(root, defines, scene_dir):
     """Raise NotImplementedError for the first element the port does not
     render, before any build work."""
-    for integ in root.findall("integrator"):
-        if (integ.get("type") or "path") not in _INTEGRATORS_PORTED:
-            _refuse(f'<integrator type="{integ.get("type")}">', ITEM_13)
-    for sensor in root.findall("sensor"):
-        fm = sensor.find("film")
-        if fm is not None:
-            if fm.get("type") not in _FILMS_PORTED:
-                _refuse(f"the {fm.get('type')} film", ITEM_13)
     for bsdf in root.iter("bsdf"):
         _refuse_bsdf(bsdf, defines, scene_dir)
     for shape in root.findall("shape"):
         if shape.get("type") == "heightfield":
-            _refuse_image(shape, defines, scene_dir, "a heightfield's")
+            _refuse_image(shape, defines, scene_dir)
     for emit in root.findall("emitter"):
         if emit.get("type") == "envmap":
             fname = os.path.join(scene_dir, _collect_props(
                 emit, defines).get("filename", ""))
-            if not os.path.exists(fname):
-                continue
-            if not fname.lower().endswith(_IMAGE_EXTS):
-                _refuse(f"the envmap image {os.path.basename(fname)} "
-                        f"(image formats other than "
-                        f"{', '.join(_IMAGE_EXTS)})", ITEM_13)
-            io_utils.probe_image(fname)
+            if os.path.isfile(fname) \
+                    and not fname.lower().endswith(_LINEAR_EXTS):
+                io_utils.probe_image(fname)
+
+
+def _read_ldr(path: str, device, what: str):
+    """io.read_ldr of an 8-bit image / 255 (float32), its size and
+    decode seconds logged; where PIL cannot decode it either
+    (ValueError), one warning naming the file and why, then the
+    ValueError."""
+    t0 = time.time()
+    try:
+        u8 = io_utils.read_ldr(path, device=device)
+    except ValueError as e:
+        log_mod.get("xml").warning("%s %s cannot be decoded (%s)", what,
+                                   path, e)
+        raise
+    log_mod.get("xml").info("%s %s: %dx%d decoded in %.3f s", what, path,
+                            u8.shape[1], u8.shape[0], time.time() - t0)
+    return u8.astype(np.float32) / 255.0
 
 
 def _read_texture_image(fname: str, scene_dir: str, gamma: float = 2.2,
                         device=None):
-    """A texture image (HDR, PFM and EXR linear; an LDR image with the
-    given de-gamma), or None when missing or corrupt (the JAX loader's
-    _read_texture_image, which returns None where PIL fails). A valid
-    file the port does not read raised before the build
-    (_refuse_unported). A JPEG's block stage runs on `device`."""
+    """A texture image (HDR, PFM and EXR linear; an 8-bit image with the
+    given de-gamma), or None when missing or when PIL cannot decode it
+    either (the JAX loader's _read_texture_image, which returns None
+    where PIL fails; the port logs a warning). A valid file the port does
+    not read raised before the build (_refuse_unported). A JPEG's block
+    stage runs on `device`."""
     path = _resolve_file(fname, scene_dir)
     if path is None:
         return None
-    if path.lower().endswith((".hdr", ".pfm", ".exr")):
+    if path.lower().endswith(_LINEAR_EXTS):
         return _read_env_image(path)
     try:
-        arr = io_utils.read_image(path, device=device)
+        arr = _read_ldr(path, device, "the texture image")
     except ValueError:
         return None
     return arr ** gamma if gamma != 1.0 else arr
@@ -731,7 +724,8 @@ def _read_env_image(fname: str, device=None):
     if low.endswith(".exr"):
         from ..utils import exr as exr_utils
         return exr_utils.read_exr(fname)[..., :3]
-    return io_utils.read_image(fname, device=device) ** 2.2
+    # PIL's failure raises here, as in the JAX loader
+    return _read_ldr(fname, device, "the envmap image") ** 2.2
 
 
 def load_scene(path: str, defines: dict | None = None,

@@ -5,16 +5,20 @@ PNG (ldrfilm), JPEG, BMP and TGA, .npy (the fork's mfilm addition), PFM
 package. The JAX package codes its LDR images through PIL; the port
 needs no imaging library. It writes PNG as one zlib IDAT of unfiltered
 rows (filter byte 0) with CRCs from zlib.crc32, BMP as a 24-bit
-bottom-up bitmap, TGA as an uncompressed true-colour image and JPEG
+bottom-up bitmap, TGA as an uncompressed true-colour image, JPEG
 through utils/jpeg.py (libjpeg's integer arithmetic, on the card unless
-device="cpu"). It reads the PNG (read_png), BMP (read_bmp), TGA
-(read_tga) and JPEG (utils/jpeg.py) files that the JAX package's loaders
-read through PIL, as PIL's convert("RGB") reads them, but for the JPEG
-variants utils/jpeg.py names and 1-bit TGA. Those and the other formats
-PIL opens (GIF, TIFF, WebP, ...) are not ported yet (ROADMAP item 13):
-they raise NotImplementedError, which probe_image finds from a file's
-header; corrupt data raises ValueError. annotate_image draws the film's label[] annotations and banner
-with the port's bitmap font (utils/font.py).
+device="cpu"), and TIFF (utils/tiff.py) and binary PPM (utils/netpbm.py)
+byte for byte as PIL saves them; ldr_writer picks the writer by the
+extension, as PIL does. It reads the PNG (read_png), BMP (read_bmp), TGA
+(read_tga), JPEG (utils/jpeg.py), Netpbm (utils/netpbm.py), TIFF
+(utils/tiff.py), GIF (utils/gif.py) and WebP (utils/webp.py) files that
+the JAX package's loaders read through PIL, as PIL's convert("RGB")
+reads them. The other formats PIL opens (JPEG 2000, QOI, SGI, PCX, ...)
+and the variants the readers' probes name are not ported yet (ROADMAP
+item 13): they raise NotImplementedError, which probe_image finds from a
+file's extension and header; data that PIL cannot decode either raises
+ValueError. annotate_image draws the film's label[] annotations and
+banner with the port's bitmap font (utils/font.py).
 """
 from __future__ import annotations
 
@@ -24,8 +28,25 @@ import zlib
 import numpy as np
 
 ITEM_13 = "not ported yet (ROADMAP item 13)"
-# the extensions read_image reads
-_READ_EXTS = ("hdr", "pfm", "exr", "npy", "png", "jpg", "jpeg", "bmp", "tga")
+# the TGA extensions (a TGA has no magic number: PIL opens one by trying
+# its header after the formats that have one)
+_TGA_EXTS = ("tga", "icb", "vda", "vst")
+# the extensions of the other formats read_ldr reads
+_OWN_EXTS = ("png", "apng", "jpg", "jpeg", "jpe", "jfif", "bmp", "dib",
+             "gif", "tif", "tiff", "webp", "pbm", "pgm", "ppm", "pnm")
+# Pillow 12.1's registered extensions (Image.registered_extensions()):
+# the formats it opens, and those of them it also writes (Image.SAVE)
+PIL_OPEN_EXTS = frozenset((
+    "apng avif avifs blp bmp bufr bw cur dcx dds dib emf eps fit fits flc "
+    "fli ftc ftu gbr gif grib h5 hdf icb icns ico iim im j2c j2k jfif jp2 "
+    "jpc jpe jpeg jpf jpg jpx mpeg mpg mpo msp palm pbm pcd pcx pdf pfm "
+    "pgm png pnm ppm ps psd pxr qoi ras rgb rgba sgi tga tif tiff vda vst "
+    "webp wmf xbm xpm").split())
+PIL_SAVE_EXTS = frozenset((
+    "apng avif avifs blp bmp bufr bw dds dib emf eps gif grib h5 hdf icb "
+    "icns ico im j2c j2k jfif jp2 jpc jpe jpeg jpf jpg jpx mpo msp palm "
+    "pbm pcx pdf pfm pgm png pnm ppm ps qoi rgb rgba sgi tga tif tiff vda "
+    "vst webp wmf xbm").split())
 
 
 # ---------------------------------------------------------------------------
@@ -148,6 +169,49 @@ def write_jpg(path: str, img: np.ndarray, quality: int = 95, device=None):
     u8 = torch.as_tensor(_to_u8(img), device=resolve_device(device))
     with open(path, "wb") as f:
         f.write(jpeg.encode(u8, quality))
+
+
+def write_tiff(path: str, img: np.ndarray):
+    """An uncompressed RGB TIFF, PIL's default save byte for byte."""
+    from . import tiff
+    with open(path, "wb") as f:
+        f.write(tiff.encode_rgb(_to_u8(img)))
+
+
+def write_ppm(path: str, img: np.ndarray):
+    """A binary PPM (P6), PIL's save byte for byte (PIL writes P6 for an
+    RGB image under any Netpbm extension)."""
+    from . import netpbm
+    with open(path, "wb") as f:
+        f.write(netpbm.encode_p6(_to_u8(img)))
+
+
+_WRITERS = {"png": "png", "apng": "png", "jpg": "jpeg", "jpeg": "jpeg",
+            "jpe": "jpeg", "jfif": "jpeg", "bmp": "bmp", "tga": "tga",
+            "icb": "tga", "vda": "tga", "vst": "tga", "tif": "tiff",
+            "tiff": "tiff", "ppm": "ppm", "pgm": "ppm", "pbm": "ppm",
+            "pnm": "ppm", "pfm": "ppm"}
+
+
+def ldr_writer(path: str, device=None, quality: int = 95):
+    """The writer of an 8-bit RGB image at `path`, chosen by its
+    extension as PIL's save chooses the format: PNG, JPEG (at `quality`,
+    its block stage on `device`), BMP, TGA, TIFF and PPM. An extension
+    whose format PIL writes and the port does not yet (GIF, WebP, ...)
+    raises NotImplementedError (ROADMAP item 13); one PIL has no writer
+    for raises ValueError, as PIL's save does."""
+    ext = path.rsplit(".", 1)[-1].lower() if "." in path else ""
+    kind = _WRITERS.get(ext)
+    if kind == "jpeg":
+        return lambda p, img: write_jpg(p, img, quality, device=device)
+    if kind is not None:
+        return {"png": write_png, "bmp": write_bmp, "tga": write_tga,
+                "tiff": write_tiff, "ppm": write_ppm}[kind]
+    if ext in PIL_SAVE_EXTS:
+        raise NotImplementedError(f"{path}: writing the .{ext} image "
+                                  f"format is {ITEM_13}")
+    raise ValueError(f"{path}: unknown file extension .{ext} (no image "
+                     f"format writes it)")
 
 
 # colour type -> channels
@@ -442,24 +506,32 @@ def _tga_rle(data, pos: int, n: int, nb: int):
 
 
 def _tga_check(path: str, data: bytes):
-    """Refuse a TGA header: NotImplementedError for a 1-bit gray image
-    (which PIL reads), ValueError for an image type PIL does not read
-    either (none, or compressed otherwise than by runs) or a short
+    """Refuse a TGA header PIL does not read either (ValueError): an
+    image type other than 1, 2, 3 and their run-length forms, or a short
     header."""
     if len(data) < 18:
         raise ValueError(f"{path}: truncated TGA header")
-    itype, depth = data[2], data[16]
-    if itype in (3, 11) and depth == 1:
-        raise NotImplementedError(f"{path}: a 1-bit TGA is {ITEM_13}")
+    itype = data[2]
     if itype not in (1, 2, 3, 9, 10, 11):
         raise ValueError(f"{path}: TGA image type {itype}")
+
+
+def _tga_bits(data, pos: int, w: int, h: int):
+    """A 1-bit gray TGA's rows as 0 / 255 [h, w]: rows of ceil(w / 8)
+    bytes, most significant bit first."""
+    stride = (w + 7) // 8
+    rows = np.frombuffer(data[pos:pos + stride * h], np.uint8)
+    if len(rows) < stride * h:
+        raise ValueError("truncated TGA pixel data")
+    bits = np.unpackbits(rows.reshape(h, stride), axis=1)[:, :w]
+    return (bits * 255).astype(np.uint8)
 
 
 def read_tga(path: str) -> np.ndarray:
     """A Truevision TGA as uint8 RGB [H, W, 3]: image types 1, 2, 3 and
     their run-length forms 9, 10, 11; 8, 15, 16, 24 and 32 bits per pixel
-    (a colour map of 15, 16, 24 or 32 bits); top-left or bottom-left
-    origin; PIL's convert("RGB") of it."""
+    and 1-bit gray, uncompressed (a colour map of 15, 16, 24 or 32 bits);
+    top-left or bottom-left origin; PIL's convert("RGB") of it."""
     with open(path, "rb") as f:
         data = f.read()
     _tga_check(path, data)
@@ -476,14 +548,22 @@ def read_tga(path: str) -> np.ndarray:
         cmap[cm_first:cm_first + len(entries)] = _tga_pixels(entries,
                                                              cm_depth)
     nb = (depth + 7) // 8
-    if itype >= 9:
+    if itype == 11 and depth == 1:
+        raise ValueError(f"{path}: a run-length 1-bit TGA, which PIL's "
+                         f"decoder fails on")
+    if itype == 3 and depth == 1:
+        img = np.repeat(_tga_bits(data, pos, w, h).reshape(-1, 1), 3,
+                        axis=-1)
+    elif itype >= 9:
         raw = _tga_rle(data, pos, w * h, nb)
     else:
         raw = np.frombuffer(data[pos:pos + w * h * nb], np.uint8)
         if len(raw) < w * h * nb:
             raise ValueError(f"{path}: truncated TGA pixel data")
         raw = raw.reshape(-1, nb)
-    if itype in (1, 9):
+    if itype in (3, 11) and depth == 1:
+        pass
+    elif itype in (1, 9):
         idx = raw[:, 0].astype(np.int64) if nb == 1 else \
             raw[:, 0].astype(np.int64) | (raw[:, 1].astype(np.int64) << 8)
         img = cmap[idx]
@@ -499,35 +579,112 @@ def read_tga(path: str) -> np.ndarray:
     return np.ascontiguousarray(img)
 
 
+def _ext(path: str) -> str:
+    return path.rsplit(".", 1)[-1].lower() if "." in path else ""
+
+
+def sniff(head: bytes, path: str) -> str:
+    """The format of an 8-bit image file from its first 16 bytes, as
+    PIL's Image.open finds it (by content; TGA, which has no magic
+    number, by the extension): "png", "jpeg", "bmp", "gif", "tiff",
+    "webp", "netpbm" or "tga". NotImplementedError for a format PIL opens
+    and the port does not read (ROADMAP item 13), ValueError for a file
+    PIL cannot identify either."""
+    if head[:8] == b"\x89PNG\r\n\x1a\n":
+        return "png"
+    if head[:3] == b"\xff\xd8\xff":
+        return "jpeg"
+    if head[:2] == b"BM":
+        return "bmp"
+    if head[:6] in (b"GIF87a", b"GIF89a"):
+        return "gif"
+    if head[:4] in (b"II*\x00", b"MM\x00*"):
+        return "tiff"
+    if head[:4] == b"RIFF" and head[8:12] == b"WEBP":
+        return "webp"
+    if head[:1] == b"P" and head[1:2] in (b"1", b"2", b"3", b"4", b"5",
+                                          b"6"):
+        return "netpbm"
+    ext = _ext(path)
+    if ext in _TGA_EXTS:
+        return "tga"
+    if ext not in _OWN_EXTS and ext in PIL_OPEN_EXTS \
+            or head[:2] in (b"P0", b"Pf", b"Py") \
+            or head[:4] in (b"II+\x00", b"MM\x00+"):
+        raise NotImplementedError(f"{path}: the .{ext} image format (or "
+                                  f"this variant of it) is {ITEM_13}")
+    raise ValueError(f"{path}: not an image file PIL identifies")
+
+
+def _head(path: str) -> bytes:
+    with open(path, "rb") as f:
+        return f.read(16)
+
+
 def probe_image(path: str):
     """Raise NotImplementedError where `path` is an image the JAX package
-    reads through PIL and read_image does not (ROADMAP item 13), from the
-    extension and the header alone. Corrupt data is left to read_image,
+    reads through PIL and read_ldr does not (ROADMAP item 13), from its
+    header alone. Data PIL cannot decode either is left to read_ldr,
     which raises ValueError for it."""
-    ext = path.rsplit(".", 1)[-1].lower()
-    if ext not in _READ_EXTS:
-        raise NotImplementedError(f"{path}: the .{ext} image format is "
-                                  f"{ITEM_13}")
-    if ext in ("jpg", "jpeg", "tga"):
+    try:
+        kind = sniff(_head(path), path)
+        if kind not in ("jpeg", "tiff", "netpbm"):
+            return
         with open(path, "rb") as f:
             data = f.read()
-        if ext == "tga":
-            if len(data) >= 18:
-                _tga_check(path, data)
-        else:
+        if kind == "jpeg":
             from . import jpeg
             jpeg.probe(data)
+        elif kind == "tiff":
+            from . import tiff
+            tiff.probe(data)
+        else:
+            from . import netpbm
+            netpbm.header(data)
+    except ValueError:
+        # PIL cannot decode it either: read_ldr's ValueError
+        pass
+
+
+def read_ldr(path: str, device=None) -> np.ndarray:
+    """An 8-bit image as PIL's Image.open(path).convert("RGB") gives it:
+    uint8 [H, W, 3], the format found by sniff. A JPEG's block stage
+    (also a JPEG-compressed TIFF's) runs on `device` (the card unless
+    "cpu")."""
+    kind = sniff(_head(path), path)
+    if kind == "png":
+        return png_rgb(read_png(path))
+    if kind == "jpeg":
+        from . import jpeg
+        u8 = jpeg.read_jpeg(path, device).cpu().numpy()
+        return np.repeat(u8[..., None], 3, axis=-1) if u8.ndim == 2 else u8
+    if kind == "bmp":
+        return read_bmp(path)
+    if kind == "tga":
+        return read_tga(path)
+    if kind == "netpbm":
+        from . import netpbm
+        return netpbm.read_netpbm(path)
+    if kind == "tiff":
+        from . import tiff
+        return tiff.read_tiff(path, device)
+    if kind == "gif":
+        from . import gif
+        return gif.read_gif(path)
+    from . import webp
+    return webp.read_webp(path)
 
 
 def read_image(path: str, device=None) -> np.ndarray:
     """Load any supported bitmap, the JAX package's read_image dispatch:
-    HDR, PFM, EXR and .npy linear; PNG, JPEG, BMP and TGA as gamma-encoded
-    [0, 1] float32 RGB (PIL's convert("RGB") / 255). A JPEG's block stage
-    runs on `device` (the card unless "cpu"). The formats PIL opens beyond
-    those (GIF, TIFF, WebP, ...) and the variants probe_image finds are
-    not ported (ROADMAP item 13) and raise NotImplementedError; corrupt
-    data raises ValueError."""
-    ext = path.rsplit(".", 1)[-1].lower()
+    HDR, PFM, EXR and .npy linear; PNG, JPEG, BMP, TGA, Netpbm, TIFF, GIF
+    and WebP as gamma-encoded [0, 1] float32 RGB (PIL's convert("RGB") /
+    255; read_ldr). A JPEG's block stage runs on `device` (the card
+    unless "cpu"). The formats PIL opens beyond those, and the variants
+    probe_image finds, are not ported (ROADMAP item 13) and raise
+    NotImplementedError; data PIL cannot decode either raises
+    ValueError."""
+    ext = _ext(path)
     if ext == "hdr":
         return read_hdr(path)
     if ext == "pfm":
@@ -537,21 +694,7 @@ def read_image(path: str, device=None) -> np.ndarray:
         return exr_mod.read_exr(path)
     if ext == "npy":
         return np.load(path).astype(np.float32)
-    if ext == "png":
-        u8 = png_rgb(read_png(path))
-    elif ext in ("jpg", "jpeg"):
-        from . import jpeg
-        u8 = jpeg.read_jpeg(path, device).cpu().numpy()
-        if u8.ndim == 2:
-            u8 = np.repeat(u8[..., None], 3, axis=-1)
-    elif ext == "bmp":
-        u8 = read_bmp(path)
-    elif ext == "tga":
-        u8 = read_tga(path)
-    else:
-        raise NotImplementedError(f"{path}: the .{ext} image format is "
-                                  f"{ITEM_13}")
-    return u8.astype(np.float32) / 255.0
+    return read_ldr(path, device).astype(np.float32) / 255.0
 
 
 def annotate_image(img: np.ndarray, labels, subst: dict | None = None,

@@ -1,35 +1,54 @@
 """JPEG codec (the port's counterpart of the JPEG plugin of the imaging
 library behind hairpt/utils/io.py write_jpg and read_image).
 
-Decoder: baseline and extended sequential (SOF0/SOF1) and progressive
-(SOF2) Huffman JPEG, 8-bit, one component (gray) or three (YCbCr, or RGB
-under an Adobe marker with transform 0) with sampling factors 1 or 2 per
-axis, restart intervals, APPn and COM skipped. Encoder: baseline 4:2:0
-YCbCr with the Annex K Huffman tables, the IJG quality scaling of the
-Annex K quantization tables, a JFIF APP0 header and one DQT and one DHT
-marker per table, in libjpeg's marker order.
+Decoder: what libjpeg-turbo's 8-bit decoder gives PIL: baseline and
+extended sequential (SOF0/SOF1) and progressive (SOF2) Huffman JPEG,
+arithmetic-coded sequential and progressive JPEG (SOF9/SOF10, with DAC
+conditioning: jdarith.c's QM decoder and its four progressive scan
+kinds), and lossless JPEG (SOF3: predictors 1-7, the point transform,
+restart intervals of whole MCU rows; libjpeg-turbo converts no colour
+in lossless mode); 8-bit, one component (gray), three (YCbCr, or RGB
+under an Adobe marker with transform 0 or R, G, B component ids) or four
+(CMYK, or YCCK under an Adobe transform other than 0, then inverted as
+PIL assumes Adobe's convention and taken to RGB by Pillow's cmyk2rgb);
+sampling factors up to 4 whose ratios are whole; restart intervals; APPn
+and COM skipped. Encoder: baseline 4:2:0 YCbCr with the Annex K Huffman
+tables, the IJG quality scaling of the Annex K quantization tables, a
+JFIF APP0 header and one DQT and one DHT marker per table, in libjpeg's
+marker order.
 
 The arithmetic is libjpeg's integer arithmetic, step for step: the
 fixed-point colour conversion tables (jccolor.c, jdcolor.c), h2v2 / h2v1
 downsampling with the alternating bias (jcsample.c), the "islow" forward
 and inverse DCT (jfdctint.c, jidctint.c) with libjpeg's range limit,
-quantization rounding half away from zero, and "fancy" triangle
-upsampling (jdsample.c: h2v1, h1v2 and h2v2; box replication where a
-component is 2 samples wide or less). Image edges follow libjpeg: the
-last column and row replicated before downsampling, dummy blocks in a
-partial MCU carrying the previous block's DC. That block stage runs as
-integer tensor operations on the image's device, so the card and the CPU
-give the same bytes and the same pixels. The entropy stage runs on the
-host: the encoder's run/size symbols and bit packing with numpy, the
-decoder's Huffman lookup through a 65,536-entry table over a 16-bit
-peek, one symbol at a time.
+quantization rounding half away from zero, and the upsampling of
+jdsample.c: "fancy" triangle filters at ratio 2 (h2v1, h1v2 and h2v2;
+box replication where a component is 2 samples wide or less), box
+replication at ratios 3 and 4 (int_upsample), box replication for a
+lossless frame. Image edges follow libjpeg: the last column and row
+replicated before downsampling, dummy blocks in a partial MCU carrying
+the previous block's DC. That block stage runs as integer tensor
+operations on the image's device, so the card and the CPU give the same
+bytes and the same pixels. The entropy stage runs on the host: the
+encoder's run/size symbols and bit packing with numpy, the decoder's
+Huffman lookup through a 65,536-entry table over a 16-bit peek, one
+symbol at a time, or its arithmetic decoder one binary decision at a
+time.
 
-Arithmetic-coded, lossless, hierarchical, 12-bit and four-component
-(CMYK / YCCK) files, subsampling beyond 2:1 (4:1:1) and a height given
-in a DNL marker are valid JPEG that the decoder does not read: they
-raise NotImplementedError naming what they are and ROADMAP item 13
-(probe finds them from the markers before the first scan). Corrupt or
-truncated data raises ValueError.
+The variants libjpeg-turbo's 8-bit decoder (so PIL) fails on raise
+ValueError, as corrupt or truncated data does: 12-bit and hierarchical
+frames, a height left to a DNL marker, two components, fractional
+sampling ratios, an MCU of more than 10 blocks and a lossless YCCK
+frame. Entropy-coded data that ends at a marker before its MCUs do
+decodes as libjpeg decodes it (the MCU that runs out reads zero bits,
+the rest of its restart interval keeps what earlier scans gave it; in a
+lossless scan the MCU row that runs out reads zero bits and the later
+rows restart the prediction on zero differences), and
+a run past a block's end writes its last coefficient, as libjpeg's
+does. Arithmetic-coded lossless (SOF11), and a progressive file whose
+scans leave AC coefficients 1-9 incomplete (libjpeg smooths its blocks),
+raise NotImplementedError naming ROADMAP item 13 (probe finds them from
+the markers).
 """
 from __future__ import annotations
 
@@ -519,15 +538,16 @@ def encode(img, quality: int = 95) -> bytes:
 # decoder
 # ---------------------------------------------------------------------------
 
-_REFUSED_SOF = {
-    0xC3: "lossless (SOF3)", 0xC5: "hierarchical (SOF5)",
-    0xC6: "hierarchical (SOF6)", 0xC7: "hierarchical lossless (SOF7)",
-    0xC9: "arithmetic-coded (SOF9)", 0xCA: "arithmetic-coded (SOF10)",
-    0xCB: "arithmetic-coded lossless (SOF11)",
-    0xCD: "arithmetic-coded hierarchical (SOF13)",
-    0xCE: "arithmetic-coded hierarchical (SOF14)",
-    0xCF: "arithmetic-coded hierarchical (SOF15)",
-}
+# SOF markers: code -> (progressive, arithmetic, lossless)
+_SOF = {0xC0: (False, False, False), 0xC1: (False, False, False),
+        0xC2: (True, False, False), 0xC3: (False, False, True),
+        0xC9: (False, True, False), 0xCA: (True, True, False)}
+# the frames libjpeg-turbo does not decode: PIL fails on them
+_FAILS = {0xC5: "hierarchical (SOF5)", 0xC6: "hierarchical (SOF6)",
+          0xC7: "hierarchical lossless (SOF7)",
+          0xCD: "arithmetic-coded hierarchical (SOF13)",
+          0xCE: "arithmetic-coded hierarchical (SOF14)",
+          0xCF: "arithmetic-coded hierarchical (SOF15)"}
 
 
 def _unported(what: str):
@@ -536,70 +556,157 @@ def _unported(what: str):
 
 
 def _check_frame(payload: bytes):
-    """Raise NotImplementedError for a frame header the decoder does not
-    read: not 8-bit, not 1 or 3 components, a zero dimension (the height
-    in a DNL marker) or a component subsampled other than 1:1 or 2:1 on
-    an axis."""
+    """Raise ValueError for a frame header PIL (its plugin or
+    libjpeg-turbo's 8-bit decoder) fails on: not 8-bit, other than 1, 3
+    or 4 components, a zero dimension (the height left to a DNL marker)
+    or a component's sampling factor not dividing the largest."""
     if len(payload) < 6 or len(payload) < 6 + 3 * payload[5]:
-        return
+        raise ValueError("truncated JPEG frame header")
     prec, H, W, nc = struct.unpack(">BHHB", payload[:6])
     if prec != 8:
-        raise _unported(f"{prec}-bit JPEG")
-    if nc not in (1, 3):
-        raise _unported(f"{nc}-component (CMYK / YCCK) JPEG")
+        raise ValueError(f"cannot handle {prec}-bit JPEG samples")
+    if nc not in (1, 3, 4):
+        raise ValueError(f"cannot handle a {nc}-component JPEG")
     if H == 0 or W == 0:
-        raise _unported("JPEG with its height in a DNL marker")
+        raise ValueError("an empty JPEG frame (its height in a DNL "
+                         "marker, which libjpeg does not read)")
     hv = [payload[7 + 3 * i] for i in range(nc)]
     h, v = [x >> 4 for x in hv], [x & 15 for x in hv]
+    if min(h + v) < 1 or max(h + v) > 4:
+        raise ValueError(f"JPEG sampling factors {h} x {v}")
     for a, b in zip(h, v):
-        if max(h) % a or max(v) % b or max(h) // a > 2 or max(v) // b > 2:
-            raise _unported(f"JPEG with sampling factors {h} x {v} (a ratio "
-                           f"other than 1 or 2)")
+        if max(h) % a or max(v) % b:
+            raise ValueError(f"JPEG sampling factors {h} x {v} (a "
+                             f"fractional ratio)")
 
 
 def _check_marker(code: int, payload: bytes):
-    """Raise NotImplementedError for a marker of a valid JPEG that the
-    decoder does not read (its frame header included)."""
-    if code in _REFUSED_SOF:
-        raise _unported(f"{_REFUSED_SOF[code]} JPEG")
-    if code == 0xCC:
-        raise _unported("arithmetic-coded JPEG (DAC marker)")
-    if code in (0xDE, 0xDF):
-        raise _unported("hierarchical JPEG (DHP / EXP marker)")
-    if code == 0xDC:
-        raise _unported("JPEG with a DNL marker")
-    if code in (0xC0, 0xC1, 0xC2):
+    """Raise for a frame marker the decoder does not read: ValueError
+    where PIL fails too, NotImplementedError for arithmetic-coded
+    lossless (SOF11)."""
+    if code in _FAILS:
+        raise ValueError(f"{_FAILS[code]} JPEG: libjpeg does not decode it")
+    if code == 0xCB:
+        raise _unported("arithmetic-coded lossless (SOF11) JPEG")
+    if code in _SOF:
         _check_frame(payload)
+
+
+def _smooths(progressive: bool, bits, quant) -> bool:
+    """Whether libjpeg smooths a progressive frame's blocks at output
+    (jdcoefct.c smoothing_ok, libjpeg-turbo's default do_block_smoothing):
+    every component has a quantization table latched whose first ten
+    zigzag values are nonzero and has DC data, and some component's
+    coefficients 1-9 are not all complete. bits: per component, the
+    point transform of the last scan that held each of zigzag
+    coefficients 0-9 (-1: none)."""
+    if not progressive:
+        return False
+    useful = False
+    for b, q in zip(bits, quant):
+        if q is None or not all(q[:10]) or b[0] < 0:
+            return False
+        useful = useful or any(b[1:10])
+    return useful
+
+
+def _smoothing():
+    return _unported("a progressive JPEG whose scans leave AC coefficients "
+                     "1-9 incomplete (a file cut short; libjpeg's block "
+                     "smoothing)")
+
+
+def _scan_bits(bits, comps, ss: int, se: int, al: int):
+    """Record a progressive scan's point transform for the coefficients
+    0-9 it holds (libjpeg's coef_bits)."""
+    for ci in comps:
+        for k in range(ss, min(se, 9) + 1):
+            bits[ci][k] = al
+
+
+def _scan_end(data: bytes, pos: int) -> int:
+    """The position of the marker that ends the entropy-coded data from
+    pos (not a restart marker), or -1 where the file ends first."""
+    arr = np.frombuffer(data, np.uint8, offset=pos)
+    ff = np.nonzero(arr[:-1] == 0xFF)[0]
+    code = arr[ff + 1]
+    end = ff[(code != 0) & (code != 0xFF) & ((code < 0xD0) | (code > 0xD7))]
+    return pos + int(end[0]) if len(end) else -1
 
 
 def probe(data: bytes):
     """Raise NotImplementedError where `data` is a JPEG that decode() does
-    not read, from its markers before the first scan, without decoding;
-    corrupt or truncated data is left to decode()."""
+    not read, from its markers without decoding (a progressive file's
+    scan headers too); data PIL fails on is left to decode()
+    (ValueError)."""
     if data[:2] != b"\xff\xd8":
         return
     pos, n = 2, len(data)
-    while pos + 4 <= n and data[pos] == 0xFF:
+    progressive, ids, tq, qt, bits, quant = False, [], [], {}, [], []
+    while pos + 2 <= n and data[pos] == 0xFF:
         code = data[pos + 1]
         if code == 0xFF:
             pos += 1
             continue
-        if code in (0xDA, 0xD9):
-            return
+        if code == 0xD9:
+            break
         if 0xD0 <= code <= 0xD7 or code == 0x01:
             pos += 2
             continue
+        if pos + 4 > n:
+            return
         end = pos + 2 + struct.unpack(">H", data[pos + 2:pos + 4])[0]
         if end > n:
             return
-        _check_marker(code, data[pos + 4:end])
+        payload = data[pos + 4:end]
+        if code == 0xCB:
+            _check_marker(code, payload)
+        elif code in _SOF and len(payload) >= 6:
+            progressive = _SOF[code][0]
+            if not progressive:
+                return
+            ids = list(payload[6::3])
+            tq = list(payload[8::3])
+            bits = [[-1] * 10 for _ in ids]
+            quant = [None] * len(ids)
+        elif code == 0xDB:
+            i = 0
+            while i < len(payload):
+                wide = payload[i] >> 4
+                qt[payload[i] & 15] = [
+                    int.from_bytes(payload[i + 1 + k * (1 + wide):
+                                           i + 2 + k * (1 + wide) + wide],
+                                   "big") for k in range(10)]
+                i += 129 if wide else 65
+        elif code == 0xDA:
+            if not progressive or not payload:
+                return
+            ns = payload[0]
+            comps = [ids.index(c) for c in payload[1:1 + 2 * ns:2]
+                     if c in ids]
+            if len(payload) < 4 + 2 * ns:
+                return
+            for ci in comps:
+                if quant[ci] is None:
+                    quant[ci] = list(qt.get(tq[ci], [1] * 10))
+            ss, se, a = payload[1 + 2 * ns:4 + 2 * ns]
+            _scan_bits(bits, comps, ss, se, a & 15)
+            end = _scan_end(data, end)
+            if end < 0:
+                return
         pos = end
+    if _smooths(progressive, bits, quant):
+        raise _smoothing()
 
 
 class _Frame:
-    def __init__(self, payload: bytes, progressive: bool):
+    """A frame header's geometry. A DCT frame's unit is an 8 x 8 block
+    (its coefficients zigzag-ordered, 64 per block in coef), a lossless
+    frame's one sample (its differences, then its samples, in coef)."""
+
+    def __init__(self, payload: bytes, code: int):
         _, self.H, self.W, nc = struct.unpack(">BHHB", payload[:6])
-        self.progressive = progressive
+        self.progressive, self.arith, self.lossless = _SOF[code]
         self.ids, self.h, self.v, self.tq = [], [], [], []
         for i in range(nc):
             cid, hv, tq = payload[6 + 3 * i:9 + 3 * i]
@@ -607,36 +714,40 @@ class _Frame:
             self.h.append(hv >> 4)
             self.v.append(hv & 15)
             self.tq.append(tq)
+        u = self.unit = 1 if self.lossless else 8
+        self.n = u * u
         self.hmax, self.vmax = max(self.h), max(self.v)
-        self.mcux = -(-self.W // (8 * self.hmax))
-        self.mcuy = -(-self.H // (8 * self.vmax))
-        # per component: the sample grid, its blocks and the padded grid
+        self.mcux = -(-self.W // (u * self.hmax))
+        self.mcuy = -(-self.H // (u * self.vmax))
+        # per component: the sample grid, its units and the padded grid
         self.cw = [-(-self.W * h // self.hmax) for h in self.h]
         self.ch = [-(-self.H * v // self.vmax) for v in self.v]
-        self.wib = [-(-w // 8) for w in self.cw]
-        self.hib = [-(-h // 8) for h in self.ch]
+        self.wib = [-(-w // u) for w in self.cw]
+        self.hib = [-(-h // u) for h in self.ch]
         self.bw = [self.mcux * h for h in self.h]
         self.bh = [self.mcuy * v for v in self.v]
-        self.coef = [[0] * (bw * bh * 64) for bw, bh in zip(self.bw,
-                                                            self.bh)]
+        self.coef = [[0] * (bw * bh * self.n) for bw, bh in zip(self.bw,
+                                                                self.bh)]
         self.qt = [None] * nc
+        # a progressive frame's coef_bits for zigzag coefficients 0-9
+        self.bits = [[-1] * 10 for _ in range(nc)]
+        # the arithmetic conditioning (DAC): DC (L, U) and AC K per table
+        self.dc_lu = {t: (0, 1) for t in range(4)}
+        self.ac_k = {t: 5 for t in range(4)}
 
 
 def _segments(data: bytes, pos: int):
     """The entropy-coded data from pos: its restart segments (byte-stuffing
     removed) and the position of the marker that ends it."""
-    arr = np.frombuffer(data, np.uint8, offset=pos)
-    ff = np.nonzero(arr[:-1] == 0xFF)[0]
-    nxt = arr[ff + 1]
-    mk = ff[(nxt != 0) & (nxt != 0xFF)]
-    mk_code = arr[mk + 1]
-    end_i = np.nonzero((mk_code < 0xD0) | (mk_code > 0xD7))[0]
-    if len(end_i) == 0:
+    end = _scan_end(data, pos)
+    if end < 0:
         raise ValueError("truncated JPEG: the file ends inside a scan")
-    end = int(mk[end_i[0]])
-    rst = mk[:end_i[0]]
+    arr = np.frombuffer(data, np.uint8, count=end - pos, offset=pos)
+    ff = np.nonzero(arr[:-1] == 0xFF)[0]
+    code = arr[ff + 1]
+    rst = ff[(code >= 0xD0) & (code <= 0xD7)]
     bounds = [0] + [int(r) + 2 for r in rst]
-    ends = [int(r) for r in rst] + [end]
+    ends = [int(r) for r in rst] + [len(arr)]
     segs = []
     for a, b in zip(bounds, ends):
         # fill bytes (0xFF before a marker) carry no data
@@ -646,16 +757,17 @@ def _segments(data: bytes, pos: int):
         keep = np.ones(len(s), bool)
         keep[1:] = ~((s[1:] == 0) & (s[:-1] == 0xFF))
         segs.append(s[keep])
-    return segs, pos + end
+    return segs, end
 
 
-def _windows(seg):
-    """For every byte offset i, bytes i..i+7 as a big-endian integer."""
+def _windows(seg, pad: int = 0):
+    """For every byte offset i, bytes i..i+7 as a big-endian integer;
+    `pad` more offsets past the data, all zero bits."""
     n = len(seg)
-    b = np.concatenate([seg, np.zeros(8, np.uint8)]).astype(np.uint64)
-    w = np.zeros(n + 1, np.uint64)
+    b = np.concatenate([seg, np.zeros(8 + pad, np.uint8)]).astype(np.uint64)
+    w = np.zeros(n + 1 + pad, np.uint64)
     for j in range(8):
-        w |= b[j:j + n + 1] << np.uint64(56 - 8 * j)
+        w |= b[j:j + n + 1 + pad] << np.uint64(56 - 8 * j)
     return w.tolist()
 
 
@@ -664,16 +776,19 @@ def _bad():
 
 
 def _decode_scan(fr, comps, tabs, ss, se, ah, al, segs, restart):
-    """Huffman-decode one scan into fr.coef (zigzag order, flat per
-    component). comps: the scan's component indices; tabs: per scan
-    component (DC lut, AC lut)."""
-    # the scan's blocks in order: (component, flat offset)
+    """Entropy-decode one scan into fr.coef (flat per component).
+    comps: the scan's component indices; tabs: per scan component its
+    (DC, AC) Huffman luts, or its (DC, AC) table numbers for arithmetic
+    coding."""
+    # the scan's units in order: (component, flat offset)
+    n = fr.n
     if len(comps) == 1:
         ci = comps[0]
         bw = fr.bw[ci]
-        order = [(0, (by * bw + bx) * 64) for by in range(fr.hib[ci])
+        order = [(0, (by * bw + bx) * n) for by in range(fr.hib[ci])
                  for bx in range(fr.wib[ci])]
         per_mcu = 1
+        per_row = fr.wib[ci]
     else:
         order = []
         for my in range(fr.mcuy):
@@ -683,31 +798,379 @@ def _decode_scan(fr, comps, tabs, ss, se, ah, al, segs, restart):
                     for yi in range(v):
                         for xi in range(h):
                             order.append((j, ((my * v + yi) * bw + mx * h
-                                              + xi) * 64))
+                                              + xi) * n))
         per_mcu = len(order) // (fr.mcux * fr.mcuy)
+        per_row = fr.mcux
     step = restart * per_mcu if restart else len(order)
     n_seg = -(-len(order) // step)
-    if len(segs) < n_seg:
-        raise ValueError("truncated JPEG: a scan has fewer restart "
-                         "intervals than its MCUs need")
+    if fr.lossless and restart and restart % per_row:
+        raise ValueError("a lossless JPEG's restart interval is not a "
+                         "whole number of MCU rows")
     coefs = [fr.coef[ci] for ci in comps]
+    # a restart interval whose data ends at a marker before its MCUs do
+    # (libjpeg's "premature end of data segment" warning): the MCU that
+    # runs out reads zero bits, the interval's later MCUs keep what
+    # earlier scans gave them (jdhuff.c's insufficient_data). A scan that
+    # ends at a marker other than the awaited restart leaves its later
+    # intervals empty (jdmarker.c's resync, action 3): the flag stays set
+    # across them, and an arithmetic decoder reads zeros through them. A
+    # lossless scan runs out by MCU rows (jdlhuff.c): the row that runs
+    # out reads zero bits, the later rows restart the prediction on zero
+    # differences.
+    empty = np.zeros(0, np.uint8)
+    short = False
+    # the lossless MCU rows that start the scan or a restart interval, or
+    # follow the data's end, use the first row's prediction
+    row = per_mcu * per_row
+    first = {si * step // row for si in range(n_seg)}
     for si in range(n_seg):
         chunk = order[si * step:(si + 1) * step]
-        W = _windows(segs[si])
-        if fr.progressive:
-            p = _decode_progressive(W, chunk, coefs, tabs, ss, se, ah, al,
-                                    len(comps))
+        seg = segs[si] if si < len(segs) else empty
+        if fr.arith:
+            _decode_arith(fr, seg, chunk, coefs, tabs, ss, se, ah, al,
+                          len(comps))
+            continue
+        if si >= len(segs) and short:
+            if fr.lossless:
+                first.update(range(si * step // row,
+                                   (si * step + len(chunk)) // row))
+            continue
+        # room for an MCU (a lossless MCU row) of zero bits past the data:
+        # at most 256 bytes a unit (4 a lossless one)
+        W = _windows(seg, 4 * row if fr.lossless else 256 * per_mcu)
+        stop = 8 * len(seg)
+        try:
+            if fr.lossless:
+                p, done = _decode_lossless(W, chunk, coefs, tabs, stop, row)
+                if p > stop:
+                    first.update(range((si * step + done) // row,
+                                       (si * step + len(chunk)) // row))
+            elif fr.progressive:
+                p = _decode_progressive(W, chunk, coefs, tabs, ss, se, ah,
+                                        al, len(comps), stop, per_mcu)
+            else:
+                p = _decode_sequential(W, chunk, coefs, tabs, len(comps),
+                                       stop, per_mcu)
+        except TypeError:
+            raise ValueError("corrupt JPEG: a scan names a Huffman table "
+                             "the file does not define") from None
+        short = p > stop
+    if fr.lossless:
+        for j, ci in enumerate(comps):
+            v = 1 if len(comps) == 1 else fr.v[ci]
+            rows = fr.hib[ci] if len(comps) == 1 else fr.bh[ci]
+            _undifference(fr, ci, rows, {r * v for r in first}, ss, al)
+
+
+def _decode_lossless(W, chunk, coefs, tabs, stop, row):
+    """The Huffman-coded differences of a lossless scan (category s, then
+    s bits; 16: 32,768), up to the MCU row (`row` units) that reads past
+    bit `stop`. Returns the bits read and the units decoded."""
+    p = 0
+    for i, (j, base) in enumerate(chunk):
+        if p > stop and not i % row:
+            return p, i
+        dcl = tabs[j][0]
+        w = W[p >> 3] << (p & 7)
+        e = dcl[(w >> 48) & 0xFFFF] or _bad()
+        ln = e >> 8
+        s = e & 31
+        if s == 16:
+            v = 32768
+        elif s:
+            v = (w >> (64 - ln - s)) & ((1 << s) - 1)
+            if v < (1 << (s - 1)):
+                v -= (1 << s) - 1
         else:
-            p = _decode_sequential(W, chunk, coefs, tabs, len(comps))
-        if p > 8 * len(segs[si]):
-            raise ValueError("truncated JPEG: the entropy-coded data ends "
-                             "inside a block")
+            v = 0
+        p += ln + (s if s < 16 else 0)
+        coefs[j][base] = v
+    return p, len(chunk)
 
 
-def _decode_sequential(W, chunk, coefs, tabs, nc):
+def _undifference(fr, ci, rows: int, first_rows, psv: int, pt: int):
+    """libjpeg's lossless prediction (jdpred.c) over component ci's
+    differences, in place: a first row predicted from 2^(P - Pt - 1),
+    then its left neighbour; later rows' first sample from above, the
+    rest by predictor psv; sums modulo 2^16, then shifted up by Pt and
+    cut to 8 bits."""
+    bw = fr.bw[ci]
+    width = fr.wib[ci] if rows == fr.hib[ci] else bw
+    c = fr.coef[ci]
+    top = 1 << (8 - pt - 1)
+    prev = None
+    for y in range(rows):
+        row = c[y * bw:y * bw + width]
+        out = [0] * width
+        if y in first_rows or prev is None:
+            acc = top
+            for x in range(width):
+                acc = (row[x] + acc) & 0xFFFF
+                out[x] = acc
+        else:
+            out[0] = (row[0] + prev[0]) & 0xFFFF
+            for x in range(1, width):
+                ra, rb, rc = out[x - 1], prev[x], prev[x - 1]
+                if psv == 1:
+                    pr = ra
+                elif psv == 2:
+                    pr = rb
+                elif psv == 3:
+                    pr = rc
+                elif psv == 4:
+                    pr = ra + rb - rc
+                elif psv == 5:
+                    pr = ra + ((rb - rc) >> 1)
+                elif psv == 6:
+                    pr = rb + ((ra - rc) >> 1)
+                else:
+                    pr = (ra + rb) >> 1
+                out[x] = (row[x] + pr) & 0xFFFF
+        prev = out
+        c[y * bw:y * bw + width] = [(v << pt) & 0xFF for v in out]
+
+
+# libjpeg's jaricom.c table: (Qe << 16) | (next MPS index << 8) |
+# (switch << 7) | next LPS index, per state
+def _v(qe, lps, mps, switch):
+    return (qe << 16) | (mps << 8) | (switch << 7) | lps
+
+
+ARITAB = [_v(*r) for r in (
+    (0x5a1d, 1, 1, 1), (0x2586, 14, 2, 0), (0x1114, 16, 3, 0),
+    (0x080b, 18, 4, 0), (0x03d8, 20, 5, 0), (0x01da, 23, 6, 0),
+    (0x00e5, 25, 7, 0), (0x006f, 28, 8, 0), (0x0036, 30, 9, 0),
+    (0x001a, 33, 10, 0), (0x000d, 35, 11, 0), (0x0006, 9, 12, 0),
+    (0x0003, 10, 13, 0), (0x0001, 12, 13, 0), (0x5a7f, 15, 15, 1),
+    (0x3f25, 36, 16, 0), (0x2cf2, 38, 17, 0), (0x207c, 39, 18, 0),
+    (0x17b9, 40, 19, 0), (0x1182, 42, 20, 0), (0x0cef, 43, 21, 0),
+    (0x09a1, 45, 22, 0), (0x072f, 46, 23, 0), (0x055c, 48, 24, 0),
+    (0x0406, 49, 25, 0), (0x0303, 51, 26, 0), (0x0240, 52, 27, 0),
+    (0x01b1, 54, 28, 0), (0x0144, 56, 29, 0), (0x00f5, 57, 30, 0),
+    (0x00b7, 59, 31, 0), (0x008a, 60, 32, 0), (0x0068, 62, 33, 0),
+    (0x004e, 63, 34, 0), (0x003b, 32, 35, 0), (0x002c, 33, 9, 0),
+    (0x5ae1, 37, 37, 1), (0x484c, 64, 38, 0), (0x3a0d, 65, 39, 0),
+    (0x2ef1, 67, 40, 0), (0x261f, 68, 41, 0), (0x1f33, 69, 42, 0),
+    (0x19a8, 70, 43, 0), (0x1518, 72, 44, 0), (0x1177, 73, 45, 0),
+    (0x0e74, 74, 46, 0), (0x0bfb, 75, 47, 0), (0x09f8, 77, 48, 0),
+    (0x0861, 78, 49, 0), (0x0706, 79, 50, 0), (0x05cd, 48, 51, 0),
+    (0x04de, 50, 52, 0), (0x040f, 50, 53, 0), (0x0363, 51, 54, 0),
+    (0x02d4, 52, 55, 0), (0x025c, 53, 56, 0), (0x01f8, 54, 57, 0),
+    (0x01a4, 55, 58, 0), (0x0160, 56, 59, 0), (0x0125, 57, 60, 0),
+    (0x00f6, 58, 61, 0), (0x00cb, 59, 62, 0), (0x00ab, 61, 63, 0),
+    (0x008f, 61, 32, 0), (0x5b12, 65, 65, 1), (0x4d04, 80, 66, 0),
+    (0x412c, 81, 67, 0), (0x37d8, 82, 68, 0), (0x2fe8, 83, 69, 0),
+    (0x293c, 84, 70, 0), (0x2379, 86, 71, 0), (0x1edf, 87, 72, 0),
+    (0x1aa9, 87, 73, 0), (0x174e, 72, 74, 0), (0x1424, 72, 75, 0),
+    (0x119c, 74, 76, 0), (0x0f6b, 74, 77, 0), (0x0d51, 75, 78, 0),
+    (0x0bb6, 77, 79, 0), (0x0a40, 77, 48, 0), (0x5832, 80, 81, 1),
+    (0x4d1c, 88, 82, 0), (0x438e, 89, 83, 0), (0x3bdd, 90, 84, 0),
+    (0x34ee, 91, 85, 0), (0x2eae, 92, 86, 0), (0x299a, 93, 87, 0),
+    (0x2516, 86, 71, 0), (0x5570, 88, 89, 1), (0x4ca9, 95, 90, 0),
+    (0x44d9, 96, 91, 0), (0x3e22, 97, 92, 0), (0x3824, 99, 93, 0),
+    (0x32b4, 99, 94, 0), (0x2e17, 93, 86, 0), (0x56a8, 95, 96, 1),
+    (0x4f46, 101, 97, 0), (0x47e5, 102, 98, 0), (0x41cf, 103, 99, 0),
+    (0x3c3d, 104, 100, 0), (0x375e, 99, 93, 0), (0x5231, 105, 102, 0),
+    (0x4c0f, 106, 103, 0), (0x4639, 107, 104, 0), (0x415e, 103, 99, 0),
+    (0x5627, 105, 106, 1), (0x50e7, 108, 107, 0), (0x4b85, 109, 103, 0),
+    (0x5597, 110, 109, 0), (0x504f, 111, 107, 0), (0x5a10, 110, 111, 1),
+    (0x5522, 112, 109, 0), (0x59eb, 112, 111, 1), (0x5a1d, 113, 113, 0))]
+
+
+def _decode_arith(fr, seg, chunk, coefs, tabs, ss, se, ah, al, nc):
+    """libjpeg's jdarith.c over one restart interval: the QM decoder
+    (arith_decode) and decode_mcu (sequential) or decode_mcu_DC_first /
+    AC_first / DC_refine / AC_refine (progressive), the statistics bins
+    zeroed at the interval's start."""
+    data = seg.tolist()
+    nd = len(data)
+    # the decoder state: c, a, ct, the read position
+    st_c, st_a, st_ct, st_pos = 0, 0, -16, 0
+    bad = [False]
+
+    def decode(bins, i):
+        nonlocal st_c, st_a, st_ct, st_pos
+        while st_a < 0x8000:
+            st_ct -= 1
+            if st_ct < 0:
+                # past the interval's data: zeros, as after a marker
+                b = data[st_pos] if st_pos < nd else 0
+                st_pos += 1
+                st_c = (st_c << 8) | b
+                st_ct += 8
+                if st_ct < 0:
+                    st_ct += 1
+                    if st_ct == 0:
+                        st_a = 0x8000
+            st_a <<= 1
+        sv = bins[i]
+        qe = ARITAB[sv & 0x7F]
+        nl = qe & 0xFF
+        qe >>= 8
+        nm = qe & 0xFF
+        qe >>= 8
+        temp = st_a - qe
+        st_a = temp
+        temp <<= st_ct
+        if st_c >= temp:
+            st_c -= temp
+            if st_a < qe:
+                st_a = qe
+                bins[i] = (sv & 0x80) ^ nm
+            else:
+                st_a = qe
+                bins[i] = (sv & 0x80) ^ nl
+                sv ^= 0x80
+        elif st_a < 0x8000:
+            if st_a < qe:
+                bins[i] = (sv & 0x80) ^ nl
+                sv ^= 0x80
+            else:
+                bins[i] = (sv & 0x80) ^ nm
+        return sv >> 7
+
+    fixed = [113]
+    dc_stats = {t: [0] * 64 for t in range(4)}
+    ac_stats = {t: [0] * 256 for t in range(4)}
+    last_dc = [0] * nc
+    dc_ctx = [0] * nc
+
+    def dc_diff(j, tbl):
+        bins = dc_stats[tbl]
+        st = dc_ctx[j]
+        if decode(bins, st) == 0:
+            dc_ctx[j] = 0
+            return 0
+        sign = decode(bins, st + 1)
+        st += 2 + sign
+        m = decode(bins, st)
+        if m:
+            st = 20
+            while decode(bins, st):
+                m <<= 1
+                if m == 0x8000:
+                    bad[0] = True
+                    return 0
+                st += 1
+        lo, up = fr.dc_lu[tbl]
+        if m < (1 << lo) >> 1:
+            dc_ctx[j] = 0
+        elif m > (1 << up) >> 1:
+            dc_ctx[j] = 12 + sign * 4
+        else:
+            dc_ctx[j] = 4 + sign * 4
+        v = m
+        st += 14
+        m >>= 1
+        while m:
+            if decode(bins, st):
+                v |= m
+            m >>= 1
+        v += 1
+        return -v if sign else v
+
+    def ac_value(bins, st, k, tbl):
+        """The nonzero value after its position: sign, category, bits."""
+        sign = decode(fixed, 0)
+        st += 2
+        m = decode(bins, st)
+        if m:
+            if decode(bins, st):
+                m <<= 1
+                st = 189 if k <= fr.ac_k[tbl] else 217
+                while decode(bins, st):
+                    m <<= 1
+                    if m == 0x8000:
+                        bad[0] = True
+                        return 0
+                    st += 1
+        v = m
+        st += 14
+        m >>= 1
+        while m:
+            if decode(bins, st):
+                v |= m
+            m >>= 1
+        v += 1
+        return -v if sign else v
+
+    def ac_run(coef, base, tbl, k0, k1, shift):
+        bins = ac_stats[tbl]
+        k = k0
+        while k <= k1:
+            st = 3 * (k - 1)
+            if decode(bins, st):
+                return
+            while decode(bins, st + 1) == 0:
+                st += 3
+                k += 1
+                if k > k1:
+                    bad[0] = True
+                    return
+            v = ac_value(bins, st, k, tbl)
+            if bad[0]:
+                return
+            coef[base + k] = v << shift if v >= 0 else -((-v) << shift)
+            k += 1
+
+    for j, base in chunk:
+        if bad[0]:
+            # libjpeg stops decoding the interval after a bad code
+            break
+        coef = coefs[j]
+        dct, act = tabs[j]
+        if not fr.progressive:
+            last_dc[j] += dc_diff(j, dct)
+            coef[base] = last_dc[j]
+            ac_run(coef, base, act, 1, 63, 0)
+        elif ss == 0:
+            if ah == 0:
+                last_dc[j] += dc_diff(j, dct)
+                coef[base] = last_dc[j] << al
+            elif decode(fixed, 0):
+                coef[base] |= 1 << al
+        elif ah == 0:
+            ac_run(coef, base, act, ss, se, al)
+        else:
+            # AC refinement (decode_mcu_AC_refine)
+            bins = ac_stats[act]
+            p1, m1 = 1 << al, -1 << al
+            kex = se
+            while kex > 0 and not coef[base + kex]:
+                kex -= 1
+            k = ss
+            while k <= se:
+                st = 3 * (k - 1)
+                if k > kex and decode(bins, st):
+                    break
+                while True:
+                    c = coef[base + k]
+                    if c:
+                        if decode(bins, st + 2):
+                            coef[base + k] = c + (m1 if c < 0 else p1)
+                        break
+                    if decode(bins, st + 1):
+                        coef[base + k] = m1 if decode(fixed, 0) else p1
+                        break
+                    st += 3
+                    k += 1
+                    if k > se:
+                        bad[0] = True
+                        break
+                if bad[0]:
+                    break
+                k += 1
+
+
+def _decode_sequential(W, chunk, coefs, tabs, nc, stop, per_mcu):
+    """A baseline or extended Huffman scan, up to the MCU that reads past
+    bit `stop`; a run past the block's end writes its last coefficient
+    (libjpeg's jpeg_natural_order ends in 16 entries of 63)."""
     p = 0
     pred = [0] * nc
-    for j, base in chunk:
+    for i, (j, base) in enumerate(chunk):
+        if p > stop and not i % per_mcu:
+            break
         coef = coefs[j]
         dcl, acl = tabs[j]
         w = W[p >> 3] << (p & 7)
@@ -728,9 +1191,7 @@ def _decode_sequential(W, chunk, coefs, tabs, nc):
             ln = e >> 8
             s = e & 15
             if s:
-                k += (e >> 4) & 15
-                if k > 63:
-                    _bad()
+                k = min(k + ((e >> 4) & 15), 63)
                 v = (w >> (64 - ln - s)) & ((1 << s) - 1)
                 if v < (1 << (s - 1)):
                     v -= (1 << s) - 1
@@ -745,15 +1206,19 @@ def _decode_sequential(W, chunk, coefs, tabs, nc):
     return p
 
 
-def _decode_progressive(W, chunk, coefs, tabs, ss, se, ah, al, nc):
+def _decode_progressive(W, chunk, coefs, tabs, ss, se, ah, al, nc, stop,
+                        per_mcu):
     """jdphuff.c's four scan kinds: DC first / refine, AC first / refine
-    (with end-of-band runs)."""
+    (with end-of-band runs), up to the MCU that reads past bit `stop`; a
+    run past the block's end writes its last coefficient."""
     p = 0
     pred = [0] * nc
     eobrun = 0
     p1 = 1 << al
     m1 = -1 << al
-    for j, base in chunk:
+    for i, (j, base) in enumerate(chunk):
+        if p > stop and not i % per_mcu:
+            break
         coef = coefs[j]
         dcl, acl = tabs[j]
         if ss == 0:
@@ -786,9 +1251,7 @@ def _decode_progressive(W, chunk, coefs, tabs, ss, se, ah, al, nc):
                 r = (e >> 4) & 15
                 s = e & 15
                 if s:
-                    k += r
-                    if k > 63:
-                        _bad()
+                    k = min(k + r, 63)
                     v = (w >> (64 - ln - s)) & ((1 << s) - 1)
                     if v < (1 << (s - 1)):
                         v -= (1 << s) - 1
@@ -838,9 +1301,7 @@ def _decode_progressive(W, chunk, coefs, tabs, ss, se, ah, al, nc):
                             break
                     k += 1
                 if s:
-                    if k > 63:
-                        _bad()
-                    coef[base + k] = s
+                    coef[base + min(k, 63)] = s
                 k += 1
         if eobrun > 0:
             while k <= se:
@@ -856,14 +1317,16 @@ def _decode_progressive(W, chunk, coefs, tabs, ss, se, ah, al, nc):
 
 def _parse(data: bytes):
     """Walk the markers, decoding every scan: the frame with its
-    coefficients, and whether an Adobe marker says RGB."""
+    coefficients (or a lossless frame's samples) and the Adobe marker's
+    transform (None without one)."""
     if data[:2] != b"\xff\xd8":
         raise ValueError("not a JPEG file (no SOI marker)")
     pos = 2
     qt, huff = {}, {}
     fr = None
     restart = 0
-    adobe_rgb = False
+    adobe = None
+    dac = []
     n = len(data)
     while True:
         while pos < n and data[pos] != 0xFF:
@@ -887,8 +1350,8 @@ def _parse(data: bytes):
             raise ValueError("truncated JPEG: a marker's payload is cut")
         pos += length
         _check_marker(code, payload)
-        if code in (0xC0, 0xC1, 0xC2):
-            fr = _Frame(payload, code == 0xC2)
+        if code in _SOF:
+            fr = _Frame(payload, code)
         elif code == 0xDB:
             i = 0
             while i < len(payload):
@@ -910,51 +1373,112 @@ def _parse(data: bytes):
                 huff[(tc, th)] = _huff_lut(counts, payload[i + 17:
                                                            i + 17 + nv])
                 i += 17 + nv
+        elif code == 0xCC:
+            dac += [payload[i:i + 2] for i in range(0, len(payload) - 1, 2)]
         elif code == 0xDD:
             restart = struct.unpack(">H", payload[:2])[0]
         elif code == 0xEE and payload[:5] == b"Adobe" and len(payload) >= 12:
-            adobe_rgb = payload[11] == 0
+            adobe = payload[11]
         elif code == 0xDA:
             if fr is None:
                 raise ValueError("JPEG scan before its frame header")
+            for tcb, val in dac:
+                if tcb >> 4:
+                    fr.ac_k[tcb & 15] = val
+                else:
+                    fr.dc_lu[tcb & 15] = (val & 15, val >> 4)
+            dac = []
             ns = payload[0]
             comps, tabs = [], []
             for i in range(ns):
                 cid, t = payload[1 + 2 * i:3 + 2 * i]
+                if cid not in fr.ids:
+                    raise ValueError("a JPEG scan names no component of its "
+                                     "frame")
                 ci = fr.ids.index(cid)
                 comps.append(ci)
                 if fr.qt[ci] is None:
-                    fr.qt[ci] = qt[fr.tq[ci]]
-                tabs.append((huff.get((0, t >> 4)), huff.get((1, t & 15))))
+                    fr.qt[ci] = qt.get(fr.tq[ci], np.ones(64, np.int64))
+                if fr.arith:
+                    tabs.append((t >> 4, t & 15))
+                else:
+                    tabs.append((huff.get((0, t >> 4)), huff.get((1, t & 15))))
+            if ns > 1 and sum(fr.h[ci] * fr.v[ci] for ci in comps) > 10:
+                raise ValueError("a JPEG MCU of more than 10 blocks "
+                                 "(libjpeg's limit)")
             ss, se, a = payload[1 + 2 * ns:4 + 2 * ns]
             segs, pos = _segments(data, pos)
+            _scan_bits(fr.bits, comps, ss, se, a & 15)
             _decode_scan(fr, comps, tabs, ss, se, a >> 4, a & 15, segs,
                          restart)
     if fr is None:
         raise ValueError("JPEG without a frame header")
-    return fr, adobe_rgb
+    if _smooths(fr.progressive, fr.bits, fr.qt):
+        raise _smoothing()
+    return fr, adobe
 
 
-def decode(data: bytes, device=None):
-    """Decode a JPEG: uint8 [H, W] (gray) or [H, W, 3] (RGB) on `device`
-    (the card unless "cpu"); the entropy stage on the host."""
+def cmyk_to_rgb(cmyk):
+    """Pillow's cmyk2rgb on int64 values 0..255 [..., 4], a tensor (the
+    JPEG decoder's) or a numpy array (utils/tiff.py's): nk = 255 - k,
+    each of c, m, y to nk - c * nk / 255 (MULDIV255's rounding), which
+    lies in 0..nk, so Pillow's clip to 0..255 changes nothing."""
+    nk = 255 - cmyk[..., 3:]
+    t = cmyk[..., :3] * nk + 128
+    return nk - (((t >> 8) + t) >> 8)
+
+
+def decode(data: bytes, device=None, colorspace=None):
+    """Decode a JPEG as PIL's convert("RGB") reads it: uint8 [H, W] (gray)
+    or [H, W, 3] (RGB) on `device` (the card unless "cpu"); the entropy
+    stage on the host. Three components are YCbCr unless an Adobe marker
+    says transform 0 or the component ids are R, G, B (a lossless frame's
+    are never converted: libjpeg-turbo converts no colour in lossless
+    mode); four are CMYK, or YCCK under an Adobe transform other than 0
+    (libjpeg's conversion to CMYK; PIL fails on a lossless one), then
+    inverted as PIL assumes Adobe's convention and taken to
+    RGB by Pillow's cmyk2rgb. colorspace "ycc" or "none" forces three
+    components' transform (YCbCr to RGB, or none), as libtiff sets
+    libjpeg's jpeg_color_space for a JPEG-compressed TIFF."""
     dev = resolve_device(device)
-    fr, adobe_rgb = _parse(data)
+    fr, adobe = _parse(data)
     zz = torch.as_tensor(UNZIGZAG, device=dev)
     planes = []
     for ci in range(len(fr.ids)):
         if fr.qt[ci] is None:
             raise ValueError("truncated JPEG: a component has no scan")
         c = torch.as_tensor(np.asarray(fr.coef[ci], np.int64), device=dev)
-        c = c.reshape(-1, 64)[:, zz]
-        c = c * torch.as_tensor(fr.qt[ci][UNZIGZAG], device=dev)
-        s = idct_islow(c.reshape(-1, 8, 8))
-        plane = _unblocks(s, fr.bh[ci], fr.bw[ci])[:fr.ch[ci], :fr.cw[ci]]
-        plane = upsample(plane, fr.hmax // fr.h[ci], fr.vmax // fr.v[ci])
+        if fr.lossless:
+            plane = c.reshape(fr.bh[ci], fr.bw[ci])[:fr.ch[ci], :fr.cw[ci]]
+            # libjpeg's fancy upsampling needs DCT blocks: box here
+            plane = plane.repeat_interleave(fr.vmax // fr.v[ci], 0) \
+                .repeat_interleave(fr.hmax // fr.h[ci], 1)
+        else:
+            c = c.reshape(-1, 64)[:, zz]
+            c = c * torch.as_tensor(fr.qt[ci][UNZIGZAG], device=dev)
+            s = idct_islow(c.reshape(-1, 8, 8))
+            plane = _unblocks(s, fr.bh[ci], fr.bw[ci])[:fr.ch[ci],
+                                                        :fr.cw[ci]]
+            plane = upsample(plane, fr.hmax // fr.h[ci],
+                             fr.vmax // fr.v[ci])
         planes.append(plane[:fr.H, :fr.W])
     if len(planes) == 1:
         out = planes[0]
-    elif adobe_rgb or fr.ids == [ord("R"), ord("G"), ord("B")]:
+    elif len(planes) == 4:
+        if adobe not in (None, 0) and fr.lossless:
+            raise ValueError("a lossless YCCK JPEG: libjpeg-turbo converts "
+                             "no colour in lossless mode and PIL asks for "
+                             "CMYK")
+        if adobe not in (None, 0):
+            # YCCK -> CMYK (jdcolor.c ycck_cmyk_convert)
+            rgb = ycc_to_rgb(*planes[:3])
+            planes = [255 - rgb[..., 0], 255 - rgb[..., 1], 255 - rgb[..., 2],
+                      planes[3]]
+        # PIL's "CMYK;I" rawmode, then its cmyk2rgb
+        out = cmyk_to_rgb(255 - torch.stack(planes, -1))
+    elif colorspace == "none" or colorspace is None and (
+            adobe == 0 or fr.lossless
+            or fr.ids == [ord("R"), ord("G"), ord("B")]):
         out = torch.stack(planes, -1)
     else:
         out = ycc_to_rgb(*planes)

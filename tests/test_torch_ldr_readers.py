@@ -6,7 +6,8 @@ and 16, every colour type Adam7-interlaced; RLE4 / RLE8 and bit-field
 BMPs, top-down rows; TGA types 1, 3 and 11 with the bottom-left origin,
 16-bit pixels and 16-bit colour maps). The tolerance is none: the two
 float images are equal value for value. Formats PIL opens and the port
-does not read (GIF, TIFF, WebP) raise naming the ROADMAP item."""
+does not read (QOI, SGI, PCX, JPEG 2000, a ZSTD TIFF) raise naming the
+ROADMAP item."""
 import struct
 import zlib
 
@@ -327,20 +328,57 @@ def test_tga(tmp_path, case):
     _same(p)
 
 
-@pytest.mark.parametrize("ext", ["gif", "tif", "tiff", "webp", "tga1"])
+@pytest.mark.parametrize("ext", ["qoi", "sgi", "pcx", "jp2", "tif_zstd"])
 def test_other_formats_raise_naming_the_item(tmp_path, ext):
     """Formats and variants PIL reads and the port does not: read_image
-    and the header probe both raise NotImplementedError naming the item
-    (a 1-bit TGA, which PIL reads, included)."""
-    p = tmp_path / f"x.{ext[:3] if ext == 'tga1' else ext}"
-    if ext == "tga1":
-        Image.fromarray(RGB[..., 0] > 127).save(p)
-        assert np.asarray(Image.open(p).convert("RGB")).shape == RGB.shape
-    elif ext == "webp":
-        p.write_bytes(b"RIFF")
+    and the header probe both raise NotImplementedError naming the item.
+    (GIF, TIFF, WebP and 1-bit TGA, an earlier slice's cases here, are
+    read now: tests/test_torch_{gif,tiff,webp}.py and test_tga_1bit.)"""
+    p = tmp_path / f"x.{ext.split('_')[0]}"
+    if ext == "tif_zstd":
+        Image.fromarray(RGB).save(p, compression="zstd")
     else:
         Image.fromarray(RGB).save(p)
+    # PIL reads each of them
+    assert np.asarray(Image.open(p).convert("RGB")).shape == RGB.shape
     for read in (tio.read_image, tio.probe_image):
         with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
             read(str(p), **({"device": "cpu"} if read is tio.read_image
                             else {}))
+
+
+def _tga1(path, bits, rle, top):
+    """A 1-bit gray TGA (type 3, or 11 with one raw packet per row)."""
+    h, w = bits.shape
+    rows = np.packbits(bits.astype(np.uint8), axis=1)
+    if not top:
+        rows = rows[::-1]
+    data = b"".join(bytes([len(r) - 1]) + r.tobytes() for r in rows) if rle \
+        else rows.tobytes()
+    with open(path, "wb") as f:
+        f.write(struct.pack("<BBBHHBHHHHBB", 0, 0, 11 if rle else 3, 0, 0, 0,
+                            0, 0, w, h, 1, 0x20 if top else 0) + data)
+
+
+@pytest.mark.parametrize("case", ["pil", "raw_top", "raw_bottom", "rle_top",
+                                  "rle_bottom", "pil_rle"])
+def test_tga_1bit(tmp_path, case):
+    """1-bit TGA, which an earlier slice refused: PIL's own file and raw
+    rows either way up read as PIL reads them; a run-length 1-bit file,
+    PIL's own or built here, PIL's decoder fails on (a missing texture in
+    hairpt), and the port raises ValueError."""
+    p = tmp_path / "x.tga"
+    bits = RGB[..., 0] > 127
+    if case.startswith("pil"):
+        Image.fromarray(bits).save(p, compression="tga_rle" if case ==
+                                   "pil_rle" else None)
+    else:
+        kind, top = case.split("_")
+        _tga1(p, bits, kind == "rle", top == "top")
+    if "rle" in case:
+        with pytest.raises(OSError):
+            Image.open(p).convert("RGB")
+        with pytest.raises(ValueError):
+            tio.read_image(str(p), device="cpu")
+        return
+    _same(p)

@@ -13,7 +13,6 @@ inside its _material_row_from_bsdf makes `os` a local there; ROADMAP
 Queue C), so the scene its loader reads here has normal and bump maps
 but no bitmap reflectance."""
 import dataclasses
-import io
 import struct
 import zlib
 
@@ -452,8 +451,8 @@ def _same_tensors(a, b):
 
 @pytest.mark.parametrize("case", ["animated_instance", "open_shutter",
                                   "jpeg_bitmap", "jpeg_heightfield",
-                                  "gif_bitmap", "cmyk_jpeg_bitmap",
-                                  "arithmetic_jpeg_envmap"])
+                                  "qoi_bitmap", "zstd_tiff_heightfield",
+                                  "jp2_envmap"])
 def test_loader_refuses_the_rest(same_bvh, tmp_path, case):
     """What an earlier slice refused here now loads. A JPEG heightfield
     (ROADMAP item 13's): both loaders give the same arrays. A JPEG bitmap
@@ -462,20 +461,18 @@ def test_loader_refuses_the_rest(same_bvh, tmp_path, case):
     written as a PNG. An animated instance and a deformable under an open
     shutter (motion blur): both loaders give the same arrays, the same
     shutter, and, at shutter time 0.5, the same re-posed instance table
-    (repose_inst) or rebuilt triangles (rebuild_geo). A GIF bitmap (an
-    image format the port does not read, ROADMAP item 13), a CMYK JPEG
-    bitmap and an arithmetic-coded JPEG envmap (JPEG variants that PIL
-    reads and the port does not) raise NotImplementedError before any
-    build, naming the item."""
+    (repose_inst) or rebuilt triangles (rebuild_geo). A QOI bitmap, a
+    ZSTD-compressed TIFF heightfield and a JPEG 2000 envmap (formats and
+    variants PIL reads and the port does not, ROADMAP item 13) raise
+    NotImplementedError before any build, naming the item. (A GIF bitmap,
+    a CMYK JPEG bitmap and an arithmetic-coded JPEG envmap, this test's
+    refusals before, are read now: tests/test_torch_gif.py,
+    tests/test_torch_jpeg_variants.py.)"""
     scene_xmls.instanced_files(str(tmp_path))
-    Image.new("RGB", (4, 4)).save(tmp_path / "t.gif")
-    Image.new("CMYK", (8, 8), (10, 20, 30, 40)).save(tmp_path / "c.jpg")
-    b = io.BytesIO()
-    Image.new("RGB", (8, 8), (90, 20, 30)).save(b, "JPEG")
-    data = b.getvalue()
-    sof = data.index(b"\xff\xc0")
-    (tmp_path / "a.jpg").write_bytes(data[:sof + 1] + b"\xc9"
-                                     + data[sof + 2:])
+    Image.new("RGB", (4, 4), (9, 80, 200)).save(tmp_path / "t.qoi")
+    Image.new("RGB", (8, 8), (10, 20, 30)).save(tmp_path / "h.tif",
+                                                compression="zstd")
+    Image.new("RGB", (8, 8), (90, 20, 30)).save(tmp_path / "a.jp2")
     Image.fromarray(np.random.default_rng(4).integers(
         0, 256, (20, 30, 3), dtype=np.uint8)).save(tmp_path / "t.jpg",
                                                     quality=90)
@@ -500,17 +497,16 @@ def test_loader_refuses_the_rest(same_bvh, tmp_path, case):
         "jpeg_heightfield": (
             "<shape type=\"heightfield\"><string name=\"filename\" "
             "value=\"t.jpg\"/></shape>", None),
-        "gif_bitmap": (
+        "qoi_bitmap": (
             "<shape type=\"cube\"><bsdf type=\"diffuse\"><texture "
-            "type=\"bitmap\"><string name=\"filename\" value=\"t.gif\"/>"
+            "type=\"bitmap\"><string name=\"filename\" value=\"t.qoi\"/>"
             "</texture></bsdf></shape>", "13"),
-        "cmyk_jpeg_bitmap": (
-            "<shape type=\"cube\"><bsdf type=\"diffuse\"><texture "
-            "type=\"bitmap\"><string name=\"filename\" value=\"c.jpg\"/>"
-            "</texture></bsdf></shape>", "13"),
-        "arithmetic_jpeg_envmap": (
+        "zstd_tiff_heightfield": (
+            "<shape type=\"heightfield\"><string name=\"filename\" "
+            "value=\"h.tif\"/></shape>", "13"),
+        "jp2_envmap": (
             "<shape type=\"cube\"/><emitter type=\"envmap\"><string "
-            "name=\"filename\" value=\"a.jpg\"/></emitter>", "13")}[case]
+            "name=\"filename\" value=\"a.jp2\"/></emitter>", "13")}[case]
     p = tmp_path / "scene.xml"
     p.write_text(f"<scene version=\"0.5.0\">"
                  f"{sensor.format(c=1.0 if item is None else 0.0)}"
